@@ -1,0 +1,158 @@
+"""GQA attention: blocked (flash-style) prefill attention and int8-KV decode
+attention (the paper's dMVM, Sec. IV-B / Fig. 13).
+
+PyTorch counterpart of the GQA parts of ``repro.models.attention``.  Decode
+attention computes ``q . K^T`` and ``S . V`` against the int8 "SLC-region"
+cache: under ``fused_int8`` through the B2 kernel, otherwise through the
+plain version of the same function.  MLA and the speculative verify
+functions are ported with later slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import kvcache as KV
+from repro_torch.core import quant
+from repro_torch.kernels import decode_attn as da_ops
+from repro_torch.models import layers as L
+
+Params = dict[str, Any]
+NEG_INF = -1e30
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Params:
+    if cfg.attn_type != "gqa":
+        raise NotImplementedError(
+            f"{cfg.attn_type} attention is not ported yet (ROADMAP A.11)")
+    d, hd = cfg.d_model, cfg.head_dim
+    p = {"wq": L.dense_init(gen, d, cfg.n_heads * hd, dtype)["w"],
+         "wk": L.dense_init(gen, d, cfg.n_kv_heads * hd, dtype)["w"],
+         "wv": L.dense_init(gen, d, cfg.n_kv_heads * hd, dtype)["w"],
+         "wo": L.dense_init(gen, cfg.n_heads * hd, d, dtype)["w"]}
+    if cfg.use_qk_norm:
+        p["q_norm"] = L.norm_init(hd, device=gen.device)
+        p["k_norm"] = L.norm_init(hd, device=gen.device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# full (prefill) attention, blocked over KV to bound memory
+# ---------------------------------------------------------------------------
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0, kv_block: int = 1024,
+                    kv_lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """Memory-bounded attention with running (max, denom) statistics over
+    KV blocks.  q: [B, Tq, H, Dk]; k: [B, Tk, G, Dk]; v: [B, Tk, G, Dv],
+    G = kv heads (no head replication).  ``kv_lengths`` ([B] int32) masks
+    keys at and beyond each request's true prompt length."""
+    B, Tq, H, Dk = q.shape
+    G, Dv, Tk = k.shape[2], v.shape[-1], k.shape[1]
+    rep = H // G
+    dev = q.device
+    blk = min(kv_block, Tk)
+    n_blocks = math.ceil(Tk / blk)
+    q5 = (q.to(torch.float32) / math.sqrt(Dk)).reshape(B, Tq, G, rep, Dk)
+    q_pos = torch.arange(Tq, device=dev) + q_offset
+    m = torch.full((B, G, rep, Tq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, G, rep, Tq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, G, rep, Tq, Dv), dtype=torch.float32, device=dev)
+    for bi in range(n_blocks):
+        kblk = k[:, bi * blk:(bi + 1) * blk].to(torch.float32)
+        vblk = v[:, bi * blk:(bi + 1) * blk].to(torch.float32)
+        pad = blk - kblk.shape[1]
+        if pad:
+            kblk = torch.cat([kblk, kblk.new_zeros((B, pad, G, Dk))], dim=1)
+            vblk = torch.cat([vblk, vblk.new_zeros((B, pad, G, Dv))], dim=1)
+        k_pos = bi * blk + torch.arange(blk, device=dev)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", q5, kblk)
+        mask = (k_pos[None, :] <= q_pos[:, None] if causal
+                else torch.ones((Tq, blk), dtype=torch.bool, device=dev))
+        mask = (mask & (k_pos < Tk)[None, :])[None]               # [1, Tq, blk]
+        if kv_lengths is not None:
+            mask = mask & (k_pos[None, None, :] < kv_lengths[:, None, None])
+        s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bgrqk,bkgd->bgrqd", p, vblk)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]               # [B,G,rep,Tq,Dv]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, Dv).to(q.dtype)
+
+
+def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, backend: str = "dense",
+                lengths: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Prefill GQA.  Returns (out, (k, v)) for KV caching; ``lengths``
+    ([B], optional) masks padding keys in ragged batches."""
+    B, T, _ = x.shape
+    hd = cfg.head_dim
+    q = L.apply_linear(L._lin(p, "wq"), x, backend).reshape(B, T, cfg.n_heads, hd)
+    k = L.apply_linear(L._lin(p, "wk"), x, backend).reshape(B, T, cfg.n_kv_heads, hd)
+    v = L.apply_linear(L._lin(p, "wv"), x, backend).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.use_qk_norm:
+        q = L.apply_norm(p["q_norm"], q)
+        k = L.apply_norm(p["k_norm"], k)
+    if cfg.rope_theta:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, kv_lengths=lengths)
+    out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend)
+    return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# decode attention against the int8 SLC cache (dMVM)
+# ---------------------------------------------------------------------------
+def decode_attention_int8(q: torch.Tensor, k_q, k_s, v_q, v_s, length,
+                          backend: str = "dense") -> torch.Tensor:
+    """q: [B, 1, H, D] float; cache: [B, S, Hkv, D] int8 (+[B, S, Hkv, 1]
+    f32); ``length`` a scalar or [B] per-slot cache lengths.  ``fused_int8``
+    runs the B2 kernel; every other backend the plain version (as the
+    reference's jnp branch)."""
+    if backend == "fused_int8":
+        return da_ops.decode_attention(q, k_q, k_s, v_q, v_s, length)
+    B, _, H, D = q.shape
+    G = k_q.shape[2]
+    rep = H // G
+    lengths = KV.slot_positions(length, B, q.device).to(q.device)
+    q_q, q_scale = quant.quantize_kv(q.reshape(B, H, D))      # per-(B,H) int8
+    o = da_ops.decode_attn_plain(q_q.reshape(B, G, rep, D),
+                                 q_scale.reshape(B, G, rep, 1), k_q, k_s[..., 0],
+                                 v_q, v_s[..., 0], lengths)
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
+               k_q, k_s, v_q, v_s, backend: str = "dense"):
+    """One-token decode.  The new token's int8 K/V append in place at each
+    slot's own offset ``pos`` (scalar or [B]); attention covers the cache
+    including this position.  Returns (out, (k_q, k_s, v_q, v_s))."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    pos_b = KV.slot_positions(pos, B, x.device).to(x.device)
+    q = L.apply_linear(L._lin(p, "wq"), x, backend).reshape(B, 1, cfg.n_heads, hd)
+    k = L.apply_linear(L._lin(p, "wk"), x, backend).reshape(B, 1, cfg.n_kv_heads, hd)
+    v = L.apply_linear(L._lin(p, "wv"), x, backend).reshape(B, 1, cfg.n_kv_heads, hd)
+    if cfg.use_qk_norm:
+        q = L.apply_norm(p["q_norm"], q)
+        k = L.apply_norm(p["k_norm"], k)
+    if cfg.rope_theta:
+        pp = pos_b[:, None]
+        q = L.apply_rope(q, pp, cfg.rope_theta)
+        k = L.apply_rope(k, pp, cfg.rope_theta)
+    kq_new, ks_new = quant.quantize_kv(k)
+    vq_new, vs_new = quant.quantize_kv(v)
+    KV.batched_update(k_q, kq_new, pos_b)
+    KV.batched_update(k_s, ks_new, pos_b)
+    KV.batched_update(v_q, vq_new, pos_b)
+    KV.batched_update(v_s, vs_new, pos_b)
+    o = decode_attention_int8(q, k_q, k_s, v_q, v_s, pos_b + 1, backend)
+    out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, 1, -1), backend)
+    return out, (k_q, k_s, v_q, v_s)

@@ -1,0 +1,155 @@
+"""Shared neural building blocks (plain functions on dicts of tensors).
+
+PyTorch counterpart of ``repro.models.layers``.  Every linear layer is a
+dict ``{"w": [in, out]}`` (float path) or its quantized "QLC-region" form
+``{"w_q", "w_s", ("smooth")}``.  ``apply_linear`` dispatches on the param
+form and the execution backend: the W8A8 reference matmul, the B1 kernel
+(``fused_int8``) or the bit-serial B5 kernel (``pim_bitserial``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import quant
+from repro_torch.kernels import int8_matmul as mm_ops
+from repro_torch.kernels import pim_mvm as pim_ops
+
+Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# initialisation helpers (torch.Generator streams, not jax.random's)
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, scale: float | None = None) -> Params:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=dtype,
+                    device=gen.device) * scale
+    return {"w": w}
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype=torch.float32) -> Params:
+    return {"w": torch.randn((vocab, d), generator=gen, dtype=dtype,
+                             device=gen.device) * 0.02}
+
+
+# ---------------------------------------------------------------------------
+# linear dispatch (dense | quantized-ref | kernels)
+# ---------------------------------------------------------------------------
+def apply_linear(p: Params, x: torch.Tensor, backend: str = "dense") -> torch.Tensor:
+    """x: [..., in] -> [..., out]."""
+    if "w_q" in p:
+        lin = quant.QuantizedLinear(w_q=p["w_q"], w_scale=p["w_s"],
+                                    smooth=p.get("smooth"))
+        if lin.smooth is not None:
+            x = x * (1.0 / lin.smooth)
+        x_q, x_s = quant.quantize_activation(x)
+        if backend == "pim_bitserial":
+            return pim_ops.pim_mvm(x_q, x_s, lin, out_dtype=x.dtype)
+        if backend == "fused_int8":
+            return mm_ops.int8_matmul(x_q, x_s, lin, out_dtype=x.dtype)
+        return quant.int8_matmul_ref(x_q, x_s, lin, out_dtype=x.dtype)
+    return torch.matmul(x, p["w"].to(x.dtype))
+
+
+def quantize_linear_params(p: Params, act_amax: torch.Tensor | None = None) -> Params:
+    lin = quant.make_quantized_linear(p["w"].to(torch.float32), act_amax)
+    out = {"w_q": lin.w_q, "w_s": lin.w_scale}
+    if lin.smooth is not None:
+        out["smooth"] = lin.smooth
+    return out
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def norm_init(d: int, norm_type: str = "rmsnorm",
+              device: str | torch.device = "cpu") -> Params:
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if norm_type == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Controller op (fp32 'ARM-core' path): always computed in fp32."""
+    xf = x.to(torch.float32)
+    if "bias" in p:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:
+        ms = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary positions
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float,
+               device: str | torch.device = "cpu") -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, T, H, D]; positions: [B, T] (or [T])."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)             # [D/2]
+    angles = positions[..., None].to(torch.float32) * freqs       # [B, T, D/2]
+    cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs: swiglu | gelu | relu2 (squared ReLU)
+# ---------------------------------------------------------------------------
+def mlp_init(gen: torch.Generator, d: int, ff: int, mlp_type: str,
+             dtype=torch.float32) -> Params:
+    p = {"w_up": dense_init(gen, d, ff, dtype)["w"],
+         "w_down": dense_init(gen, ff, d, dtype)["w"]}
+    if mlp_type == "swiglu":
+        p["w_gate"] = dense_init(gen, d, ff, dtype)["w"]
+    return p
+
+
+def apply_mlp(p: Params, x: torch.Tensor, mlp_type: str,
+              backend: str = "dense") -> torch.Tensor:
+    up = apply_linear(_lin(p, "w_up"), x, backend)
+    if mlp_type == "swiglu":
+        gate = apply_linear(_lin(p, "w_gate"), x, backend)
+        h = F.silu(gate) * up
+    elif mlp_type == "relu2":
+        h = torch.square(F.relu(up))
+    else:  # gelu (jax.nn.gelu's default is the tanh approximation)
+        h = F.gelu(up, approximate="tanh")
+    return apply_linear(_lin(p, "w_down"), h, backend)
+
+
+def _lin(p: Params, name: str) -> Params:
+    """Fetch sub-linear ``name`` whether dense or quantized."""
+    if name + "_q" in p:
+        out = {"w_q": p[name + "_q"], "w_s": p[name + "_s"]}
+        if name + "_smooth" in p:
+            out["smooth"] = p[name + "_smooth"]
+        return out
+    return {"w": p[name]}
+
+
+def quantize_named(p: Params, names: list[str]) -> Params:
+    """Replace the listed [in,out] weights with their W8A8 'QLC' form."""
+    out = dict(p)
+    for n in names:
+        if n not in p:
+            continue
+        q = quantize_linear_params({"w": p[n]})
+        del out[n]
+        out[n + "_q"], out[n + "_s"] = q["w_q"], q["w_s"]
+    return out

@@ -1,0 +1,206 @@
+"""Decoder-LM assembly for the dense GQA family.
+
+PyTorch counterpart of ``repro.models.transformer``.  Layers are a per-layer
+list (``params["layers"]``), not the reference's stacked ``lax.scan``; the
+decode state is a per-layer list of int8 "SLC" caches that every step
+updates **in place** (the reference donates its state to the same effect).
+The decode path is the paper's technique: every static linear can run W8A8
+("QLC region"), attention runs against the int8 cache, and norms and softmax
+are fp32 "controller ops".
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import kvcache as KV
+from repro_torch.core.quant import quantize_kv
+from repro_torch.device import resolve
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+Params = dict[str, Any]
+BACKENDS = ("dense", "ref_int8", "fused_int8", "pim_bitserial")
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    """Execution context threaded through model apply functions."""
+    backend: str = "dense"               # dense | ref_int8 | fused_int8 | pim_bitserial
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; one of {BACKENDS}")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port serves dense GQA decoders with RoPE so far."""
+    if (cfg.family != "dense" or cfg.attn_type != "gqa"
+            or cfg.n_experts or not cfg.rope_theta
+            or cfg.input_mode != "tokens"):
+        raise NotImplementedError(
+            f"{cfg.name}: only dense GQA decoders with RoPE are ported so far "
+            "(other families: ROADMAP A.11)")
+
+
+# ---------------------------------------------------------------------------
+# whole-model params
+# ---------------------------------------------------------------------------
+def init_layer(gen: torch.Generator, cfg: ModelConfig, i: int,
+               dtype=torch.float32) -> Params:
+    p: Params = {"ln1": L.norm_init(cfg.d_model, cfg.norm_type, gen.device),
+                 "attn": A.attn_init(gen, cfg, dtype)}
+    if cfg.d_ff:
+        p["ln2"] = L.norm_init(cfg.d_model, cfg.norm_type, gen.device)
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: str | torch.device = "cuda",
+                dtype=torch.float32) -> Params:
+    """Random float parameters drawn from one seeded ``torch.Generator`` on
+    ``device`` (the draws differ from ``jax.random``'s; tests that compare
+    the two packages convert the JAX parameters instead)."""
+    check_supported(cfg)
+    gen = torch.Generator(device=resolve(device)).manual_seed(seed)
+    p: Params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
+                 "ln_f": L.norm_init(cfg.d_model, cfg.norm_type, gen.device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    p["layers"] = [init_layer(gen, cfg, i, dtype) for i in range(cfg.n_layers)]
+    return p
+
+
+def _embed(p: Params, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
+    return p["embed"]["w"][inputs]
+
+
+def _lm_head(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return torch.matmul(h, p["embed"]["w"].to(h.dtype).T)
+    return L.apply_linear(L._lin(p["lm_head"], "w"), h, rt.backend)
+
+
+# ---------------------------------------------------------------------------
+# decode state
+# ---------------------------------------------------------------------------
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device: str | torch.device = "cuda") -> dict:
+    """Per-layer int8 K/V caches ([B, S, H_kv, D] + [B, S, H_kv, 1] scales)
+    and the [B] per-slot position vector."""
+    check_supported(cfg)
+    dev = resolve(device)
+    kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    sc = (batch, max_len, cfg.n_kv_heads, 1)
+    layers = [{"k_q": torch.zeros(kv, dtype=torch.int8, device=dev),
+               "k_s": torch.zeros(sc, dtype=torch.float32, device=dev),
+               "v_q": torch.zeros(kv, dtype=torch.int8, device=dev),
+               "v_s": torch.zeros(sc, dtype=torch.float32, device=dev)}
+              for _ in range(cfg.n_layers)]
+    return {"layers": layers,
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def write_slot(state: dict, slot: int, one: dict) -> dict:
+    """Land a single-request decode state (batch=1) into row ``slot`` of a
+    pooled multi-slot state, in place — the admission step of continuous
+    batching.  The slot index clamps to the pool like the reference's
+    ``dynamic_update_slice``; the row's cache may be shorter than the pool's
+    (it lands at rows ``[0, S_row)``)."""
+    B = state["pos"].shape[0]
+    s = min(max(int(slot), 0), B - 1)
+    for full, row in zip(state["layers"], one["layers"]):
+        for name, buf in full.items():
+            r = row[name]
+            if r.shape[1] > buf.shape[1]:
+                raise ValueError(f"row of {r.shape[1]} positions does not fit "
+                                 f"a pool of {buf.shape[1]}")
+            buf[s, :r.shape[1]] = r[0].to(buf.dtype)
+    state["pos"][s] = one["pos"].reshape(-1)[0].to(state["pos"].dtype)
+    return state
+
+
+def read_slot(state: dict, slot: int) -> dict:
+    """Row ``slot`` of a pooled decode state as a batch=1 copy — the inverse
+    of :func:`write_slot`."""
+    B = state["pos"].shape[0]
+    s = min(max(int(slot), 0), B - 1)
+    return {"layers": [{k: v[s:s + 1].clone() for k, v in c.items()}
+                       for c in state["layers"]],
+            "pos": state["pos"][s:s + 1].clone()}
+
+
+def apply_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
+                       cache: dict, rt: Runtime) -> torch.Tensor:
+    h = L.apply_norm(p["ln1"], x)
+    mix, _ = A.gqa_decode(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
+                          cache["v_q"], cache["v_s"], rt.backend)
+    x = x + mix
+    if "mlp" in p:
+        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x), cfg.mlp_type,
+                            rt.backend)
+    return x
+
+
+def decode_step(p: Params, cfg: ModelConfig, state: dict, token: torch.Tensor,
+                rt: Runtime) -> tuple[torch.Tensor, dict]:
+    """token: [B] -> (logits [B, V], new state).  The caches update in
+    place; the returned state shares them and carries ``pos + 1``."""
+    B = token.shape[0]
+    pos = state["pos"].to(torch.int32).reshape(-1).expand(B)
+    x = _embed(p, cfg, token)[:, None]
+    for lp, cache in zip(p["layers"], state["layers"]):
+        x = apply_layer_decode(lp, cfg, x, pos, cache, rt)
+    x = L.apply_norm(p["ln_f"], x)
+    logits = _lm_head(p, cfg, x[:, 0], rt)
+    return logits, {"layers": state["layers"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# prefill: the float "GPU stage" that also builds the decode cache
+# ---------------------------------------------------------------------------
+def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
+            rt: Runtime, lengths: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, dict]:
+    """Process prompts [B, T]; return (last-token logits, decode state).
+
+    ``lengths`` ([B] int32, optional) admits a ragged right-padded batch:
+    attention masks each row's keys to its own prefix, logits are gathered
+    at each row's last real token, and the state carries per-slot
+    positions.  K/V are quantized into the int8 cache at rows ``[0, T)``
+    (padded rows included; decode masks and then overwrites them)."""
+    x = _embed(p, cfg, inputs)
+    B, T = x.shape[:2]
+    if T > max_len:
+        raise ValueError(f"prompt of {T} tokens exceeds max_len {max_len}")
+    dev = x.device
+    positions = torch.arange(T, device=dev).expand(B, T)
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                  device=dev).reshape(-1).expand(B)
+    state = init_decode_state(cfg, B, max_len, dev)
+    for lp, cache in zip(p["layers"], state["layers"]):
+        h = L.apply_norm(lp["ln1"], x)
+        mix, (k, v) = A.gqa_forward(lp["attn"], cfg, h, positions, rt.backend,
+                                    lengths=lengths)
+        k_q, k_s = quantize_kv(k)
+        v_q, v_s = quantize_kv(v)
+        for name, val in (("k_q", k_q), ("k_s", k_s), ("v_q", v_q), ("v_s", v_s)):
+            KV.chunk_update(cache[name], val, 0)
+        x = x + mix
+        if "mlp" in lp:
+            x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], x),
+                                cfg.mlp_type, rt.backend)
+    x = L.apply_norm(p["ln_f"], x)
+    if lengths is None:
+        last = x[:, -1]
+        pos = torch.full((B,), T, dtype=torch.int32, device=dev)
+    else:
+        last = x[torch.arange(B, device=dev), (lengths - 1).long()]
+        pos = lengths.clone()
+    state["pos"] = pos
+    return _lm_head(p, cfg, last, rt), state

@@ -1,0 +1,190 @@
+"""The port's serve engines against the JAX engines, plus package hygiene.
+
+Greedy streams must be token-identical on the pinned seeds below, for the
+plain path (``dense``) and the kernel path (``fused_int8``, whose kernels'
+plain versions run on the CPU), and the engines' transfer and step stats
+must agree.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as JR
+from repro.models import model as JM
+from repro.models.transformer import Runtime as JRuntime
+from repro.serve.engine import ContinuousBatchingEngine as JCB
+from repro.serve.engine import Engine as JEngine
+from repro_torch import convert
+from repro_torch.configs import registry as TR
+from repro_torch.core import kvcache as TKV
+from repro_torch.models import model as TM
+from repro_torch.models.transformer import Runtime
+from repro_torch.serve.engine import ContinuousBatchingEngine, Engine
+
+JCFG = JR.get("llama3-8b").reduced()
+TCFG = TR.get("llama3-8b").reduced()
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+@pytest.fixture(scope="module")
+def weights():
+    params = JM.init_params(jax.random.key(0), JCFG)
+    return params, convert.from_numpy(jax.tree.map(np.asarray, params), device="cpu")
+
+
+def _serve_pim_trace():
+    """The ragged request trace of ``examples/serve_pim.py`` (6 requests)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, JCFG.vocab_size, rng.integers(4, 20)).tolist()
+               for _ in range(6)]
+    budgets = [int(rng.integers(4, 13)) for _ in range(6)]
+    return prompts, budgets
+
+
+@pytest.mark.parametrize("backend", ["dense", "fused_int8"])
+def test_engine_generate_token_identical(weights, backend):
+    jp, tp = weights
+    toks = np.random.default_rng(1).integers(0, JCFG.vocab_size, (2, 24)).astype(np.int32)
+    want, _ = JEngine(cfg=JCFG, params=jp, rt=JRuntime(backend=backend),
+                      max_len=64).generate({"inputs": jnp.asarray(toks)}, 8)
+    got, tm = Engine(cfg=TCFG, params=tp, rt=Runtime(backend), max_len=64,
+                     device="cpu").generate({"inputs": torch.from_numpy(toks)}, 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert set(tm) == {"prefill_s", "decode_s", "tpot_s"}
+
+
+@pytest.mark.parametrize("backend", ["dense", "fused_int8"])
+def test_continuous_batching_token_identical(weights, backend):
+    jp, tp = weights
+    prompts, budgets = _serve_pim_trace()
+    jeng = JCB(JCFG, jp, n_slots=2, max_len=64, rt=JRuntime(backend=backend))
+    want = jeng.generate_all(prompts, budgets)
+    teng = ContinuousBatchingEngine(TCFG, tp, n_slots=2, max_len=64,
+                                    rt=Runtime(backend), device="cpu")
+    assert teng.generate_all(prompts, budgets) == want
+    for key in ("steps", "decode_steps", "prefill_tokens", "max_step_prefill_tokens",
+                "max_step_total_tokens", "xfer_bytes", "decode_xfer_bytes"):
+        assert teng.stats[key] == jeng.stats[key], key
+    assert teng.stats["device_s"] <= teng.stats["step_s"]
+    assert not teng.scheduler.has_work() and len(teng.scheduler.free_slots) == 2
+
+
+def test_continuous_batching_eos_matches(weights):
+    """An EOS id that the stream emits retires the request early, as in the
+    reference."""
+    jp, tp = weights
+    prompts, budgets = _serve_pim_trace()
+    free = JCB(JCFG, jp, n_slots=2, max_len=64).generate_all(prompts, budgets)
+    eos = free[0][2]
+    want = JCB(JCFG, jp, n_slots=2, max_len=64).generate_all(prompts, budgets, eos_id=eos)
+    got = ContinuousBatchingEngine(TCFG, tp, n_slots=2, max_len=64,
+                                   device="cpu").generate_all(prompts, budgets, eos_id=eos)
+    assert got == want and len(got[0]) == 3
+
+
+def test_requests_wait_for_slots_and_keep_timestamps(weights):
+    _, tp = weights
+    eng = ContinuousBatchingEngine(TCFG, tp, n_slots=1, max_len=32, device="cpu")
+    reqs = [eng.submit([1, 2, 3], 3), eng.submit([4, 5], 2)]
+    eng.drain()
+    assert [len(r.output) for r in reqs] == [3, 2]
+    for r in reqs:
+        assert r.arrival_time <= r.admit_time <= r.first_token_time <= r.finish_time
+    assert reqs[1].admit_time >= reqs[0].finish_time
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    ({"chunk": 4}, "A.7"), ({"policy": "sjf"}, "A.7"),
+    ({"spec_k": 2}, "A.8"), ({"spec_tree": 2}, "A.8"), ({"multi_step": 4}, "A.9"),
+    ({"prefix_cache": True}, "A.10"), ({"kv_swap": True}, "A.10"),
+    ({"faults": True}, "A.10")])
+def test_later_slice_arguments_raise(weights, kwargs, item):
+    with pytest.raises(NotImplementedError, match=item):
+        ContinuousBatchingEngine(TCFG, weights[1], n_slots=2, max_len=32,
+                                 device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,item", [({"temperature": 0.7}, "A.7"),
+                                         ({"deadline_s": 1.0}, "A.10")])
+def test_later_slice_request_options_raise(weights, kwargs, item):
+    eng = ContinuousBatchingEngine(TCFG, weights[1], n_slots=1, max_len=32, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        eng.submit([1, 2], 2, **kwargs)
+
+
+def test_engine_sampling_raises(weights):
+    eng = Engine(cfg=TCFG, params=weights[1], max_len=32, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.7"):
+        eng.generate({"inputs": torch.zeros((1, 4), dtype=torch.int64)}, 2, greedy=False)
+
+
+def test_unknown_backend_raises():
+    with pytest.raises(ValueError):
+        Runtime("pallas_tpu")
+
+
+# ---------------------------------------------------------------------------
+# hygiene
+# ---------------------------------------------------------------------------
+def test_port_imports_neither_jax_nor_the_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert len(mods) >= 15, mods\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_port_sources_name_no_jax_import():
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in ("jax", "jaxlib", "repro"), (path, n)
+
+
+def _entry_points(tp):
+    return {
+        "init_params": lambda: TM.init_params(TCFG),
+        "init_decode_state": lambda: TM.init_decode_state(TCFG, 2, 16),
+        "init_cache": lambda: TKV.init_cache(2, 2, 8, 2, 16),
+        "Engine": lambda: Engine(cfg=TCFG, params=tp),
+        "ContinuousBatchingEngine": lambda: ContinuousBatchingEngine(TCFG, tp),
+        "convert": lambda: convert.from_numpy({"embed": {"w": np.zeros((2, 2), np.float32)},
+                                               "groups": ()}),
+    }
+
+
+@pytest.mark.parametrize("name", list(_entry_points(None)))
+def test_entry_points_default_to_the_card(weights, name):
+    """Without ``device="cpu"`` every entry point targets the card, and
+    raises on a machine without one instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points(weights[1])[name]()
+
+
+def test_engine_refuses_unsupported_device(weights):
+    with pytest.raises(ValueError, match="unsupported device"):
+        Engine(cfg=TCFG, params=weights[1], device="meta")

@@ -24,7 +24,16 @@ Phases (any failure makes the script exit non-zero):
    same model on the CPU (plain versions);
 4. ``ContinuousBatchingEngine`` at full width: 8 ragged requests on 4 slots,
    greedy FIFO — the main path, whose launch counts the ``kernels`` line
-   reports (B5's come from its ``pim_bitserial`` step).
+   reports for B1 and B2 (B5's come from its ``pim_bitserial`` step);
+5. the speculative lanes: B3 (``verify_attn``) and B4 (``verify_tree_attn``)
+   at full width against their plain versions, with the two bit-exact
+   invariants (B3 at each row equals B2 at that row's length; B4 on a chain
+   equals B3), times and bounds; ``verify_step`` on the reduced config, card
+   against CPU, linear and tree; and the phase-4 trace served again with
+   ``spec_k = 4`` and with ``spec_tree = 6, spec_branch = 2``, whose launch
+   counts the ``kernels`` line reports for B3 and B4; and where the
+   verify window parts from sequential decode (reduced config on both
+   devices, full width on the card, each float stage at B*T rows against B).
 
 The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  The full record goes to
@@ -181,13 +190,10 @@ def phase_linears(torch, mm, pim, quant) -> dict:
         t_b1p = timed(torch, lambda i: mm.int8_matmul_plain(*sets[i % n]), 5)
         t_b5 = timed(torch, b5(pim.pim_mvm_cuda), 10)
         t_b5p = timed(torch, b5(pim.pim_mvm_plain), 3)
-        try:        # the library int8 GEMM, timed as a yardstick only
-            t_lib = timed(torch, lambda i: torch._int_mm(sets[i % n][0], sets[i % n][2]), 50)
-        except RuntimeError as e:
-            t_lib = None
-            lib_note = str(e).splitlines()[0][:120]
-        else:
-            lib_note = "torch._int_mm (int32 product, no epilogue)"
+        # the library int8 GEMM, timed as a yardstick only: it needs M > 16,
+        # so x is zero-padded to 32 rows
+        pads = [torch.cat([s_[0], s_[0].new_zeros((32 - M, K))]) for s_ in sets]
+        t_lib, lib_note, lib_layouts = int_mm_ms(torch, pads, [s_[2] for s_ in sets])
         io = M * K + 4 * M + 4 * N + 4 * M * N
         b1_bound = bound_ms(io + K * N, [(2 * M * K * N, INT8_OPS_PER_S)])
         b5_bound = bound_ms(io + 2 * K * N, [(32 * M * K * N, INT8_OPS_PER_S)])
@@ -197,17 +203,17 @@ def phase_linears(torch, mm, pim, quant) -> dict:
                "b1_bound_ms": b1_bound[0], "b1_eager_ms": t_b1["eager_ms"],
                "b5_ms": t_b5["device_ms"], "b5_plain_ms": t_b5p["device_ms"],
                "b5_bound_ms": b5_bound[0], "b5_eager_ms": t_b5["eager_ms"],
-               "library_ms": t_lib and t_lib["device_ms"], "library": lib_note,
+               "library_ms": t_lib, "library": lib_note, "library_layouts_ms": lib_layouts,
                "b1_max_abs_err": err1, "b5_max_abs_err": err5}
         res["shapes"].append(row)
-        lib_us = "n/a" if t_lib is None else f"{t_lib['device_ms'] * 1e3:.1f}"
+        lib_us = "n/a" if t_lib is None else f"{t_lib * 1e3:.1f}"
         print(f"   M={M} K={K:5d} N={N:5d} (us, device / eager): B1 "
               f"{row['b1_ms'] * 1e3:.1f} / {row['b1_eager_ms'] * 1e3:.1f} (bound "
               f"{b1_bound[0] * 1e3:.1f}, plain {row['b1_plain_ms'] * 1e3:.1f}, "
-              f"library {lib_us})  B5 {row['b5_ms'] * 1e3:.1f} / "
+              f"library {lib_us} [{lib_note}])  B5 {row['b5_ms'] * 1e3:.1f} / "
               f"{row['b5_eager_ms'] * 1e3:.1f} (bound {b5_bound[0] * 1e3:.1f}, plain "
               f"{row['b5_plain_ms'] * 1e3:.1f})  {checks}")
-        del sets, packed
+        del sets, packed, pads
     for key, prefix in (("int8_matmul", "b1"), ("pim_mvm", "b5")):
         rows = res["shapes"]
         lib = [r["library_ms"] for r in rows]
@@ -220,7 +226,72 @@ def phase_linears(torch, mm, pim, quant) -> dict:
             "max_abs_err": max(r[f"{prefix}_max_abs_err"] for r in rows),
             "bound_by": max(rows, key=lambda r: r[f"{prefix}_bound_ms"] * r["count_per_layer"])[
                 f"{prefix}_bound_by"]}
+    res["verify_m"] = b1_at_verify_m(torch, mm, g)
     return res
+
+
+def int_mm_ms(torch, xs: list, ws: list) -> tuple:
+    """Device ms of ``torch._int_mm`` cycling over the given operands, with
+    the weight row-major and column-major (cuBLASLt's TN layout) in turn;
+    returns the faster time and its note, and both layouts' times (None
+    where the library refuses the layout)."""
+    n = len(xs)
+    times = {}
+    for layout in ("row-major", "column-major"):
+        w_l = ws if layout == "row-major" else [w.t().contiguous().t() for w in ws]
+        try:
+            times[layout] = timed(torch, lambda i: torch._int_mm(xs[i % n], w_l[i % n]),
+                                  50)["device_ms"]
+        except RuntimeError as e:
+            times[layout] = None
+            times[layout + " refused"] = str(e).splitlines()[0][:120]
+        del w_l
+    ok = {k: times[k] for k in ("row-major", "column-major") if times[k] is not None}
+    if not ok:
+        return None, "torch._int_mm refused both layouts", times
+    best = min(ok, key=ok.get)
+    return ok[best], f"torch._int_mm, {best} weight (int32 product, no epilogue)", times
+
+
+def b1_at_verify_m(torch, mm, g) -> dict:
+    """B1 at the verify step's M (n_slots x window: 4 x 5 = 20, 4 x 7 = 28)
+    beside ``torch._int_mm`` on the same operands, per layer; B1 tiles M by 4
+    rows a block, so each tile row streams the whole weight again."""
+    out = {}
+    for M in (20, 28):
+        tot = {"b1_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "shapes": []}
+        for (K, N), count in LINEAR_SHAPES.items():
+            def make():
+                return (torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8),
+                        torch.rand((M, 1), generator=g, device="cuda") * 0.01 + 1e-3,
+                        torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8),
+                        torch.rand((N,), generator=g, device="cuda") * 0.01 + 1e-3)
+            sets = copies(torch, make, K * N)
+            n = len(sets)
+            out_k, acc_k = mm.int8_matmul_cuda(*sets[0])
+            out_p, acc_p = mm.int8_matmul_plain(*sets[0])
+            if not (torch.equal(acc_k, acc_p) and torch.equal(out_k, out_p)):
+                raise AssertionError(f"B1 at M={M} K={K} N={N} differs from its plain version")
+            t_b1 = graph_ms(torch, lambda i: mm.int8_matmul_cuda(*sets[i % n]), 50)
+            t_lib, note, layouts = int_mm_ms(torch, [s_[0] for s_ in sets],
+                                             [s_[2] for s_ in sets])
+            b = bound_ms(M * K + 4 * M + 4 * N + 4 * M * N + K * N,
+                         [(2 * M * K * N, INT8_OPS_PER_S)])
+            tot["b1_ms"] += t_b1 * count
+            tot["library_ms"] = (None if t_lib is None or tot["library_ms"] is None
+                                 else tot["library_ms"] + t_lib * count)
+            tot["bound_ms"] += b[0] * count
+            tot["shapes"].append({"K": K, "N": N, "b1_ms": t_b1, "library_ms": t_lib,
+                                  "library": note, "library_layouts_ms": layouts})
+            lib_us = "n/a" if t_lib is None else f"{t_lib * 1e3:.1f}"
+            print(f"   M={M} K={K:5d} N={N:5d}: B1 {t_b1 * 1e3:.1f} us (bound {b[0] * 1e3:.1f}), "
+                  f"library {lib_us} us  [{note}; {layouts}]")
+            del sets
+        out[M] = tot
+        lib = tot["library_ms"]
+        print(f"   M={M} per layer: B1 {tot['b1_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms, "
+              f"library {'n/a' if lib is None else f'{lib:.3f}'} ms")
+    return out
 
 
 def phase_attention(torch, da, quant) -> dict:
@@ -262,8 +333,8 @@ def phase_attention(torch, da, quant) -> dict:
                       "lengths": lengths.tolist()}}
 
 
-def profile_step(torch, fn) -> dict:
-    """Where one full-width decode step's time goes: its wall time (host
+def profile_step(torch, fn, what: str = "decode") -> dict:
+    """Where one full-width decode (or verify) step's time goes: its wall time (host
     clock, ended by a synchronize), the device's busy time (the sum of the
     kernels' own durations under ``torch.profiler``), the idle share, and
     the kernels and host ops that take the most."""
@@ -292,7 +363,7 @@ def profile_step(torch, fn) -> dict:
                            sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]],
            "top_host_ops": [{"name": a.key, "count": a.count,
                              "self_cpu_us": a.self_cpu_time_total} for a in host]}
-    print(f"   one decode step: wall {wall_us / 1e3:.2f} ms, device busy "
+    print(f"   one {what} step: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {out['idle_share']:.3f}")
     for k in out["top_kernels"]:
         print(f"     kernel {k['name']:60s} x{k['count']:4d} {k['us']:9.1f} us")
@@ -334,7 +405,8 @@ def phase_engine(torch, ctx) -> dict:
     toks, tm = eng.generate({"inputs": prompts}, steps=steps)
     counts = launch_counts()
     want = {"int8_matmul": 7 * cfg.n_layers * steps,
-            "decode_attn": cfg.n_layers * steps, "pim_mvm": 0}
+            "decode_attn": cfg.n_layers * steps, "pim_mvm": 0,
+            "verify_attn": 0, "verify_tree_attn": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     if tuple(toks.shape) != (4, steps) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
@@ -359,7 +431,8 @@ def phase_engine(torch, ctx) -> dict:
     ctx["pim_launches"] = step["pim_bitserial"][1]["pim_mvm"]
     lf, lp, lr = (step[b][0] for b in ("fused_int8", "pim_bitserial", "ref_int8"))
     if step["pim_bitserial"][1] != {"int8_matmul": 0, "decode_attn": 0,
-                                    "pim_mvm": 7 * cfg.n_layers}:
+                                    "pim_mvm": 7 * cfg.n_layers,
+                                    "verify_attn": 0, "verify_tree_attn": 0}:
         raise AssertionError(f"pim_bitserial launches {step['pim_bitserial'][1]}")
     if not torch.isfinite(lf).all():
         raise AssertionError("non-finite fused_int8 logits")
@@ -419,35 +492,52 @@ def phase_engine(torch, ctx) -> dict:
     return out
 
 
-def phase_serve(torch, ctx) -> dict:
+def serve_trace(vocab_size: int) -> tuple[list, list]:
+    """8 ragged requests (prompts 16-200 tokens, budgets 8-32), seed 3."""
     import numpy as np
-    from repro_torch.configs import registry
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, vocab_size, int(rng.integers(16, 201))).tolist()
+               for _ in range(8)]
+    budgets = [int(rng.integers(8, 33)) for _ in range(8)]
+    return prompts, budgets
+
+
+def serve(torch, cfg, params, lane: dict, attn: str) -> tuple:
+    """Serve the trace on 4 slots (``max_len`` 256, ``fused_int8``) with the
+    given lane arguments, the launch counts reset just before and read just
+    after; every step must launch B1 7 times and ``attn`` once per layer."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import Runtime
     from repro_torch.serve.engine import ContinuousBatchingEngine
 
-    cfg = registry.get("llama3-8b")
-    cb = ContinuousBatchingEngine(cfg, ctx["params"], n_slots=4, max_len=256,
-                                  rt=Runtime("fused_int8"))
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 201))).tolist()
-               for _ in range(8)]
-    budgets = [int(rng.integers(8, 33)) for _ in range(8)]
+    cb = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=256,
+                                  rt=Runtime("fused_int8"), **lane)
+    prompts, budgets = serve_trace(cfg.vocab_size)
     torch.cuda.synchronize()
     cb.reset_clock()
-    reset_launch_counts()                      # the main path's run starts here
+    reset_launch_counts()                      # the path's run starts here
     t0 = time.perf_counter()
     reqs = [cb.submit(p, b) for p, b in zip(prompts, budgets)]
     cb.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()                   # ... and ends here
-    ctx["main_launches"] = counts
     steps = cb.stats["decode_steps"]
-    want = {"int8_matmul": 7 * cfg.n_layers * steps,
-            "decode_attn": cfg.n_layers * steps, "pim_mvm": 0}
+    want = {"int8_matmul": 7 * cfg.n_layers * steps, "decode_attn": 0, "pim_mvm": 0,
+            "verify_attn": 0, "verify_tree_attn": 0}
+    want[attn] = cfg.n_layers * steps
     if counts != want or steps < 1:
         raise AssertionError(f"launch counts {counts} != {want}")
+    return cb, reqs, wall, counts
+
+
+def phase_serve(torch, ctx) -> dict:
+    from repro_torch.configs import registry
+
+    cfg = registry.get("llama3-8b")
+    cb, reqs, wall, counts = serve(torch, cfg, ctx["params"], {}, "decode_attn")
+    ctx["main_launches"] = counts
+    ctx["plain_outputs"] = [list(r.output) for r in reqs]
     per = []
     for r in reqs:
         if r.error is not None or len(r.output) != r.max_new_tokens:
@@ -463,6 +553,355 @@ def phase_serve(torch, ctx) -> dict:
     print(f"   served {served} tokens in {wall:.2f} s; stats {cb.stats}; launches {counts}")
     return {"wall_s": wall, "tokens_served": served, "requests": per,
             "stats": dict(cb.stats), "launches": counts}
+
+
+def verify_bound(B, G, T, rep, D, S, pos, visible) -> tuple[float, str]:
+    """Bound of one verify window: each live K/V row (D int8 + one f32 scale;
+    keys up to pos + T per slot) read once, q and out once; the int8 scores
+    and the f32 P.V over the ``visible`` (row, key) pairs."""
+    live = sum(min(p + T, S) for p in pos)
+    R = T * rep
+    n_bytes = (2 * live * G * (D + 4) + B * G * R * (D + 4) + 4 * B * (T + 1)
+               + 4 * B * G * R * D)
+    ops = 2 * D * G * rep * visible
+    return bound_ms(n_bytes, [(ops, INT8_OPS_PER_S), (ops, FP32_FLOPS_PER_S)])
+
+
+def verify_kernels(torch, da, va, vt, quant, drafter) -> dict:
+    """B3 at T = 5 and B4 at T = 7 (random branching trees) at the shapes of
+    their lanes (``spec_k = 4``, ``spec_tree = 6``) in the phase-5 serve
+    runs, and B4 at T = 31 (124 rows, ``spec_tree = 30``): B = 4, G = 8,
+    rep = 4, D = 128, a pool of S = ``max_len`` 256 + the lane's headroom
+    (T - 1) rows, cursors 3 / 90 / 177 / 255 (the last a slot at
+    ``max_len`` - 1, whose window fills the pool).  Parity with the plain
+    versions, the bit-exact invariants, device / eager / plain times and
+    bounds."""
+    import numpy as np
+    g = torch.Generator(device="cuda").manual_seed(4)
+    B, G, rep, D, max_len = 4, 8, 4, 128, 256
+    out = {}
+    for name, T in (("verify_attn", 5), ("verify_tree_attn", 7), ("verify_tree_attn_31", 31)):
+        S = max_len + T - 1
+        pos = torch.tensor([3, 90, 177, max_len - 1], dtype=torch.int32, device="cuda")
+        lengths = (pos[:, None] + torch.arange(1, T + 1, dtype=torch.int32,
+                                               device="cuda")).contiguous()
+        rng = np.random.default_rng(T)
+        anc = torch.tensor([drafter.tree_depths_ancestors(
+            [int(rng.integers(-1, i)) for i in range(T - 1)])[1] for _ in range(B)],
+            dtype=torch.int32, device="cuda")
+        chain = ((1 << torch.arange(1, T + 1, dtype=torch.int64)) - 1).to(
+            torch.int32).expand(B, T).contiguous().to("cuda")
+
+        def make():
+            q = torch.randn((B, T, G * rep, D), generator=g, device="cuda")
+            q_q, q_s = va.quantize_window(q, G)
+            k_q, k_s = quant.quantize_kv(torch.randn((B, S, G, D), generator=g, device="cuda"))
+            v_q, v_s = quant.quantize_kv(torch.randn((B, S, G, D), generator=g, device="cuda"))
+            return (q_q, q_s, k_q, k_s[..., 0].contiguous(), v_q, v_s[..., 0].contiguous())
+        args = make()
+        b3 = va.verify_attn_cuda(*args, lengths)
+        rows_eq_b2 = all(torch.equal(b3[:, :, t], da.decode_attn_cuda(
+            args[0][:, :, t].contiguous(), args[1][:, :, t].contiguous(), *args[2:],
+            lengths[:, t].contiguous())) for t in range(T))
+        chain_eq_b3 = torch.equal(vt.verify_tree_attn_cuda(*args, pos, chain), b3)
+        if name == "verify_attn":
+            def fn(a):
+                return va.verify_attn_cuda(*a, lengths)
+
+            def plain(a):
+                return va.verify_attn_plain(*a, lengths)
+            visible = int(lengths.sum())
+        else:
+            def fn(a):
+                return vt.verify_tree_attn_cuda(*a, pos, anc)
+
+            def plain(a):
+                return vt.verify_tree_attn_plain(*a, pos, anc)
+            visible = int(pos.sum()) * T + sum(bin(a).count("1") for a in anc.reshape(-1).tolist())
+        got, want = fn(args), plain(args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-6)
+        if not (rows_eq_b2 and chain_eq_b3):
+            raise AssertionError(f"{name}: B3 rows == B2 {rows_eq_b2}, "
+                                 f"B4 chain == B3 {chain_eq_b3}")
+        err = float((got - want).abs().max())
+        sets = copies(torch, make, 2 * B * S * G * (D + 4))
+        n = len(sets)
+        tk = timed(torch, lambda i: fn(sets[i % n]), 50)
+        tp = timed(torch, lambda i: plain(sets[i % n]), 10)
+        b = verify_bound(B, G, T, rep, D, S, pos.tolist(), visible)
+        out[name] = {"ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+                     "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
+                     "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+                     "max_abs_err": err, "rows_eq_b2": rows_eq_b2, "chain_eq_b3": chain_eq_b3,
+                     "shape": {"B": B, "G": G, "T": T, "rep": rep, "D": D, "S": S,
+                               "pos": pos.tolist(), "row_blocks": -(-T * rep // 16)}}
+        print(f"   {name} T={T} (R={T * rep}) S={S}: {tk['device_ms'] * 1e3:.1f} us device / "
+              f"{tk['eager_ms'] * 1e3:.1f} eager (bound {b[0] * 1e3:.2f}, plain "
+              f"{tp['device_ms'] * 1e3:.1f}) max_abs_err {err:.3g}; B3 rows == B2 "
+              f"{rows_eq_b2}, B4 chain == B3 {chain_eq_b3}")
+        del sets
+    return out
+
+
+def layer_diffs(a: dict, b: dict) -> list[int]:
+    """Per layer, the cache entries (int8 codes and f32 scales) in which two
+    decode states differ."""
+    return [sum(int((x[k].cpu() != y[k].cpu()).sum()) for k in x)
+            for x, y in zip(a["layers"], b["layers"])]
+
+
+def window_vs_decode(torch, M, cfg, q, state, toks, rt) -> tuple[dict, tuple]:
+    """``verify_step`` over the window ``toks`` [B, T] against T sequential
+    ``decode_step`` calls from the same state on the same device: per row,
+    whether the logits are bit-equal and their max |diff|; per layer, the
+    cache entries the two wrote differently.  The first layer with a
+    difference is where the two paths part; logits that differ while every
+    layer's entries are equal point at ``ln_f`` or the ``lm_head``.  Also
+    returns (verify logits, decode logits, verify state)."""
+    B, T = toks.shape
+    sv, sd = clone_state(state), clone_state(state)
+    lv, _, _ = M.verify_step(q, cfg, sv, toks, rt)
+    rows = []
+    for t in range(T):
+        lg, sd = M.decode_step(q, cfg, sd, toks[:, t].contiguous(), rt)
+        rows.append(lg)
+    ld = torch.stack(rows, 1)
+    per_layer = layer_diffs(sv, sd)
+    rec = {"rows_equal": [bool(torch.equal(lv[:, t], ld[:, t])) for t in range(T)],
+           "rows_max_abs": [float((lv[:, t] - ld[:, t]).abs().max()) for t in range(T)],
+           "logit_scale": float(ld.abs().max()),
+           "layer_entries_differing": per_layer,
+           "first_layer_differing": next((i for i, n in enumerate(per_layer) if n), None)}
+    return rec, (lv, ld, sv)
+
+
+def describe_window(rec: dict) -> str:
+    return (f"rows bit-equal {rec['rows_equal']}, max |diff| per row "
+            f"{[f'{d:.3g}' for d in rec['rows_max_abs']]} of {rec['logit_scale']:.3g}; "
+            f"first layer whose K/V entries differ {rec['first_layer_differing']} "
+            f"({sum(rec['layer_entries_differing'])} entries in all)")
+
+
+def reduced_verify(torch, drafter) -> dict:
+    """``verify_step`` on the reduced config: the card (kernels) against the
+    CPU (plain versions), linear and tree windows, from the same prefilled
+    state; within 2% of the logit scale, argmax equal.  On each device the
+    linear window is also held against sequential decode steps
+    (:func:`window_vs_decode`), and the card's sequential decode against
+    the CPU's, which says whether the card's verify path or the card as a
+    whole parts from the CPU.  At this width no float stage sums a row in
+    an order that depends on the row count, so the window must equal
+    sequential decode bit for bit on both devices."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.quantize import quantize_tree
+
+    cfg = registry.get("llama3-8b").reduced()
+    p_cpu = M.init_params(cfg, seed=0, device="cpu")
+    q_cpu = quantize_tree(p_cpu)
+    rt = Runtime("fused_int8")
+    cpu_gen = torch.Generator().manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 24), generator=cpu_gen)
+    T = 5
+    toks = torch.randint(0, cfg.vocab_size, (2, T), generator=cpu_gen, dtype=torch.int32)
+    depth, anc = zip(*[drafter.tree_depths_ancestors(par)
+                       for par in ([-1, -1, 0, 2], [-1, 0, -1, 1])])
+    tree = {"depth": torch.tensor(depth, dtype=torch.int32),
+            "anc": torch.tensor(anc, dtype=torch.int32)}
+    out = {}
+    for mode, kw in (("linear", {}), ("tree", tree)):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p, q = convert.to_device(p_cpu, dev), convert.to_device(q_cpu, dev)
+            _, st = M.prefill(p, cfg, {"inputs": prompts.to(dev)}, 64, rt)
+            if mode == "linear":
+                rec, (lg, ld, sv) = window_vs_decode(torch, M, cfg, q, st, toks.to(dev), rt)
+                out[f"window_vs_decode_{dev}"] = rec
+                print(f"   reduced, {dev}: verify_step vs sequential decode_step: "
+                      f"{describe_window(rec)}")
+                res[dev] = (lg.cpu(), ld.cpu(), sv)
+            else:
+                sv = clone_state(st)
+                lg, _, _ = M.verify_step(q, cfg, sv, toks.to(dev), rt,
+                                         **{k: v.to(dev) for k, v in kw.items()})
+                res[dev] = (lg.cpu(), None, sv)
+        a, b = res["cpu"][0], res["cuda"][0]
+        d, sc = float((a - b).abs().max()), float(a.abs().max())
+        if not torch.equal(a.argmax(-1), b.argmax(-1)) or d > 2e-2 * sc:
+            raise AssertionError(f"reduced verify ({mode}): card vs cpu max diff {d} (scale {sc})")
+        out[mode] = {"max_abs": d, "logit_scale": sc,
+                     "layer_entries_differing": layer_diffs(res["cpu"][2], res["cuda"][2])}
+        if mode == "linear":
+            out[mode]["decode_max_abs"] = float((res["cpu"][1] - res["cuda"][1]).abs().max())
+    for dev in ("cpu", "cuda"):
+        w = out[f"window_vs_decode_{dev}"]
+        if not all(w["rows_equal"]) or w["first_layer_differing"] is not None:
+            raise AssertionError(f"reduced, {dev}: the verify window differs from "
+                                 f"sequential decode: {describe_window(w)}")
+    print(f"   reduced llama3-8b verify_step, card (B3/B4) vs CPU (plain): linear max |diff| "
+          f"{out['linear']['max_abs']:.3g}, tree {out['tree']['max_abs']:.3g} of "
+          f"{out['linear']['logit_scale']:.3g}, argmax equal; the same tokens by sequential "
+          f"decode, card vs CPU: {out['linear']['decode_max_abs']:.3g}; K/V entries "
+          f"differing per layer, card vs CPU: linear {out['linear']['layer_entries_differing']}, "
+          f"tree {out['tree']['layer_entries_differing']}")
+    return out
+
+
+def pairwise_rms_norm(p, x, eps: float = 1e-5):
+    """RMSNorm whose sum of squares is a fixed pairwise tree of elementwise
+    adds, so that a row's result cannot depend on how many rows the call
+    holds (a diagnostic stand-in for ``layers.apply_norm``; widths a power
+    of two)."""
+    import torch
+    xf = x.to(torch.float32)
+    d = xf.shape[-1]
+    if "bias" in p or d & (d - 1):
+        raise ValueError("pairwise_rms_norm takes RMSNorm at a power-of-two width")
+    s = xf * xf
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        s = s[..., :h] + s[..., h:]
+    return (xf * torch.rsqrt(s / d + eps) * p["scale"]).to(x.dtype)
+
+
+def row_invariance(torch, cfg, params, B: int, T: int) -> dict:
+    """The float stages that a verify step runs over B*T rows and a decode
+    step over B, each run on the same random rows once as the verify step
+    calls it and T times as the decode step does: how many outputs differ,
+    and by how much."""
+    from repro_torch.core import quant
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.transformer import Runtime
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    d = cfg.d_model
+    x = torch.randn((B, T, d), generator=g, device="cuda")
+    rt = Runtime("fused_int8")
+    ln = params["layers"][0]["ln1"]
+    stages = {
+        "rms_norm": lambda h: L.apply_norm(ln, h),
+        "pairwise_rms_norm": lambda h: pairwise_rms_norm(ln, h),
+        "quantize_activation": lambda h: torch.cat(
+            [t.to(torch.float32) for t in quant.quantize_activation(h)], -1),
+        "lm_head": lambda h: TT._lm_head(params, cfg, h.reshape(-1, d), rt).reshape(
+            h.shape[0], h.shape[1], -1),
+    }
+    out = {}
+    for name, fn in stages.items():
+        whole = fn(x)
+        rows = torch.cat([fn(x[:, t:t + 1].contiguous()) for t in range(T)], 1)
+        out[name] = {"differing": int((whole != rows).sum()), "of": whole.numel(),
+                     "max_abs": float((whole - rows).abs().max())}
+    print(f"   float stages at M = {B * T} against M = {B} rows: " + ", ".join(
+        f"{k} {v['differing']} of {v['of']} differ (max {v['max_abs']:.3g})"
+        for k, v in out.items()))
+    return out
+
+
+def full_width_parity(torch, ctx, cfg, q, state, toks) -> dict:
+    """Where the full-width verify step parts from sequential decode on the
+    card: the window against sequential decode steps, the float stages'
+    row invariance, and the same window with :func:`pairwise_rms_norm` in
+    place of the norm.  With that norm every layer's K/V entries must equal
+    sequential decode's (the kernels and the other stages are
+    row-invariant); what is left in the logits is the ``lm_head`` GEMM."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+
+    rt = Runtime("fused_int8")
+    B, T = toks.shape
+    out = {"window_vs_decode": window_vs_decode(torch, M, cfg, q, state, toks, rt)[0],
+           "row_invariance": row_invariance(torch, cfg, ctx["params"], B, T)}
+    saved = L.apply_norm
+    L.apply_norm = pairwise_rms_norm
+    try:
+        out["window_vs_decode_pairwise_norm"] = window_vs_decode(
+            torch, M, cfg, q, state, toks, rt)[0]
+    finally:
+        L.apply_norm = saved
+    print(f"   full width, verify_step vs sequential decode_step: "
+          f"{describe_window(out['window_vs_decode'])}")
+    print(f"   ... with the pairwise norm: "
+          f"{describe_window(out['window_vs_decode_pairwise_norm'])}")
+    if out["window_vs_decode_pairwise_norm"]["first_layer_differing"] is not None:
+        raise AssertionError("with a row-invariant norm the verify window's K/V entries "
+                             "still differ from sequential decode's")
+    return out
+
+
+def phase_verify(torch, ctx, da, va, vt, quant) -> dict:
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve import drafter
+
+    out = {"kernels": verify_kernels(torch, da, va, vt, quant, drafter),
+           "reduced": reduced_verify(torch, drafter)}
+    cfg = registry.get("llama3-8b")
+    plain = ctx.get("plain_outputs")
+    for lane, attn in (({"spec_k": 4}, "verify_attn"),
+                       ({"spec_tree": 6, "spec_branch": 2}, "verify_tree_attn")):
+        label = "spec_k" if "spec_k" in lane else "spec_tree"
+        cb, reqs, wall, counts = serve(torch, cfg, ctx["params"], lane, attn)
+        ctx[f"{attn}_launches"] = counts[attn]
+        for r in reqs:
+            if r.error is not None or len(r.output) != r.max_new_tokens:
+                raise AssertionError(f"{label} request {r.rid}: error {r.error}, "
+                                     f"{len(r.output)} tokens")
+            if min(r.output) < 0 or max(r.output) >= cfg.vocab_size:
+                raise AssertionError(f"{label} request {r.rid}: token out of range")
+        served = sum(len(r.output) for r in reqs)
+        # reported, not gated: RMSNorm's row reduction sums a row in another
+        # order at [B*T] rows than at [B] (full_width_parity), a last-bit
+        # difference can flip an int8 code, and the flips compound over 32
+        # layers of random weights until a near-tied token turns
+        first = ([next((i for i, (a, b) in enumerate(zip(r.output, p)) if a != b), None)
+                  for r, p in zip(reqs, plain)] if plain else None)
+        st = cb.stats
+        rec = {"lane": lane, "wall_s": wall, "tokens_served": served,
+               "verify_steps": st["verify_steps"],
+               # the first token of each request comes from its prefill
+               "tokens_per_verify_step": (served - len(reqs)) / st["verify_steps"],
+               "acceptance_rate": cb.acceptance_rate,
+               "spec_accept_hist": st["spec_accept_hist"], "stats": dict(st),
+               "launches": counts,
+               "ttft_s": [r.first_token_time - r.arrival_time for r in reqs],
+               "latency_s": [r.finish_time - r.arrival_time for r in reqs],
+               "same_as_plain": None if first is None else sum(f is None for f in first),
+               "first_divergence": first}
+        print(f"   {label} {lane}: served {served} tokens in {wall:.2f} s, "
+              f"{st['verify_steps']} verify steps, "
+              f"{rec['tokens_per_verify_step']:.2f} tokens per verify step, acceptance "
+              f"{cb.acceptance_rate:.3f}, hist {st['spec_accept_hist']}, launches {counts}")
+        print(f"     TTFT first {rec['ttft_s'][0] * 1e3:.1f} ms, last "
+              f"{rec['ttft_s'][-1] * 1e3:.1f} ms; requests equal to the plain lane's "
+              f"tokens: {rec['same_as_plain']} of {len(reqs)} (first divergence {first})")
+        if label == "spec_k":
+            g = torch.Generator(device="cuda").manual_seed(2)
+            prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, device="cuda")
+            _, state = M.prefill(ctx["params"], cfg, {"inputs": prompts}, 128,
+                                 Runtime("fused_int8"))
+            toks = torch.randint(0, cfg.vocab_size, (4, 5), generator=g, device="cuda",
+                                 dtype=torch.int32)
+            try:        # a measurement, not a check: a profiler fault is recorded
+                rec["verify_profile"] = profile_step(
+                    torch, lambda: M.verify_step(cb.qparams, cfg, clone_state(state), toks,
+                                                 Runtime("fused_int8")), "verify (T = 5)")
+            except Exception as e:  # noqa: BLE001
+                rec["verify_profile"] = {"error": f"{type(e).__name__}: {e}"}
+                print(f"   profile failed: {rec['verify_profile']['error']}")
+            out["full_width_parity"] = full_width_parity(torch, ctx, cfg, cb.qparams,
+                                                         state, toks)
+            del state
+        out[label] = rec
+        del cb, reqs
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -481,6 +920,8 @@ def main() -> int:
         from repro_torch.kernels import decode_attn as da
         from repro_torch.kernels import int8_matmul as mm
         from repro_torch.kernels import pim_mvm as pim
+        from repro_torch.kernels import verify_attn as va
+        from repro_torch.kernels import verify_tree_attn as vt
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 1
@@ -505,11 +946,13 @@ def main() -> int:
         s.phase("engine", lambda: phase_engine(torch, ctx))
         if "params" in ctx:
             s.phase("serve", lambda: phase_serve(torch, ctx))
+            s.phase("verify", lambda: phase_verify(torch, ctx, da, va, vt, quant))
         else:
-            s.failures.append("serve: skipped, the engine phase made no params")
+            s.failures.append("serve, verify: skipped, the engine phase made no params")
 
     kernels = []
     lin, att = s.record.get("linears", {}), s.record.get("attention", {})
+    ver = s.record.get("verify", {}).get("kernels", {})
     main = ctx.get("main_launches", {})
     for name, src, replaces, rec, launches in (
             ("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
@@ -520,7 +963,13 @@ def main() -> int:
              main.get("decode_attn")),
             ("pim_mvm", "src/repro_torch/csrc/pim_mvm.cu",
              "src/repro/kernels/pim_mvm/kernel.py:62", lin.get("pim_mvm"),
-             ctx.get("pim_launches"))):
+             ctx.get("pim_launches")),
+            ("verify_attn", "src/repro_torch/csrc/decode_attn.cu",
+             "src/repro/kernels/decode_attn/kernel.py:143", ver.get("verify_attn"),
+             ctx.get("verify_attn_launches")),
+            ("verify_tree_attn", "src/repro_torch/csrc/decode_attn.cu",
+             "src/repro/kernels/decode_attn/kernel.py:217", ver.get("verify_tree_attn"),
+             ctx.get("verify_tree_attn_launches"))):
         if rec is None or not launches:
             s.failures.append(f"{name}: no measurement or no launch on its path")
             continue

@@ -62,6 +62,53 @@ def chunk_update(buf: torch.Tensor, new: torch.Tensor, start: int
     return buf
 
 
+def pool_headroom(spec_k: int = 0, spec_tree: int = 0,
+                  multi_step: int = 1) -> int:
+    """Scratch rows each slot needs past ``max_len``, the one sizing rule
+    for every lane that writes ahead of the committed cursor: a linear
+    verify window appends ``spec_k + 1`` rows at ``pos .. pos + spec_k``
+    with ``pos <= max_len - 1`` (``spec_k`` rows of headroom), a tree
+    window ``spec_tree + 1`` node rows (``spec_tree``), a fused multi-step
+    block up to ``m`` rows (``m - 1``).  The lanes are exclusive per step,
+    so the pool needs the max; rows beyond ``max_len + headroom`` would
+    clamp onto live rows of the window itself."""
+    if min(spec_k, spec_tree, multi_step - 1) < 0:
+        raise ValueError("negative spec_k/spec_tree or multi_step < 1")
+    return max(spec_k, spec_tree, multi_step - 1)
+
+
+def path_gather(buf: torch.Tensor, base: Any, sel: Any, keep: Any
+                ) -> torch.Tensor:
+    """Compact an accepted tree path's scattered rows into contiguous rows,
+    in place, and return ``buf``.
+
+    buf: [B, S, ...] (one layer's leaf); base: [B] committed cursors; sel:
+    [B, W] in-window node indices of the accepted root-path in order
+    (``sel[b, w] >= w + 1``: nodes are topologically ordered, so a path
+    only moves rows down); keep: [B] accepted path length (<= W).  Row
+    ``base[b] + sel[b, w]`` moves to ``base[b] + 1 + w`` for ``w <
+    keep[b]``; every other row stays as it was.  All source rows are
+    gathered before any is written, since a write could otherwise land on
+    a source still to be read.  The destination window starts at
+    ``base + 1`` clamped to ``[0, S - W]``, as the reference's
+    ``dynamic_update_slice`` clamps it."""
+    B, S = buf.shape[:2]
+    W = sel.shape[1]
+    if W == 0:
+        return buf
+    dev = buf.device
+    base = slot_positions(base, B, dev).to(dev).long()
+    sel = torch.as_tensor(sel, device=dev).long()
+    keep = torch.as_tensor(keep, device=dev).reshape(-1).long()
+    w = torch.arange(W, device=dev)
+    slots = torch.arange(B, device=dev)[:, None]
+    rows = buf[slots, base[:, None] + sel]                          # gather ...
+    dst = torch.clamp(base + 1, 0, S - W)[:, None] + w
+    m = (w[None, :] < keep[:, None]).reshape((B, W) + (1,) * (buf.ndim - 2))
+    buf[slots, dst] = torch.where(m, rows, buf[slots, dst])         # ... then write
+    return buf
+
+
 @dataclasses.dataclass
 class KVCache:
     k_q: torch.Tensor            # [L, B, S, H_kv, D] int8

@@ -13,7 +13,8 @@ import importlib
 
 import torch
 
-KERNELS = ("int8_matmul", "pim_mvm", "decode_attn")
+KERNELS = ("int8_matmul", "pim_mvm", "decode_attn", "verify_attn",
+           "verify_tree_attn")
 
 
 def _module(name: str):

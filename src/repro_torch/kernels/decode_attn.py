@@ -9,6 +9,8 @@ bound by the bytes of the live cache rows; one block per (slot, group)
 walks key tiles only up to that slot's length, so rows past it are never
 read.  The float stages sum in another order than the plain version, so the
 two agree within ``rtol=3e-5, atol=3e-6`` (the Pallas kernel's tolerance).
+The verify kernels B3 and B4 (``verify_attn``, ``verify_tree_attn``) share
+this kernel's source and :func:`attn_plain`, with other masks.
 """
 from __future__ import annotations
 
@@ -28,21 +30,29 @@ MAX_D = 128
 launches = 0
 
 
-def decode_attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, lengths) -> torch.Tensor:
-    """q_q int8 [B,G,rep,D], q_s f32 [B,G,rep,1], k_q/v_q int8 [B,S,G,D],
-    k_s/v_s f32 [B,S,G], lengths int32 [B] -> f32 [B,G,rep,D]."""
+def attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, mask) -> torch.Tensor:
+    """The plain body that B2, B3 and B4 share: q_q int8 [B,G,R,D], q_s f32
+    [B,G,R,1], k_q/v_q int8 [B,S,G,D], k_s/v_s f32 [B,S,G], ``mask`` bool
+    broadcastable to [B,G,R,S] (True: the row sees the key) -> f32
+    [B,G,R,D]."""
     D = q_q.shape[-1]
-    S = k_q.shape[1]
     s_int = torch.einsum("bgrd,bsgd->bgrs", q_q.to(torch.float64),
                          k_q.to(torch.float64)).to(torch.int32)   # exact
     k_sc = k_s.permute(0, 2, 1)[:, :, None, :]                     # [B,G,1,S]
     scores = s_int.to(torch.float32) * q_s * k_sc / math.sqrt(D)
-    mask = (torch.arange(S, device=k_q.device)[None, None, None, :]
-            < lengths.reshape(-1, 1, 1, 1))
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1)
     vf = v_q.to(torch.float32) * v_s[..., None]                    # [B,S,G,D]
     return torch.einsum("bgrs,bsgd->bgrd", w, vf)
+
+
+def decode_attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, lengths) -> torch.Tensor:
+    """q_q int8 [B,G,rep,D], q_s f32 [B,G,rep,1], k_q/v_q int8 [B,S,G,D],
+    k_s/v_s f32 [B,S,G], lengths int32 [B] -> f32 [B,G,rep,D]."""
+    S = k_q.shape[1]
+    mask = (torch.arange(S, device=k_q.device)[None, None, None, :]
+            < lengths.reshape(-1, 1, 1, 1))
+    return attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, mask)
 
 
 def _lib() -> ctypes.CDLL:

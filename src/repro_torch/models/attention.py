@@ -4,8 +4,10 @@ attention (the paper's dMVM, Sec. IV-B / Fig. 13).
 PyTorch counterpart of the GQA parts of ``repro.models.attention``.  Decode
 attention computes ``q . K^T`` and ``S . V`` against the int8 "SLC-region"
 cache: under ``fused_int8`` through the B2 kernel, otherwise through the
-plain version of the same function.  MLA and the speculative verify
-functions are ported with later slices.
+plain version of the same function.  Speculative verify attention scores a
+window of T tokens per slot the same way: under ``fused_int8`` through the
+B3 (linear window) or B4 (draft tree) kernel, otherwise through their plain
+versions.  MLA is ported with a later slice.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvcache as KV
 from repro_torch.core import quant
 from repro_torch.kernels import decode_attn as da_ops
+from repro_torch.kernels import verify_attn as va_ops
+from repro_torch.kernels import verify_tree_attn as vt_ops
 from repro_torch.models import layers as L
 
 Params = dict[str, Any]
@@ -155,4 +159,62 @@ def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     KV.batched_update(v_s, vs_new, pos_b)
     o = decode_attention_int8(q, k_q, k_s, v_q, v_s, pos_b + 1, backend)
     out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, 1, -1), backend)
+    return out, (k_q, k_s, v_q, v_s)
+
+
+# ---------------------------------------------------------------------------
+# speculative verify: T tokens per slot against the int8 SLC cache
+# ---------------------------------------------------------------------------
+def verify_attention_int8(q: torch.Tensor, k_q, k_s, v_q, v_s, pos,
+                          backend: str = "dense", anc=None) -> torch.Tensor:
+    """Speculative-verify attention: ``q`` [B, T, H, D], the T tokens of
+    each slot's window at positions ``pos[b] .. pos[b]+T-1``; cache as in
+    :func:`decode_attention_int8`.  Query ``t`` of slot ``b`` sees keys
+    ``[0, pos[b]+t]``, so every row scores exactly as a sequential decode
+    step would.  With ``anc`` ([B, T] int32 ancestor bitmasks) the window
+    is a draft tree and the mask becomes
+    :func:`repro_torch.kernels.verify_tree_attn.tree_visibility_mask`.
+    ``fused_int8`` runs the B3 / B4 kernel; every other backend the plain
+    version (as the reference's jnp branch)."""
+    plain = backend != "fused_int8"
+    if anc is not None:
+        return vt_ops.verify_attention_tree(q, k_q, k_s, v_q, v_s, pos, anc,
+                                            plain=plain)
+    return va_ops.verify_attention(q, k_q, k_s, v_q, v_s, pos, plain=plain)
+
+
+def gqa_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
+               k_q, k_s, v_q, v_s, backend: str = "dense", depth=None,
+               anc=None):
+    """Multi-token decode for the verify step: consume ``x`` ([B, T, d], the
+    last committed token plus T-1 drafts per slot) at each slot's cursor.
+    The T int8 K/V rows append in place at the per-slot offset and all T
+    positions are scored in one pass; K/V rows and integer scores are those
+    of T sequential :func:`gqa_decode` calls.  Tree mode (``depth``/``anc``
+    both [B, T] int32): node i's row still lands at ``pos + i`` but RoPE
+    turns it at its tree depth ``pos + depth[b, i]`` and the mask follows
+    the ancestry.  Returns (out, (k_q, k_s, v_q, v_s))."""
+    B, T, _ = x.shape
+    hd = cfg.head_dim
+    pos_b = KV.slot_positions(pos, B, x.device).to(x.device)
+    q = L.apply_linear(L._lin(p, "wq"), x, backend).reshape(B, T, cfg.n_heads, hd)
+    k = L.apply_linear(L._lin(p, "wk"), x, backend).reshape(B, T, cfg.n_kv_heads, hd)
+    v = L.apply_linear(L._lin(p, "wv"), x, backend).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.use_qk_norm:
+        q = L.apply_norm(p["q_norm"], q)
+        k = L.apply_norm(p["k_norm"], k)
+    if cfg.rope_theta:
+        off = (torch.arange(T, device=x.device)[None, :] if depth is None
+               else depth.to(x.device))
+        pp = pos_b[:, None] + off
+        q = L.apply_rope(q, pp, cfg.rope_theta)
+        k = L.apply_rope(k, pp, cfg.rope_theta)
+    kq_new, ks_new = quant.quantize_kv(k)
+    vq_new, vs_new = quant.quantize_kv(v)
+    KV.batched_update(k_q, kq_new, pos_b)
+    KV.batched_update(k_s, ks_new, pos_b)
+    KV.batched_update(v_q, vq_new, pos_b)
+    KV.batched_update(v_s, vs_new, pos_b)
+    o = verify_attention_int8(q, k_q, k_s, v_q, v_s, pos_b, backend, anc=anc)
+    out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend)
     return out, (k_q, k_s, v_q, v_s)

@@ -1,8 +1,8 @@
 """Model facade: the entry points the serve engines call.
 
 PyTorch counterpart of the ``repro.models.model`` facades that the plain
-decode path uses.  Families other than dense GQA decoders raise until their
-slice is ported (ROADMAP A.11).
+decode path and the speculative lanes use.  Families other than dense GQA
+decoders raise until their slice is ported (ROADMAP A.11).
 """
 from __future__ import annotations
 
@@ -34,6 +34,22 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int,
 def decode_step(params: Params, cfg: ModelConfig, state: dict, token,
                 rt: Runtime):
     return T.decode_step(params, cfg, state, token, rt)
+
+
+def verify_step(params: Params, cfg: ModelConfig, state: dict, tokens,
+                rt: Runtime, depth=None, anc=None):
+    """Speculative-decode verify: ``tokens`` [B, T] (last committed token +
+    T-1 drafts per slot) -> (logits [B, T, V], hidden [B, T, d], state with
+    ``pos + T``).  With ``depth``/``anc`` ([B, T] int32) the window is a
+    draft tree.  See :func:`repro_torch.models.transformer.verify_step`."""
+    return T.verify_step(params, cfg, state, tokens, rt, depth=depth, anc=anc)
+
+
+def tree_commit(state: dict, base, sel, keep, pos) -> dict:
+    """Compact a verified tree window's accepted root-path rows into
+    contiguous committed rows and rewind the cursor; see
+    :func:`repro_torch.models.transformer.tree_commit`."""
+    return T.tree_commit(state, base, sel, keep, pos)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,

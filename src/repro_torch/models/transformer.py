@@ -161,6 +161,81 @@ def decode_step(p: Params, cfg: ModelConfig, state: dict, token: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# speculative decode: batched multi-token verify + cursor rollback
+# ---------------------------------------------------------------------------
+def apply_layer_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
+                       cache: dict, rt: Runtime, depth=None, anc=None
+                       ) -> torch.Tensor:
+    """One layer of the verify pass: :func:`apply_layer_decode` over ``x``
+    [B, T, d], appending T K/V rows at each slot's cursor.  ``depth``/``anc``
+    ([B, T] int32) switch the window to tree mode (see
+    :func:`attention.gqa_verify`)."""
+    h = L.apply_norm(p["ln1"], x)
+    mix, _ = A.gqa_verify(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
+                          cache["v_q"], cache["v_s"], rt.backend,
+                          depth=depth, anc=anc)
+    x = x + mix
+    if "mlp" in p:
+        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x), cfg.mlp_type,
+                            rt.backend)
+    return x
+
+
+def verify_step(p: Params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
+                rt: Runtime, depth=None, anc=None
+                ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Speculative-decode verify: feed ``tokens`` [B, T] (per slot: the last
+    committed token plus T-1 drafts) at each slot's cursor in one batched
+    pass.  Returns ``(logits [B, T, V], hidden [B, T, d], state)``: row
+    ``i`` of ``logits`` is the next-token distribution after
+    ``tokens[:, :i+1]``, what ``i+1`` sequential :func:`decode_step` calls
+    give; ``hidden`` is the post-``ln_f`` hidden state per position.  The
+    caches update in place and the returned state carries ``pos + T``; the
+    caller commits an accepted prefix by rewinding the cursor
+    (:func:`rewind_pos`), and the rejected rows stay as dead entries that
+    the position mask hides and the next append overwrites.
+
+    Tree mode (``depth``/``anc`` both [B, T] int32): ``tokens[:, i]`` is
+    node i of a draft tree in topological order (node 0 = root = last
+    committed token; bit j of ``anc[b, i]`` set iff node j is an
+    ancestor-or-self of node i); positions come from tree depth, masks from
+    ancestry.  The caller commits the accepted root-path with
+    :func:`tree_commit`."""
+    B, T = tokens.shape
+    pos = state["pos"].to(torch.int32).reshape(-1).expand(B)
+    x = _embed(p, cfg, tokens)
+    for lp, cache in zip(p["layers"], state["layers"]):
+        x = apply_layer_verify(lp, cfg, x, pos, cache, rt, depth=depth, anc=anc)
+    x = L.apply_norm(p["ln_f"], x)
+    logits = _lm_head(p, cfg, x, rt)
+    return logits, x, {"layers": state["layers"], "pos": pos + T}
+
+
+def rewind_pos(state: dict, pos) -> dict:
+    """Speculative-decode rollback: commit each slot's accepted prefix by
+    rewinding its cursor to ``pos`` ([B] int32).  The rejected rows need no
+    erase: the position mask hides them until the next append overwrites
+    them."""
+    dev = state["pos"].device
+    return {"layers": state["layers"],
+            "pos": torch.as_tensor(pos, dtype=torch.int32, device=dev)}
+
+
+def tree_commit(state: dict, base, sel, keep, pos) -> dict:
+    """Tree-spec commit: move each slot's accepted root-path rows into
+    contiguous committed rows (in place, :func:`kvcache.path_gather` on
+    every leaf), then rewind the cursor.  ``base``/``keep``: [B] int32
+    (pre-window cursor, accepted path length); ``sel``: [B, W] in-window
+    node indices of the path in order; node ``sel[b, w]``'s row, turned at
+    position ``base + 1 + w``, moves to row ``base + 1 + w``.  ``pos`` is
+    the [B] cursor after the commit."""
+    for cache in state["layers"]:
+        for buf in cache.values():
+            KV.path_gather(buf, base, sel, keep)
+    return rewind_pos(state, pos)
+
+
+# ---------------------------------------------------------------------------
 # prefill: the float "GPU stage" that also builds the decode cache
 # ---------------------------------------------------------------------------
 def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,

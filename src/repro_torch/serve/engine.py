@@ -11,12 +11,18 @@ quantized in the int8 SLC cache; decode loops the W8A8 PIM path.
   admission), packs active requests into decode slots (rows of the pooled
   SLC cache at heterogeneous positions), retires finished sequences and
   backfills freed slots mid-flight.  The decode step always sees a fixed
-  [n_slots] batch.
+  [n_slots] batch.  With ``spec_k`` (linear) or ``spec_tree`` (draft tree)
+  every decode step is a speculative verify step instead: a drafter
+  proposes tokens per slot, one batched verify pass scores them, each slot
+  commits its accepted prefix (or root-path) plus one token of its own,
+  and the cursors roll back over the rejected rows.  A verify row scores
+  exactly as the sequential decode step would, so greedy speculation emits
+  the plain lane's streams.
 
 The pool updates in place (the reference donates it); greedy tokens are
-argmax'd on the device and only [n_slots] int32 vectors cross to the host,
-through the metered ``_fetch`` / ``_push`` helpers (``xfer_bytes``,
-``decode_xfer_bytes``).  Arguments of lanes not ported yet raise
+argmax'd on the device and only [n_slots] (verify: [n_slots, T]) int32
+arrays cross to the host, through the metered ``_fetch`` / ``_push``
+helpers (``xfer_bytes``, ``decode_xfer_bytes``).  Arguments of lanes not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -29,10 +35,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import kvcache as KV
 from repro_torch.device import resolve, set_float32_precision
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Runtime
+from repro_torch.serve.drafter import Drafter, make_drafter, tree_depths_ancestors
 from repro_torch.serve.quantize import quantize_tree
 from repro_torch.serve.scheduler import (FIFOPolicy, Request, RequestState,
                                          Scheduler)
@@ -118,18 +126,19 @@ class ContinuousBatchingEngine:
     ``prefill_bucket`` and masked to the true length, landing its int8 KV
     row in the pool), then one batched W8A8 decode step over all slots;
     slots with a DECODING resident emit their next greedy token, the others
-    compute into masked garbage."""
+    compute into masked garbage.  ``spec_k`` / ``spec_tree`` (with
+    ``spec_branch`` and ``drafter``) turn that step into a speculative
+    verify step; the tree lane takes precedence over the linear one."""
 
     def __init__(self, cfg: ModelConfig, params: Any, *, n_slots: int = 4,
                  max_len: int = 256, quantize: bool = True,
                  rt: Runtime | None = None, prefill_bucket: int = 16,
                  policy: Any = "fifo", chunk: int | None = None,
-                 spec_k: int = 0, spec_tree: int = 0, multi_step: int = 1,
+                 spec_k: int = 0, spec_tree: int = 0, spec_branch: int = 2,
+                 drafter: str | Drafter | None = "ngram", multi_step: int = 1,
                  prefix_cache: bool = False, kv_swap: bool = False,
                  faults: Any = None, device: str | torch.device = "cuda"):
         for what, on, item in (("chunked prefill (chunk)", chunk is not None, "A.7"),
-                               ("speculative decode (spec_k)", spec_k, "A.8"),
-                               ("tree speculative decode (spec_tree)", spec_tree, "A.8"),
                                ("fused multi-step decode", multi_step != 1, "A.9"),
                                ("the prefix cache", prefix_cache, "A.10"),
                                ("the tiered KV pool (kv_swap)", kv_swap, "A.10"),
@@ -138,6 +147,17 @@ class ContinuousBatchingEngine:
                 raise _not_ported(what, item)
         if not (policy in (None, "fifo") or isinstance(policy, FIFOPolicy)):
             raise _not_ported(f"scheduling policy {policy!r}", "A.7")
+        if spec_k < 0:
+            raise ValueError("spec_k must be >= 0 (0 = no speculation)")
+        if spec_tree < 0:
+            raise ValueError("spec_tree must be >= 0 (0 = no tree drafts)")
+        if spec_tree > 30:
+            # the ancestor bitmask is one int32 per window row: node w owns
+            # bit w, the root bit 0, so spec_tree drafted nodes need bits
+            # 1..spec_tree and bit 31 (the sign bit) stays unused
+            raise ValueError("spec_tree must be <= 30 (int32 ancestor mask)")
+        if spec_branch < 1:
+            raise ValueError("spec_branch must be >= 1")
         self.device = resolve(device)
         set_float32_precision()
         T.check_supported(cfg)
@@ -148,18 +168,32 @@ class ContinuousBatchingEngine:
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_bucket = prefill_bucket
+        self.spec_k = int(spec_k)
+        self.spec_tree = int(spec_tree)
+        self.spec_branch = int(spec_branch)
         self.qparams = quantize_tree(params) if quantize else params
         self.scheduler = Scheduler(n_slots, max_len, policy)
         self.policy = self.scheduler.policy
-        self.state = M.init_decode_state(cfg, n_slots, max_len, self.device)
+        # headroom rows past max_len, so that a verify window starting at the
+        # last live position never clamps back onto live rows
+        rows = max_len + KV.pool_headroom(spec_k=self.spec_k, spec_tree=self.spec_tree)
+        self.state = M.init_decode_state(cfg, n_slots, rows, self.device)
         self._last_tok = np.zeros((n_slots,), np.int32)
         self._slot_pos = np.zeros((n_slots,), np.int64)   # host cursor mirror
         self._next_rid = 0
         self._t0 = time.monotonic()
         self.stats = {"steps": 0, "decode_steps": 0, "prefill_tokens": 0,
                       "max_step_prefill_tokens": 0, "max_step_total_tokens": 0,
+                      "verify_steps": 0, "spec_drafted": 0, "spec_accepted": 0,
                       "xfer_bytes": 0, "decode_xfer_bytes": 0,
                       "device_s": 0.0, "step_s": 0.0}
+        if self.spec_k or self.spec_tree:
+            # the tree lane takes precedence, so the draft budget is the
+            # window that runs; the histogram counts drafted tokens committed
+            # per verify pass (0 .. budget)
+            self._drafter = make_drafter(drafter, cfg)
+            w = self.spec_tree if self.spec_tree else self.spec_k
+            self.stats["spec_accept_hist"] = [0] * (w + 1)
 
     # -- request intake ---------------------------------------------------
     def submit(self, prompt: Iterable[int], max_new_tokens: int,
@@ -210,16 +244,17 @@ class ContinuousBatchingEngine:
             self.stats["decode_xfer_bytes"] += arr.nbytes
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def _dev(self, fn, *args):
+    def _dev(self, fn, *args, **kwargs):
         """Dispatch device work under the device-time clock."""
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         self.stats["device_s"] += time.perf_counter() - t0
         return out
 
     def _next_tokens(self, logits: torch.Tensor) -> np.ndarray:
-        """Greedy next token per slot: argmax on the device, one int32 per
-        slot crosses (ties go to the lowest id, as in the reference)."""
+        """Greedy next token per slot (or per verify row): argmax on the
+        device, one int32 per slot (row) crosses (ties go to the lowest id,
+        as in the reference)."""
         return self._fetch(torch.argmax(logits, -1).to(torch.int32), decode=True)
 
     # -- admission: prefill into a slot -----------------------------------
@@ -227,16 +262,21 @@ class ContinuousBatchingEngine:
         b = self.prefill_bucket
         return min(self.max_len, -(-n // b) * b)
 
+    def _emit(self, req: Request, tok: int) -> None:
+        """Append one token to a request's output and make it its slot's
+        next input."""
+        req.output.append(tok)
+        req.replay_pos = len(req.output)
+        self.policy.on_tokens(req, 1)
+        self._last_tok[req.slot] = tok
+
     def _emit_first(self, req: Request, logits: torch.Tensor) -> None:
         """A request's prefill just completed: emit its first token and move
         it to DECODING."""
         tok = int(self._fetch(torch.argmax(logits, -1).to(torch.int32))[0])
-        req.output.append(tok)
-        req.replay_pos = len(req.output)
+        self._emit(req, tok)
         req.first_token_time = self._now()
-        self.policy.on_tokens(req, 1)
         req.state = RequestState.DECODING
-        self._last_tok[req.slot] = tok
         self._slot_pos[req.slot] = req.prompt_len
         if req.should_stop():
             self._retire(req, self._now())            # budget of 1 token
@@ -298,6 +338,12 @@ class ContinuousBatchingEngine:
         if not dec:
             return step_pf > 0
         self.stats["decode_steps"] += 1
+        if self.spec_tree:
+            self._spec_tree_decode(dec)
+            return True
+        if self.spec_k:
+            self._spec_decode(dec)
+            return True
         logits, self.state = self._dev(
             M.decode_step, self.qparams, self.cfg, self.state,
             self._push(self._last_tok, decode=True), self.rt)
@@ -305,14 +351,135 @@ class ContinuousBatchingEngine:
         now = self._now()
         for slot, req in dec:
             self._slot_pos[slot] += 1      # host mirror of the device cursor
-            tok = int(nxt[slot])
-            req.output.append(tok)
-            req.replay_pos = len(req.output)
-            self._last_tok[slot] = tok
-            self.policy.on_tokens(req, 1)
+            self._emit(req, int(nxt[slot]))
             if req.should_stop():
                 self._retire(req, now)
         return True
+
+    # -- speculative decode lane -------------------------------------------
+    def _draft_for(self, req: Request) -> list[int]:
+        """``spec_k`` draft tokens for one slot, from its committed context
+        (the port has no preempt-replay yet, so there is no recorded tail to
+        re-feed)."""
+        return self._drafter.draft(req.prompt + req.output, self.spec_k)
+
+    def _spec_decode(self, dec: list[tuple[int, Request]]) -> None:
+        """One verify pass over the decode pool: feed [last committed token,
+        k drafts] per slot, accept each slot's matching prefix, emit the
+        first non-matching (or bonus) token, and roll the per-slot cursor
+        back to the committed prefix (rejected rows die in place)."""
+        k = self.spec_k
+        toks = np.zeros((self.n_slots, k + 1), np.int32)
+        toks[:, 0] = self._last_tok
+        drafts: dict[int, list[int]] = {}
+        for slot, req in dec:
+            drafts[slot] = self._draft_for(req)
+            toks[slot, 1:] = drafts[slot]
+        logits, _, self.state = self._dev(
+            M.verify_step, self.qparams, self.cfg, self.state,
+            self._push(toks, decode=True), self.rt)
+        self.stats["verify_steps"] += 1
+        chosen = self._next_tokens(logits)
+        now = self._now()
+        for slot, req in dec:
+            fed = drafts[slot]
+            committed = 0                 # accepted K/V rows past toks[:, 0]
+            for i in range(k + 1):
+                # row i is the next-token choice after toks[slot, :i+1], valid
+                # because reaching it means every earlier draft was accepted
+                tok = int(chosen[slot, i])
+                self._emit(req, tok)
+                accepted = i < k and tok == fed[i]
+                if i < k:
+                    self.stats["spec_drafted"] += 1
+                    self.stats["spec_accepted"] += int(accepted)
+                if req.should_stop():
+                    committed += int(accepted)
+                    self._retire(req, now)
+                    break
+                if not accepted:
+                    break
+                committed += 1
+            self.stats["spec_accept_hist"][committed] += 1
+            self._slot_pos[slot] += 1 + committed
+        self.state = T.rewind_pos(self.state, self._pos_device())
+
+    def _spec_tree_decode(self, dec: list[tuple[int, Request]]) -> None:
+        """One tree-verify pass over the decode pool: feed [root = last
+        committed token, ``spec_tree`` tree-drafted nodes] per slot with
+        per-row depths and ancestor bitmasks, walk the verified tree on the
+        host for the longest accepted root-path, then move the path's
+        scattered K/V rows into contiguous committed rows (``tree_commit``);
+        the rejected branches die in place."""
+        n = self.spec_tree
+        Tw = n + 1
+        toks = np.zeros((self.n_slots, Tw), np.int32)
+        toks[:, 0] = self._last_tok
+        # every batched row needs a valid topology: inactive slots verify a
+        # dummy chain whose rows the commit leaves alone (keep = 0)
+        depth = np.tile(np.arange(Tw, dtype=np.int32), (self.n_slots, 1))
+        anc = np.tile(((1 << (np.arange(Tw) + 1)) - 1).astype(np.int32),
+                      (self.n_slots, 1))
+        parents: dict[int, list[int]] = {}
+        for slot, req in dec:
+            d_toks, parents[slot] = self._drafter.draft_tree(
+                req.prompt + req.output, n, self.spec_branch)
+            toks[slot, 1:] = d_toks
+            depth[slot], anc[slot] = tree_depths_ancestors(parents[slot])
+        logits, _, self.state = self._dev(
+            M.verify_step, self.qparams, self.cfg, self.state,
+            self._push(toks, decode=True), self.rt,
+            depth=self._push(depth, decode=True), anc=self._push(anc, decode=True))
+        self.stats["verify_steps"] += 1
+        chosen = self._next_tokens(logits)
+        # the commit's base: each slot's cursor before this window (window
+        # node w's K/V row sits at base + w)
+        base = np.asarray(self._slot_pos, np.int32)
+        sel = np.zeros((self.n_slots, n), np.int32)
+        keep = np.zeros((self.n_slots,), np.int32)
+        now = self._now()
+        for slot, req in dec:
+            # children of each window node in draft order; siblings carry
+            # distinct tokens, so the walk is unambiguous
+            kids: dict[int, list[int]] = {}
+            for i, p in enumerate(parents[slot]):
+                kids.setdefault(p + 1, []).append(i + 1)
+            cur = 0                        # window node whose row we read
+            path: list[int] = []           # accepted nodes, root-path order
+            while True:
+                tok = int(chosen[slot, cur])
+                self._emit(req, tok)
+                nxt = next((c for c in kids.get(cur, ())
+                            if int(toks[slot, c]) == tok), None)
+                if kids.get(cur):
+                    self.stats["spec_drafted"] += 1
+                    self.stats["spec_accepted"] += int(nxt is not None)
+                if req.should_stop():
+                    if nxt is not None:    # the stopping token was drafted:
+                        path.append(nxt)   # commit its row, as the linear
+                    self._retire(req, now)         # lane's bonus accept
+                    break
+                if nxt is None:
+                    break
+                path.append(nxt)
+                cur = nxt
+            sel[slot, :len(path)] = path
+            keep[slot] = len(path)
+            self.stats["spec_accept_hist"][len(path)] += 1
+            self._slot_pos[slot] += 1 + len(path)
+        self.state = self._dev(
+            M.tree_commit, self.state, self._push(base, decode=True),
+            self._push(sel, decode=True), self._push(keep, decode=True),
+            self._pos_device())
+
+    def _pos_device(self) -> torch.Tensor:
+        return self._push(np.asarray(self._slot_pos, np.int32), decode=True)
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the verify steps accepted."""
+        d = self.stats["spec_drafted"]
+        return self.stats["spec_accepted"] / d if d else float("nan")
 
     # -- drive to completion ----------------------------------------------
     def drain(self) -> None:

@@ -6,8 +6,9 @@ no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-inputs: B1 and B5 bit for bit (and B5's int32 sums equal B1's), B2 within
-``rtol=3e-5, atol=3e-6``.
+inputs: B1 and B5 bit for bit (and B5's int32 sums equal B1's), B2, B3 and
+B4 within ``rtol=3e-5, atol=3e-6``; B3 at one token equals B2, and B4 on a
+chain equals B3, bit for bit.
 """
 import numpy as np
 import pytest
@@ -19,9 +20,12 @@ from repro_torch.core import quant
 from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import int8_matmul as mm
 from repro_torch.kernels import launch_counts, pim_mvm as pim, reset_launch_counts
+from repro_torch.kernels import verify_attn as va
+from repro_torch.kernels import verify_tree_attn as vt
 from repro_torch.models import model as M
 from repro_torch.models.transformer import Runtime
 from repro_torch.serve.engine import ContinuousBatchingEngine
+from repro_torch.serve.quantize import quantize_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -95,6 +99,114 @@ def test_engine_runs_the_kernels_and_agrees_with_the_cpu(cuda):
     got = eng.generate_all(prompts, budgets)
     steps = eng.stats["decode_steps"]
     assert launch_counts() == {"int8_matmul": 7 * cfg.n_layers * steps,
-                               "pim_mvm": 0, "decode_attn": cfg.n_layers * steps}
+                               "pim_mvm": 0, "decode_attn": cfg.n_layers * steps,
+                               "verify_attn": 0, "verify_tree_attn": 0}
     assert [len(o) for o in got] == budgets
     assert [o[0] for o in got] == [o[0] for o in want]     # prefill: float only
+
+
+def _window(b, s, g, rep, d, t, seed, device):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, t, g * rep, d)).astype(np.float32))
+    k_q, k_s = quant.quantize_kv(torch.from_numpy(
+        rng.standard_normal((b, s, g, d)).astype(np.float32)).to(device))
+    v_q, v_s = quant.quantize_kv(torch.from_numpy(
+        rng.standard_normal((b, s, g, d)).astype(np.float32)).to(device))
+    q_q, q_s = va.quantize_window(q.to(device), g)
+    return q_q, q_s, [k_q, k_s[..., 0].contiguous(), v_q, v_s[..., 0].contiguous()]
+
+
+def _trees(b, t, seed):
+    from repro_torch.serve.drafter import tree_depths_ancestors
+    rng = np.random.default_rng(seed)
+    return torch.tensor([tree_depths_ancestors([int(rng.integers(-1, i)) for i in range(t - 1)])[1]
+                         for _ in range(b)], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("b,s,g,rep,d,t,pos", [
+    (2, 64, 2, 2, 32, 3, [0, 61]), (3, 300, 2, 4, 64, 5, [0, 150, 295]),
+    (4, 262, 8, 4, 128, 5, [1, 100, 200, 257]), (4, 262, 8, 4, 128, 31, [0, 60, 120, 231])])
+def test_verify_kernels_match_plain(cuda, b, s, g, rep, d, t, pos):
+    q_q, q_s, cache = _window(b, s, g, rep, d, t, s + t, cuda)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    lengths = (pos[:, None] + torch.arange(1, t + 1, dtype=torch.int32, device=cuda)).contiguous()
+    anc = _trees(b, t, t).to(cuda)
+    reset_launch_counts()
+    got3 = va.verify_attn_cuda(q_q, q_s, *cache, lengths)
+    got4 = vt.verify_tree_attn_cuda(q_q, q_s, *cache, pos, anc)
+    assert launch_counts()["verify_attn"] == 1 and launch_counts()["verify_tree_attn"] == 1
+    torch.testing.assert_close(got3, va.verify_attn_plain(q_q, q_s, *cache, lengths),
+                               rtol=3e-5, atol=3e-6)
+    torch.testing.assert_close(got4, vt.verify_tree_attn_plain(q_q, q_s, *cache, pos, anc),
+                               rtol=3e-5, atol=3e-6)
+
+
+@pytest.mark.parametrize("t", [1, 5, 31])
+def test_verify_kernels_equal_b2_and_each_other(cuda, t):
+    """B3 row (t, r) equals B2 at length pos + t + 1, and B4 on chain
+    ancestors equals B3, bit for bit."""
+    b, s, g, rep, d = 4, 262, 8, 4, 128
+    q_q, q_s, cache = _window(b, s, g, rep, d, t, 11 * t, cuda)
+    pos = torch.tensor([0, 37, 130, s - t], dtype=torch.int32, device=cuda)
+    lengths = (pos[:, None] + torch.arange(1, t + 1, dtype=torch.int32, device=cuda)).contiguous()
+    got3 = va.verify_attn_cuda(q_q, q_s, *cache, lengths)
+    for i in range(t):
+        dec = da.decode_attn_cuda(q_q[:, :, i].contiguous(), q_s[:, :, i].contiguous(),
+                                  *cache, lengths[:, i].contiguous())
+        assert torch.equal(got3[:, :, i], dec), i
+    chain = ((1 << torch.arange(1, t + 1, dtype=torch.int64)) - 1).to(torch.int32)
+    got4 = vt.verify_tree_attn_cuda(q_q, q_s, *cache, pos,
+                                    chain.expand(b, t).contiguous().to(cuda))
+    assert torch.equal(got4, got3)
+
+
+@pytest.mark.parametrize("lane", [{"spec_k": 4}, {"spec_tree": 6}], ids=["spec_k", "spec_tree"])
+def test_spec_engine_runs_the_verify_kernels(cuda, lane):
+    """Every decode step of a spec lane is a verify step: B1 runs 7 times and
+    B3 (or B4) once per layer per step, B2 never, and every request meets
+    its budget."""
+    cfg = registry.get("llama3-8b").reduced()
+    params = convert.to_device(M.init_params(cfg, seed=0, device="cpu"), cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(4, 20)).tolist()
+               for _ in range(6)]
+    budgets = [int(rng.integers(4, 13)) for _ in range(6)]
+    reset_launch_counts()
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=64,
+                                   rt=Runtime("fused_int8"), **lane)
+    got = eng.generate_all(prompts, budgets)
+    steps = eng.stats["verify_steps"]
+    attn = "verify_tree_attn" if "spec_tree" in lane else "verify_attn"
+    want = {"int8_matmul": 7 * cfg.n_layers * steps, "pim_mvm": 0, "decode_attn": 0,
+            "verify_attn": 0, "verify_tree_attn": 0}
+    want[attn] = cfg.n_layers * steps
+    assert steps == eng.stats["decode_steps"] > 0 and launch_counts() == want
+    assert [len(o) for o in got] == budgets
+    assert all(0 <= tok < cfg.vocab_size for o in got for tok in o)
+
+
+def test_verify_rows_equal_sequential_decode_on_the_card(cuda):
+    """On the reduced config the card's verify window computes what its
+    sequential decode steps compute: logits and every layer's K/V entries
+    bit for bit (at this width no float stage sums a row in an order that
+    depends on the row count)."""
+    cfg = registry.get("llama3-8b").reduced()
+    params = convert.to_device(M.init_params(cfg, seed=0, device="cpu"), cuda)
+    qparams = quantize_tree(params)
+    rt = Runtime("fused_int8")
+    gen = torch.Generator().manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen).to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 5), generator=gen, dtype=torch.int32).to(cuda)
+    _, state = M.prefill(params, cfg, {"inputs": prompts}, 64, rt)
+
+    def clone(st):
+        return {"layers": [{k: v.clone() for k, v in c.items()} for c in st["layers"]],
+                "pos": st["pos"].clone()}
+    sv, sd = clone(state), clone(state)
+    lv, _, _ = M.verify_step(qparams, cfg, sv, toks, rt)
+    for t in range(toks.shape[1]):
+        ld, sd = M.decode_step(qparams, cfg, sd, toks[:, t].contiguous(), rt)
+        assert torch.equal(lv[:, t], ld), t
+    for cv, cd in zip(sv["layers"], sd["layers"]):
+        for k in cv:
+            assert torch.equal(cv[k], cd[k]), k

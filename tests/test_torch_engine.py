@@ -102,14 +102,19 @@ def test_requests_wait_for_slots_and_keep_timestamps(weights):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"chunk": 4}, "A.7"), ({"policy": "sjf"}, "A.7"),
-    ({"spec_k": 2}, "A.8"), ({"spec_tree": 2}, "A.8"), ({"multi_step": 4}, "A.9"),
+    ({"chunk": 4}, "A.7"), ({"policy": "sjf"}, "A.7"), ({"multi_step": 4}, "A.9"),
     ({"prefix_cache": True}, "A.10"), ({"kv_swap": True}, "A.10"),
-    ({"faults": True}, "A.10")])
+    ({"faults": True}, "A.10"), ({"spec_k": 2, "drafter": "mtp"}, "A.11")])
 def test_later_slice_arguments_raise(weights, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         ContinuousBatchingEngine(TCFG, weights[1], n_slots=2, max_len=32,
                                  device="cpu", **kwargs)
+
+
+def test_mtp_drafter_waits_for_its_family():
+    from repro_torch.serve.drafter import make_drafter
+    with pytest.raises(NotImplementedError, match="A.11"):
+        make_drafter("mtp", TCFG)
 
 
 @pytest.mark.parametrize("kwargs,item", [({"temperature": 0.7}, "A.7"),

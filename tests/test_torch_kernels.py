@@ -123,7 +123,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     pim.pim_mvm_2d(t["x_q"], t["x_s"], hi, lo, t["w_s"])
     _, tt = _attn_inputs(1, 16, 1, 1, 32, 4)
     da.decode_attention(*tt, 5)
-    assert KN.launch_counts() == {"int8_matmul": 0, "pim_mvm": 0, "decode_attn": 0}
+    assert KN.launch_counts() == {"int8_matmul": 0, "pim_mvm": 0, "decode_attn": 0,
+                                  "verify_attn": 0, "verify_tree_attn": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

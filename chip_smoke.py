@@ -33,7 +33,22 @@ Phases (any failure makes the script exit non-zero):
    ``spec_k = 4`` and with ``spec_tree = 6, spec_branch = 2``, whose launch
    counts the ``kernels`` line reports for B3 and B4; and where the
    verify window parts from sequential decode (reduced config on both
-   devices, full width on the card, each float stage at B*T rows against B).
+   devices, full width on the card, each float stage at B*T rows against B),
+   gated: the RMSNorm kernel is row-invariant bit for bit and the full-width
+   window's K/V entries equal sequential decode's in every layer;
+6. ``ssm``: mamba2-2.7b (64 layers, d 2560, 80 SSM heads of 64, state 128,
+   vocab 50280) after llama3-8b's parameters are freed.  B6 (``ssd_chunk``)
+   against its plain version at full width (Q 128, 37 and 1) with its time,
+   bound and ``ptxas`` line, and the RMSNorm kernel's; ``ssd_forward`` over
+   two chunks against the model's chunked tensor path; the reduced config
+   on the card against the CPU; and the full-width model served by
+   ``Engine`` and ``ContinuousBatchingEngine`` under ``fused_int8`` with
+   exact launch counts (its serve run's counts are what the ``kernels``
+   line reports for B6 and the RMSNorm kernel), then the same trace under
+   ``ref_int8`` (plain SSD, plain int8 matmul).
+
+Every path runs the RMSNorm kernel (``rms_norm``) for every norm on the
+card; each serve run's launch counts include it.
 
 The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  The full record goes to
@@ -359,12 +374,14 @@ def profile_step(torch, fn, what: str = "decode") -> dict:
                   reverse=True)[:8]
     out = {"wall_us": wall_us, "device_busy_us": busy,
            "idle_share": max(0.0, 1 - busy / wall_us),
+           "device_kernels": sum(v[0] for v in kernels.values()),
            "top_kernels": [{"name": n, "count": c, "us": u} for n, (c, u) in
                            sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]],
            "top_host_ops": [{"name": a.key, "count": a.count,
                              "self_cpu_us": a.self_cpu_time_total} for a in host]}
     print(f"   one {what} step: wall {wall_us / 1e3:.2f} ms, device busy "
-          f"{busy / 1e3:.2f} ms, idle share {out['idle_share']:.3f}")
+          f"{busy / 1e3:.2f} ms, idle share {out['idle_share']:.3f}, "
+          f"{out['device_kernels']} device kernels")
     for k in out["top_kernels"]:
         print(f"     kernel {k['name']:60s} x{k['count']:4d} {k['us']:9.1f} us")
     for h in out["top_host_ops"]:
@@ -404,9 +421,7 @@ def phase_engine(torch, ctx) -> dict:
     reset_launch_counts()
     toks, tm = eng.generate({"inputs": prompts}, steps=steps)
     counts = launch_counts()
-    want = {"int8_matmul": 7 * cfg.n_layers * steps,
-            "decode_attn": cfg.n_layers * steps, "pim_mvm": 0,
-            "verify_attn": 0, "verify_tree_attn": 0}
+    want = want_launches(cfg, steps, [prompts.shape[1]], "decode_attn")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     if tuple(toks.shape) != (4, steps) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
@@ -430,9 +445,8 @@ def phase_engine(torch, ctx) -> dict:
         step[backend] = (lg, launch_counts())
     ctx["pim_launches"] = step["pim_bitserial"][1]["pim_mvm"]
     lf, lp, lr = (step[b][0] for b in ("fused_int8", "pim_bitserial", "ref_int8"))
-    if step["pim_bitserial"][1] != {"int8_matmul": 0, "decode_attn": 0,
-                                    "pim_mvm": 7 * cfg.n_layers,
-                                    "verify_attn": 0, "verify_tree_attn": 0}:
+    if step["pim_bitserial"][1] != dict(want_launches(cfg, 1, [], None, "pim_bitserial"),
+                                        pim_mvm=7 * cfg.n_layers):
         raise AssertionError(f"pim_bitserial launches {step['pim_bitserial'][1]}")
     if not torch.isfinite(lf).all():
         raise AssertionError("non-finite fused_int8 logits")
@@ -502,16 +516,39 @@ def serve_trace(vocab_size: int) -> tuple[list, list]:
     return prompts, budgets
 
 
-def serve(torch, cfg, params, lane: dict, attn: str) -> tuple:
-    """Serve the trace on 4 slots (``max_len`` 256, ``fused_int8``) with the
-    given lane arguments, the launch counts reset just before and read just
-    after; every step must launch B1 7 times and ``attn`` once per layer."""
+def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
+                  backend: str = "fused_int8") -> dict:
+    """Exact kernel launches of ``steps`` decode (or verify) steps plus one
+    prefill per prompt: each norm one RMSNorm launch (two a layer, one for
+    ``ln_f``); under ``fused_int8`` a llama layer's step 7 B1 launches and
+    one of ``attn``, a mamba2 layer's step 3 B1 launches (w_z, w_x,
+    out_proj), and a mamba2 prefill one B6 launch per layer and 128-token
+    chunk (float weights: no B1 in prefill)."""
+    L = cfg.n_layers
+    want = {"int8_matmul": 0, "pim_mvm": 0, "decode_attn": 0, "verify_attn": 0,
+            "verify_tree_attn": 0, "ssd_chunk": 0,
+            "rms_norm": (2 * L + 1) * (steps + len(prompt_lens))}
+    if backend == "fused_int8":
+        if cfg.family == "ssm":
+            want["int8_matmul"] = 3 * L * steps
+            want["ssd_chunk"] = L * sum(math.ceil(n / 128) for n in prompt_lens)
+        else:
+            want["int8_matmul"] = 7 * L * steps
+            want[attn] = L * steps
+    return want
+
+
+def serve(torch, cfg, params, lane: dict, attn: str | None,
+          backend: str = "fused_int8") -> tuple:
+    """Serve the trace on 4 slots (``max_len`` 256) under ``backend`` with
+    the given lane arguments, the launch counts reset just before and read
+    just after; they must equal :func:`want_launches`."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import Runtime
     from repro_torch.serve.engine import ContinuousBatchingEngine
 
     cb = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=256,
-                                  rt=Runtime("fused_int8"), **lane)
+                                  rt=Runtime(backend), **lane)
     prompts, budgets = serve_trace(cfg.vocab_size)
     torch.cuda.synchronize()
     cb.reset_clock()
@@ -523,12 +560,28 @@ def serve(torch, cfg, params, lane: dict, attn: str) -> tuple:
     wall = time.perf_counter() - t0
     counts = launch_counts()                   # ... and ends here
     steps = cb.stats["decode_steps"]
-    want = {"int8_matmul": 7 * cfg.n_layers * steps, "decode_attn": 0, "pim_mvm": 0,
-            "verify_attn": 0, "verify_tree_attn": 0}
-    want[attn] = cfg.n_layers * steps
+    want = want_launches(cfg, steps, [len(p) for p in prompts], attn, backend)
     if counts != want or steps < 1:
         raise AssertionError(f"launch counts {counts} != {want}")
     return cb, reqs, wall, counts
+
+
+def serve_record(reqs, wall: float, cfg) -> dict:
+    """Per-request TTFT, latency and TPOT of a served trace, every request
+    checked to its budget and its tokens in range."""
+    per = []
+    for r in reqs:
+        if r.error is not None or len(r.output) != r.max_new_tokens:
+            raise AssertionError(f"request {r.rid}: error {r.error}, {len(r.output)} tokens")
+        if min(r.output) < 0 or max(r.output) >= cfg.vocab_size:
+            raise AssertionError(f"request {r.rid}: token out of range")
+        per.append({"rid": r.rid, "prompt": r.prompt_len, "tokens": len(r.output),
+                    "ttft_s": r.first_token_time - r.arrival_time,
+                    "tpot_s": (r.finish_time - r.first_token_time) / max(1, len(r.output) - 1),
+                    "latency_s": r.finish_time - r.arrival_time})
+    served = sum(p["tokens"] for p in per)
+    return {"wall_s": wall, "tokens_served": served, "tokens_per_s": served / wall,
+            "requests": per}
 
 
 def phase_serve(torch, ctx) -> dict:
@@ -538,21 +591,13 @@ def phase_serve(torch, ctx) -> dict:
     cb, reqs, wall, counts = serve(torch, cfg, ctx["params"], {}, "decode_attn")
     ctx["main_launches"] = counts
     ctx["plain_outputs"] = [list(r.output) for r in reqs]
-    per = []
-    for r in reqs:
-        if r.error is not None or len(r.output) != r.max_new_tokens:
-            raise AssertionError(f"request {r.rid}: error {r.error}, {len(r.output)} tokens")
-        if min(r.output) < 0 or max(r.output) >= cfg.vocab_size:
-            raise AssertionError(f"request {r.rid}: token out of range")
-        per.append({"rid": r.rid, "prompt": r.prompt_len, "tokens": len(r.output),
-                    "ttft_s": r.first_token_time - r.arrival_time,
-                    "latency_s": r.finish_time - r.arrival_time})
-        print(f"   req {r.rid}: prompt {r.prompt_len:3d} -> {len(r.output):2d} tokens, "
-              f"TTFT {per[-1]['ttft_s'] * 1e3:7.1f} ms, latency {per[-1]['latency_s']:.3f} s")
-    served = sum(p["tokens"] for p in per)
-    print(f"   served {served} tokens in {wall:.2f} s; stats {cb.stats}; launches {counts}")
-    return {"wall_s": wall, "tokens_served": served, "requests": per,
-            "stats": dict(cb.stats), "launches": counts}
+    rec = dict(serve_record(reqs, wall, cfg), stats=dict(cb.stats), launches=counts)
+    for r in rec["requests"]:
+        print(f"   req {r['rid']}: prompt {r['prompt']:3d} -> {r['tokens']:2d} tokens, "
+              f"TTFT {r['ttft_s'] * 1e3:7.1f} ms, latency {r['latency_s']:.3f} s")
+    print(f"   served {rec['tokens_served']} tokens in {wall:.2f} s; stats {cb.stats}; "
+          f"launches {counts}")
+    return rec
 
 
 def verify_bound(B, G, T, rep, D, S, pos, visible) -> tuple[float, str]:
@@ -750,28 +795,11 @@ def reduced_verify(torch, drafter) -> dict:
     return out
 
 
-def pairwise_rms_norm(p, x, eps: float = 1e-5):
-    """RMSNorm whose sum of squares is a fixed pairwise tree of elementwise
-    adds, so that a row's result cannot depend on how many rows the call
-    holds (a diagnostic stand-in for ``layers.apply_norm``; widths a power
-    of two)."""
-    import torch
-    xf = x.to(torch.float32)
-    d = xf.shape[-1]
-    if "bias" in p or d & (d - 1):
-        raise ValueError("pairwise_rms_norm takes RMSNorm at a power-of-two width")
-    s = xf * xf
-    while s.shape[-1] > 1:
-        h = s.shape[-1] // 2
-        s = s[..., :h] + s[..., h:]
-    return (xf * torch.rsqrt(s / d + eps) * p["scale"]).to(x.dtype)
-
-
 def row_invariance(torch, cfg, params, B: int, T: int) -> dict:
     """The float stages that a verify step runs over B*T rows and a decode
     step over B, each run on the same random rows once as the verify step
     calls it and T times as the decode step does: how many outputs differ,
-    and by how much."""
+    and by how much.  The norm (the RMSNorm kernel) must differ in none."""
     from repro_torch.core import quant
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TT
@@ -784,7 +812,6 @@ def row_invariance(torch, cfg, params, B: int, T: int) -> dict:
     ln = params["layers"][0]["ln1"]
     stages = {
         "rms_norm": lambda h: L.apply_norm(ln, h),
-        "pairwise_rms_norm": lambda h: pairwise_rms_norm(ln, h),
         "quantize_activation": lambda h: torch.cat(
             [t.to(torch.float32) for t in quant.quantize_activation(h)], -1),
         "lm_head": lambda h: TT._lm_head(params, cfg, h.reshape(-1, d), rt).reshape(
@@ -799,38 +826,101 @@ def row_invariance(torch, cfg, params, B: int, T: int) -> dict:
     print(f"   float stages at M = {B * T} against M = {B} rows: " + ", ".join(
         f"{k} {v['differing']} of {v['of']} differ (max {v['max_abs']:.3g})"
         for k, v in out.items()))
+    if out["rms_norm"]["differing"]:
+        raise AssertionError(f"apply_norm is not row-invariant: {out['rms_norm']}")
     return out
 
 
 def full_width_parity(torch, ctx, cfg, q, state, toks) -> dict:
     """Where the full-width verify step parts from sequential decode on the
-    card: the window against sequential decode steps, the float stages'
-    row invariance, and the same window with :func:`pairwise_rms_norm` in
-    place of the norm.  With that norm every layer's K/V entries must equal
-    sequential decode's (the kernels and the other stages are
-    row-invariant); what is left in the logits is the ``lm_head`` GEMM."""
-    from repro_torch.models import layers as L
+    card: the float stages' row invariance (the norm gated), and the window
+    against sequential decode steps under the port's own ``apply_norm``,
+    whose K/V entries must equal sequential decode's in every layer (the
+    kernels and the other stages are row-invariant); what is left in the
+    logits is the ``lm_head`` GEMM."""
     from repro_torch.models import model as M
     from repro_torch.models.transformer import Runtime
 
     rt = Runtime("fused_int8")
     B, T = toks.shape
-    out = {"window_vs_decode": window_vs_decode(torch, M, cfg, q, state, toks, rt)[0],
-           "row_invariance": row_invariance(torch, cfg, ctx["params"], B, T)}
-    saved = L.apply_norm
-    L.apply_norm = pairwise_rms_norm
-    try:
-        out["window_vs_decode_pairwise_norm"] = window_vs_decode(
-            torch, M, cfg, q, state, toks, rt)[0]
-    finally:
-        L.apply_norm = saved
+    out = {"row_invariance": row_invariance(torch, cfg, ctx["params"], B, T),
+           "window_vs_decode": window_vs_decode(torch, M, cfg, q, state, toks, rt)[0]}
     print(f"   full width, verify_step vs sequential decode_step: "
           f"{describe_window(out['window_vs_decode'])}")
-    print(f"   ... with the pairwise norm: "
-          f"{describe_window(out['window_vs_decode_pairwise_norm'])}")
-    if out["window_vs_decode_pairwise_norm"]["first_layer_differing"] is not None:
-        raise AssertionError("with a row-invariant norm the verify window's K/V entries "
-                             "still differ from sequential decode's")
+    if out["window_vs_decode"]["first_layer_differing"] is not None:
+        raise AssertionError("the verify window's K/V entries differ from sequential "
+                             "decode's under the row-invariant norm")
+    return out
+
+
+def decode_margin(torch, cfg, params, qparams, prompt: list, prefix: list,
+                  toks: tuple) -> dict:
+    """The logits that chose output token ``len(prefix)`` of a request in the
+    plain lane, from a single-request rerun of it (the engine's prefill,
+    bucketed to 16 and masked to the prompt, then ``prefix`` fed back one
+    decode step at a time, ``fused_int8``; every stage but the ``lm_head``
+    is row-invariant, so these are the plain lane's logits up to its last
+    bits): the two candidate tokens' logits, their gap and the gap between
+    the best two."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+
+    rt = Runtime("fused_int8")
+    padded = prompt + [0] * (-len(prompt) % 16)
+    lg, st = M.prefill(params, cfg, {"inputs": torch.tensor([padded], device="cuda"),
+                                     "lengths": torch.tensor([len(prompt)], dtype=torch.int32,
+                                                             device="cuda")},
+                       len(padded) + len(prefix) + 1, rt)
+    for tok in prefix:
+        lg, st = M.decode_step(qparams, cfg, st, torch.tensor([tok], dtype=torch.int32,
+                                                               device="cuda"), rt)
+    row = lg[0].float()
+    top = torch.topk(row, 2).values
+    a, b = (float(row[t]) for t in toks)
+    return {"tokens": list(toks), "logits": [a, b], "gap": abs(a - b),
+            "top2_gap": float(top[0] - top[1]), "logit_scale": float(row.abs().max())}
+
+
+def tree_vs_path(torch, cfg, q, state, toks, drafter) -> dict:
+    """A draft tree whose accepted root path skips a sibling (window nodes
+    0 -> 1 -> 3 -> 4, node 2 a sibling of node 1), verified and committed
+    with ``tree_commit``, against sequential decode of the path's tokens
+    from the same state: the path rows' logits, and per layer the committed
+    K/V entries that differ.  Node 3's key sits one row further from its
+    ancestors in the window than in sequential decode, so the attention
+    kernels sum its row in another order (the reference holds such rows
+    to about 1 ulp, not bit for bit)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+
+    rt = Runtime("fused_int8")
+    B = toks.shape[0]
+    depth, anc = drafter.tree_depths_ancestors([-1, -1, 0, 2])
+    path = [0, 1, 3, 4]
+    dev = toks.device
+    sv, sd = clone_state(state), clone_state(state)
+    base = state["pos"].to(torch.int32)
+    lv, _, sv = M.verify_step(q, cfg, sv, toks[:, :5].contiguous(), rt,
+                              depth=torch.tensor([depth] * B, dtype=torch.int32, device=dev),
+                              anc=torch.tensor([anc] * B, dtype=torch.int32, device=dev))
+    sv = M.tree_commit(sv, base, torch.tensor([path[1:]] * B, dtype=torch.int32, device=dev),
+                       torch.full((B,), 3, dtype=torch.int32, device=dev), base + len(path))
+    rows = []
+    for i in path:
+        lg, sd = M.decode_step(q, cfg, sd, toks[:, i].contiguous(), rt)
+        rows.append(lg)
+    end = int(base.max()) + len(path)
+    per_layer = [sum(int((x[k][:, :end] != y[k][:, :end]).sum()) for k in x)
+                 for x, y in zip(sv["layers"], sd["layers"])]
+    out = {"path": path, "rows_equal": [bool(torch.equal(lv[:, i], r))
+                                        for i, r in zip(path, rows)],
+           "rows_max_abs": [float((lv[:, i] - r).abs().max()) for i, r in zip(path, rows)],
+           "layer_entries_differing": per_layer,
+           "first_layer_differing": next((i for i, n in enumerate(per_layer) if n), None)}
+    print(f"   tree window (path 0-1-3-4 past sibling 2) vs sequential decode of the path: "
+          f"rows bit-equal {out['rows_equal']}, max |diff| "
+          f"{[f'{d:.3g}' for d in out['rows_max_abs']]}; first layer whose committed K/V "
+          f"entries differ {out['first_layer_differing']} ({sum(per_layer)} entries in all)")
     return out
 
 
@@ -856,12 +946,18 @@ def phase_verify(torch, ctx, da, va, vt, quant) -> dict:
             if min(r.output) < 0 or max(r.output) >= cfg.vocab_size:
                 raise AssertionError(f"{label} request {r.rid}: token out of range")
         served = sum(len(r.output) for r in reqs)
-        # reported, not gated: RMSNorm's row reduction sums a row in another
-        # order at [B*T] rows than at [B] (full_width_parity), a last-bit
-        # difference can flip an int8 code, and the flips compound over 32
-        # layers of random weights until a near-tied token turns
+        # reported, not gated: with the row-invariant norm every layer's K/V
+        # entries equal sequential decode's (full_width_parity), and only the
+        # lm_head GEMM's last bits differ between B and B*T rows; a request
+        # that still parts from the plain lane is traced to its logit margin
         first = ([next((i for i, (a, b) in enumerate(zip(r.output, p)) if a != b), None)
                   for r, p in zip(reqs, plain)] if plain else None)
+        margins = {}
+        for r, p, f in zip(reqs, plain or [], first or []):
+            if f is not None:
+                margins[r.rid] = dict(decode_margin(
+                    torch, cfg, ctx["params"], cb.qparams, r.prompt, p[:f],
+                    (p[f], r.output[f])), index=f)
         st = cb.stats
         rec = {"lane": lane, "wall_s": wall, "tokens_served": served,
                "verify_steps": st["verify_steps"],
@@ -873,7 +969,7 @@ def phase_verify(torch, ctx, da, va, vt, quant) -> dict:
                "ttft_s": [r.first_token_time - r.arrival_time for r in reqs],
                "latency_s": [r.finish_time - r.arrival_time for r in reqs],
                "same_as_plain": None if first is None else sum(f is None for f in first),
-               "first_divergence": first}
+               "first_divergence": first, "divergence_margins": margins}
         print(f"   {label} {lane}: served {served} tokens in {wall:.2f} s, "
               f"{st['verify_steps']} verify steps, "
               f"{rec['tokens_per_verify_step']:.2f} tokens per verify step, acceptance "
@@ -881,6 +977,11 @@ def phase_verify(torch, ctx, da, va, vt, quant) -> dict:
         print(f"     TTFT first {rec['ttft_s'][0] * 1e3:.1f} ms, last "
               f"{rec['ttft_s'][-1] * 1e3:.1f} ms; requests equal to the plain lane's "
               f"tokens: {rec['same_as_plain']} of {len(reqs)} (first divergence {first})")
+        for rid, m in margins.items():
+            print(f"     request {rid} token {m['index']}: plain {m['tokens'][0]} vs "
+                  f"{label} {m['tokens'][1]}, logits {m['logits'][0]:.7g} / "
+                  f"{m['logits'][1]:.7g} (gap {m['gap']:.3g}, top-2 gap {m['top2_gap']:.3g}, "
+                  f"scale {m['logit_scale']:.3g})")
         if label == "spec_k":
             g = torch.Generator(device="cuda").manual_seed(2)
             prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, device="cuda")
@@ -897,11 +998,296 @@ def phase_verify(torch, ctx, da, va, vt, quant) -> dict:
                 print(f"   profile failed: {rec['verify_profile']['error']}")
             out["full_width_parity"] = full_width_parity(torch, ctx, cfg, cb.qparams,
                                                          state, toks)
+            out["tree_vs_path"] = tree_vs_path(torch, cfg, cb.qparams, state, toks, drafter)
             del state
         out[label] = rec
         del cb, reqs
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the SSM slice (mamba2-2.7b, B6)
+# ---------------------------------------------------------------------------
+SSD_HEADS, SSD_HEAD_DIM, SSD_STATE = 80, 64, 128     # mamba2-2.7b at full width
+SSD_SHAPES = ((4, 128), (1, 37), (2, 1))            # (N, Q): a whole chunk, a prompt, a token
+
+
+def ssd_inputs(torch, g, N: int, Q: int) -> tuple:
+    """B6's operands at full width, drawn as the reference's kernel test
+    draws them (``tests/test_kernels_ssm.py``)."""
+    H, dh, S = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    return (normal(N, Q, H, dh), normal(N, Q, H, S) * 0.5, normal(N, Q, H, S) * 0.5,
+            torch.nn.functional.softplus(normal(N, Q, H)), -torch.exp(normal(H) * 0.3),
+            torch.ones(H, device="cuda"), normal(N, H, dh, S) * 0.1)
+
+
+def ssd_work(N: int, Q: int) -> tuple[int, int]:
+    """Bytes B6 must move (each input read once, each output written once)
+    and the f32 operations its inputs need: the scores C.B and their decay
+    scale over the causal triangle k <= q only, the scores times x*dt over
+    the same triangle, C*exp(cs) times h_in, the chunk state from B*decay
+    and x*dt, and the elementwise terms."""
+    H, dh, S = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE
+    n_bytes = 4 * (2 * N * Q * H * dh + 2 * N * Q * H * S + N * Q * H + 2 * H
+                   + 2 * N * H * dh * S + N * H)
+    tri = Q * (Q + 1) // 2
+    per_head = (tri * (2 * S + 1) + tri * 2 * dh + Q * S * (1 + 2 * dh)
+                + Q * S * (1 + 2 * dh) + Q * dh * 4)
+    return n_bytes, N * H * per_head
+
+
+def ssd_kernel_checks(torch, ssd) -> dict:
+    """B6 against its plain version at N 4 / Q 128, N 1 / Q 37 and N 2 /
+    Q 1 (80 heads of 64, state 128): y and the chunk state within rtol 2e-4
+    / atol 2e-5, the decay within rtol 1e-5; device time (graph replay),
+    eager time, the plain version's time and the bound at each shape."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for N, Q in SSD_SHAPES:
+        args = ssd_inputs(torch, g, N, Q)
+        got = ssd.ssd_chunk_cuda(*args)
+        want = ssd.ssd_chunk_plain(*args)
+        torch.cuda.synchronize()
+        for name, a, b, (rtol, atol) in zip(("y", "s_out", "decay"), got, want,
+                                            ((2e-4, 2e-5), (2e-4, 2e-5), (1e-5, 0.0))):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"B6 N={N} Q={Q}: non-finite {name}")
+            torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                       msg=lambda m, n=name: f"B6 N={N} Q={Q} {n}: {m}")
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        n_bytes, flops = ssd_work(N, Q)
+        sets = copies(torch, lambda: ssd_inputs(torch, g, N, Q), n_bytes)
+        n = len(sets)
+        tk = timed(torch, lambda i: ssd.ssd_chunk_cuda(*sets[i % n]), 20)
+        tp = timed(torch, lambda i: ssd.ssd_chunk_plain(*sets[i % n]), 5)
+        b = bound_ms(n_bytes, [(flops, FP32_FLOPS_PER_S)])
+        out[f"N{N}_Q{Q}"] = {"N": N, "Q": Q, "ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+                             "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
+                             "bound_ms": b[0], "bound_by": b[1], "bytes": n_bytes,
+                             "flops": flops, "max_abs_err": max(errs),
+                             "max_abs_err_y_state_decay": errs}
+        print(f"   B6 N={N} Q={Q:3d} H={SSD_HEADS} dh={SSD_HEAD_DIM} S={SSD_STATE}: {tk['device_ms'] * 1e3:.1f} us device / "
+              f"{tk['eager_ms'] * 1e3:.1f} eager (bound {b[0] * 1e3:.2f} by {b[1]}, "
+              f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.1f} MB; plain "
+              f"{tp['device_ms'] * 1e3:.1f}); max |err| y {errs[0]:.3g}, state "
+              f"{errs[1]:.3g}, decay {errs[2]:.3g}")
+        del sets
+    head = out["N4_Q128"]
+    # no single PyTorch call computes the masked-decay chunk (scores, decay
+    # mask, state and decay together), so there is no library yardstick
+    return dict(head, library_ms=None, shapes=out)
+
+
+def rms_norm_checks(torch, rn) -> dict:
+    """The RMSNorm kernel: within rtol 1e-6 of the plain version and
+    row-invariant bit for bit (M 4 and 20 against 124) at d 2560, 4096 and
+    5120; times at the mamba2 decode step's shapes [4, 2560] and [4, 5120]
+    beside the plain version's and ``torch.nn.functional.rms_norm``'s (a
+    yardstick only)."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(8)
+    out = {"shapes": {}}
+    for d in (2560, 4096, 5120):
+        x = torch.randn((124, d), generator=g, device="cuda")
+        scale = torch.randn((d,), generator=g, device="cuda")
+        full = rn.rms_norm_cuda(x, scale)
+        torch.testing.assert_close(full, rn.rms_norm_plain(x, scale), rtol=1e-6, atol=0.0)
+        for m in (4, 20):
+            parts = torch.cat([rn.rms_norm_cuda(x[i:i + m], scale) for i in range(0, 124, m)])
+            if not torch.equal(parts, full):
+                raise AssertionError(f"rms_norm d={d}: rows at M={m} differ from M=124")
+    for d in (2560, 5120):
+        M = 4
+        x = torch.randn((M, d), generator=g, device="cuda")
+        scale = torch.randn((d,), generator=g, device="cuda")
+        err = float((rn.rms_norm_cuda(x, scale) - rn.rms_norm_plain(x, scale)).abs().max())
+        # warm inputs: on the decode path the previous op has just written x
+        tk = timed(torch, lambda i: rn.rms_norm_cuda(x, scale), 200)
+        tp = timed(torch, lambda i: rn.rms_norm_plain(x, scale), 200)
+        lib = (graph_ms(torch, lambda i: F.rms_norm(x, (d,), scale, 1e-5), 200)
+               if hasattr(F, "rms_norm") else None)
+        b = bound_ms(4 * (2 * M * d + d), [(4 * M * d, FP32_FLOPS_PER_S)])
+        out["shapes"][d] = {"M": M, "d": d, "ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+                            "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
+                            "library_ms": lib, "bound_ms": b[0], "bound_by": b[1],
+                            "max_abs_err": err}
+        print(f"   rms_norm [{M}, {d}]: {tk['device_ms'] * 1e3:.2f} us device / "
+              f"{tk['eager_ms'] * 1e3:.2f} eager (bound {b[0] * 1e3:.3f}, plain "
+              f"{tp['device_ms'] * 1e3:.2f} / {tp['eager_ms'] * 1e3:.2f} eager, "
+              f"F.rms_norm {'n/a' if lib is None else f'{lib * 1e3:.2f}'}); max |err| {err:.3g}; "
+              f"row-invariant at M 4, 20, 124 for d 2560, 4096, 5120")
+    return dict(out["shapes"][5120], shapes=out["shapes"], row_invariant=True)
+
+
+def ssd_forward_check(torch, cfg) -> dict:
+    """One full-width mamba2 layer over T = 200 tokens (two chunks, the
+    second padded): B6's path (``use_kernel``) against the model's chunked
+    tensor path on the card, output within the reference's tolerance for
+    this pair (rtol 3e-3, atol 3e-4) and the final state within its
+    full-sequence tolerance (rtol 2e-3, atol 2e-4)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import ssm as SSM
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    p = SSM.ssm_init(gen, cfg)
+    x = torch.randn((1, 200, cfg.d_model), generator=gen, device="cuda")
+    reset_launch_counts()
+    yk, sk = SSM.ssm_forward(p, cfg, x, return_state=True, use_kernel=True)
+    launches = launch_counts()["ssd_chunk"]
+    yp, sp = SSM.ssm_forward(p, cfg, x, return_state=True, use_kernel=False)
+    torch.cuda.synchronize()
+    if launches != 2:
+        raise AssertionError(f"ssd_forward at T=200 launched B6 {launches} times, not 2")
+    torch.testing.assert_close(yk, yp, rtol=3e-3, atol=3e-4)
+    torch.testing.assert_close(sk["h"], sp["h"], rtol=2e-3, atol=2e-4)
+    out = {"T": 200, "launches": launches, "out_max_abs": float((yk - yp).abs().max()),
+           "out_scale": float(yp.abs().max()),
+           "h_max_abs": float((sk["h"] - sp["h"]).abs().max()),
+           "h_scale": float(sp["h"].abs().max())}
+    print(f"   ssm_forward T=200 (2 chunks), B6 path vs chunked tensor path: out max |diff| "
+          f"{out['out_max_abs']:.3g} of {out['out_scale']:.3g}, final state "
+          f"{out['h_max_abs']:.3g} of {out['h_scale']:.3g}")
+    return out
+
+
+def reduced_ssm(torch, cfg) -> dict:
+    """The reduced mamba2 under ``fused_int8`` on the card (B6, B1, the
+    norm kernel) against the same model on the CPU (plain versions):
+    prefill over 150 tokens (two chunks) and one decode step, within 2% of
+    the logit scale, argmax equal."""
+    from repro_torch import convert
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.quantize import quantize_tree
+
+    rcfg = cfg.reduced()
+    p_cpu = M.init_params(rcfg, seed=0, device="cpu")
+    q_cpu = quantize_tree(p_cpu)
+    prompts = torch.randint(0, rcfg.vocab_size, (2, 150),
+                            generator=torch.Generator().manual_seed(3))
+    rt = Runtime("fused_int8")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p, q = convert.to_device(p_cpu, dev), convert.to_device(q_cpu, dev)
+        lg0, st = M.prefill(p, rcfg, {"inputs": prompts.to(dev)}, 256, rt)
+        lg1, _ = M.decode_step(q, rcfg, st, torch.argmax(lg0, -1).to(torch.int32), rt)
+        res[dev] = (lg0.cpu(), lg1.cpu())
+    out = {}
+    for i, what in enumerate(("prefill", "decode")):
+        a, b = res["cpu"][i], res["cuda"][i]
+        d, sc = float((a - b).abs().max()), float(a.abs().max())
+        if not torch.equal(a.argmax(-1), b.argmax(-1)) or d > 2e-2 * sc:
+            raise AssertionError(f"reduced mamba2 {what}: card vs cpu max diff {d} (scale {sc})")
+        out[f"{what}_max_abs"], out[f"{what}_logit_scale"] = d, sc
+    print(f"   reduced mamba2, card (kernels) vs CPU (plain): prefill max |diff| "
+          f"{out['prefill_max_abs']:.3g} of {out['prefill_logit_scale']:.3g}, decode "
+          f"{out['decode_max_abs']:.3g} of {out['decode_logit_scale']:.3g}, argmax equal")
+    return out
+
+
+def serve_mamba2(torch, ctx, cfg) -> dict:
+    """mamba2-2.7b at full width (random f32 weights, seed 0): ``Engine``
+    with 4 prompts of 64 tokens and 16 greedy steps, one decode step's
+    profile, then the ragged 8-request trace through
+    ``ContinuousBatchingEngine`` under ``fused_int8`` (the path whose
+    launch counts the ``kernels`` line reports for B6 and the norm) and
+    under ``ref_int8``; exact launch counts on every run."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import Engine
+
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0}
+    torch.cuda.reset_peak_memory_stats()
+    rt = Runtime("fused_int8")
+    eng = Engine(cfg=cfg, params=params, rt=rt, max_len=128)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, device="cuda")
+    eng.generate({"inputs": prompts}, steps=1)                # warm-up
+    steps = 16
+    reset_launch_counts()
+    toks, tm = eng.generate({"inputs": prompts}, steps=steps)
+    counts = launch_counts()
+    want = want_launches(cfg, steps, [prompts.shape[1]], None)
+    if counts != want:
+        raise AssertionError(f"Engine launch counts {counts} != {want}")
+    if tuple(toks.shape) != (4, steps) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"bad tokens {tuple(toks.shape)}")
+    out["engine"] = {"prefill_s": tm["prefill_s"], "tpot_s": tm["tpot_s"],
+                     "decode_s": tm["decode_s"], "launches": counts,
+                     "tokens_row0": toks[0].tolist()}
+    print(f"   Engine: init {out['init_s']:.1f} s, prefill {tm['prefill_s'] * 1e3:.1f} ms, "
+          f"TPOT {tm['tpot_s'] * 1e3:.2f} ms, launches {counts}")
+    logits0, state = M.prefill(params, cfg, {"inputs": prompts}, 128, rt)
+    if tuple(logits0.shape) != (4, cfg.vocab_size) or not bool(torch.isfinite(logits0).all()):
+        raise AssertionError(f"prefill logits {tuple(logits0.shape)} not finite")
+    tok = torch.argmax(logits0, -1).to(torch.int32)
+    try:        # a measurement, not a check: a profiler fault is recorded
+        out["decode_profile"] = profile_step(
+            torch, lambda: M.decode_step(eng.qparams, cfg, clone_state(state), tok, rt))
+    except Exception as e:  # noqa: BLE001
+        out["decode_profile"] = {"error": f"{type(e).__name__}: {e}"}
+        print(f"   profile failed: {out['decode_profile']['error']}")
+    del eng, state
+    torch.cuda.empty_cache()
+
+    outputs = {}
+    for backend in ("fused_int8", "ref_int8"):
+        cb, reqs, wall, counts = serve(torch, cfg, params, {}, None, backend)
+        rec = dict(serve_record(reqs, wall, cfg), launches=counts, stats=dict(cb.stats))
+        outputs[backend] = [list(r.output) for r in reqs]
+        if backend == "fused_int8":
+            ctx["ssd_chunk_launches"] = counts["ssd_chunk"]
+            ctx["rms_norm_launches"] = counts["rms_norm"]
+            rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            for r in rec["requests"]:
+                print(f"   req {r['rid']}: prompt {r['prompt']:3d} -> {r['tokens']:2d} tokens, "
+                      f"TTFT {r['ttft_s'] * 1e3:7.1f} ms, TPOT {r['tpot_s'] * 1e3:6.1f} ms")
+        else:
+            same = [a == b for a, b in zip(outputs["fused_int8"], outputs["ref_int8"])]
+            rec["same_as_fused_int8"] = sum(same)
+            rec["first_divergence"] = [
+                next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                for a, b in zip(outputs["fused_int8"], outputs["ref_int8"])]
+        print(f"   {backend}: served {rec['tokens_served']} tokens in {wall:.2f} s "
+              f"({rec['tokens_per_s']:.1f} tokens/s), {cb.stats['decode_steps']} decode steps, "
+              f"launches {counts}"
+              + (f"; requests equal to fused_int8's: {rec['same_as_fused_int8']} of "
+                 f"{len(reqs)} (first divergence {rec['first_divergence']})"
+                 if backend == "ref_int8" else
+                 f"; peak memory {rec['max_memory_allocated'] / 1e9:.2f} GB"))
+        out[backend] = rec
+        del cb, reqs
+        torch.cuda.empty_cache()
+    del params
+    return out
+
+
+def phase_ssm(torch, ctx, build: dict | None) -> dict:
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    ctx.pop("params", None)                   # llama3-8b's f32 weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = registry.get("mamba2-2.7b")
+    ptxas = (build or {}).get("ptxas", {})
+    return {"ptxas": {k: ptxas.get(k) for k in ("ssd_chunk", "rms_norm")},
+            "ssd_chunk": ssd_kernel_checks(torch, ssd),
+            "rms_norm": rms_norm_checks(torch, rn),
+            "ssd_forward": ssd_forward_check(torch, cfg),
+            "reduced": reduced_ssm(torch, cfg),
+            "full_width": serve_mamba2(torch, ctx, cfg)}
 
 
 def main() -> int:
@@ -949,10 +1335,12 @@ def main() -> int:
             s.phase("verify", lambda: phase_verify(torch, ctx, da, va, vt, quant))
         else:
             s.failures.append("serve, verify: skipped, the engine phase made no params")
+        s.phase("ssm", lambda: phase_ssm(torch, ctx, s.record.get("build")))
 
     kernels = []
     lin, att = s.record.get("linears", {}), s.record.get("attention", {})
     ver = s.record.get("verify", {}).get("kernels", {})
+    ssm = s.record.get("ssm", {})
     main = ctx.get("main_launches", {})
     for name, src, replaces, rec, launches in (
             ("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
@@ -969,7 +1357,13 @@ def main() -> int:
              ctx.get("verify_attn_launches")),
             ("verify_tree_attn", "src/repro_torch/csrc/decode_attn.cu",
              "src/repro/kernels/decode_attn/kernel.py:217", ver.get("verify_tree_attn"),
-             ctx.get("verify_tree_attn_launches"))):
+             ctx.get("verify_tree_attn_launches")),
+            ("ssd_chunk", "src/repro_torch/csrc/ssd_chunk.cu",
+             "src/repro/kernels/ssm_scan/kernel.py:61", ssm.get("ssd_chunk"),
+             ctx.get("ssd_chunk_launches")),
+            ("rms_norm", "src/repro_torch/csrc/rms_norm.cu",
+             "src/repro/models/layers.py apply_norm (jnp; no Pallas kernel)",
+             ssm.get("rms_norm"), ctx.get("rms_norm_launches"))):
         if rec is None or not launches:
             s.failures.append(f"{name}: no measurement or no launch on its path")
             continue

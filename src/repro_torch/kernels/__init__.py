@@ -14,7 +14,7 @@ import importlib
 import torch
 
 KERNELS = ("int8_matmul", "pim_mvm", "decode_attn", "verify_attn",
-           "verify_tree_attn")
+           "verify_tree_attn", "ssd_chunk", "rms_norm")
 
 
 def _module(name: str):

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.core import quant
 from repro_torch.kernels import int8_matmul as mm_ops
 from repro_torch.kernels import pim_mvm as pim_ops
+from repro_torch.kernels import rms_norm as norm_ops
 
 Params = dict[str, Any]
 
@@ -77,16 +78,20 @@ def norm_init(d: int, norm_type: str = "rmsnorm",
 
 
 def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Controller op (fp32 'ARM-core' path): always computed in fp32."""
-    xf = x.to(torch.float32)
+    """Controller op (fp32 'ARM-core' path): always computed in fp32.
+
+    RMSNorm runs the row-invariant kernel (``kernels/rms_norm.py``) on CUDA
+    tensors under every backend, so a row normalises to the same bits
+    whatever rows share the call; on CPU tensors its plain version (this
+    function's formula).  LayerNorm (``"bias" in p``) stays plain: no ported
+    model uses it."""
     if "bias" in p:
+        xf = x.to(torch.float32)
         mu = xf.mean(dim=-1, keepdim=True)
         var = xf.var(dim=-1, keepdim=True, unbiased=False)
         y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
-    else:
-        ms = (xf * xf).mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + eps) * p["scale"]
-    return y.to(x.dtype)
+        return y.to(x.dtype)
+    return norm_ops.rms_norm(x, p["scale"], eps).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

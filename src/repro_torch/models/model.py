@@ -1,8 +1,9 @@
 """Model facade: the entry points the serve engines call.
 
 PyTorch counterpart of the ``repro.models.model`` facades that the plain
-decode path and the speculative lanes use.  Families other than dense GQA
-decoders raise until their slice is ported (ROADMAP A.11).
+decode path and the speculative lanes use, for dense GQA decoders and SSM
+(Mamba2) stacks; other families raise until their slice is ported (ROADMAP
+A.11), and ``verify_step`` raises for SSM stacks, as in the reference.
 """
 from __future__ import annotations
 

@@ -1,10 +1,13 @@
-"""Decoder-LM assembly for the dense GQA family.
+"""Decoder-LM assembly for the dense GQA and SSM (Mamba2) families.
 
 PyTorch counterpart of ``repro.models.transformer``.  Layers are a per-layer
-list (``params["layers"]``), not the reference's stacked ``lax.scan``; the
-decode state is a per-layer list of int8 "SLC" caches that every step
-updates **in place** (the reference donates its state to the same effect).
-The decode path is the paper's technique: every static linear can run W8A8
+list (``params["layers"]``), not the reference's stacked ``lax.scan``, and
+each layer dispatches on ``cfg.layer_kind(i)``.  The decode state is a
+per-layer list: an attention layer's int8 "SLC" cache, which every step
+updates **in place** (the reference donates its state to the same effect),
+or an SSM layer's constant-size recurrent state (``conv_x``, ``conv_B``,
+``conv_C``, ``h``), whose leaves each step replaces in the same dict.  The
+decode path is the paper's technique: every static linear can run W8A8
 ("QLC region"), attention runs against the int8 cache, and norms and softmax
 are fp32 "controller ops".
 """
@@ -21,6 +24,7 @@ from repro_torch.core.quant import quantize_kv
 from repro_torch.device import resolve
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 Params = dict[str, Any]
 BACKENDS = ("dense", "ref_int8", "fused_int8", "pim_bitserial")
@@ -37,13 +41,23 @@ class Runtime:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense GQA decoders with RoPE so far."""
-    if (cfg.family != "dense" or cfg.attn_type != "gqa"
-            or cfg.n_experts or not cfg.rope_theta
-            or cfg.input_mode != "tokens"):
+    """The port serves dense GQA decoders with RoPE and attention-free SSM
+    (Mamba2) stacks so far."""
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders with RoPE are ported so far "
-            "(other families: ROADMAP A.11)")
+            f"{cfg.name}: hybrid SSM/attention stacks wait on models/moe.py "
+            "(ROADMAP A.11)")
+    dense = (cfg.family == "dense" and cfg.attn_type == "gqa"
+             and bool(cfg.rope_theta))
+    ssm = cfg.family == "ssm" and cfg.attn_type == "none" and not cfg.d_ff
+    if not (dense or ssm) or cfg.n_experts or cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: only dense GQA decoders with RoPE and SSM stacks are "
+            "ported so far (other families: ROADMAP A.11)")
+
+
+def has_ssm(cfg: ModelConfig) -> bool:
+    return any(cfg.layer_kind(i) == "ssm" for i in range(cfg.n_layers))
 
 
 # ---------------------------------------------------------------------------
@@ -51,8 +65,11 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 def init_layer(gen: torch.Generator, cfg: ModelConfig, i: int,
                dtype=torch.float32) -> Params:
-    p: Params = {"ln1": L.norm_init(cfg.d_model, cfg.norm_type, gen.device),
-                 "attn": A.attn_init(gen, cfg, dtype)}
+    p: Params = {"ln1": L.norm_init(cfg.d_model, cfg.norm_type, gen.device)}
+    if cfg.layer_kind(i) == "ssm":
+        p["ssm"] = SSM.ssm_init(gen, cfg, dtype)
+    else:
+        p["attn"] = A.attn_init(gen, cfg, dtype)
     if cfg.d_ff:
         p["ln2"] = L.norm_init(cfg.d_model, cfg.norm_type, gen.device)
         p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
@@ -90,17 +107,22 @@ def _lm_head(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime) -> torch
 # ---------------------------------------------------------------------------
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device: str | torch.device = "cuda") -> dict:
-    """Per-layer int8 K/V caches ([B, S, H_kv, D] + [B, S, H_kv, 1] scales)
-    and the [B] per-slot position vector."""
+    """Per layer, an int8 K/V cache ([B, S, H_kv, D] + [B, S, H_kv, 1]
+    scales) or an SSM layer's zero recurrent state; and the [B] per-slot
+    position vector."""
     check_supported(cfg)
     dev = resolve(device)
     kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     sc = (batch, max_len, cfg.n_kv_heads, 1)
-    layers = [{"k_q": torch.zeros(kv, dtype=torch.int8, device=dev),
-               "k_s": torch.zeros(sc, dtype=torch.float32, device=dev),
-               "v_q": torch.zeros(kv, dtype=torch.int8, device=dev),
-               "v_s": torch.zeros(sc, dtype=torch.float32, device=dev)}
-              for _ in range(cfg.n_layers)]
+
+    def layer(i):
+        if cfg.layer_kind(i) == "ssm":
+            return SSM.init_ssm_state(cfg, batch, dev)
+        return {"k_q": torch.zeros(kv, dtype=torch.int8, device=dev),
+                "k_s": torch.zeros(sc, dtype=torch.float32, device=dev),
+                "v_q": torch.zeros(kv, dtype=torch.int8, device=dev),
+                "v_s": torch.zeros(sc, dtype=torch.float32, device=dev)}
+    layers = [layer(i) for i in range(cfg.n_layers)]
     return {"layers": layers,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
@@ -110,7 +132,8 @@ def write_slot(state: dict, slot: int, one: dict) -> dict:
     pooled multi-slot state, in place — the admission step of continuous
     batching.  The slot index clamps to the pool like the reference's
     ``dynamic_update_slice``; the row's cache may be shorter than the pool's
-    (it lands at rows ``[0, S_row)``)."""
+    (it lands at rows ``[0, S_row)``).  SSM leaves have no sequence axis and
+    land whole."""
     B = state["pos"].shape[0]
     s = min(max(int(slot), 0), B - 1)
     for full, row in zip(state["layers"], one["layers"]):
@@ -136,9 +159,15 @@ def read_slot(state: dict, slot: int) -> dict:
 
 def apply_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
                        cache: dict, rt: Runtime) -> torch.Tensor:
+    """One layer of the decode step; an attention layer appends to its cache
+    in place, an SSM layer replaces its state's leaves in ``cache``."""
     h = L.apply_norm(p["ln1"], x)
-    mix, _ = A.gqa_decode(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
-                          cache["v_q"], cache["v_s"], rt.backend)
+    if "ssm" in p:
+        mix, new = SSM.ssm_decode(p["ssm"], cfg, h, cache, rt.backend)
+        cache.update(new)
+    else:
+        mix, _ = A.gqa_decode(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
+                              cache["v_q"], cache["v_s"], rt.backend)
     x = x + mix
     if "mlp" in p:
         x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x), cfg.mlp_type,
@@ -200,7 +229,14 @@ def verify_step(p: Params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
     committed token; bit j of ``anc[b, i]`` set iff node j is an
     ancestor-or-self of node i); positions come from tree depth, masks from
     ancestry.  The caller commits the accepted root-path with
-    :func:`tree_commit`."""
+    :func:`tree_commit`.
+
+    Attention stacks only: an SSM layer's recurrent state cannot be rewound
+    without checkpointing, so SSM engines keep the one-token decode loop."""
+    if has_ssm(cfg):
+        raise NotImplementedError(
+            "speculative verify needs a rewindable cache; SSM stacks keep the "
+            "one-token decode path (see serve engine)")
     B, T = tokens.shape
     pos = state["pos"].to(torch.int32).reshape(-1).expand(B)
     x = _embed(p, cfg, tokens)
@@ -247,7 +283,11 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
     attention masks each row's keys to its own prefix, logits are gathered
     at each row's last real token, and the state carries per-slot
     positions.  K/V are quantized into the int8 cache at rows ``[0, T)``
-    (padded rows included; decode masks and then overwrites them)."""
+    (padded rows included; decode masks and then overwrites them).  An SSM
+    layer runs the chunked SSD over all T tokens and hands its final
+    recurrent state to decode (the engine prefills SSM stacks at exact
+    length); under ``fused_int8`` its intra-chunk part runs B6, under every
+    other backend the tensor path, as attention takes B2 by the same rule."""
     x = _embed(p, cfg, inputs)
     B, T = x.shape[:2]
     if T > max_len:
@@ -260,12 +300,18 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
     state = init_decode_state(cfg, B, max_len, dev)
     for lp, cache in zip(p["layers"], state["layers"]):
         h = L.apply_norm(lp["ln1"], x)
-        mix, (k, v) = A.gqa_forward(lp["attn"], cfg, h, positions, rt.backend,
-                                    lengths=lengths)
-        k_q, k_s = quantize_kv(k)
-        v_q, v_s = quantize_kv(v)
-        for name, val in (("k_q", k_q), ("k_s", k_s), ("v_q", v_q), ("v_s", v_s)):
-            KV.chunk_update(cache[name], val, 0)
+        if "ssm" in lp:
+            mix, new = SSM.ssm_forward(lp["ssm"], cfg, h, backend=rt.backend,
+                                       return_state=True,
+                                       use_kernel=rt.backend == "fused_int8")
+            cache.update(new)
+        else:
+            mix, (k, v) = A.gqa_forward(lp["attn"], cfg, h, positions, rt.backend,
+                                        lengths=lengths)
+            k_q, k_s = quantize_kv(k)
+            v_q, v_s = quantize_kv(v)
+            for name, val in (("k_q", k_q), ("k_s", k_s), ("v_q", v_q), ("v_s", v_s)):
+                KV.chunk_update(cache[name], val, 0)
         x = x + mix
         if "mlp" in lp:
             x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], x),

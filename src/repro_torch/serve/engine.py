@@ -15,9 +15,16 @@ quantized in the int8 SLC cache; decode loops the W8A8 PIM path.
   every decode step is a speculative verify step instead: a drafter
   proposes tokens per slot, one batched verify pass scores them, each slot
   commits its accepted prefix (or root-path) plus one token of its own,
-  and the cursors roll back over the rejected rows.  A verify row scores
-  exactly as the sequential decode step would, so greedy speculation emits
-  the plain lane's streams.
+  and the cursors roll back over the rejected rows.  A linear verify row
+  scores exactly as the sequential decode step would (a tree row past a
+  skipped sibling up to the attention's summation order, as in the
+  reference), so greedy speculation emits the plain lane's streams.
+
+An SSM stack prefills at exact length (no bucket: padding would run
+through the recurrent state) and keeps the one-token decode loop: its
+state cannot rewind, so ``spec_k``, ``spec_tree``, ``chunk``,
+``multi_step`` and the prefix cache are silently off there, as in the
+reference.
 
 The pool updates in place (the reference donates it); greedy tokens are
 argmax'd on the device and only [n_slots] (verify: [n_slots, T]) int32
@@ -138,15 +145,6 @@ class ContinuousBatchingEngine:
                  drafter: str | Drafter | None = "ngram", multi_step: int = 1,
                  prefix_cache: bool = False, kv_swap: bool = False,
                  faults: Any = None, device: str | torch.device = "cuda"):
-        for what, on, item in (("chunked prefill (chunk)", chunk is not None, "A.7"),
-                               ("fused multi-step decode", multi_step != 1, "A.9"),
-                               ("the prefix cache", prefix_cache, "A.10"),
-                               ("the tiered KV pool (kv_swap)", kv_swap, "A.10"),
-                               ("fault injection (faults)", faults, "A.10")):
-            if on:
-                raise _not_ported(what, item)
-        if not (policy in (None, "fifo") or isinstance(policy, FIFOPolicy)):
-            raise _not_ported(f"scheduling policy {policy!r}", "A.7")
         if spec_k < 0:
             raise ValueError("spec_k must be >= 0 (0 = no speculation)")
         if spec_tree < 0:
@@ -158,6 +156,20 @@ class ContinuousBatchingEngine:
             raise ValueError("spec_tree must be <= 30 (int32 ancestor mask)")
         if spec_branch < 1:
             raise ValueError("spec_branch must be >= 1")
+        self._has_ssm = T.has_ssm(cfg)
+        if self._has_ssm:
+            # an SSM stack's recurrent state cannot rewind or restart
+            # mid-prompt: these lanes are silently off, as in the reference
+            chunk, multi_step, prefix_cache, spec_k, spec_tree = None, 1, False, 0, 0
+        for what, on, item in (("chunked prefill (chunk)", chunk is not None, "A.7"),
+                               ("fused multi-step decode", multi_step != 1, "A.9"),
+                               ("the prefix cache", prefix_cache, "A.10"),
+                               ("the tiered KV pool (kv_swap)", kv_swap, "A.10"),
+                               ("fault injection (faults)", faults, "A.10")):
+            if on:
+                raise _not_ported(what, item)
+        if not (policy in (None, "fifo") or isinstance(policy, FIFOPolicy)):
+            raise _not_ported(f"scheduling policy {policy!r}", "A.7")
         self.device = resolve(device)
         set_float32_precision()
         T.check_supported(cfg)
@@ -259,6 +271,8 @@ class ContinuousBatchingEngine:
 
     # -- admission: prefill into a slot -----------------------------------
     def _bucket(self, n: int) -> int:
+        if self._has_ssm:
+            return n                       # exact: no padding through SSM state
         b = self.prefill_bucket
         return min(self.max_len, -(-n // b) * b)
 
@@ -282,9 +296,10 @@ class ContinuousBatchingEngine:
             self._retire(req, self._now())            # budget of 1 token
 
     def _prefill_into_slot(self, req: Request, toks: np.ndarray, plen: int):
-        batch = {"inputs": torch.from_numpy(toks).to(self.device),
-                 "lengths": torch.tensor([plen], dtype=torch.int32,
-                                         device=self.device)}
+        batch = {"inputs": torch.from_numpy(toks).to(self.device)}
+        if not self._has_ssm:
+            batch["lengths"] = torch.tensor([plen], dtype=torch.int32,
+                                            device=self.device)
         logits, one = M.prefill(self.params, self.cfg, batch, self.max_len, self.rt)
         T.write_slot(self.state, req.slot, one)
         return logits

@@ -8,7 +8,9 @@ no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
 Each kernel is held against its plain PyTorch version on the same CUDA
 inputs: B1 and B5 bit for bit (and B5's int32 sums equal B1's), B2, B3 and
 B4 within ``rtol=3e-5, atol=3e-6``; B3 at one token equals B2, and B4 on a
-chain equals B3, bit for bit.
+chain equals B3, bit for bit; B6 within ``rtol=2e-4, atol=2e-5`` (its
+decay within ``rtol=1e-5``); the RMSNorm kernel within ``rtol=1e-6`` and
+row-invariant bit for bit.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,8 @@ from repro_torch.core import quant
 from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import int8_matmul as mm
 from repro_torch.kernels import launch_counts, pim_mvm as pim, reset_launch_counts
+from repro_torch.kernels import rms_norm as rn
+from repro_torch.kernels import ssd_chunk as ssd
 from repro_torch.kernels import verify_attn as va
 from repro_torch.kernels import verify_tree_attn as vt
 from repro_torch.models import model as M
@@ -100,7 +104,8 @@ def test_engine_runs_the_kernels_and_agrees_with_the_cpu(cuda):
     steps = eng.stats["decode_steps"]
     assert launch_counts() == {"int8_matmul": 7 * cfg.n_layers * steps,
                                "pim_mvm": 0, "decode_attn": cfg.n_layers * steps,
-                               "verify_attn": 0, "verify_tree_attn": 0}
+                               "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
+                               "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts))}
     assert [len(o) for o in got] == budgets
     assert [o[0] for o in got] == [o[0] for o in want]     # prefill: float only
 
@@ -178,7 +183,8 @@ def test_spec_engine_runs_the_verify_kernels(cuda, lane):
     steps = eng.stats["verify_steps"]
     attn = "verify_tree_attn" if "spec_tree" in lane else "verify_attn"
     want = {"int8_matmul": 7 * cfg.n_layers * steps, "pim_mvm": 0, "decode_attn": 0,
-            "verify_attn": 0, "verify_tree_attn": 0}
+            "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
+            "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts))}
     want[attn] = cfg.n_layers * steps
     assert steps == eng.stats["decode_steps"] > 0 and launch_counts() == want
     assert [len(o) for o in got] == budgets
@@ -210,3 +216,87 @@ def test_verify_rows_equal_sequential_decode_on_the_card(cuda):
     for cv, cd in zip(sv["layers"], sd["layers"]):
         for k in cv:
             assert torch.equal(cv[k], cd[k]), k
+
+
+def _ssd_inputs(N, Q, H, dh, S, seed, device):
+    """The reference test's input distribution (``tests/test_kernels_ssm.py``)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g)
+    args = (normal(N, Q, H, dh), normal(N, Q, H, S) * 0.5, normal(N, Q, H, S) * 0.5,
+            torch.nn.functional.softplus(normal(N, Q, H)), -torch.exp(normal(H) * 0.3),
+            torch.ones(H), normal(N, H, dh, S) * 0.1)
+    return [a.to(device).contiguous() for a in args]
+
+
+@pytest.mark.parametrize("N,Q,H,dh,S", [(4, 128, 80, 64, 128), (1, 37, 80, 64, 128),
+                                        (2, 1, 80, 64, 128), (3, 33, 2, 16, 8)])
+def test_ssd_chunk_matches_plain(cuda, N, Q, H, dh, S):
+    """B6 at mamba2-2.7b's full-width shapes (80 heads of 64, state 128), at
+    a whole chunk, a prompt-length chunk and one token, and at an odd Q."""
+    args = _ssd_inputs(N, Q, H, dh, S, N * Q + H, cuda)
+    reset_launch_counts()
+    y, s_out, dec = ssd.ssd_chunk(*args)
+    assert launch_counts()["ssd_chunk"] == 1
+    py, ps, pd = ssd.ssd_chunk_plain(*args)
+    torch.testing.assert_close(y, py, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(s_out, ps, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(dec, pd, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("d", [128, 256, 2560, 4096, 5120])
+def test_rms_norm_matches_plain_and_is_row_invariant(cuda, d):
+    """Within ``rtol=1e-6`` of the plain version, and each row's output the
+    same bits whether the call holds 4, 20 or 124 rows."""
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn((124, d), generator=g).to(cuda)
+    scale = torch.randn((d,), generator=g).to(cuda)
+    reset_launch_counts()
+    full = rn.rms_norm(x, scale)
+    assert launch_counts()["rms_norm"] == 1
+    torch.testing.assert_close(full, rn.rms_norm_plain(x, scale), rtol=1e-6, atol=0)
+    for m in (4, 20):
+        parts = torch.cat([rn.rms_norm_cuda(x[i:i + m], scale) for i in range(0, 124, m)])
+        assert torch.equal(parts, full), m
+    assert torch.equal(rn.rms_norm_cuda(x[:20].reshape(4, 5, d), scale).reshape(20, d), full[:20])
+
+
+def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
+    """mamba2 reduced under ``fused_int8``: prefill (B6 once per layer and
+    chunk) and decode (B1 three times per layer) on the card within 2% of
+    the logit scale of the CPU's plain versions, argmax equal; then both
+    engines serve on the card, every request to its budget."""
+    cfg = registry.get("mamba2-2.7b").reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    qparams = quantize_tree(params)
+    rt = Runtime("fused_int8")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 150), generator=torch.Generator().manual_seed(1))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p, q = convert.to_device(params, dev), convert.to_device(qparams, dev)
+        reset_launch_counts()
+        lg0, st = M.prefill(p, cfg, {"inputs": prompts.to(dev)}, 256, rt)
+        lg1, _ = M.decode_step(q, cfg, st, torch.argmax(lg0, -1).to(torch.int32), rt)
+        res[dev] = (lg0.cpu(), lg1.cpu(), launch_counts())
+    L = cfg.n_layers
+    assert res["cpu"][2] == {k: 0 for k in res["cpu"][2]}
+    assert res["cuda"][2] == {"int8_matmul": 3 * L, "pim_mvm": 0, "decode_attn": 0,
+                              "verify_attn": 0, "verify_tree_attn": 0,
+                              "ssd_chunk": 2 * L, "rms_norm": 2 * (2 * L + 1)}
+    for a, b in zip(res["cpu"][:2], res["cuda"][:2]):
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+        assert float((a - b).abs().max()) <= 2e-2 * float(a.abs().max())
+    gparams = convert.to_device(params, cuda)
+    rng = np.random.default_rng(0)
+    trace = [rng.integers(0, cfg.vocab_size, rng.integers(4, 20)).tolist() for _ in range(6)]
+    budgets = [int(rng.integers(4, 13)) for _ in range(6)]
+    reset_launch_counts()
+    eng = ContinuousBatchingEngine(cfg, gparams, n_slots=2, max_len=64, rt=rt)
+    got = eng.generate_all(trace, budgets)
+    steps = eng.stats["decode_steps"]
+    assert launch_counts() == {"int8_matmul": 3 * L * steps, "pim_mvm": 0, "decode_attn": 0,
+                               "verify_attn": 0, "verify_tree_attn": 0,
+                               "ssd_chunk": L * len(trace),
+                               "rms_norm": (2 * L + 1) * (steps + len(trace))}
+    assert [len(o) for o in got] == budgets

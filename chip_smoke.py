@@ -15,7 +15,8 @@ Phases (any failure makes the script exit non-zero):
    rtol=3e-5, atol=3e-6), B5's int32 sums against B1's, CUDA-event times
    beside the plain version's, a library call's where one computes the same
    function, and the bound (the larger of bytes / 3.35 TB/s and operations
-   / the type's peak);
+   / the type's peak); B1 also at the verify M (20, 28) and at mamba2-2.7b's
+   linears, and its device operations a call (one kernel, gated);
 3. ``Engine`` at full width (llama3-8b, random f32 weights from a seeded
    ``torch.Generator``) under ``fused_int8``: 4 prompts of 64 tokens, 16
    greedy steps, with the launch counts that show B1 and B2 ran; one decode
@@ -38,7 +39,8 @@ Phases (any failure makes the script exit non-zero):
    window's K/V entries equal sequential decode's in every layer;
 6. ``ssm``: mamba2-2.7b (64 layers, d 2560, 80 SSM heads of 64, state 128,
    vocab 50280) after llama3-8b's parameters are freed.  B6 (``ssd_chunk``)
-   against its plain version at full width (Q 128, 37 and 1) with its time,
+   against its plain version at full width (Q 128, 37, 1 and 33; B and C
+   per group, as the model passes them) with its time,
    bound and ``ptxas`` line, and the RMSNorm kernel's; ``ssd_forward`` over
    two chunks against the model's chunked tensor path; the reduced config
    on the card against the CPU; and the full-width model served by
@@ -67,6 +69,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor rate
 FP32_FLOPS_PER_S = 67e12       # float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor rate
 L2_BYTES = 50e6
 
 
@@ -160,6 +163,16 @@ def phase_build(torch, build) -> dict:
         for ln in keep:
             print(f"   {name}: {ln}")
     print(f"   built {sorted(logs)} in {out['build_s']:.1f} s")
+    # the two kernels' dynamic shared memory a block at the main path's shapes
+    from repro_torch.kernels import int8_matmul as mm
+    from repro_torch.kernels import ssd_chunk as ssd
+    out["smem_bytes"] = {
+        "int8_matmul": {f"M{m}_K{k}_N{n}": mm.launch_plan(m, k, n, 132).smem_bytes
+                        for m in (4, 28) for k, n in (*LINEAR_SHAPES, *MAMBA2_LINEAR_SHAPES)},
+        "ssd_chunk": {f"Q{q}": ssd.smem_bytes(q, SSD_HEADS, SSD_GROUPS, SSD_HEAD_DIM, SSD_STATE)
+                      for q in (128, 37, 1)}}
+    for name, per in out["smem_bytes"].items():
+        print(f"   {name}: dynamic shared memory a block {per}")
     return out
 
 
@@ -167,8 +180,11 @@ LINEAR_SHAPES = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2, (14336, 409
 
 
 def phase_linears(torch, mm, pim, quant) -> dict:
-    """B1 and B5 at M = 4 over one layer's linears (wq, wo: 4096x4096;
-    wk, wv: 4096x1024; w_up, w_gate: 4096x14336; w_down: 14336x4096)."""
+    """B1 and B5 at M = 4 over one llama3-8b layer's linears (wq, wo:
+    4096x4096; wk, wv: 4096x1024; w_up, w_gate: 4096x14336; w_down:
+    14336x4096); B1's device operations a call; B1 per llama layer at the
+    verify M (20, 28) and per mamba2-2.7b layer at M 4 (w_z, w_x:
+    2560x5120; out_proj: 5120x2560)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     M = 4
     res = {"shapes": [], "int8_matmul": {}, "pim_mvm": {}}
@@ -180,6 +196,7 @@ def phase_linears(torch, mm, pim, quant) -> dict:
                     torch.rand((N,), generator=g, device="cuda") * 0.01 + 1e-3)
         x_q, x_s, w_q, w_s = make()
         out_k, acc_k = mm.int8_matmul_cuda(x_q, x_s, w_q, w_s)
+        out_n, _ = mm.int8_matmul_cuda(x_q, x_s, w_q, w_s, with_acc=False)
         out_p, acc_p = mm.int8_matmul_plain(x_q, x_s, w_q, w_s)
         w_hi, w_lo = quant.pack_qlc(w_q)
         out5, acc5 = pim.pim_mvm_cuda(x_q, x_s, w_hi, w_lo, w_s)
@@ -187,6 +204,7 @@ def phase_linears(torch, mm, pim, quant) -> dict:
         torch.cuda.synchronize()
         checks = {"b1_acc_eq_plain": torch.equal(acc_k, acc_p),
                   "b1_out_eq_plain": torch.equal(out_k, out_p),
+                  "b1_out_without_acc_eq_plain": torch.equal(out_n, out_p),
                   "b5_acc_eq_b1": torch.equal(acc5, acc_k),
                   "b5_acc_eq_plain": torch.equal(acc5p, acc_k),
                   "b5_out_eq_b1": torch.equal(out5, out_k)}
@@ -201,7 +219,7 @@ def phase_linears(torch, mm, pim, quant) -> dict:
 
         def b5(fn):
             return lambda i: fn(sets[i % n][0], sets[i % n][1], *packed[i % n], sets[i % n][3])
-        t_b1 = timed(torch, lambda i: mm.int8_matmul_cuda(*sets[i % n]), 50)
+        t_b1 = timed(torch, lambda i: mm.int8_matmul_cuda(*sets[i % n], with_acc=False), 50)
         t_b1p = timed(torch, lambda i: mm.int8_matmul_plain(*sets[i % n]), 5)
         t_b5 = timed(torch, b5(pim.pim_mvm_cuda), 10)
         t_b5p = timed(torch, b5(pim.pim_mvm_plain), 3)
@@ -241,8 +259,37 @@ def phase_linears(torch, mm, pim, quant) -> dict:
             "max_abs_err": max(r[f"{prefix}_max_abs_err"] for r in rows),
             "bound_by": max(rows, key=lambda r: r[f"{prefix}_bound_ms"] * r["count_per_layer"])[
                 f"{prefix}_bound_by"]}
-    res["verify_m"] = b1_at_verify_m(torch, mm, g)
+    res["one_call"] = b1_device_ops(torch, mm, g)
+    res["verify_m"] = {M: b1_per_layer(torch, mm, g, M, LINEAR_SHAPES) for M in (20, 28)}
+    res["mamba2"] = b1_per_layer(torch, mm, g, 4, MAMBA2_LINEAR_SHAPES)
     return res
+
+
+def b1_device_ops(torch, mm, g) -> dict:
+    """The device operations of one B1 call on the model path (K 4096,
+    N 1024, M 4 and 20), from ``torch.profiler``: one kernel, no memset, no
+    copy."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for M in (4, 20):
+        args = (torch.randint(-127, 128, (M, 4096), generator=g, device="cuda", dtype=torch.int8),
+                torch.rand((M, 1), generator=g, device="cuda"),
+                torch.randint(-127, 128, (4096, 1024), generator=g, device="cuda",
+                              dtype=torch.int8),
+                torch.rand((1024,), generator=g, device="cuda"))
+        mm.int8_matmul_cuda(*args, with_acc=False)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            mm.int8_matmul_cuda(*args, with_acc=False)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        out[M] = names
+        print(f"   one B1 call at M={M}, K=4096, N=1024: {len(names)} device operation(s) "
+              f"{[n[:48] for n in names]}; plan {mm.launch_plan(M, 4096, 1024, 132)}")
+        if len(names) != 1 or "int8_mm_cluster" not in names[0]:
+            raise AssertionError(f"B1 at M={M} issued {names}, not one kernel")
+    return out
 
 
 def int_mm_ms(torch, xs: list, ws: list) -> tuple:
@@ -268,45 +315,55 @@ def int_mm_ms(torch, xs: list, ws: list) -> tuple:
     return ok[best], f"torch._int_mm, {best} weight (int32 product, no epilogue)", times
 
 
-def b1_at_verify_m(torch, mm, g) -> dict:
-    """B1 at the verify step's M (n_slots x window: 4 x 5 = 20, 4 x 7 = 28)
-    beside ``torch._int_mm`` on the same operands, per layer; B1 tiles M by 4
-    rows a block, so each tile row streams the whole weight again."""
-    out = {}
-    for M in (20, 28):
-        tot = {"b1_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "shapes": []}
-        for (K, N), count in LINEAR_SHAPES.items():
-            def make():
-                return (torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8),
-                        torch.rand((M, 1), generator=g, device="cuda") * 0.01 + 1e-3,
-                        torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8),
-                        torch.rand((N,), generator=g, device="cuda") * 0.01 + 1e-3)
-            sets = copies(torch, make, K * N)
-            n = len(sets)
-            out_k, acc_k = mm.int8_matmul_cuda(*sets[0])
-            out_p, acc_p = mm.int8_matmul_plain(*sets[0])
-            if not (torch.equal(acc_k, acc_p) and torch.equal(out_k, out_p)):
-                raise AssertionError(f"B1 at M={M} K={K} N={N} differs from its plain version")
-            t_b1 = graph_ms(torch, lambda i: mm.int8_matmul_cuda(*sets[i % n]), 50)
-            t_lib, note, layouts = int_mm_ms(torch, [s_[0] for s_ in sets],
-                                             [s_[2] for s_ in sets])
-            b = bound_ms(M * K + 4 * M + 4 * N + 4 * M * N + K * N,
-                         [(2 * M * K * N, INT8_OPS_PER_S)])
-            tot["b1_ms"] += t_b1 * count
-            tot["library_ms"] = (None if t_lib is None or tot["library_ms"] is None
-                                 else tot["library_ms"] + t_lib * count)
-            tot["bound_ms"] += b[0] * count
-            tot["shapes"].append({"K": K, "N": N, "b1_ms": t_b1, "library_ms": t_lib,
-                                  "library": note, "library_layouts_ms": layouts})
-            lib_us = "n/a" if t_lib is None else f"{t_lib * 1e3:.1f}"
-            print(f"   M={M} K={K:5d} N={N:5d}: B1 {t_b1 * 1e3:.1f} us (bound {b[0] * 1e3:.1f}), "
-                  f"library {lib_us} us  [{note}; {layouts}]")
-            del sets
-        out[M] = tot
-        lib = tot["library_ms"]
-        print(f"   M={M} per layer: B1 {tot['b1_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms, "
-              f"library {'n/a' if lib is None else f'{lib:.3f}'} ms")
-    return out
+MAMBA2_LINEAR_SHAPES = {(2560, 5120): 2, (5120, 2560): 1}   # w_z, w_x; out_proj
+
+
+def b1_per_layer(torch, mm, g, M: int, shapes: dict) -> dict:
+    """B1 at M rows over one layer's linears (llama3-8b's at the verify M,
+    n_slots x window = 4 x 5 or 4 x 7; mamba2-2.7b's at M 4), bit-exact
+    against the plain version, beside the plain version's and
+    ``torch._int_mm``'s times (x zero-padded to 32 rows where M <= 16, as
+    the library needs); the output is checked with and without the integer
+    sums (the model path takes none)."""
+    tot = {"b1_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "shapes": []}
+    for (K, N), count in shapes.items():
+        def make():
+            return (torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8),
+                    torch.rand((M, 1), generator=g, device="cuda") * 0.01 + 1e-3,
+                    torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8),
+                    torch.rand((N,), generator=g, device="cuda") * 0.01 + 1e-3)
+        sets = copies(torch, make, K * N)
+        n = len(sets)
+        out_k, acc_k = mm.int8_matmul_cuda(*sets[0])
+        out_n, _ = mm.int8_matmul_cuda(*sets[0], with_acc=False)
+        out_p, acc_p = mm.int8_matmul_plain(*sets[0])
+        if not (torch.equal(acc_k, acc_p) and torch.equal(out_k, out_p)
+                and torch.equal(out_n, out_p)):
+            raise AssertionError(f"B1 at M={M} K={K} N={N} differs from its plain version")
+        t_b1 = graph_ms(torch, lambda i: mm.int8_matmul_cuda(*sets[i % n], with_acc=False), 50)
+        t_plain = graph_ms(torch, lambda i: mm.int8_matmul_plain(*sets[i % n]), 5)
+        xs = [s_[0] if M > 16 else torch.cat([s_[0], s_[0].new_zeros((32 - M, K))])
+              for s_ in sets]
+        t_lib, note, layouts = int_mm_ms(torch, xs, [s_[2] for s_ in sets])
+        b = bound_ms(M * K + 4 * M + 4 * N + 4 * M * N + K * N,
+                     [(2 * M * K * N, INT8_OPS_PER_S)])
+        tot["b1_ms"] += t_b1 * count
+        tot["plain_ms"] += t_plain * count
+        tot["library_ms"] = (None if t_lib is None or tot["library_ms"] is None
+                             else tot["library_ms"] + t_lib * count)
+        tot["bound_ms"] += b[0] * count
+        tot["shapes"].append({"K": K, "N": N, "count_per_layer": count, "b1_ms": t_b1,
+                              "plain_ms": t_plain, "bound_ms": b[0], "library_ms": t_lib,
+                              "library": note, "library_layouts_ms": layouts,
+                              "plan": mm.launch_plan(M, K, N, 132)._asdict()})
+        lib_us = "n/a" if t_lib is None else f"{t_lib * 1e3:.1f}"
+        print(f"   M={M} K={K:5d} N={N:5d}: B1 {t_b1 * 1e3:.1f} us (bound {b[0] * 1e3:.1f}, "
+              f"plain {t_plain * 1e3:.1f}), library {lib_us} us  [{note}; {layouts}]")
+        del sets, xs
+    lib = tot["library_ms"]
+    print(f"   M={M} per layer: B1 {tot['b1_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, "
+          f"plain {tot['plain_ms']:.3f} ms, library {'n/a' if lib is None else f'{lib:.4f}'} ms")
+    return tot
 
 
 def phase_attention(torch, da, quant) -> dict:
@@ -364,24 +421,28 @@ def profile_step(torch, fn, what: str = "decode") -> dict:
         fn()
         torch.cuda.synchronize()
     kernels: dict[str, list] = {}
+    kinds = {"kernel": 0, "memset": 0, "memcpy": 0}
     for e in prof.events():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             k = kernels.setdefault(e.name[:60], [0, 0.0])
             k[0] += 1
             k[1] += e.time_range.elapsed_us()
+            low = e.name.lower()
+            kinds["memset" if "memset" in low else "memcpy" if "memcpy" in low else "kernel"] += 1
     busy = sum(v[1] for v in kernels.values())
     host = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
                   reverse=True)[:8]
     out = {"wall_us": wall_us, "device_busy_us": busy,
            "idle_share": max(0.0, 1 - busy / wall_us),
            "device_kernels": sum(v[0] for v in kernels.values()),
+           "device_events_by_kind": kinds,
            "top_kernels": [{"name": n, "count": c, "us": u} for n, (c, u) in
                            sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]],
            "top_host_ops": [{"name": a.key, "count": a.count,
                              "self_cpu_us": a.self_cpu_time_total} for a in host]}
     print(f"   one {what} step: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {out['idle_share']:.3f}, "
-          f"{out['device_kernels']} device kernels")
+          f"{out['device_kernels']} device events {kinds}")
     for k in out["top_kernels"]:
         print(f"     kernel {k['name']:60s} x{k['count']:4d} {k['us']:9.1f} us")
     for h in out["top_host_ops"]:
@@ -854,22 +915,24 @@ def full_width_parity(torch, ctx, cfg, q, state, toks) -> dict:
 
 
 def decode_margin(torch, cfg, params, qparams, prompt: list, prefix: list,
-                  toks: tuple) -> dict:
-    """The logits that chose output token ``len(prefix)`` of a request in the
-    plain lane, from a single-request rerun of it (the engine's prefill,
-    bucketed to 16 and masked to the prompt, then ``prefix`` fed back one
-    decode step at a time, ``fused_int8``; every stage but the ``lm_head``
-    is row-invariant, so these are the plain lane's logits up to its last
-    bits): the two candidate tokens' logits, their gap and the gap between
-    the best two."""
+                  toks: tuple, backend: str = "fused_int8") -> dict:
+    """The logits that chose output token ``len(prefix)`` of a request in a
+    lane, from a single-request rerun of it under ``backend`` (the engine's
+    prefill, bucketed to 16 and masked to the prompt, or at exact length for
+    an SSM, then ``prefix`` fed back one decode step at a time; every stage
+    but the ``lm_head`` and an SSM's float projections is row-invariant, so
+    these are the lane's logits up to its last bits): the two candidate
+    tokens' logits, their gap, the gap between the best two, and the row."""
     from repro_torch.models import model as M
     from repro_torch.models.transformer import Runtime
 
-    rt = Runtime("fused_int8")
-    padded = prompt + [0] * (-len(prompt) % 16)
-    lg, st = M.prefill(params, cfg, {"inputs": torch.tensor([padded], device="cuda"),
-                                     "lengths": torch.tensor([len(prompt)], dtype=torch.int32,
-                                                             device="cuda")},
+    rt = Runtime(backend)
+    if cfg.family == "ssm":
+        padded, batch = prompt, {}
+    else:
+        padded = prompt + [0] * (-len(prompt) % 16)
+        batch = {"lengths": torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")}
+    lg, st = M.prefill(params, cfg, dict(batch, inputs=torch.tensor([padded], device="cuda")),
                        len(padded) + len(prefix) + 1, rt)
     for tok in prefix:
         lg, st = M.decode_step(qparams, cfg, st, torch.tensor([tok], dtype=torch.int32,
@@ -878,7 +941,8 @@ def decode_margin(torch, cfg, params, qparams, prompt: list, prefix: list,
     top = torch.topk(row, 2).values
     a, b = (float(row[t]) for t in toks)
     return {"tokens": list(toks), "logits": [a, b], "gap": abs(a - b),
-            "top2_gap": float(top[0] - top[1]), "logit_scale": float(row.abs().max())}
+            "top2_gap": float(top[0] - top[1]), "logit_scale": float(row.abs().max()),
+            "argmax": int(row.argmax()), "row": row}
 
 
 def tree_vs_path(torch, cfg, q, state, toks, drafter) -> dict:
@@ -955,9 +1019,10 @@ def phase_verify(torch, ctx, da, va, vt, quant) -> dict:
         margins = {}
         for r, p, f in zip(reqs, plain or [], first or []):
             if f is not None:
-                margins[r.rid] = dict(decode_margin(
-                    torch, cfg, ctx["params"], cb.qparams, r.prompt, p[:f],
-                    (p[f], r.output[f])), index=f)
+                m = decode_margin(torch, cfg, ctx["params"], cb.qparams, r.prompt, p[:f],
+                                  (p[f], r.output[f]))
+                m.pop("row")
+                margins[r.rid] = dict(m, index=f)
         st = cb.stats
         rec = {"lane": lane, "wall_s": wall, "tokens_served": served,
                "verify_steps": st["verify_steps"],
@@ -1010,39 +1075,62 @@ def phase_verify(torch, ctx, da, va, vt, quant) -> dict:
 # phase 6: the SSM slice (mamba2-2.7b, B6)
 # ---------------------------------------------------------------------------
 SSD_HEADS, SSD_HEAD_DIM, SSD_STATE = 80, 64, 128     # mamba2-2.7b at full width
-SSD_SHAPES = ((4, 128), (1, 37), (2, 1))            # (N, Q): a whole chunk, a prompt, a token
+SSD_GROUPS = 1                                       # mamba2-2.7b: one B/C group
+# (N, Q): a whole chunk, a prompt, a token, an odd chunk
+SSD_SHAPES = ((4, 128), (1, 37), (2, 1), (2, 33))
 
 
 def ssd_inputs(torch, g, N: int, Q: int) -> tuple:
     """B6's operands at full width, drawn as the reference's kernel test
-    draws them (``tests/test_kernels_ssm.py``)."""
-    H, dh, S = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE
+    draws them (``tests/test_kernels_ssm.py``), with B and C per group as
+    the model's kernel route passes them."""
+    H, dh, S, G = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_GROUPS
 
     def normal(*shape):
         return torch.randn(shape, generator=g, device="cuda")
-    return (normal(N, Q, H, dh), normal(N, Q, H, S) * 0.5, normal(N, Q, H, S) * 0.5,
+    return (normal(N, Q, H, dh), normal(N, Q, G, S) * 0.5, normal(N, Q, G, S) * 0.5,
             torch.nn.functional.softplus(normal(N, Q, H)), -torch.exp(normal(H) * 0.3),
             torch.ones(H, device="cuda"), normal(N, H, dh, S) * 0.1)
 
 
-def ssd_work(N: int, Q: int) -> tuple[int, int]:
-    """Bytes B6 must move (each input read once, each output written once)
-    and the f32 operations its inputs need: the scores C.B and their decay
-    scale over the causal triangle k <= q only, the scores times x*dt over
-    the same triangle, C*exp(cs) times h_in, the chunk state from B*decay
-    and x*dt, and the elementwise terms."""
+def ssd_work(N: int, Q: int, G: int) -> tuple[int, int, int]:
+    """Bytes B6 must move (each input read once, each output written once,
+    B and C per group of G) and its operations on these inputs: the four
+    products (the scores C.B once per group over the causal triangle
+    k <= q; per head the scores times x*dt over the same triangle, C*exp(cs)
+    times h_in, and the chunk state from B*decay and x*dt) and the
+    elementwise f32 terms (the decay scale over the triangle, C*exp(cs),
+    B*decay, x*dt, the skip D*x and the sums)."""
     H, dh, S = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE
-    n_bytes = 4 * (2 * N * Q * H * dh + 2 * N * Q * H * S + N * Q * H + 2 * H
+    n_bytes = 4 * (2 * N * Q * H * dh + 2 * N * Q * G * S + N * Q * H + 2 * H
                    + 2 * N * H * dh * S + N * H)
     tri = Q * (Q + 1) // 2
-    per_head = (tri * (2 * S + 1) + tri * 2 * dh + Q * S * (1 + 2 * dh)
-                + Q * S * (1 + 2 * dh) + Q * dh * 4)
-    return n_bytes, N * H * per_head
+    products = N * (G * tri * 2 * S + H * (tri * 2 * dh + 2 * Q * S * 2 * dh))
+    elementwise = N * H * (tri + 2 * Q * S + 4 * Q * dh)
+    return n_bytes, products, elementwise
+
+
+def ssd_bound(N: int, Q: int) -> tuple[float, str]:
+    """B6's bound as it is called: B and C per group, the products at the
+    TF32 tensor rate three times over (3xTF32: hi*hi, hi*lo, lo*hi), the
+    elementwise terms at the f32 rate."""
+    n_bytes, products, elementwise = ssd_work(N, Q, SSD_GROUPS)
+    return bound_ms(n_bytes, [(3 * products, TF32_FLOPS_PER_S),
+                              (elementwise, FP32_FLOPS_PER_S)])
+
+
+def ssd_bound_per_head(N: int, Q: int) -> tuple[float, str]:
+    """The per-head count, kept beside it for comparison with the kernel's
+    first design: B and C read for each head and every operation at the
+    f32 rate outside the tensor cores."""
+    n_bytes, products, elementwise = ssd_work(N, Q, SSD_HEADS)
+    return bound_ms(n_bytes, [(products + elementwise, FP32_FLOPS_PER_S)])
 
 
 def ssd_kernel_checks(torch, ssd) -> dict:
-    """B6 against its plain version at N 4 / Q 128, N 1 / Q 37 and N 2 /
-    Q 1 (80 heads of 64, state 128): y and the chunk state within rtol 2e-4
+    """B6 against its plain version at N 4 / Q 128, N 1 / Q 37, N 2 / Q 1
+    and N 2 / Q 33 (80 heads of 64 in one group, state 128): y and the
+    chunk state within rtol 2e-4
     / atol 2e-5, the decay within rtol 1e-5; device time (graph replay),
     eager time, the plain version's time and the bound at each shape."""
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -1059,20 +1147,23 @@ def ssd_kernel_checks(torch, ssd) -> dict:
             torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
                                        msg=lambda m, n=name: f"B6 N={N} Q={Q} {n}: {m}")
         errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-        n_bytes, flops = ssd_work(N, Q)
+        n_bytes, products, elementwise = ssd_work(N, Q, SSD_GROUPS)
         sets = copies(torch, lambda: ssd_inputs(torch, g, N, Q), n_bytes)
         n = len(sets)
         tk = timed(torch, lambda i: ssd.ssd_chunk_cuda(*sets[i % n]), 20)
         tp = timed(torch, lambda i: ssd.ssd_chunk_plain(*sets[i % n]), 5)
-        b = bound_ms(n_bytes, [(flops, FP32_FLOPS_PER_S)])
+        b, b_head = ssd_bound(N, Q), ssd_bound_per_head(N, Q)
         out[f"N{N}_Q{Q}"] = {"N": N, "Q": Q, "ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
                              "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
                              "bound_ms": b[0], "bound_by": b[1], "bytes": n_bytes,
-                             "flops": flops, "max_abs_err": max(errs),
-                             "max_abs_err_y_state_decay": errs}
-        print(f"   B6 N={N} Q={Q:3d} H={SSD_HEADS} dh={SSD_HEAD_DIM} S={SSD_STATE}: {tk['device_ms'] * 1e3:.1f} us device / "
-              f"{tk['eager_ms'] * 1e3:.1f} eager (bound {b[0] * 1e3:.2f} by {b[1]}, "
-              f"{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.1f} MB; plain "
+                             "product_flops": products, "elementwise_flops": elementwise,
+                             "bound_ms_per_head": b_head[0], "bound_by_per_head": b_head[1],
+                             "max_abs_err": max(errs), "max_abs_err_y_state_decay": errs}
+        print(f"   B6 N={N} Q={Q:3d} H={SSD_HEADS} dh={SSD_HEAD_DIM} S={SSD_STATE}: "
+              f"{tk['device_ms'] * 1e3:.1f} us device / {tk['eager_ms'] * 1e3:.1f} eager "
+              f"(bound {b[0] * 1e3:.2f} by {b[1]}: {n_bytes / 1e6:.1f} MB, "
+              f"{products / 1e9:.3f} GFLOP of products as 3xTF32, {elementwise / 1e9:.4f} "
+              f"GFLOP f32; per-head bound {b_head[0] * 1e3:.2f} by {b_head[1]}; plain "
               f"{tp['device_ms'] * 1e3:.1f}); max |err| y {errs[0]:.3g}, state "
               f"{errs[1]:.3g}, decay {errs[2]:.3g}")
         del sets
@@ -1189,13 +1280,150 @@ def reduced_ssm(torch, cfg) -> dict:
     return out
 
 
+def b6_on_trace_prefills(torch, cfg, params) -> dict:
+    """B6 on the ragged trace's own inputs: each prompt prefilled alone under
+    ``fused_int8``, as the continuous engine admits it (exact length, one B6
+    launch per layer and 128-token chunk), with every B6 call repeated
+    through the plain version on the same operands: y and the chunk state
+    within rtol 2e-4 / atol 2e-5, the decay within rtol 1e-5, at the Q the
+    trace gives.  ``tol_used`` is the worst |kernel - plain| / (atol + rtol
+    * |plain|) of each output (at most 1 passes)."""
+    from repro_torch.kernels import ssd_chunk as ssd
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+
+    prompts, _ = serve_trace(cfg.vocab_size)
+    kernel, calls = ssd.ssd_chunk_cuda, []
+    tols = ((2e-4, 2e-5), (2e-4, 2e-5), (1e-5, 0.0))
+
+    def checked(*args):
+        got = kernel(*args)
+        want = ssd.ssd_chunk_plain(*args)
+        used = []
+        for a, b, (rtol, atol) in zip(got, want, tols):
+            diff = (a - b).abs()
+            used.append(float(torch.where(diff > 0, diff / (atol + rtol * b.abs()),
+                                          torch.zeros_like(diff)).max()))
+        calls.append({"Q": args[0].shape[1], "tol_used": used,
+                      "max_abs_err": [float((a - b).abs().max()) for a, b in zip(got, want)]})
+        return got
+    ssd.ssd_chunk_cuda = checked
+    try:
+        for p in prompts:
+            M.prefill(params, cfg, {"inputs": torch.tensor([p], device="cuda")}, len(p) + 1,
+                      Runtime("fused_int8"))
+    finally:
+        ssd.ssd_chunk_cuda = kernel
+    out = {"calls": len(calls), "Q": sorted({c["Q"] for c in calls}),
+           "tol_used_y_state_decay": [max(c["tol_used"][i] for c in calls) for i in range(3)],
+           "max_abs_err_y_state_decay": [max(c["max_abs_err"][i] for c in calls)
+                                         for i in range(3)]}
+    print(f"   B6 against the plain version on the trace's prefills ({out['calls']} calls, "
+          f"Q {out['Q']}): share of the tolerance used, y / state / decay "
+          f"{[f'{u:.3g}' for u in out['tol_used_y_state_decay']]}, max |err| "
+          f"{[f'{e:.3g}' for e in out['max_abs_err_y_state_decay']]}")
+    if max(out["tol_used_y_state_decay"]) > 1:
+        raise AssertionError(f"B6 leaves its tolerance on the trace's prefills: {out}")
+    return out
+
+
+def ssd_amplification(torch, cfg, params, steps: int = 6) -> dict:
+    """How far the full-width model carries a difference far inside B6's
+    tolerance to the logits: each trace prompt prefilled under
+    ``fused_int8`` with B6, with the plain version in its place on the card
+    (the ``ref_int8`` lane's SSD; its int8 GEMM equals B1 bit for bit), and
+    with the plain version's y and state scaled by 1 + 2^-20 (about 1e-6,
+    200x inside rtol 2e-4), then ``steps`` decode steps (W8A8, no B6) fed
+    the plain variant's greedy tokens: at the prefill and after each step,
+    the largest difference of the logits from the plain variant's, beside
+    the logit scale."""
+    from repro_torch.kernels import ssd_chunk as ssd
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.quantize import quantize_tree
+
+    prompts, _ = serve_trace(cfg.vocab_size)
+    qparams = quantize_tree(params)
+    rt = Runtime("fused_int8")
+    kernel, eps = ssd.ssd_chunk_cuda, 2.0 ** -20
+
+    def nudged(*args):
+        y, s_out, decay = ssd.ssd_chunk_plain(*args)
+        return y * (1 + eps), s_out * (1 + eps), decay
+    rows, tokens = {}, []
+    for name, fn in (("plain", ssd.ssd_chunk_plain), ("kernel", kernel), ("nudged", nudged)):
+        ssd.ssd_chunk_cuda = fn
+        try:
+            rows[name] = []
+            for i, p in enumerate(prompts):
+                lg, st = M.prefill(params, cfg, {"inputs": torch.tensor([p], device="cuda")},
+                                   len(p) + steps + 1, rt)
+                seq = [lg[0].float()]
+                if name == "plain":
+                    tokens.append([])
+                for t in range(steps):
+                    if name == "plain":
+                        tokens[i].append(int(seq[-1].argmax()))
+                    tok = torch.tensor([tokens[i][t]], dtype=torch.int32, device="cuda")
+                    lg, st = M.decode_step(qparams, cfg, st, tok, rt)
+                    seq.append(lg[0].float())
+                rows[name].append(seq)
+        finally:
+            ssd.ssd_chunk_cuda = kernel
+    del qparams
+    out = {f"{name}_vs_plain_max_abs": [
+        max(float((a[t] - b[t]).abs().max()) for a, b in zip(rows[name], rows["plain"]))
+        for t in range(steps + 1)] for name in ("kernel", "nudged")}
+    out["logit_scale"] = max(float(r[0].abs().max()) for r in rows["plain"])
+    print(f"   logits against the plain SSD's (8 trace prompts, scale {out['logit_scale']:.3g}), "
+          f"at the prefill and after each of {steps} decode steps: B6 "
+          f"{[f'{d:.3g}' for d in out['kernel_vs_plain_max_abs']]}; plain scaled by 1 + 2^-20 "
+          f"{[f'{d:.3g}' for d in out['nudged_vs_plain_max_abs']]}")
+    return out
+
+
+def divergence_margins(torch, cfg, params, outputs: dict) -> list:
+    """For each request where the ``ref_int8`` lane parts from ``fused_int8``,
+    both lanes' logits at the first differing token from single-request
+    reruns (:func:`decode_margin`): each lane's gap between the two
+    candidates, the fused lane's gap between its best two, and how far the
+    two lanes' logit rows lie apart there."""
+    from repro_torch.serve.quantize import quantize_tree
+
+    prompts, _ = serve_trace(cfg.vocab_size)
+    qparams = quantize_tree(params)
+    res = []
+    for rid, (a, b) in enumerate(zip(outputs["fused_int8"], outputs["ref_int8"])):
+        d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if d is None:
+            continue
+        lanes = {k: decode_margin(torch, cfg, params, qparams, prompts[rid], a[:d],
+                                  (a[d], b[d]), k) for k in ("fused_int8", "ref_int8")}
+        f, r = lanes["fused_int8"], lanes["ref_int8"]
+        rec = {"rid": rid, "token": d, "tokens": [a[d], b[d]],
+               "fused_gap": f["logits"][0] - f["logits"][1],
+               "ref_gap": r["logits"][0] - r["logits"][1],
+               "fused_top2_gap": f["top2_gap"], "logit_scale": f["logit_scale"],
+               "lanes_max_abs_diff": float((f["row"] - r["row"]).abs().max()),
+               "reproduced": f["argmax"] == a[d] and r["argmax"] == b[d]}
+        res.append(rec)
+        print(f"   req {rid} parts at token {d} ({a[d]} vs {b[d]}): gap fused "
+              f"{rec['fused_gap']:.4g}, ref {rec['ref_gap']:.4g} (logit scale "
+              f"{rec['logit_scale']:.3g}); lanes' rows apart by {rec['lanes_max_abs_diff']:.3g};"
+              f" reruns pick the lanes' tokens: {rec['reproduced']}")
+    del qparams
+    return res
+
+
 def serve_mamba2(torch, ctx, cfg) -> dict:
     """mamba2-2.7b at full width (random f32 weights, seed 0): ``Engine``
     with 4 prompts of 64 tokens and 16 greedy steps, one decode step's
     profile, then the ragged 8-request trace through
     ``ContinuousBatchingEngine`` under ``fused_int8`` (the path whose
     launch counts the ``kernels`` line reports for B6 and the norm) and
-    under ``ref_int8``; exact launch counts on every run."""
+    under ``ref_int8``; exact launch counts on every run; then B6 held
+    against the plain version on the trace's own prefills, and both lanes'
+    logits where ``ref_int8`` parts from ``fused_int8``."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import model as M
     from repro_torch.models.transformer import Runtime
@@ -1266,6 +1494,9 @@ def serve_mamba2(torch, ctx, cfg) -> dict:
         out[backend] = rec
         del cb, reqs
         torch.cuda.empty_cache()
+    out["b6_on_trace_prefills"] = b6_on_trace_prefills(torch, cfg, params)
+    out["ssd_amplification"] = ssd_amplification(torch, cfg, params)
+    out["divergence_margins"] = divergence_margins(torch, cfg, params, outputs)
     del params
     return out
 

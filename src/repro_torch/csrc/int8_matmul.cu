@@ -1,144 +1,377 @@
-// B1: W8A8 GEMM for skinny M (decode: M = n_slots), CUDA C++ for sm_90a.
+// B1: W8A8 GEMM for skinny M (decode M = n_slots, verify M = n_slots * T),
+// CUDA C++ for sm_90a.
 //
 // Replaces the TPU kernel src/repro/kernels/int8_matmul/kernel.py
 // (int8_matmul_pallas / _kernel): out[m,n] = (float(acc[m,n]) * x_s[m]) * w_s[n]
 // with acc = sum_k x_q[m,k] * w_q[k,n] accumulated in int32.
 //
-// What bounds it on the H100: at decode M (4) every weight byte is used M
-// times, so the call moves K*N bytes of int8 weight and does 2*M*K*N integer
-// operations -- far below the int8 ridge point, so it is bound by the bytes
-// (4096x14336 = 58.7 MB, about 17.5 us at 3.35 TB/s).
+// What bounds it on the H100: at M <= 32 every weight byte is used at most
+// 32 times, far below the int8 tensor cores' ridge point (about 590
+// operations a byte), so the call is bound by the K*N bytes of weight
+// (4096 x 14336 = 58.7 MB, about 17.5 us at 3.35 TB/s).
 //
-// What the design does about it: the weight is streamed exactly once.
-// Threads walk N in coalesced 16-byte vectors (four rows in flight per
-// thread), a block covers 256 columns x a K-chunk, and the K axis is split
-// across blocks (split-K) so that even N = 1024 puts about four blocks on
-// each of the 132 SMs.  Partial sums meet
-// in an int32 workspace through atomicAdd: integer addition is associative,
-// so the sums are exact and independent of block order, bit for bit equal to
-// the reference's int32 dot.  A second small kernel applies the f32
-// epilogue in the reference's order.  No TPU padding: the K and N tails are
-// masked inside the kernel.  Tensor cores (wgmma s8) are left for a later
-// change; at M = 4 the integer units keep up with the memory stream.
+// What the design does about it:
+// - Int8 tensor cores with the operands swapped: mma.sync m16n8k32 s8 takes
+//   a 16-column tile of the weight (output columns n) as its A operand and
+//   x as its 8-wide B operand, so M 4 pads to one n8 tile and M 32 to four.
+// - The weight keeps its [K, N] layout and streams exactly once for any
+//   M <= 32: a cp.async ring of STAGES stages (BK rows x BN columns each)
+//   feeds the warps, each warp one 32-row slab of a stage.  The K-major A
+//   fragments are built in registers from 8-byte N-major shared-memory
+//   reads by 4x4 byte transposes (prmt).  The K order inside a 32-row slab
+//   is permuted (slot 4t + j holds row 4j + t) so that the four threads of
+//   a quad read four neighbouring rows; with the 16-byte chunks of a row
+//   swizzled by (row & 2) the reads are free of bank conflicts.  x is
+//   staged once per CTA in the same permuted order.  Past 32 rows the block
+//   loops over M in 32-row passes, streaming its weight range once a pass.
+// - One launch a call: K is split across the CTAs of a thread block cluster
+//   (up to 16, non-portable above 8).  The warps of a CTA add their int32
+//   sums into one shared-memory tile; after a cluster barrier each CTA sums
+//   its share of the outputs over every CTA's tile through distributed
+//   shared memory (so each output element is reduced by exactly one CTA)
+//   and applies the f32 epilogue in the reference's order.  No memset, no
+//   atomics in device memory, no second kernel.  int32 addition is exact in
+//   any order (|acc| <= 14336 * 127^2 < 2^31), so the sums equal the plain
+//   version's bit for bit.  The integer sums are written only when asked.
+//   make_plan picks the split from M, K, N and the SM count: the grid holds
+//   two CTAs an SM where K allows, and a CTA's staged x stays small enough
+//   for three CTAs an SM.
+// - The K and N tails are masked inside the kernel (zero-filled copies and
+//   zero x columns), not padded.  16-byte copies need N % 16 == 0 and a
+//   16-byte aligned weight; other N take byte loads, a misaligned weight
+//   base is refused.
+#include <algorithm>
+
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int VEC = 16;           // columns per thread (one 16-byte load)
-constexpr int TX = 16;            // threads along N
-constexpr int TY = 16;            // threads along K (interleaved rows)
-constexpr int TN = TX * VEC;      // 256 columns per block
-constexpr int MT = 4;             // rows of x per block
-constexpr int MIN_ROWS = 64;      // fewest K rows a block streams
+constexpr int BN = 64;                  // output columns per CTA
+constexpr int BK = 128;                 // weight rows per stage: one slab per warp
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGES = 4;
+constexpr int STAGE_BYTES = BK * BN;    // 8 KB
+constexpr int MAX_CLUSTER = 16;
+constexpr int MAX_M_TILES = 4;          // n8 tiles of x a pass: 32 rows
+constexpr int MAX_SMEM = 232448;
+// a CTA's shared memory past which the plan splits K further, so that
+// three CTAs still fit on an SM
+constexpr size_t SMEM_TARGET = 76 * 1024;
 
-__global__ void __launch_bounds__(TX * TY)
-int8_mm_partial(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                int32_t* __restrict__ acc, int M, int K, int N, int k_chunk,
-                bool vec_ok) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int n0 = blockIdx.x * TN + tx * VEC;
-  const int m0 = blockIdx.z * MT;
-  const int k_begin = blockIdx.y * k_chunk;
-  const int k_end = min(K, k_begin + k_chunk);
-  int sum[MT][VEC];
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) sum[mi][j] = 0;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  if (n0 < N) {
-    const bool full = vec_ok && n0 + VEC <= N;
-#pragma unroll 4
-    for (int k = k_begin + ty; k < k_end; k += TY) {
-      const int8_t* wr = w + (size_t)k * N + n0;
-      int wv[VEC];
-      if (full) {
-        const int4 raw = __ldg(reinterpret_cast<const int4*>(wr));
-        const int words[4] = {raw.x, raw.y, raw.z, raw.w};
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 4x4 byte transpose: out[i] byte j = in[j] byte i
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
+                                           uint32_t* o) {
+  const uint32_t lo_ab = __byte_perm(a, b, 0x5140), lo_cd = __byte_perm(c, d, 0x5140);
+  const uint32_t hi_ab = __byte_perm(a, b, 0x7362), hi_cd = __byte_perm(c, d, 0x7362);
+  o[0] = __byte_perm(lo_ab, lo_cd, 0x5410);
+  o[1] = __byte_perm(lo_ab, lo_cd, 0x7632);
+  o[2] = __byte_perm(hi_ab, hi_cd, 0x5410);
+  o[3] = __byte_perm(hi_ab, hi_cd, 0x7632);
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// rows [k0, min(k0 + BK, ke)) x columns [n0, n0 + BN) of w into one stage;
+// row r's 16-byte chunk c lands at chunk c ^ (r & 2), the rest is zero
+template <bool VEC>
+__device__ __forceinline__ void load_stage(int8_t* stage, const int8_t* __restrict__ w,
+                                           int k0, int ke, int n0, int N, int tid) {
 #pragma unroll
-        for (int j = 0; j < VEC; ++j)
-          wv[j] = (int)(int8_t)(words[j / 4] >> (8 * (j % 4)));
-      } else {
+  for (int i = 0; i < BK * BN / 16 / THREADS; ++i) {
+    const int q = tid + i * THREADS, r = q >> 2, c = q & 3;
+    const int k = k0 + r, n = n0 + 16 * c;
+    int8_t* dst = stage + r * BN + ((c ^ (r & 2)) << 4);
+    if (VEC) {
+      const bool ok = k < ke && n < N;
+      cp_async16(dst, ok ? w + (size_t)k * N + n : w, ok ? 16 : 0);
+    } else {
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (k < ke) {
+        const int8_t* row = w + (size_t)k * N;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) wv[j] = (n0 + j < N) ? (int)wr[j] : 0;
+        for (int b = 0; b < 16; ++b)
+          if (n + b < N) v[b >> 2] |= (uint32_t)(uint8_t)__ldg(row + n + b) << (8 * (b & 3));
       }
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        if (m0 + mi < M) {
-          const int xv = __ldg(x + (size_t)(m0 + mi) * K + k);
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) sum[mi][j] += xv * wv[j];
-        }
-      }
-    }
-  }
-
-  // K lanes ty and ty ^ 1 share a warp: fold them by shuffle, then the
-  // remaining TY / 2 lanes through shared memory, then one atomic per
-  // (m, n) per block
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      sum[mi][j] += __shfl_xor_sync(0xffffffffu, sum[mi][j], 16);
-  __shared__ int red[TY / 2][MT][TN];
-  if ((ty & 1) == 0) {
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) red[ty / 2][mi][tx * VEC + j] = sum[mi][j];
-  }
-  __syncthreads();
-  for (int i = ty * TX + tx; i < MT * TN; i += TX * TY) {
-    const int mi = i / TN, c = i % TN;
-    const int m = m0 + mi, n = blockIdx.x * TN + c;
-    if (m < M && n < N) {
-      int s = 0;
-#pragma unroll
-      for (int t = 0; t < TY / 2; ++t) s += red[t][mi][c];
-      atomicAdd(acc + (size_t)m * N + n, s);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
     }
   }
 }
 
-__global__ void int8_mm_epilogue(const int32_t* __restrict__ acc,
-                                 const float* __restrict__ xs,
-                                 const float* __restrict__ ws,
-                                 float* __restrict__ out, int M, int N) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)M * N) return;
-  const int m = (int)(i / N), n = (int)(i % N);
-  out[i] = __fmul_rn(__fmul_rn((float)acc[i], xs[m]), ws[n]);
+template <int MT, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+int8_mm_cluster(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ xs, const float* __restrict__ ws,
+                int32_t* __restrict__ acc_out, float* __restrict__ out, int M, int K,
+                int N, int k_chunk, int xstride) {
+  constexpr int MP = 8 * MT;                     // rows of x per pass
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* ring = reinterpret_cast<int8_t*>(smem);
+  int32_t* part = reinterpret_cast<int32_t*>(smem + STAGES * STAGE_BYTES);
+  int8_t* xsm = reinterpret_cast<int8_t*>(part + MP * BN);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.y * BN;
+  const int kb = blockIdx.x * k_chunk, ke = min(K, kb + k_chunk);
+  const int nst = kb < ke ? (ke - kb + BK - 1) / BK : 0;
+  const bool x_vec = (K % 16 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+
+  for (int m0 = 0; m0 < M; m0 += MP) {
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nst) load_stage<VEC>(ring + s * STAGE_BYTES, w, kb + s * BK, ke, n0, N, tid);
+      cp_async_commit();
+    }
+    for (int i = tid; i < MP * BN; i += THREADS) part[i] = 0;
+    // x rows [m0, m0 + MP) over [kb, kb + nst * BK), zero past M and ke, each
+    // 16-byte group transposed 4x4 so that slot 4t + j holds column 4j + t
+    const int groups = nst * BK / 16;
+    for (int i = tid; i < MP * groups; i += THREADS) {
+      const int m = i / groups, gi = i - m * groups, k = kb + 16 * gi;
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (m0 + m < M) {
+        const int8_t* row = x + (size_t)(m0 + m) * K;
+        if (x_vec && k + 16 <= ke) {
+          const uint4 r = __ldg(reinterpret_cast<const uint4*>(row + k));
+          transpose4(r.x, r.y, r.z, r.w, v);
+        } else {
+#pragma unroll
+          for (int b = 0; b < 16; ++b)
+            if (k + b < ke)   // column 4j + tt goes to slot 4tt + j
+              v[b & 3] |= (uint32_t)(uint8_t)row[k + b] << (8 * (b >> 2));
+        }
+      }
+      *reinterpret_cast<uint4*>(xsm + m * xstride + 16 * gi) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    __syncthreads();
+
+    int c[MT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][j][e] = 0;
+
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      const int sn = s + STAGES - 1;
+      if (sn < nst)
+        load_stage<VEC>(ring + (sn % STAGES) * STAGE_BYTES, w, kb + sn * BK, ke, n0, N, tid);
+      cp_async_commit();
+
+      // this warp's 32-row slab; thread (g, t) holds columns 8g..8g+7 of rows
+      // 4i + t (slots 4t + i) and 16 + 4i + t (slots 16 + 4t + i)
+      const int8_t* slab = ring + (s % STAGES) * STAGE_BYTES + warp * 32 * BN;
+      uint2 lo[4], hi[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r0 = 4 * i + t, r1 = 16 + 4 * i + t;
+        lo[i] = *reinterpret_cast<const uint2*>(slab + r0 * BN + (((g >> 1) ^ (r0 & 2)) << 4) +
+                                                ((g & 1) << 3));
+        hi[i] = *reinterpret_cast<const uint2*>(slab + r1 * BN + (((g >> 1) ^ (r1 & 2)) << 4) +
+                                                ((g & 1) << 3));
+      }
+      // mma j: A row g is column 8g + 2j, A row g + 8 column 8g + 2j + 1
+      uint32_t a[4][4], tr[4];
+      transpose4(lo[0].x, lo[1].x, lo[2].x, lo[3].x, tr);
+      a[0][0] = tr[0]; a[0][1] = tr[1]; a[1][0] = tr[2]; a[1][1] = tr[3];
+      transpose4(lo[0].y, lo[1].y, lo[2].y, lo[3].y, tr);
+      a[2][0] = tr[0]; a[2][1] = tr[1]; a[3][0] = tr[2]; a[3][1] = tr[3];
+      transpose4(hi[0].x, hi[1].x, hi[2].x, hi[3].x, tr);
+      a[0][2] = tr[0]; a[0][3] = tr[1]; a[1][2] = tr[2]; a[1][3] = tr[3];
+      transpose4(hi[0].y, hi[1].y, hi[2].y, hi[3].y, tr);
+      a[2][2] = tr[0]; a[2][3] = tr[1]; a[3][2] = tr[2]; a[3][3] = tr[3];
+      const int8_t* xo = xsm + (s * WARPS + warp) * 32 + 4 * t;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int8_t* xr = xo + (mt * 8 + g) * xstride;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 16);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8(c[mt][j], a[j], b0, b1);
+      }
+    }
+    cp_async_wait<0>();
+
+    // the warps' sums into the CTA's tile part[m][n]
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = mt * 8 + 2 * t, nl = 8 * g + 2 * j;
+        atomicAdd(part + m * BN + nl, c[mt][j][0]);
+        atomicAdd(part + (m + 1) * BN + nl, c[mt][j][1]);
+        atomicAdd(part + m * BN + nl + 1, c[mt][j][2]);
+        atomicAdd(part + (m + 1) * BN + nl + 1, c[mt][j][3]);
+      }
+    cluster.sync();
+
+    // each output element summed over the cluster's tiles by one CTA
+    const int rows = min(MP, M - m0);
+    for (int i = rank * THREADS + tid; i < rows * BN; i += csize * THREADS) {
+      const int m = i / BN, n = n0 + (i - m * BN);
+      if (n >= N) continue;
+      int sum = 0;
+      for (int q = 0; q < csize; ++q) sum += cluster.map_shared_rank(part, q)[i];
+      const size_t o = (size_t)(m0 + m) * N + n;
+      if (acc_out != nullptr) acc_out[o] = sum;
+      out[o] = __fmul_rn(__fmul_rn((float)sum, xs[m0 + m]), ws[n]);
+    }
+    cluster.sync();      // no tile is reused or freed while another CTA reads it
+  }
+}
+
+size_t smem_bytes(int m_tiles, int xstride) {
+  return (size_t)STAGES * STAGE_BYTES + (size_t)8 * m_tiles * BN * 4 +
+         (size_t)8 * m_tiles * xstride;
+}
+
+// The launch: cluster CTAs split K into k_chunk rows each (whole stages;
+// the last CTA may hold fewer) for each of n_tiles BN-column tiles of the
+// output, m_tiles n8 tiles of x a pass, passes passes over M.
+struct Plan {
+  int cluster, k_chunk, n_tiles, m_tiles, passes;
+  size_t smem;
+};
+
+Plan plan_for(int M, int K, int N, int split) {
+  Plan p;
+  const int stages = (K + BK - 1) / BK;
+  p.k_chunk = (stages + split - 1) / split * BK;
+  p.cluster = (K + p.k_chunk - 1) / p.k_chunk;   // no CTA left empty
+  p.n_tiles = (N + BN - 1) / BN;
+  p.m_tiles = std::min(MAX_M_TILES, (M + 7) / 8);
+  p.passes = (M + 8 * p.m_tiles - 1) / (8 * p.m_tiles);
+  p.smem = smem_bytes(p.m_tiles, p.k_chunk + 16);
+  return p;
+}
+
+// Double the split of K until the grid holds two CTAs for each SM and a
+// CTA's x fits beside the ring with three CTAs to an SM, up to
+// MAX_CLUSTER CTAs and one stage each.
+Plan make_plan(int M, int K, int N, int num_sms) {
+  const int stages = (K + BK - 1) / BK, n_tiles = (N + BN - 1) / BN;
+  int split = 1;
+  while (split < MAX_CLUSTER && 2 * split <= stages &&
+         (n_tiles * split < 2 * num_sms || plan_for(M, K, N, split).smem > SMEM_TARGET))
+    split *= 2;
+  return plan_for(M, K, N, split);
+}
+
+template <int MT, bool VEC>
+cudaError_t launch(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
+                   int32_t* acc, float* out, int M, int K, int N, int cluster, int k_chunk,
+                   cudaStream_t stream) {
+  auto kern = int8_mm_cluster<MT, VEC>;
+  const int xstride = k_chunk + 16;
+  const size_t smem = smem_bytes(MT, xstride);
+  static size_t smem_set = 0;           // the largest limit asked for so far
+  static bool wide_set = false;
+  if (smem > smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  if (cluster > 8 && !wide_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    wide_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (N + BN - 1) / BN, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, x, w, xs, ws, acc, out, M, K, N, k_chunk, xstride);
 }
 
 }  // namespace
 
-// x int8 [M,K], w int8 [K,N], xs f32 [M], ws f32 [N]; acc int32 [M,N] is
-// scratch that holds the integer sums on return; out f32 [M,N].
+// The plan int8_matmul_launch takes for these dimensions on a card of
+// num_sms SMs: cluster, k_chunk, n_tiles, m_tiles, passes and the dynamic
+// shared memory of a CTA, written to plan[0..5].
+extern "C" void int8_matmul_plan(int M, int K, int N, int num_sms, long long* plan) {
+  const Plan p = make_plan(M, K, N, num_sms);
+  const long long v[6] = {p.cluster, p.k_chunk, p.n_tiles, p.m_tiles, p.passes,
+                          (long long)p.smem};
+  for (int i = 0; i < 6; ++i) plan[i] = v[i];
+}
+
+// x int8 [M,K], w int8 [K,N] (16-byte aligned), xs f32 [M], ws f32 [N];
+// out f32 [M,N]; acc int32 [M,N] receives the integer sums when not null.
+// Returns cudaErrorInvalidValue or cudaErrorMisalignedAddress, launching
+// nothing, for dimensions or an operand the kernel cannot take.
 extern "C" int int8_matmul_launch(const void* x, const void* w, const void* xs,
-                                  const void* ws, void* acc, void* out, int M,
-                                  int K, int N, int num_sms, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(acc, 0, (size_t)M * N * sizeof(int32_t), s);
+                                  const void* ws, void* acc, void* out, int M, int K, int N,
+                                  int num_sms, void* stream) {
+  if (M < 1 || K < 1 || N < 1 || num_sms < 1) return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(M, K, N, num_sms);
+  if (p.n_tiles > 65535 || p.smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(w) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const bool vec = N % 16 == 0;
+  const auto* xp = static_cast<const int8_t*>(x);
+  const auto* wp = static_cast<const int8_t*>(w);
+  const auto* xsp = static_cast<const float*>(xs);
+  const auto* wsp = static_cast<const float*>(ws);
+  auto* ap = static_cast<int32_t*>(acc);
+  auto* op = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define B1_CASE(MT)                                                                        \
+  case MT:                                                                                 \
+    err = vec ? launch<MT, true>(xp, wp, xsp, wsp, ap, op, M, K, N, p.cluster, p.k_chunk, s) \
+              : launch<MT, false>(xp, wp, xsp, wsp, ap, op, M, K, N, p.cluster, p.k_chunk, s); \
+    break;
+  switch (p.m_tiles) {
+    B1_CASE(1)
+    B1_CASE(2)
+    B1_CASE(3)
+    default:
+      B1_CASE(4)
+  }
+#undef B1_CASE
   if (err != cudaSuccess) return (int)err;
-  const int blocks_n = (N + TN - 1) / TN, blocks_m = (M + MT - 1) / MT;
-  const int base = blocks_n * blocks_m;
-  int ks = (4 * num_sms + base - 1) / base;       // about four blocks per SM
-  ks = std::max(1, std::min(ks, (K + MIN_ROWS - 1) / MIN_ROWS));
-  int k_chunk = ((K + ks - 1) / ks + TY - 1) / TY * TY;
-  ks = (K + k_chunk - 1) / k_chunk;
-  const bool vec_ok = (N % VEC == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  int8_mm_partial<<<dim3(blocks_n, ks, blocks_m), dim3(TX, TY), 0, s>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(acc), M, K, N, k_chunk, vec_ok);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)M * N;
-  int8_mm_epilogue<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      static_cast<const int32_t*>(acc), static_cast<const float*>(xs),
-      static_cast<const float*>(ws), static_cast<float*>(out), M, N);
   return (int)cudaGetLastError();
 }

@@ -67,12 +67,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out + b
 
 
-def _group_to_heads(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """[..., G, S] -> [..., H, S]."""
-    rep = cfg.ssm_heads // cfg.ssm_groups
-    return torch.repeat_interleave(t, rep, dim=-2) if rep > 1 else t
-
-
 def _projections(p: Params, cfg: ModelConfig, x: torch.Tensor, backend: str):
     return tuple(L.apply_linear(L._lin(p, name), x, backend)
                  for name in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
@@ -112,11 +106,10 @@ def ssm_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         return {"conv_x": _tail(xs_pre, cfg), "conv_B": _tail(B_pre, cfg),
                 "conv_C": _tail(C_pre, cfg), "h": h_last}
 
-    if use_kernel:
-        Bh = _group_to_heads(Bm, cfg).to(torch.float32)
-        Ch = _group_to_heads(Cm, cfg).to(torch.float32)
-        y4, h_last = ssd_ops.ssd_forward(xs.to(torch.float32), Bh, Ch, dt, A,
-                                         p["D"], chunk=chunk, h0=initial_state)
+    if use_kernel:             # B6 takes B and C per group
+        y4, h_last = ssd_ops.ssd_forward(xs.to(torch.float32), Bm.to(torch.float32),
+                                         Cm.to(torch.float32), dt, A, p["D"],
+                                         chunk=chunk, h0=initial_state)
         out = _gate_norm_out(p, y4.reshape(B, T, di), z, x, backend)
         return (out, state(h_last)) if return_state else out
 
@@ -127,8 +120,8 @@ def ssm_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         xs, Bm, Cm = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xs, Bm, Cm))
         dt = F.pad(dt, (0, 0, 0, pad))
     xs_c = xs.reshape(B, nc, Q, H, hd).to(torch.float32)
-    Bc = _group_to_heads(Bm.reshape(B, nc, Q, G, S), cfg).to(torch.float32)
-    Cc = _group_to_heads(Cm.reshape(B, nc, Q, G, S), cfg).to(torch.float32)
+    Bc = ssd_ops.group_to_heads(Bm.reshape(B, nc, Q, G, S), H).to(torch.float32)
+    Cc = ssd_ops.group_to_heads(Cm.reshape(B, nc, Q, G, S), H).to(torch.float32)
     dtc = dt.reshape(B, nc, Q, H)
 
     la = dtc * A                                                          # [B,nc,Q,H]
@@ -199,8 +192,8 @@ def ssm_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, state: dict,
     Bm_c, conv_B = _conv_step(state["conv_B"], B_pre, p["conv_B"], p["conv_bB"])
     Cm_c, conv_C = _conv_step(state["conv_C"], C_pre, p["conv_C"], p["conv_bC"])
     xh = xh_c.reshape(B, H, hd)
-    Bm = _group_to_heads(Bm_c.reshape(B, G, S), cfg)
-    Cm = _group_to_heads(Cm_c.reshape(B, G, S), cfg)
+    Bm = ssd_ops.group_to_heads(Bm_c.reshape(B, G, S), H)
+    Cm = ssd_ops.group_to_heads(Cm_c.reshape(B, G, S), H)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])                  # [B,H]
     a = torch.exp(dt * -torch.exp(p["A_log"]))                            # [B,H]
     xdt = xh * dt[..., None]

@@ -63,6 +63,64 @@ def test_int8_matmul_and_pim_mvm_bit_exact(cuda, m, k, n):
     assert torch.equal(acc5, acc) and torch.equal(out5, out)
 
 
+@pytest.mark.parametrize("m,k,n", [
+    (20, 4096, 1024), (28, 4096, 14336), (32, 1000, 528), (33, 777, 1000),
+    (64, 4096, 4096), (70, 300, 200), (5, 1000, 77), (4, 2560, 5120), (4, 5120, 2560),
+    (28, 2560, 5120)])
+def test_int8_matmul_bit_exact_at_verify_m_tails_and_mamba2_shapes(cuda, m, k, n):
+    """The verify M (20, 28), one and a bit of four n8 tiles (32, 33), M
+    past one pass (64, 70), K not a multiple of 32 and N not of 16 (the
+    byte-load path), and mamba2-2.7b's linears (2560 -> 5120 and back):
+    acc and out bit for bit, with and without the integer sums."""
+    x_q, x_s, w_q, w_s = _linear(m, k, n, 3 * m + k + n, cuda)
+    reset_launch_counts()
+    out, acc = mm.int8_matmul_cuda(x_q, x_s, w_q, w_s)
+    out2, none = mm.int8_matmul_cuda(x_q, x_s, w_q, w_s, with_acc=False)
+    assert launch_counts()["int8_matmul"] == 2 and none is None
+    out_p, acc_p = mm.int8_matmul_plain(x_q, x_s, w_q, w_s)
+    assert torch.equal(acc, acc_p) and torch.equal(out, out_p) and torch.equal(out2, out_p)
+
+
+@pytest.mark.parametrize("m", [1, 4, 20, 28, 32, 33, 64])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                                 (2560, 5120), (5120, 2560), (200, 130), (1000, 77),
+                                 (777, 1000), (128, 16)])
+def test_int8_matmul_launch_plan_covers_k_once_and_fills_the_card(cuda, m, k, n):
+    """B1's plan: the cluster's CTAs split K into whole 128-row stages
+    that cover every row exactly once, none empty; at most 16 CTAs a
+    cluster; 64-column output tiles; one pass over M (each weight byte
+    streamed once) for M <= 32; every full-width shape of llama3-8b and
+    mamba2-2.7b puts at least one CTA on each of the H100's 132 SMs; the
+    shared memory fits a block (227 KB)."""
+    plan = mm.launch_plan(m, k, n, 132)
+    assert 1 <= plan.cluster <= 16 and plan.k_chunk % 128 == 0
+    rows = np.zeros(k, np.int64)
+    for r in range(plan.cluster):
+        lo, hi = r * plan.k_chunk, min(k, (r + 1) * plan.k_chunk)
+        assert lo < hi
+        rows[lo:hi] += 1
+    assert (rows == 1).all()
+    assert plan.n_tiles * 64 >= n > (plan.n_tiles - 1) * 64
+    assert 8 * plan.m_tiles * plan.passes >= m and plan.m_tiles <= 4
+    assert plan.passes == 1 or m > 32
+    assert plan.smem_bytes <= 232448
+    if k >= 2560 and n >= 1024:
+        assert plan.cluster * plan.n_tiles >= 132
+
+
+def test_int8_matmul_refuses_a_misaligned_weight(cuda):
+    """A contiguous weight view one byte into its storage cannot take the
+    kernel's 16-byte copies: the wrapper raises, launching nothing."""
+    x_q, x_s, w_q, w_s = _linear(4, 256, 512, 9, cuda)
+    flat = torch.empty(256 * 512 + 1, dtype=torch.int8, device=cuda)
+    view = flat[1:].view(256, 512)
+    view.copy_(w_q)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        mm.int8_matmul_cuda(x_q, x_s, view, w_s)
+    assert launch_counts()["int8_matmul"] == 0
+
+
 @pytest.mark.parametrize("b,s,g,rep,d,lengths", [
     (2, 64, 2, 2, 32, [1, 64]), (3, 300, 2, 4, 64, [150, 1, 299]),
     (1, 1000, 1, 1, 128, [999]), (4, 512, 8, 4, 128, [1, 200, 377, 512])])
@@ -240,6 +298,26 @@ def test_ssd_chunk_matches_plain(cuda, N, Q, H, dh, S):
     y, s_out, dec = ssd.ssd_chunk(*args)
     assert launch_counts()["ssd_chunk"] == 1
     py, ps, pd = ssd.ssd_chunk_plain(*args)
+    torch.testing.assert_close(y, py, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(s_out, ps, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(dec, pd, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("N,Q,H,G,dh,S", [(2, 37, 4, 1, 64, 128), (2, 37, 4, 2, 64, 128),
+                                          (1, 128, 4, 2, 32, 16), (3, 33, 6, 2, 16, 8),
+                                          (4, 128, 80, 1, 64, 128), (1, 1, 4, 1, 64, 128),
+                                          (2, 20, 4, 2, 6, 10)])
+def test_ssd_chunk_grouped_matches_plain(cuda, N, Q, H, G, dh, S):
+    """B and C per group (head h reads group h // (H // G)): the kernel
+    against the plain version, which expands the groups to heads itself;
+    mamba2-2.7b's one group of 80 heads among the shapes, and a head width
+    and state off the 16-byte copies (dh 6, S 10)."""
+    x, B, C, dt, A, D, h0 = _ssd_inputs(N, Q, H, dh, S, 7 * N + Q + G, cuda)
+    B, C = B[:, :, :G].contiguous(), C[:, :, :G].contiguous()
+    reset_launch_counts()
+    y, s_out, dec = ssd.ssd_chunk(x, B, C, dt, A, D, h0)
+    assert launch_counts()["ssd_chunk"] == 1
+    py, ps, pd = ssd.ssd_chunk_plain(x, B, C, dt, A, D, h0)
     torch.testing.assert_close(y, py, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(s_out, ps, rtol=2e-4, atol=2e-5)
     torch.testing.assert_close(dec, pd, rtol=1e-5, atol=0)

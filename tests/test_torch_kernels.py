@@ -23,8 +23,11 @@ from repro_torch.kernels import pim_mvm as pim
 from repro_torch.kernels import rms_norm as rn
 from repro_torch.kernels import ssd_chunk as ssd
 
-# M of 1, 3 and 8; K and N tails off the TPU's 512 / 128 tiling
-MKN = [(1, 128, 256), (3, 200, 130), (8, 520, 300), (3, 1000, 77)]
+# M of 1, 3 and 8; K and N tails off the TPU's 512 / 128 tiling; the verify
+# M (20, 28), one and a bit of four n8 tiles (32, 33) and M past one pass
+# (64) with K not a multiple of 32 and N not of 16
+MKN = [(1, 128, 256), (3, 200, 130), (8, 520, 300), (3, 1000, 77), (20, 777, 1000),
+       (28, 200, 130), (32, 1000, 77), (33, 520, 300), (64, 136, 24)]
 
 
 def _linear(m, k, n, seed):

@@ -106,6 +106,69 @@ def test_ssd_chunk_plain_matches_ref_and_pallas(N, Q, H, dh, S):
         np.testing.assert_allclose(dec[n].numpy(), np.asarray(rd), rtol=1e-5)
 
 
+@pytest.mark.parametrize("N,Q,H,G,dh,S", [(2, 37, 4, 1, 16, 8), (1, 64, 4, 2, 32, 16),
+                                          (3, 33, 6, 3, 8, 4)])
+def test_ssd_chunk_plain_takes_groups(N, Q, H, G, dh, S):
+    """B and C per group [N, Q, G, S]: the plain version expands them to
+    heads itself (head h reads group h // (H // G)), so it equals the
+    reference's ``ref_chunk`` over the expanded heads."""
+    x, B, C, dt, A, D, h0 = _chunk_inputs(N, Q, H, dh, S, 5 * N + Q + G)
+    B, C = B[:, :, :G].copy(), C[:, :, :G].copy()
+    y, s_out, dec = ssd.ssd_chunk(*map(torch.from_numpy, (x, B, C, dt, A, D, h0)))
+    rep = H // G
+    Bh, Ch = np.repeat(B, rep, axis=2), np.repeat(C, rep, axis=2)
+    for n in range(N):
+        ry, rs, rd = j_ssd_ref.ref_chunk(*(jnp.asarray(a[n]) for a in (x, Bh, Ch, dt)),
+                                         jnp.asarray(A), jnp.asarray(D), jnp.asarray(h0[n]))
+        np.testing.assert_allclose(y[n].numpy(), np.asarray(ry), rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(s_out[n].numpy(), np.asarray(rs), rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(dec[n].numpy(), np.asarray(rd), rtol=1e-5)
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: round to nearest (ties away from zero) at 10
+    mantissa bits, then clear the low 13 bits."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """3xTF32: a = a_hi + a_lo, b = b_hi + b_lo, each part a TF32 value;
+    lo*hi + hi*lo + hi*hi summed in f32 (a product of two TF32 values is
+    exact in f32), the lo*lo term dropped."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+@pytest.mark.parametrize("Q", [128, 37, 1])
+def test_3xtf32_split_holds_b6_tolerance_at_full_width(Q):
+    """The precision design of the B6 kernel, before any chip time: its
+    four products in emulated 3xTF32 at mamba2-2.7b's widths (S 128,
+    dh 64; four heads of one group) stay within the reference's tolerance
+    of the plain version (rtol 2e-4, atol 2e-5), with the kernel's own
+    order: the group's scores C.B^T once, each head's masked decay applied
+    to them, intra y, exp(cs) times C.h_in, and the state from B scaled
+    by its decay weights."""
+    H, dh, S = 4, 64, 128
+    x, B, C, dt, A, D, h0 = map(torch.from_numpy, _chunk_inputs(1, Q, H, dh, S, Q))
+    B, C = B[:, :, :1].contiguous(), C[:, :, :1].contiguous()
+    want_y, want_s, _ = ssd.ssd_chunk_plain(x, B, C, dt, A, D, h0)
+    b, c = B[0, :, 0], C[0, :, 0]                                     # [Q, S]
+    scores = _mm3(c, b.T)                                             # [Q, Q], once
+    tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    for h in range(H):
+        cs = ssd.chunk_cumsum(dt[0, :, h] * A[h], 0)
+        xdt = x[0, :, h] * dt[0, :, h, None]
+        L = torch.where(tril, scores * torch.exp(cs[:, None] - cs[None, :]), 0.0)
+        inter = torch.exp(cs)[:, None] * _mm3(c, h0[0, h].T)
+        y = (_mm3(L, xdt) + inter) + D[h] * x[0, :, h]
+        bw = b * torch.exp(cs[-1] - cs)[:, None]
+        state = _mm3(xdt.T.contiguous(), bw)                          # [dh, S]
+        torch.testing.assert_close(y, want_y[0, :, h], rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(state, want_s[0, h], rtol=2e-4, atol=2e-5)
+
+
 def test_ssd_chunk_masks_by_selection():
     """A strongly decaying head makes exp(cs[q] - cs[k]) overflow above the
     diagonal; the mask selects 0 there, so nothing turns NaN."""

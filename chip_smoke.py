@@ -9,14 +9,16 @@ Phases (any failure makes the script exit non-zero):
 
 1. card and build: the card's name and power limit, and ``nvcc -Xptxas -v``
    (registers, shared memory, spills) for every kernel in ``csrc/``, all
-   compiled at once;
+   compiled at once, the attention body's per mask;
 2. kernel parity and timing at full llama3-8b width: each kernel against its
    plain PyTorch version on the card (B1/B5 bit-exact, B2 within
    rtol=3e-5, atol=3e-6), B5's int32 sums against B1's, CUDA-event times
    beside the plain version's, a library call's where one computes the same
    function, and the bound (the larger of bytes / 3.35 TB/s and operations
    / the type's peak); B1 also at the verify M (20, 28) and at mamba2-2.7b's
-   linears, and its device operations a call (one kernel, gated);
+   linears, and its device operations a call (one kernel, gated); B2 at
+   S 512 and S 4,096, and its device operations a call (one cluster
+   kernel, gated);
 3. ``Engine`` at full width (llama3-8b, random f32 weights from a seeded
    ``torch.Generator``) under ``fused_int8``: 4 prompts of 64 tokens, 16
    greedy steps, with the launch counts that show B1 and B2 ran; one decode
@@ -27,9 +29,12 @@ Phases (any failure makes the script exit non-zero):
    greedy FIFO — the main path, whose launch counts the ``kernels`` line
    reports for B1 and B2 (B5's come from its ``pim_bitserial`` step);
 5. the speculative lanes: B3 (``verify_attn``) and B4 (``verify_tree_attn``)
-   at full width against their plain versions, with the two bit-exact
-   invariants (B3 at each row equals B2 at that row's length; B4 on a chain
-   equals B3), times and bounds; ``verify_step`` on the reduced config, card
+   at full width against their plain versions, in pools of 256 and 4,096
+   rows plus the window, with the two bit-exact invariants (B3 at each row
+   equals B2 at that row's length; B4 on a chain equals B3), also across
+   pool sizes (B2 in a pool of ``max_len`` rows) at cursors whose rows
+   cross the body's 64-key chunk boundaries, times and bounds;
+   ``verify_step`` on the reduced config, card
    against CPU, linear and tree; and the phase-4 trace served again with
    ``spec_k = 4`` and with ``spec_tree = 6, spec_branch = 2``, whose launch
    counts the ``kernels`` line reports for B3 and B4; and where the
@@ -163,6 +168,7 @@ def phase_build(torch, build) -> dict:
         for ln in keep:
             print(f"   {name}: {ln}")
     print(f"   built {sorted(logs)} in {out['build_s']:.1f} s")
+    out["decode_attn_body"] = attn_body_resources(logs.get("decode_attn", ""))
     # the two kernels' dynamic shared memory a block at the main path's shapes
     from repro_torch.kernels import int8_matmul as mm
     from repro_torch.kernels import ssd_chunk as ssd
@@ -174,6 +180,33 @@ def phase_build(torch, build) -> dict:
     for name, per in out["smem_bytes"].items():
         print(f"   {name}: dynamic shared memory a block {per}")
     return out
+
+
+def attn_body_resources(log: str) -> list:
+    """Registers, spilled bytes and static shared memory of each mask's
+    instantiation of the attention body (B2 0, B3 1, B4 2), read from
+    ``ptxas -v``; empty when the library was already built."""
+    import re
+    rows, mask = [], None
+    for ln in log.splitlines():
+        m = re.search(r"attn_kernelILi(\d)E", ln)
+        if m and "Compiling entry" in ln:
+            mask = int(m.group(1))
+            rows.append({"mask": mask})
+            continue
+        if mask is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            rows[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        if m:
+            rows[-1].update(registers=int(m.group(1)), smem_bytes=int(m.group(2)))
+    for r in sorted(rows, key=lambda r: r["mask"]):
+        print(f"   decode_attn body, mask {r['mask']}: {r.get('registers')} registers, "
+              f"{r.get('spill_bytes')} bytes spilled, {r.get('smem_bytes')} bytes shared "
+              f"memory a CTA (static), 128 threads, clusters of 8 CTAs")
+    return rows
 
 
 LINEAR_SHAPES = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2, (14336, 4096): 1}
@@ -366,19 +399,43 @@ def b1_per_layer(torch, mm, g, M: int, shapes: dict) -> dict:
     return tot
 
 
-def phase_attention(torch, da, quant) -> dict:
-    """B2 at B = 4, G = 8, rep = 4, D = 128, S = 512, ragged lengths."""
+# B2, B3 and B4 share one body (csrc/decode_attn.cu): llama3-8b's groups at
+# 4 slots, B2 in a pool of S rows at the given lengths
+ATTN_B, ATTN_G, ATTN_REP, ATTN_D = 4, 8, 4, 128
+B2_SHAPES = ((512, (1, 200, 377, 512)), (4096, (1, 1000, 2500, 4096)))
+# B3 / B4 windows (name, T, max_len, cursors) in their lanes' pools of
+# max_len + T - 1 rows: T 5 is ``spec_k = 4``, T 7 ``spec_tree = 6``, T 31
+# ``spec_tree = 30``; the last cursor a slot at max_len - 1
+VERIFY_CASES = (("verify_attn", 5, 256, (3, 90, 177, 255)),
+                ("verify_tree_attn", 7, 256, (3, 90, 177, 255)),
+                ("verify_tree_attn_31", 31, 256, (3, 90, 177, 255)),
+                ("verify_attn_long", 5, 4096, (3, 1000, 2500, 4095)),
+                ("verify_tree_attn_long", 7, 4096, (3, 1000, 2500, 4095)))
+# B3 against B2 across pools: cursors whose window rows pos + t land on a
+# chunk boundary (64 keys) -1, 0 and +1, and on a cluster round (8 chunks)
+CROSS_POOL = ((256, (61, 125, 190, 251)), (4096, (61, 509, 2045, 4091)))
+
+
+def kv_pool(torch, quant, g, S: int) -> tuple:
+    """A random int8 K/V pool of S rows: k_q, k_s, v_q, v_s as the kernels
+    take them."""
+    shape = (ATTN_B, S, ATTN_G, ATTN_D)
+    k_q, k_s = quant.quantize_kv(torch.randn(shape, generator=g, device="cuda"))
+    v_q, v_s = quant.quantize_kv(torch.randn(shape, generator=g, device="cuda"))
+    return k_q, k_s[..., 0].contiguous(), v_q, v_s[..., 0].contiguous()
+
+
+def b2_case(torch, da, quant, S: int, lengths: tuple) -> dict:
+    """B2 in a pool of S rows at ragged lengths: parity with the plain
+    version (gated), device / eager / plain times, bound."""
     g = torch.Generator(device="cuda").manual_seed(2)
-    B, G, rep, D, S = 4, 8, 4, 128, 512
-    lengths = torch.tensor([1, 200, 377, S], dtype=torch.int32, device="cuda")
+    B, G, rep, D = ATTN_B, ATTN_G, ATTN_REP, ATTN_D
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
     def make():
-        q = torch.randn((B, G * rep, D), generator=g, device="cuda")
-        q_q, q_s = quant.quantize_kv(q)
-        k_q, k_s = quant.quantize_kv(torch.randn((B, S, G, D), generator=g, device="cuda"))
-        v_q, v_s = quant.quantize_kv(torch.randn((B, S, G, D), generator=g, device="cuda"))
+        q_q, q_s = quant.quantize_kv(torch.randn((B, G * rep, D), generator=g, device="cuda"))
         return (q_q.reshape(B, G, rep, D), q_s.reshape(B, G, rep, 1),
-                k_q, k_s[..., 0].contiguous(), v_q, v_s[..., 0].contiguous(), lengths)
+                *kv_pool(torch, quant, g, S), lengths)
     args = make()
     out_k = da.decode_attn_cuda(*args)
     out_p = da.decode_attn_plain(*args)
@@ -403,6 +460,39 @@ def phase_attention(torch, da, quant) -> dict:
             "library_ms": None, "max_abs_err": err,
             "shape": {"B": B, "G": G, "rep": rep, "D": D, "S": S,
                       "lengths": lengths.tolist()}}
+
+
+def b2_device_ops(torch, da, quant) -> list:
+    """The device operations of one B2 call at the phase shape, from
+    ``torch.profiler``: one cluster kernel, no memset, no copy (gated)."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, G, rep, D = ATTN_B, ATTN_G, ATTN_REP, ATTN_D
+    q_q, q_s = quant.quantize_kv(torch.randn((B, G * rep, D), generator=g, device="cuda"))
+    args = (q_q.reshape(B, G, rep, D), q_s.reshape(B, G, rep, 1),
+            *kv_pool(torch, quant, g, 512),
+            torch.tensor(B2_SHAPES[0][1], dtype=torch.int32, device="cuda"))
+    da.decode_attn_cuda(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        da.decode_attn_cuda(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    print(f"   one B2 call: {len(names)} device operation(s) {[n[:48] for n in names]}")
+    if len(names) != 1 or "attn_kernel" not in names[0]:
+        raise AssertionError(f"B2 issued {names}, not one kernel")
+    return names
+
+
+def phase_attention(torch, da, quant) -> dict:
+    """B2 at B 4, G 8, rep 4, D 128 at S 512 (the record the ``kernels``
+    line reports) and at S 4,096; one device operation a call."""
+    (S, lengths), (S_long, lengths_long) = B2_SHAPES
+    rec = b2_case(torch, da, quant, S, lengths)
+    rec["long"] = b2_case(torch, da, quant, S_long, lengths_long)
+    rec["one_call"] = b2_device_ops(torch, da, quant)
+    return rec
 
 
 def profile_step(torch, fn, what: str = "decode") -> dict:
@@ -673,80 +763,118 @@ def verify_bound(B, G, T, rep, D, S, pos, visible) -> tuple[float, str]:
     return bound_ms(n_bytes, [(ops, INT8_OPS_PER_S), (ops, FP32_FLOPS_PER_S)])
 
 
-def verify_kernels(torch, da, va, vt, quant, drafter) -> dict:
-    """B3 at T = 5 and B4 at T = 7 (random branching trees) at the shapes of
-    their lanes (``spec_k = 4``, ``spec_tree = 6``) in the phase-5 serve
-    runs, and B4 at T = 31 (124 rows, ``spec_tree = 30``): B = 4, G = 8,
-    rep = 4, D = 128, a pool of S = ``max_len`` 256 + the lane's headroom
-    (T - 1) rows, cursors 3 / 90 / 177 / 255 (the last a slot at
-    ``max_len`` - 1, whose window fills the pool).  Parity with the plain
-    versions, the bit-exact invariants, device / eager / plain times and
-    bounds."""
+def chain_anc(torch, B: int, T: int):
+    """[B, T] ancestor bits of a chain: row t sees window keys 0..t."""
+    return ((1 << torch.arange(1, T + 1, dtype=torch.int64)) - 1).to(
+        torch.int32).expand(B, T).contiguous().to("cuda")
+
+
+def window_q(torch, va, g, T: int) -> tuple:
+    q = torch.randn((ATTN_B, T, ATTN_G * ATTN_REP, ATTN_D), generator=g, device="cuda")
+    return va.quantize_window(q, ATTN_G)
+
+
+def verify_case(torch, da, va, vt, quant, drafter, name: str, T: int, max_len: int,
+                pos: tuple) -> dict:
+    """B3 (``verify_attn*``) or B4 (random branching trees) for a window of
+    T tokens at the given cursors, in a pool of max_len + T - 1 rows:
+    parity with the plain version, B3's rows equal to B2 and B4 on a chain
+    equal to B3 in the same pool (all gated), device / eager / plain times
+    and bound."""
     import numpy as np
     g = torch.Generator(device="cuda").manual_seed(4)
-    B, G, rep, D, max_len = 4, 8, 4, 128, 256
-    out = {}
-    for name, T in (("verify_attn", 5), ("verify_tree_attn", 7), ("verify_tree_attn_31", 31)):
-        S = max_len + T - 1
-        pos = torch.tensor([3, 90, 177, max_len - 1], dtype=torch.int32, device="cuda")
-        lengths = (pos[:, None] + torch.arange(1, T + 1, dtype=torch.int32,
-                                               device="cuda")).contiguous()
-        rng = np.random.default_rng(T)
-        anc = torch.tensor([drafter.tree_depths_ancestors(
-            [int(rng.integers(-1, i)) for i in range(T - 1)])[1] for _ in range(B)],
-            dtype=torch.int32, device="cuda")
-        chain = ((1 << torch.arange(1, T + 1, dtype=torch.int64)) - 1).to(
-            torch.int32).expand(B, T).contiguous().to("cuda")
+    B, G, rep, D = ATTN_B, ATTN_G, ATTN_REP, ATTN_D
+    S = max_len + T - 1
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    lengths = (pos[:, None] + torch.arange(1, T + 1, dtype=torch.int32,
+                                           device="cuda")).contiguous()
+    rng = np.random.default_rng(T)
+    anc = torch.tensor([drafter.tree_depths_ancestors(
+        [int(rng.integers(-1, i)) for i in range(T - 1)])[1] for _ in range(B)],
+        dtype=torch.int32, device="cuda")
 
-        def make():
-            q = torch.randn((B, T, G * rep, D), generator=g, device="cuda")
-            q_q, q_s = va.quantize_window(q, G)
-            k_q, k_s = quant.quantize_kv(torch.randn((B, S, G, D), generator=g, device="cuda"))
-            v_q, v_s = quant.quantize_kv(torch.randn((B, S, G, D), generator=g, device="cuda"))
-            return (q_q, q_s, k_q, k_s[..., 0].contiguous(), v_q, v_s[..., 0].contiguous())
-        args = make()
-        b3 = va.verify_attn_cuda(*args, lengths)
-        rows_eq_b2 = all(torch.equal(b3[:, :, t], da.decode_attn_cuda(
-            args[0][:, :, t].contiguous(), args[1][:, :, t].contiguous(), *args[2:],
-            lengths[:, t].contiguous())) for t in range(T))
-        chain_eq_b3 = torch.equal(vt.verify_tree_attn_cuda(*args, pos, chain), b3)
-        if name == "verify_attn":
-            def fn(a):
-                return va.verify_attn_cuda(*a, lengths)
+    def make():
+        return (*window_q(torch, va, g, T), *kv_pool(torch, quant, g, S))
+    args = make()
+    b3 = va.verify_attn_cuda(*args, lengths)
+    rows_eq_b2 = all(torch.equal(b3[:, :, t], da.decode_attn_cuda(
+        args[0][:, :, t].contiguous(), args[1][:, :, t].contiguous(), *args[2:],
+        lengths[:, t].contiguous())) for t in range(T))
+    chain_eq_b3 = torch.equal(vt.verify_tree_attn_cuda(*args, pos, chain_anc(torch, B, T)), b3)
+    if name.startswith("verify_attn"):
+        def fn(a):
+            return va.verify_attn_cuda(*a, lengths)
 
-            def plain(a):
-                return va.verify_attn_plain(*a, lengths)
-            visible = int(lengths.sum())
-        else:
-            def fn(a):
-                return vt.verify_tree_attn_cuda(*a, pos, anc)
+        def plain(a):
+            return va.verify_attn_plain(*a, lengths)
+        visible = int(lengths.sum())
+    else:
+        def fn(a):
+            return vt.verify_tree_attn_cuda(*a, pos, anc)
 
-            def plain(a):
-                return vt.verify_tree_attn_plain(*a, pos, anc)
-            visible = int(pos.sum()) * T + sum(bin(a).count("1") for a in anc.reshape(-1).tolist())
-        got, want = fn(args), plain(args)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-6)
-        if not (rows_eq_b2 and chain_eq_b3):
-            raise AssertionError(f"{name}: B3 rows == B2 {rows_eq_b2}, "
-                                 f"B4 chain == B3 {chain_eq_b3}")
-        err = float((got - want).abs().max())
-        sets = copies(torch, make, 2 * B * S * G * (D + 4))
-        n = len(sets)
-        tk = timed(torch, lambda i: fn(sets[i % n]), 50)
-        tp = timed(torch, lambda i: plain(sets[i % n]), 10)
-        b = verify_bound(B, G, T, rep, D, S, pos.tolist(), visible)
-        out[name] = {"ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
-                     "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
-                     "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
-                     "max_abs_err": err, "rows_eq_b2": rows_eq_b2, "chain_eq_b3": chain_eq_b3,
-                     "shape": {"B": B, "G": G, "T": T, "rep": rep, "D": D, "S": S,
-                               "pos": pos.tolist(), "row_blocks": -(-T * rep // 16)}}
-        print(f"   {name} T={T} (R={T * rep}) S={S}: {tk['device_ms'] * 1e3:.1f} us device / "
-              f"{tk['eager_ms'] * 1e3:.1f} eager (bound {b[0] * 1e3:.2f}, plain "
-              f"{tp['device_ms'] * 1e3:.1f}) max_abs_err {err:.3g}; B3 rows == B2 "
-              f"{rows_eq_b2}, B4 chain == B3 {chain_eq_b3}")
-        del sets
+        def plain(a):
+            return vt.verify_tree_attn_plain(*a, pos, anc)
+        visible = int(pos.sum()) * T + sum(bin(a).count("1") for a in anc.reshape(-1).tolist())
+    got, want = fn(args), plain(args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-6)
+    if not (rows_eq_b2 and chain_eq_b3):
+        raise AssertionError(f"{name}: B3 rows == B2 {rows_eq_b2}, "
+                             f"B4 chain == B3 {chain_eq_b3}")
+    err = float((got - want).abs().max())
+    sets = copies(torch, make, 2 * B * S * G * (D + 4))
+    n = len(sets)
+    tk = timed(torch, lambda i: fn(sets[i % n]), 50)
+    tp = timed(torch, lambda i: plain(sets[i % n]), 10)
+    b = verify_bound(B, G, T, rep, D, S, pos.tolist(), visible)
+    print(f"   {name} T={T} (R={T * rep}) S={S}: {tk['device_ms'] * 1e3:.1f} us device / "
+          f"{tk['eager_ms'] * 1e3:.1f} eager (bound {b[0] * 1e3:.2f}, plain "
+          f"{tp['device_ms'] * 1e3:.1f}) max_abs_err {err:.3g}; B3 rows == B2 "
+          f"{rows_eq_b2}, B4 chain == B3 {chain_eq_b3}")
+    return {"ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+            "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "max_abs_err": err, "rows_eq_b2": rows_eq_b2, "chain_eq_b3": chain_eq_b3,
+            "shape": {"B": B, "G": G, "T": T, "rep": rep, "D": D, "S": S,
+                      "pos": pos.tolist(), "row_blocks": -(-T * rep // 16)}}
+
+
+def cross_pool(torch, da, va, vt, quant) -> dict:
+    """B3's rows and B4's on a chain (T 5, the ``spec_k`` window) in a pool
+    of max_len + T - 1 rows against B2 in a pool of max_len rows holding the
+    same live K/V, bit for bit (gated), at cursors whose rows cross chunk
+    boundaries."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    T, out = 5, {}
+    for max_len, pos in CROSS_POOL:
+        q_q, q_s = window_q(torch, va, g, T)
+        cache = kv_pool(torch, quant, g, max_len + T - 1)
+        small = tuple(c[:, :max_len].contiguous() for c in cache)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        lengths = (pos_t[:, None] + torch.arange(1, T + 1, dtype=torch.int32,
+                                                 device="cuda")).contiguous()
+        b3 = va.verify_attn_cuda(q_q, q_s, *cache, lengths)
+        b4 = vt.verify_tree_attn_cuda(q_q, q_s, *cache, pos_t, chain_anc(torch, ATTN_B, T))
+        rows = []
+        for t in range(T):
+            b2 = da.decode_attn_cuda(q_q[:, :, t].contiguous(), q_s[:, :, t].contiguous(),
+                                     *small, lengths[:, t].contiguous())
+            rows.append([torch.equal(b3[:, :, t], b2), torch.equal(b4[:, :, t], b2)])
+        out[max_len] = {"pos": list(pos), "rows_b3_b4_eq_b2": rows}
+        print(f"   across pools (B3 / B4 chain at S {max_len + T - 1}, B2 at S {max_len}), "
+              f"cursors {list(pos)}: rows equal {rows}")
+        if not all(all(r) for r in rows):
+            raise AssertionError(f"B3 / B4 rows differ from B2 across pools at max_len "
+                                 f"{max_len}: {rows}")
+    return out
+
+
+def verify_kernels(torch, da, va, vt, quant, drafter) -> dict:
+    """B3 and B4 at every window of :data:`VERIFY_CASES` (B = 4, G = 8,
+    rep = 4, D = 128), and B3 / B4 against B2 across pool sizes."""
+    out = {name: verify_case(torch, da, va, vt, quant, drafter, name, T, max_len, pos)
+           for name, T, max_len, pos in VERIFY_CASES}
+    out["cross_pool"] = cross_pool(torch, da, va, vt, quant)
     return out
 
 

@@ -9,47 +9,82 @@
 //      anc[b, t] is set.
 // Per (slot b, kv group g): int8 q . K^T into int32 (the dMVM's VVMs),
 // descaled as ((s * q_s) * k_s) / sqrt(D), masked per row, online softmax,
-// and P . (V * v_s) in f32; out = acc / max(l, 1e-30).
+// and P . (V * v_s) in f32 precision; out = acc / max(l, 1e-30).
 //
 // What bounds it on the H100: the bytes of the live cache rows -- each key
 // and value row (D int8 + one f32 scale) is read once per (slot, group) and
 // used by the group's R = T * rep query rows, a few operations per byte, so
-// memory bounds it (B = 4, G = 8, S = 512, D = 128: about 4.2 MB, 1.25 us at
-// 3.35 TB/s).
+// memory bounds it (B = 4, G = 8, S = 512, D = 128: about 2.4 MB of live
+// rows, 0.71 us at 3.35 TB/s).
 //
-// What the design does about it: one block per (slot, group, block of up to
-// 16 query rows) loops over key tiles of 128 only up to the largest key
-// limit of its own rows (pos + T for a tree window, the TPU kernel's dead
-// block skip), so dead rows past it are never read.  Each tile's live K and
-// V rows are staged in shared memory by all threads at once (coalesced
-// 16-byte loads, all in flight together; a version that read them key by key
-// was bound by load latency).  Each thread then owns one key of the tile and
-// dots the staged q words with it by __dp4a (exact int32; the key tile's
-// rows are padded so the threads hit distinct banks), with no cross-lane
-// reduction in the way.  Scores and softmax statistics stay in shared
-// memory; each thread owns one of the D output lanes for all rows.  A verify
-// window of R rows takes ceil(R / 16) row blocks, each of which reads the
-// live cache once: 16 rows keep the per-thread accumulators in registers and
-// the score tile within 48 KB of static shared memory.  With B*G blocks per
-// row block the card is only partly filled at decode sizes; splitting S
-// across blocks is a later change.
+// What the design does about it:
+// - The key axis is cut into chunks of CHUNK = 64 keys at fixed, absolute
+//   positions, and the NC = 8 CTAs of a thread block cluster share the
+//   chunks of one (slot, group, block of up to 16 query rows): CTA c takes
+//   chunks c, c + NC, c + 2 NC, ... in ascending order, only those that
+//   start below the largest key limit of the block's rows (the TPU kernel's
+//   dead-block skip: rows past it are never read).  At B 4, G 8 that is 256
+//   CTAs at decode, where one CTA per (slot, group) left most SMs idle.
+// - Each CTA stages its chunks' K, V and scales with cp.async in a ring of
+//   two stages, so the next chunk's copies are in flight while this one is
+//   scored; keys past the walk are zero-filled, never read.
+// - q . K^T runs on int8 mma.sync m16n8k32: the block's query rows are the
+//   M side (rows past R are zero), each warp takes 16 keys of the chunk as
+//   two n8 tiles.  The int32 sums are exact, then descaled per element.
+// - Online softmax per chunk: row maxima and sums by a fixed butterfly over
+//   a warp's keys, then over the four warps in order.
+// - P . (V * v_s) runs on tf32 mma.sync m16n8k8 as (P * v_s) . V: A is
+//   p * v_s in f32, split into tf32 hi + lo; B is V, whose int8 values are
+//   exact in tf32, so of 3xTF32's products only hi . V and lo . V are not
+//   zero, each exact, summed in f32.  Warp w owns output columns 32 w ..
+//   32 w + 31, one 4-byte V read a key giving its four n8 tiles.  A chunk's
+//   sum starts from zero and joins the running one as acc * corr + sum.
+// - Bytes and int32 scores become floats by exact integer tricks, not the
+//   quarter-rate I2F unit.
+// - One launch a call: after a cluster barrier each CTA merges its share of
+//   the outputs over the cluster's (m, l, acc) in rank order 0..NC-1
+//   through distributed shared memory.  No workspace, memset or second
+//   kernel.
 //
-// The three masks share one body, so a row's arithmetic does not depend on
-// the mask that chose its keys: a key masked inside a tile scores -1e30 and
-// weighs exactly 0, and a tile past a row's last key leaves its statistics
-// and accumulator unchanged (corr = 1, p = 0).  Hence B3's row (t, r) equals
-// B2 at length pos + t + 1, and B4 on a chain (anc[t] = (1 << (t+1)) - 1)
-// equals B3, bit for bit.
+// Why the partition is fixed by key position: a verify row must equal
+// sequential decode bit for bit.  The spec lanes' pools hold max_len + T - 1
+// rows and the plain lane's max_len, and B3's block walks to its last row's
+// limit while B2 walks to the slot's own length.  Neither S, the lengths, T,
+// the mask nor the SM count decides which CTA sums which key, or in what
+// order.  A chunk with no live key for a row leaves that CTA's statistics
+// unchanged (its keys weigh exactly 0 in every product, corr = exp(0) = 1),
+// and a CTA that met no live key holds m = -1e30, l = 0, acc = 0, which the
+// merge scales by exp(-1e30 - m) = 0.  A row's results do not depend on the
+// other rows of its block.  Hence B3's row (t, r) equals B2 at length
+// pos + t + 1 in either pool, and B4 on a chain (anc[t] = (1 << (t+1)) - 1)
+// equals B3, bit for bit.  The float arithmetic uses explicit _rn
+// intrinsics so the three mask instantiations round alike.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int TS = 128;           // keys per tile = threads per block
-constexpr int MAX_ROWS = 16;      // query rows per block
+constexpr int CHUNK = 64;         // keys per chunk: fixed, absolute positions
+constexpr int NC = 8;             // CTAs of a cluster sharing the chunks
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MAX_ROWS = 16;      // query rows per block: the mma M side
 constexpr int MAX_D = 128;        // head dim
-constexpr int KSTR = MAX_D / 4 + 1;   // padded key-tile row: conflict-free
+constexpr int KSTEPS = MAX_D / 32;
+constexpr int KSTR = MAX_D + 16;  // key row stride in bytes: conflict-free B reads
+constexpr int VSTR = MAX_D + 32;  // value row stride in bytes: conflict-free B reads
+constexpr int PSTR = CHUNK + 4;   // probability row stride in floats: conflict-free A reads
+constexpr int ASTR = MAX_D + 1;   // accumulator row stride in floats: conflict-free stores
+constexpr int STAGES = 2;
 constexpr float NEG_INF = -1e30f;
+
+static_assert(THREADS == 2 * CHUNK, "one scale copy per thread");
+static_assert(WARPS * 16 == CHUNK, "a warp scores 16 keys of a chunk");
 
 // which keys a query row sees
 enum Mask : int {
@@ -58,48 +93,104 @@ enum Mask : int {
   kTree = 2,         // B4: keys < pos[b], or pos[b] + j with bit j of anc[b, t]
 };
 
-__device__ __forceinline__ float warp_sumf(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+struct Stage {
+  int8_t k[CHUNK][KSTR];
+  int8_t v[CHUNK][VSTR];
+  float ks[CHUNK], vs[CHUNK];
+};
+
+struct Smem {
+  union {
+    Stage st[STAGES];
+    float acc[MAX_ROWS][ASTR];    // after the walk: this CTA's accumulators
+  } u;
+  float p[MAX_ROWS][PSTR];        // the chunk's probabilities
+  float red_m[WARPS][MAX_ROWS], red_l[WARPS][MAX_ROWS];
+  float m[MAX_ROWS], l[MAX_ROWS]; // after the walk: this CTA's statistics
+};
+
+// Exact int -> f32 conversions without the quarter-rate I2F unit: the value,
+// biased to be non-negative, is placed in the mantissa of 2^23 (bytes) or
+// 1.5 * 2^23 (|s| < 2^22), and the bias subtracted (both steps exact).
+__device__ __forceinline__ float s8_to_f32(uint32_t w, int c) {   // byte c of w
+  return __int_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540 | c)) - 8388736.0f;
 }
-__device__ __forceinline__ float warp_maxf(float v) {
+__device__ __forceinline__ float s22_to_f32(int s) {
+  return __int_as_float(0x4B400000 + s) - 12582912.0f;
+}
+
+// Where a thread's 16-byte copies of a chunk land, computed once: copy n
+// (i = tid + n * THREADS < CHUNK * D / 16) is key row i / (D / 16), bytes
+// 16 (i % (D / 16)).
+constexpr int COPIES = CHUNK * MAX_D / 16 / THREADS;
+struct CopyPlan {
+  int key[COPIES];
+  long long src[COPIES];   // from the chunk's first row
+  int dst_k[COPIES], dst_v[COPIES];
+};
+
+// keys [c0, c0 + CHUNK) of one (slot, group) into a stage: key s's row is
+// (slot_row + s) * G + g.  Keys at or past len are zero-filled, not read.
+// vec16: D % 16 == 0 and 16-byte aligned rows, copied as the plan says.
+__device__ __forceinline__ void load_chunk(Stage& st, const CopyPlan& plan,
+                                           const int8_t* __restrict__ k,
+                                           const float* __restrict__ ks,
+                                           const int8_t* __restrict__ v,
+                                           const float* __restrict__ vs, size_t slot_row,
+                                           int G, int g, int D, int c0, int len,
+                                           bool vec16, int tid) {
+  if (vec16) {
+    const size_t base = ((slot_row + c0) * G + g) * D;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+    for (int n = 0; n < COPIES; ++n) {
+      if (plan.key[n] >= CHUNK) break;
+      const bool ok = c0 + plan.key[n] < len;
+      const size_t off = base + plan.src[n];
+      cp_async16(reinterpret_cast<int8_t*>(&st) + plan.dst_k[n], ok ? k + off : k, ok ? 16 : 0);
+      cp_async16(reinterpret_cast<int8_t*>(&st) + plan.dst_v[n], ok ? v + off : v, ok ? 16 : 0);
+    }
+  } else {
+    const int D4 = D / 4;
+    for (int i = tid; i < CHUNK * D4; i += THREADS) {
+      const int j = i / D4, c = i - j * D4;
+      const bool ok = c0 + j < len;
+      const size_t off = ((slot_row + c0 + j) * G + g) * D + 4 * c;
+      cp_async4(&st.k[j][4 * c], ok ? k + off : k, ok ? 4 : 0);
+      cp_async4(&st.v[j][4 * c], ok ? v + off : v, ok ? 4 : 0);
+    }
+  }
+  const int j = tid % CHUNK;
+  const bool ok = c0 + j < len;
+  const size_t off = (slot_row + c0 + j) * G + g;
+  if (tid < CHUNK)
+    cp_async4(&st.ks[j], ok ? ks + off : ks, ok ? 4 : 0);
+  else
+    cp_async4(&st.vs[j], ok ? vs + off : vs, ok ? 4 : 0);
 }
 
 // q [B,G,T*rep,D] int8, qs [B,G,T*rep] f32, k/v [B,S,G,D] int8, ks/vs
 // [B,S,G] f32 -> out [B,G,T*rep,D] f32.  lim: kSlotLength lengths [B];
 // kRowLength lengths [B,T]; kTree pos [B] with anc [B,T] (T <= 31).
-// blockDim.x == TS; grid (G, B, ceil(T*rep / MAX_ROWS)); D % 4 == 0 and
-// D <= MAX_D (vec16: D % 16 == 0 and 16-byte aligned rows).
+// blockDim.x == THREADS; grid (NC, G * row_blocks, B) in clusters of
+// (NC, 1, 1); D % 4 == 0 and D <= MAX_D.
 template <int MASK>
-__global__ void __launch_bounds__(TS)
+__global__ void __launch_bounds__(THREADS)
 attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
             const int8_t* __restrict__ k, const float* __restrict__ ks,
             const int8_t* __restrict__ v, const float* __restrict__ vs,
             const int32_t* __restrict__ lim, const int32_t* __restrict__ anc,
             float* __restrict__ out, int S, int G, int T, int rep, int D,
             float sqrt_d, bool vec16) {
-  __shared__ int q_w[MAX_ROWS][MAX_D / 4];  // q rows as packed int8x4 words
-  __shared__ int k_t[TS][KSTR];             // the key tile, one row per key
-  __shared__ __align__(16) int v_t[TS][MAX_D / 4];   // the value tile
-  __shared__ float ks_t[TS], vs_t[TS];
-  __shared__ float q_sc[MAX_ROWS];
-  __shared__ float p_t[MAX_ROWS][TS];       // scores, then probabilities
-  __shared__ float row_m[MAX_ROWS], row_l[MAX_ROWS], row_corr[MAX_ROWS];
-  __shared__ int row_lim[MAX_ROWS];         // kRowLength: the row's key limit
-  __shared__ unsigned row_anc[MAX_ROWS];    // kTree: the row's ancestor bits
-
-  const int b = blockIdx.y, g = blockIdx.x;
+  __shared__ __align__(16) Smem sm;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.z, g = blockIdx.y % G, rb = blockIdx.y / G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int nwarps = TS / 32;
+  const int gid = lane >> 2, tig = lane & 3;
   const int D4 = D / 4;
-  const int R = T * rep, r0 = blockIdx.z * MAX_ROWS;
+  const int R = T * rep, r0 = rb * MAX_ROWS;
   const int nr = min(MAX_ROWS, R - r0);
-  const size_t bg = (size_t)b * G + g;
+  const size_t bg = (size_t)b * G + g, slot_row = (size_t)b * S;
 
   // the block's key walk: the largest limit among its rows
   int len, pos = 0;
@@ -113,146 +204,229 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
     pos = lim[b];
     len = min(pos + T, S);
   }
+  len = max(len, 0);
 
-  const int* qrow = reinterpret_cast<const int*>(q + (bg * R + r0) * D);
-  for (int i = tid; i < nr * D4; i += TS) q_w[i / D4][i % D4] = qrow[i];
-  if (tid < nr) {
-    q_sc[tid] = qs[bg * R + r0 + tid];
-    row_m[tid] = NEG_INF;
-    row_l[tid] = 0.f;
-    const size_t bt = (size_t)b * T + (r0 + tid) / rep;
-    if (MASK == kRowLength) row_lim[tid] = min(lim[bt], S);
-    if (MASK == kTree) row_anc[tid] = (unsigned)anc[bt];
+  // this thread's two mma rows, gid and gid + 8: q fragments, scale, mask
+  uint32_t a[KSTEPS][4];
+  float q_sc[2] = {0.f, 0.f};
+  int row_lim[2] = {0, 0};
+  unsigned row_anc[2] = {0u, 0u};
+  bool row_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = gid + 8 * h;
+    row_ok[h] = r < nr;
+    const uint32_t* qrow = reinterpret_cast<const uint32_t*>(q + (bg * R + r0 + r) * D);
+#pragma unroll
+    for (int s = 0; s < KSTEPS; ++s)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int w = 8 * s + 4 * half + tig;
+        a[s][h + 2 * half] = row_ok[h] && w < D4 ? __ldg(qrow + w) : 0u;
+      }
+    if (row_ok[h]) {
+      q_sc[h] = __ldg(qs + bg * R + r0 + r);
+      const size_t bt = (size_t)b * T + (r0 + r) / rep;
+      if (MASK == kRowLength) row_lim[h] = min(lim[bt], S);
+      if (MASK == kTree) row_anc[h] = (unsigned)anc[bt];
+    }
   }
-  float acc[MAX_ROWS];
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+  // P . V accumulators in the mma layout: n-tile t, element e is row
+  // gid + 8 (e / 2), column d = 32 warp + 4 (2 tig + e % 2) + t
+  float acc[4][4];
 #pragma unroll
-  for (int r = 0; r < MAX_ROWS; ++r) acc[r] = 0.f;
-  __syncthreads();
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
-  for (int s0 = 0; s0 < len; s0 += TS) {
-    const int nk = min(TS, len - s0);
-    // stage the live K and V rows of this tile: every thread issues all of
-    // its loads (scales, then up to MAX_D / 16 16-byte words of K and of V)
-    // before it stores any, so the whole tile is in flight at once
-    float ksv = 0.f, vsv = 0.f;
-    if (tid < nk) {
-      const size_t row = ((size_t)b * S + s0 + tid) * G + g;
-      ksv = __ldg(ks + row);
-      vsv = __ldg(vs + row);
+  CopyPlan plan;
+  {
+    const int D16 = D / 16;
+#pragma unroll
+    for (int n = 0; n < COPIES; ++n) {
+      const int i = tid + n * THREADS, j = vec16 ? i / D16 : CHUNK, c = i - j * D16;
+      plan.key[n] = j;
+      plan.src[n] = (long long)j * G * D + 16 * c;
+      plan.dst_k[n] = j * KSTR + 16 * c;
+      plan.dst_v[n] = CHUNK * KSTR + j * VSTR + 16 * c;
     }
-    if (vec16) {
-      const int D16 = D / 16;
-      int4 kbuf[MAX_D / 16], vbuf[MAX_D / 16];
+  }
+  const int n_chunks = (len + CHUNK - 1) / CHUNK;
+  if (rank < n_chunks)
+    load_chunk(sm.u.st[0], plan, k, ks, v, vs, slot_row, G, g, D, rank * CHUNK, len, vec16,
+               tid);
+  cp_async_commit();
+
+  int it = 0;
+  for (int ch = rank; ch < n_chunks; ch += NC, ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // this chunk has landed; the last one is consumed
+    if (ch + NC < n_chunks)
+      load_chunk(sm.u.st[(it + 1) % STAGES], plan, k, ks, v, vs, slot_row, G, g, D,
+                 (ch + NC) * CHUNK, len, vec16, tid);
+    cp_async_commit();
+    const Stage& st = sm.u.st[it % STAGES];
+    const int c0 = ch * CHUNK;
+
+    // q . K^T: keys 16 warp .. 16 warp + 15 of the chunk, two n8 tiles
+    int cc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
 #pragma unroll
-      for (int it = 0; it < MAX_D / 16; ++it) {
-        const int i = tid + it * TS, j = i / D16, c = i % D16;
-        if (j < nk) {
-          const size_t row = ((size_t)b * S + s0 + j) * G + g;
-          kbuf[it] = __ldg(reinterpret_cast<const int4*>(k + row * D) + c);
-          vbuf[it] = __ldg(reinterpret_cast<const int4*>(v + row * D) + c);
-        }
+    for (int s = 0; s < KSTEPS; ++s)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const uint32_t* kr =
+            reinterpret_cast<const uint32_t*>(st.k[16 * warp + 8 * nt + gid]);
+        mma_s8(cc[nt], a[s], kr[8 * s + tig], kr[8 * s + 4 + tig]);
       }
+    // descale and mask: sc[h][nt][e] is row gid + 8h, key 16 warp + 8 nt + 2 tig + e
+    float sc[2][2][2];
+    bool seen[2][2][2];
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-      for (int it = 0; it < MAX_D / 16; ++it) {
-        const int i = tid + it * TS, j = i / D16, c = i % D16;
-        if (j < nk) {
-          k_t[j][4 * c] = kbuf[it].x;
-          k_t[j][4 * c + 1] = kbuf[it].y;
-          k_t[j][4 * c + 2] = kbuf[it].z;
-          k_t[j][4 * c + 3] = kbuf[it].w;
-          reinterpret_cast<int4*>(v_t[j])[c] = vbuf[it];
-        }
-      }
-    } else {
-      for (int i = tid; i < nk * D4; i += TS) {
-        const int j = i / D4, c = i % D4;
-        const size_t row = ((size_t)b * S + s0 + j) * G + g;
-        k_t[j][c] = __ldg(reinterpret_cast<const int*>(k + row * D) + c);
-        v_t[j][c] = __ldg(reinterpret_cast<const int*>(v + row * D) + c);
-      }
-    }
-    if (tid < nk) {
-      ks_t[tid] = ksv;
-      vs_t[tid] = vsv;
-    }
-    __syncthreads();
-    // q . K^T: thread j owns key j, int8 x int8 -> int32 by dp4a
-    {
-      const int j = tid, kp = s0 + j;
-      if (j < nk) {
-        int part[MAX_ROWS];
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int r = 0; r < MAX_ROWS; ++r) part[r] = 0;
-        for (int d4 = 0; d4 < D4; ++d4) {
-          const int kw = k_t[j][d4];
+      for (int e = 0; e < 2; ++e) {
+        const int j = 16 * warp + 8 * nt + 2 * tig + e, kp = c0 + j;
+        const float ksj = st.ks[j];
 #pragma unroll
-          for (int r = 0; r < MAX_ROWS; ++r)
-            if (r < nr) part[r] = __dp4a(q_w[r][d4], kw, part[r]);
-        }
-#pragma unroll
-        for (int r = 0; r < MAX_ROWS; ++r) {
-          if (r < nr) {
-            bool seen = true;
-            if (MASK == kRowLength) seen = kp < row_lim[r];
-            if (MASK == kTree) {
-              const int idx = kp - pos;
-              seen = idx < 0 || (idx < T && ((row_anc[r] >> idx) & 1u));
-            }
-            const float sc = __fdiv_rn(
-                __fmul_rn(__fmul_rn((float)part[r], q_sc[r]), ks_t[j]), sqrt_d);
-            p_t[r][j] = seen ? sc : NEG_INF;
+        for (int h = 0; h < 2; ++h) {
+          bool ok = row_ok[h] && kp < len;
+          if (MASK == kRowLength) ok = ok && kp < row_lim[h];
+          if (MASK == kTree) {
+            const int idx = kp - pos;
+            ok = ok && (idx < 0 || (idx < T && ((row_anc[h] >> idx) & 1u)));
           }
+          // a masked key divides 1, not 0, off the division's slow path
+          const float num = __fmul_rn(__fmul_rn(s22_to_f32(cc[nt][2 * h + e]), q_sc[h]), ksj);
+          const float s = __fdiv_rn(ok ? num : 1.f, sqrt_d);
+          seen[h][nt][e] = ok;
+          sc[h][nt][e] = ok ? s : NEG_INF;
+          mx[h] = fmaxf(mx[h], sc[h][nt][e]);
         }
-      } else {
-        for (int r = 0; r < nr; ++r) p_t[r][j] = NEG_INF;   // past the walk
       }
-    }
-    __syncthreads();
-    // online softmax statistics, one warp per query row
-    for (int r = warp; r < nr; r += nwarps) {
-      float mx = NEG_INF;
-      for (int j = lane; j < TS; j += 32) mx = fmaxf(mx, p_t[r][j]);
-      mx = warp_maxf(mx);
-      const float m_prev = row_m[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float psum = 0.f;
-      for (int j = lane; j < TS; j += 32) {
-        const float p = expf(p_t[r][j] - m_new);
-        p_t[r][j] = p;
-        psum += p;
-      }
-      psum = warp_sumf(psum);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        row_l[r] = row_l[r] * corr + psum;
-        row_m[r] = m_new;
-        row_corr[r] = corr;
-      }
-    }
-    __syncthreads();
-    // P . (V * v_s): thread d owns output lane d of every row
-    if (tid < D) {
 #pragma unroll
-      for (int r = 0; r < MAX_ROWS; ++r)
-        if (r < nr) acc[r] *= row_corr[r];
-#pragma unroll 4
-      for (int j = 0; j < nk; ++j) {
-        const int8_t vq = reinterpret_cast<const int8_t*>(v_t[j])[tid];
-        const float vf = __fmul_rn((float)vq, vs_t[j]);
-#pragma unroll
-        for (int r = 0; r < MAX_ROWS; ++r)
-          if (r < nr) acc[r] += p_t[r][j] * vf;
-      }
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (tig == 0) sm.red_m[warp][gid + 8 * h] = mx[h];
     }
     __syncthreads();
-  }
+    // probabilities against the running maximum; row sums in a fixed order
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = gid + 8 * h;
+      const float cm = fmaxf(fmaxf(sm.red_m[0][r], sm.red_m[1][r]),
+                             fmaxf(sm.red_m[2][r], sm.red_m[3][r]));
+      const float m_new = fmaxf(m_run[h], cm);
+      corr[h] = expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+      float p[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) p[nt][e] = seen[h][nt][e] ? expf(sc[h][nt][e] - m_new) : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        *reinterpret_cast<float2*>(&sm.p[r][16 * warp + 8 * nt + 2 * tig]) =
+            make_float2(p[nt][0], p[nt][1]);
+      float ps = __fadd_rn(__fadd_rn(__fadd_rn(p[0][0], p[0][1]), p[1][0]), p[1][1]);
+      ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, 1));
+      ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, 2));
+      if (tig == 0) sm.red_l[warp][r] = ps;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = gid + 8 * h;
+      const float ps = __fadd_rn(__fadd_rn(__fadd_rn(sm.red_l[0][r], sm.red_l[1][r]),
+                                           sm.red_l[2][r]), sm.red_l[3][r]);
+      l_run[h] = __fmaf_rn(l_run[h], corr[h], ps);
+    }
 
-  if (tid < D) {
+    // P . (V * v_s) on tf32 mma.sync m16n8k8: A = p * v_s split into tf32
+    // hi + lo (3xTF32; V's int8 values are exact in tf32, so its lo is 0),
+    // B = V; the chunk's sum in a fresh accumulator, then acc * corr + sum.
+    // All eight k-steps run: past the walk p = 0 and V = 0 add exact zeros.
+    {
+      const bool col_ok = 8 * warp + gid < D4;
+      float cpv[4][4];
 #pragma unroll
-    for (int r = 0; r < MAX_ROWS; ++r)
-      if (r < nr)
-        out[(bg * R + r0 + r) * D + tid] = acc[r] / fmaxf(row_l[r], 1e-30f);
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cpv[t][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < CHUNK / 8; ++kt) {
+        const int k0 = 8 * kt + tig, k1 = k0 + 4;
+        const float vs0 = st.vs[k0], vs1 = st.vs[k1];
+        uint32_t ahi[4], alo[4];
+        split_tf32(__fmul_rn(sm.p[gid][k0], vs0), ahi[0], alo[0]);
+        split_tf32(__fmul_rn(sm.p[gid + 8][k0], vs0), ahi[1], alo[1]);
+        split_tf32(__fmul_rn(sm.p[gid][k1], vs1), ahi[2], alo[2]);
+        split_tf32(__fmul_rn(sm.p[gid + 8][k1], vs1), ahi[3], alo[3]);
+        // columns 32 warp + 4 gid + t of the four n-tiles: one word a key
+        const uint32_t* v0 = reinterpret_cast<const uint32_t*>(st.v[k0]);
+        const uint32_t* v1 = reinterpret_cast<const uint32_t*>(st.v[k1]);
+        const uint32_t w0 = col_ok ? v0[8 * warp + gid] : 0u;
+        const uint32_t w1 = col_ok ? v1[8 * warp + gid] : 0u;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const uint32_t b0 = __float_as_uint(s8_to_f32(w0, t));
+          const uint32_t b1 = __float_as_uint(s8_to_f32(w1, t));
+          mma_tf32(cpv[t], alo, b0, b1);
+          mma_tf32(cpv[t], ahi, b0, b1);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = __fmaf_rn(acc[t][e], corr[e >> 1], cpv[t][e]);
+    }
   }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: the accumulators take its place
+
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = 2 * tig + (e & 1);
+      if (8 * warp + n < D4) sm.u.acc[gid + 8 * (e >> 1)][32 * warp + 4 * n + t] = acc[t][e];
+    }
+  if (warp == 0 && tig == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sm.m[gid + 8 * h] = m_run[h];
+      sm.l[gid + 8 * h] = l_run[h];
+    }
+  }
+  cluster.sync();
+
+  // each output element merged over the cluster's CTAs in rank order
+  for (int e = rank * THREADS + tid; e < nr * D; e += NC * THREADS) {
+    const int r = e / D, d = e - r * D;
+    float mc[NC], lc[NC], ac[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const Smem* peer = cluster.map_shared_rank(&sm, c);
+      mc[c] = peer->m[r];
+      lc[c] = peer->l[r];
+      ac[c] = peer->u.acc[r][d];
+    }
+    float m = mc[0];
+#pragma unroll
+    for (int c = 1; c < NC; ++c) m = fmaxf(m, mc[c]);
+    float l = 0.f, o = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float f = expf(mc[c] - m);
+      l = __fmaf_rn(lc[c], f, l);
+      o = __fmaf_rn(ac[c], f, o);
+    }
+    out[(bg * R + r0 + r) * D + d] = __fdiv_rn(o, fmaxf(l, 1e-30f));
+  }
+  cluster.sync();      // no CTA leaves while another reads its shared memory
 }
 
 template <int MASK>
@@ -260,19 +434,32 @@ int launch(const void* q, const void* qs, const void* k, const void* ks,
            const void* v, const void* vs, const void* lim, const void* anc,
            void* out, int B, int S, int G, int T, int rep, int D, float sqrt_d,
            void* stream) {
+  const int row_blocks = (T * rep + MAX_ROWS - 1) / MAX_ROWS;
   if (B < 1 || S < 1 || G < 1 || T < 1 || rep < 1 || D < 4 || D > MAX_D
-      || D % 4 != 0 || (MASK == kTree && T > 31))
+      || D % 4 != 0 || (MASK == kTree && T > 31) || B > 65535
+      || (long long)G * row_blocks > 65535)
     return (int)cudaErrorInvalidValue;
   const bool vec16 = D % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0
       && reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const int row_blocks = (T * rep + MAX_ROWS - 1) / MAX_ROWS;
-  attn_kernel<MASK><<<dim3(G, B, row_blocks), TS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(qs),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(NC, G * row_blocks, B);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = NC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, attn_kernel<MASK>, static_cast<const int8_t*>(q), static_cast<const float*>(qs),
       static_cast<const int8_t*>(k), static_cast<const float*>(ks),
       static_cast<const int8_t*>(v), static_cast<const float*>(vs),
       static_cast<const int32_t*>(lim), static_cast<const int32_t*>(anc),
       static_cast<float*>(out), S, G, T, rep, D, sqrt_d, vec16);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

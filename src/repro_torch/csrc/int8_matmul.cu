@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -63,24 +65,6 @@ constexpr int MAX_SMEM = 232448;
 // three CTAs still fit on an SM
 constexpr size_t SMEM_TARGET = 76 * 1024;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // 4x4 byte transpose: out[i] byte j = in[j] byte i
 __device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
                                            uint32_t* o) {
@@ -90,15 +74,6 @@ __device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, u
   o[1] = __byte_perm(lo_ab, lo_cd, 0x7632);
   o[2] = __byte_perm(hi_ab, hi_cd, 0x5410);
   o[3] = __byte_perm(hi_ab, hi_cd, 0x7632);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // rows [k0, min(k0 + BK, ke)) x columns [n0, n0 + BN) of w into one stage;

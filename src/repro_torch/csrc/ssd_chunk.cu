@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int NT = 128;           // threads per block: four warps
@@ -110,29 +112,14 @@ Dims make_dims(int N, int Q, int H, int G, int dh, int S, int num_sms) {
   return d;
 }
 
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  const float r = __fsub_rn(v, __uint_as_float(hi));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // an A fragment (16 x 8, element (r, k) at p[r * rs + k * ks]) as hi and lo
 struct FragA {
   uint32_t hi[4], lo[4];
   __device__ __forceinline__ void load(const float* p, int rs, int ks, int g, int t) {
-    split(p[g * rs + t * ks], hi[0], lo[0]);
-    split(p[(g + 8) * rs + t * ks], hi[1], lo[1]);
-    split(p[g * rs + (t + 4) * ks], hi[2], lo[2]);
-    split(p[(g + 8) * rs + (t + 4) * ks], hi[3], lo[3]);
+    split_tf32(p[g * rs + t * ks], hi[0], lo[0]);
+    split_tf32(p[(g + 8) * rs + t * ks], hi[1], lo[1]);
+    split_tf32(p[g * rs + (t + 4) * ks], hi[2], lo[2]);
+    split_tf32(p[(g + 8) * rs + (t + 4) * ks], hi[3], lo[3]);
   }
 };
 
@@ -140,8 +127,8 @@ struct FragA {
 struct FragB {
   uint32_t hi[2], lo[2];
   __device__ __forceinline__ void load(const float* p, int ks, int ns, int g, int t) {
-    split(p[t * ks + g * ns], hi[0], lo[0]);
-    split(p[(t + 4) * ks + g * ns], hi[1], lo[1]);
+    split_tf32(p[t * ks + g * ns], hi[0], lo[0]);
+    split_tf32(p[(t + 4) * ks + g * ns], hi[1], lo[1]);
   }
 };
 

@@ -1,10 +1,11 @@
 """Build ``csrc/*.cu`` at first use and load each result through ``ctypes``.
 
 Every source has a plain C interface (no PyTorch headers), so ``nvcc``
-compiles it in seconds.  Each source becomes its own shared library in
+compiles it in seconds.  Sources may include the shared headers
+``csrc/*.cuh``.  Each source becomes its own shared library in
 ``<package>/_build`` (listed in ``.gitignore``); :func:`build` starts one
 ``nvcc`` per source, all at once, and waits for them together.  A library
-newer than its source is reused.  ``nvcc`` is looked up under
+newer than its source and every header is reused.  ``nvcc`` is looked up under
 ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``, then on ``PATH``.
 """
 from __future__ import annotations
@@ -46,9 +47,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header (``csrc/*.cuh``)."""
     lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    inputs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(names: list[str] | None = None) -> dict[str, str]:

@@ -5,9 +5,15 @@ Replaces ``repro/kernels/decode_attn/kernel.py::decode_attn_pallas``
 (``_attn_pallas`` / ``_kernel``; wrapper ``ops.decode_attention``) on the
 plain decode path.  Per (slot, kv group): int8 q . K^T into int32, descale,
 mask to the slot's length, online softmax, ``P . (V * v_s)`` in f32.  It is
-bound by the bytes of the live cache rows; one block per (slot, group)
-walks key tiles only up to that slot's length, so rows past it are never
-read.  The float stages sum in another order than the plain version, so the
+bound by the bytes of the live cache rows.  The kernel cuts the key axis
+into chunks of 64 keys at fixed, absolute positions; the 8 CTAs of a thread
+block cluster share one (slot, group)'s chunks, CTA c taking chunks c,
+c + 8, ... up to the slot's length (rows past it are never read), staged by
+``cp.async``, scored on int8 ``mma.sync`` and multiplied into V on tf32
+``mma.sync`` (3xTF32, about f32); the CTAs merge their online softmax
+states in rank order through distributed shared memory, in one launch.  Nothing but a key's position decides which CTA sums it or in what
+order, so a row's bits do not depend on the pool size, the walk or the
+mask.  The float stages sum in another order than the plain version, so the
 two agree within ``rtol=3e-5, atol=3e-6`` (the Pallas kernel's tolerance).
 The verify kernels B3 and B4 (``verify_attn``, ``verify_tree_attn``) share
 this kernel's source and :func:`attn_plain`, with other masks.
@@ -82,7 +88,7 @@ def decode_attn_cuda(q_q, q_s, k_q, k_s, v_q, v_s, lengths) -> torch.Tensor:
     KN.require(k_s, "k_s", torch.float32, (B, S, G))
     KN.require(v_s, "v_s", torch.float32, (B, S, G))
     KN.require(lengths, "lengths", torch.int32, (B,))
-    for t, name in ((q_q, "q_q"), (k_q, "k_q")):
+    for t, name in ((q_q, "q_q"), (k_q, "k_q"), (v_q, "v_q")):
         if t.data_ptr() % 4:
             raise ValueError(f"decode_attn: {name} must be 4-byte aligned")
     out = torch.empty((B, G, rep, D), dtype=torch.float32, device=q_q.device)

@@ -5,11 +5,14 @@ Replaces ``repro/kernels/decode_attn/kernel.py::verify_attn_pallas`` (wrapper
 ``ops.verify_attention``).  The T tokens of a verify window (the last
 committed token plus T-1 drafts per slot) fold into the GQA rep axis, and
 row (t, r) keeps keys ``< lengths[b, t]`` (``pos + t + 1``).  The kernel is
-B2's body with a per-row limit: one block per (slot, group, 16 query rows),
-each walking key tiles up to the largest limit of its rows, so a window of
-R = T * rep rows reads the live cache ``ceil(R / 16)`` times.  A row equals
-B2 at its own length bit for bit; against the plain version the float
-stages agree within ``rtol=3e-5, atol=3e-6``.
+B2's body with a per-row limit: one cluster of 8 CTAs per (slot, group, 16
+query rows), walking the 64-key chunks up to the largest limit of its rows,
+so a window of R = T * rep rows reads the live cache ``ceil(R / 16)`` times.
+The chunks sit at fixed key positions and a chunk past a row's limit adds
+exact zeros, so a row equals B2 at its own length bit for bit, also where
+B2 runs in the plain lane's pool of ``max_len`` rows and B3 in the spec
+lane's ``max_len + T - 1``; against the plain version the float stages
+agree within ``rtol=3e-5, atol=3e-6``.
 """
 from __future__ import annotations
 
@@ -65,7 +68,7 @@ def check_window(q_q, q_s, k_q, k_s, v_q, v_s, name: str) -> tuple[int, ...]:
     KN.require(v_q, "v_q", torch.int8, (B, S, G, D))
     KN.require(k_s, "k_s", torch.float32, (B, S, G))
     KN.require(v_s, "v_s", torch.float32, (B, S, G))
-    for t, n in ((q_q, "q_q"), (k_q, "k_q")):
+    for t, n in ((q_q, "q_q"), (k_q, "k_q"), (v_q, "v_q")):
         if t.data_ptr() % 4:
             raise ValueError(f"{name}: {n} must be 4-byte aligned")
     return B, G, T, rep, D, S

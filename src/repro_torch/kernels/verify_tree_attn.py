@@ -7,9 +7,9 @@ a window are the nodes of a draft tree at cache rows ``pos .. pos + T - 1``
 (node 0 is the root, the last committed token); row (t, r) sees the
 committed prefix (keys ``< pos[b]``) plus in-window key ``pos[b] + j`` iff
 bit j of ``anc[b, t]`` is set (T <= 31).  The kernel is B2's body with that
-mask, walking key tiles up to ``pos + T``; on a chain
-(``anc[t] = (1 << (t+1)) - 1``) it equals B3 bit for bit.  Against the
-plain version the float stages agree within ``rtol=3e-5, atol=3e-6``.
+mask, its cluster walking the fixed 64-key chunks up to ``pos + T``; on a
+chain (``anc[t] = (1 << (t+1)) - 1``) it equals B3 bit for bit.  Against
+the plain version the float stages agree within ``rtol=3e-5, atol=3e-6``.
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 inputs: B1 and B5 bit for bit (and B5's int32 sums equal B1's), B2, B3 and
-B4 within ``rtol=3e-5, atol=3e-6``; B3 at one token equals B2, and B4 on a
-chain equals B3, bit for bit; B6 within ``rtol=2e-4, atol=2e-5`` (its
+B4 within ``rtol=3e-5, atol=3e-6`` (B2 also in a pool of 4,096 rows); B3 at
+one token equals B2, and B4 on a chain equals B3, bit for bit, also with B2
+in a pool T - 1 rows smaller; B6 within ``rtol=2e-4, atol=2e-5`` (its
 decay within ``rtol=1e-5``); the RMSNorm kernel within ``rtol=1e-6`` and
 row-invariant bit for bit.
 """
@@ -141,6 +142,26 @@ def test_decode_attn_matches_plain(cuda, b, s, g, rep, d, lengths):
     torch.testing.assert_close(got.reshape(b, g, rep, d), want, rtol=3e-5, atol=3e-6)
 
 
+@pytest.mark.parametrize("d", [128, 64])
+def test_decode_attn_long_context_matches_plain(cuda, d):
+    """B2 in a pool of 4,096 rows at lengths 1, one chunk of 64 keys less one,
+    one chunk, one more, and the whole pool (eight CTAs walk eight chunks
+    each)."""
+    b, s, g, rep = 5, 4096, 8, 4
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.standard_normal((b, g * rep, d)).astype(np.float32)).to(cuda)
+    k_q, k_s = quant.quantize_kv(torch.from_numpy(
+        rng.standard_normal((b, s, g, d)).astype(np.float32)).to(cuda))
+    v_q, v_s = quant.quantize_kv(torch.from_numpy(
+        rng.standard_normal((b, s, g, d)).astype(np.float32)).to(cuda))
+    q_q, q_s = quant.quantize_kv(q)
+    args = (q_q.reshape(b, g, rep, d), q_s.reshape(b, g, rep, 1), k_q, k_s[..., 0].contiguous(),
+            v_q, v_s[..., 0].contiguous(),
+            torch.tensor([1, 63, 64, 65, s], dtype=torch.int32, device=cuda))
+    torch.testing.assert_close(da.decode_attn_cuda(*args), da.decode_attn_plain(*args),
+                               rtol=3e-5, atol=3e-6)
+
+
 def test_engine_runs_the_kernels_and_agrees_with_the_cpu(cuda):
     """The continuous engine on the card launches B1 7 times and B2 once per
     layer per decode step, and its first greedy tokens match the same model
@@ -221,6 +242,28 @@ def test_verify_kernels_equal_b2_and_each_other(cuda, t):
     got4 = vt.verify_tree_attn_cuda(q_q, q_s, *cache, pos,
                                     chain.expand(b, t).contiguous().to(cuda))
     assert torch.equal(got4, got3)
+
+
+@pytest.mark.parametrize("max_len,pos", [(256, [61, 125, 190, 251]),
+                                         (4096, [61, 509, 2045, 4091])])
+def test_verify_rows_equal_b2_across_pool_sizes(cuda, max_len, pos):
+    """B3's rows and B4's on a chain in a pool of max_len + T - 1 rows equal
+    B2 in a pool of max_len rows with the same live K/V, bit for bit, where
+    the rows' own keys pos + t cross chunk boundaries (63 / 64 / 65, and 511 /
+    512 / 513, where CTA 0 takes its second chunk)."""
+    b, g, rep, d, t = 4, 8, 4, 128, 5
+    q_q, q_s, cache = _window(b, max_len + t - 1, g, rep, d, t, max_len, cuda)
+    small = [c[:, :max_len].contiguous() for c in cache]
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    lengths = (pos[:, None] + torch.arange(1, t + 1, dtype=torch.int32, device=cuda)).contiguous()
+    got3 = va.verify_attn_cuda(q_q, q_s, *cache, lengths)
+    chain = ((1 << torch.arange(1, t + 1, dtype=torch.int64)) - 1).to(torch.int32)
+    got4 = vt.verify_tree_attn_cuda(q_q, q_s, *cache, pos, chain.expand(b, t).contiguous().to(cuda))
+    for i in range(t):
+        dec = da.decode_attn_cuda(q_q[:, :, i].contiguous(), q_s[:, :, i].contiguous(),
+                                  *small, lengths[:, i].contiguous())
+        assert torch.equal(got3[:, :, i], dec), i
+        assert torch.equal(got4[:, :, i], dec), i
 
 
 @pytest.mark.parametrize("lane", [{"spec_k": 4}, {"spec_tree": 6}], ids=["spec_k", "spec_tree"])

@@ -16,18 +16,24 @@ Phases (any failure makes the script exit non-zero):
    beside the plain version's, a library call's where one computes the same
    function, and the bound (the larger of bytes / 3.35 TB/s and operations
    / the type's peak); B1 also at the verify M (20, 28) and at mamba2-2.7b's
-   linears, and its device operations a call (one kernel, gated); B2 at
-   S 512 and S 4,096, and its device operations a call (one cluster
-   kernel, gated);
+   linears, and its device operations a call (one kernel, gated); B5 on
+   the weight's bytes at M 1, 4, 20 and 28 (bit-equal to B1 and to the
+   plain version, with and without its int32 sums; beside
+   ``torch._int_mm`` with the same epilogue; its launch plan), and its
+   device operations a call (one cluster kernel, gated); B2 at S 512 and
+   S 4,096, and its device operations a call (one cluster kernel, gated);
 3. ``Engine`` at full width (llama3-8b, random f32 weights from a seeded
    ``torch.Generator``) under ``fused_int8``: 4 prompts of 64 tokens, 16
    greedy steps, with the launch counts that show B1 and B2 ran; one decode
    step from one state under ``fused_int8``, ``pim_bitserial`` (B5) and
-   ``ref_int8`` (plain); and the reduced config on the card against the
-   same model on the CPU (plain versions);
+   ``ref_int8`` (plain), and where the decode step's time goes under
+   ``fused_int8`` and under ``pim_bitserial``; and the reduced config on
+   the card against the same model on the CPU (plain versions);
 4. ``ContinuousBatchingEngine`` at full width: 8 ragged requests on 4 slots,
    greedy FIFO — the main path, whose launch counts the ``kernels`` line
-   reports for B1 and B2 (B5's come from its ``pim_bitserial`` step);
+   reports for B1 and B2; then the same trace under ``pim_bitserial``
+   (B5's launch count in the ``kernels`` line) and under ``ref_int8``,
+   gated token-identical;
 5. the speculative lanes: B3 (``verify_attn``) and B4 (``verify_tree_attn``)
    at full width against their plain versions, in pools of 256 and 4,096
    rows plus the window, with the two bit-exact invariants (B3 at each row
@@ -212,111 +218,109 @@ def attn_body_resources(log: str) -> list:
 LINEAR_SHAPES = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2, (14336, 4096): 1}
 
 
+def linear_inputs(torch, g, M: int, K: int, N: int, w_low: int = -127) -> tuple:
+    """A linear's kernel inputs on the card: x_q int8 [M,K], x_s f32 [M,1],
+    w_q int8 [K,N] in [w_low, 127], w_s f32 [N]."""
+    return (torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8),
+            torch.rand((M, 1), generator=g, device="cuda") * 0.01 + 1e-3,
+            torch.randint(w_low, 128, (K, N), generator=g, device="cuda", dtype=torch.int8),
+            torch.rand((N,), generator=g, device="cuda") * 0.01 + 1e-3)
+
+
 def phase_linears(torch, mm, pim, quant) -> dict:
-    """B1 and B5 at M = 4 over one llama3-8b layer's linears (wq, wo:
-    4096x4096; wk, wv: 4096x1024; w_up, w_gate: 4096x14336; w_down:
-    14336x4096); B1's device operations a call; B1 per llama layer at the
-    verify M (20, 28) and per mamba2-2.7b layer at M 4 (w_z, w_x:
-    2560x5120; out_proj: 5120x2560)."""
+    """B1 at M = 4 over one llama3-8b layer's linears (wq, wo: 4096x4096;
+    wk, wv: 4096x1024; w_up, w_gate: 4096x14336; w_down: 14336x4096); B1's
+    device operations a call; B1 per llama layer at the verify M (20, 28)
+    and per mamba2-2.7b layer at M 4 (w_z, w_x: 2560x5120; out_proj:
+    5120x2560); B5 per llama layer at M 1, 4, 20 and 28 and its device
+    operations a call."""
     g = torch.Generator(device="cuda").manual_seed(1)
     M = 4
-    res = {"shapes": [], "int8_matmul": {}, "pim_mvm": {}}
+    res = {"shapes": [], "int8_matmul": {}}
     for (K, N), count in LINEAR_SHAPES.items():
         def make():
-            return (torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8),
-                    torch.rand((M, 1), generator=g, device="cuda") * 0.01 + 1e-3,
-                    torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8),
-                    torch.rand((N,), generator=g, device="cuda") * 0.01 + 1e-3)
+            return linear_inputs(torch, g, M, K, N)
         x_q, x_s, w_q, w_s = make()
         out_k, acc_k = mm.int8_matmul_cuda(x_q, x_s, w_q, w_s)
         out_n, _ = mm.int8_matmul_cuda(x_q, x_s, w_q, w_s, with_acc=False)
         out_p, acc_p = mm.int8_matmul_plain(x_q, x_s, w_q, w_s)
-        w_hi, w_lo = quant.pack_qlc(w_q)
-        out5, acc5 = pim.pim_mvm_cuda(x_q, x_s, w_hi, w_lo, w_s)
-        out5p, acc5p = pim.pim_mvm_plain(x_q, x_s, w_hi, w_lo, w_s)
         torch.cuda.synchronize()
         checks = {"b1_acc_eq_plain": torch.equal(acc_k, acc_p),
                   "b1_out_eq_plain": torch.equal(out_k, out_p),
-                  "b1_out_without_acc_eq_plain": torch.equal(out_n, out_p),
-                  "b5_acc_eq_b1": torch.equal(acc5, acc_k),
-                  "b5_acc_eq_plain": torch.equal(acc5p, acc_k),
-                  "b5_out_eq_b1": torch.equal(out5, out_k)}
+                  "b1_out_without_acc_eq_plain": torch.equal(out_n, out_p)}
         err1 = float((out_k - out_p).abs().max())
-        err5 = float((out5 - out5p).abs().max())
         if not all(checks.values()):
             raise AssertionError(f"K={K} N={N}: {checks}")
 
         sets = copies(torch, make, K * N)
-        packed = [quant.pack_qlc(s[2]) for s in sets]
         n = len(sets)
-
-        def b5(fn):
-            return lambda i: fn(sets[i % n][0], sets[i % n][1], *packed[i % n], sets[i % n][3])
         t_b1 = timed(torch, lambda i: mm.int8_matmul_cuda(*sets[i % n], with_acc=False), 50)
         t_b1p = timed(torch, lambda i: mm.int8_matmul_plain(*sets[i % n]), 5)
-        t_b5 = timed(torch, b5(pim.pim_mvm_cuda), 10)
-        t_b5p = timed(torch, b5(pim.pim_mvm_plain), 3)
         # the library int8 GEMM, timed as a yardstick only: it needs M > 16,
         # so x is zero-padded to 32 rows
         pads = [torch.cat([s_[0], s_[0].new_zeros((32 - M, K))]) for s_ in sets]
         t_lib, lib_note, lib_layouts = int_mm_ms(torch, pads, [s_[2] for s_ in sets])
         io = M * K + 4 * M + 4 * N + 4 * M * N
         b1_bound = bound_ms(io + K * N, [(2 * M * K * N, INT8_OPS_PER_S)])
-        b5_bound = bound_ms(io + 2 * K * N, [(32 * M * K * N, INT8_OPS_PER_S)])
         row = {"K": K, "N": N, "count_per_layer": count, "checks": checks,
-               "b1_bound_by": b1_bound[1], "b5_bound_by": b5_bound[1],
+               "b1_bound_by": b1_bound[1],
                "b1_ms": t_b1["device_ms"], "b1_plain_ms": t_b1p["device_ms"],
                "b1_bound_ms": b1_bound[0], "b1_eager_ms": t_b1["eager_ms"],
-               "b5_ms": t_b5["device_ms"], "b5_plain_ms": t_b5p["device_ms"],
-               "b5_bound_ms": b5_bound[0], "b5_eager_ms": t_b5["eager_ms"],
                "library_ms": t_lib, "library": lib_note, "library_layouts_ms": lib_layouts,
-               "b1_max_abs_err": err1, "b5_max_abs_err": err5}
+               "b1_max_abs_err": err1}
         res["shapes"].append(row)
         lib_us = "n/a" if t_lib is None else f"{t_lib * 1e3:.1f}"
         print(f"   M={M} K={K:5d} N={N:5d} (us, device / eager): B1 "
               f"{row['b1_ms'] * 1e3:.1f} / {row['b1_eager_ms'] * 1e3:.1f} (bound "
               f"{b1_bound[0] * 1e3:.1f}, plain {row['b1_plain_ms'] * 1e3:.1f}, "
-              f"library {lib_us} [{lib_note}])  B5 {row['b5_ms'] * 1e3:.1f} / "
-              f"{row['b5_eager_ms'] * 1e3:.1f} (bound {b5_bound[0] * 1e3:.1f}, plain "
-              f"{row['b5_plain_ms'] * 1e3:.1f})  {checks}")
-        del sets, packed, pads
-    for key, prefix in (("int8_matmul", "b1"), ("pim_mvm", "b5")):
-        rows = res["shapes"]
-        lib = [r["library_ms"] for r in rows]
-        res[key] = {
-            "ms": sum(r[f"{prefix}_ms"] * r["count_per_layer"] for r in rows),
-            "plain_ms": sum(r[f"{prefix}_plain_ms"] * r["count_per_layer"] for r in rows),
-            "bound_ms": sum(r[f"{prefix}_bound_ms"] * r["count_per_layer"] for r in rows),
-            "library_ms": (None if key == "pim_mvm" or None in lib else
-                           sum(r["library_ms"] * r["count_per_layer"] for r in rows)),
-            "max_abs_err": max(r[f"{prefix}_max_abs_err"] for r in rows),
-            "bound_by": max(rows, key=lambda r: r[f"{prefix}_bound_ms"] * r["count_per_layer"])[
-                f"{prefix}_bound_by"]}
+              f"library {lib_us} [{lib_note}])  {checks}")
+        del sets, pads
+    rows = res["shapes"]
+    lib = [r["library_ms"] for r in rows]
+    res["int8_matmul"] = {
+        "ms": sum(r["b1_ms"] * r["count_per_layer"] for r in rows),
+        "plain_ms": sum(r["b1_plain_ms"] * r["count_per_layer"] for r in rows),
+        "bound_ms": sum(r["b1_bound_ms"] * r["count_per_layer"] for r in rows),
+        "library_ms": (None if None in lib else
+                       sum(r["library_ms"] * r["count_per_layer"] for r in rows)),
+        "max_abs_err": max(r["b1_max_abs_err"] for r in rows),
+        "bound_by": max(rows, key=lambda r: r["b1_bound_ms"] * r["count_per_layer"])[
+            "b1_bound_by"]}
     res["one_call"] = b1_device_ops(torch, mm, g)
     res["verify_m"] = {M: b1_per_layer(torch, mm, g, M, LINEAR_SHAPES) for M in (20, 28)}
     res["mamba2"] = b1_per_layer(torch, mm, g, 4, MAMBA2_LINEAR_SHAPES)
+    res["b5"] = {M: b5_per_layer(torch, mm, pim, quant, g, M) for M in B5_M}
+    res["pim_mvm"] = res["b5"][4]
+    res["b5_one_call"] = b5_device_ops(torch, pim, g)
     return res
+
+
+def device_ops(torch, fn) -> list:
+    """The names of the device operations (kernels, memsets, copies) of one
+    ``fn()``, from ``torch.profiler``, after one warm-up call; a trace that
+    recorded no device event at all is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if names:
+            break
+    return names
 
 
 def b1_device_ops(torch, mm, g) -> dict:
     """The device operations of one B1 call on the model path (K 4096,
     N 1024, M 4 and 20), from ``torch.profiler``: one kernel, no memset, no
     copy."""
-    from torch.profiler import ProfilerActivity, profile
     out = {}
     for M in (4, 20):
-        args = (torch.randint(-127, 128, (M, 4096), generator=g, device="cuda", dtype=torch.int8),
-                torch.rand((M, 1), generator=g, device="cuda"),
-                torch.randint(-127, 128, (4096, 1024), generator=g, device="cuda",
-                              dtype=torch.int8),
-                torch.rand((1024,), generator=g, device="cuda"))
-        mm.int8_matmul_cuda(*args, with_acc=False)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            mm.int8_matmul_cuda(*args, with_acc=False)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        args = linear_inputs(torch, g, M, 4096, 1024)
+        names = device_ops(torch, lambda: mm.int8_matmul_cuda(*args, with_acc=False))
         out[M] = names
         print(f"   one B1 call at M={M}, K=4096, N=1024: {len(names)} device operation(s) "
               f"{[n[:48] for n in names]}; plan {mm.launch_plan(M, 4096, 1024, 132)}")
@@ -325,18 +329,40 @@ def b1_device_ops(torch, mm, g) -> dict:
     return out
 
 
-def int_mm_ms(torch, xs: list, ws: list) -> tuple:
+def b5_device_ops(torch, pim, g) -> dict:
+    """The device operations of one B5 call on the model path (K 4096,
+    N 1024, M 1, 4 and 20), from ``torch.profiler``: one kernel, no memset,
+    no copy, no epilogue kernel."""
+    out = {}
+    for M in (1, 4, 20):
+        args = linear_inputs(torch, g, M, 4096, 1024)
+        names = device_ops(torch, lambda: pim.pim_mvm_cuda(*args, with_acc=False))
+        out[M] = names
+        print(f"   one B5 call at M={M}, K=4096, N=1024: {len(names)} device operation(s) "
+              f"{[n[:48] for n in names]}; plan {pim.launch_plan(M, 4096, 1024, 132)}")
+        if len(names) != 1 or "pim_mvm_cluster" not in names[0]:
+            raise AssertionError(f"B5 at M={M} issued {names}, not one kernel")
+    return out
+
+
+def int_mm_ms(torch, xs: list, ws: list, epilogue=None) -> tuple:
     """Device ms of ``torch._int_mm`` cycling over the given operands, with
-    the weight row-major and column-major (cuBLASLt's TN layout) in turn;
-    returns the faster time and its note, and both layouts' times (None
-    where the library refuses the layout)."""
+    the weight row-major and column-major (cuBLASLt's TN layout) in turn,
+    followed by ``epilogue(acc, i)`` where one is given; returns the faster
+    time and its note, and both layouts' times (None where the library
+    refuses the layout)."""
     n = len(xs)
     times = {}
     for layout in ("row-major", "column-major"):
         w_l = ws if layout == "row-major" else [w.t().contiguous().t() for w in ws]
+        if epilogue is None:
+            def fn(i):
+                return torch._int_mm(xs[i % n], w_l[i % n])
+        else:
+            def fn(i):
+                return epilogue(torch._int_mm(xs[i % n], w_l[i % n]), i % n)
         try:
-            times[layout] = timed(torch, lambda i: torch._int_mm(xs[i % n], w_l[i % n]),
-                                  50)["device_ms"]
+            times[layout] = timed(torch, fn, 50)["device_ms"]
         except RuntimeError as e:
             times[layout] = None
             times[layout + " refused"] = str(e).splitlines()[0][:120]
@@ -345,7 +371,8 @@ def int_mm_ms(torch, xs: list, ws: list) -> tuple:
     if not ok:
         return None, "torch._int_mm refused both layouts", times
     best = min(ok, key=ok.get)
-    return ok[best], f"torch._int_mm, {best} weight (int32 product, no epilogue)", times
+    what = "int32 product, no epilogue" if epilogue is None else "int32 product, f32 epilogue"
+    return ok[best], f"torch._int_mm, {best} weight ({what})", times
 
 
 MAMBA2_LINEAR_SHAPES = {(2560, 5120): 2, (5120, 2560): 1}   # w_z, w_x; out_proj
@@ -361,10 +388,7 @@ def b1_per_layer(torch, mm, g, M: int, shapes: dict) -> dict:
     tot = {"b1_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "shapes": []}
     for (K, N), count in shapes.items():
         def make():
-            return (torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8),
-                    torch.rand((M, 1), generator=g, device="cuda") * 0.01 + 1e-3,
-                    torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8),
-                    torch.rand((N,), generator=g, device="cuda") * 0.01 + 1e-3)
+            return linear_inputs(torch, g, M, K, N)
         sets = copies(torch, make, K * N)
         n = len(sets)
         out_k, acc_k = mm.int8_matmul_cuda(*sets[0])
@@ -396,6 +420,79 @@ def b1_per_layer(torch, mm, g, M: int, shapes: dict) -> dict:
     lib = tot["library_ms"]
     print(f"   M={M} per layer: B1 {tot['b1_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, "
           f"plain {tot['plain_ms']:.3f} ms, library {'n/a' if lib is None else f'{lib:.4f}'} ms")
+    return tot
+
+
+B5_M = (1, 4, 20, 28)    # the paper's single batch, 4 slots, the verify windows
+
+
+def b5_per_layer(torch, mm, pim, quant, g, M: int) -> dict:
+    """B5 at M rows over one llama3-8b layer's linears, on the weight's
+    bytes as the model passes them: its sums and output bit-equal to B1's
+    and to the plain version's (on the two cell planes), with and without
+    the integer sums; timed (graph replay, the L2 kept cold) beside the
+    plain version and ``torch._int_mm`` followed by the same f32 epilogue
+    (x zero-padded to 32 rows where M <= 16, as the library needs; its
+    output also checked equal to B5's); the bound counts each weight's two
+    cells as its one byte and Eq. 2's 32*M*K*N operations at the int8 tensor
+    rate; the launch plan (rows of x a pass, passes) printed."""
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "eager_ms": 0.0,
+           "max_abs_err": 0.0, "shapes": []}
+    by = {}
+    for (K, N), count in LINEAR_SHAPES.items():
+        def make():     # every weight byte, -128 (both sign cells set) included
+            return linear_inputs(torch, g, M, K, N, w_low=-128)
+        sets = copies(torch, make, K * N)
+        n = len(sets)
+        x_q, x_s, w_q, w_s = sets[0]
+        out5, acc5 = pim.pim_mvm_cuda(x_q, x_s, w_q, w_s)
+        out5n, none = pim.pim_mvm_cuda(x_q, x_s, w_q, w_s, with_acc=False)
+        out1, acc1 = mm.int8_matmul_cuda(x_q, x_s, w_q, w_s)
+        out_p, acc_p = pim.pim_mvm_plain(x_q, x_s, *quant.pack_qlc(w_q), w_s)
+        pad = 32 - M if M <= 16 else 0
+        xs_l = [torch.cat([s_[0], s_[0].new_zeros((pad, K))]) for s_ in sets]
+
+        def epilogue(acc, i):
+            return (acc[:M].to(torch.float32) * sets[i][1]) * sets[i][3]
+        out_lib = epilogue(torch._int_mm(xs_l[0], w_q), 0)
+        torch.cuda.synchronize()
+        checks = {"acc_eq_b1": torch.equal(acc5, acc1), "acc_eq_plain": torch.equal(acc5, acc_p),
+                  "out_eq_b1": torch.equal(out5, out1), "out_eq_plain": torch.equal(out5, out_p),
+                  "out_without_acc_eq_plain": none is None and torch.equal(out5n, out_p),
+                  "library_out_eq_b5": torch.equal(out_lib, out5)}
+        if not all(checks.values()):
+            raise AssertionError(f"B5 at M={M} K={K} N={N}: {checks}")
+        t = timed(torch, lambda i: pim.pim_mvm_cuda(*sets[i % n], with_acc=False), 30)
+        t_plain = graph_ms(torch, lambda i: pim.pim_mvm_plain(
+            sets[i % n][0], sets[i % n][1], *quant.pack_qlc(sets[i % n][2]), sets[i % n][3]), 3)
+        t_lib, note, layouts = int_mm_ms(torch, xs_l, [s_[2] for s_ in sets], epilogue)
+        b = bound_ms(M * K + 4 * M + 4 * N + 4 * M * N + K * N,
+                     [(32 * M * K * N, INT8_OPS_PER_S)])
+        plan = pim.launch_plan(M, K, N, 132)
+        tot["ms"] += t["device_ms"] * count
+        tot["eager_ms"] += t["eager_ms"] * count
+        tot["plain_ms"] += t_plain * count
+        tot["library_ms"] = (None if t_lib is None or tot["library_ms"] is None
+                             else tot["library_ms"] + t_lib * count)
+        tot["bound_ms"] += b[0] * count
+        by[b[1]] = by.get(b[1], 0.0) + b[0] * count
+        tot["max_abs_err"] = max(tot["max_abs_err"], float((out5 - out_p).abs().max()))
+        tot["shapes"].append({"K": K, "N": N, "count_per_layer": count, "ms": t["device_ms"],
+                              "eager_ms": t["eager_ms"], "plain_ms": t_plain,
+                              "bound_ms": b[0], "bound_by": b[1], "library_ms": t_lib,
+                              "library": note, "library_layouts_ms": layouts,
+                              "checks": checks, "plan": plan._asdict()})
+        lib_us = "n/a" if t_lib is None else f"{t_lib * 1e3:.1f}"
+        print(f"   M={M} K={K:5d} N={N:5d}: B5 {t['device_ms'] * 1e3:.1f} us (eager "
+              f"{t['eager_ms'] * 1e3:.1f}; bound {b[0] * 1e3:.1f} by {b[1]}, plain "
+              f"{t_plain * 1e3:.1f}), library {lib_us} us [{note}]; plan {tuple(plan)}; "
+              f"bit-equal to B1 and plain, with and without acc")
+        del sets, xs_l
+    tot["bound_by"] = max(by, key=by.get)
+    lib = tot["library_ms"]
+    print(f"   M={M} per layer: B5 {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+          f"({tot['bound_by']}), plain {tot['plain_ms']:.3f} ms, library "
+          f"{'n/a' if lib is None else f'{lib:.4f}'} ms")
     return tot
 
 
@@ -625,6 +722,13 @@ def phase_engine(torch, ctx) -> dict:
     except Exception as e:  # noqa: BLE001
         out["decode_profile"] = {"error": f"{type(e).__name__}: {e}"}
         print(f"   profile failed: {out['decode_profile']['error']}")
+    try:
+        out["pim_decode_profile"] = profile_step(
+            torch, lambda: M.decode_step(eng.qparams, cfg, clone_state(state), tok,
+                                         Runtime("pim_bitserial")), "pim_bitserial decode")
+    except Exception as e:  # noqa: BLE001
+        out["pim_decode_profile"] = {"error": f"{type(e).__name__}: {e}"}
+        print(f"   profile failed: {out['pim_decode_profile']['error']}")
     del eng, state, step, lf, lp, lr
     torch.cuda.empty_cache()
 
@@ -674,11 +778,14 @@ def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
     ``ln_f``); under ``fused_int8`` a llama layer's step 7 B1 launches and
     one of ``attn``, a mamba2 layer's step 3 B1 launches (w_z, w_x,
     out_proj), and a mamba2 prefill one B6 launch per layer and 128-token
-    chunk (float weights: no B1 in prefill)."""
+    chunk (float weights: no B1 in prefill); under ``pim_bitserial`` the
+    same linears launch B5 instead, and attention runs its plain version."""
     L = cfg.n_layers
     want = {"int8_matmul": 0, "pim_mvm": 0, "decode_attn": 0, "verify_attn": 0,
             "verify_tree_attn": 0, "ssd_chunk": 0,
             "rms_norm": (2 * L + 1) * (steps + len(prompt_lens))}
+    if backend == "pim_bitserial":
+        want["pim_mvm"] = (3 if cfg.family == "ssm" else 7) * L * steps
     if backend == "fused_int8":
         if cfg.family == "ssm":
             want["int8_matmul"] = 3 * L * steps
@@ -748,6 +855,29 @@ def phase_serve(torch, ctx) -> dict:
               f"TTFT {r['ttft_s'] * 1e3:7.1f} ms, latency {r['latency_s']:.3f} s")
     print(f"   served {rec['tokens_served']} tokens in {wall:.2f} s; stats {cb.stats}; "
           f"launches {counts}")
+    del cb
+    # the same trace under pim_bitserial (B5) and ref_int8 (plain int8
+    # matmul): both run the plain attention on the same int32 sums, so
+    # their streams must be token-identical; B5's launches over this run are
+    # the ones the kernels line reports
+    outs = {}
+    for backend in ("pim_bitserial", "ref_int8"):
+        cb, reqs, wall, counts = serve(torch, cfg, ctx["params"], {}, None, backend)
+        outs[backend] = [list(r.output) for r in reqs]
+        rec[backend] = dict(serve_record(reqs, wall, cfg), stats=dict(cb.stats),
+                            launches=counts)
+        if backend == "pim_bitserial":
+            ctx["pim_launches"] = counts["pim_mvm"]
+        print(f"   {backend}: served {rec[backend]['tokens_served']} tokens in {wall:.2f} s; "
+              f"{cb.stats['decode_steps']} decode steps; launches {counts}")
+        del cb
+    same = sum(a == b for a, b in zip(outs["pim_bitserial"], outs["ref_int8"]))
+    rec["pim_eq_ref_int8_requests"] = same
+    print(f"   pim_bitserial vs ref_int8: {same} of {len(outs['ref_int8'])} requests "
+          f"token-identical")
+    if same != len(outs["ref_int8"]):
+        raise AssertionError(f"pim_bitserial and ref_int8 part: {same} of "
+                             f"{len(outs['ref_int8'])} requests equal")
     return rec
 
 

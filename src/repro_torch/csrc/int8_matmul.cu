@@ -52,55 +52,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BN = 64;                  // output columns per CTA
-constexpr int BK = 128;                 // weight rows per stage: one slab per warp
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int STAGES = 4;
-constexpr int STAGE_BYTES = BK * BN;    // 8 KB
-constexpr int MAX_CLUSTER = 16;
+using namespace skinny;   // the stage geometry, ring, x staging and launch B5 shares
+
 constexpr int MAX_M_TILES = 4;          // n8 tiles of x a pass: 32 rows
-constexpr int MAX_SMEM = 232448;
-// a CTA's shared memory past which the plan splits K further, so that
-// three CTAs still fit on an SM
-constexpr size_t SMEM_TARGET = 76 * 1024;
-
-// 4x4 byte transpose: out[i] byte j = in[j] byte i
-__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
-                                           uint32_t* o) {
-  const uint32_t lo_ab = __byte_perm(a, b, 0x5140), lo_cd = __byte_perm(c, d, 0x5140);
-  const uint32_t hi_ab = __byte_perm(a, b, 0x7362), hi_cd = __byte_perm(c, d, 0x7362);
-  o[0] = __byte_perm(lo_ab, lo_cd, 0x5410);
-  o[1] = __byte_perm(lo_ab, lo_cd, 0x7632);
-  o[2] = __byte_perm(hi_ab, hi_cd, 0x5410);
-  o[3] = __byte_perm(hi_ab, hi_cd, 0x7632);
-}
-
-// rows [k0, min(k0 + BK, ke)) x columns [n0, n0 + BN) of w into one stage;
-// row r's 16-byte chunk c lands at chunk c ^ (r & 2), the rest is zero
-template <bool VEC>
-__device__ __forceinline__ void load_stage(int8_t* stage, const int8_t* __restrict__ w,
-                                           int k0, int ke, int n0, int N, int tid) {
-#pragma unroll
-  for (int i = 0; i < BK * BN / 16 / THREADS; ++i) {
-    const int q = tid + i * THREADS, r = q >> 2, c = q & 3;
-    const int k = k0 + r, n = n0 + 16 * c;
-    int8_t* dst = stage + r * BN + ((c ^ (r & 2)) << 4);
-    if (VEC) {
-      const bool ok = k < ke && n < N;
-      cp_async16(dst, ok ? w + (size_t)k * N + n : w, ok ? 16 : 0);
-    } else {
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
-      if (k < ke) {
-        const int8_t* row = w + (size_t)k * N;
-#pragma unroll
-        for (int b = 0; b < 16; ++b)
-          if (n + b < N) v[b >> 2] |= (uint32_t)(uint8_t)__ldg(row + n + b) << (8 * (b & 3));
-      }
-      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
 
 template <int MT, bool VEC>
 __global__ void __launch_bounds__(THREADS)
@@ -114,13 +68,11 @@ int8_mm_cluster(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   int32_t* part = reinterpret_cast<int32_t*>(smem + STAGES * STAGE_BYTES);
   int8_t* xsm = reinterpret_cast<int8_t*>(part + MP * BN);
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.y * BN;
   const int kb = blockIdx.x * k_chunk, ke = min(K, kb + k_chunk);
   const int nst = kb < ke ? (ke - kb + BK - 1) / BK : 0;
-  const bool x_vec = (K % 16 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
 
   for (int m0 = 0; m0 < M; m0 += MP) {
 #pragma unroll
@@ -129,26 +81,7 @@ int8_mm_cluster(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       cp_async_commit();
     }
     for (int i = tid; i < MP * BN; i += THREADS) part[i] = 0;
-    // x rows [m0, m0 + MP) over [kb, kb + nst * BK), zero past M and ke, each
-    // 16-byte group transposed 4x4 so that slot 4t + j holds column 4j + t
-    const int groups = nst * BK / 16;
-    for (int i = tid; i < MP * groups; i += THREADS) {
-      const int m = i / groups, gi = i - m * groups, k = kb + 16 * gi;
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
-      if (m0 + m < M) {
-        const int8_t* row = x + (size_t)(m0 + m) * K;
-        if (x_vec && k + 16 <= ke) {
-          const uint4 r = __ldg(reinterpret_cast<const uint4*>(row + k));
-          transpose4(r.x, r.y, r.z, r.w, v);
-        } else {
-#pragma unroll
-          for (int b = 0; b < 16; ++b)
-            if (k + b < ke)   // column 4j + tt goes to slot 4tt + j
-              v[b & 3] |= (uint32_t)(uint8_t)row[k + b] << (8 * (b >> 2));
-        }
-      }
-      *reinterpret_cast<uint4*>(xsm + m * xstride + 16 * gi) = make_uint4(v[0], v[1], v[2], v[3]);
-    }
+    stage_x(xsm, x, m0, MP, M, K, kb, ke, nst, xstride, tid);
     __syncthreads();
 
     int c[MT][4][4];
@@ -215,16 +148,7 @@ int8_mm_cluster(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     cluster.sync();
 
     // each output element summed over the cluster's tiles by one CTA
-    const int rows = min(MP, M - m0);
-    for (int i = rank * THREADS + tid; i < rows * BN; i += csize * THREADS) {
-      const int m = i / BN, n = n0 + (i - m * BN);
-      if (n >= N) continue;
-      int sum = 0;
-      for (int q = 0; q < csize; ++q) sum += cluster.map_shared_rank(part, q)[i];
-      const size_t o = (size_t)(m0 + m) * N + n;
-      if (acc_out != nullptr) acc_out[o] = sum;
-      out[o] = __fmul_rn(__fmul_rn((float)sum, xs[m0 + m]), ws[n]);
-    }
+    cluster_epilogue(part, min(MP, M - m0), m0, n0, N, xs, ws, acc_out, out, tid);
     cluster.sync();      // no tile is reused or freed while another CTA reads it
   }
 }
@@ -244,9 +168,7 @@ struct Plan {
 
 Plan plan_for(int M, int K, int N, int split) {
   Plan p;
-  const int stages = (K + BK - 1) / BK;
-  p.k_chunk = (stages + split - 1) / split * BK;
-  p.cluster = (K + p.k_chunk - 1) / p.k_chunk;   // no CTA left empty
+  split_rows(K, split, p.k_chunk, p.cluster);
   p.n_tiles = (N + BN - 1) / BN;
   p.m_tiles = std::min(MAX_M_TILES, (M + 7) / 8);
   p.passes = (M + 8 * p.m_tiles - 1) / (8 * p.m_tiles);
@@ -254,52 +176,21 @@ Plan plan_for(int M, int K, int N, int split) {
   return p;
 }
 
-// Double the split of K until the grid holds two CTAs for each SM and a
-// CTA's x fits beside the ring with three CTAs to an SM, up to
-// MAX_CLUSTER CTAs and one stage each.
+// the split of skinny::choose_split: two CTAs an SM, three fitting on one
 Plan make_plan(int M, int K, int N, int num_sms) {
-  const int stages = (K + BK - 1) / BK, n_tiles = (N + BN - 1) / BN;
-  int split = 1;
-  while (split < MAX_CLUSTER && 2 * split <= stages &&
-         (n_tiles * split < 2 * num_sms || plan_for(M, K, N, split).smem > SMEM_TARGET))
-    split *= 2;
-  return plan_for(M, K, N, split);
+  return plan_for(M, K, N, choose_split(K, N, num_sms, [&](int split) {
+                    return plan_for(M, K, N, split).smem;
+                  }));
 }
 
 template <int MT, bool VEC>
 cudaError_t launch(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
-                   int32_t* acc, float* out, int M, int K, int N, int cluster, int k_chunk,
+                   int32_t* acc, float* out, int M, int K, int N, const Plan& p,
                    cudaStream_t stream) {
-  auto kern = int8_mm_cluster<MT, VEC>;
-  const int xstride = k_chunk + 16;
-  const size_t smem = smem_bytes(MT, xstride);
-  static size_t smem_set = 0;           // the largest limit asked for so far
-  static bool wide_set = false;
-  if (smem > smem_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_set = smem;
-  }
-  if (cluster > 8 && !wide_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-    wide_set = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, (N + BN - 1) / BN, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, x, w, xs, ws, acc, out, M, K, N, k_chunk, xstride);
+  const int xstride = p.k_chunk + 16;
+  return launch_cluster<int8_mm_cluster<MT, VEC>>(p.cluster, p.n_tiles, smem_bytes(MT, xstride),
+                                                  stream, x, w, xs, ws, acc, out, M, K, N,
+                                                  p.k_chunk, xstride);
 }
 
 }  // namespace
@@ -334,10 +225,10 @@ extern "C" int int8_matmul_launch(const void* x, const void* w, const void* xs,
   auto* op = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-#define B1_CASE(MT)                                                                        \
-  case MT:                                                                                 \
-    err = vec ? launch<MT, true>(xp, wp, xsp, wsp, ap, op, M, K, N, p.cluster, p.k_chunk, s) \
-              : launch<MT, false>(xp, wp, xsp, wsp, ap, op, M, K, N, p.cluster, p.k_chunk, s); \
+#define B1_CASE(MT)                                                              \
+  case MT:                                                                       \
+    err = vec ? launch<MT, true>(xp, wp, xsp, wsp, ap, op, M, K, N, p, s)        \
+              : launch<MT, false>(xp, wp, xsp, wsp, ap, op, M, K, N, p, s);      \
     break;
   switch (p.m_tiles) {
     B1_CASE(1)
@@ -347,6 +238,5 @@ extern "C" int int8_matmul_launch(const void* x, const void* w, const void* xs,
       B1_CASE(4)
   }
 #undef B1_CASE
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -59,8 +59,7 @@ def test_int8_matmul_and_pim_mvm_bit_exact(cuda, m, k, n):
     out, acc = mm.int8_matmul_cuda(x_q, x_s, w_q, w_s)
     out_p, acc_p = mm.int8_matmul_plain(x_q, x_s, w_q, w_s)
     assert torch.equal(acc, acc_p) and torch.equal(out, out_p)
-    hi, lo = quant.pack_qlc(w_q)
-    out5, acc5 = pim.pim_mvm_cuda(x_q, x_s, hi, lo, w_s)
+    out5, acc5 = pim.pim_mvm_cuda(x_q, x_s, w_q, w_s)
     assert torch.equal(acc5, acc) and torch.equal(out5, out)
 
 
@@ -120,6 +119,87 @@ def test_int8_matmul_refuses_a_misaligned_weight(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         mm.int8_matmul_cuda(x_q, x_s, view, w_s)
     assert launch_counts()["int8_matmul"] == 0
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 4096, 1024), (4, 4096, 14336), (16, 4096, 1024), (17, 1000, 528), (20, 4096, 1024),
+    (28, 4096, 14336), (33, 777, 1000), (64, 4096, 4096), (70, 300, 200), (5, 1000, 77),
+    (3, 200, 130), (4, 14336, 4096)])
+def test_pim_mvm_bit_exact_at_verify_m_passes_and_tails(cuda, m, k, n):
+    """B5 on the nibble-packed byte at decode and verify M (1, 4, 20, 28),
+    one pass and more (16, 17, 33, 64, 70 rows: passes of at most 32), K
+    not a multiple of 128 and N not of 16 (the byte-load path): its sums
+    and output equal B1's and the plain version's on the two cell planes,
+    bit for bit, with and without the integer sums, one launch a call."""
+    x_q, x_s, w_q, w_s = _linear(m, k, n, 5 * m + k + n, cuda)
+    reset_launch_counts()
+    out, acc = pim.pim_mvm_cuda(x_q, x_s, w_q, w_s)
+    out2, none = pim.pim_mvm_cuda(x_q, x_s, w_q, w_s, with_acc=False)
+    assert launch_counts()["pim_mvm"] == 2 and none is None
+    out1, acc1 = mm.int8_matmul_cuda(x_q, x_s, w_q, w_s)
+    out_p, acc_p = pim.pim_mvm_plain(x_q, x_s, *quant.pack_qlc(w_q), w_s)
+    assert torch.equal(acc, acc_p) and torch.equal(acc, acc1)
+    assert torch.equal(out, out_p) and torch.equal(out, out1) and torch.equal(out2, out_p)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 16, 17, 20, 28, 33, 64, 70])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                                 (2560, 5120), (777, 1000), (128, 16)])
+def test_pim_mvm_launch_plan_covers_k_once_and_fills_the_card(cuda, m, k, n):
+    """B5's plan: whole 128-row tiles that cover every row of K exactly
+    once, none empty, at most 16 CTAs a cluster; 64-column output tiles;
+    the fewest passes of at most 32 rows of x, each a compiled size (1, 4,
+    8, 16, 24 or 32), so one pass (the weight streamed once) for M <= 32;
+    llama3-8b's full-width linears put at least one CTA on each of the
+    H100's 132 SMs; the shared memory fits a block."""
+    plan = pim.launch_plan(m, k, n, 132)
+    assert 1 <= plan.cluster <= 16 and plan.k_chunk % 128 == 0
+    rows = np.zeros(k, np.int64)
+    for r in range(plan.cluster):
+        lo, hi = r * plan.k_chunk, min(k, (r + 1) * plan.k_chunk)
+        assert lo < hi
+        rows[lo:hi] += 1
+    assert (rows == 1).all()
+    assert plan.n_tiles * 64 >= n > (plan.n_tiles - 1) * 64
+    passes = -(-m // 32)
+    assert plan.rows == min(r for r in (1, 4, 8, 16, 24, 32) if r * passes >= m)
+    assert plan.passes == passes == -(-m // plan.rows)
+    assert plan.smem_bytes <= 232448
+    if k >= 2560 and n >= 1024:
+        assert plan.cluster * plan.n_tiles >= 132
+
+
+def test_pim_mvm_refuses_a_misaligned_weight(cuda):
+    """A contiguous weight view one byte into its storage cannot take the
+    kernel's 16-byte copies: the wrapper raises, launching nothing."""
+    x_q, x_s, w_q, w_s = _linear(4, 256, 512, 11, cuda)
+    flat = torch.empty(256 * 512 + 1, dtype=torch.int8, device=cuda)
+    view = flat[1:].view(256, 512)
+    view.copy_(w_q)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        pim.pim_mvm_cuda(x_q, x_s, view, w_s)
+    assert launch_counts()["pim_mvm"] == 0
+
+
+@pytest.mark.parametrize("m", [1, 4, 20])
+def test_pim_mvm_is_one_device_operation(cuda, m):
+    """A model-path B5 call (no integer sums) is one kernel on the device:
+    no memset, no copy, no epilogue kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    x_q, x_s, w_q, w_s = _linear(m, 4096, 1024, 13, cuda)
+    pim.pim_mvm_cuda(x_q, x_s, w_q, w_s, with_acc=False)
+    torch.cuda.synchronize()
+    for _ in range(3):     # a trace that recorded no device event at all is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                pim.pim_mvm_cuda(x_q, x_s, w_q, w_s, with_acc=False)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if names:
+            break
+    assert len(names) == 3 and all("pim_mvm_cluster" in n for n in names), names
 
 
 @pytest.mark.parametrize("b,s,g,rep,d,lengths", [

@@ -124,8 +124,10 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     KN.reset_launch_counts()
     _, _, _, t = _linear(2, 64, 32, 3)
     mm.int8_matmul_2d(t["x_q"], t["x_s"], t["w_q"], t["w_s"])
+    out5, acc5 = pim.pim_mvm_2d(t["x_q"], t["x_s"], t["w_q"], t["w_s"])
     hi, lo = tq.pack_qlc(t["w_q"])
-    pim.pim_mvm_2d(t["x_q"], t["x_s"], hi, lo, t["w_s"])
+    want5, want_acc5 = pim.pim_mvm_plain(t["x_q"], t["x_s"], hi, lo, t["w_s"])
+    assert torch.equal(out5, want5) and torch.equal(acc5, want_acc5)
     _, tt = _attn_inputs(1, 16, 1, 1, 32, 4)
     da.decode_attention(*tt, 5)
     rn.rms_norm(torch.ones(2, 8), torch.ones(8))
@@ -141,9 +143,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     _, _, _, t = _linear(2, 64, 32, 3)
     with pytest.raises(ValueError, match="CUDA"):
         mm.int8_matmul_cuda(t["x_q"], t["x_s"], t["w_q"], t["w_s"])
-    hi, lo = tq.pack_qlc(t["w_q"])
     with pytest.raises(ValueError, match="CUDA"):
-        pim.pim_mvm_cuda(t["x_q"], t["x_s"], hi, lo, t["w_s"])
+        pim.pim_mvm_cuda(t["x_q"], t["x_s"], t["w_q"], t["w_s"])
     with pytest.raises(ValueError, match="CUDA"):
         rn.rms_norm_cuda(torch.ones(2, 8), torch.ones(8))
 

@@ -3,7 +3,11 @@
 Each kernel module holds the CUDA wrapper (``*_cuda``), the plain PyTorch
 version of the same function (``*_plain``), a dispatcher that takes the
 plain version only for CPU tensors and the kernel for CUDA tensors, and a
-``launches`` counter that the CUDA wrapper bumps once per launch.
+``launches`` counter that the CUDA wrapper bumps once per launch.  A call
+recorded into a CUDA graph launches nothing: the graph
+(``models/graphs.py``) takes the counts its capture added back off with
+:func:`set_launch_counts` and credits them on every replay with
+:func:`credit_launches`.
 """
 from __future__ import annotations
 
@@ -28,6 +32,17 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in KERNELS:
         _module(name).launches = 0
+
+
+def set_launch_counts(counts: dict[str, int]) -> None:
+    for name in KERNELS:
+        _module(name).launches = counts[name]
+
+
+def credit_launches(delta: dict[str, int]) -> None:
+    """Add the launches of one replayed graph to the counters."""
+    for name, n in delta.items():
+        _module(name).launches += n
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -46,39 +46,61 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Pa
 # ---------------------------------------------------------------------------
 # full (prefill) attention, blocked over KV to bound memory
 # ---------------------------------------------------------------------------
+def hidden_masks(Tq: int, Tk: int, blk: int, *, causal: bool = True, q_offset=0,
+                 kv_lengths: torch.Tensor | None = None,
+                 device: str | torch.device = "cpu") -> list[torch.Tensor]:
+    """For each block of ``blk`` keys (the last one padded), a bool mask
+    [B|1, 1, 1, Tq, blk], True where the key is hidden from the query row:
+    later than the row (causal, rows at ``q_offset + arange(Tq)``), past
+    ``Tk``, or at and beyond the row's ``kv_lengths``.  One set serves every
+    layer of a prefill call."""
+    if isinstance(q_offset, torch.Tensor):               # [B] (or [1]) offsets
+        q_offset = q_offset.reshape(-1, 1)
+    q_pos = torch.arange(Tq, device=device) + q_offset              # [B|1, Tq] or [Tq]
+    out = []
+    for bi in range(math.ceil(Tk / blk)):
+        k_pos = bi * blk + torch.arange(blk, device=device)
+        mask = (k_pos <= q_pos[..., None] if causal
+                else torch.ones((Tq, blk), dtype=torch.bool, device=device))
+        mask = mask & (k_pos < Tk)
+        mask = mask if mask.ndim == 3 else mask[None]             # [B|1, Tq, blk]
+        if kv_lengths is not None:
+            mask = mask & (k_pos[None, None, :] < kv_lengths[:, None, None])
+        out.append(~mask[:, None, None])
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0, kv_block: int = 1024,
-                    kv_lengths: torch.Tensor | None = None) -> torch.Tensor:
+                    kv_lengths: torch.Tensor | None = None,
+                    hidden: list[torch.Tensor] | None = None) -> torch.Tensor:
     """Memory-bounded attention with running (max, denom) statistics over
     KV blocks.  q: [B, Tq, H, Dk]; k: [B, Tk, G, Dk]; v: [B, Tk, G, Dv],
-    G = kv heads (no head replication).  ``kv_lengths`` ([B] int32) masks
-    keys at and beyond each request's true prompt length."""
+    G = kv heads (no head replication).  ``q_offset`` (an int, or a [B]
+    tensor) is the position of q's first row; ``kv_lengths`` ([B] int32)
+    masks keys at and beyond each request's true prompt length.
+    ``hidden``: the blocks' :func:`hidden_masks`, when the caller reuses
+    them across calls."""
     B, Tq, H, Dk = q.shape
     G, Dv, Tk = k.shape[2], v.shape[-1], k.shape[1]
     rep = H // G
     dev = q.device
     blk = min(kv_block, Tk)
-    n_blocks = math.ceil(Tk / blk)
+    if hidden is None:
+        hidden = hidden_masks(Tq, Tk, blk, causal=causal, q_offset=q_offset,
+                              kv_lengths=kv_lengths, device=dev)
     q5 = (q.to(torch.float32) / math.sqrt(Dk)).reshape(B, Tq, G, rep, Dk)
-    q_pos = torch.arange(Tq, device=dev) + q_offset
     m = torch.full((B, G, rep, Tq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, G, rep, Tq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, G, rep, Tq, Dv), dtype=torch.float32, device=dev)
-    for bi in range(n_blocks):
+    for bi, hid in enumerate(hidden):
         kblk = k[:, bi * blk:(bi + 1) * blk].to(torch.float32)
         vblk = v[:, bi * blk:(bi + 1) * blk].to(torch.float32)
         pad = blk - kblk.shape[1]
         if pad:
             kblk = torch.cat([kblk, kblk.new_zeros((B, pad, G, Dk))], dim=1)
             vblk = torch.cat([vblk, vblk.new_zeros((B, pad, G, Dv))], dim=1)
-        k_pos = bi * blk + torch.arange(blk, device=dev)
-        s = torch.einsum("bqgrd,bkgd->bgrqk", q5, kblk)
-        mask = (k_pos[None, :] <= q_pos[:, None] if causal
-                else torch.ones((Tq, blk), dtype=torch.bool, device=dev))
-        mask = (mask & (k_pos < Tk)[None, :])[None]               # [1, Tq, blk]
-        if kv_lengths is not None:
-            mask = mask & (k_pos[None, None, :] < kv_lengths[:, None, None])
-        s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+        s = torch.einsum("bqgrd,bkgd->bgrqk", q5, kblk).masked_fill(hid, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -89,26 +111,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, Dv).to(q.dtype)
 
 
-def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, backend: str = "dense",
-                lengths: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Prefill GQA.  Returns (out, (k, v)) for KV caching; ``lengths``
-    ([B], optional) masks padding keys in ragged batches."""
-    B, T, _ = x.shape
+def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, buf: dict, start: int,
+              kv_lengths: torch.Tensor, key_rows: int, backend: str = "dense",
+              rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+              hidden: list[torch.Tensor] | None = None) -> torch.Tensor:
+    """One chunk of a chunked prefill.  ``x``: [B, C, d] hidden chunk whose
+    tokens sit at ``positions`` (= start + arange(C)); ``buf`` carries the
+    float K/V of the whole in-flight prompt ([B, S_buf, H_kv, D]).  The
+    chunk's k/v land in ``buf`` in place at offset ``start`` (every row's,
+    clamped to ``[0, S_buf - C]`` as the reference's
+    ``dynamic_update_slice`` clamps it) and q attends the resident prefix
+    ``[0, kv_lengths)`` at full precision, as one-shot prefill does, over
+    the buffer's first ``key_rows`` rows as one block of keys.  A key a row
+    cannot see adds an exact zero to that row's sums, so rows past the
+    visible prefix change no bit.  ``rope`` (:func:`layers.rope_tables` of
+    ``positions``) and ``hidden`` (:func:`hidden_masks`) may come
+    precomputed, once for every layer of a call.  Returns the attention
+    block's output."""
+    B, C, _ = x.shape
     hd = cfg.head_dim
-    q = L.apply_linear(L._lin(p, "wq"), x, backend).reshape(B, T, cfg.n_heads, hd)
-    k = L.apply_linear(L._lin(p, "wk"), x, backend).reshape(B, T, cfg.n_kv_heads, hd)
-    v = L.apply_linear(L._lin(p, "wv"), x, backend).reshape(B, T, cfg.n_kv_heads, hd)
+    q = L.apply_linear(L._lin(p, "wq"), x, backend).reshape(B, C, cfg.n_heads, hd)
+    k = L.apply_linear(L._lin(p, "wk"), x, backend).reshape(B, C, cfg.n_kv_heads, hd)
+    v = L.apply_linear(L._lin(p, "wv"), x, backend).reshape(B, C, cfg.n_kv_heads, hd)
     if cfg.use_qk_norm:
         q = L.apply_norm(p["q_norm"], q)
         k = L.apply_norm(p["k_norm"], k)
     if cfg.rope_theta:
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, kv_lengths=lengths)
-    out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend)
-    return out, (k, v)
+        q = L.apply_rope(q, positions, cfg.rope_theta, tables=rope)
+        k = L.apply_rope(k, positions, cfg.rope_theta, tables=rope)
+    KV.chunk_update(buf["k"], k, start)
+    KV.chunk_update(buf["v"], v, start)
+    o = flash_attention(q, buf["k"][:, :key_rows].to(q.dtype),
+                        buf["v"][:, :key_rows].to(q.dtype), q_offset=start,
+                        kv_lengths=kv_lengths, kv_block=key_rows, hidden=hidden)
+    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, C, -1), backend)
 
 
 # ---------------------------------------------------------------------------

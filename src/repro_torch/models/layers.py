@@ -103,11 +103,21 @@ def rope_freqs(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [B, T, H, D]; positions: [B, T] (or [T])."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)             # [D/2]
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin of RoPE's angles at ``positions`` ([B, T] or [T]),
+    shaped [..., T, 1, head_dim / 2] to broadcast over heads."""
+    freqs = rope_freqs(head_dim, theta, positions.device)        # [D/2]
     angles = positions[..., None].to(torch.float32) * freqs       # [B, T, D/2]
-    cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               tables: tuple[torch.Tensor, torch.Tensor] | None = None
+               ) -> torch.Tensor:
+    """x: [B, T, H, D]; positions: [B, T] (or [T]); ``tables`` their
+    :func:`rope_tables`, when the caller reuses them across layers."""
+    cos, sin = tables if tables is not None else rope_tables(positions, x.shape[-1], theta)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -1,7 +1,8 @@
 """Model facade: the entry points the serve engines call.
 
 PyTorch counterpart of the ``repro.models.model`` facades that the plain
-decode path and the speculative lanes use, for dense GQA decoders and SSM
+decode path, the fused multi-step lane, chunked prefill and the speculative
+lanes use, for dense GQA decoders and SSM
 (Mamba2) stacks; other families raise until their slice is ported (ROADMAP
 A.11), and ``verify_step`` raises for SSM stacks, as in the reference.
 """
@@ -35,6 +36,33 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int,
 def decode_step(params: Params, cfg: ModelConfig, state: dict, token,
                 rt: Runtime):
     return T.decode_step(params, cfg, state, token, rt)
+
+
+def multi_decode_step(params: Params, cfg: ModelConfig, state: dict, token,
+                      m: int, rt: Runtime):
+    """``m`` greedy decode steps with the argmax fed back on the device ->
+    (tokens [B, m] int32, state advanced by m); see
+    :func:`repro_torch.models.transformer.multi_decode_step`."""
+    return T.multi_decode_step(params, cfg, state, token, m, rt)
+
+
+def init_prefill_carry(cfg: ModelConfig, buf_len: int,
+                       device: str | torch.device = "cuda") -> dict:
+    """A zero float K/V carry of ``buf_len`` rows (``carry_len(max_len)``)
+    for one chunked prefill; see
+    :func:`repro_torch.models.transformer.init_prefill_carry`."""
+    return T.init_prefill_carry(cfg, buf_len, device)
+
+
+def prefill_chunk(params: Params, cfg: ModelConfig, carry: dict, tokens,
+                  n_real, rt: Runtime):
+    """One ``[1, C]`` chunk at the carry's cursor -> (logits of its last real
+    token [1, V], carry updated in place)."""
+    return T.prefill_chunk(params, cfg, carry, tokens, n_real, rt)
+
+
+def finalize_prefill_carry(cfg: ModelConfig, carry: dict, max_len: int) -> dict:
+    return T.finalize_prefill_carry(cfg, carry, max_len)
 
 
 def verify_step(params: Params, cfg: ModelConfig, state: dict, tokens,

@@ -11,7 +11,9 @@ B4 within ``rtol=3e-5, atol=3e-6`` (B2 also in a pool of 4,096 rows); B3 at
 one token equals B2, and B4 on a chain equals B3, bit for bit, also with B2
 in a pool T - 1 rows smaller; B6 within ``rtol=2e-4, atol=2e-5`` (its
 decay within ``rtol=1e-5``); the RMSNorm kernel within ``rtol=1e-6`` and
-row-invariant bit for bit.
+row-invariant bit for bit.  The engines' captured steps (CUDA graphs) are
+held bit-equal to the eager steps, logits and every state tensor, with their
+launch counts, and chunked serving token-identical to one-shot prefill.
 """
 import numpy as np
 import pytest
@@ -256,9 +258,9 @@ def test_engine_runs_the_kernels_and_agrees_with_the_cpu(cuda):
     cpu = ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=64,
                                    rt=Runtime("fused_int8"), device="cpu")
     want = cpu.generate_all(prompts, budgets)
-    reset_launch_counts()
     eng = ContinuousBatchingEngine(cfg, gparams, n_slots=2, max_len=64,
                                    rt=Runtime("fused_int8"))
+    reset_launch_counts()          # after the capture's eager warm-up step
     got = eng.generate_all(prompts, budgets)
     steps = eng.stats["decode_steps"]
     assert launch_counts() == {"int8_matmul": 7 * cfg.n_layers * steps,
@@ -357,9 +359,9 @@ def test_spec_engine_runs_the_verify_kernels(cuda, lane):
     prompts = [rng.integers(0, cfg.vocab_size, rng.integers(4, 20)).tolist()
                for _ in range(6)]
     budgets = [int(rng.integers(4, 13)) for _ in range(6)]
-    reset_launch_counts()
     eng = ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=64,
                                    rt=Runtime("fused_int8"), **lane)
+    reset_launch_counts()          # after the capture's eager warm-up step
     got = eng.generate_all(prompts, budgets)
     steps = eng.stats["verify_steps"]
     attn = "verify_tree_attn" if "spec_tree" in lane else "verify_attn"
@@ -492,8 +494,8 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
     rng = np.random.default_rng(0)
     trace = [rng.integers(0, cfg.vocab_size, rng.integers(4, 20)).tolist() for _ in range(6)]
     budgets = [int(rng.integers(4, 13)) for _ in range(6)]
-    reset_launch_counts()
     eng = ContinuousBatchingEngine(cfg, gparams, n_slots=2, max_len=64, rt=rt)
+    reset_launch_counts()          # after the capture's eager warm-up step
     got = eng.generate_all(trace, budgets)
     steps = eng.stats["decode_steps"]
     assert launch_counts() == {"int8_matmul": 3 * L * steps, "pim_mvm": 0, "decode_attn": 0,
@@ -501,3 +503,122 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
                                "ssd_chunk": L * len(trace),
                                "rms_norm": (2 * L + 1) * (steps + len(trace))}
     assert [len(o) for o in got] == budgets
+
+
+# ---------------------------------------------------------------------------
+# the serve steps as CUDA graphs
+# ---------------------------------------------------------------------------
+def _ragged_pool(cfg, params, rows, device, lens=(5, 17, 9, 30)):
+    from repro_torch.models import transformer as T
+    state = M.init_decode_state(cfg, len(lens), rows, device)
+    g = torch.Generator().manual_seed(3)
+    for slot, n in enumerate(lens):
+        toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g).to(device)
+        _, one = M.prefill(params, cfg, {"inputs": toks}, rows - 3, Runtime("fused_int8"))
+        T.write_slot(state, slot, one)
+    return state
+
+
+def _clone_state(st):
+    return {"layers": [{k: v.clone() for k, v in c.items()} for c in st["layers"]],
+            "pos": st["pos"].clone()}
+
+
+@pytest.mark.parametrize("arch,kind,width", [
+    ("llama3-8b", "decode", 0), ("llama3-8b", "verify", 5), ("llama3-8b", "tree", 7),
+    ("llama3-8b", "multi", 4), ("mamba2-2.7b", "decode", 0)])
+def test_captured_steps_replay_bit_equal_to_eager(cuda, arch, kind, width):
+    """Eight consecutive steps replayed from the captured graph equal the
+    eager steps on a copy of the same pool (4 slots at ragged cursors): the
+    logits (the fused block's tokens, m replays of the decode graph) and
+    every state tensor bit for bit, and each replay credits the launches
+    its capture recorded."""
+    from repro_torch.models import graphs as G
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.drafter import tree_depths_ancestors
+    cfg = registry.get(arch).reduced()
+    params = convert.to_device(M.init_params(cfg, seed=0, device="cpu"), cuda)
+    qparams = quantize_tree(params)
+    rt = Runtime("fused_int8")
+    pool = _ragged_pool(cfg, params, 64, cuda)
+    eager, replay = _clone_state(pool), _clone_state(pool)
+    steps = G.ServeSteps(qparams, cfg, rt, replay, decode=kind in ("decode", "multi"),
+                         verify=(width,) if kind == "verify" else (),
+                         tree=(width,) if kind == "tree" else ())
+    key = ("decode",) if kind in ("decode", "multi") else (kind, width)
+    L, n_steps = cfg.n_layers, (width if kind == "multi" else 1)
+    lin = 3 if cfg.family == "ssm" else 7
+    per = {"int8_matmul": lin * L, "rms_norm": 2 * L + 1}
+    if cfg.family != "ssm":
+        per[{"tree": "verify_tree_attn", "verify": "verify_attn"}.get(kind, "decode_attn")] = L
+    assert steps.graphs[key].launches == per
+    want = {k: v * n_steps for k, v in per.items()}
+    depth, anc = (torch.tensor(x, dtype=torch.int32, device=cuda).repeat(4, 1)
+                  for x in tree_depths_ancestors([-1, -1, 0, 0, 1, 2][:max(width - 1, 0)]))
+    g = torch.Generator().manual_seed(9)
+    tok = torch.randint(0, cfg.vocab_size, (4,), generator=g, dtype=torch.int32).to(cuda)
+    for i in range(8 // n_steps):
+        if kind in ("verify", "tree"):
+            win = torch.randint(0, cfg.vocab_size, (4, width), generator=g,
+                                dtype=torch.int32).to(cuda)
+            steps.window[width].copy_(win)
+            kw = {}
+            if kind == "tree":
+                steps.depth[width].copy_(depth)
+                steps.anc[width].copy_(anc)
+                kw = {"depth": depth, "anc": anc}
+            want_out, _, _ = M.verify_step(qparams, cfg, eager, win, rt, **kw)
+        elif kind == "multi":
+            steps.tok.copy_(tok)
+            want_out, _ = M.multi_decode_step(qparams, cfg, eager, tok, width, rt)
+        else:
+            steps.tok.copy_(tok)
+            want_out, _ = M.decode_step(qparams, cfg, eager, tok, rt)
+        reset_launch_counts()
+        got = getattr(steps, kind)(*((width,) if width else ()))
+        counts = {k: v for k, v in launch_counts().items() if v}
+        assert counts == want, i
+        got = got if kind == "multi" else got[0]
+        assert torch.equal(got, want_out), i
+        if kind in ("verify", "tree"):
+            back = (eager["pos"] - width + 1 + i % width).cpu().numpy()
+            for st in (eager, replay):
+                T.rewind_pos(st, back)
+        tok = (want_out[:, -1] if kind == "multi"
+               else want_out.reshape(4, -1, want_out.shape[-1])[:, -1].argmax(-1)
+               .to(torch.int32))
+        for a, b in zip(G.state_tensors(eager), G.state_tensors(replay)):
+            assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("policy", ["fifo", "sjf", "priority:preempt", "fair:2"])
+def test_chunked_and_fused_serving_token_identical_on_the_card(cuda, policy):
+    """On the card the chunked engine (chunk 8) under each policy, and the
+    fused lane (multi_step 4), serve the one-shot engine's tokens (prefill
+    in pieces of fixed shape keeps chunking bit-exact), with exact launch
+    counts for the fused lane."""
+    cfg = registry.get("llama3-8b").reduced()
+    params = convert.to_device(M.init_params(cfg, seed=0, device="cpu"), cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(10, 90)).tolist()
+               for _ in range(6)]
+    budgets = [int(rng.integers(4, 13)) for _ in range(6)]
+
+    def serve(**kw):
+        eng = ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=128,
+                                       rt=Runtime("fused_int8"), **kw)
+        reset_launch_counts()
+        reqs = [eng.submit(p, b, priority=i % 3, user="AB"[i % 2])
+                for i, (p, b) in enumerate(zip(prompts, budgets))]
+        eng.drain()
+        return [r.output for r in reqs], eng, launch_counts()
+    plain, _, _ = serve()
+    chunked, eng, _ = serve(policy=policy, chunk=8)
+    assert chunked == plain and eng.stats["chunks"] > len(prompts)
+    fused, eng, counts = serve(multi_step=4)
+    assert fused == plain and eng.stats["multi_blocks"] > 0
+    steps = eng.stats["decode_steps"]
+    from repro_torch.models import transformer as T
+    pieces = sum(T.prefill_pieces(cfg, eng._bucket(len(p))) for p in prompts)
+    assert counts["int8_matmul"] == 7 * cfg.n_layers * steps
+    assert counts["rms_norm"] == (2 * cfg.n_layers + 1) * (steps + pieces)

@@ -77,10 +77,37 @@ Phases (any failure makes the script exit non-zero):
    line reports for B6 and the RMSNorm kernel), then the same trace under
    ``ref_int8`` (plain SSD, plain int8 matmul); its captured decode step
    gated bit-equal to eager (every SSM state) over 8 steps, and its
-   profiled replay's kernel events equal to its credited launches.
+   profiled replay's kernel events equal to its credited launches;
+7. ``families``: the paper's OPT-30B at full width (d 7168, 56 heads of 128,
+   MHA, ff 28672, gelu, LayerNorm, sinusoidal positions, tied vocab 50272)
+   with 16 of its 48 layers (its 118 GB of f32 weights do not fit one
+   card), after mamba2's weights are freed: B1 and B5 over one OPT layer's
+   linears at M 4 (bit-equal to their plain versions, beside
+   ``torch._int_mm``), B2 / B3 / B4 at G 56, rep 1, D 128 in pools of
+   512 rows (B3's rows equal to B2, B4 on a chain equal to B3), the
+   LayerNorm kernel (``layer_norm``; within rtol 1e-6 of its plain version,
+   row-invariant at 1, 4, 20 and 28 rows a call; its time beside
+   ``F.layer_norm``), the reduced config on the card against the CPU, the
+   phase-4 trace under ``fused_int8``, ``pim_bitserial`` and ``ref_int8``
+   (gated token-identical), ``Engine``, ``spec_k = 4`` and ``spec_tree = 6,
+   spec_branch = 2`` with the verify window's K/V gated equal to
+   sequential decode's in every layer, ``multi_step = 4`` and ``chunk = 32``
+   (each lane gated 8 of 8 equal to the plain trace; its ``fused_int8``
+   run's LayerNorm launches are what the ``kernels`` line reports), and its
+   captured decode step gated bit-equal to eager over 8 steps with its
+   replayed wall, device-busy time and idle share; then granite-3-8b and
+   phi3-mini-3.8b at full width and depth, each with B1 / B5 / B2-B4 at
+   its shapes (phi3's attention at G 32, rep 1, D 96), its reduced config
+   on the card against the CPU, served under ``fused_int8``,
+   ``pim_bitserial`` and ``ref_int8`` (``pim_bitserial`` gated
+   token-identical to ``ref_int8``; where ``fused_int8`` parts from them, a
+   single-request rerun must reproduce the fused lane's token at a gap
+   smaller than the two lanes' logit rows lie apart, within 10% of the
+   logit scale), and its captured decode step against eager.
 
-Every path runs the RMSNorm kernel (``rms_norm``) for every norm on the
-card; each serve run's launch counts include it.
+Every path runs a row-invariant norm kernel for every norm on the card
+(``rms_norm``, or ``layer_norm`` for OPT); each serve run's launch counts
+include it.
 
 The script prints its seconds; its last three lines are the
 ``kernels`` JSON, the ``nvidia-smi`` name and power limit, and
@@ -445,8 +472,8 @@ def b1_per_layer(torch, mm, g, M: int, shapes: dict) -> dict:
 B5_M = (1, 4, 20, 28)    # the paper's single batch, 4 slots, the verify windows
 
 
-def b5_per_layer(torch, mm, pim, quant, g, M: int) -> dict:
-    """B5 at M rows over one llama3-8b layer's linears, on the weight's
+def b5_per_layer(torch, mm, pim, quant, g, M: int, shapes: dict = LINEAR_SHAPES) -> dict:
+    """B5 at M rows over one layer's linears (llama3-8b's by default), on the weight's
     bytes as the model passes them: its sums and output bit-equal to B1's
     and to the plain version's (on the two cell planes), with and without
     the integer sums; timed (graph replay, the L2 kept cold) beside the
@@ -458,7 +485,7 @@ def b5_per_layer(torch, mm, pim, quant, g, M: int) -> dict:
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "eager_ms": 0.0,
            "max_abs_err": 0.0, "shapes": []}
     by = {}
-    for (K, N), count in LINEAR_SHAPES.items():
+    for (K, N), count in shapes.items():
         def make():     # every weight byte, -128 (both sign cells set) included
             return linear_inputs(torch, g, M, K, N, w_low=-128)
         sets = copies(torch, make, K * N)
@@ -516,8 +543,9 @@ def b5_per_layer(torch, mm, pim, quant, g, M: int) -> dict:
 
 
 # B2, B3 and B4 share one body (csrc/decode_attn.cu): llama3-8b's groups at
-# 4 slots, B2 in a pool of S rows at the given lengths
+# 4 slots (B, G, rep, D), B2 in a pool of S rows at the given lengths
 ATTN_B, ATTN_G, ATTN_REP, ATTN_D = 4, 8, 4, 128
+LLAMA_ATTN = (ATTN_B, ATTN_G, ATTN_REP, ATTN_D)
 B2_SHAPES = ((512, (1, 200, 377, 512)), (4096, (1, 1000, 2500, 4096)))
 # B3 / B4 windows (name, T, max_len, cursors) in their lanes' pools of
 # max_len + T - 1 rows: T 5 is ``spec_k = 4``, T 7 ``spec_tree = 6``, T 31
@@ -532,26 +560,27 @@ VERIFY_CASES = (("verify_attn", 5, 256, (3, 90, 177, 255)),
 CROSS_POOL = ((256, (61, 125, 190, 251)), (4096, (61, 509, 2045, 4091)))
 
 
-def kv_pool(torch, quant, g, S: int) -> tuple:
-    """A random int8 K/V pool of S rows: k_q, k_s, v_q, v_s as the kernels
-    take them."""
-    shape = (ATTN_B, S, ATTN_G, ATTN_D)
+def kv_pool(torch, quant, g, S: int, attn: tuple = LLAMA_ATTN) -> tuple:
+    """A random int8 K/V pool of S rows for the (B, G, rep, D) of ``attn``:
+    k_q, k_s, v_q, v_s as the kernels take them."""
+    shape = (attn[0], S, attn[1], attn[3])
     k_q, k_s = quant.quantize_kv(torch.randn(shape, generator=g, device="cuda"))
     v_q, v_s = quant.quantize_kv(torch.randn(shape, generator=g, device="cuda"))
     return k_q, k_s[..., 0].contiguous(), v_q, v_s[..., 0].contiguous()
 
 
-def b2_case(torch, da, quant, S: int, lengths: tuple) -> dict:
-    """B2 in a pool of S rows at ragged lengths: parity with the plain
-    version (gated), device / eager / plain times, bound."""
+def b2_case(torch, da, quant, S: int, lengths: tuple, attn: tuple = LLAMA_ATTN) -> dict:
+    """B2 in a pool of S rows at ragged lengths, at the (B, G, rep, D) of
+    ``attn``: parity with the plain version (gated), device / eager / plain
+    times, bound."""
     g = torch.Generator(device="cuda").manual_seed(2)
-    B, G, rep, D = ATTN_B, ATTN_G, ATTN_REP, ATTN_D
+    B, G, rep, D = attn
     lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
     def make():
         q_q, q_s = quant.quantize_kv(torch.randn((B, G * rep, D), generator=g, device="cuda"))
         return (q_q.reshape(B, G, rep, D), q_s.reshape(B, G, rep, 1),
-                *kv_pool(torch, quant, g, S), lengths)
+                *kv_pool(torch, quant, g, S, attn), lengths)
     args = make()
     out_k = da.decode_attn_cuda(*args)
     out_p = da.decode_attn_plain(*args)
@@ -616,7 +645,7 @@ def phase_attention(torch, da, quant) -> dict:
 DEVICE_KERNELS = {"int8_matmul": "int8_mm_cluster", "pim_mvm": "pim_mvm_cluster",
                   "decode_attn": "attn_kernel", "verify_attn": "attn_kernel",
                   "verify_tree_attn": "attn_kernel", "ssd_chunk": "ssd_chunk_kernel",
-                  "rms_norm": "rms_norm_kernel"}
+                  "rms_norm": "rms_norm_kernel", "layer_norm": "layer_norm_kernel"}
 
 
 def device_launches(counts: dict) -> dict:
@@ -683,7 +712,6 @@ def clone_state(state: dict) -> dict:
 
 
 def phase_engine(torch, ctx) -> dict:
-    from repro_torch import convert
     from repro_torch.configs import registry
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import model as M
@@ -774,9 +802,20 @@ def phase_engine(torch, ctx) -> dict:
     del eng, state, step, lf, lp, lr
     torch.cuda.empty_cache()
 
-    # small input against a reference: the reduced model on the card
-    # (kernels) and on the CPU (plain versions), prefill plus one decode step
-    # from the same weights and prompts
+    out.update(reduced_vs_cpu(torch, cfg))
+    return out
+
+
+def reduced_vs_cpu(torch, cfg) -> dict:
+    """A small input against a reference: the reduced model under
+    ``fused_int8`` on the card (kernels) and on the CPU (plain versions),
+    prefill plus one decode step from the same weights and prompts, within
+    2% of the logit scale, argmax equal."""
+    from repro_torch import convert
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.quantize import quantize_tree
+
     rcfg = cfg.reduced()
     rp_cpu = M.init_params(rcfg, seed=0, device="cpu")
     rp_gpu = convert.to_device(rp_cpu, "cuda")
@@ -785,7 +824,7 @@ def phase_engine(torch, ctx) -> dict:
     rprompts = torch.randint(0, rcfg.vocab_size, (2, 24),
                              generator=torch.Generator().manual_seed(3))
     rt = Runtime("fused_int8")
-    res = {}
+    res, out = {}, {}
     for dev, p, q in (("cpu", rp_cpu, rq_cpu), ("cuda", rp_gpu, rq_gpu)):
         lg0, st = M.prefill(p, rcfg, {"inputs": rprompts.to(dev)}, 64, rt)
         t0 = torch.argmax(lg0, -1).to(torch.int32)
@@ -797,9 +836,11 @@ def phase_engine(torch, ctx) -> dict:
         if not torch.equal(a.argmax(-1), b.argmax(-1)) or d > 2e-2 * sc:
             raise AssertionError(f"reduced {what}: card vs cpu max diff {d} (scale {sc})")
         out[f"reduced_{what}_max_abs"] = d
-    print(f"   reduced llama3-8b, card (kernels) vs CPU (plain): prefill max |diff| "
-          f"{out['reduced_prefill_max_abs']:.3g}, decode {out['reduced_decode_max_abs']:.3g}, "
-          f"argmax equal")
+        out[f"reduced_{what}_logit_scale"] = sc
+    print(f"   reduced {cfg.name}, card (kernels) vs CPU (plain): prefill max |diff| "
+          f"{out['reduced_prefill_max_abs']:.3g} of {out['reduced_prefill_logit_scale']:.3g}, "
+          f"decode {out['reduced_decode_max_abs']:.3g} of "
+          f"{out['reduced_decode_logit_scale']:.3g}, argmax equal")
     return out
 
 
@@ -813,30 +854,44 @@ def serve_trace(vocab_size: int) -> tuple[list, list]:
     return prompts, budgets
 
 
+def norm_kernel(cfg) -> str:
+    """The norm kernel a configuration's every norm launches."""
+    return "layer_norm" if cfg.norm_type == "layernorm" else "rms_norm"
+
+
+def linears_per_layer(cfg) -> int:
+    """W8A8 linears of one layer's step: a mamba2 layer's w_z, w_x and
+    out_proj; an attention layer's wq, wk, wv, wo and its MLP's w_up and
+    w_down, with w_gate under SwiGLU."""
+    if cfg.family == "ssm":
+        return 3
+    return 4 + (3 if cfg.mlp_type == "swiglu" else 2)
+
+
 def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
                   backend: str = "fused_int8", prefills: int | None = None) -> dict:
     """Exact kernel launches of ``steps`` decode (or verify) steps plus one
     prefill per prompt (or ``prefills`` prefill calls: the chunks of a
     chunked admission, an admission again after a preemption): each norm one
-    RMSNorm launch (two a layer, one for ``ln_f``); under ``fused_int8`` a
-    llama layer's step 7 B1 launches and
-    one of ``attn``, a mamba2 layer's step 3 B1 launches (w_z, w_x,
-    out_proj), and a mamba2 prefill one B6 launch per layer and 128-token
-    chunk (float weights: no B1 in prefill); under ``pim_bitserial`` the
-    same linears launch B5 instead, and attention runs its plain version."""
+    launch of the configuration's norm kernel (two a layer, one for
+    ``ln_f``); under ``fused_int8`` an attention layer's step one B1 launch
+    a linear (7 for llama's SwiGLU, 6 for OPT's gelu) and one of ``attn``,
+    a mamba2 layer's step 3 B1 launches (w_z, w_x, out_proj), and a mamba2
+    prefill one B6 launch per layer and 128-token chunk (float weights: no
+    B1 in prefill); under ``pim_bitserial`` the same linears launch B5
+    instead, and attention runs its plain version."""
     L = cfg.n_layers
     prefills = len(prompt_lens) if prefills is None else prefills
     want = {"int8_matmul": 0, "pim_mvm": 0, "decode_attn": 0, "verify_attn": 0,
-            "verify_tree_attn": 0, "ssd_chunk": 0,
-            "rms_norm": (2 * L + 1) * (steps + prefills)}
+            "verify_tree_attn": 0, "ssd_chunk": 0, "rms_norm": 0, "layer_norm": 0}
+    want[norm_kernel(cfg)] = (2 * L + 1) * (steps + prefills)
     if backend == "pim_bitserial":
-        want["pim_mvm"] = (3 if cfg.family == "ssm" else 7) * L * steps
+        want["pim_mvm"] = linears_per_layer(cfg) * L * steps
     if backend == "fused_int8":
+        want["int8_matmul"] = linears_per_layer(cfg) * L * steps
         if cfg.family == "ssm":
-            want["int8_matmul"] = 3 * L * steps
             want["ssd_chunk"] = L * sum(math.ceil(n / 128) for n in prompt_lens)
         else:
-            want["int8_matmul"] = 7 * L * steps
             want[attn] = L * steps
     return want
 
@@ -961,21 +1016,22 @@ def chain_anc(torch, B: int, T: int):
         torch.int32).expand(B, T).contiguous().to("cuda")
 
 
-def window_q(torch, va, g, T: int) -> tuple:
-    q = torch.randn((ATTN_B, T, ATTN_G * ATTN_REP, ATTN_D), generator=g, device="cuda")
-    return va.quantize_window(q, ATTN_G)
+def window_q(torch, va, g, T: int, attn: tuple = LLAMA_ATTN) -> tuple:
+    B, G, rep, D = attn
+    q = torch.randn((B, T, G * rep, D), generator=g, device="cuda")
+    return va.quantize_window(q, G)
 
 
 def verify_case(torch, da, va, vt, quant, drafter, name: str, T: int, max_len: int,
-                pos: tuple) -> dict:
+                pos: tuple, attn: tuple = LLAMA_ATTN) -> dict:
     """B3 (``verify_attn*``) or B4 (random branching trees) for a window of
-    T tokens at the given cursors, in a pool of max_len + T - 1 rows:
-    parity with the plain version, B3's rows equal to B2 and B4 on a chain
-    equal to B3 in the same pool (all gated), device / eager / plain times
-    and bound."""
+    T tokens at the given cursors, in a pool of max_len + T - 1 rows, at the
+    (B, G, rep, D) of ``attn``: parity with the plain version, B3's rows
+    equal to B2 and B4 on a chain equal to B3 in the same pool (all gated),
+    device / eager / plain times and bound."""
     import numpy as np
     g = torch.Generator(device="cuda").manual_seed(4)
-    B, G, rep, D = ATTN_B, ATTN_G, ATTN_REP, ATTN_D
+    B, G, rep, D = attn
     S = max_len + T - 1
     pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     lengths = (pos[:, None] + torch.arange(1, T + 1, dtype=torch.int32,
@@ -986,7 +1042,7 @@ def verify_case(torch, da, va, vt, quant, drafter, name: str, T: int, max_len: i
         dtype=torch.int32, device="cuda")
 
     def make():
-        return (*window_q(torch, va, g, T), *kv_pool(torch, quant, g, S))
+        return (*window_q(torch, va, g, T, attn), *kv_pool(torch, quant, g, S, attn))
     args = make()
     b3 = va.verify_attn_cuda(*args, lengths)
     rows_eq_b2 = all(torch.equal(b3[:, :, t], da.decode_attn_cuda(
@@ -1180,7 +1236,8 @@ def row_invariance(torch, cfg, params, B: int, T: int) -> dict:
     """The float stages that a verify step runs over B*T rows and a decode
     step over B, each run on the same random rows once as the verify step
     calls it and T times as the decode step does: how many outputs differ,
-    and by how much.  The norm (the RMSNorm kernel) must differ in none."""
+    and by how much.  The norm (the configuration's norm kernel, RMSNorm or
+    LayerNorm) must differ in none."""
     from repro_torch.core import quant
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TT
@@ -1191,8 +1248,9 @@ def row_invariance(torch, cfg, params, B: int, T: int) -> dict:
     x = torch.randn((B, T, d), generator=g, device="cuda")
     rt = Runtime("fused_int8")
     ln = params["layers"][0]["ln1"]
+    norm = norm_kernel(cfg)
     stages = {
-        "rms_norm": lambda h: L.apply_norm(ln, h),
+        norm: lambda h: L.apply_norm(ln, h),
         "quantize_activation": lambda h: torch.cat(
             [t.to(torch.float32) for t in quant.quantize_activation(h)], -1),
         "lm_head": lambda h: TT._lm_head(params, cfg, h.reshape(-1, d), rt).reshape(
@@ -1207,12 +1265,12 @@ def row_invariance(torch, cfg, params, B: int, T: int) -> dict:
     print(f"   float stages at M = {B * T} against M = {B} rows: " + ", ".join(
         f"{k} {v['differing']} of {v['of']} differ (max {v['max_abs']:.3g})"
         for k, v in out.items()))
-    if out["rms_norm"]["differing"]:
-        raise AssertionError(f"apply_norm is not row-invariant: {out['rms_norm']}")
+    if out[norm]["differing"]:
+        raise AssertionError(f"apply_norm is not row-invariant: {out[norm]}")
     return out
 
 
-def full_width_parity(torch, ctx, cfg, q, state, toks) -> dict:
+def full_width_parity(torch, params, cfg, q, state, toks) -> dict:
     """Where the full-width verify step parts from sequential decode on the
     card: the float stages' row invariance (the norm gated), and the window
     against sequential decode steps under the port's own ``apply_norm``,
@@ -1224,7 +1282,7 @@ def full_width_parity(torch, ctx, cfg, q, state, toks) -> dict:
 
     rt = Runtime("fused_int8")
     B, T = toks.shape
-    out = {"row_invariance": row_invariance(torch, cfg, ctx["params"], B, T),
+    out = {"row_invariance": row_invariance(torch, cfg, params, B, T),
            "window_vs_decode": window_vs_decode(torch, M, cfg, q, state, toks, rt)[0]}
     print(f"   full width, verify_step vs sequential decode_step: "
           f"{describe_window(out['window_vs_decode'])}")
@@ -1381,8 +1439,8 @@ def phase_verify(torch, ctx, da, va, vt, quant) -> dict:
             except Exception as e:  # noqa: BLE001
                 rec["verify_profile"] = {"error": f"{type(e).__name__}: {e}"}
                 print(f"   profile failed: {rec['verify_profile']['error']}")
-            out["full_width_parity"] = full_width_parity(torch, ctx, cfg, cb.qparams,
-                                                         state, toks)
+            out["full_width_parity"] = full_width_parity(torch, ctx["params"], cfg,
+                                                         cb.qparams, state, toks)
             out["tree_vs_path"] = tree_vs_path(torch, cfg, cb.qparams, state, toks, drafter)
             del state
         out[label] = rec
@@ -1537,6 +1595,7 @@ def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0)
         if ran == credited:
             break
     else:
+        torch.cuda.empty_cache()        # the child needs the card's memory
         ran = profile_in_child(cfg, kind, width)
         rec["profile_tries"].append({"fresh_process": ran})
         if ran != credited:
@@ -1548,11 +1607,13 @@ def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0)
     return rec, steps, replay
 
 
-def replay_profile_child(arch: str, kind: str, width: int) -> dict:
+def replay_profile_child(arch: str, kind: str, width: int, n_layers: int) -> dict:
     """The hand-kernel events of one profiled replay of ``kind`` at
-    ``width`` (as in :func:`replay_vs_eager`) of ``arch`` at full width on
-    a fresh 4-slot pool at ragged cursors; run by :func:`profile_in_child`
-    in a process of its own."""
+    ``width`` (as in :func:`replay_vs_eager`) of ``arch`` at full width and
+    ``n_layers`` layers on a fresh 4-slot pool at ragged cursors; run by
+    :func:`profile_in_child` in a process of its own."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import registry
     from repro_torch.device import set_float32_precision
@@ -1562,11 +1623,12 @@ def replay_profile_child(arch: str, kind: str, width: int) -> dict:
     from repro_torch.serve.quantize import quantize_tree
 
     set_float32_precision()
-    cfg = registry.get(arch)
+    cfg = dataclasses.replace(registry.get(arch), n_layers=n_layers)
     params = M.init_params(cfg, seed=0, device="cuda")
     qparams = quantize_tree(params)
     state = ragged_pool(torch, cfg, params, 320, 256)
     del params
+    torch.cuda.empty_cache()
     steps = G.ServeSteps(qparams, cfg, Runtime("fused_int8"), state,
                          decode=kind in ("decode", "multi"),
                          verify=(width,) if kind == "verify" else (),
@@ -1581,8 +1643,10 @@ def profile_in_child(cfg, kind: str, width: int) -> dict:
     killed at its time limit); a child that fails fails the caller."""
     code = ("import json, sys; sys.path[:0] = ['src', '.']; import torch; "
             "import chip_smoke as S; print('CHILD ' + json.dumps("
-            "S.replay_profile_child(sys.argv[1], sys.argv[2], int(sys.argv[3]))))")
-    child = subprocess.run([sys.executable, "-c", code, cfg.name, kind, str(width)],
+            "S.replay_profile_child(sys.argv[1], sys.argv[2], int(sys.argv[3]), "
+            "int(sys.argv[4]))))")
+    child = subprocess.run([sys.executable, "-c", code, cfg.name, kind, str(width),
+                            str(cfg.n_layers)],
                            cwd=Path(__file__).resolve().parent, capture_output=True,
                            text=True, timeout=900)
     line = next((x for x in child.stdout.splitlines() if x.startswith("CHILD ")), None)
@@ -2017,12 +2081,14 @@ def divergence_margins(torch, cfg, params, outputs: dict) -> list:
                "ref_gap": r["logits"][0] - r["logits"][1],
                "fused_top2_gap": f["top2_gap"], "logit_scale": f["logit_scale"],
                "lanes_max_abs_diff": float((f["row"] - r["row"]).abs().max()),
+               "fused_reproduced": f["argmax"] == a[d], "ref_reproduced": r["argmax"] == b[d],
                "reproduced": f["argmax"] == a[d] and r["argmax"] == b[d]}
         res.append(rec)
         print(f"   req {rid} parts at token {d} ({a[d]} vs {b[d]}): gap fused "
               f"{rec['fused_gap']:.4g}, ref {rec['ref_gap']:.4g} (logit scale "
               f"{rec['logit_scale']:.3g}); lanes' rows apart by {rec['lanes_max_abs_diff']:.3g};"
-              f" reruns pick the lanes' tokens: {rec['reproduced']}")
+              f" reruns pick the lanes' tokens: fused {rec['fused_reproduced']}, ref "
+              f"{rec['ref_reproduced']}")
     del qparams
     return res
 
@@ -2140,6 +2206,291 @@ def phase_ssm(torch, ctx, build: dict | None) -> dict:
             "full_width": serve_mamba2(torch, ctx, cfg)}
 
 
+# ---------------------------------------------------------------------------
+# phase families: the paper's OPT-30B (16 of its 48 layers), granite-3-8b
+# and phi3-mini-3.8b at full width
+# ---------------------------------------------------------------------------
+OPT_LAYERS = 16      # of OPT-30B's 48: 118 GB of f32 weights do not fit one card
+OPT_ATTN = (4, 56, 1, 128)         # 4 slots, 56 heads of 128, MHA (rep 1)
+PHI3_ATTN = (4, 32, 1, 96)         # 4 slots, 32 heads of 96, MHA
+FAMILY_B2 = (512, (1, 200, 377, 512))
+# B3 (spec_k 4) and B4 (spec_tree 6) windows in their lanes' pools of
+# 512 + T - 1 rows, the last cursor a slot at 511
+FAMILY_VERIFY = (("verify_attn", 5, 512, (3, 150, 377, 511)),
+                 ("verify_tree_attn", 7, 512, (3, 150, 377, 511)))
+LN_ROWS = 140        # 1, 4, 20 and 28 rows a call divide it
+
+
+def layer_shapes(cfg) -> dict:
+    """{(K, N): count} of one attention layer's W8A8 linears: wq, wk, wv,
+    wo, w_up, w_down and, under SwiGLU, w_gate (llama3-8b's are
+    ``LINEAR_SHAPES``)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    kns = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd), (d, cfg.n_kv_heads * hd),
+           (cfg.n_heads * hd, d), (d, cfg.d_ff), (cfg.d_ff, d)]
+    if cfg.mlp_type == "swiglu":
+        kns.append((d, cfg.d_ff))
+    shapes: dict = {}
+    for kn in kns:
+        shapes[kn] = shapes.get(kn, 0) + 1
+    return shapes
+
+
+def layer_norm_checks(torch, lnk) -> dict:
+    """The LayerNorm kernel: within rtol 1e-6 of the plain version (atol
+    1e-6 of the output's scale: an output near zero is the difference of
+    two rounded terms) and row-invariant bit for bit (each row the same
+    bits at 1, 4, 20 and 28 rows a call as at 140) at OPT-30B's d 7168 and
+    opt-125m's 768; time at the OPT-30B decode step's shape [4, 7168] beside
+    the plain version's and ``torch.nn.functional.layer_norm``'s (a
+    yardstick only)."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(10)
+
+    def inputs(M, d):
+        return (torch.randn((M, d), generator=g, device="cuda") * 3 + 0.5,
+                torch.randn((d,), generator=g, device="cuda"),
+                torch.randn((d,), generator=g, device="cuda"))
+    out = {"row_invariant": {}}
+    for d in (768, 7168):
+        x, scale, bias = inputs(LN_ROWS, d)
+        full = lnk.layer_norm_cuda(x, scale, bias)
+        want = lnk.layer_norm_plain(x, scale, bias)
+        torch.testing.assert_close(full, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+        rows = {}
+        for m in (1, 4, 20, 28):
+            parts = torch.cat([lnk.layer_norm_cuda(x[i:i + m], scale, bias)
+                               for i in range(0, LN_ROWS, m)])
+            rows[m] = torch.equal(parts, full)
+        out["row_invariant"][d] = rows
+        if not all(rows.values()):
+            raise AssertionError(f"layer_norm d={d}: rows differ from M={LN_ROWS}: {rows}")
+    M, d = 4, 7168
+    x, scale, bias = inputs(M, d)
+    err = float((lnk.layer_norm_cuda(x, scale, bias)
+                 - lnk.layer_norm_plain(x, scale, bias)).abs().max())
+    # warm inputs: on the decode path the previous op has just written x
+    tk = timed(torch, lambda i: lnk.layer_norm_cuda(x, scale, bias), 200)
+    tp = timed(torch, lambda i: lnk.layer_norm_plain(x, scale, bias), 200)
+    lib = graph_ms(torch, lambda i: F.layer_norm(x, (d,), scale, bias, 1e-5), 200)
+    b = bound_ms(4 * (2 * M * d + 2 * d), [(8 * M * d, FP32_FLOPS_PER_S)])
+    out.update({"M": M, "d": d, "ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+                "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
+                "library_ms": lib, "bound_ms": b[0], "bound_by": b[1], "max_abs_err": err})
+    print(f"   layer_norm [{M}, {d}]: {tk['device_ms'] * 1e3:.2f} us device / "
+          f"{tk['eager_ms'] * 1e3:.2f} eager (bound {b[0] * 1e3:.3f}, plain "
+          f"{tp['device_ms'] * 1e3:.2f} / {tp['eager_ms'] * 1e3:.2f} eager, F.layer_norm "
+          f"{lib * 1e3:.2f}); max |err| {err:.3g}; row-invariant at M 1, 4, 20, 28, "
+          f"{LN_ROWS} for d 768, 7168")
+    return out
+
+
+def family_kernels(torch, mods, cfg, attn: tuple) -> dict:
+    """The kernels at one family's full-width shapes: B1 and B5 over one
+    layer's linears at M 4 (bit-equal to their plain versions, beside
+    ``torch._int_mm``), and B2 (S 512), B3 (T 5) and B4 (T 7) at its
+    (B, G, rep, D) against their plain versions with B3's rows equal to B2
+    and B4 on a chain equal to B3 (all gated); times and bounds."""
+    from repro_torch.serve import drafter
+
+    mm, pim, da, va, vt, quant = (mods[k] for k in ("mm", "pim", "da", "va", "vt", "quant"))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shapes = layer_shapes(cfg)
+    print(f"   {cfg.name}: one layer's linears {shapes}; attention (B, G, rep, D) {attn}")
+    out = {"b1": b1_per_layer(torch, mm, g, 4, shapes),
+           "b5": b5_per_layer(torch, mm, pim, quant, g, 4, shapes),
+           "b2": b2_case(torch, da, quant, *FAMILY_B2, attn)}
+    for name, T, max_len, pos in FAMILY_VERIFY:
+        out[name] = verify_case(torch, da, va, vt, quant, drafter, name, T, max_len, pos, attn)
+    return out
+
+
+def same_streams(outs: dict, want: list) -> dict:
+    """Per lane, the requests whose tokens equal ``want``'s, and where each
+    other one first parts from it."""
+    return {k: {"same": sum(a == b for a, b in zip(v, want)),
+                "first_divergence": [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                                          None) for a, b in zip(v, want)]}
+            for k, v in outs.items()}
+
+
+def serve_family(torch, ctx, cfg, lanes: bool) -> dict:
+    """One family at full width (random f32 weights, seed 0) on the card:
+    the phase-4 trace under ``fused_int8``, ``pim_bitserial`` and
+    ``ref_int8``, every run with exact launch counts.  ``pim_bitserial``
+    must equal ``ref_int8`` token for token (B5's sums are the plain int32
+    sums and both run the plain attention).  With ``lanes`` (OPT-30B)
+    ``fused_int8`` must equal them too.  Without, a request where
+    ``fused_int8`` (B2) parts from ``ref_int8`` (the plain attention) is
+    held to :func:`divergence_margins`: a single-request rerun of the fused
+    lane picks the fused lane's token (every stage of that lane but the
+    ``lm_head`` is row- and pool-invariant), the two candidates' gap there
+    is smaller than how far the two lanes' logit rows lie apart, and those
+    lie within 10% of the logit scale.  B2 sums its softmax in another
+    order than the plain attention; a last-bit difference flips an int8
+    activation code now and then, and the flips compound over a deep stack
+    of random weights (phase ``engine`` holds llama's one step to 10%).
+    The ``ref_int8`` rerun is recorded, not gated: the plain attention's
+    P.V sums in an order set by the pool's size, which the rerun's smaller
+    pool changes.  With ``lanes`` also ``Engine`` (4 prompts of 64
+    tokens, 16 steps), ``spec_k = 4`` and ``spec_tree = 6, spec_branch =
+    2`` (each gated 8 of 8 equal to the plain lane), the verify window's
+    K/V against sequential decode's (gated equal in every layer), and
+    ``multi_step = 4`` and ``chunk = 32`` (gated token-identical to the
+    plain trace); then the captured decode step against eager over 8 steps
+    (gated bit-equal, exact launch counts, a profiled replay's kernels equal
+    to its credits), whose profile gives the replayed step's wall,
+    device-busy time and idle share at 4 slots."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.quantize import quantize_tree
+
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out = {"n_layers": cfg.n_layers, "init_s": time.perf_counter() - t0,
+           "f32_weight_bytes": sum(t.numel() * 4 for lp in params["layers"]
+                                   for t in (lp["attn"] | lp["mlp"]).values())}
+    torch.cuda.reset_peak_memory_stats()
+    outs = {}
+    for backend in ("fused_int8", "pim_bitserial", "ref_int8"):
+        cb, reqs, wall, counts = serve(torch, cfg, params, {},
+                                       "decode_attn" if backend == "fused_int8" else None,
+                                       backend)
+        outs[backend] = [list(r.output) for r in reqs]
+        out[backend] = dict(serve_record(reqs, wall, cfg), stats=dict(cb.stats),
+                            launches=counts, max_memory_allocated=torch.cuda.max_memory_allocated())
+        print(f"   {cfg.name} {backend}: served {out[backend]['tokens_served']} tokens in "
+              f"{wall:.2f} s ({out[backend]['tokens_per_s']:.1f} tokens/s), "
+              f"{cb.stats['decode_steps']} decode steps, launches {counts}, peak "
+              f"{out[backend]['max_memory_allocated'] / 1e9:.1f} GB")
+        del cb, reqs
+        torch.cuda.empty_cache()
+    plain = outs["fused_int8"]
+    out["backends_vs_fused_int8"] = same_streams(outs, plain)
+    out["pim_eq_ref_int8_requests"] = sum(
+        a == b for a, b in zip(outs["pim_bitserial"], outs["ref_int8"]))
+    print(f"   {cfg.name}: requests equal to fused_int8's "
+          f"{ {k: v['same'] for k, v in out['backends_vs_fused_int8'].items()} } of "
+          f"{len(plain)}; pim_bitserial equal to ref_int8 in "
+          f"{out['pim_eq_ref_int8_requests']}")
+    if out["pim_eq_ref_int8_requests"] != len(plain):
+        raise AssertionError(f"{cfg.name}: pim_bitserial and ref_int8 part")
+    if out["backends_vs_fused_int8"]["ref_int8"]["same"] != len(plain):
+        margins = divergence_margins(torch, cfg, params, outs)
+        out["divergence_margins"] = margins
+        far = [m["rid"] for m in margins if not m["fused_reproduced"]
+               or abs(m["fused_gap"]) > m["lanes_max_abs_diff"]
+               or m["lanes_max_abs_diff"] > 0.1 * m["logit_scale"]]
+        if lanes or far:
+            raise AssertionError(f"{cfg.name}: fused_int8 parts from ref_int8 "
+                                 f"{out['backends_vs_fused_int8']['ref_int8']}; "
+                                 f"unexplained: {far}")
+    if lanes:
+        eng = Engine(cfg=cfg, params=params, rt=Runtime("fused_int8"), max_len=128)
+        g = torch.Generator(device="cuda").manual_seed(2)
+        prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, device="cuda")
+        eng.generate({"inputs": prompts}, steps=1)                # warm-up
+        reset_launch_counts()
+        toks, tm = eng.generate({"inputs": prompts}, steps=16)
+        counts = launch_counts()
+        want = want_launches(cfg, 16, [64], "decode_attn",
+                             prefills=T.prefill_pieces(cfg, 64))
+        if counts != want or tuple(toks.shape) != (4, 16):
+            raise AssertionError(f"{cfg.name} Engine: launch counts {counts} != {want}")
+        out["engine"] = {"prefill_s": tm["prefill_s"], "tpot_s": tm["tpot_s"],
+                         "launches": counts}
+        print(f"   {cfg.name} Engine: prefill {tm['prefill_s'] * 1e3:.1f} ms, TPOT "
+              f"{tm['tpot_s'] * 1e3:.2f} ms, launches {counts}")
+        qparams = eng.qparams
+        del eng
+        _, state = M.prefill(params, cfg, {"inputs": prompts}, 128, Runtime("fused_int8"))
+        win = torch.randint(0, cfg.vocab_size, (4, 5), generator=g, device="cuda",
+                            dtype=torch.int32)
+        out["full_width_parity"] = full_width_parity(torch, params, cfg, qparams, state, win)
+        del state, qparams
+        torch.cuda.empty_cache()
+        lane_runs = {"spec_k": ({"spec_k": 4}, "verify_attn"),
+                     "spec_tree": ({"spec_tree": 6, "spec_branch": 2}, "verify_tree_attn"),
+                     "multi_step_4": ({"multi_step": 4}, "decode_attn"),
+                     "chunk_32_fifo": ({"chunk": 32}, "decode_attn")}
+        lane_outs = {}
+        for label, (lane, attn) in lane_runs.items():
+            cb, reqs, wall, counts = serve(torch, cfg, params, lane, attn)
+            lane_outs[label] = [list(r.output) for r in reqs]
+            st = cb.stats
+            rec = dict(serve_record(reqs, wall, cfg), stats=dict(st), launches=counts)
+            if "spec" in label:
+                rec["acceptance_rate"] = cb.acceptance_rate
+                rec["tokens_per_verify_step"] = ((rec["tokens_served"] - len(reqs))
+                                                 / st["verify_steps"])
+            out[label] = rec
+            print(f"   {cfg.name} {label}: served {rec['tokens_served']} tokens in {wall:.2f} s, "
+                  f"{st['decode_steps']} steps ({st['verify_steps']} verify, "
+                  f"{st['multi_blocks']} fused blocks, {st['chunks']} chunks), launches {counts}")
+            del cb, reqs
+            torch.cuda.empty_cache()
+        out["lanes_vs_plain"] = same_streams(lane_outs, plain)
+        print(f"   {cfg.name}: requests equal to the plain trace "
+              f"{ {k: v['same'] for k, v in out['lanes_vs_plain'].items()} } of {len(plain)}")
+        if any(v["same"] != len(plain) for v in out["lanes_vs_plain"].values()):
+            raise AssertionError(f"{cfg.name}: a lane parts from the plain trace: "
+                                 f"{out['lanes_vs_plain']}")
+    # the captured decode step: the float weights go first, so that a
+    # fresh-process profile (the last resort of replay_vs_eager) has room
+    pool = ragged_pool(torch, cfg, params, 256, 256)
+    qparams = quantize_tree(params)
+    del params
+    torch.cuda.empty_cache()
+    out["graph_decode"], steps, _ = replay_vs_eager(torch, cfg, qparams, pool, "decode")
+    prof = out["graph_decode"]["profile"]
+    print(f"   {cfg.name}: replayed decode step at 4 slots: wall {prof['wall_us'] / 1e3:.2f} ms, "
+          f"device busy {prof['device_busy_us'] / 1e3:.2f} ms, idle share "
+          f"{prof['idle_share']:.3f}")
+    del pool, steps, qparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(torch, ctx, mods: dict) -> dict:
+    """OPT-30B at full width with 16 of its 48 layers (free of llama's and
+    mamba2's weights): its kernels at its shapes, the LayerNorm kernel, the
+    reduced model on the card against the CPU, and its serve runs
+    (:func:`serve_family` with every lane); then granite-3-8b and
+    phi3-mini-3.8b at full width and depth, each with its kernels at its
+    shapes (phi3's attention at D 96), its reduced config against the CPU,
+    and its serve runs under the three backends with its captured decode
+    step."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import registry
+
+    ctx.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = dataclasses.replace(registry.get("opt-30b"), n_layers=OPT_LAYERS)
+    out = {"layer_norm": layer_norm_checks(torch, mods["lnk"])}
+    rec = {"kernels": family_kernels(torch, mods, opt, OPT_ATTN)}
+    rec.update(reduced_vs_cpu(torch, registry.get("opt-30b")))
+    rec.update(serve_family(torch, ctx, opt, lanes=True))
+    ctx["layer_norm_launches"] = rec["fused_int8"]["launches"]["layer_norm"]
+    out["opt-30b"] = rec
+    # granite-3-8b's attention has llama3-8b's shape: 8 groups of 4 heads of 128
+    for arch, attn in (("granite-3-8b", LLAMA_ATTN), ("phi3-mini-3.8b", PHI3_ATTN)):
+        cfg = registry.get(arch)
+        rec = {"kernels": family_kernels(torch, mods, cfg, attn)}
+        rec.update(reduced_vs_cpu(torch, cfg))
+        rec.update(serve_family(torch, ctx, cfg, lanes=False))
+        out[arch] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2156,6 +2507,7 @@ def main() -> int:
         from repro_torch.kernels import _build
         from repro_torch.kernels import decode_attn as da
         from repro_torch.kernels import int8_matmul as mm
+        from repro_torch.kernels import layer_norm as lnk
         from repro_torch.kernels import pim_mvm as pim
         from repro_torch.kernels import verify_attn as va
         from repro_torch.kernels import verify_tree_attn as vt
@@ -2188,6 +2540,8 @@ def main() -> int:
         else:
             s.failures.append("serve: skipped, the engine phase made no params")
         s.phase("ssm", lambda: phase_ssm(torch, ctx, s.record.get("build")))
+        mods = {"mm": mm, "pim": pim, "da": da, "va": va, "vt": vt, "quant": quant, "lnk": lnk}
+        s.phase("families", lambda: phase_families(torch, ctx, mods))
 
     kernels = []
     lin, att = s.record.get("linears", {}), s.record.get("attention", {})
@@ -2215,7 +2569,10 @@ def main() -> int:
              ctx.get("ssd_chunk_launches")),
             ("rms_norm", "src/repro_torch/csrc/rms_norm.cu",
              "src/repro/models/layers.py apply_norm (jnp; no Pallas kernel)",
-             ssm.get("rms_norm"), ctx.get("rms_norm_launches"))):
+             ssm.get("rms_norm"), ctx.get("rms_norm_launches")),
+            ("layer_norm", "src/repro_torch/csrc/layer_norm.cu",
+             "src/repro/models/layers.py apply_norm, LayerNorm branch (jnp; no Pallas kernel)",
+             s.record.get("families", {}).get("layer_norm"), ctx.get("layer_norm_launches"))):
         if rec is None or not launches:
             s.failures.append(f"{name}: no measurement or no launch on its path")
             continue

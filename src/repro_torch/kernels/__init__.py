@@ -18,7 +18,7 @@ import importlib
 import torch
 
 KERNELS = ("int8_matmul", "pim_mvm", "decode_attn", "verify_attn",
-           "verify_tree_attn", "ssd_chunk", "rms_norm")
+           "verify_tree_attn", "ssd_chunk", "rms_norm", "layer_norm")
 
 
 def _module(name: str):

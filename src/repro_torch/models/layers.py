@@ -8,6 +8,7 @@ form and the execution backend: the W8A8 reference matmul, the B1 kernel
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.kernels import int8_matmul as mm_ops
+from repro_torch.kernels import layer_norm as ln_ops
 from repro_torch.kernels import pim_mvm as pim_ops
 from repro_torch.kernels import rms_norm as norm_ops
 
@@ -80,17 +82,13 @@ def norm_init(d: int, norm_type: str = "rmsnorm",
 def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Controller op (fp32 'ARM-core' path): always computed in fp32.
 
-    RMSNorm runs the row-invariant kernel (``kernels/rms_norm.py``) on CUDA
-    tensors under every backend, so a row normalises to the same bits
-    whatever rows share the call; on CPU tensors its plain version (this
-    function's formula).  LayerNorm (``"bias" in p``) stays plain: no ported
-    model uses it."""
+    Both norms run a row-invariant kernel on CUDA tensors under every
+    backend, so a row normalises to the same bits whatever rows share the
+    call: LayerNorm (``"bias" in p``) ``kernels/layer_norm.py``, RMSNorm
+    ``kernels/rms_norm.py``.  On CPU tensors each takes its plain version
+    (the reference's formula)."""
     if "bias" in p:
-        xf = x.to(torch.float32)
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, unbiased=False)
-        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
-        return y.to(x.dtype)
+        return ln_ops.layer_norm(x, p["scale"], p["bias"], eps).to(x.dtype)
     return norm_ops.rms_norm(x, p["scale"], eps).to(x.dtype)
 
 
@@ -121,6 +119,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# sinusoidal positions (the families with ``rope_theta == 0``: OPT)
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _sinusoid_rate(d: int) -> float:
+    """``-log(10000) / d`` rounded as the reference rounds it (each step in
+    f32), computed on the host: a step being captured as a CUDA graph may
+    not copy a new host tensor to the card."""
+    return float(-torch.log(torch.tensor(10000.0, dtype=torch.float32)) / d)
+
+
+def sinusoid_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embedding at the positions ``pos`` (any shape, int or
+    float) -> f32 [*pos.shape, d]: sin at even features, cos at odd ones.
+    It reads the positions from the tensor, so a step captured as a CUDA
+    graph computes them from its static ``pos`` buffer on every replay."""
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+                    * _sinusoid_rate(d))
+    ang = pos.to(torch.float32)[..., None] * div
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+        *ang.shape[:-1], d)
+
+
+def sinusoidal_positions(seq: int, d: int, offset=0,
+                         device: str | torch.device = "cpu") -> torch.Tensor:
+    """The [seq, d] table of :func:`sinusoid_at` at ``offset + arange(seq)``
+    (``offset`` an int or a 0-d tensor)."""
+    return sinusoid_at(torch.arange(seq, device=device) + offset, d)
 
 
 # ---------------------------------------------------------------------------

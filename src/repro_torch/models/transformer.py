@@ -1,4 +1,4 @@
-"""Decoder-LM assembly for the dense GQA and SSM (Mamba2) families.
+"""Decoder-LM assembly for the dense GQA/MHA and SSM (Mamba2) families.
 
 PyTorch counterpart of ``repro.models.transformer``.  Layers are a per-layer
 list (``params["layers"]``), not the reference's stacked ``lax.scan``, and
@@ -43,18 +43,18 @@ class Runtime:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense GQA decoders with RoPE and attention-free SSM
+    """The port serves dense decoders (GQA or MHA, with RoPE or with
+    sinusoidal positions when ``rope_theta == 0``) and attention-free SSM
     (Mamba2) stacks so far."""
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: hybrid SSM/attention stacks wait on models/moe.py "
             "(ROADMAP A.11)")
-    dense = (cfg.family == "dense" and cfg.attn_type == "gqa"
-             and bool(cfg.rope_theta))
+    dense = cfg.family == "dense" and cfg.attn_type == "gqa"
     ssm = cfg.family == "ssm" and cfg.attn_type == "none" and not cfg.d_ff
     if not (dense or ssm) or cfg.n_experts or cfg.input_mode != "tokens":
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders with RoPE and SSM stacks are "
+            f"{cfg.name}: only dense GQA/MHA decoders and SSM stacks are "
             "ported so far (other families: ROADMAP A.11)")
 
 
@@ -94,8 +94,16 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return p
 
 
-def _embed(p: Params, cfg: ModelConfig, inputs: torch.Tensor) -> torch.Tensor:
-    return p["embed"]["w"][inputs]
+def _embed(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
+           positions: torch.Tensor | None) -> torch.Tensor:
+    """Token embeddings of ``inputs``, plus the sinusoidal embedding of
+    ``positions`` for the families without RoPE (a tensor of the same shape
+    as ``inputs``, never a host int, so a captured step reads its positions
+    on every replay; it may be None where ``cfg.rope_theta`` is set)."""
+    x = p["embed"]["w"][inputs]
+    if not cfg.rope_theta:
+        x = x + L.sinusoid_at(positions, cfg.d_model).to(x.dtype)
+    return x
 
 
 def _lm_head(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime) -> torch.Tensor:
@@ -185,7 +193,7 @@ def decode_step(p: Params, cfg: ModelConfig, state: dict, token: torch.Tensor,
     the same tensors."""
     B = token.shape[0]
     pos = state["pos"].to(torch.int32).reshape(-1).expand(B)
-    x = _embed(p, cfg, token)[:, None]
+    x = _embed(p, cfg, token, pos)[:, None]
     for lp, cache in zip(p["layers"], state["layers"]):
         x = apply_layer_decode(lp, cfg, x, pos, cache, rt)
     x = L.apply_norm(p["ln_f"], x)
@@ -265,7 +273,11 @@ def verify_step(p: Params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
             "one-token decode path (see serve engine)")
     B, T = tokens.shape
     pos = state["pos"].to(torch.int32).reshape(-1).expand(B)
-    x = _embed(p, cfg, tokens)
+    positions = None
+    if not cfg.rope_theta:
+        positions = pos[:, None] + (torch.arange(T, device=tokens.device)[None, :]
+                                    if depth is None else depth.to(tokens.device))
+    x = _embed(p, cfg, tokens, positions)
     for lp, cache in zip(p["layers"], state["layers"]):
         x = apply_layer_verify(lp, cfg, x, pos, cache, rt, depth=depth, anc=anc)
     x = L.apply_norm(p["ln_f"], x)
@@ -346,12 +358,12 @@ def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor
     its queries attend keys ``< start + n_real`` among the buffers' first
     ``start + PREFILL_PIECE`` rows.  Returns the hidden states after
     ``ln_f`` [B, PREFILL_PIECE, d]."""
-    x = _embed(p, cfg, tokens)
     B, P = tokens.shape
     dev = tokens.device
     key_rows = start + P
     start_t = torch.full((B,), start, dtype=torch.int32, device=dev)
     positions = start_t[:, None] + torch.arange(P, device=dev)
+    x = _embed(p, cfg, tokens, positions)
     kv_lengths = start_t + n_real
     # what every layer shares: the rotary tables and the key blocks' masks
     rope = (L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -423,8 +435,8 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
 def _prefill_ssm(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
                  rt: Runtime, lengths: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """:func:`prefill` of an SSM stack: every layer over all T tokens."""
-    x = _embed(p, cfg, inputs)
-    B = x.shape[0]
+    B, T = inputs.shape
+    x = _embed(p, cfg, inputs, torch.arange(T, device=inputs.device).expand(B, T))
     state = init_decode_state(cfg, B, max_len, x.device)
     for lp, cache in zip(p["layers"], state["layers"]):
         h = L.apply_norm(lp["ln1"], x)

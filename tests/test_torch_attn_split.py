@@ -189,6 +189,8 @@ def _window(b, s, g, rep, d, t, seed):
     (3, 300, 2, 4, 64, [150, 1, 299]),         # five chunks, non-aligned S
     (4, 200, 2, 4, 32, [63, 64, 65, 200]),     # chunk boundary -1, 0, +1
     (1, 1100, 1, 16, 16, [1090]),              # 18 chunks: CTAs take a third round
+    (3, 300, 4, 1, 96, [150, 1, 299]),         # MHA (rep 1) at phi3's head dim 96
+    (2, 200, 3, 1, 128, [63, 200]),            # MHA at OPT's head dim 128
 ])
 def test_split_matches_plain_and_jax_reference(b, s, g, rep, d, lengths):
     rng = np.random.default_rng(b * s + d)
@@ -246,8 +248,21 @@ def test_masks_give_b3_equal_b2_and_chain_equal_b3(t, pos):
     pos + t + 1 in the same pool, B4 on chain ancestors equals B3 (both
     across the window's two blocks of rows), and both stay within the
     tolerance of their plain versions, B4 also on branching trees."""
+    _check_masks(t, pos, g=2, rep=4, d=32)
+
+
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("t,pos", [(5, [0, 61, 124, 250]), (7, [3, 60, 200, 248])])
+def test_masks_at_rep_1(t, pos, d):
+    """The same at MHA's rep 1 (a block holds the window's T rows) and the
+    head dims of phi3-mini (96: three int8 k-steps of the four) and OPT
+    (128)."""
+    _check_masks(t, pos, g=3, rep=1, d=d)
+
+
+def _check_masks(t, pos, g, rep, d):
     from repro_torch.serve.drafter import tree_depths_ancestors
-    b, s, g, rep, d = 4, 255, 2, 4, 32
+    b, s = 4, 255
     q_q, q_s, cache = _window(b, s, g, rep, d, t, t)
     pos = torch.tensor(pos, dtype=torch.int32)
     lengths = pos[:, None] + torch.arange(1, t + 1, dtype=torch.int32)

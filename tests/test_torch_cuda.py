@@ -11,7 +11,9 @@ B4 within ``rtol=3e-5, atol=3e-6`` (B2 also in a pool of 4,096 rows); B3 at
 one token equals B2, and B4 on a chain equals B3, bit for bit, also with B2
 in a pool T - 1 rows smaller; B6 within ``rtol=2e-4, atol=2e-5`` (its
 decay within ``rtol=1e-5``); the RMSNorm kernel within ``rtol=1e-6`` and
-row-invariant bit for bit.  The engines' captured steps (CUDA graphs) are
+the LayerNorm kernel within ``rtol=1e-6`` (``atol`` 1e-6 of the output's
+scale), both row-invariant bit for bit; B2-B4 also at MHA's rep 1 with head
+dims 96 and 128.  The engines' captured steps (CUDA graphs) are
 held bit-equal to the eager steps, logits and every state tensor, with their
 launch counts, and chunked serving token-identical to one-shot prefill.
 """
@@ -25,6 +27,7 @@ from repro_torch.core import quant
 from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import int8_matmul as mm
 from repro_torch.kernels import launch_counts, pim_mvm as pim, reset_launch_counts
+from repro_torch.kernels import layer_norm as lnk
 from repro_torch.kernels import rms_norm as rn
 from repro_torch.kernels import ssd_chunk as ssd
 from repro_torch.kernels import verify_attn as va
@@ -266,7 +269,8 @@ def test_engine_runs_the_kernels_and_agrees_with_the_cpu(cuda):
     assert launch_counts() == {"int8_matmul": 7 * cfg.n_layers * steps,
                                "pim_mvm": 0, "decode_attn": cfg.n_layers * steps,
                                "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
-                               "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts))}
+                               "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts)),
+                               "layer_norm": 0}
     assert [len(o) for o in got] == budgets
     assert [o[0] for o in got] == [o[0] for o in want]     # prefill: float only
 
@@ -367,7 +371,7 @@ def test_spec_engine_runs_the_verify_kernels(cuda, lane):
     attn = "verify_tree_attn" if "spec_tree" in lane else "verify_attn"
     want = {"int8_matmul": 7 * cfg.n_layers * steps, "pim_mvm": 0, "decode_attn": 0,
             "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
-            "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts))}
+            "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts)), "layer_norm": 0}
     want[attn] = cfg.n_layers * steps
     assert steps == eng.stats["decode_steps"] > 0 and launch_counts() == want
     assert [len(o) for o in got] == budgets
@@ -465,6 +469,88 @@ def test_rms_norm_matches_plain_and_is_row_invariant(cuda, d):
     assert torch.equal(rn.rms_norm_cuda(x[:20].reshape(4, 5, d), scale).reshape(20, d), full[:20])
 
 
+@pytest.mark.parametrize("d", [96, 128, 768, 3072, 7168])
+def test_layer_norm_matches_plain_and_is_row_invariant(cuda, d):
+    """Within ``rtol=1e-6`` of the plain version (``atol`` 1e-6 of the
+    output's scale: an output near zero is the difference of two rounded
+    terms), and each row's output the same bits whether the call holds 1,
+    4, 20, 28 or 140 rows."""
+    g = torch.Generator().manual_seed(d)
+    x = (torch.randn((140, d), generator=g) * 3 + 0.5).to(cuda)
+    scale = torch.randn((d,), generator=g).to(cuda)
+    bias = torch.randn((d,), generator=g).to(cuda)
+    reset_launch_counts()
+    full = lnk.layer_norm(x, scale, bias)
+    assert launch_counts()["layer_norm"] == 1
+    want = lnk.layer_norm_plain(x, scale, bias)
+    torch.testing.assert_close(full, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    for m in (1, 4, 20, 28):
+        parts = torch.cat([lnk.layer_norm_cuda(x[i:i + m], scale, bias)
+                           for i in range(0, 140, m)])
+        assert torch.equal(parts, full), m
+
+
+@pytest.mark.parametrize("g,d", [(32, 96), (56, 128)], ids=["phi3", "opt"])
+def test_attention_kernels_at_rep_1_match_plain(cuda, g, d):
+    """B2, B3 (T 5) and B4 (T 7) at MHA's rep 1, with phi3-mini's 32 heads
+    of 96 and OPT-30B's 56 of 128: each within ``rtol=3e-5, atol=3e-6`` of
+    its plain version; B3's rows equal B2 and B4 on a chain equals B3, bit
+    for bit."""
+    b, s = 4, 262
+    for t in (1, 5, 7):
+        q_q, q_s, cache = _window(b, s, g, 1, d, t, d + t, cuda)
+        pos = torch.tensor([0, 62, 130, s - t], dtype=torch.int32, device=cuda)
+        lengths = (pos[:, None] + torch.arange(1, t + 1, dtype=torch.int32,
+                                               device=cuda)).contiguous()
+        got3 = va.verify_attn_cuda(q_q, q_s, *cache, lengths)
+        torch.testing.assert_close(got3, va.verify_attn_plain(q_q, q_s, *cache, lengths),
+                                   rtol=3e-5, atol=3e-6)
+        for i in range(t):
+            args = (q_q[:, :, i].contiguous(), q_s[:, :, i].contiguous(), *cache,
+                    lengths[:, i].contiguous())
+            dec = da.decode_attn_cuda(*args)
+            torch.testing.assert_close(dec, da.decode_attn_plain(*args), rtol=3e-5, atol=3e-6)
+            assert torch.equal(got3[:, :, i], dec), (t, i)
+        chain = ((1 << torch.arange(1, t + 1, dtype=torch.int64)) - 1).to(torch.int32)
+        chain = chain.expand(b, t).contiguous().to(cuda)
+        assert torch.equal(vt.verify_tree_attn_cuda(q_q, q_s, *cache, pos, chain), got3)
+        anc = _trees(b, t, t).to(cuda)
+        torch.testing.assert_close(vt.verify_tree_attn_cuda(q_q, q_s, *cache, pos, anc),
+                                   vt.verify_tree_attn_plain(q_q, q_s, *cache, pos, anc),
+                                   rtol=3e-5, atol=3e-6)
+
+
+@pytest.mark.parametrize("arch", ["opt-30b", "granite-3-8b", "phi3-mini-3.8b"])
+def test_reduced_families_serve_on_the_card_like_the_cpu(cuda, arch):
+    """The continuous engine on the card under ``fused_int8`` launches B1
+    once a linear (6 a layer under gelu, 7 under SwiGLU) and B2 once a
+    layer a decode step, and one norm kernel (LayerNorm for OPT, RMSNorm
+    otherwise) a norm, and its first tokens (prefill, float only) equal
+    the CPU's."""
+    cfg = registry.get(arch).reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(4, 20)).tolist()
+               for _ in range(6)]
+    budgets = [int(rng.integers(4, 13)) for _ in range(6)]
+    want = ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=64,
+                                    rt=Runtime("fused_int8"), device="cpu").generate_all(
+        prompts, budgets)
+    eng = ContinuousBatchingEngine(cfg, convert.to_device(params, cuda), n_slots=2,
+                                   max_len=64, rt=Runtime("fused_int8"))
+    reset_launch_counts()          # after the capture's eager warm-up step
+    got = eng.generate_all(prompts, budgets)
+    steps, L = eng.stats["decode_steps"], cfg.n_layers
+    norm = "layer_norm" if cfg.norm_type == "layernorm" else "rms_norm"
+    counts = launch_counts()
+    assert counts[norm] == (2 * L + 1) * (steps + len(prompts))
+    linears = 7 if cfg.mlp_type == "swiglu" else 6
+    assert counts["int8_matmul"] == linears * L * steps and counts["decode_attn"] == L * steps
+    assert counts["layer_norm" if norm == "rms_norm" else "rms_norm"] == 0
+    assert [len(o) for o in got] == budgets
+    assert [o[0] for o in got] == [o[0] for o in want]
+
+
 def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
     """mamba2 reduced under ``fused_int8``: prefill (B6 once per layer and
     chunk) and decode (B1 three times per layer) on the card within 2% of
@@ -486,7 +572,8 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
     assert res["cpu"][2] == {k: 0 for k in res["cpu"][2]}
     assert res["cuda"][2] == {"int8_matmul": 3 * L, "pim_mvm": 0, "decode_attn": 0,
                               "verify_attn": 0, "verify_tree_attn": 0,
-                              "ssd_chunk": 2 * L, "rms_norm": 2 * (2 * L + 1)}
+                              "ssd_chunk": 2 * L, "rms_norm": 2 * (2 * L + 1),
+                              "layer_norm": 0}
     for a, b in zip(res["cpu"][:2], res["cuda"][:2]):
         assert torch.equal(a.argmax(-1), b.argmax(-1))
         assert float((a - b).abs().max()) <= 2e-2 * float(a.abs().max())
@@ -501,7 +588,8 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
     assert launch_counts() == {"int8_matmul": 3 * L * steps, "pim_mvm": 0, "decode_attn": 0,
                                "verify_attn": 0, "verify_tree_attn": 0,
                                "ssd_chunk": L * len(trace),
-                               "rms_norm": (2 * L + 1) * (steps + len(trace))}
+                               "rms_norm": (2 * L + 1) * (steps + len(trace)),
+                               "layer_norm": 0}
     assert [len(o) for o in got] == budgets
 
 

@@ -20,6 +20,7 @@ from repro_torch.core import quant as tq
 from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import int8_matmul as mm
 from repro_torch.kernels import pim_mvm as pim
+from repro_torch.kernels import layer_norm as lnk
 from repro_torch.kernels import rms_norm as rn
 from repro_torch.kernels import ssd_chunk as ssd
 
@@ -131,12 +132,13 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     _, tt = _attn_inputs(1, 16, 1, 1, 32, 4)
     da.decode_attention(*tt, 5)
     rn.rms_norm(torch.ones(2, 8), torch.ones(8))
+    lnk.layer_norm(torch.ones(2, 8), torch.ones(8), torch.zeros(8))
     x = torch.ones(1, 4, 2, 8)
     ssd.ssd_chunk(x, torch.ones(1, 4, 2, 3), torch.ones(1, 4, 2, 3), torch.ones(1, 4, 2),
                   -torch.ones(2), torch.ones(2), torch.zeros(1, 2, 8, 3))
     assert KN.launch_counts() == {"int8_matmul": 0, "pim_mvm": 0, "decode_attn": 0,
                                   "verify_attn": 0, "verify_tree_attn": 0,
-                                  "ssd_chunk": 0, "rms_norm": 0}
+                                  "ssd_chunk": 0, "rms_norm": 0, "layer_norm": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -147,6 +149,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         pim.pim_mvm_cuda(t["x_q"], t["x_s"], t["w_q"], t["w_s"])
     with pytest.raises(ValueError, match="CUDA"):
         rn.rms_norm_cuda(torch.ones(2, 8), torch.ones(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        lnk.layer_norm_cuda(torch.ones(2, 8), torch.ones(8), torch.zeros(8))
 
 
 def test_mixed_devices_raise():

@@ -65,6 +65,27 @@ Phases (any failure makes the script exit non-zero):
    devices, full width on the card, each float stage at B*T rows against B),
    gated: the RMSNorm kernel is row-invariant bit for bit and the full-width
    window's K/V entries equal sequential decode's in every layer;
+``prefix``: the radix prefix cache and the tiered KV pool on llama3-8b at
+   full width (4 slots, ``max_len`` 1024, ``chunk`` 64): which division
+   ``quantize_kv`` runs on the card and whether a dequantize-requantize
+   round trip keeps its scales (recorded: a warm finalize writes only the
+   rows past the cached prefix, so the cached rows keep their bits either
+   way); a trace of 3 groups of 4 requests sharing a 384-token system
+   prompt each, served without the cache, with it (each group's leader to
+   completion, then its 3 followers: gated to 9 warm admissions of 384-388
+   tokens whose sum is ``prefill_tokens_saved``), and with a small cache
+   over the cold tier (the 3 leaders, then the 9 followers: gated to at
+   least one demoted leaf promoted), each run with exact launch counts,
+   every slot's system rows gated byte-identical to a one-shot prefill of
+   its system prompt in all 32 layers, and every token that parts from the
+   cache-off trace gated to a near-tie (single-request reruns of both lanes
+   reproduce their tokens, the cache-off lane's best two lie closer than
+   the lanes' logit rows lie apart, and those within 10% of the logit
+   scale); warm and cold TTFT and every block copy's time recorded; then
+   the phase-4 trace under preemptive priority with ``kv_swap`` (requests
+   4-7 arrive at a higher priority once 0-3 decode), gated 8 of 8 equal to
+   the plain trace with every preemption swapped, ``swap_in_bytes ==
+   swap_out_bytes``, each request prefilled once and exact launch counts;
 6. ``ssm``: mamba2-2.7b (64 layers, d 2560, 80 SSM heads of 64, state 128,
    vocab 50280) after llama3-8b's parameters are freed.  B6 (``ssd_chunk``)
    against its plain version at full width (Q 128, 37, 1 and 33; B and C
@@ -1748,6 +1769,354 @@ def phase_graphs(torch, ctx) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase prefix: the radix prefix cache and the tiered KV pool (A.10)
+# ---------------------------------------------------------------------------
+PREFIX_SYSTEM = 384          # tokens of a group's shared system prompt
+PREFIX_MAX_LEN = 1024
+PREFIX_CHUNK = 64
+PREFIX_TIER_ROWS = 1100      # run (c)'s cache rows: about two leaves hot
+
+
+def prefix_trace(vocab_size: int) -> tuple[list, list, list]:
+    """12 requests in 3 groups of 4 (seed 3): each group shares a 384-token
+    system prompt, each request has its own 16-128-token tail and a budget
+    of 8-32 tokens.  Request ``4 g`` leads group g."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    systems = [rng.integers(0, vocab_size, PREFIX_SYSTEM).tolist() for _ in range(3)]
+    prompts, budgets = [], []
+    for g in range(3):
+        for _ in range(4):
+            prompts.append(systems[g] + rng.integers(0, vocab_size,
+                                                     int(rng.integers(16, 129))).tolist())
+            budgets.append(int(rng.integers(8, 33)))
+    return systems, prompts, budgets
+
+
+def quantize_round_trip(torch) -> dict:
+    """Which division ``quantize_kv`` runs on the card, and whether its
+    scales come back after dequantizing: a row whose largest magnitude is
+    each of the 2^23 floats in [1, 2) (every mantissa), its scale against
+    float32 ``amax / 127`` (IEEE division) and ``amax * fl(1/127)`` (a
+    multiply by the reciprocal) computed on the host, then the quantized
+    rows dequantized and quantized again."""
+    import numpy as np
+    from repro_torch.core import quant
+
+    amax = (np.arange(1 << 23, dtype=np.uint32) | np.uint32(127 << 23)).view(np.float32)
+    x = torch.from_numpy(np.stack([amax, -0.5 * amax], -1)[:, None, :]).cuda()
+    q, s = quant.quantize_kv(x)
+    card = s.reshape(-1).cpu().numpy()
+    ieee = amax / np.float32(127.0)
+    recip = amax * (np.float32(1.0) / np.float32(127.0))
+    q2, s2 = quant.quantize_kv(quant.dequantize_kv(q, s))
+    out = {"n_scales": int(amax.size),
+           "card_ne_ieee_division": int((card != ieee).sum()),
+           "card_ne_reciprocal_multiply": int((card != recip).sum()),
+           "ieee_ne_reciprocal": int((ieee != recip).sum()),
+           "round_trip_scale_drift": int((s2 != s).sum()),
+           "round_trip_code_drift": int((q2 != q).sum())}
+    out["division"] = ("ieee" if not out["card_ne_ieee_division"] else
+                       "reciprocal" if not out["card_ne_reciprocal_multiply"] else "neither")
+    print(f"   quantize_kv on the card: scale = amax / 127 as {out['division']} "
+          f"(differs from IEEE division in {out['card_ne_ieee_division']} and from a "
+          f"reciprocal multiply in {out['card_ne_reciprocal_multiply']} of "
+          f"{out['n_scales']} mantissas); dequantize -> quantize moves "
+          f"{out['round_trip_scale_drift']} scales and {out['round_trip_code_drift']} codes")
+    if out["division"] == "neither":
+        raise AssertionError("quantize_kv's scales match neither division")
+    del x, q, s, q2, s2
+    return out
+
+
+def system_rows(torch, cfg, params, systems: list) -> list:
+    """Each system prompt's int8 K/V rows from a one-shot prefill of it alone:
+    the rows every leaf of its group holds (the prompt fills whole 64-row
+    pieces, so a longer prompt's prefill computes them with the same bits)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+
+    rows = []
+    for sys_prompt in systems:
+        _, st = M.prefill(params, cfg, {"inputs": torch.tensor([sys_prompt], device="cuda")},
+                          PREFIX_SYSTEM, Runtime("fused_int8"))
+        rows.append([{k: v[0, :PREFIX_SYSTEM].clone() for k, v in lay.items()}
+                     for lay in st["layers"]])
+        del st
+    return rows
+
+
+def serve_prefix(torch, cfg, params, lane: dict, order: str, expected: list) -> tuple:
+    """The prefix trace on 4 slots (``max_len`` 1024, ``chunk`` 64) with the
+    lane's arguments, the launch counts reset just before and read just
+    after, gated exact.  ``order`` "groups": each group's leader to
+    completion, then its 3 followers together; "leaders": the 3 leaders to
+    completion, then the 9 followers together.  Each warm admission's hit
+    is recorded, and when a request's prefill completes, its slot's rows of
+    the system prompt (all 32 layers, k_q / k_s / v_q / v_s; cached rows on
+    a warm admission, its own on a cold one) are compared with
+    ``expected``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    _, prompts, budgets = prefix_trace(cfg.vocab_size)
+    cb = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=PREFIX_MAX_LEN,
+                                  chunk=PREFIX_CHUNK, rt=Runtime("fused_int8"), **lane)
+    group, hits, rows_ok = {}, {}, {}
+    admit, emit = cb._admit_chunked, cb._emit_first
+
+    def admit_rec(req):
+        admit(req)
+        if req.prefill_pos:
+            hits[req.rid] = req.prefill_pos
+
+    def emit_check(req, logits):
+        emit(req, logits)
+        if req.rid not in rows_ok:
+            want = expected[group[req.rid]]
+            rows_ok[req.rid] = all(
+                torch.equal(lay[k][req.slot, :PREFIX_SYSTEM], w[k])
+                for lay, w in zip(cb.state["layers"], want) for k in w)
+    cb._admit_chunked, cb._emit_first = admit_rec, emit_check
+    waves = ([[4 * g], [4 * g + 1, 4 * g + 2, 4 * g + 3]] for g in range(3)) \
+        if order == "groups" else iter([[[0, 4, 8], [i for i in range(12) if i % 4]]])
+    torch.cuda.synchronize()
+    cb.reset_clock()
+    reset_launch_counts()                      # the path's run starts here
+    t0 = time.perf_counter()
+    reqs = {}
+    for pair in waves:
+        for wave in pair:
+            for i in wave:
+                r = cb.submit(prompts[i], budgets[i])
+                reqs[i], group[r.rid] = r, i // 4
+            cb.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()                   # ... and ends here
+    want = want_launches(cfg, cb.stats["decode_steps"], [len(p) for p in prompts],
+                         "decode_attn", prefills=cb.stats["prefill_pieces"])
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    ordered = [reqs[i] for i in range(12)]
+    rec = dict(serve_record(ordered, wall, cfg), stats=dict(cb.stats), launches=counts)
+    for r, per in zip(ordered, rec["requests"]):
+        per.update(group=group[r.rid], hit=hits.get(r.rid, 0),
+                   prefill_s=r.first_token_time - r.admit_time,
+                   rows_equal=rows_ok.get(r.rid))
+    if cb._pcache is not None:
+        rec["cache"] = dict(cb._pcache.stats)
+    if cb._swap is not None:
+        rec["swap_copies"] = list(cb.swap_copies)
+    outs = [list(r.output) for r in ordered]
+    del cb
+    torch.cuda.empty_cache()
+    return rec, outs
+
+
+def warm_margin(torch, cfg, params, qparams, prompt: list, n_hit: int, prefix: list,
+                toks: tuple) -> dict:
+    """:func:`decode_margin` for a warm admission: the system rows from a
+    one-shot prefill, a warm carry from them, the rest of the prompt in
+    64-token chunks, a finalize past the cached rows, then ``prefix`` fed
+    back one decode step at a time."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import Runtime
+
+    rt = Runtime("fused_int8")
+    ml = len(prompt) + len(prefix) + 1
+    _, st = M.prefill(params, cfg, {"inputs": torch.tensor([prompt[:n_hit]], device="cuda")},
+                      ml, rt)
+    carry = M.warm_prefill_carry(cfg, st, 0, n_hit, T.carry_len(ml), prompt[:n_hit])
+    for i in range(n_hit, len(prompt), PREFIX_CHUNK):
+        n = min(PREFIX_CHUNK, len(prompt) - i)
+        chunk = torch.zeros((1, PREFIX_CHUNK), dtype=torch.int64, device="cuda")
+        chunk[0, :n] = torch.tensor(prompt[i:i + n])
+        lg, carry = M.prefill_chunk(params, cfg, carry, chunk, n, rt)
+    T.write_slot(st, 0, M.finalize_prefill_carry(cfg, carry, ml, n_hit), n_hit)
+    for tok in prefix:
+        lg, st = M.decode_step(qparams, cfg, st, torch.tensor([tok], dtype=torch.int32,
+                                                               device="cuda"), rt)
+    row = lg[0].float()
+    a, b = (float(row[t]) for t in toks)
+    return {"logits": [a, b], "argmax": int(row.argmax()), "row": row}
+
+
+def warm_divergences(torch, cfg, params, rec: dict, outs: list, off: list) -> list:
+    """Each request whose tokens part from the cache-off trace: both lanes'
+    logits at the first differing token from single-request reruns (the
+    cache-off lane's cold, :func:`decode_margin`; the warm lane's from its
+    hit, :func:`warm_margin`).  A part is explained when both reruns pick
+    their lane's token, the cache-off lane's best two lie closer than the
+    two lanes' logit rows lie apart, and those lie within 10% of the logit
+    scale; a cold admission must not part at all."""
+    from repro_torch.serve.quantize import quantize_tree
+
+    _, prompts, _ = prefix_trace(cfg.vocab_size)
+    qparams = None
+    res = []
+    for i, (a, b, per) in enumerate(zip(outs, off, rec["requests"])):
+        d = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if d is None:
+            continue
+        m = {"request": i, "token": d, "tokens": [a[d], b[d]], "hit": per["hit"]}
+        if per["hit"]:
+            qparams = qparams if qparams is not None else quantize_tree(params)
+            cold = decode_margin(torch, cfg, params, qparams, prompts[i], b[:d], (b[d], a[d]))
+            warm = warm_margin(torch, cfg, params, qparams, prompts[i], per["hit"], a[:d],
+                               (b[d], a[d]))
+            m.update(off_top2_gap=cold["top2_gap"], logit_scale=cold["logit_scale"],
+                     lanes_max_abs_diff=float((cold["row"] - warm["row"]).abs().max()),
+                     off_reproduced=cold["argmax"] == b[d],
+                     warm_reproduced=warm["argmax"] == a[d])
+            m["explained"] = (m["off_reproduced"] and m["warm_reproduced"]
+                              and m["off_top2_gap"] < m["lanes_max_abs_diff"]
+                              <= 0.1 * m["logit_scale"])
+        else:
+            m["explained"] = False
+        res.append(m)
+        print(f"   request {i} (hit {per['hit']}) parts from the cache-off trace at token "
+              f"{d} ({a[d]} vs {b[d]}): {m}")
+    del qparams
+    return res
+
+
+def swap_trace(torch, cfg, params, plain: list) -> dict:
+    """The phase-4 trace under ``priority:preempt`` with ``kv_swap``
+    (4 slots, ``max_len`` 256, atomic prefill): requests 0-3 at priority 0
+    until they decode, then 4-7 at priority 1, which preempt them; every
+    victim's rows swap out and return verbatim, so the trace must equal the
+    plain trace 8 of 8, every request prefilled once."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    prompts, budgets = serve_trace(cfg.vocab_size)
+    cb = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=256,
+                                  rt=Runtime("fused_int8"), policy="priority:preempt",
+                                  kv_swap=True, cold_rows=8 * 256)
+    torch.cuda.synchronize()
+    cb.reset_clock()
+    reset_launch_counts()                      # the path's run starts here
+    t0 = time.perf_counter()
+    reqs = [cb.submit(p, b, priority=0) for p, b in zip(prompts[:4], budgets[:4])]
+    for _ in range(2):
+        cb.step()
+    reqs += [cb.submit(p, b, priority=1) for p, b in zip(prompts[4:], budgets[4:])]
+    cb.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()                   # ... and ends here
+    st = cb.stats
+    want = want_launches(cfg, st["decode_steps"], [len(p) for p in prompts], "decode_attn",
+                         prefills=st["prefill_pieces"])
+    once = sum(T.prefill_pieces(cfg, cb._bucket(len(p))) for p in prompts)
+    outs = [list(r.output) for r in reqs]
+    same = sum(a == b for a, b in zip(outs, plain))
+    rec = dict(serve_record(reqs, wall, cfg), stats=dict(st), launches=counts,
+               same_as_plain=same, swap_copies=list(cb.swap_copies),
+               row_bytes=cb._swap.row_bytes)
+    for d, n, s in cb.swap_copies:
+        print(f"   {d}: {n} bytes in {s * 1e3:.3f} ms ({n / s / 1e9:.2f} GB/s)")
+    print(f"   swap trace: {same} of {len(plain)} requests equal the plain trace; "
+          f"{st['preemptions']} preemptions, {st['preempt_swaps']} swapped, "
+          f"{st['preempt_recomputes']} recomputed; {st['swap_out_bytes']} bytes out, "
+          f"{st['swap_in_bytes']} in; modeled NAND cycles out {st['swap_out_cycles']}, in "
+          f"{st['swap_in_cycles']}; launches {counts}")
+    del cb
+    torch.cuda.empty_cache()
+    if counts != want:
+        raise AssertionError(f"swap trace: launch counts {counts} != {want}")
+    if (same != len(plain) or st["preempt_swaps"] < 1 or st["preempt_recomputes"]
+            or st["swap_in_bytes"] != st["swap_out_bytes"] or st["prefill_pieces"] != once):
+        raise AssertionError(f"swap trace: {same} of {len(plain)} equal, stats {st}, "
+                             f"prefill pieces {st['prefill_pieces']} != {once}")
+    return rec
+
+
+def phase_prefix(torch, ctx) -> dict:
+    """llama3-8b at full width on 4 slots: how ``quantize_kv``'s division
+    runs on the card; the prefix trace without the cache, with it (each
+    group's leader, then its followers: 9 warm admissions of about 384
+    tokens, ``prefill_tokens_saved`` their sum, each warm slot's system rows
+    byte-identical to the leaf's in all 32 layers (and every slot's to a
+    one-shot prefill of its system prompt), every token that parts
+    from the cache-off trace explained by a near-tie), and with the cache
+    small and the cold tier on (the 3 leaders, then the 9 followers: a
+    demoted leaf promoted at least once, the same row and token gates);
+    then the swap trace.  Warm and cold TTFT, the tokens saved and every
+    block copy's time are recorded."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get("llama3-8b")
+    params = ctx["params"]
+    out = {"quantize_round_trip": quantize_round_trip(torch)}
+    systems, prompts, _ = prefix_trace(cfg.vocab_size)
+    expected = system_rows(torch, cfg, params, systems)
+    runs = {"cache_off": ({}, "groups"), "cache": ({"prefix_cache": True}, "groups"),
+            "tiers": ({"prefix_cache": True, "prefix_cache_rows": PREFIX_TIER_ROWS,
+                       "kv_swap": True}, "leaders")}
+    outs = {}
+    for label, (lane, order) in runs.items():
+        rec, outs[label] = serve_prefix(torch, cfg, params, lane, order, expected)
+        out[label] = rec
+        per = rec["requests"]
+        warm = [p for p in per if p["hit"]]
+        cold = [p for p in per if not p["hit"]]
+        rec["warm_ttft_s"] = [p["ttft_s"] for p in warm]
+        rec["cold_ttft_s"] = [p["ttft_s"] for p in cold]
+        print(f"   {label}: served {rec['tokens_served']} tokens in {rec['wall_s']:.2f} s; "
+              f"{len(warm)} warm admissions (hits {[p['hit'] for p in warm]}), "
+              f"{rec['stats'].get('prefill_tokens_saved', 0)} prompt tokens saved; TTFT "
+              f"warm {[round(p['ttft_s'] * 1e3, 1) for p in warm]} ms, cold "
+              f"{[round(p['ttft_s'] * 1e3, 1) for p in cold]} ms; admission to first token "
+              f"warm {[round(p['prefill_s'] * 1e3, 1) for p in warm]} ms, cold "
+              f"{[round(p['prefill_s'] * 1e3, 1) for p in cold]} ms; "
+              f"cache {rec.get('cache')}; launches {rec['launches']}")
+        for d, n, s in rec.get("swap_copies", []):
+            print(f"   {label} {d}: {n} bytes in {s * 1e3:.3f} ms")
+        bad_rows = [i for i, p in enumerate(per) if p["rows_equal"] is not True]
+        if bad_rows:
+            raise AssertionError(f"{label}: the slots' system rows differ from a one-shot "
+                                 f"prefill's in requests {bad_rows}")
+        if sum(p["hit"] for p in warm) != rec["stats"].get("prefill_tokens_saved", 0):
+            raise AssertionError(f"{label}: hits {[p['hit'] for p in warm]} do not sum to "
+                                 f"prefill_tokens_saved")
+        if label == "cache_off":
+            continue
+        if label == "cache" and (len(warm) != 9 or any(
+                not PREFIX_SYSTEM <= p["hit"] <= PREFIX_SYSTEM + 4 for p in warm)):
+            raise AssertionError(f"cache: {len(warm)} warm admissions, hits "
+                                 f"{[p['hit'] for p in warm]}")
+        if label == "tiers" and (rec["cache"]["promotions"] < 1
+                                 or rec["cache"]["demotions"] < 1 or not warm):
+            raise AssertionError(f"tiers: no demoted leaf promoted: {rec['cache']}")
+        rec["same_as_cache_off"] = sum(a == b for a, b in zip(outs[label], outs["cache_off"]))
+        rec["divergences"] = warm_divergences(torch, cfg, params, rec, outs[label],
+                                              outs["cache_off"])
+        far = [m["request"] for m in rec["divergences"] if not m["explained"]]
+        print(f"   {label}: {rec['same_as_cache_off']} of 12 requests equal the cache-off "
+              f"trace; unexplained parts: {far}")
+        if far:
+            raise AssertionError(f"{label}: requests {far} part from the cache-off trace "
+                                 "without a near-tie")
+    both = [i for i, (p, q) in enumerate(zip(out["cache"]["requests"],
+                                             out["tiers"]["requests"]))
+            if p["hit"] and p["hit"] == q["hit"]]
+    out["tiers"]["same_as_cache_where_hits_equal"] = [
+        outs["tiers"][i] == outs["cache"][i] for i in both]
+    if not all(out["tiers"]["same_as_cache_where_hits_equal"]):
+        raise AssertionError("tiers: a request with the same hit parts from the cache run")
+    del expected
+    torch.cuda.empty_cache()
+    out["swap"] = swap_trace(torch, cfg, params, ctx["plain_outputs"])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the SSM slice (mamba2-2.7b, B6)
 # ---------------------------------------------------------------------------
 SSD_HEADS, SSD_HEAD_DIM, SSD_STATE = 80, 64, 128     # mamba2-2.7b at full width
@@ -2537,6 +2906,7 @@ def main() -> int:
             s.phase("serve", lambda: phase_serve(torch, ctx))
             s.phase("graphs", lambda: phase_graphs(torch, ctx))
             s.phase("verify", lambda: phase_verify(torch, ctx, da, va, vt, quant))
+            s.phase("prefix", lambda: phase_prefix(torch, ctx))
         else:
             s.failures.append("serve: skipped, the engine phase made no params")
         s.phase("ssm", lambda: phase_ssm(torch, ctx, s.record.get("build")))

@@ -115,13 +115,15 @@ def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, buf: dict, start: int,
               kv_lengths: torch.Tensor, key_rows: int, backend: str = "dense",
               rope: tuple[torch.Tensor, torch.Tensor] | None = None,
-              hidden: list[torch.Tensor] | None = None) -> torch.Tensor:
+              hidden: list[torch.Tensor] | None = None,
+              skip: int = 0) -> torch.Tensor:
     """One chunk of a chunked prefill.  ``x``: [B, C, d] hidden chunk whose
     tokens sit at ``positions`` (= start + arange(C)); ``buf`` carries the
     float K/V of the whole in-flight prompt ([B, S_buf, H_kv, D]).  The
-    chunk's k/v land in ``buf`` in place at offset ``start`` (every row's,
-    clamped to ``[0, S_buf - C]`` as the reference's
-    ``dynamic_update_slice`` clamps it) and q attends the resident prefix
+    chunk's k/v from its row ``skip`` on land in ``buf`` in place at offset
+    ``start + skip`` (clamped to ``[0, S_buf - (C - skip)]`` as the
+    reference's ``dynamic_update_slice`` clamps it; rows before ``skip``
+    keep the buffer's K/V) and q attends the resident prefix
     ``[0, kv_lengths)`` at full precision, as one-shot prefill does, over
     the buffer's first ``key_rows`` rows as one block of keys.  A key a row
     cannot see adds an exact zero to that row's sums, so rows past the
@@ -140,8 +142,8 @@ def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if cfg.rope_theta:
         q = L.apply_rope(q, positions, cfg.rope_theta, tables=rope)
         k = L.apply_rope(k, positions, cfg.rope_theta, tables=rope)
-    KV.chunk_update(buf["k"], k, start)
-    KV.chunk_update(buf["v"], v, start)
+    KV.chunk_update(buf["k"], k[:, skip:], start + skip)
+    KV.chunk_update(buf["v"], v[:, skip:], start + skip)
     o = flash_attention(q, buf["k"][:, :key_rows].to(q.dtype),
                         buf["v"][:, :key_rows].to(q.dtype), q_offset=start,
                         kv_lengths=kv_lengths, kv_block=key_rows, hidden=hidden)

@@ -1,8 +1,8 @@
 """Model facade: the entry points the serve engines call.
 
 PyTorch counterpart of the ``repro.models.model`` facades that the plain
-decode path, the fused multi-step lane, chunked prefill and the speculative
-lanes use, for dense GQA decoders and SSM
+decode path, the fused multi-step lane, chunked prefill (cold or warm from
+the prefix cache) and the speculative lanes use, for dense GQA decoders and SSM
 (Mamba2) stacks; other families raise until their slice is ported (ROADMAP
 A.11), and ``verify_step`` raises for SSM stacks, as in the reference.
 """
@@ -54,6 +54,14 @@ def init_prefill_carry(cfg: ModelConfig, buf_len: int,
     return T.init_prefill_carry(cfg, buf_len, device)
 
 
+def warm_prefill_carry(cfg: ModelConfig, state: dict, slot: int, n: int,
+                       buf_len: int, tokens=None) -> dict:
+    """A carry seeded from rows ``[0:n)`` of pool ``slot`` with its cursor
+    at ``n`` (the prefix-cache warm start); see
+    :func:`repro_torch.models.transformer.warm_prefill_carry`."""
+    return T.warm_prefill_carry(cfg, state, slot, n, buf_len, tokens)
+
+
 def prefill_chunk(params: Params, cfg: ModelConfig, carry: dict, tokens,
                   n_real, rt: Runtime):
     """One ``[1, C]`` chunk at the carry's cursor -> (logits of its last real
@@ -61,8 +69,9 @@ def prefill_chunk(params: Params, cfg: ModelConfig, carry: dict, tokens,
     return T.prefill_chunk(params, cfg, carry, tokens, n_real, rt)
 
 
-def finalize_prefill_carry(cfg: ModelConfig, carry: dict, max_len: int) -> dict:
-    return T.finalize_prefill_carry(cfg, carry, max_len)
+def finalize_prefill_carry(cfg: ModelConfig, carry: dict, max_len: int,
+                           start: int = 0) -> dict:
+    return T.finalize_prefill_carry(cfg, carry, max_len, start)
 
 
 def verify_step(params: Params, cfg: ModelConfig, state: dict, tokens,

@@ -137,34 +137,92 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
-def write_slot(state: dict, slot: int, one: dict) -> dict:
+def write_slot(state: dict, slot: int, one: dict, start: int = 0) -> dict:
     """Land a single-request decode state (batch=1) into row ``slot`` of a
     pooled multi-slot state, in place — the admission step of continuous
     batching.  The slot index clamps to the pool like the reference's
     ``dynamic_update_slice``; the row's cache may be shorter than the pool's
-    (it lands at rows ``[0, S_row)``).  SSM leaves have no sequence axis and
-    land whole."""
+    (it lands at sequence rows ``[start, start + S_row)``, the rows before
+    ``start`` left as they are).  SSM leaves have no sequence axis and land
+    whole.  The slot's cursor becomes ``one["pos"]``."""
     B = state["pos"].shape[0]
     s = min(max(int(slot), 0), B - 1)
     for full, row in zip(state["layers"], one["layers"]):
         for name, buf in full.items():
-            r = row[name]
-            if r.shape[1] > buf.shape[1]:
-                raise ValueError(f"row of {r.shape[1]} positions does not fit "
-                                 f"a pool of {buf.shape[1]}")
-            buf[s, :r.shape[1]] = r[0].to(buf.dtype)
-    state["pos"][s] = one["pos"].reshape(-1)[0].to(state["pos"].dtype)
+            r = torch.as_tensor(row[name])
+            if "k_q" not in full:                    # SSM state: whole
+                buf[s] = r[0].to(buf.device, buf.dtype)
+                continue
+            if start + r.shape[1] > buf.shape[1]:
+                raise ValueError(f"row of {r.shape[1]} positions at {start} does "
+                                 f"not fit a pool of {buf.shape[1]}")
+            buf[s, start:start + r.shape[1]] = r[0].to(buf.device, buf.dtype)
+    pos = torch.as_tensor(one["pos"]).reshape(-1)[0]
+    state["pos"][s] = pos.to(state["pos"].device, state["pos"].dtype)
     return state
 
 
-def read_slot(state: dict, slot: int) -> dict:
-    """Row ``slot`` of a pooled decode state as a batch=1 copy — the inverse
-    of :func:`write_slot`."""
+def read_slot(state: dict, slot: int, n: int | None = None) -> dict:
+    """Row ``slot`` of a pooled decode state as a batch=1 copy, the inverse
+    of :func:`write_slot` and the device half of a tiered-pool swap-out: the
+    int8 payload and scales leave the pool verbatim.  ``n`` keeps only the
+    first ``n`` sequence rows of every attention leaf (the live rows a swap
+    moves; SSM state is fixed-size and comes whole)."""
     B = state["pos"].shape[0]
     s = min(max(int(slot), 0), B - 1)
-    return {"layers": [{k: v[s:s + 1].clone() for k, v in c.items()}
+    rows = slice(None) if n is None else slice(0, int(n))
+    return {"layers": [{k: (v[s:s + 1, rows] if "k_q" in c else v[s:s + 1]).clone()
+                        for k, v in c.items()}
                        for c in state["layers"]],
             "pos": state["pos"][s:s + 1].clone()}
+
+
+def copy_slot_prefix(state: dict, src: int, dst: int, n: int) -> dict:
+    """Prefix-cache row gather, in place: ``dst``'s first ``n`` sequence rows
+    of every cache leaf become ``src``'s (int8 payload and scales copied
+    verbatim, so the reused prefix is bit-identical to the cached one) and
+    ``pos[dst]`` becomes ``n``.  Rows at or past ``n`` keep ``dst``'s dead
+    entries (masked, then overwritten by the resumed chunked prefill's
+    finalize).  Attention pools only (every leaf ``[B, S, H, ...]``)."""
+    n = int(n)
+    for cache in state["layers"]:
+        if "k_q" not in cache:
+            raise NotImplementedError("copy_slot_prefix targets attention pools")
+        for buf in cache.values():
+            buf[int(dst), :n] = buf[int(src), :n]
+    state["pos"][int(dst)] = n
+    return state
+
+
+def warm_prefill_carry(cfg: ModelConfig, state: dict, slot: int, n: int,
+                       buf_len: int, tokens=None) -> dict:
+    """Chunked-prefill carry seeded from rows ``[0:n)`` of pool ``slot``, the
+    prefix-cache warm start.  The cached int8 rows dequantize into the float
+    K/V carry at the same positions (the rest zero), ``tokens`` (the
+    prompt's first ``n`` ids, optional) fill the carry's token ids, and the
+    cursor starts at ``n``: chunked prefill resumes mid-prompt as if the
+    first ``n`` tokens had just been consumed.  A chunk never rewrites the
+    carry's rows below its cursor (:func:`prefill_chunk`), so the resumed
+    tail attends exactly these dequantized rows, as the reference's does.
+    Attention stacks only: SSM state cannot restart mid-prompt (the engine
+    turns the prefix cache off for SSM stacks)."""
+    if has_ssm(cfg):
+        raise NotImplementedError(
+            "prefix-cache warm start targets attention pools; SSM state "
+            "cannot restart mid-prompt")
+    dev = state["pos"].device
+    carry = init_prefill_carry(cfg, buf_len, dev)
+    n = int(n)
+    for buf, cache in zip(carry["layers"], state["layers"]):
+        w = min(n, buf_len, cache["k_q"].shape[1])
+        for name in ("k", "v"):
+            q, sc = cache[f"{name}_q"][slot, :w], cache[f"{name}_s"][slot, :w]
+            buf[name][0, :w] = q.to(torch.float32) * sc
+    if tokens is not None:
+        ids = torch.as_tensor(list(tokens)[:n], dtype=torch.int64)
+        carry["tokens"][0, :ids.numel()] = ids.to(dev)
+    carry["pos"].fill_(n)
+    return carry
 
 
 def apply_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
@@ -350,11 +408,13 @@ def chunk_pieces(cursor: int, n: int) -> int:
 
 
 def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor,
-                   start: int, n_real: torch.Tensor, rt: Runtime) -> torch.Tensor:
+                   start: int, n_real: torch.Tensor, rt: Runtime,
+                   skip: int = 0) -> torch.Tensor:
     """One ``[B, PREFILL_PIECE]`` piece at positions ``start + arange`` in
     every row (``start`` a multiple of ``PREFILL_PIECE``; ``n_real``: [B]
     int32, row b's first ``n_real[b]`` tokens are real) through every
-    layer: the piece's K/V land in the float buffers ``bufs`` in place and
+    layer: the piece's K/V from its row ``skip`` on land in the float
+    buffers ``bufs`` in place (the rows before stay as they are), and
     its queries attend keys ``< start + n_real`` among the buffers' first
     ``start + PREFILL_PIECE`` rows.  Returns the hidden states after
     ``ln_f`` [B, PREFILL_PIECE, d]."""
@@ -373,7 +433,8 @@ def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor
     for lp, buf in zip(p["layers"], bufs):
         h = L.apply_norm(lp["ln1"], x)
         x = x + A.gqa_chunk(lp["attn"], cfg, h, positions, buf, start, kv_lengths,
-                            key_rows, rt.backend, rope=rope, hidden=hidden)
+                            key_rows, rt.backend, rope=rope, hidden=hidden,
+                            skip=skip)
         if "mlp" in lp:
             x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], x),
                                 cfg.mlp_type, rt.backend)
@@ -486,9 +547,12 @@ def init_prefill_carry(cfg: ModelConfig, buf_len: int,
 def prefill_chunk(p: Params, cfg: ModelConfig, carry: dict, tokens: torch.Tensor,
                   n_real: int, rt: Runtime) -> tuple[torch.Tensor, dict]:
     """Consume one ``[1, C]`` token chunk at the carry's cursor, in the
-    ``PREFILL_PIECE``-row pieces it touches (:func:`chunk_pieces`; rows of
-    a piece before the cursor run again and rewrite their K/V with the same
-    bits).  ``n_real`` (1 <= n_real <= C) counts the chunk's real tokens: a
+    ``PREFILL_PIECE``-row pieces it touches (:func:`chunk_pieces`).  Rows of
+    the first piece before the cursor run again (from the carry's token
+    ids) but keep the carry's K/V: on a cold carry a rerun would write the
+    same bits, and on a warm carry (:func:`warm_prefill_carry`) they hold
+    the cached rows, dequantized, which is what the chunk attends.
+    ``n_real`` (1 <= n_real <= C) counts the chunk's real tokens: a
     prompt's last chunk is right-padded to C, and the engine's token budget
     may cut a chunk short.  Returns (logits of the chunk's last real token
     [1, V], the carry), the carry's K/V, token ids and cursor updated in
@@ -503,19 +567,25 @@ def prefill_chunk(p: Params, cfg: ModelConfig, carry: dict, tokens: torch.Tensor
     for lo in range(cursor - cursor % PREFILL_PIECE, end, PREFILL_PIECE):
         k = min(PREFILL_PIECE, end - lo)
         h = _prefill_piece(p, cfg, carry["layers"], ids[:, lo:lo + PREFILL_PIECE],
-                           lo, torch.full_like(carry["pos"], k), rt)
+                           lo, torch.full_like(carry["pos"], k), rt,
+                           skip=max(cursor - lo, 0))
     carry["pos"].add_(n)
     return _lm_head(p, cfg, h[:, k - 1], rt), carry
 
 
-def finalize_prefill_carry(cfg: ModelConfig, carry: dict, max_len: int) -> dict:
-    """Quantize a completed prefill carry into a decode state of
-    ``max_len`` rows, the prefill->decode K/V handoff.  Per-(token, head)
+def finalize_prefill_carry(cfg: ModelConfig, carry: dict, max_len: int,
+                           start: int = 0) -> dict:
+    """Quantize a completed prefill carry's rows ``[start, max_len)`` into a
+    decode state, the prefill->decode K/V handoff; it plugs into
+    :func:`write_slot` at the same ``start``.  Per-(token, head)
     quantization gives the int8 rows the one-shot prefill writes for the
-    same floats.  The result plugs into :func:`write_slot`."""
+    same floats.  A warm carry passes the cached row count as ``start``:
+    those rows are already in the slot, and requantizing their dequantized
+    values need not give back the same scale bits on every device (a
+    division by 127 done as a multiply by its reciprocal drifts by an ulp)."""
     layers = []
     for b in carry["layers"]:
-        k_q, k_s = quantize_kv(b["k"][:, :max_len])
-        v_q, v_s = quantize_kv(b["v"][:, :max_len])
+        k_q, k_s = quantize_kv(b["k"][:, start:max_len])
+        v_q, v_s = quantize_kv(b["v"][:, start:max_len])
         layers.append({"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s})
     return {"layers": layers, "pos": carry["pos"].to(torch.int32).clone()}

@@ -39,6 +39,17 @@ counterpart of the reference's compiled, donated steps, and a fused block
 replays the decode step's graph m times with the argmax fed back on the
 device; inputs are copied into those buffers.  Prefill stays eager.
 
+With ``prefix_cache=True`` (and ``chunk``) a radix trie over token-id
+prefixes indexes retired requests' committed int8 rows
+(``serve/prefix_cache.py``): an admission that shares a cached prefix
+copies those rows into its slot (or takes the cached slot itself) and
+resumes chunked prefill at the match instead of position 0.  With
+``kv_swap=True`` the pool gets a cold tier (``serve/kv_swap.py``): a
+preempted decoding resident's rows swap out to host memory when the
+paper's modeled tier round trip beats replaying its tokens, and come back
+verbatim on re-admission; with both on, an LRU-evicted prefix leaf is
+demoted to the cold tier and promoted back by a later hit.
+
 An SSM stack prefills at exact length (no bucket: padding would run
 through the recurrent state) and keeps the one-token decode loop: its
 state cannot rewind, so ``spec_k``, ``spec_tree``, ``chunk``,
@@ -64,6 +75,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvcache as KV
+from repro_torch.core.mapping import flash_tpot_for
 from repro_torch.device import resolve, set_float32_precision
 from repro_torch.models import graphs as G
 from repro_torch.models import model as M
@@ -71,6 +83,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Runtime
 from repro_torch.serve.drafter import (Drafter, chain_parents, make_drafter,
                                        tree_depths_ancestors)
+from repro_torch.serve.kv_swap import SwapManager, slot_template, to_host
+from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.quantize import quantize_tree
 from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
                                          SchedulingPolicy)
@@ -203,7 +217,14 @@ class ContinuousBatchingEngine:
          others compute into masked garbage.  ``spec_k`` / ``spec_tree``
          (with ``spec_branch`` and ``drafter``) turn it into a speculative
          verify step (the tree lane takes precedence, and either over
-         ``multi_step``); ``multi_step`` fuses m of them in steady state."""
+         ``multi_step``); ``multi_step`` fuses m of them in steady state.
+
+    With the tiered pool on (``kv_swap``), preemption is a policy choice:
+    a decoding victim's committed rows swap out to the cold tier when the
+    modeled round trip beats recomputing them, and a swapped victim's
+    re-admission restores its rows and resumes decoding without a
+    prefill.  With the prefix cache on, admission reclaims a cached leaf's
+    slot before any resident is preempted."""
 
     def __init__(self, cfg: ModelConfig, params: Any, *, n_slots: int = 4,
                  max_len: int = 256, quantize: bool = True,
@@ -213,7 +234,9 @@ class ContinuousBatchingEngine:
                  spec_k: int = 0, spec_tree: int = 0, spec_branch: int = 2,
                  drafter: str | Drafter | None = "ngram", multi_step: int = 1,
                  topk_preselect: bool = True, prefix_cache: bool = False,
-                 kv_swap: bool = False, faults: Any = None,
+                 prefix_cache_rows: int | None = None, kv_swap: bool = False,
+                 cold_rows: int | None = None,
+                 drain_stall_limit: int = DRAIN_STALL_LIMIT, faults: Any = None,
                  device: str | torch.device = "cuda"):
         self._has_ssm = T.has_ssm(cfg)
         # an SSM stack's recurrent state cannot rewind or restart
@@ -239,12 +262,11 @@ class ContinuousBatchingEngine:
         self.spec_branch = int(spec_branch)
         # the fused block unwinds an overshoot through the cursor rewind
         self.multi_step = 1 if self._has_ssm else int(multi_step)
-        for what, on, item in (("the prefix cache", prefix_cache and not self._has_ssm,
-                                "A.10"),
-                               ("the tiered KV pool (kv_swap)", kv_swap, "A.10"),
-                               ("fault injection (faults)", faults, "A.10")):
-            if on:
-                raise _not_ported(what, item)
+        if faults:
+            raise _not_ported("fault injection (faults)", "A.10")
+        if drain_stall_limit < 1:
+            raise ValueError("drain_stall_limit must be >= 1")
+        self.drain_stall_limit = int(drain_stall_limit)
         self.topk_preselect = bool(topk_preselect)
         if self.chunk:
             self.max_step_tokens = (max_step_tokens if max_step_tokens
@@ -269,6 +291,17 @@ class ContinuousBatchingEngine:
         self.qparams = quantize_tree(params) if quantize else params
         self.scheduler = Scheduler(n_slots, max_len, policy)
         self.policy = self.scheduler.policy
+        # the prefix cache: radix-indexed KV reuse over the slot pool, for
+        # attention stacks (SSM state cannot restart mid-prompt: silently off)
+        self._pcache = None
+        if prefix_cache and not self._has_ssm:
+            if self.chunk is None:
+                raise ValueError(
+                    "prefix_cache needs chunked prefill (chunk=c): warm "
+                    "admissions resume the chunked cursor mid-prompt")
+            self._pcache = RadixPrefixCache(prefix_cache_rows if prefix_cache_rows
+                                            else n_slots * max_len)
+            self.scheduler.attach_prefix_cache(self._pcache)
         if self.spec_k or self.spec_tree:
             # the tree lane takes precedence, so the draft budget is the
             # window that runs
@@ -278,6 +311,19 @@ class ContinuousBatchingEngine:
         rows = max_len + KV.pool_headroom(spec_k=self.spec_k, spec_tree=self.spec_tree,
                                           multi_step=self.multi_step)
         self.state = M.init_decode_state(cfg, n_slots, rows, self.device)
+        # the tiered pool: hot slot rows stay in the pool above, the cold
+        # tier holds swapped-out victims and demoted prefix leaves as host
+        # blocks; the crossover prices a victim's replay at the paper's
+        # modeled per-token decode cost
+        self._swap = None
+        if kv_swap:
+            self._swap = SwapManager(
+                cold_rows if cold_rows is not None else n_slots * max_len,
+                slot_template(self.state),
+                replay_tpot_s=float(flash_tpot_for(cfg, context_len=max_len)["total"]))
+        # (direction, bytes, seconds) of every block copy between the pool
+        # and the cold tier, each timed between two device synchronizations
+        self.swap_copies: list[tuple[str, int, float]] = []
         spec = bool(self.spec_k or self.spec_tree)
         self._steps = G.ServeSteps(
             self.qparams, cfg, self.rt, self.state, decode=not spec,
@@ -293,6 +339,7 @@ class ContinuousBatchingEngine:
         self._last_tok = np.zeros((n_slots,), np.int32)
         self._slot_pos = np.zeros((n_slots,), np.int64)   # host cursor mirror
         self._carries: dict[int, dict] = {}                # slot -> prefill carry
+        self._warm_rows: dict[int, int] = {}               # slot -> cached rows
         self._rngs: dict[int, np.random.Generator] = {}   # rid -> sampler
         self._next_rid = 0
         self._t0 = time.monotonic()
@@ -303,6 +350,19 @@ class ContinuousBatchingEngine:
                       "multi_blocks": 0, "multi_tokens": 0,
                       "xfer_bytes": 0, "decode_xfer_bytes": 0,
                       "device_s": 0.0, "step_s": 0.0}
+        # the features' keys exist only when they are on, as in the reference
+        if self._pcache is not None:
+            self.stats.update({"prefix_hits": 0, "cached_tokens": 0,
+                               "prefill_tokens_saved": 0})
+        if self._swap is not None:
+            self.stats.update({"swap_outs": 0, "swap_ins": 0,
+                               "swap_out_bytes": 0, "swap_in_bytes": 0,
+                               "swap_out_cycles": 0, "swap_in_cycles": 0,
+                               "preempt_swaps": 0, "preempt_recomputes": 0})
+        if self._pcache is not None and self._swap is not None:
+            # LRU pressure demotes prefix leaves to the cold tier instead of
+            # dropping them; the store's evictions relay back as drop_cold
+            self._pcache.attach_cold_tier(self._demote_leaf_rows, self._swap.drop)
         if spec:
             # the histogram counts drafted tokens committed per verify pass
             w = self.spec_tree if self.spec_tree else self.spec_k
@@ -534,16 +594,76 @@ class ContinuousBatchingEngine:
         self._emit_first(req, logits)
         return plen
 
-    def _admit_chunked(self, req: Request) -> None:
-        """Chunked admission: a cold float carry at cursor 0 (the warm,
-        prefix-cache branch is ROADMAP A.10), as long as one-shot
-        prefill's."""
-        self._carries[req.slot] = self._dev(
+    def _cold_carry(self, slot: int) -> None:
+        self._warm_rows.pop(slot, None)
+        self._carries[slot] = self._dev(
             M.init_prefill_carry, self.cfg, T.carry_len(self.max_len), self.device)
 
-    def _finalize_into_slot(self, slot: int, carry: dict) -> None:
+    def _drop_carry(self, slot: int) -> None:
+        self._carries.pop(slot, None)
+        self._warm_rows.pop(slot, None)
+
+    def _admit_chunked(self, req: Request) -> None:
+        """Chunked admission: a float carry as long as one-shot prefill's,
+        cold (zeros, cursor 0) or, on a prefix-cache hit, warm.
+
+        A warm admission takes the longest cached prefix of the prompt
+        (capped at ``prompt_len - 1``, so at least one token runs through
+        chunked prefill and emits the first token): the rows are already in
+        the slot when the scheduler aliased the cached leaf's slot or
+        adopted it, a demoted (cold) leaf is swapped into the slot, and
+        otherwise the matched rows are copied in from the leaf's slot.
+        They dequantize into the carry, whose cursor starts at the match:
+        ``prefill_pos`` moves past the cached tokens without running them,
+        and the finalize writes only the rows past them."""
+        if self._pcache is None:
+            self._cold_carry(req.slot)
+            return
+        src = n_hit = None
+        leaf = self._pcache.leaf_for(req.slot)
+        if leaf is not None:                  # aliased: rows already here
+            src, n_hit = req.slot, leaf.n_rows
+        elif req.adopted_rows >= 1:           # reclaim adopted the match's
+            src, n_hit = req.slot, req.adopted_rows   # slot: rows in place
+        else:
+            hit, n = self._pcache.lookup(req.prompt, req.prompt_len - 1)
+            if hit is not None and n >= 1:
+                if hit.slot is None:          # cold leaf: promote via swap-in
+                    src, n_hit = req.slot, self._promote_cold_hit(hit, req, n)
+                else:
+                    src, n_hit = hit.slot, n
+        if src is None:
+            self._cold_carry(req.slot)
+            return
+        if src != req.slot:
+            self._dev(T.copy_slot_prefix, self.state, src, req.slot, n_hit)
+        self._carries[req.slot] = self._dev(
+            M.warm_prefill_carry, self.cfg, self.state, req.slot, n_hit,
+            T.carry_len(self.max_len), req.prompt[:n_hit])
+        self._warm_rows[req.slot] = n_hit
+        req.prefill_pos = n_hit
+        self.stats["prefix_hits"] += 1
+        self.stats["prefill_tokens_saved"] += n_hit
+        self.stats["cached_tokens"] = self._pcache.cached_rows
+
+    def _promote_cold_hit(self, leaf, req: Request, n: int) -> int:
+        """A warm admission matched a demoted (cold) leaf: consume it, swap
+        its block into the request's own slot and resume chunked prefill at
+        the match (no copy: the rows land where they are needed; retirement
+        republishes the longer prefix hot).  Returns the usable row count.
+        The store's evictions drop their cold leaves, so a cold leaf's block
+        is always there."""
+        blob, rows, cost = self._swap.swap_in(self._pcache.promote(leaf))
+        self._land_block(req.slot, blob)
+        self.stats["swap_ins"] += 1
+        self.stats["swap_in_bytes"] += cost.n_bytes
+        self.stats["swap_in_cycles"] += cost.cycles_in
+        return min(n, rows)
+
+    def _finalize_into_slot(self, slot: int, carry: dict, start: int) -> None:
         T.write_slot(self.state, slot,
-                     M.finalize_prefill_carry(self.cfg, carry, self.max_len))
+                     M.finalize_prefill_carry(self.cfg, carry, self.max_len, start),
+                     start)
 
     def _run_chunk(self, req: Request, n: int) -> int:
         """Advance one PREFILLING slot by ``n`` prompt tokens (one [1, chunk]
@@ -560,30 +680,161 @@ class ContinuousBatchingEngine:
             req.prefill_pos += n
             self.stats["chunks"] += 1
             if req.prefill_pos >= req.prompt_len:
-                self._dev(self._finalize_into_slot, slot, self._carries.pop(slot))
+                self._dev(self._finalize_into_slot, slot, self._carries.pop(slot),
+                          self._warm_rows.pop(slot, 0))
                 self._emit_first(req, logits)
         except ADMIT_ERRORS as e:
-            self._carries.pop(slot, None)
+            self._drop_carry(slot)
             self._fail(req, f"{type(e).__name__}: {e}")
             return 0
         return n
 
     def _preempt(self, req: Request, now: float) -> None:
-        """Bump a resident back to the queue, recompute-style (the tiered
-        pool's swap path is ROADMAP A.10): re-admission re-prefills the
-        prompt and replays the kept tokens."""
-        self._carries.pop(req.slot, None)
-        self._rngs.pop(req.rid, None)      # the replay re-consumes the stream
-        self.scheduler.preempt(req, now, swapped_rows=0)
+        """Bump a resident back to the queue.  With the tiered pool on, a
+        DECODING victim's committed rows swap out to the cold tier when the
+        modeled tier round trip beats replaying its tokens
+        (``SwapManager.prefer_swap``); otherwise (the crossover says
+        recompute, the cold tier is full, or the victim is mid-prefill) it
+        is recomputed: re-admission re-prefills the prompt and replays the
+        kept tokens."""
+        self._drop_carry(req.slot)
+        swapped = 0
+        if self._swap is not None and req.state is RequestState.DECODING:
+            swapped = self._swap_out_victim(req)
+        if swapped:
+            # the sampled stream continues where it left off (no replay
+            # draws), so the per-request sampler survives the round trip
+            self.stats["preempt_swaps"] += 1
+        else:
+            if self._swap is not None:
+                self.stats["preempt_recomputes"] += 1
+            self._rngs.pop(req.rid, None)  # the replay re-consumes the stream
+        self.scheduler.preempt(req, now, swapped_rows=swapped)
         self.stats["preemptions"] += 1
 
+    # -- the tiered pool's transfers ----------------------------------------
+    def _lift_rows(self, slot: int, n: int) -> dict:
+        """The first ``n`` rows of ``slot`` as a numpy host block: copied out
+        of the pool on the device, then one timed, metered device-to-host
+        copy (only the live rows cross)."""
+        one = self._dev(T.read_slot, self.state, slot, n)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        host = to_host(one)
+        dt = time.perf_counter() - t0
+        n_bytes = KV.cache_bytes(host)
+        self.stats["device_s"] += dt
+        self.stats["xfer_bytes"] += n_bytes
+        self.swap_copies.append(("d2h", n_bytes, dt))
+        return host
+
+    def _land_block(self, slot: int, blob: dict) -> None:
+        """Land a cold block in ``slot``: one timed, metered host-to-device
+        copy of its rows, written at rows ``[0, n)`` with the rest of the
+        slot's attention rows zeroed (the slot the reference's padded
+        ``write_slot`` leaves) and the cursor at ``n``."""
+        n = int(np.asarray(blob["pos"])[0])
+        _sync(self.device)
+        t0 = time.perf_counter()
+        one = {"layers": [{k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                           for k, v in b.items()} for b in blob["layers"]],
+               "pos": torch.from_numpy(np.asarray(blob["pos"], np.int32)).to(self.device)}
+        _sync(self.device)
+        dt = time.perf_counter() - t0
+        n_bytes = KV.cache_bytes(blob)
+        self.stats["xfer_bytes"] += n_bytes
+        self.swap_copies.append(("h2d", n_bytes, dt))
+        self._dev(self._write_block, slot, one, n)
+
+    def _write_block(self, slot: int, one: dict, n: int) -> None:
+        T.write_slot(self.state, slot, one)
+        for cache in self.state["layers"]:
+            if "k_q" in cache:
+                for buf in cache.values():
+                    buf[slot, n:].zero_()
+
+    def _relay_cold_evictions(self, evicted: list) -> None:
+        """Unpinned (prefix-leaf) blocks the cold store LRU-dropped to make
+        room: the trie drops the matching cold leaves too."""
+        if self._pcache is not None:
+            for key in evicted:
+                self._pcache.drop_cold(key)
+
+    def _swap_out_victim(self, req: Request) -> int:
+        """Lift the victim's committed rows off the pool and store them cold
+        under ``("req", rid)``, pinned (a preempted resident's rows are never
+        LRU-dropped).  Returns the swapped row count, 0 on a fallback to
+        recompute."""
+        n = int(self._slot_pos[req.slot])
+        if n < 1 or not self._swap.prefer_swap(n, req.prompt_len + len(req.output)):
+            return 0
+        ok, evicted, cost = self._swap.swap_out(
+            ("req", req.rid), self._lift_rows(req.slot, n), n, pinned=True)
+        self._relay_cold_evictions(evicted)
+        if not ok:
+            return 0
+        self.stats["swap_outs"] += 1
+        self.stats["swap_out_bytes"] += cost.n_bytes
+        self.stats["swap_out_cycles"] += cost.cycles_out
+        return n
+
+    def _admit_swapped(self, req: Request) -> None:
+        """Re-admission of a swap-preempted victim: swap its cold block (a
+        pinned block, never evicted) into the assigned slot and resume
+        DECODING with no prefill, replaying only the recorded tokens past
+        the block's rows (none for a fresh block).  The restored rows are
+        byte-identical to the ones that left, so the continuation is
+        token-identical to an unpreempted run."""
+        n = req.swapped_rows
+        req.swapped_rows = 0
+        blob, rows, cost = self._swap.swap_in(("req", req.rid))
+        try:
+            self._land_block(req.slot, blob)
+        except ADMIT_ERRORS as e:
+            self._fail(req, f"{type(e).__name__}: {e}")
+            return
+        assert rows == n, f"cold block rows {rows} != ledger {n}"
+        self.stats["swap_ins"] += 1
+        self.stats["swap_in_bytes"] += cost.n_bytes
+        self.stats["swap_in_cycles"] += cost.cycles_in
+        fed = rows - req.prompt_len        # output tokens already in the rows
+        assert 0 <= fed < len(req.output), \
+            f"cold rows {rows} outside prompt {req.prompt_len} + output {len(req.output)}"
+        req.prefill_pos = req.prompt_len
+        req.replay_pos = fed + 1
+        req.state = RequestState.DECODING
+        self._last_tok[req.slot] = req.output[fed]
+        self._slot_pos[req.slot] = rows
+
+    def _demote_leaf_rows(self, slot: int, n_rows: int, key) -> bool:
+        """Prefix-cache demotion hook: move an LRU-evicted leaf's rows to the
+        cold tier (unpinned: the store may LRU-drop them later), so a later
+        warm admission can promote instead of prefilling cold."""
+        ok, evicted, cost = self._swap.swap_out(
+            key, self._lift_rows(slot, n_rows), n_rows, pinned=False)
+        self._relay_cold_evictions(evicted)
+        if ok:
+            self.stats["swap_outs"] += 1
+            self.stats["swap_out_bytes"] += cost.n_bytes
+            self.stats["swap_out_cycles"] += cost.cycles_out
+        return ok
+
     def _retire(self, req: Request, now: float) -> None:
-        self.scheduler.retire(req, now)
+        publish = None
+        if self._pcache is not None and req.slot is not None:
+            # committed rows = the host cursor mirror (prompt + every fed
+            # generated token), capped at max_len - 1 so that a claimed row
+            # never meets a clamped garbage append on an inactive slot
+            # (appends clamp to rows >= state rows - T >= max_len - 1)
+            publish = min(int(self._slot_pos[req.slot]), self.max_len - 1)
+        self.scheduler.retire(req, now, publish_rows=publish)
+        if self._pcache is not None:
+            self.stats["cached_tokens"] = self._pcache.cached_rows
         self._rngs.pop(req.rid, None)      # release the per-request sampler
 
     def _fail(self, req: Request, error: str) -> None:
         if req.slot is not None:           # died mid-chunk: drop its carry
-            self._carries.pop(req.slot, None)
+            self._drop_carry(req.slot)
         self.scheduler.fail(req, self._now(), error=error)
         self._rngs.pop(req.rid, None)
 
@@ -605,11 +856,17 @@ class ContinuousBatchingEngine:
                     and req.replay_pos >= len(req.output)
                     and req.should_stop()):
                 self._retire(req, now)
-        # preemption only when the queue is blocked on slots
-        if not self.scheduler.free_slots:
+        # preemption only when the queue is blocked on slots, and a
+        # reclaimable prefix leaf means it is not (cached rows yield first)
+        if not self.scheduler.free_slots and not (
+                self._pcache is not None and self._pcache.has_reclaimable()):
             for req in self.scheduler.preemption_victims(now):
                 self._preempt(req, now)
         for req in self.scheduler.admit(now):
+            if req.swapped_rows:
+                # a swap-preempted victim: restore its rows, resume decoding
+                self._admit_swapped(req)
+                continue
             if self.chunk:
                 try:
                     self._admit_chunked(req)
@@ -931,13 +1188,13 @@ class ContinuousBatchingEngine:
 
     # -- drive to completion ----------------------------------------------
     def drain(self) -> None:
-        """Step until the queue and all slots are empty; ``DRAIN_STALL_LIMIT``
-        consecutive no-work iterations with work pending raise instead of
-        looping forever."""
+        """Step until the queue and all slots are empty;
+        ``drain_stall_limit`` consecutive no-work iterations with work
+        pending raise instead of looping forever."""
         stalls = 0
         while self.scheduler.has_work():
             stalls = 0 if self.step() else stalls + 1
-            if stalls >= DRAIN_STALL_LIMIT:
+            if stalls >= self.drain_stall_limit:
                 stuck = [f"rid={r.rid}:{r.state.value}"
                          for r in list(self.scheduler.queue)
                          + list(self.scheduler.active.values())]

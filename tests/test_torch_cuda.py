@@ -710,3 +710,142 @@ def test_chunked_and_fused_serving_token_identical_on_the_card(cuda, policy):
     pieces = sum(T.prefill_pieces(cfg, eng._bucket(len(p))) for p in prompts)
     assert counts["int8_matmul"] == 7 * cfg.n_layers * steps
     assert counts["rms_norm"] == (2 * cfg.n_layers + 1) * (steps + pieces)
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache and the tiered pool on the card (A.10)
+# ---------------------------------------------------------------------------
+def test_quantize_kv_division_and_round_trip_on_the_card(cuda):
+    """Which division ``quantize_kv``'s ``amax / 127`` runs on the card, over
+    a row for every float32 mantissa in [1, 2): its scales must equal
+    float32 IEEE division or a multiply by ``fl(1/127)`` bit for bit, and
+    dequantizing then quantizing again must move exactly the scales (and
+    codes) that division's host emulation moves: none for IEEE division."""
+    amax = (np.arange(1 << 23, dtype=np.uint32) | np.uint32(127 << 23)).view(np.float32)
+    x = torch.from_numpy(np.stack([amax, -0.5 * amax], -1)[:, None, :]).to(cuda)
+    q, s = quant.quantize_kv(x)
+    card = s.reshape(-1).cpu().numpy()
+    forms = {"ieee": lambda a: a / np.float32(127.0),
+             "reciprocal": lambda a: a * (np.float32(1.0) / np.float32(127.0))}
+    division = [k for k, f in forms.items() if np.array_equal(card, f(amax))]
+    assert division, "scales match neither division"
+    q2, s2 = quant.quantize_kv(quant.dequantize_kv(q, s))
+    host_s2 = forms[division[0]](np.abs(np.float32(127.0) * card))
+    np.testing.assert_array_equal(s2.reshape(-1).cpu().numpy(), host_s2)
+    if division[0] == "ieee":
+        assert torch.equal(s2, s) and torch.equal(q2, q)
+
+
+def _pool(cfg, device, B=3, S=40, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    st = M.init_decode_state(cfg, B, S, "cpu")
+    for lay in st["layers"]:
+        for k, v in lay.items():
+            v.copy_(torch.randint(-127, 128, v.shape, generator=g, dtype=torch.int8)
+                    if k.endswith("_q") else torch.rand(v.shape, generator=g) + 1e-3)
+    st["pos"].copy_(torch.tensor([5, 17, 33][:B], dtype=torch.int32))
+    return {"layers": [{k: v.to(device) for k, v in lay.items()} for lay in st["layers"]],
+            "pos": st["pos"].to(device)}
+
+
+def test_copy_slot_prefix_and_host_round_trip_on_the_card(cuda):
+    """``copy_slot_prefix`` on the card equals the CPU's bit for bit; a
+    slot's live rows lifted to host numpy (``read_slot`` + ``to_host``) and
+    landed in another slot through ``write_slot`` come back byte-exact."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.kv_swap import to_host
+    cfg = registry.get("llama3-8b").reduced()
+    cpu, dev = _pool(cfg, "cpu"), _pool(cfg, cuda)
+    T.copy_slot_prefix(cpu, 2, 0, 21)
+    T.copy_slot_prefix(dev, 2, 0, 21)
+    for a, b in zip(cpu["layers"], dev["layers"]):
+        for k in a:
+            assert torch.equal(a[k], b[k].cpu()), k
+    assert torch.equal(cpu["pos"], dev["pos"].cpu())
+    host = to_host(T.read_slot(dev, 1, 17))
+    T.write_slot(dev, 2, host)
+    for lay in dev["layers"]:
+        for k, v in lay.items():
+            assert torch.equal(v[2, :17], v[1, :17]), k
+    assert int(dev["pos"][2]) == int(dev["pos"][1])
+
+
+def test_warm_finalize_keeps_cached_rows_byte_identical_on_the_card(cuda):
+    """A warm chunked prefill on the card (rows copied from a prefilled slot,
+    the warm carry, the rest of the prompt in chunks, the finalize past the
+    cached rows) leaves the cached rows' k_q, k_s, v_q and v_s byte-identical
+    in every layer, and its tail rows equal a CPU run's int8 codes but for
+    rounding boundaries."""
+    from repro_torch.models import transformer as T
+    cfg = registry.get("llama3-8b").reduced()
+    params_cpu = M.init_params(cfg, seed=0, device="cpu")
+    max_len, chunk, n = 96, 8, 40
+    prompt = np.random.default_rng(6).integers(0, cfg.vocab_size, 70).tolist()
+    results = []
+    for device in ("cpu", cuda):
+        params = convert.to_device(params_cpu, device)
+        rt = Runtime("fused_int8")
+        state = M.init_decode_state(cfg, 2, max_len, device)
+
+        def chunks(carry, start):
+            for i in range(start, len(prompt), chunk):
+                k = min(chunk, len(prompt) - i)
+                toks = torch.zeros((1, chunk), dtype=torch.int64, device=device)
+                toks[0, :k] = torch.tensor(prompt[i:i + k])
+                _, carry = M.prefill_chunk(params, cfg, carry, toks, k, rt)
+            return carry
+        carry = chunks(M.init_prefill_carry(cfg, T.carry_len(max_len), device), 0)
+        T.write_slot(state, 0, M.finalize_prefill_carry(cfg, carry, max_len))
+        T.copy_slot_prefix(state, 0, 1, n)
+        warm = chunks(M.warm_prefill_carry(cfg, state, 1, n, T.carry_len(max_len),
+                                           prompt[:n]), n)
+        T.write_slot(state, 1, M.finalize_prefill_carry(cfg, warm, max_len, n), n)
+        for lay in state["layers"]:
+            for k in ("k_q", "k_s", "v_q", "v_s"):
+                assert torch.equal(lay[k][1, :n], lay[k][0, :n]), k
+        results.append(state)
+    for a, b in zip(*[r["layers"] for r in results]):
+        same = (a["k_q"][1, :len(prompt)] == b["k_q"][1, :len(prompt)].cpu()).float().mean()
+        assert same > 0.999
+
+
+def test_prefix_and_swap_lanes_serve_on_the_card(cuda):
+    """On the card the prefix cache serves followers of a published prompt
+    warm (with their cached rows byte-identical to the leaf's), and a
+    swap-preempted resident's rows come back verbatim, its stream equal to
+    the plain engine's."""
+    cfg = registry.get("llama3-8b").reduced()
+    params = convert.to_device(M.init_params(cfg, seed=0, device="cpu"), cuda)
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, cfg.vocab_size, 64).tolist()
+    prompts = [shared + rng.integers(0, cfg.vocab_size, 10).tolist() for _ in range(4)]
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=128, chunk=16,
+                                   prefix_cache=True, rt=Runtime("fused_int8"))
+    lead = eng.generate_all(prompts[:1], [6])
+    slot = next(iter(eng._pcache._slots))
+    leaf_rows = [{k: v[slot, :64].clone() for k, v in lay.items()}
+                 for lay in eng.state["layers"]]
+    # one follower at a time: followers admitted together would reclaim the
+    # leaf's slot before either looks the prefix up (the reference's order)
+    outs = [eng.generate_all([p], [6])[0] for p in prompts[1:3]]
+    assert len(lead[0]) == 6 and [len(o) for o in outs] == [6, 6]
+    assert eng.stats["prefix_hits"] == 2 and eng.stats["prefill_tokens_saved"] == 128
+    for s in range(2):
+        if eng._pcache.leaf_for(s) is not None:
+            for lay, want in zip(eng.state["layers"], leaf_rows):
+                for k in want:
+                    assert torch.equal(lay[k][s, :64], want[k]), k
+
+    def serve(**kw):
+        e = ContinuousBatchingEngine(cfg, params, n_slots=1, max_len=128,
+                                     rt=Runtime("fused_int8"), **kw)
+        lo = e.submit(prompts[0], 10, priority=0)
+        for _ in range(3):
+            e.step()
+        hi = e.submit(prompts[1], 3, priority=9)
+        e.drain()
+        return [lo.output, hi.output], e
+    plain, _ = serve()
+    swapped, e = serve(policy="priority:preempt", kv_swap=True)
+    assert swapped == plain and e.stats["preempt_swaps"] >= 1
+    assert e.stats["swap_in_bytes"] == e.stats["swap_out_bytes"] > 0

@@ -102,6 +102,7 @@ def test_requests_wait_for_slots_and_keep_timestamps(weights):
 
 
 PORTED_SINCE = ("A.7", "A.9")      # items whose arguments serve now
+SERVES_NOW = {"prefix_cache": "prefix_hits", "kv_swap": "swap_outs"}   # A.10's first part
 
 
 def _served_like_plain(weights, **kwargs):
@@ -115,19 +116,50 @@ def _served_like_plain(weights, **kwargs):
     return eng
 
 
+def _serves_a10_lane(weights, **kwargs):
+    """The prefix cache serves followers of a published prompt warm, and the
+    tiered pool swaps a preempted decoding resident out and back, each with
+    the plain engine's streams."""
+    prompts, budgets = _serve_pim_trace()
+    plain = ContinuousBatchingEngine(TCFG, weights[1], n_slots=2, max_len=64,
+                                     device="cpu", **kwargs)
+    base = ContinuousBatchingEngine(TCFG, weights[1], n_slots=2, max_len=64,
+                                    device="cpu", chunk=4, policy=kwargs.get("policy"))
+    if "prefix_cache" in kwargs:
+        follow = [prompts[0] + p[:3] for p in prompts[1:4]]
+        outs = [e.generate_all(prompts[:1], budgets[:1]) + e.generate_all(follow, 5)
+                for e in (plain, base)]
+    else:
+        def drive(e):
+            reqs = [e.submit(p, b, priority=0) for p, b in zip(prompts[:2], budgets[:2])]
+            for _ in range(4):
+                e.step()
+            reqs += [e.submit(p, 3, priority=9) for p in prompts[2:4]]
+            e.drain()
+            return [r.output for r in reqs]
+        outs = [drive(e) for e in (plain, base)]
+    assert outs[0] == outs[1]
+    return plain
+
+
 @pytest.mark.parametrize("kwargs,item", [
     ({"chunk": 4}, "A.7"), ({"policy": "sjf"}, "A.7"), ({"multi_step": 4}, "A.9"),
-    ({"prefix_cache": True}, "A.10"), ({"kv_swap": True}, "A.10"),
+    ({"prefix_cache": True, "chunk": 4}, "A.10"),
+    ({"kv_swap": True, "chunk": 4, "policy": "priority:preempt"}, "A.10"),
     ({"faults": True}, "A.10"), ({"spec_k": 2, "drafter": "mtp"}, "A.11")])
 def test_later_slice_arguments_raise(weights, kwargs, item):
     """Arguments of lanes still to port raise naming their ROADMAP item; those
     of items ported since (chunked prefill and policies, A.7; the fused
-    multi-step lane, A.9) serve the trace token-identical to the plain
-    engine."""
+    multi-step lane, A.9; the prefix cache and the tiered pool, A.10's first
+    part) serve, token-identical to the engine without them."""
     if item in PORTED_SINCE:
         eng = _served_like_plain(weights, **kwargs)
         key = {"chunk": "chunks", "multi_step": "multi_blocks"}.get(next(iter(kwargs)))
         assert key is None or eng.stats[key] > 0
+        return
+    if next(iter(kwargs)) in SERVES_NOW:
+        eng = _serves_a10_lane(weights, **kwargs)
+        assert eng.stats[SERVES_NOW[next(iter(kwargs))]] > 0
         return
     with pytest.raises(NotImplementedError, match=item):
         ContinuousBatchingEngine(TCFG, weights[1], n_slots=2, max_len=32,

@@ -86,6 +86,22 @@ Phases (any failure makes the script exit non-zero):
    4-7 arrive at a higher priority once 0-3 decode), gated 8 of 8 equal to
    the plain trace with every preemption swapped, ``swap_in_bytes ==
    swap_out_bytes``, each request prefilled once and exact launch counts;
+``server``: the engine as a live service, llama3-8b at full width under
+   ``fused_int8`` on 4 slots: the phase-4 trace by ``drain()`` and then
+   streamed through ``AsyncServer`` on the same engine (8 of 8 streams
+   equal to the plain trace, exact B1 / B2 / RMSNorm launches; both rates
+   recorded), a disconnect after a stream's second token (a prefix of its
+   plain stream, CANCELLED, its slot taken by a queued request, the ledger
+   balanced, the other 7 unchanged), a deadline at half a request's
+   ``drain()`` latency (TIMEOUT, ``RequestTimedOut`` in its stream, a
+   prefix); the swap trace streamed with injected step failures and a lost
+   slot, and with NAND bit flips at BER 2e-4 (8 of 8 equal to the plain
+   trace, one retry and one in-place pool rebuild an injected failure, each
+   rebuild's wall recorded, the pool's addresses and captured graphs kept,
+   nothing captured again, one slot quarantined; corrected bits and no
+   uncorrectable block at BER 2e-4); and ``python -m
+   repro_torch.launch.serve --serve`` in a subprocess (exit 0,
+   ``SERVE_SHUTDOWN_CLEAN``);
 6. ``ssm``: mamba2-2.7b (64 layers, d 2560, 80 SSM heads of 64, state 128,
    vocab 50280) after llama3-8b's parameters are freed.  B6 (``ssd_chunk``)
    against its plain version at full width (Q 128, 37, 1 and 33; B and C
@@ -139,6 +155,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -925,7 +942,7 @@ def prefill_calls(cb, reqs) -> int:
     admission."""
     from repro_torch.models import transformer as T
     if cb.chunk:
-        return cb.stats["prefill_pieces"]
+        return cb.prefill_pieces
     return sum((1 + r.n_preemptions) * T.prefill_pieces(cb.cfg, cb._bucket(r.prompt_len))
                for r in reqs)
 
@@ -1896,7 +1913,7 @@ def serve_prefix(torch, cfg, params, lane: dict, order: str, expected: list) -> 
     wall = time.perf_counter() - t0
     counts = launch_counts()                   # ... and ends here
     want = want_launches(cfg, cb.stats["decode_steps"], [len(p) for p in prompts],
-                         "decode_attn", prefills=cb.stats["prefill_pieces"])
+                         "decode_attn", prefills=cb.prefill_pieces)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     ordered = [reqs[i] for i in range(12)]
@@ -2010,9 +2027,9 @@ def swap_trace(torch, cfg, params, plain: list) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()                   # ... and ends here
-    st = cb.stats
+    st, pieces = cb.stats, cb.prefill_pieces
     want = want_launches(cfg, st["decode_steps"], [len(p) for p in prompts], "decode_attn",
-                         prefills=st["prefill_pieces"])
+                         prefills=pieces)
     once = sum(T.prefill_pieces(cfg, cb._bucket(len(p))) for p in prompts)
     outs = [list(r.output) for r in reqs]
     same = sum(a == b for a, b in zip(outs, plain))
@@ -2031,9 +2048,9 @@ def swap_trace(torch, cfg, params, plain: list) -> dict:
     if counts != want:
         raise AssertionError(f"swap trace: launch counts {counts} != {want}")
     if (same != len(plain) or st["preempt_swaps"] < 1 or st["preempt_recomputes"]
-            or st["swap_in_bytes"] != st["swap_out_bytes"] or st["prefill_pieces"] != once):
+            or st["swap_in_bytes"] != st["swap_out_bytes"] or pieces != once):
         raise AssertionError(f"swap trace: {same} of {len(plain)} equal, stats {st}, "
-                             f"prefill pieces {st['prefill_pieces']} != {once}")
+                             f"prefill pieces {pieces} != {once}")
     return rec
 
 
@@ -2113,6 +2130,274 @@ def phase_prefix(torch, ctx) -> dict:
     del expected
     torch.cuda.empty_cache()
     out["swap"] = swap_trace(torch, cfg, params, ctx["plain_outputs"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase server: the engine as a live service (A.10's rest)
+# ---------------------------------------------------------------------------
+SERVER_FAIL_AT = (5, 9, 30)      # injected device errors (they fire on decode steps)
+SERVER_SLOT_LOSS = ((12, 2),)    # (step, slot): a plane lost mid-trace
+
+
+def stream_trace(cb, prompts: list, budgets: list, waves: list, cancel: int | None = None,
+                 deadline: tuple | None = None) -> tuple:
+    """Serve the trace through ``AsyncServer`` over ``cb``: ``waves`` is a
+    list of (request indices, priority), each wave submitted at once, and
+    the next once every request of the one before has a token (or ended);
+    request ``cancel`` disconnects after its second token; ``deadline`` is
+    (request index, seconds).  The event loop only reads host lists; every
+    engine step runs on the server's worker thread.  Returns the streams,
+    each stream's tokens, whether it raised ``RequestTimedOut``, and the
+    wall time."""
+    import asyncio
+    from repro_torch.serve.server import AsyncServer, RequestTimedOut
+
+    async def consume(i, stream):
+        toks = []
+        try:
+            async for tok in stream:
+                toks.append(tok)
+                if i == cancel and len(toks) == 2:
+                    stream.cancel()
+        except RequestTimedOut:
+            return toks, True
+        return toks, False
+
+    async def run():
+        streams, tasks = {}, {}
+        async with AsyncServer(cb) as srv:
+            for k, (idx, prio) in enumerate(waves):
+                while k and not all(streams[i].request.output or streams[i].request.done
+                                    for i in waves[k - 1][0]):
+                    await asyncio.sleep(0.001)
+
+                def kw(i):
+                    extra = {"deadline_s": deadline[1]} if deadline and deadline[0] == i else {}
+                    return {"priority": prio, **extra}
+                got = await asyncio.gather(*(srv.submit(prompts[i], budgets[i], **kw(i))
+                                             for i in idx))
+                for i, s in zip(idx, got):
+                    streams[i] = s
+                    tasks[i] = asyncio.create_task(consume(i, s))
+            done = {i: await t for i, t in tasks.items()}
+        return streams, done
+
+    t0 = time.perf_counter()
+    streams, done = asyncio.run(run())
+    wall = time.perf_counter() - t0
+    n = len(prompts)
+    return ([streams[i] for i in range(n)], [done[i][0] for i in range(n)],
+            [done[i][1] for i in range(n)], wall)
+
+
+def ledger_balanced(cb) -> bool:
+    """Every slot free or quarantined, no carry, no work left."""
+    sched = cb.scheduler
+    return (len(sched.free_slots) + len(sched.quarantined) == cb.n_slots
+            and not cb._carries and not cb._warm_rows and not sched.has_work())
+
+
+def server_faults(torch, cfg, params, plain: list, faults) -> dict:
+    """The swap trace (``priority:preempt``, ``kv_swap``; requests 0-3 at
+    priority 0, then 4-7 at priority 1 once 0-3 decode) streamed through the
+    server with ``faults``: every stream must equal the plain trace, each
+    injected failure must be one retry and one pool rebuild, and the
+    rebuilds must keep the pool's tensors (their addresses) and the captured
+    steps (nothing captured again)."""
+    from repro_torch.models import graphs as G
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    prompts, budgets = serve_trace(cfg.vocab_size)
+    cb = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=256,
+                                  rt=Runtime("fused_int8"), policy="priority:preempt",
+                                  kv_swap=True, cold_rows=8 * 256, faults=faults)
+    bufs = G.state_tensors(cb.state) + cb._static_inputs()
+    ptrs = [t.data_ptr() for t in bufs]
+    graphs = {k: g.graph for k, g in cb._steps.graphs.items()}
+    captures, rebuild_s = [], []
+    real_capture, real_rebuild = G.StepGraph._capture, cb._rebuild_pool
+
+    def timed_rebuild():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_rebuild()
+        torch.cuda.synchronize()
+        rebuild_s.append(time.perf_counter() - t0)
+    G.StepGraph._capture = lambda *a: captures.append(a)
+    cb._rebuild_pool = timed_rebuild
+    try:
+        streams, outs, _, wall = stream_trace(cb, prompts, budgets,
+                                              [(range(4), 0), (range(4, 8), 1)])
+    finally:
+        G.StepGraph._capture = real_capture
+    st, inj = dict(cb.stats), dict(faults.injected)
+    same = sum(a == b and list(s.request.output) == b
+               for a, b, s in zip(outs, plain, streams))
+    rec = {"wall_s": wall, "tokens_per_s": sum(map(len, outs)) / wall, "same_as_plain": same,
+           "stats": st, "injected": inj, "rebuild_s": rebuild_s,
+           "quarantined": sorted(cb.scheduler.quarantined),
+           "ptrs_unchanged": [t.data_ptr() for t in bufs] == ptrs,
+           "graphs_unchanged": {k: g.graph for k, g in cb._steps.graphs.items()} == graphs,
+           "captures": len(captures), "ledger_balanced": ledger_balanced(cb)}
+    del cb, bufs, graphs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_server(torch, ctx) -> dict:
+    """llama3-8b at full width under ``fused_int8`` on 4 slots, the phase-4
+    trace run as a live service through ``AsyncServer``: ``drain()`` and the
+    streamed trace on one engine (8 of 8 streams equal the plain trace, with
+    exact B1 / B2 / RMSNorm launches), a disconnect after a stream's second
+    token (a prefix of its plain stream, CANCELLED, its slot taken by a
+    queued request, the ledger balanced, the other 7 unchanged), a deadline
+    shorter than a request's plain service time (TIMEOUT, a prefix,
+    ``RequestTimedOut`` in its stream); then the swap trace with injected
+    step failures and a lost slot, and with NAND bit flips at BER 2e-4
+    (every stream equal to the plain trace, one retry and one in-place
+    rebuild an injected failure, no recapture); and the serve CLI's
+    ``--serve`` mode in a subprocess."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.faults import FaultInjector
+
+    cfg = registry.get("llama3-8b")
+    params, plain = ctx["params"], ctx["plain_outputs"]
+    prompts, budgets = serve_trace(cfg.vocab_size)
+    lens = [len(p) for p in prompts]
+    cb = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=256,
+                                  rt=Runtime("fused_int8"))
+    out: dict = {}
+    # drain() on the trace, then the same trace streamed, on one engine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [cb.submit(p, b) for p, b in zip(prompts, budgets)]
+    cb.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["drain"] = {"wall_s": wall, "tokens_per_s": sum(budgets) / wall,
+                    "steps": cb.stats["steps"],
+                    "latency_s": [r.finish_time - r.arrival_time for r in reqs]}
+    if [list(r.output) for r in reqs] != plain:
+        raise AssertionError("drain(): the trace parts from the plain trace")
+    steps0, decode0 = cb.stats["steps"], cb.stats["decode_steps"]
+    reset_launch_counts()                      # the server path's run starts here
+    streams, outs, _, wall = stream_trace(cb, prompts, budgets, [(range(8), 0)])
+    counts = launch_counts()                   # ... and ends here
+    want = want_launches(cfg, cb.stats["decode_steps"] - decode0, lens, "decode_attn",
+                         prefills=prefill_calls(cb, [s.request for s in streams]))
+    same = sum(a == b for a, b in zip(outs, plain))
+    steps = cb.stats["steps"] - steps0
+    out["stream"] = {"wall_s": wall, "tokens_per_s": sum(map(len, outs)) / wall,
+                     "steps": steps, "launches": counts, "same_as_plain": same,
+                     "hop_ms_per_step": (wall / steps - out["drain"]["wall_s"]
+                                         / out["drain"]["steps"]) * 1e3}
+    print(f"   drain(): {sum(budgets)} tokens in {out['drain']['wall_s']:.3f} s "
+          f"({out['drain']['tokens_per_s']:.1f} tokens/s, {out['drain']['steps']} steps); "
+          f"streamed: {sum(map(len, outs))} tokens in {wall:.3f} s "
+          f"({out['stream']['tokens_per_s']:.1f} tokens/s, {steps} steps, "
+          f"{out['stream']['hop_ms_per_step']:.2f} ms a step over drain()); {same} of 8 "
+          f"streams equal the plain trace; launches {counts}")
+    if same != 8 or counts != want:
+        raise AssertionError(f"streamed: {same} of 8 equal; launches {counts} != {want}")
+
+    # a disconnect after request 0's second token
+    admitted = []
+    real_admit = cb.scheduler.admit
+
+    def logged_admit(now):
+        got = real_admit(now)
+        admitted.extend((r.rid, r.slot) for r in got)
+        return got
+    cb.scheduler.admit = logged_admit
+    streams, outs, _, wall = stream_trace(cb, prompts, budgets, [(range(8), 0)], cancel=0)
+    cb.scheduler.admit = real_admit
+    gone = streams[0].request
+    slot0 = next(slot for rid, slot in admitted if rid == gone.rid)
+    by_rid = {s.request.rid: s.request for s in streams}
+    taken = [rid for rid, slot in admitted if slot == slot0 and rid != gone.rid
+             and by_rid[rid].admit_time >= gone.finish_time]
+    others = sum(list(s.request.output) == p for s, p in zip(streams[1:], plain[1:]))
+    out["cancel"] = {"tokens": len(gone.output), "state": gone.state.value,
+                     "slot_taken_by": taken, "others_same": others,
+                     "ledger_balanced": ledger_balanced(cb)}
+    print(f"   disconnect: request 0 {gone.state.value} after {len(gone.output)} tokens "
+          f"(streamed {len(outs[0])}); slot {slot0} then taken by {taken}; "
+          f"{others} of 7 others equal; ledger balanced {out['cancel']['ledger_balanced']}")
+    if (gone.state.value != "cancelled" or not 2 <= len(gone.output) < budgets[0]
+            or list(gone.output) != plain[0][:len(gone.output)] or not taken
+            or others != 7 or not out["cancel"]["ledger_balanced"]):
+        raise AssertionError(f"disconnect: {out['cancel']}")
+
+    # a deadline at half a first-wave request's drain() latency
+    lat = out["drain"]["latency_s"]
+    late = max(range(4), key=lambda i: lat[i])
+    streams, outs, raised, wall = stream_trace(cb, prompts, budgets, [(range(8), 0)],
+                                               deadline=(late, lat[late] / 2))
+    r = streams[late].request
+    others = sum(list(s.request.output) == p
+                 for i, (s, p) in enumerate(zip(streams, plain)) if i != late)
+    out["deadline"] = {"request": late, "deadline_s": lat[late] / 2, "tokens": len(r.output),
+                       "state": r.state.value, "raised": raised[late], "others_same": others,
+                       "timeouts": cb.stats["timeouts"], "ledger_balanced": ledger_balanced(cb)}
+    print(f"   deadline: request {late} ({lat[late] / 2:.3f} s, half its drain() latency) "
+          f"{r.state.value} after {len(r.output)} of {budgets[late]} tokens, "
+          f"RequestTimedOut {raised[late]}; {others} of 7 others equal")
+    if (r.state.value != "timeout" or not raised[late]
+            or not 1 <= len(r.output) < budgets[late]
+            or list(r.output) != plain[late][:len(r.output)] or others != 7
+            or not out["deadline"]["ledger_balanced"]):
+        raise AssertionError(f"deadline: {out['deadline']}")
+    del cb, streams
+    torch.cuda.empty_cache()
+
+    # the swap trace under injected faults, through the server
+    for label, faults in (
+            ("step_failures", FaultInjector(seed=0, step_fail_at=SERVER_FAIL_AT,
+                                            slot_loss_at=SERVER_SLOT_LOSS)),
+            ("bit_flips", FaultInjector(seed=0, ber=2e-4))):
+        rec = out[label] = server_faults(torch, cfg, params, plain, faults)
+        st, inj = rec["stats"], rec["injected"]
+        print(f"   {label}: {rec['same_as_plain']} of 8 streams equal the plain trace in "
+              f"{rec['wall_s']:.3f} s; injected {inj}; step_failures {st['step_failures']}, "
+              f"retries {st['step_retries']}, rebuilds {st['pool_rebuilds']} "
+              f"({[round(s * 1e3, 3) for s in rec['rebuild_s']]} ms each), slot losses "
+              f"{st['slot_losses']}, quarantined {rec['quarantined']}, cold re-reads "
+              f"{st['cold_rereads']}, recomputes {st['recovery_recomputes']}; swaps "
+              f"{st['preempt_swaps']}, ECC checks {st['ecc_checks']}, corrected bits "
+              f"{st['ecc_corrected_bits']}, uncorrectable {st['uncorrectable_blocks']}; "
+              f"addresses kept {rec['ptrs_unchanged']}, graphs kept "
+              f"{rec['graphs_unchanged']}, captures {rec['captures']}")
+        bad = (rec["same_as_plain"] != 8 or not rec["ptrs_unchanged"]
+               or not rec["graphs_unchanged"] or rec["captures"] or not rec["ledger_balanced"]
+               or st["pool_rebuilds"] != inj["step_failures"]
+               or st["step_retries"] != inj["step_failures"])
+        if label == "step_failures":
+            bad |= (inj["step_failures"] < 1 or st["slot_losses"] != 1
+                    or st["quarantined_slots"] != 1 or len(rec["rebuild_s"]) < 1)
+        else:
+            bad |= (st["ecc_corrected_bits"] < 1 or st["uncorrectable_blocks"]
+                    or st["swap_ins"] < 1)
+        if bad:
+            raise AssertionError(f"{label}: {rec}")
+
+    # the serve CLI, as a user starts it
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                          "llama3-8b", "--reduced", "--serve", "--requests", "3",
+                          "--slots", "2"], cwd=root, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": str(root / "src")})
+    out["cli"] = {"rc": cli.returncode, "seconds": time.perf_counter() - t0,
+                  "stdout": cli.stdout[-2000:], "stderr": cli.stderr[-2000:]}
+    print(f"   CLI --serve: exit {cli.returncode} in {out['cli']['seconds']:.1f} s; "
+          f"last line {cli.stdout.strip().splitlines()[-1:]}")
+    if cli.returncode != 0 or "SERVE_SHUTDOWN_CLEAN" not in cli.stdout:
+        raise AssertionError(f"CLI --serve: {out['cli']}")
     return out
 
 
@@ -2907,6 +3192,7 @@ def main() -> int:
             s.phase("graphs", lambda: phase_graphs(torch, ctx))
             s.phase("verify", lambda: phase_verify(torch, ctx, da, va, vt, quant))
             s.phase("prefix", lambda: phase_prefix(torch, ctx))
+            s.phase("server", lambda: phase_server(torch, ctx))
         else:
             s.failures.append("serve: skipped, the engine phase made no params")
         s.phase("ssm", lambda: phase_ssm(torch, ctx, s.record.get("build")))

@@ -124,6 +124,10 @@ class ServeSteps:
         for t in tree:
             self._add(("tree", t), lambda t=t: self._verify(t, tree=True))
 
+    def inputs(self) -> list[torch.Tensor]:
+        """Every static input buffer (a pool rebuild zeroes them in place)."""
+        return [self.tok, *self.window.values(), *self.depth.values(), *self.anc.values()]
+
     def _add(self, key: tuple, fn: Callable[[], Any]) -> None:
         self.graphs[key] = StepGraph(fn, self.state, self.pool)
 

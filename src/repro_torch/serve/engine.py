@@ -56,16 +56,28 @@ state cannot rewind, so ``spec_k``, ``spec_tree``, ``chunk``,
 ``multi_step`` and the prefix cache are silently off there, as in the
 reference.
 
+The engine survives transient device errors as the reference does: a
+step whose in-place pool update raised (or an injected failure) is retried
+with backoff, each retry first rebuilding the pool from committed host
+state (every resident recovers by cold re-read or recompute-replay, so its
+stream stays token-identical).  The rebuild zeroes the pool's tensors in
+place, so the captured steps stay valid.  ``faults=`` adds the seeded
+fault injector (cold-block bit flips, step failures, lost slots) and the
+ECC and checksum layer over the cold tier; a lost slot is quarantined.
+``cancel()`` frees a request's slot at the next iteration boundary, and a
+request past its ``deadline_s`` ends ``TIMEOUT``.
+
 The pool updates in place (the reference donates it); greedy tokens are
 argmax'd on the device and only [n_slots] (verify: [n_slots, T]; fused:
 [n_slots, m]) int32 arrays cross to the host; sampled slots get a device
 top-k pre-select ([n_slots, k] values and indices).  Every transfer goes
 through the metered ``_fetch`` / ``_push`` helpers (``xfer_bytes``,
-``decode_xfer_bytes``).  Arguments of lanes not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+``decode_xfer_bytes``).  A drafter or a family not ported yet raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Iterable
@@ -77,12 +89,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvcache as KV
 from repro_torch.core.mapping import flash_tpot_for
 from repro_torch.device import resolve, set_float32_precision
+from repro_torch.ft.failures import StragglerWatchdog
 from repro_torch.models import graphs as G
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Runtime
 from repro_torch.serve.drafter import (Drafter, chain_parents, make_drafter,
                                        tree_depths_ancestors)
+from repro_torch.serve.faults import (ColdBlockCorrupt, FaultInjector,
+                                      FaultTolerance, InjectedStepFailure,
+                                      PoolConsumedError)
 from repro_torch.serve.kv_swap import SwapManager, slot_template, to_host
 from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.quantize import quantize_tree
@@ -91,7 +107,6 @@ from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
 
 
 DRAIN_STALL_LIMIT = 8     # idle iterations with work pending before drain() raises
-ADMIT_ERRORS = (RuntimeError, ValueError)   # a failed prefill fails one request
 
 
 class RequestFailedError(RuntimeError):
@@ -103,10 +118,6 @@ class RequestFailedError(RuntimeError):
         self.failures = failures
         super().__init__("; ".join(
             f"request {r.rid}: {r.error}" for r in failures))
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def _check_on(params: Any, device: torch.device) -> None:
@@ -236,7 +247,9 @@ class ContinuousBatchingEngine:
                  topk_preselect: bool = True, prefix_cache: bool = False,
                  prefix_cache_rows: int | None = None, kv_swap: bool = False,
                  cold_rows: int | None = None,
-                 drain_stall_limit: int = DRAIN_STALL_LIMIT, faults: Any = None,
+                 drain_stall_limit: int = DRAIN_STALL_LIMIT,
+                 faults: FaultInjector | bool | None = None, max_step_retries: int = 3,
+                 retry_backoff_s: float = 0.02, watchdog_factor: float = 8.0,
                  device: str | torch.device = "cuda"):
         self._has_ssm = T.has_ssm(cfg)
         # an SSM stack's recurrent state cannot rewind or restart
@@ -262,11 +275,20 @@ class ContinuousBatchingEngine:
         self.spec_branch = int(spec_branch)
         # the fused block unwinds an overshoot through the cursor rewind
         self.multi_step = 1 if self._has_ssm else int(multi_step)
-        if faults:
-            raise _not_ported("fault injection (faults)", "A.10")
         if drain_stall_limit < 1:
             raise ValueError("drain_stall_limit must be >= 1")
         self.drain_stall_limit = int(drain_stall_limit)
+        if max_step_retries < 0:
+            raise ValueError("max_step_retries must be >= 0")
+        self.max_step_retries = int(max_step_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self._watchdog = StragglerWatchdog(factor=watchdog_factor)
+        # faults=True arms the checksums and the metered ECC pipeline with no
+        # chaos source; an injector adds one.  The retry and rebuild
+        # machinery in step() is always armed.
+        self._injector = faults if isinstance(faults, FaultInjector) else None
+        self._faults_on = bool(faults)
+        self._ft = None
         self.topk_preselect = bool(topk_preselect)
         if self.chunk:
             self.max_step_tokens = (max_step_tokens if max_step_tokens
@@ -342,14 +364,28 @@ class ContinuousBatchingEngine:
         self._warm_rows: dict[int, int] = {}               # slot -> cached rows
         self._rngs: dict[int, np.random.Generator] = {}   # rid -> sampler
         self._next_rid = 0
+        # cancellation inbox: cancel() only appends, so a server may call it
+        # from another thread while step() runs; the next step drains it
+        self._cancels: list[Request] = []
+        # set from the start of an in-place pool update until it returns: a
+        # call that raised left the pool in an unknown state (the reference's
+        # failed donated call deletes its pool), which only a rebuild clears
+        self._pool_dirty = False
         self._t0 = time.monotonic()
+        # prefill pieces the admissions ran, each one norm launch a norm (the
+        # card's launch accounting reads it; not a stat of the reference)
+        self.prefill_pieces = 0
         self.stats = {"steps": 0, "decode_steps": 0, "prefill_tokens": 0,
-                      "chunks": 0, "prefill_pieces": 0, "max_step_prefill_tokens": 0,
+                      "chunks": 0, "max_step_prefill_tokens": 0,
                       "max_step_total_tokens": 0, "preemptions": 0,
                       "verify_steps": 0, "spec_drafted": 0, "spec_accepted": 0,
                       "multi_blocks": 0, "multi_tokens": 0,
                       "xfer_bytes": 0, "decode_xfer_bytes": 0,
-                      "device_s": 0.0, "step_s": 0.0}
+                      "device_s": 0.0, "step_s": 0.0,
+                      # the recovery machinery is always armed, so these
+                      # counters always exist
+                      "timeouts": 0, "slow_steps": 0, "step_failures": 0,
+                      "step_retries": 0, "pool_rebuilds": 0}
         # the features' keys exist only when they are on, as in the reference
         if self._pcache is not None:
             self.stats.update({"prefix_hits": 0, "cached_tokens": 0,
@@ -359,6 +395,16 @@ class ContinuousBatchingEngine:
                                "swap_out_bytes": 0, "swap_in_bytes": 0,
                                "swap_out_cycles": 0, "swap_in_cycles": 0,
                                "preempt_swaps": 0, "preempt_recomputes": 0})
+        if self._faults_on:
+            # the fault layer's ECC metering and recovery counters
+            self.stats.update({"ecc_checks": 0, "ecc_pages": 0, "ecc_cycles": 0,
+                               "ecc_corrected_bits": 0, "bitflips_injected": 0,
+                               "uncorrectable_blocks": 0, "cold_rereads": 0,
+                               "recovery_recomputes": 0, "slot_losses": 0,
+                               "quarantined_slots": 0})
+            self._ft = FaultTolerance(self.stats, self._injector)
+            if self._swap is not None:
+                self._swap.attach_faults(self._ft)
         if self._pcache is not None and self._swap is not None:
             # LRU pressure demotes prefix leaves to the cold tier instead of
             # dropping them; the store's evictions relay back as drop_cold
@@ -380,14 +426,14 @@ class ContinuousBatchingEngine:
             raise ValueError("temperature must be >= 0 (0 = greedy)")
         if top_k is not None and top_k < 1:
             raise ValueError("top_k must be >= 1")
-        if deadline_s is not None:
-            raise _not_ported("request deadlines", "A.10")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError("deadline_s must be > 0 when set")
         req = Request(rid=self._next_rid, prompt=list(map(int, prompt)),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
                       arrival_time=(self._now() if arrival_time is None
                                     else arrival_time),
                       priority=priority, user=user, temperature=temperature,
-                      top_k=top_k, seed=seed)
+                      top_k=top_k, seed=seed, deadline_s=deadline_s)
         self._next_rid += 1
         self.scheduler.submit(req)
         return req
@@ -431,6 +477,15 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         self.stats["device_s"] += time.perf_counter() - t0
+        return out
+
+    def _in_place(self, fn, *args):
+        """:meth:`_dev` for work that updates the pool in place (a replayed
+        step, a slot write, a gather, a commit or a rewind): the pool counts
+        as consumed until ``fn`` returns."""
+        self._pool_dirty = True
+        out = self._dev(fn, *args)
+        self._pool_dirty = False
         return out
 
     def _device_topk(self, logits: torch.Tensor, k: int):
@@ -569,28 +624,29 @@ class ContinuousBatchingEngine:
         if req.replay_pos >= len(req.output) and req.should_stop():
             self._retire(req, self._now())            # budget of 1 token
 
-    def _prefill_into_slot(self, req: Request, toks: np.ndarray, plen: int):
+    def _prefill(self, toks: np.ndarray, plen: int):
         batch = {"inputs": torch.from_numpy(toks).to(self.device)}
         if not self._has_ssm:
             batch["lengths"] = torch.tensor([plen], dtype=torch.int32,
                                             device=self.device)
-        logits, one = M.prefill(self.params, self.cfg, batch, self.max_len, self.rt)
-        T.write_slot(self.state, req.slot, one)
-        return logits
+        return M.prefill(self.params, self.cfg, batch, self.max_len, self.rt)
 
     def _admit_atomic(self, req: Request) -> int:
         """One full-prompt prefill lands the int8 KV row.  A failed prefill
-        frees the slot and fails the request instead of leaking the slot."""
+        frees the slot and fails the request instead of leaking the slot
+        (unless the failure left the pool consumed)."""
         plen = req.prompt_len
         toks = np.zeros((1, self._bucket(plen)), np.int64)
         toks[0, :plen] = req.prompt
         try:
-            logits = self._dev(self._prefill_into_slot, req, toks, plen)
-        except ADMIT_ERRORS as e:
+            logits, one = self._dev(self._prefill, toks, plen)
+            self._in_place(T.write_slot, self.state, req.slot, one)
+        except Exception as e:                        # noqa: BLE001
             self._fail(req, f"{type(e).__name__}: {e}")
+            self._check_pool_alive(e)
             return 0
         req.prefill_pos = plen
-        self.stats["prefill_pieces"] += T.prefill_pieces(self.cfg, toks.shape[1])
+        self.prefill_pieces += T.prefill_pieces(self.cfg, toks.shape[1])
         self._emit_first(req, logits)
         return plen
 
@@ -629,14 +685,16 @@ class ContinuousBatchingEngine:
             hit, n = self._pcache.lookup(req.prompt, req.prompt_len - 1)
             if hit is not None and n >= 1:
                 if hit.slot is None:          # cold leaf: promote via swap-in
-                    src, n_hit = req.slot, self._promote_cold_hit(hit, req, n)
+                    n = self._promote_cold_hit(hit, req, n)
+                    if n >= 1:
+                        src, n_hit = req.slot, n
                 else:
                     src, n_hit = hit.slot, n
         if src is None:
             self._cold_carry(req.slot)
             return
         if src != req.slot:
-            self._dev(T.copy_slot_prefix, self.state, src, req.slot, n_hit)
+            self._in_place(T.copy_slot_prefix, self.state, src, req.slot, n_hit)
         self._carries[req.slot] = self._dev(
             M.warm_prefill_carry, self.cfg, self.state, req.slot, n_hit,
             T.carry_len(self.max_len), req.prompt[:n_hit])
@@ -650,10 +708,13 @@ class ContinuousBatchingEngine:
         """A warm admission matched a demoted (cold) leaf: consume it, swap
         its block into the request's own slot and resume chunked prefill at
         the match (no copy: the rows land where they are needed; retirement
-        republishes the longer prefix hot).  Returns the usable row count.
-        The store's evictions drop their cold leaves, so a cold leaf's block
-        is always there."""
-        blob, rows, cost = self._swap.swap_in(self._pcache.promote(leaf))
+        republishes the longer prefix hot).  Returns the usable row count, 0
+        when the block failed its tier-crossing check (it is dropped: a cold
+        prefill recomputes the same rows) or is gone."""
+        try:
+            blob, rows, cost = self._swap.swap_in(self._pcache.promote(leaf))
+        except (ColdBlockCorrupt, KeyError):
+            return 0
         self._land_block(req.slot, blob)
         self.stats["swap_ins"] += 1
         self.stats["swap_in_bytes"] += cost.n_bytes
@@ -676,16 +737,17 @@ class ContinuousBatchingEngine:
             logits, self._carries[slot] = self._dev(
                 M.prefill_chunk, self.params, self.cfg, self._carries[slot],
                 torch.from_numpy(toks).to(self.device), n, self.rt)
-            self.stats["prefill_pieces"] += T.chunk_pieces(req.prefill_pos, n)
+            self.prefill_pieces += T.chunk_pieces(req.prefill_pos, n)
             req.prefill_pos += n
             self.stats["chunks"] += 1
             if req.prefill_pos >= req.prompt_len:
-                self._dev(self._finalize_into_slot, slot, self._carries.pop(slot),
-                          self._warm_rows.pop(slot, 0))
+                self._in_place(self._finalize_into_slot, slot, self._carries.pop(slot),
+                               self._warm_rows.pop(slot, 0))
                 self._emit_first(req, logits)
-        except ADMIT_ERRORS as e:
+        except Exception as e:                        # noqa: BLE001
             self._drop_carry(slot)
             self._fail(req, f"{type(e).__name__}: {e}")
+            self._check_pool_alive(e)
             return 0
         return n
 
@@ -744,7 +806,7 @@ class ContinuousBatchingEngine:
         n_bytes = KV.cache_bytes(blob)
         self.stats["xfer_bytes"] += n_bytes
         self.swap_copies.append(("h2d", n_bytes, dt))
-        self._dev(self._write_block, slot, one, n)
+        self._in_place(self._write_block, slot, one, n)
 
     def _write_block(self, slot: int, one: dict, n: int) -> None:
         T.write_slot(self.state, slot, one)
@@ -778,21 +840,43 @@ class ContinuousBatchingEngine:
         self.stats["swap_out_cycles"] += cost.cycles_out
         return n
 
-    def _admit_swapped(self, req: Request) -> None:
-        """Re-admission of a swap-preempted victim: swap its cold block (a
-        pinned block, never evicted) into the assigned slot and resume
-        DECODING with no prefill, replaying only the recorded tokens past
-        the block's rows (none for a fresh block).  The restored rows are
-        byte-identical to the ones that left, so the continuation is
-        token-identical to an unpreempted run."""
+    def _admit_swapped(self, req: Request) -> bool:
+        """Re-admission of a swap-preempted victim: swap its cold block into
+        the assigned slot and resume DECODING with no prefill, replaying only
+        the recorded tokens past the block's rows (none for a fresh block; a
+        stale recovery copy, after a slot loss, replays the tail).  The
+        restored rows are byte-identical to the ones that left, so the
+        continuation is token-identical to an unpreempted run.
+
+        With the fault layer on, the read crosses the ECC and checksum
+        pipeline; an uncorrectable block (or a recovery copy the store has
+        since evicted) falls back to recompute-replay in this admission.  A
+        greedy request keeps its block in the store as a recovery copy; a
+        sampled one must not restore from a stale copy (a tail replay would
+        draw again from its stream), so its block is popped.
+
+        Returns True when the request was handled here (restored, or
+        failed), False to fall through to the recompute admission."""
         n = req.swapped_rows
         req.swapped_rows = 0
-        blob, rows, cost = self._swap.swap_in(("req", req.rid))
+        keep = self._ft is not None and req.temperature <= 0
+        try:
+            blob, rows, cost = self._swap.swap_in(("req", req.rid), keep=keep)
+        except (ColdBlockCorrupt, KeyError):
+            self._bump("recovery_recomputes")
+            self._rngs.pop(req.rid, None)  # the replay re-consumes the stream
+            req.prefill_pos = 0
+            req.replay_pos = 0
+            return False
+        except Exception as e:                        # noqa: BLE001
+            self._fail(req, f"{type(e).__name__}: {e}")
+            return True
         try:
             self._land_block(req.slot, blob)
-        except ADMIT_ERRORS as e:
+        except Exception as e:                        # noqa: BLE001
             self._fail(req, f"{type(e).__name__}: {e}")
-            return
+            self._check_pool_alive(e)
+            return True
         assert rows == n, f"cold block rows {rows} != ledger {n}"
         self.stats["swap_ins"] += 1
         self.stats["swap_in_bytes"] += cost.n_bytes
@@ -805,6 +889,7 @@ class ContinuousBatchingEngine:
         req.state = RequestState.DECODING
         self._last_tok[req.slot] = req.output[fed]
         self._slot_pos[req.slot] = rows
+        return True
 
     def _demote_leaf_rows(self, slot: int, n_rows: int, key) -> bool:
         """Prefix-cache demotion hook: move an LRU-evicted leaf's rows to the
@@ -828,6 +913,9 @@ class ContinuousBatchingEngine:
             # (appends clamp to rows >= state rows - T >= max_len - 1)
             publish = min(int(self._slot_pos[req.slot]), self.max_len - 1)
         self.scheduler.retire(req, now, publish_rows=publish)
+        if self._swap is not None:
+            # a recovery copy kept on restore dies with the request
+            self._swap.drop(("req", req.rid))
         if self._pcache is not None:
             self.stats["cached_tokens"] = self._pcache.cached_rows
         self._rngs.pop(req.rid, None)      # release the per-request sampler
@@ -835,27 +923,219 @@ class ContinuousBatchingEngine:
     def _fail(self, req: Request, error: str) -> None:
         if req.slot is not None:           # died mid-chunk: drop its carry
             self._drop_carry(req.slot)
+        if self._swap is not None:         # an orphaned cold block, if any
+            self._swap.drop(("req", req.rid))
         self.scheduler.fail(req, self._now(), error=error)
         self._rngs.pop(req.rid, None)
 
+    def _check_pool_alive(self, cause: Exception) -> None:
+        """Admission is exception-safe (one request fails, serving goes on)
+        unless the failing call was an in-place pool update: then the pool
+        cannot serve the other residents, and the step fails now (step()
+        rebuilds the pool and retries)."""
+        if self._pool_consumed():
+            raise PoolConsumedError(
+                "the decode pool was left mid-update by a failed call; the "
+                "engine cannot continue serving its residents") from cause
+
+    def _pool_consumed(self) -> bool:
+        return self._pool_dirty
+
+    def _bump(self, key: str, n: int = 1) -> None:
+        """Increment a stats counter only when it exists (the recovery
+        machinery is always armed; its fault-layer counters are not)."""
+        if key in self.stats:
+            self.stats[key] += n
+
+    # -- cancellation -------------------------------------------------------
+    def cancel(self, req: Request) -> None:
+        """Cancel a request (a client disconnect): at the next iteration
+        boundary its slot is freed (mid-decode, mid-chunked-prefill or
+        between spec windows), its partial output is kept and it ends
+        CANCELLED.  Safe to call from another thread while ``step()`` runs
+        (an append-only inbox)."""
+        self._cancels.append(req)
+
+    def _release(self, req: Request) -> None:
+        """Slot hygiene of a request that ends early: its prefill carry,
+        cold block and sampler go with it."""
+        if req.slot is not None:
+            self._drop_carry(req.slot)
+        if self._swap is not None:
+            self._swap.drop(("req", req.rid))
+        self._rngs.pop(req.rid, None)
+
+    def _apply_cancels(self, now: float) -> bool:
+        """Drain the cancellation inbox.  A cancelled DECODING resident's
+        committed cursor is already what ``_slot_pos`` mirrors (every lane
+        that overshoots rewinds before its step ends), so freeing the slot
+        needs no device work: the row is dead in place until the next
+        admission overwrites it."""
+        did = False
+        while self._cancels:
+            req = self._cancels.pop(0)
+            if req.done:
+                continue                   # raced with retire or fail
+            self._release(req)
+            self.scheduler.cancel(req, now)
+            did = True
+        return did
+
+    # -- fault recovery -----------------------------------------------------
+    def _apply_deadlines(self, now: float) -> None:
+        """Terminal TIMEOUT for any request, queued or resident, past its
+        ``deadline_s``; the hygiene of a cancel, the partial output kept."""
+        for req in list(self.scheduler.queue) + list(self.scheduler.active.values()):
+            if req.deadline_s is None or req.done:
+                continue
+            if now - req.arrival_time < req.deadline_s:
+                continue
+            self._release(req)
+            self.scheduler.timeout(req, now)
+            self.stats["timeouts"] += 1
+
+    def _recover_resident(self, req: Request, now: float) -> None:
+        """Move a resident off a dead pool or slot with its stream intact: a
+        greedy resident with a retained cold copy re-enters the queue as a
+        swap restore (possibly stale rows, then a tail replay; greedy only,
+        since a sampled tail replay would draw again from its stream);
+        everything else recompute-replays from scratch."""
+        self._drop_carry(req.slot)
+        key = ("req", req.rid)
+        if (self._swap is not None and req.temperature <= 0
+                and req.output and self._swap.has(key)):
+            rows = self._swap.store.rows_of(key)
+            if 0 <= rows - req.prompt_len < len(req.output):
+                # the copy carries the request until re-admission: pin it so
+                # that no LRU pass evicts it from under the ledger
+                self._swap.store.pin(key)
+                self.scheduler.preempt(req, now, swapped_rows=rows)
+                self._bump("cold_rereads")
+                return
+            self._swap.drop(key)           # a copy the ledger cannot use
+        self._rngs.pop(req.rid, None)      # the replay re-consumes the stream
+        self.scheduler.preempt(req, now, swapped_rows=0)
+        self._bump("recovery_recomputes")
+
+    def _lose_slot(self, slot: int, now: float) -> None:
+        """A whole plane (slot) is lost: its resident recovers (cold re-read
+        or recompute-replay), cached leaf rows living there are dropped, and
+        the slot is quarantined for good.  It still rides in the captured
+        [n_slots] step, a dead row whose appends clamp inside the pool's
+        headroom.  Fatal once no healthy slot remains
+        (``Scheduler.quarantine_slot`` raises)."""
+        if slot in self.scheduler.quarantined or not 0 <= slot < self.n_slots:
+            return
+        self._bump("slot_losses")
+        req = self.scheduler.active.get(slot)
+        if req is not None:
+            self._recover_resident(req, now)
+        if self._pcache is not None:
+            self._pcache.drop_slot(slot)
+        self.scheduler.quarantine_slot(slot)
+        if "quarantined_slots" in self.stats:
+            self.stats["quarantined_slots"] = len(self.scheduler.quarantined)
+
+    def _poison_pool(self) -> None:
+        """An injected device error mid-step: the pool is left as a failed
+        in-place update could leave it, every int8 code nonzero and every
+        float NaN, so a rebuild that does not clear it shows in the tokens."""
+        self._pool_dirty = True
+        for t in G.state_tensors(self.state):
+            t.fill_(float("nan") if t.is_floating_point() else 1)
+
+    def _rebuild_pool(self) -> None:
+        """Rebuild the pool from committed host state after a failed step
+        consumed it.  Every resident preempts off the dead pool (cold
+        re-read where a recovery copy exists, else recompute-replay;
+        token-identical either way), in-flight carries die with it, hot
+        prefix-cache leaves are dropped (demoted cold leaves live on the
+        host and survive), and the pool is zeroed in place, cursors
+        included, with the captured steps' static inputs: the graphs were
+        captured over these tensors and stay valid.  Every slot ends free
+        or quarantined."""
+        now = self._now()
+        self.stats["pool_rebuilds"] += 1
+        self._carries.clear()
+        self._warm_rows.clear()
+        for _, req in sorted(self.scheduler.active.items()):
+            self._recover_resident(req, now)
+        if self._pcache is not None:
+            self._pcache.drop_hot()
+        for t in G.state_tensors(self.state) + self._static_inputs():
+            t.zero_()
+        self._slot_pos[:] = 0
+        self._last_tok[:] = 0
+        self._pool_dirty = False
+
+    def _static_inputs(self) -> list[torch.Tensor]:
+        """The captured steps' input buffers and the eager commits'."""
+        bufs = self._steps.inputs() + [self._pos_buf]
+        if self.spec_tree:
+            bufs += [self._base_buf, self._keep_buf, self._sel_buf]
+        return bufs
+
     # -- one serving iteration --------------------------------------------
     def step(self) -> bool:
-        """Run one engine iteration; returns True if any work was done."""
+        """Run one engine iteration; returns True if any work was done.
+
+        A step that left the pool consumed (an in-place update that raised,
+        or an injected failure) is retried with exponential backoff, at most
+        ``max_step_retries`` times, each retry first rebuilding the pool from
+        committed host state (:meth:`_rebuild_pool`); any other error, and
+        an exhausted budget, propagate.  A sticky device error fails the
+        rebuild or every retry, so it surfaces as the error or as an
+        exhausted budget.  A straggler watchdog counts slow iterations in
+        ``stats["slow_steps"]``.  All device work of a step runs on the
+        calling thread, under the engine's device."""
         t0 = time.perf_counter()
         try:
-            return self._step()
+            with self._on_device():
+                attempt = 0
+                while True:
+                    try:
+                        return self._step()
+                    except Exception as e:            # noqa: BLE001
+                        if not (isinstance(e, InjectedStepFailure)
+                                or self._pool_consumed()):
+                            raise
+                        self.stats["step_failures"] += 1
+                        if attempt >= self.max_step_retries:
+                            raise RuntimeError(
+                                f"engine step failed {attempt + 1} time(s); "
+                                "retry budget exhausted") from e
+                        if self.retry_backoff_s > 0:
+                            time.sleep(self.retry_backoff_s * (2.0 ** attempt))
+                        attempt += 1
+                        self.stats["step_retries"] += 1
+                        self._rebuild_pool()
         finally:
-            self.stats["step_s"] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.stats["step_s"] += dt
+            if self._watchdog.observe(self.stats["steps"], dt):
+                self.stats["slow_steps"] += 1
+
+    def _on_device(self):
+        """The engine's card as the calling thread's current device (a
+        server steps the engine on a worker thread); nothing on the CPU."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
 
     def _step(self) -> bool:
         now = self._now()
         self.stats["steps"] += 1
         step_pf = 0
+        cancelled = self._apply_cancels(now)
         for req in list(self.scheduler.active.values()):
             if (req.state is RequestState.DECODING
                     and req.replay_pos >= len(req.output)
                     and req.should_stop()):
                 self._retire(req, now)
+        self._apply_deadlines(now)
+        if self._injector is not None:
+            for slot in self._injector.lost_slots(self.stats["steps"]):
+                self._lose_slot(slot, now)
         # preemption only when the queue is blocked on slots, and a
         # reclaimable prefix leaf means it is not (cached rows yield first)
         if not self.scheduler.free_slots and not (
@@ -863,15 +1143,16 @@ class ContinuousBatchingEngine:
             for req in self.scheduler.preemption_victims(now):
                 self._preempt(req, now)
         for req in self.scheduler.admit(now):
-            if req.swapped_rows:
-                # a swap-preempted victim: restore its rows, resume decoding
-                self._admit_swapped(req)
+            # a swap-preempted victim restores its rows and resumes
+            # decoding; an uncorrectable block falls through to recompute
+            if req.swapped_rows and (self._admit_swapped(req) or req.done):
                 continue
             if self.chunk:
                 try:
                     self._admit_chunked(req)
-                except ADMIT_ERRORS as e:
+                except Exception as e:                # noqa: BLE001
                     self._fail(req, f"{type(e).__name__}: {e}")
+                    self._check_pool_alive(e)
             else:
                 step_pf += self._admit_atomic(req)
         if self.chunk:
@@ -884,8 +1165,14 @@ class ContinuousBatchingEngine:
         self.stats["max_step_total_tokens"] = max(
             self.stats["max_step_total_tokens"], step_pf + len(dec))
         if not dec:
-            return step_pf > 0
+            return step_pf > 0 or cancelled
         self.stats["decode_steps"] += 1
+        if self._injector is not None and self._injector.fail_step(self.stats["steps"]):
+            # a device error mid-step, at the reference's point of the step
+            # (the injector's schedule counts every attempt)
+            self._poison_pool()
+            raise InjectedStepFailure(
+                f"injected device error at step {self.stats['steps']}")
         if self.spec_tree:
             self._spec_tree_decode(dec)
         elif self.spec_k:
@@ -925,7 +1212,7 @@ class ContinuousBatchingEngine:
         """One decode step over the pool: each DECODING slot emits its next
         token, or re-feeds its next recorded one while it replays."""
         self._push(self._last_tok, self._steps.tok, decode=True)
-        logits, argmax = self._dev(self._steps.decode)
+        logits, argmax = self._in_place(self._steps.decode)
         nxt = self._next_tokens(logits, argmax, dec)
         now = self._now()
         for slot, req in dec:
@@ -970,7 +1257,7 @@ class ContinuousBatchingEngine:
         self.stats["decode_steps"] += m - 1       # step() counted one
         self.stats["multi_blocks"] += 1
         self._push(self._last_tok, self._steps.tok, decode=True)
-        blk = self._fetch(self._dev(self._steps.multi, m), decode=True)
+        blk = self._fetch(self._in_place(self._steps.multi, m), decode=True)
         now = self._now()
         stopped_early = False
         block_tokens = 0
@@ -995,7 +1282,7 @@ class ContinuousBatchingEngine:
         self.stats["max_step_total_tokens"] = max(
             self.stats["max_step_total_tokens"], block_tokens)
         if stopped_early:
-            self._dev(T.rewind_pos, self.state, self._pos_device())
+            self._in_place(T.rewind_pos, self.state, self._pos_device())
 
     # -- speculative decode lanes -------------------------------------------
     def _row_token_fn(self, logits: torch.Tensor, argmax: torch.Tensor,
@@ -1068,7 +1355,7 @@ class ContinuousBatchingEngine:
             drafts[slot] = self._draft_for(req)
             toks[slot, 1:] = drafts[slot]
         self._push(toks, self._steps.window[k + 1], decode=True)
-        logits, argmax = self._dev(self._steps.verify, k + 1)
+        logits, argmax = self._in_place(self._steps.verify, k + 1)
         self.stats["verify_steps"] += 1
         row_token = self._row_token_fn(logits, argmax, dec)
         now = self._now()
@@ -1092,7 +1379,7 @@ class ContinuousBatchingEngine:
                 committed += 1
             self.stats["spec_accept_hist"][committed] += 1
             self._slot_pos[slot] += 1 + committed
-        self._dev(T.rewind_pos, self.state, self._pos_device())
+        self._in_place(T.rewind_pos, self.state, self._pos_device())
 
     def _tree_draft_for(self, req: Request) -> tuple[list[int], list[int]]:
         """(tokens, draft-space parents) of one slot's tree window.  A
@@ -1133,7 +1420,7 @@ class ContinuousBatchingEngine:
         self._push(toks, self._steps.window[Tw], decode=True)
         self._push(depth, self._steps.depth[Tw], decode=True)
         self._push(anc, self._steps.anc[Tw], decode=True)
-        logits, argmax = self._dev(self._steps.tree, Tw)
+        logits, argmax = self._in_place(self._steps.tree, Tw)
         self.stats["verify_steps"] += 1
         row_token = self._row_token_fn(logits, argmax, dec)
         # the commit's base: each slot's cursor before this window (window
@@ -1170,11 +1457,11 @@ class ContinuousBatchingEngine:
             keep[slot] = len(path)
             self.stats["spec_accept_hist"][len(path)] += 1
             self._slot_pos[slot] += 1 + len(path)
-        self._dev(M.tree_commit, self.state,
-                  self._push(base, self._base_buf, decode=True),
-                  self._push(sel, self._sel_buf, decode=True),
-                  self._push(keep, self._keep_buf, decode=True),
-                  self._pos_device())
+        self._in_place(M.tree_commit, self.state,
+                       self._push(base, self._base_buf, decode=True),
+                       self._push(sel, self._sel_buf, decode=True),
+                       self._push(keep, self._keep_buf, decode=True),
+                       self._pos_device())
 
     def _pos_device(self) -> torch.Tensor:
         return self._push(np.asarray(self._slot_pos, np.int32), self._pos_buf,

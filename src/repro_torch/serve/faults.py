@@ -5,9 +5,10 @@ cold blocks are ``{"layers": [per-layer dict], "pos"}`` host trees (the
 layout of ``transformer.read_slot``), and every payload traversal below
 visits their leaves in the reference's byte order (see
 :func:`_split_leaves`), so checksums and injected flips equal the
-reference's on the same block and seed.  The engine does not wire this
-layer in yet (``faults=`` raises, ROADMAP A.10); the tiered pool's swap
-layer (``serve/kv_swap.py``) takes it through ``attach_faults``.
+reference's on the same block and seed.  The engine's ``faults=``
+(``serve/engine.py``) takes an injector (or ``True`` for detection alone),
+builds the :class:`FaultTolerance` layer over its stats, and attaches it to
+the tiered pool's swap layer (``serve/kv_swap.py``, ``attach_faults``).
 
 The paper keeps weights and the KV pool in SLC 3D NAND, whose raw bit
 errors are a first-class physical concern: retention errors accumulate
@@ -20,8 +21,8 @@ serve stack the same property.  Three pieces:
 * :class:`FaultInjector` — a deterministic, seeded chaos source.  It
   models (a) NAND bit-flips in cold-store blocks at a configurable BER
   (``retention`` / ``read_disturb`` modes, rates from
-  ``core/pim/params``), (b) transient jitted-step failures (a device
-  error mid-step, which consumes the donated pool), and (c) whole
+  ``core/pim/params``), (b) transient step failures (a device error
+  mid-step, which leaves the in-place pool consumed), and (c) whole
   plane/slot loss.  Every draw is keyed by ``(seed, event)`` so the same
   configuration injects the same faults — the recovered run can be
   diffed token-for-token against a fault-free run.
@@ -57,9 +58,9 @@ from repro_torch.core.pim import params as P
 
 
 class PoolConsumedError(RuntimeError):
-    """The donated decode pool was consumed by a failed jitted write; the
-    engine cannot continue serving its residents on this pool (it can
-    rebuild a fresh one — see ``ContinuousBatchingEngine.step``)."""
+    """An in-place update of the decode pool failed mid-call; the engine
+    cannot continue serving its residents on this pool until it rebuilds it
+    (see ``ContinuousBatchingEngine.step``)."""
 
 
 class InjectedStepFailure(RuntimeError):

@@ -30,6 +30,7 @@ from repro.kernels.decode_attn import ref as j_da_ref
 from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import verify_attn as va
 from repro_torch.kernels import verify_tree_attn as vt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CHUNK, NC, MAX_ROWS = 64, 8, 16
 NEG_INF = -1e30

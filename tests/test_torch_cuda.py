@@ -849,3 +849,53 @@ def test_prefix_and_swap_lanes_serve_on_the_card(cuda):
     swapped, e = serve(policy="priority:preempt", kv_swap=True)
     assert swapped == plain and e.stats["preempt_swaps"] >= 1
     assert e.stats["swap_in_bytes"] == e.stats["swap_out_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# fault recovery on the card (A.10): a rebuild keeps the captured steps
+# ---------------------------------------------------------------------------
+def test_pool_rebuild_keeps_the_captured_steps(cuda, monkeypatch):
+    """An injected device error poisons the pool mid-step; the rebuild zeroes
+    it in place, so every state tensor and static input keeps its address,
+    nothing is captured again, a replayed decode step after the rebuild is
+    bit-equal to the eager step on the same state, and the trace ends
+    token-identical to the fault-free engine's."""
+    from repro_torch.models import graphs as G
+    from repro_torch.serve.faults import FaultInjector
+    cfg = registry.get("llama3-8b").reduced()
+    params = convert.to_device(M.init_params(cfg, seed=0, device="cpu"), cuda)
+    rt = Runtime("fused_int8")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(10, 60)).tolist()
+               for _ in range(5)]
+    budgets = [int(rng.integers(6, 13)) for _ in range(5)]
+    plain = ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=96,
+                                     rt=rt).generate_all(prompts, budgets)
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=96, rt=rt,
+                                   faults=FaultInjector(seed=0, step_fail_at=(6,)))
+    bufs = G.state_tensors(eng.state) + eng._static_inputs()
+    ptrs = [t.data_ptr() for t in bufs]
+    graphs = {k: g.graph for k, g in eng._steps.graphs.items()}
+    captures = []
+    monkeypatch.setattr(G.StepGraph, "_capture", lambda *a: captures.append(a))
+    reqs = [eng.submit(p, b) for p, b in zip(prompts, budgets)]
+    while not eng.stats["pool_rebuilds"]:
+        eng.step()
+    while not any(r.state.value == "decoding" for r in eng.scheduler.active.values()):
+        eng.step()
+    saved = [t.clone() for t in G.state_tensors(eng.state)]
+    eager = _clone_state(eng.state)
+    tok = torch.from_numpy(eng._last_tok.copy()).to(cuda)
+    want, _ = M.decode_step(eng.qparams, cfg, eager, tok, rt)
+    eng._steps.tok.copy_(tok)
+    got, _ = eng._steps.decode()
+    assert torch.equal(got, want)
+    for a, b in zip(G.state_tensors(eager), G.state_tensors(eng.state)):
+        assert torch.equal(a, b)
+    for t, s in zip(G.state_tensors(eng.state), saved):
+        t.copy_(s)                          # the check's step is undone
+    eng.drain()
+    assert [r.output for r in reqs] == plain
+    assert eng.stats["pool_rebuilds"] == eng.stats["step_retries"] == 1
+    assert [t.data_ptr() for t in bufs] == ptrs and not captures
+    assert {k: g.graph for k, g in eng._steps.graphs.items()} == graphs

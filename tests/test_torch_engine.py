@@ -25,9 +25,11 @@ from repro.serve.engine import Engine as JEngine
 from repro_torch import convert
 from repro_torch.configs import registry as TR
 from repro_torch.core import kvcache as TKV
+from repro_torch.launch import serve as launch
 from repro_torch.models import model as TM
 from repro_torch.models.transformer import Runtime
 from repro_torch.serve.engine import ContinuousBatchingEngine, Engine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 JCFG = JR.get("llama3-8b").reduced()
 TCFG = TR.get("llama3-8b").reduced()
@@ -101,8 +103,8 @@ def test_requests_wait_for_slots_and_keep_timestamps(weights):
     assert reqs[1].admit_time >= reqs[0].finish_time
 
 
-PORTED_SINCE = ("A.7", "A.9")      # items whose arguments serve now
-SERVES_NOW = {"prefix_cache": "prefix_hits", "kv_swap": "swap_outs"}   # A.10's first part
+PORTED_SINCE = ("A.7", "A.9", "A.10")      # items whose arguments serve now
+SERVES_NOW = {"prefix_cache": "prefix_hits", "kv_swap": "swap_outs"}   # A.10's tiers
 
 
 def _served_like_plain(weights, **kwargs):
@@ -146,20 +148,29 @@ def _serves_a10_lane(weights, **kwargs):
     ({"chunk": 4}, "A.7"), ({"policy": "sjf"}, "A.7"), ({"multi_step": 4}, "A.9"),
     ({"prefix_cache": True, "chunk": 4}, "A.10"),
     ({"kv_swap": True, "chunk": 4, "policy": "priority:preempt"}, "A.10"),
-    ({"faults": True}, "A.10"), ({"spec_k": 2, "drafter": "mtp"}, "A.11")])
+    ({"faults": True}, "A.10"), ({"spec_k": 2, "drafter": "mtp"}, "A.11"),
+    ({"mesh": "1x1"}, "A.14")])
 def test_later_slice_arguments_raise(weights, kwargs, item):
-    """Arguments of lanes still to port raise naming their ROADMAP item; those
-    of items ported since (chunked prefill and policies, A.7; the fused
-    multi-step lane, A.9; the prefix cache and the tiered pool, A.10's first
-    part) serve, token-identical to the engine without them."""
+    """Arguments of lanes still to port raise naming their ROADMAP item (the
+    serve CLI's ``--mesh`` too); those of items ported since (chunked
+    prefill and policies, A.7; the fused multi-step lane, A.9; the prefix
+    cache, the tiered pool and the fault layer, A.10) serve,
+    token-identical to the engine without them."""
+    if next(iter(kwargs)) in SERVES_NOW:
+        eng = _serves_a10_lane(weights, **kwargs)
+        assert eng.stats[SERVES_NOW[next(iter(kwargs))]] > 0
+        return
     if item in PORTED_SINCE:
         eng = _served_like_plain(weights, **kwargs)
         key = {"chunk": "chunks", "multi_step": "multi_blocks"}.get(next(iter(kwargs)))
         assert key is None or eng.stats[key] > 0
+        if "faults" in kwargs:
+            assert eng._ft is not None and "ecc_checks" in eng.stats
         return
-    if next(iter(kwargs)) in SERVES_NOW:
-        eng = _serves_a10_lane(weights, **kwargs)
-        assert eng.stats[SERVES_NOW[next(iter(kwargs))]] > 0
+    if "mesh" in kwargs:
+        with pytest.raises(NotImplementedError, match=item):
+            launch.main(["--arch", "llama3-8b", "--reduced", "--mesh", kwargs["mesh"],
+                         "--device", "cpu"])
         return
     with pytest.raises(NotImplementedError, match=item):
         ContinuousBatchingEngine(TCFG, weights[1], n_slots=2, max_len=32,
@@ -173,10 +184,11 @@ def test_mtp_drafter_waits_for_its_family():
 
 
 @pytest.mark.parametrize("kwargs,item", [({"temperature": 0.7}, "A.7"),
-                                         ({"deadline_s": 1.0}, "A.10")])
+                                         ({"deadline_s": 3600.0}, "A.10")])
 def test_later_slice_request_options_raise(weights, kwargs, item):
-    """Request deadlines (A.10) still raise; a sampled request (A.7) serves
-    its budget, and its seeded stream repeats itself."""
+    """Request options of items ported since serve: a sampled request (A.7)
+    serves its budget and its seeded stream repeats itself; a request with a
+    roomy deadline (A.10) serves the plain engine's stream."""
     if item in PORTED_SINCE:
         outs = []
         for _ in range(2):
@@ -186,6 +198,10 @@ def test_later_slice_request_options_raise(weights, kwargs, item):
             eng.drain()
             outs.append(req.output)
         assert len(outs[0]) == 4 and outs[0] == outs[1]
+        if "deadline_s" in kwargs:
+            plain = ContinuousBatchingEngine(TCFG, weights[1], n_slots=1, max_len=32,
+                                             device="cpu").generate_all([[1, 2]], 4)
+            assert outs[0] == plain[0] and eng.stats["timeouts"] == 0
         return
     eng = ContinuousBatchingEngine(TCFG, weights[1], n_slots=1, max_len=32, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
@@ -224,6 +240,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(mods) >= 15, mods\n"
+        "new = {'repro_torch.ft.failures', 'repro_torch.serve.server', 'repro_torch.launch.serve'}\n"
+        "assert new <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -233,7 +251,9 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def test_port_sources_name_no_jax_import():
-    for path in (SRC / "repro_torch").rglob("*.py"):
+    paths = [*(SRC / "repro_torch").rglob("*.py"), SRC.parent / "chip_smoke.py"]
+    assert {"failures.py", "server.py", "serve.py", "chip_smoke.py"} <= {p.name for p in paths}
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -252,6 +272,8 @@ def _entry_points(tp):
         "init_cache": lambda: TKV.init_cache(2, 2, 8, 2, 16),
         "Engine": lambda: Engine(cfg=TCFG, params=tp),
         "ContinuousBatchingEngine": lambda: ContinuousBatchingEngine(TCFG, tp),
+        "launch.serve": lambda: launch.main(["--arch", "llama3-8b", "--reduced", "--serve",
+                                             "--requests", "1"]),
         "convert": lambda: convert.from_numpy({"embed": {"w": np.zeros((2, 2), np.float32)},
                                                "groups": ()}),
     }

@@ -38,6 +38,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.serve.engine import ContinuousBatchingEngine, Engine
 from repro_torch.serve.quantize import quantize_tree as t_quantize_tree
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ("opt-30b", "granite-3-8b", "phi3-mini-3.8b")
 BACKENDS = ("dense", "ref_int8", "fused_int8", "pim_bitserial")

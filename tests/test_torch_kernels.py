@@ -23,6 +23,7 @@ from repro_torch.kernels import pim_mvm as pim
 from repro_torch.kernels import layer_norm as lnk
 from repro_torch.kernels import rms_norm as rn
 from repro_torch.kernels import ssd_chunk as ssd
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # M of 1, 3 and 8; K and N tails off the TPU's 512 / 128 tiling; the verify
 # M (20, 28), one and a bit of four n8 tiles (32, 33) and M past one pass

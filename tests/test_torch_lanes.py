@@ -32,6 +32,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.serve.engine import ContinuousBatchingEngine, device_topk
 from repro_torch.serve.scheduler import Request, RequestState
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 JCFG = JR.get("llama3-8b").reduced()
 TCFG = TR.get("llama3-8b").reduced()
@@ -380,7 +381,7 @@ class TestChunkedPrefill:
                                                        (100, None)])
     def test_engine_counts_the_pieces_it_runs(self, llama, monkeypatch, chunk,
                                               max_step_tokens):
-        """The engine's ``prefill_pieces`` stat equals the prefill pieces its
+        """The engine's ``prefill_pieces`` count equals the prefill pieces its
         admissions run: ``prefill_pieces`` of the bucket one-shot,
         ``chunk_pieces`` a chunk (a chunk, or a budget-cut one, that crosses
         a piece boundary runs both pieces)."""
@@ -395,7 +396,7 @@ class TestChunkedPrefill:
             kw["max_step_tokens"] = max_step_tokens
         eng = _engine(llama[1], max_len=160, **kw)
         _serve(eng, prompts, [2] * len(prompts))
-        assert eng.stats["prefill_pieces"] == len(ran) > len(prompts)
+        assert eng.prefill_pieces == len(ran) > len(prompts)
 
     @pytest.mark.parametrize("cursor,n,want", [(0, 64, 1), (0, 65, 2), (60, 8, 2),
                                                (64, 1, 1), (100, 100, 3)])

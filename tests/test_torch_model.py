@@ -25,6 +25,7 @@ from repro_torch.core import kvcache as TKV
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.serve.quantize import quantize_tree as t_quantize_tree
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BACKENDS = ["dense", "ref_int8", "fused_int8", "pim_bitserial"]
 JCFG = JR.get("llama3-8b").reduced()

@@ -40,6 +40,7 @@ from repro_torch.core.pim import energy as T_energy
 from repro_torch.core.pim import latency as T_latency
 from repro_torch.core.pim import params as T_params
 from repro_torch.core.pim import rc as T_rc
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MOD = {"params": (J_params, T_params), "rc": (J_rc, T_rc),
        "latency": (J_latency, T_latency), "energy": (J_energy, T_energy),

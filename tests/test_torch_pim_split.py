@@ -30,6 +30,7 @@ from repro.kernels.pim_mvm import ops as j_pim_ops, ref as j_pim_ref
 from repro_torch.core import quant as tq
 from repro_torch.kernels import int8_matmul as mm
 from repro_torch.kernels import pim_mvm as pim
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BK, BN, WARP_COLS = 128, 64, 16
 ROW_SIZES, MAX_ROWS = (1, 4, 8, 16, 24, 32), 32   # compiled rows of x a pass

@@ -36,6 +36,7 @@ from repro_torch.models.transformer import Runtime
 from repro_torch.serve import faults as TF
 from repro_torch.serve.engine import ContinuousBatchingEngine as TCB
 from repro_torch.serve.prefix_cache import RadixPrefixCache
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ("llama3-8b", "opt-125m")
 SKIP = ("device_s", "step_s", "xfer_bytes")   # clocks; xfer_bytes: see _same_stats
@@ -520,8 +521,8 @@ def test_swapped_rows_return_verbatim(model):
 
 def test_gating_and_stats_schema(model):
     """The prefix cache needs chunked prefill; SSM stacks turn it off
-    silently; the feature keys exist only when the feature is on; faults=
-    and deadlines still raise naming A.10."""
+    silently; the feature keys exist only when the feature is on (the
+    fault layer's too, since it is wired in), and a deadline is taken."""
     _, tcfg, _, tp = model
     with pytest.raises(ValueError, match="chunked prefill"):
         TCB(tcfg, tp, n_slots=2, max_len=48, prefix_cache=True, device="cpu")
@@ -533,10 +534,10 @@ def test_gating_and_stats_schema(model):
             "swap_ins", "swap_out_bytes", "swap_in_bytes", "swap_out_cycles",
             "swap_in_cycles", "preempt_swaps", "preempt_recomputes"} <= set(on.stats)
     assert isinstance(on._pcache, RadixPrefixCache)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        TCB(tcfg, tp, n_slots=2, max_len=48, faults=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        on.submit([1, 2], 2, deadline_s=1.0)
+    assert "ecc_checks" not in on.stats
+    ft = TCB(tcfg, tp, n_slots=2, max_len=48, faults=True, device="cpu")
+    assert ft._ft is not None and {"ecc_checks", "quarantined_slots"} <= set(ft.stats)
+    assert on.submit([1, 2], 2, deadline_s=1.0).deadline_s == 1.0
     with pytest.raises(ValueError):
         TCB(tcfg, tp, n_slots=2, max_len=48, drain_stall_limit=0, device="cpu")
     ssm_cfg = TR.get("mamba2-2.7b").reduced()

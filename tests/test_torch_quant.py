@@ -11,6 +11,7 @@ import torch
 
 from repro.core import quant as jq
 from repro_torch.core import quant as tq
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPES = [(7, 33), (64, 128), (3, 300)]
 

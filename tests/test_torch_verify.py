@@ -41,6 +41,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.serve import drafter as TD
 from repro_torch.serve.engine import ContinuousBatchingEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 JCFG = JR.get("llama3-8b").reduced()
 TCFG = TR.get("llama3-8b").reduced()

@@ -67,10 +67,10 @@ Phases (any failure makes the script exit non-zero):
    window's K/V entries equal sequential decode's in every layer;
 ``prefix``: the radix prefix cache and the tiered KV pool on llama3-8b at
    full width (4 slots, ``max_len`` 1024, ``chunk`` 64): which division
-   ``quantize_kv`` runs on the card and whether a dequantize-requantize
-   round trip keeps its scales (recorded: a warm finalize writes only the
-   rows past the cached prefix, so the cached rows keep their bits either
-   way); a trace of 3 groups of 4 requests sharing a 384-token system
+   the three quantizers run on the card, over a row for every float32
+   mantissa in [1, 2) (gated: IEEE ``amax / 127`` in all three), and
+   whether a dequantize-requantize round trip of ``quantize_kv`` keeps its
+   scales and codes (gated: it moves none); a trace of 3 groups of 4 requests sharing a 384-token system
    prompt each, served without the cache, with it (each group's leader to
    completion, then its 3 followers: gated to 9 warm admissions of 384-388
    tokens whose sum is ``prefill_tokens_saved``), and with a small cache
@@ -132,19 +132,37 @@ Phases (any failure makes the script exit non-zero):
    (each lane gated 8 of 8 equal to the plain trace; its ``fused_int8``
    run's LayerNorm launches are what the ``kernels`` line reports), and its
    captured decode step gated bit-equal to eager over 8 steps with its
-   replayed wall, device-busy time and idle share; then granite-3-8b and
-   phi3-mini-3.8b at full width and depth, each with B1 / B5 / B2-B4 at
-   its shapes (phi3's attention at G 32, rep 1, D 96), its reduced config
+   replayed wall, device-busy time and idle share; then granite-3-8b (8 of
+   its 40 layers) and phi3-mini-3.8b (8 of its 32) at full width, each with
+   B1 / B5 / B2-B4 at its shapes (phi3's attention at G 32, rep 1, D 96), its reduced config
    on the card against the CPU, served under ``fused_int8``,
    ``pim_bitserial`` and ``ref_int8`` (``pim_bitserial`` gated
    token-identical to ``ref_int8``; where ``fused_int8`` parts from them, a
    single-request rerun must reproduce the fused lane's token at a gap
    smaller than the two lanes' logit rows lie apart, within 10% of the
-   logit scale), and its captured decode step against eager.
+   logit scale), and its captured decode step against eager; then
+   chameleon-34b (d 8192, 64 heads of 128 in 8 groups, QK-norm, ff 22016
+   SwiGLU, untied vocab 65536, embedding inputs) at full width with 16 of
+   its 48 layers (133 GB of f32 weights at 48; 44.3 GB at 16): B1 / B5 at
+   K 8192 and 22016, B2-B4 at G 8, rep 8, D 128, QK-norm's rows through
+   the RMSNorm kernel row-invariant at 1, 4, 20 and 28 tokens a call, the
+   reduced model prefilled from embeddings on the card against the CPU,
+   the three backends (``pim_bitserial`` gated equal to ``ref_int8``,
+   ``fused_int8`` held as granite's), ``Engine`` from a [4, 64, 8192]
+   embedding prompt for 16 steps with exact launch counts, ``spec_k = 4``
+   and ``spec_tree = 6, spec_branch = 2`` gated 8 of 8 equal to the plain
+   ``fused_int8`` trace with the verify window's K/V equal to sequential
+   decode's, and its captured decode step; and nemotron-4-340b (d 18432,
+   96 heads of 192 in 8 groups, relu2, ff 73728, untied vocab 256000) at
+   full width with 2 of its 96 layers (65.4 GB of f32 weights; 3 layers do
+   not fit): B1 / B5 at its linears (K up to 73728), B2-B4 at G 8, rep 12,
+   D 192 (the body's wider instance) also across pool sizes, the reduced
+   model, the three backends, and its captured decode step; each family's
+   peak device memory recorded.
 
 Every path runs a row-invariant norm kernel for every norm on the card
-(``rms_norm``, or ``layer_norm`` for OPT); each serve run's launch counts
-include it.
+(``rms_norm``, or ``layer_norm`` for OPT; QK-norm's two a layer through
+``rms_norm``); each serve run's launch counts include it.
 
 The script prints its seconds; its last three lines are the
 ``kernels`` JSON, the ``nvidia-smi`` name and power limit, and
@@ -238,7 +256,8 @@ class Smoke:
             import traceback
             traceback.print_exc()
             self.failures.append(f"{name}: {type(e).__name__}: {e}")
-        print(f"   {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        self.record.setdefault("phase_s", {})[name] = time.perf_counter() - t0
+        print(f"   {name}: {self.record['phase_s'][name]:.1f} s", flush=True)
 
 
 def copies(torch, make, n_bytes: int) -> list:
@@ -274,28 +293,35 @@ def phase_build(torch, build) -> dict:
 
 def attn_body_resources(log: str) -> list:
     """Registers, spilled bytes and static shared memory of each mask's
-    instantiation of the attention body (B2 0, B3 1, B4 2), read from
-    ``ptxas -v``; empty when the library was already built."""
+    instantiation of the attention body (B2 0, B3 1, B4 2) at each head-dim
+    instance (128: D <= 128; 192: above, whose shared memory is dynamic),
+    read from ``ptxas -v``; empty when the library was already built."""
     import re
-    rows, mask = [], None
+
+    from repro_torch.kernels import decode_attn as da
+    rows, cur = [], None
     for ln in log.splitlines():
-        m = re.search(r"attn_kernelILi(\d)E", ln)
+        m = re.search(r"attn_kernelILi(\d)ELi(\d+)E", ln)
         if m and "Compiling entry" in ln:
-            mask = int(m.group(1))
-            rows.append({"mask": mask})
+            cur = {"mask": int(m.group(1)), "dm": int(m.group(2)),
+                   "smem_bytes_a_cta": da.smem_bytes(int(m.group(2)))}
+            rows.append(cur)
             continue
-        if mask is None:
+        if cur is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
-            rows[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
         if m:
-            rows[-1].update(registers=int(m.group(1)), smem_bytes=int(m.group(2)))
-    for r in sorted(rows, key=lambda r: r["mask"]):
-        print(f"   decode_attn body, mask {r['mask']}: {r.get('registers')} registers, "
-              f"{r.get('spill_bytes')} bytes spilled, {r.get('smem_bytes')} bytes shared "
-              f"memory a CTA (static), 128 threads, clusters of 8 CTAs")
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem_bytes"] = int(m.group(1)) if m else 0
+    for r in sorted(rows, key=lambda r: (r["dm"], r["mask"])):
+        print(f"   decode_attn body, D <= {r['dm']}, mask {r['mask']}: {r.get('registers')} "
+              f"registers, {r.get('spill_bytes')} bytes spilled, {r['smem_bytes_a_cta']} bytes "
+              f"shared memory a CTA ({r.get('static_smem_bytes')} static), 128 threads, "
+              f"clusters of 8 CTAs")
     return rows
 
 
@@ -713,11 +739,13 @@ def profile_step(torch, fn, what: str = "decode") -> dict:
     kernels: dict[str, list] = {}
     kinds = {"kernel": 0, "memset": 0, "memcpy": 0}
     hand = dict.fromkeys(DEVICE_KERNELS.values(), 0)
+    fills = 0
     for e in prof.events():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             for name in hand:
                 if name in e.name:
                     hand[name] += 1
+            fills += "FillFunctor" in e.name
             k = kernels.setdefault(e.name[:60], [0, 0.0])
             k[0] += 1
             k[1] += e.time_range.elapsed_us()
@@ -729,6 +757,7 @@ def profile_step(torch, fn, what: str = "decode") -> dict:
     out = {"wall_us": wall_us, "device_busy_us": busy,
            "idle_share": max(0.0, 1 - busy / wall_us),
            "device_kernels": sum(v[0] for v in kernels.values()),
+           "fill_kernels": fills,
            "device_events_by_kind": kinds, "hand_kernels": hand,
            "top_kernels": [{"name": n, "count": c, "us": u} for n, (c, u) in
                            sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]],
@@ -736,7 +765,7 @@ def profile_step(torch, fn, what: str = "decode") -> dict:
                              "self_cpu_us": a.self_cpu_time_total} for a in host]}
     print(f"   one {what} step: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {out['idle_share']:.3f}, "
-          f"{out['device_kernels']} device events {kinds}")
+          f"{out['device_kernels']} device events {kinds}, {out['fill_kernels']} fills")
     for k in out["top_kernels"]:
         print(f"     kernel {k['name']:60s} x{k['count']:4d} {k['us']:9.1f} us")
     for h in out["top_host_ops"]:
@@ -844,11 +873,12 @@ def phase_engine(torch, ctx) -> dict:
     return out
 
 
-def reduced_vs_cpu(torch, cfg) -> dict:
+def reduced_vs_cpu(torch, cfg, embeddings: bool = False) -> dict:
     """A small input against a reference: the reduced model under
     ``fused_int8`` on the card (kernels) and on the CPU (plain versions),
-    prefill plus one decode step from the same weights and prompts, within
-    2% of the logit scale, argmax equal."""
+    prefill (from [2, 24, d] embeddings where ``embeddings``) plus one
+    decode step from the same weights and prompts, within 2% of the logit
+    scale, argmax equal."""
     from repro_torch import convert
     from repro_torch.models import model as M
     from repro_torch.models.transformer import Runtime
@@ -859,8 +889,10 @@ def reduced_vs_cpu(torch, cfg) -> dict:
     rp_gpu = convert.to_device(rp_cpu, "cuda")
     rq_cpu = quantize_tree(rp_cpu)
     rq_gpu = convert.to_device(rq_cpu, "cuda")
-    rprompts = torch.randint(0, rcfg.vocab_size, (2, 24),
-                             generator=torch.Generator().manual_seed(3))
+    rprompts = (torch.randn((2, 24, rcfg.d_model), generator=torch.Generator().manual_seed(3))
+                * 0.5 if embeddings else
+                torch.randint(0, rcfg.vocab_size, (2, 24),
+                              generator=torch.Generator().manual_seed(3)))
     rt = Runtime("fused_int8")
     res, out = {}, {}
     for dev, p, q in (("cpu", rp_cpu, rq_cpu), ("cuda", rp_gpu, rq_gpu)):
@@ -875,7 +907,8 @@ def reduced_vs_cpu(torch, cfg) -> dict:
             raise AssertionError(f"reduced {what}: card vs cpu max diff {d} (scale {sc})")
         out[f"reduced_{what}_max_abs"] = d
         out[f"reduced_{what}_logit_scale"] = sc
-    print(f"   reduced {cfg.name}, card (kernels) vs CPU (plain): prefill max |diff| "
+    print(f"   reduced {cfg.name}{' from embeddings' if embeddings else ''}, card (kernels) "
+          f"vs CPU (plain): prefill max |diff| "
           f"{out['reduced_prefill_max_abs']:.3g} of {out['reduced_prefill_logit_scale']:.3g}, "
           f"decode {out['reduced_decode_max_abs']:.3g} of "
           f"{out['reduced_decode_logit_scale']:.3g}, argmax equal")
@@ -900,7 +933,7 @@ def norm_kernel(cfg) -> str:
 def linears_per_layer(cfg) -> int:
     """W8A8 linears of one layer's step: a mamba2 layer's w_z, w_x and
     out_proj; an attention layer's wq, wk, wv, wo and its MLP's w_up and
-    w_down, with w_gate under SwiGLU."""
+    w_down, with w_gate under SwiGLU (gelu and relu2: 6)."""
     if cfg.family == "ssm":
         return 3
     return 4 + (3 if cfg.mlp_type == "swiglu" else 2)
@@ -912,7 +945,7 @@ def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
     prefill per prompt (or ``prefills`` prefill calls: the chunks of a
     chunked admission, an admission again after a preemption): each norm one
     launch of the configuration's norm kernel (two a layer, one for
-    ``ln_f``); under ``fused_int8`` an attention layer's step one B1 launch
+    ``ln_f``), and under QK-norm two RMSNorm launches more a layer; under ``fused_int8`` an attention layer's step one B1 launch
     a linear (7 for llama's SwiGLU, 6 for OPT's gelu) and one of ``attn``,
     a mamba2 layer's step 3 B1 launches (w_z, w_x, out_proj), and a mamba2
     prefill one B6 launch per layer and 128-token chunk (float weights: no
@@ -923,6 +956,8 @@ def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
     want = {"int8_matmul": 0, "pim_mvm": 0, "decode_attn": 0, "verify_attn": 0,
             "verify_tree_attn": 0, "ssd_chunk": 0, "rms_norm": 0, "layer_norm": 0}
     want[norm_kernel(cfg)] = (2 * L + 1) * (steps + prefills)
+    if cfg.use_qk_norm:          # q and k of every attention layer: RMSNorm on rows of D
+        want["rms_norm"] += 2 * L * (steps + prefills)
     if backend == "pim_bitserial":
         want["pim_mvm"] = linears_per_layer(cfg) * L * steps
     if backend == "fused_int8":
@@ -947,6 +982,9 @@ def prefill_calls(cb, reqs) -> int:
                for r in reqs)
 
 
+SERVE_SLOTS, SERVE_ROWS = 4, 256     # the phase-4 trace's pool: slots, rows a slot
+
+
 def serve(torch, cfg, params, lane: dict, attn: str | None,
           backend: str = "fused_int8", request=None) -> tuple:
     """Serve the trace on 4 slots (``max_len`` 256) under ``backend`` with
@@ -958,7 +996,7 @@ def serve(torch, cfg, params, lane: dict, attn: str | None,
     from repro_torch.models.transformer import Runtime
     from repro_torch.serve.engine import ContinuousBatchingEngine
 
-    cb = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=256,
+    cb = ContinuousBatchingEngine(cfg, params, n_slots=SERVE_SLOTS, max_len=SERVE_ROWS,
                                   rt=Runtime(backend), **lane)
     prompts, budgets = serve_trace(cfg.vocab_size)
     torch.cuda.synchronize()
@@ -1125,22 +1163,23 @@ def verify_case(torch, da, va, vt, quant, drafter, name: str, T: int, max_len: i
                       "pos": pos.tolist(), "row_blocks": -(-T * rep // 16)}}
 
 
-def cross_pool(torch, da, va, vt, quant) -> dict:
+def cross_pool(torch, da, va, vt, quant, attn: tuple = LLAMA_ATTN,
+               shapes: tuple = CROSS_POOL) -> dict:
     """B3's rows and B4's on a chain (T 5, the ``spec_k`` window) in a pool
     of max_len + T - 1 rows against B2 in a pool of max_len rows holding the
     same live K/V, bit for bit (gated), at cursors whose rows cross chunk
-    boundaries."""
+    boundaries, at the (B, G, rep, D) of ``attn``."""
     g = torch.Generator(device="cuda").manual_seed(6)
     T, out = 5, {}
-    for max_len, pos in CROSS_POOL:
-        q_q, q_s = window_q(torch, va, g, T)
-        cache = kv_pool(torch, quant, g, max_len + T - 1)
+    for max_len, pos in shapes:
+        q_q, q_s = window_q(torch, va, g, T, attn)
+        cache = kv_pool(torch, quant, g, max_len + T - 1, attn)
         small = tuple(c[:, :max_len].contiguous() for c in cache)
         pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
         lengths = (pos_t[:, None] + torch.arange(1, T + 1, dtype=torch.int32,
                                                  device="cuda")).contiguous()
         b3 = va.verify_attn_cuda(q_q, q_s, *cache, lengths)
-        b4 = vt.verify_tree_attn_cuda(q_q, q_s, *cache, pos_t, chain_anc(torch, ATTN_B, T))
+        b4 = vt.verify_tree_attn_cuda(q_q, q_s, *cache, pos_t, chain_anc(torch, attn[0], T))
         rows = []
         for t in range(T):
             b2 = da.decode_attn_cuda(q_q[:, :, t].contiguous(), q_s[:, :, t].contiguous(),
@@ -1148,7 +1187,7 @@ def cross_pool(torch, da, va, vt, quant) -> dict:
             rows.append([torch.equal(b3[:, :, t], b2), torch.equal(b4[:, :, t], b2)])
         out[max_len] = {"pos": list(pos), "rows_b3_b4_eq_b2": rows}
         print(f"   across pools (B3 / B4 chain at S {max_len + T - 1}, B2 at S {max_len}), "
-              f"cursors {list(pos)}: rows equal {rows}")
+              f"(B, G, rep, D) {attn}, cursors {list(pos)}: rows equal {rows}")
         if not all(all(r) for r in rows):
             raise AssertionError(f"B3 / B4 rows differ from B2 across pools at max_len "
                                  f"{max_len}: {rows}")
@@ -1331,14 +1370,20 @@ def full_width_parity(torch, params, cfg, q, state, toks) -> dict:
 
 
 def decode_margin(torch, cfg, params, qparams, prompt: list, prefix: list,
-                  toks: tuple, backend: str = "fused_int8") -> dict:
+                  toks: tuple, backend: str = "fused_int8", slots: int = 1,
+                  rows: int | None = None) -> dict:
     """The logits that chose output token ``len(prefix)`` of a request in a
     lane, from a single-request rerun of it under ``backend`` (the engine's
     prefill, bucketed to 16 and masked to the prompt, or at exact length for
     an SSM, then ``prefix`` fed back one decode step at a time; every stage
     but the ``lm_head`` and an SSM's float projections is row-invariant, so
     these are the lane's logits up to its last bits): the two candidate
-    tokens' logits, their gap, the gap between the best two, and the row."""
+    tokens' logits, their gap, the gap between the best two, and the row.
+    With ``slots`` and ``rows`` the rerun has the served steps' shapes: the
+    prefilled request is copied into each of ``slots`` slots of ``rows``
+    rows, so the plain attention sums over the served pool's rows and the
+    ``lm_head`` and an SSM's projections run at M ``slots``; the row is
+    slot 0's."""
     from repro_torch.models import model as M
     from repro_torch.models.transformer import Runtime
 
@@ -1349,10 +1394,14 @@ def decode_margin(torch, cfg, params, qparams, prompt: list, prefix: list,
         padded = prompt + [0] * (-len(prompt) % 16)
         batch = {"lengths": torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")}
     lg, st = M.prefill(params, cfg, dict(batch, inputs=torch.tensor([padded], device="cuda")),
-                       len(padded) + len(prefix) + 1, rt)
+                       rows or len(padded) + len(prefix) + 1, rt)
+    if slots > 1:
+        st = {"layers": [{k: v.repeat(slots, *[1] * (v.dim() - 1)) for k, v in c.items()}
+                         for c in st["layers"]],
+              "pos": st["pos"].repeat(slots)}
     for tok in prefix:
-        lg, st = M.decode_step(qparams, cfg, st, torch.tensor([tok], dtype=torch.int32,
-                                                               device="cuda"), rt)
+        lg, st = M.decode_step(qparams, cfg, st, torch.full((slots,), tok, dtype=torch.int32,
+                                                             device="cuda"), rt)
     row = lg[0].float()
     top = torch.topk(row, 2).values
     a, b = (float(row[t]) for t in toks)
@@ -1519,7 +1568,8 @@ def same_state(torch, a: dict, b: dict) -> list[str]:
     return bad + ([] if torch.equal(a["pos"], b["pos"]) else ["pos"])
 
 
-def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0) -> dict:
+def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0,
+                    release=None, fresh: bool = False) -> dict:
     """``GRAPH_STEPS`` consecutive steps of one kind (``decode``, ``verify``
     at T ``width``, ``tree`` at T ``width``, ``multi``: a fused block of m
     ``width``, m replays of the decode graph), replayed from the engine's
@@ -1532,7 +1582,12 @@ def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0)
     ``PROFILE_TRIES`` times, then once in a fresh process, since a profile
     can miss records), and its device events of each hand kernel must
     equal the launches the replay credits: the graph runs the kernels it is
-    credited with."""
+    credited with; where the fresh process profiles, its record is the
+    step's profile.  With ``fresh`` only the fresh process profiles (phases
+    ``ssm`` and ``families``, late in this process).  ``release`` (optional) drops the caller's references
+    to ``qparams`` and ``state``: it is called before a fresh process
+    profiles, so that a model that fills the card leaves it the memory
+    (the steps and the replayed state then come back as None)."""
     import numpy as np
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import graphs as G
@@ -1621,9 +1676,12 @@ def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0)
     # equal the credits shows the graph runs the kernels it is credited
     # with.  Late in this long process a profile of mamba2's replay missed
     # 5 of its 4,615 records in every try, while a fresh process missed
-    # none, so the last resort is a fresh process's profile of the same step
+    # none, so the last resort is a fresh process's profile of the same step.
+    # Later still, a profile that held every record of OPT-30B's replay
+    # (1,762) summed B1's 96 launches to 2.21 ms, half their CUDA-event
+    # time: there, only a fresh process profiles
     credited, rec["profile_tries"] = device_launches(per), []
-    for _ in range(PROFILE_TRIES):
+    for _ in range(0 if fresh else PROFILE_TRIES):
         rec["profile"] = profile_step(torch, call, f"replayed {kind}")
         ran = rec["profile"]["hand_kernels"]
         rec["profile_tries"].append(ran)
@@ -1633,22 +1691,31 @@ def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0)
         if ran == credited:
             break
     else:
-        torch.cuda.empty_cache()        # the child needs the card's memory
-        ran = profile_in_child(cfg, kind, width)
+        if release is not None:         # the child needs the card's memory
+            release()
+            del qparams, state, eager, call
+            steps = replay = None
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["profile"] = profile_in_child(cfg, kind, width)
+        ran = rec["profile"]["hand_kernels"]
         rec["profile_tries"].append({"fresh_process": ran})
         if ran != credited:
-            raise AssertionError(f"{kind}: {PROFILE_TRIES} profiled replays and one in a "
-                                 f"fresh process ran {rec['profile_tries']} hand-kernel "
-                                 f"events, credited {credited}")
+            raise AssertionError(f"{kind}: {len(rec['profile_tries']) - 1} profiled replays "
+                                 f"here and one in a fresh process ran "
+                                 f"{rec['profile_tries']} hand-kernel events, credited "
+                                 f"{credited}")
     print(f"   {kind}: the profiled replay ran the credited kernels {ran} "
           f"(profile {len(rec['profile_tries'])} of at most {PROFILE_TRIES + 1})")
     return rec, steps, replay
 
 
 def replay_profile_child(arch: str, kind: str, width: int, n_layers: int) -> dict:
-    """The hand-kernel events of one profiled replay of ``kind`` at
-    ``width`` (as in :func:`replay_vs_eager`) of ``arch`` at full width and
-    ``n_layers`` layers on a fresh 4-slot pool at ragged cursors; run by
+    """The :func:`profile_step` record (hand-kernel events, wall, device-busy
+    time, idle share) of one profiled replay of ``kind`` at ``width`` (as in
+    :func:`replay_vs_eager`) of ``arch`` at full width and ``n_layers``
+    layers on a fresh 4-slot pool at ragged cursors; run by
     :func:`profile_in_child` in a process of its own."""
     import dataclasses
 
@@ -1673,12 +1740,13 @@ def replay_profile_child(arch: str, kind: str, width: int, n_layers: int) -> dic
                          tree=(width,) if kind == "tree" else ())
     return profile_step(torch, lambda: getattr(steps, kind)(*(() if kind == "decode"
                                                               else (width,))),
-                        f"replayed {kind} (fresh process)")["hand_kernels"]
+                        f"replayed {kind} (fresh process)")
 
 
 def profile_in_child(cfg, kind: str, width: int) -> dict:
     """:func:`replay_profile_child` in a fresh Python process (waited for,
-    killed at its time limit); a child that fails fails the caller."""
+    killed at its time limit): its :func:`profile_step` record; a child
+    that fails fails the caller."""
     code = ("import json, sys; sys.path[:0] = ['src', '.']; import torch; "
             "import chip_smoke as S; print('CHILD ' + json.dumps("
             "S.replay_profile_child(sys.argv[1], sys.argv[2], int(sys.argv[3]), "
@@ -1691,8 +1759,11 @@ def profile_in_child(cfg, kind: str, width: int) -> dict:
     if child.returncode != 0 or line is None:
         raise AssertionError(f"{kind}: the fresh-process profile failed (exit "
                              f"{child.returncode}): {child.stderr[-2000:]}")
-    print(f"   {kind}: a fresh process's profiled replay ran {line[6:]}")
-    return json.loads(line[6:])
+    prof = json.loads(line[6:])
+    print(f"   {kind}: a fresh process's profiled replay ran {prof['hand_kernels']}: wall "
+          f"{prof['wall_us'] / 1e3:.2f} ms, device busy {prof['device_busy_us'] / 1e3:.2f} ms, "
+          f"idle share {prof['idle_share']:.3f}, {prof['device_kernels']} device events")
+    return prof
 
 
 def drafter_tree(width: int) -> tuple[list[int], list[int]]:
@@ -1811,38 +1882,48 @@ def prefix_trace(vocab_size: int) -> tuple[list, list, list]:
 
 
 def quantize_round_trip(torch) -> dict:
-    """Which division ``quantize_kv`` runs on the card, and whether its
-    scales come back after dequantizing: a row whose largest magnitude is
-    each of the 2^23 floats in [1, 2) (every mantissa), its scale against
-    float32 ``amax / 127`` (IEEE division) and ``amax * fl(1/127)`` (a
-    multiply by the reciprocal) computed on the host, then the quantized
-    rows dequantized and quantized again."""
+    """The three quantizers' division on the card, and whether
+    ``quantize_kv``'s scales come back after dequantizing: rows whose largest
+    magnitude is each of the 2^23 floats in [1, 2) (every mantissa), each
+    quantizer's scales against float32 ``amax / 127`` (IEEE division) and
+    ``amax * fl(1/127)`` (a multiply by the reciprocal) computed on the host
+    (gated: IEEE division in all three), then ``quantize_kv``'s rows
+    dequantized and quantized again (gated: no scale and no code moves)."""
     import numpy as np
     from repro_torch.core import quant
 
     amax = (np.arange(1 << 23, dtype=np.uint32) | np.uint32(127 << 23)).view(np.float32)
-    x = torch.from_numpy(np.stack([amax, -0.5 * amax], -1)[:, None, :]).cuda()
-    q, s = quant.quantize_kv(x)
-    card = s.reshape(-1).cpu().numpy()
+    rows = torch.from_numpy(np.stack([amax, -0.5 * amax], -1)).cuda()
     ieee = amax / np.float32(127.0)
     recip = amax * (np.float32(1.0) / np.float32(127.0))
+    out = {"n_scales": int(amax.size), "ieee_ne_reciprocal": int((ieee != recip).sum()),
+           "quantizers": {}}
+    for name, fn in (("quantize_weight", lambda x: quant.quantize_weight(x.T, axis=0)),
+                     ("quantize_activation", quant.quantize_activation),
+                     ("quantize_kv", lambda x: quant.quantize_kv(x[:, None, :]))):
+        card = fn(rows)[1].reshape(-1).cpu().numpy()
+        rec = {"card_ne_ieee_division": int((card != ieee).sum()),
+               "card_ne_reciprocal_multiply": int((card != recip).sum())}
+        rec["division"] = ("ieee" if not rec["card_ne_ieee_division"] else
+                           "reciprocal" if not rec["card_ne_reciprocal_multiply"] else "neither")
+        out["quantizers"][name] = rec
+        print(f"   {name} on the card: scale = amax / 127 as {rec['division']} (differs "
+              f"from IEEE division in {rec['card_ne_ieee_division']} and from a reciprocal "
+              f"multiply in {rec['card_ne_reciprocal_multiply']} of {out['n_scales']} "
+              f"mantissas)")
+    q, s = quant.quantize_kv(rows[:, None, :])
     q2, s2 = quant.quantize_kv(quant.dequantize_kv(q, s))
-    out = {"n_scales": int(amax.size),
-           "card_ne_ieee_division": int((card != ieee).sum()),
-           "card_ne_reciprocal_multiply": int((card != recip).sum()),
-           "ieee_ne_reciprocal": int((ieee != recip).sum()),
-           "round_trip_scale_drift": int((s2 != s).sum()),
-           "round_trip_code_drift": int((q2 != q).sum())}
-    out["division"] = ("ieee" if not out["card_ne_ieee_division"] else
-                       "reciprocal" if not out["card_ne_reciprocal_multiply"] else "neither")
-    print(f"   quantize_kv on the card: scale = amax / 127 as {out['division']} "
-          f"(differs from IEEE division in {out['card_ne_ieee_division']} and from a "
-          f"reciprocal multiply in {out['card_ne_reciprocal_multiply']} of "
-          f"{out['n_scales']} mantissas); dequantize -> quantize moves "
-          f"{out['round_trip_scale_drift']} scales and {out['round_trip_code_drift']} codes")
-    if out["division"] == "neither":
-        raise AssertionError("quantize_kv's scales match neither division")
-    del x, q, s, q2, s2
+    out["round_trip_scale_drift"] = int((s2 != s).sum())
+    out["round_trip_code_drift"] = int((q2 != q).sum())
+    out["division"] = out["quantizers"]["quantize_kv"]["division"]
+    print(f"   quantize_kv: dequantize -> quantize moves {out['round_trip_scale_drift']} "
+          f"scales and {out['round_trip_code_drift']} codes")
+    bad = [k for k, v in out["quantizers"].items() if v["division"] != "ieee"]
+    if bad or out["round_trip_scale_drift"] or out["round_trip_code_drift"]:
+        raise AssertionError(f"quantizers not dividing as IEEE: {bad}; round trip moves "
+                             f"{out['round_trip_scale_drift']} scales, "
+                             f"{out['round_trip_code_drift']} codes")
+    del rows, q, s, q2, s2
     return out
 
 
@@ -2715,7 +2796,8 @@ def ssd_amplification(torch, cfg, params, steps: int = 6) -> dict:
 def divergence_margins(torch, cfg, params, outputs: dict) -> list:
     """For each request where the ``ref_int8`` lane parts from ``fused_int8``,
     both lanes' logits at the first differing token from single-request
-    reruns (:func:`decode_margin`): each lane's gap between the two
+    reruns at the served steps' shapes (:func:`decode_margin`, the request
+    in each of ``SERVE_SLOTS`` slots of ``SERVE_ROWS`` rows): each lane's gap between the two
     candidates, the fused lane's gap between its best two, and how far the
     two lanes' logit rows lie apart there."""
     from repro_torch.serve.quantize import quantize_tree
@@ -2728,7 +2810,8 @@ def divergence_margins(torch, cfg, params, outputs: dict) -> list:
         if d is None:
             continue
         lanes = {k: decode_margin(torch, cfg, params, qparams, prompts[rid], a[:d],
-                                  (a[d], b[d]), k) for k in ("fused_int8", "ref_int8")}
+                                  (a[d], b[d]), k, SERVE_SLOTS, SERVE_ROWS)
+                 for k in ("fused_int8", "ref_int8")}
         f, r = lanes["fused_int8"], lanes["ref_int8"]
         rec = {"rid": rid, "token": d, "tokens": [a[d], b[d]],
                "fused_gap": f["logits"][0] - f["logits"][1],
@@ -2801,7 +2884,7 @@ def serve_mamba2(torch, ctx, cfg) -> dict:
     # the captured decode step (graphs) against eager, every SSM state bit-equal
     pool = ragged_pool(torch, cfg, params, 256, 256)
     out["graph_decode"], steps, _ = replay_vs_eager(torch, cfg, quantize_tree(params),
-                                                    pool, "decode")
+                                                    pool, "decode", fresh=True)
     del pool, steps
     torch.cuda.empty_cache()
 
@@ -2862,11 +2945,25 @@ def phase_ssm(torch, ctx, build: dict | None) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase families: the paper's OPT-30B (16 of its 48 layers), granite-3-8b
-# and phi3-mini-3.8b at full width
+# and phi3-mini-3.8b (8 layers each), chameleon-34b and nemotron-4-340b, at
+# full width
 # ---------------------------------------------------------------------------
 OPT_LAYERS = 16      # of OPT-30B's 48: 118 GB of f32 weights do not fit one card
 OPT_ATTN = (4, 56, 1, 128)         # 4 slots, 56 heads of 128, MHA (rep 1)
 PHI3_ATTN = (4, 32, 1, 96)         # 4 slots, 32 heads of 96, MHA
+# granite-3-8b (of 40) and phi3-mini-3.8b (of 32): a layer adds nothing a
+# first one does not exercise, and each layer costs the script time (the
+# serve runs, the near-tie reruns, a fresh-process profile)
+SHORT_LAYERS = 8
+# chameleon-34b: 48 layers of 0.69 G parameters, 2.77 GB each in f32 (133 GB
+# in all): 16 layers hold 44.3 GB of f32 weights, as OPT-30B's 16 do
+CHAMELEON_LAYERS = 16
+CHAMELEON_ATTN = (4, 8, 8, 128)    # 4 slots, 8 groups of 8 heads of 128
+# nemotron-4-340b: a layer is 3.45 G parameters (13.8 GB in f32, 3.45 GB in
+# int8), its untied embedding and head 18.9 GB each: 2 layers and both take
+# 65.4 GB of f32 and 6.9 GB of int8 weights; 3 would not fit
+NEMOTRON_LAYERS = 2
+NEMOTRON_ATTN = (4, 8, 12, 192)    # 4 slots, 8 groups of 12 heads of 192
 FAMILY_B2 = (512, (1, 200, 377, 512))
 # B3 (spec_k 4) and B4 (spec_tree 6) windows in their lanes' pools of
 # 512 + T - 1 rows, the last cursor a slot at 511
@@ -2968,12 +3065,16 @@ def same_streams(outs: dict, want: list) -> dict:
             for k, v in outs.items()}
 
 
-def serve_family(torch, ctx, cfg, lanes: bool) -> dict:
+ALL_LANES = ("spec_k", "spec_tree", "multi_step_4", "chunk_32_fifo")
+
+
+def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
+                 embed_prompt: bool = False) -> dict:
     """One family at full width (random f32 weights, seed 0) on the card:
     the phase-4 trace under ``fused_int8``, ``pim_bitserial`` and
     ``ref_int8``, every run with exact launch counts.  ``pim_bitserial``
     must equal ``ref_int8`` token for token (B5's sums are the plain int32
-    sums and both run the plain attention).  With ``lanes`` (OPT-30B)
+    sums and both run the plain attention).  With ``exact`` (OPT-30B)
     ``fused_int8`` must equal them too.  Without, a request where
     ``fused_int8`` (B2) parts from ``ref_int8`` (the plain attention) is
     held to :func:`divergence_margins`: a single-request rerun of the fused
@@ -2984,17 +3085,20 @@ def serve_family(torch, ctx, cfg, lanes: bool) -> dict:
     order than the plain attention; a last-bit difference flips an int8
     activation code now and then, and the flips compound over a deep stack
     of random weights (phase ``engine`` holds llama's one step to 10%).
-    The ``ref_int8`` rerun is recorded, not gated: the plain attention's
-    P.V sums in an order set by the pool's size, which the rerun's smaller
-    pool changes.  With ``lanes`` also ``Engine`` (4 prompts of 64
-    tokens, 16 steps), ``spec_k = 4`` and ``spec_tree = 6, spec_branch =
-    2`` (each gated 8 of 8 equal to the plain lane), the verify window's
-    K/V against sequential decode's (gated equal in every layer), and
-    ``multi_step = 4`` and ``chunk = 32`` (gated token-identical to the
-    plain trace); then the captured decode step against eager over 8 steps
-    (gated bit-equal, exact launch counts, a profiled replay's kernels equal
-    to its credits), whose profile gives the replayed step's wall,
-    device-busy time and idle share at 4 slots."""
+    Both reruns run at the served steps' shapes (the plain attention's P.V
+    sums in an order set by the pool's size); whether the ``ref_int8`` rerun
+    picks its lane's token is recorded, not gated.  With ``lanes`` (of ``ALL_LANES``) also ``Engine`` (4
+    prompts of 64 tokens, or of 64 embeddings where ``embed_prompt``; 16
+    steps, exact launch counts), the verify window's K/V against
+    sequential decode's (gated equal in every layer), and the lanes named:
+    ``spec_k = 4``, ``spec_tree = 6, spec_branch = 2``, ``multi_step = 4``
+    and ``chunk = 32``, each gated 8 of 8 equal to the plain
+    ``fused_int8`` trace; then the captured decode step against eager over
+    8 steps (gated bit-equal, exact launch counts, a profiled replay's
+    kernels equal to its credits), whose profile gives the replayed step's
+    wall, device-busy time and idle share at 4 slots.  The peak of device
+    memory over the whole family (initialisation included) is recorded
+    beside the card's total."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
@@ -3002,13 +3106,22 @@ def serve_family(torch, ctx, cfg, lanes: bool) -> dict:
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.quantize import quantize_tree
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    out = {"n_layers": cfg.n_layers, "init_s": time.perf_counter() - t0,
+    secs, t_part = {}, time.perf_counter()
+
+    def part(name):                     # seconds of each part, for the script's budget
+        nonlocal t_part
+        secs[name], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    out = {"n_layers": cfg.n_layers, "init_s": time.perf_counter() - t0, "serve_s": secs,
            "f32_weight_bytes": sum(t.numel() * 4 for lp in params["layers"]
-                                   for t in (lp["attn"] | lp["mlp"]).values())}
-    torch.cuda.reset_peak_memory_stats()
+                                   for t in (lp["attn"] | lp["mlp"]).values()
+                                   if isinstance(t, torch.Tensor)),
+           "f32_embed_head_bytes": sum(params[k]["w"].numel() * 4 for k in ("embed", "lm_head")
+                                       if k in params)}
     outs = {}
     for backend in ("fused_int8", "pim_bitserial", "ref_int8"):
         cb, reqs, wall, counts = serve(torch, cfg, params, {},
@@ -3023,6 +3136,7 @@ def serve_family(torch, ctx, cfg, lanes: bool) -> dict:
               f"{out[backend]['max_memory_allocated'] / 1e9:.1f} GB")
         del cb, reqs
         torch.cuda.empty_cache()
+    part("backends")
     plain = outs["fused_int8"]
     out["backends_vs_fused_int8"] = same_streams(outs, plain)
     out["pim_eq_ref_int8_requests"] = sum(
@@ -3039,26 +3153,34 @@ def serve_family(torch, ctx, cfg, lanes: bool) -> dict:
         far = [m["rid"] for m in margins if not m["fused_reproduced"]
                or abs(m["fused_gap"]) > m["lanes_max_abs_diff"]
                or m["lanes_max_abs_diff"] > 0.1 * m["logit_scale"]]
-        if lanes or far:
+        if exact or far:
             raise AssertionError(f"{cfg.name}: fused_int8 parts from ref_int8 "
                                  f"{out['backends_vs_fused_int8']['ref_int8']}; "
                                  f"unexplained: {far}")
+    part("margins")
     if lanes:
         eng = Engine(cfg=cfg, params=params, rt=Runtime("fused_int8"), max_len=128)
         g = torch.Generator(device="cuda").manual_seed(2)
         prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, device="cuda")
-        eng.generate({"inputs": prompts}, steps=1)                # warm-up
+        # the stubbed front end's embeddings, at the token table's scale
+        inputs = (torch.randn((4, 64, cfg.d_model), generator=g, device="cuda") * 0.02
+                  if embed_prompt else prompts)
+        eng.generate({"inputs": inputs}, steps=1)                 # warm-up
         reset_launch_counts()
-        toks, tm = eng.generate({"inputs": prompts}, steps=16)
+        toks, tm = eng.generate({"inputs": inputs}, steps=16)
         counts = launch_counts()
         want = want_launches(cfg, 16, [64], "decode_attn",
                              prefills=T.prefill_pieces(cfg, 64))
         if counts != want or tuple(toks.shape) != (4, 16):
             raise AssertionError(f"{cfg.name} Engine: launch counts {counts} != {want}")
+        if not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+            raise AssertionError(f"{cfg.name} Engine: token out of range")
         out["engine"] = {"prefill_s": tm["prefill_s"], "tpot_s": tm["tpot_s"],
-                         "launches": counts}
-        print(f"   {cfg.name} Engine: prefill {tm['prefill_s'] * 1e3:.1f} ms, TPOT "
-              f"{tm['tpot_s'] * 1e3:.2f} ms, launches {counts}")
+                         "launches": counts, "prompt": list(inputs.shape)}
+        print(f"   {cfg.name} Engine from a {list(inputs.shape)} "
+              f"{'embedding' if embed_prompt else 'token'} prompt: prefill "
+              f"{tm['prefill_s'] * 1e3:.1f} ms, TPOT {tm['tpot_s'] * 1e3:.2f} ms, "
+              f"launches {counts}")
         qparams = eng.qparams
         del eng
         _, state = M.prefill(params, cfg, {"inputs": prompts}, 128, Runtime("fused_int8"))
@@ -3072,7 +3194,8 @@ def serve_family(torch, ctx, cfg, lanes: bool) -> dict:
                      "multi_step_4": ({"multi_step": 4}, "decode_attn"),
                      "chunk_32_fifo": ({"chunk": 32}, "decode_attn")}
         lane_outs = {}
-        for label, (lane, attn) in lane_runs.items():
+        for label in lanes:
+            lane, attn = lane_runs[label]
             cb, reqs, wall, counts = serve(torch, cfg, params, lane, attn)
             lane_outs[label] = [list(r.output) for r in reqs]
             st = cb.stats
@@ -3093,19 +3216,57 @@ def serve_family(torch, ctx, cfg, lanes: bool) -> dict:
         if any(v["same"] != len(plain) for v in out["lanes_vs_plain"].values()):
             raise AssertionError(f"{cfg.name}: a lane parts from the plain trace: "
                                  f"{out['lanes_vs_plain']}")
-    # the captured decode step: the float weights go first, so that a
-    # fresh-process profile (the last resort of replay_vs_eager) has room
+    part("lanes")
+    # the captured decode step: the float weights go first, and the int8
+    # ones and the pool before a fresh-process profile (the last resort of
+    # replay_vs_eager), so that the child has the card's memory
     pool = ragged_pool(torch, cfg, params, 256, 256)
-    qparams = quantize_tree(params)
-    del params
+    hold = [quantize_tree(params), pool]
+    del params, pool
     torch.cuda.empty_cache()
-    out["graph_decode"], steps, _ = replay_vs_eager(torch, cfg, qparams, pool, "decode")
+    out["graph_decode"], steps, _ = replay_vs_eager(torch, cfg, *hold, "decode",
+                                                    release=hold.clear, fresh=True)
     prof = out["graph_decode"]["profile"]
     print(f"   {cfg.name}: replayed decode step at 4 slots: wall {prof['wall_us'] / 1e3:.2f} ms, "
           f"device busy {prof['device_busy_us'] / 1e3:.2f} ms, idle share "
           f"{prof['idle_share']:.3f}")
-    del pool, steps, qparams
+    del hold, steps
     torch.cuda.empty_cache()
+    part("graph")
+    total = torch.cuda.get_device_properties(0).total_memory
+    out["memory"] = {"device_total_bytes": total,
+                     "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                     "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+                     "free_at_peak_bytes": total - torch.cuda.max_memory_reserved()}
+    print(f"   {cfg.name}: peak device memory {out['memory']['peak_reserved_bytes'] / 1e9:.2f} "
+          f"GB reserved ({out['memory']['peak_allocated_bytes'] / 1e9:.2f} allocated) of "
+          f"{total / 1e9:.2f} GB: {out['memory']['free_at_peak_bytes'] / 1e9:.2f} GB free")
+    return out
+
+
+def qk_norm_rows(torch, rn, cfg) -> dict:
+    """QK-norm's rows through the RMSNorm kernel (``[B*T*H, head_dim]``):
+    the query rows of ``cfg.n_heads`` heads and the key rows of
+    ``cfg.n_kv_heads``, each token's rows the same bits whether the call
+    holds 1, 4, 20 or 28 tokens' rows (one slot, a decode step at 4 slots,
+    the ``spec_k`` and ``spec_tree`` windows) or 140 (gated); the kernel
+    within rtol 1e-6 of its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for what, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads)):
+        x = torch.randn((LN_ROWS, heads, cfg.head_dim), generator=g, device="cuda")
+        scale = torch.randn((cfg.head_dim,), generator=g, device="cuda")
+        full = rn.rms_norm_cuda(x, scale)
+        torch.testing.assert_close(full, rn.rms_norm_plain(x, scale), rtol=1e-6, atol=0.0)
+        rows = {m: torch.equal(torch.cat([rn.rms_norm_cuda(x[i:i + m], scale)
+                                          for i in range(0, LN_ROWS, m)]), full)
+                for m in (1, 4, 20, 28)}
+        out[what] = {"heads": heads, "row_invariant": rows}
+        if not all(rows.values()):
+            raise AssertionError(f"QK-norm {what} rows differ across calls: {rows}")
+    print(f"   QK-norm rows [tokens * heads, {cfg.head_dim}] through rms_norm: row-invariant "
+          f"at 1, 4, 20, 28 and {LN_ROWS} tokens a call ({cfg.n_heads} query heads, "
+          f"{cfg.n_kv_heads} key heads)")
     return out
 
 
@@ -3114,10 +3275,16 @@ def phase_families(torch, ctx, mods: dict) -> dict:
     mamba2's weights): its kernels at its shapes, the LayerNorm kernel, the
     reduced model on the card against the CPU, and its serve runs
     (:func:`serve_family` with every lane); then granite-3-8b and
-    phi3-mini-3.8b at full width and depth, each with its kernels at its
+    phi3-mini-3.8b at full width with ``SHORT_LAYERS`` layers each, each with its kernels at its
     shapes (phi3's attention at D 96), its reduced config against the CPU,
     and its serve runs under the three backends with its captured decode
-    step."""
+    step; then chameleon-34b at full width with 16 of its 48 layers (its
+    kernels, QK-norm's rows, the reduced model from embeddings, the three
+    backends, ``Engine`` from an embedding prompt, the spec lanes, the
+    captured decode step) and nemotron-4-340b at full width with 2 of its 96
+    layers (its kernels, B2-B4 at D 192 also across pools, the reduced
+    model, the three backends, the captured decode step), each family's
+    weights freed before the next."""
     import dataclasses
     import gc
 
@@ -3128,20 +3295,46 @@ def phase_families(torch, ctx, mods: dict) -> dict:
     torch.cuda.empty_cache()
     opt = dataclasses.replace(registry.get("opt-30b"), n_layers=OPT_LAYERS)
     out = {"layer_norm": layer_norm_checks(torch, mods["lnk"])}
+    t0 = time.perf_counter()
     rec = {"kernels": family_kernels(torch, mods, opt, OPT_ATTN)}
     rec.update(reduced_vs_cpu(torch, registry.get("opt-30b")))
-    rec.update(serve_family(torch, ctx, opt, lanes=True))
+    rec.update(serve_family(torch, ctx, opt, lanes=ALL_LANES, exact=True))
     ctx["layer_norm_launches"] = rec["fused_int8"]["launches"]["layer_norm"]
+    rec["family_s"] = time.perf_counter() - t0
     out["opt-30b"] = rec
     # granite-3-8b's attention has llama3-8b's shape: 8 groups of 4 heads of 128
     for arch, attn in (("granite-3-8b", LLAMA_ATTN), ("phi3-mini-3.8b", PHI3_ATTN)):
-        cfg = registry.get(arch)
+        cfg = dataclasses.replace(registry.get(arch), n_layers=SHORT_LAYERS)
+        t0 = time.perf_counter()
         rec = {"kernels": family_kernels(torch, mods, cfg, attn)}
         rec.update(reduced_vs_cpu(torch, cfg))
-        rec.update(serve_family(torch, ctx, cfg, lanes=False))
+        rec.update(serve_family(torch, ctx, cfg))
+        rec["family_s"] = time.perf_counter() - t0
         out[arch] = rec
         gc.collect()
         torch.cuda.empty_cache()
+    cham = dataclasses.replace(registry.get("chameleon-34b"), n_layers=CHAMELEON_LAYERS)
+    t0 = time.perf_counter()
+    rec = {"kernels": family_kernels(torch, mods, cham, CHAMELEON_ATTN),
+           "qk_norm_rows": qk_norm_rows(torch, mods["rn"], cham)}
+    rec.update(reduced_vs_cpu(torch, registry.get("chameleon-34b"), embeddings=True))
+    rec.update(serve_family(torch, ctx, cham, lanes=("spec_k", "spec_tree"),
+                            embed_prompt=True))
+    rec["family_s"] = time.perf_counter() - t0
+    out["chameleon-34b"] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    nem = dataclasses.replace(registry.get("nemotron-4-340b"), n_layers=NEMOTRON_LAYERS)
+    t0 = time.perf_counter()
+    rec = {"kernels": family_kernels(torch, mods, nem, NEMOTRON_ATTN)}
+    rec["kernels"]["cross_pool"] = cross_pool(torch, mods["da"], mods["va"], mods["vt"],
+                                              mods["quant"], NEMOTRON_ATTN, CROSS_POOL[:1])
+    rec.update(reduced_vs_cpu(torch, registry.get("nemotron-4-340b")))
+    rec.update(serve_family(torch, ctx, nem))
+    rec["family_s"] = time.perf_counter() - t0
+    out["nemotron-4-340b"] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3163,6 +3356,7 @@ def main() -> int:
         from repro_torch.kernels import int8_matmul as mm
         from repro_torch.kernels import layer_norm as lnk
         from repro_torch.kernels import pim_mvm as pim
+        from repro_torch.kernels import rms_norm as rn
         from repro_torch.kernels import verify_attn as va
         from repro_torch.kernels import verify_tree_attn as vt
     except ImportError as e:
@@ -3196,7 +3390,8 @@ def main() -> int:
         else:
             s.failures.append("serve: skipped, the engine phase made no params")
         s.phase("ssm", lambda: phase_ssm(torch, ctx, s.record.get("build")))
-        mods = {"mm": mm, "pim": pim, "da": da, "va": va, "vt": vt, "quant": quant, "lnk": lnk}
+        mods = {"mm": mm, "pim": pim, "da": da, "va": va, "vt": vt, "quant": quant, "lnk": lnk,
+                "rn": rn}
         s.phase("families", lambda: phase_families(torch, ctx, mods))
 
     kernels = []

@@ -10,7 +10,10 @@ shift-adder:
 Activations are quantized dynamically per token (symmetric int8).  Every
 integer stage is bit-exact with the JAX reference: ``torch.round`` and
 ``jnp.round`` both round half to even, the scale is ``max(amax, 1e-8)/127``
-and codes clip to +-127.
+and codes clip to +-127.  The scale divides by 127 held in a tensor on
+``amax``'s device (:func:`_scale`): on CUDA, PyTorch's true division by a
+Python scalar multiplies by its rounded reciprocal instead, which gives
+another f32 scale for about one mantissa in twenty.
 """
 from __future__ import annotations
 
@@ -19,6 +22,29 @@ import dataclasses
 import torch
 
 INT8_MAX = 127.0
+EXACT_BLOCK = 2 ** 27    # elements of b a block of exact_int_matmul
+QUANT_BLOCK = 2 ** 28    # elements of w a block of quantize_weight
+
+
+_DIVISORS: dict = {}     # (device, dtype) -> 0-d tensor holding 127
+
+
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-8) / 127`` as an IEEE division on any device.  The
+    divisor is one 0-d tensor a (device, dtype), made on the first call
+    there, which must not be inside a CUDA-graph capture (a capture records
+    the fill without running it); the serve steps' eager warm-up makes it,
+    so a captured step adds no node for it and copies nothing from the
+    host."""
+    key = (amax.device, amax.dtype)
+    div = _DIVISORS.get(key)
+    if div is None:
+        if amax.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("quantizer divisor first made inside a CUDA-graph "
+                               "capture: run the step eagerly once before capturing")
+        div = _DIVISORS[key] = torch.full((), INT8_MAX, dtype=amax.dtype,
+                                          device=amax.device)
+    return torch.clamp_min(amax, 1e-8) / div
 
 
 @dataclasses.dataclass
@@ -32,18 +58,29 @@ class QuantizedLinear:
 
 def quantize_weight(w: torch.Tensor, axis: int = 0
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-output-channel int8; ``axis`` is the contraction axis
-    of ``w`` ([in, out] -> axis=0).  Returns (w_q int8, scale f32)."""
-    amax = w.abs().amax(dim=axis)
-    scale = torch.clamp_min(amax, 1e-8) / INT8_MAX
-    w_q = torch.clamp(torch.round(w / scale.unsqueeze(axis)), -127, 127)
-    return w_q.to(torch.int8), scale.to(torch.float32)
+    """Symmetric per-output-channel int8 of a 2-D weight; ``axis`` is the
+    contraction axis of ``w`` ([in, out] -> axis=0).  Returns (w_q int8,
+    scale f32).  The weight goes in blocks of whole channels of at most
+    ``QUANT_BLOCK`` elements, each channel's codes rounded and clipped in
+    place in its block's f32 temporary, so quantizing the widest weight
+    holds 1 GiB besides it and its int8 copy (a channel's scale and codes
+    depend on that channel alone: the blocks change no bit)."""
+    other = 1 - axis
+    n, step = w.shape[other], max(1, QUANT_BLOCK // max(w.shape[axis], 1))
+    w_q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((n,), dtype=torch.float32, device=w.device)
+    for lo in range(0, n, step):
+        blk = w.narrow(other, lo, min(step, n - lo))
+        s = _scale(blk.abs().amax(dim=axis))
+        w_q.narrow(other, lo, blk.shape[other]).copy_(
+            (blk / s.unsqueeze(axis)).round_().clamp_(-127, 127))
+        scale[lo:lo + s.shape[0]].copy_(s)
+    return w_q, scale
 
 
 def quantize_activation(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-token int8 quantization (last axis = features)."""
-    amax = x.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp_min(amax, 1e-8) / INT8_MAX
+    scale = _scale(x.abs().amax(dim=-1, keepdim=True))
     x_q = torch.clamp(torch.round(x / scale), -127, 127)
     return x_q.to(torch.int8), scale.to(torch.float32)
 
@@ -108,8 +145,7 @@ def bit_weights(bits: int = 8, device: str | torch.device = "cpu"
 # ---------------------------------------------------------------------------
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(token, head) symmetric int8; x: [..., heads, head_dim]."""
-    amax = x.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp_min(amax, 1e-8) / INT8_MAX
+    scale = _scale(x.abs().amax(dim=-1, keepdim=True))
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)
 
@@ -123,8 +159,16 @@ def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     CUDA has no integer matmul in PyTorch, so the product runs in float64:
     every partial sum of int8 x int8 (or int8 x 0/1) products over K < 2**38
-    is an integer below 2**53, hence exact, and the cast back is lossless."""
-    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+    is an integer below 2**53, hence exact, and the cast back is lossless.
+    ``b`` [K, N] goes in blocks of columns of at most ``EXACT_BLOCK``
+    elements, so its f64 copy stays under 1 GiB at any width (an exact sum
+    is the same in any order: the blocks change no bit)."""
+    K, N = b.shape
+    step = max(1, EXACT_BLOCK // max(K, 1))
+    a64 = a.to(torch.float64)
+    parts = [torch.matmul(a64, b[:, lo:lo + step].to(torch.float64)).to(torch.int32)
+             for lo in range(0, N, step)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
 def int8_matmul_ref(x_q: torch.Tensor, x_scale: torch.Tensor,

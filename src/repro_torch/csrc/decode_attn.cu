@@ -15,7 +15,16 @@
 // and value row (D int8 + one f32 scale) is read once per (slot, group) and
 // used by the group's R = T * rep query rows, a few operations per byte, so
 // memory bounds it (B = 4, G = 8, S = 512, D = 128: about 2.4 MB of live
-// rows, 0.71 us at 3.35 TB/s).
+// rows, 0.71 us at 3.35 TB/s; nemotron-4-340b's D = 192 at rep 12: 6.4 MB,
+// 1.92 us).
+//
+// The body is instantiated on the largest head dim it takes, DM: 128 (every
+// D <= 128, its stages in 44,928 bytes of static shared memory) and 192
+// (128 < D <= 192: two stages of 64 x (208 + 224) + 512 bytes, 61,312 bytes
+// in all, past the 48 KB a kernel may declare statically, so they come from
+// dynamic shared memory).  Only the widths differ: D / 32 int8 k-steps, and
+// DM / 32 tf32 n-tiles of P . V a warp.  A column's sums run the same steps
+// in either instance, so a head dim <= 128 keeps its bits.
 //
 // What the design does about it:
 // - The key axis is cut into chunks of CHUNK = 64 keys at fixed, absolute
@@ -36,8 +45,10 @@
 // - P . (V * v_s) runs on tf32 mma.sync m16n8k8 as (P * v_s) . V: A is
 //   p * v_s in f32, split into tf32 hi + lo; B is V, whose int8 values are
 //   exact in tf32, so of 3xTF32's products only hi . V and lo . V are not
-//   zero, each exact, summed in f32.  Warp w owns output columns 32 w ..
-//   32 w + 31, one 4-byte V read a key giving its four n8 tiles.  A chunk's
+//   zero, each exact, summed in f32.  Warp w owns output columns DM / 4 w
+//   onward: one 4-byte V read a key gives its first four n8 tiles (columns
+//   DM / 4 w + 4 gid + t), and at DM 192 one 2-byte read its other two
+//   (columns DM / 4 w + 32 + 2 gid + t).  A chunk's
 //   sum starts from zero and joins the running one as acc * corr + sum.
 // - Bytes and int32 scores become floats by exact integer tricks, not the
 //   quarter-rate I2F unit.
@@ -74,17 +85,27 @@ constexpr int NC = 8;             // CTAs of a cluster sharing the chunks
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_ROWS = 16;      // query rows per block: the mma M side
-constexpr int MAX_D = 128;        // head dim
-constexpr int KSTEPS = MAX_D / 32;
-constexpr int KSTR = MAX_D + 16;  // key row stride in bytes: conflict-free B reads
-constexpr int VSTR = MAX_D + 32;  // value row stride in bytes: conflict-free B reads
+constexpr int MAX_D = 192;        // head dim
 constexpr int PSTR = CHUNK + 4;   // probability row stride in floats: conflict-free A reads
-constexpr int ASTR = MAX_D + 1;   // accumulator row stride in floats: conflict-free stores
 constexpr int STAGES = 2;
+constexpr int STATIC_SMEM = 48 * 1024;   // what a kernel may declare statically
 constexpr float NEG_INF = -1e30f;
 
 static_assert(THREADS == 2 * CHUNK, "one scale copy per thread");
 static_assert(WARPS * 16 == CHUNK, "a warp scores 16 keys of a chunk");
+
+// the widths of the instance for head dims up to DM
+template <int DM>
+struct Dims {
+  static_assert(DM == 128 || DM == 192, "instances: 128 and 192");
+  static constexpr int KSTEPS = DM / 32;       // int8 k-steps of q . K^T
+  static constexpr int KSTR = DM + 16;         // key row stride in bytes: conflict-free B reads
+  static constexpr int VSTR = DM + 32;         // value row stride in bytes: conflict-free B reads
+  static constexpr int ASTR = DM + 1;          // accumulator row stride in floats
+  static constexpr int CPW = DM / WARPS;       // P . V output columns a warp owns
+  static constexpr int NT = CPW / 8;           // their n8 tiles: 4 from a word, 2 from a half
+  static constexpr int COPIES = CHUNK * DM / 16 / THREADS;   // 16-byte copies a thread
+};
 
 // which keys a query row sees
 enum Mask : int {
@@ -93,21 +114,29 @@ enum Mask : int {
   kTree = 2,         // B4: keys < pos[b], or pos[b] + j with bit j of anc[b, t]
 };
 
+template <int DM>
 struct Stage {
-  int8_t k[CHUNK][KSTR];
-  int8_t v[CHUNK][VSTR];
+  int8_t k[CHUNK][Dims<DM>::KSTR];
+  int8_t v[CHUNK][Dims<DM>::VSTR];
   float ks[CHUNK], vs[CHUNK];
 };
 
+template <int DM>
 struct Smem {
   union {
-    Stage st[STAGES];
-    float acc[MAX_ROWS][ASTR];    // after the walk: this CTA's accumulators
+    Stage<DM> st[STAGES];
+    float acc[MAX_ROWS][Dims<DM>::ASTR];   // after the walk: this CTA's accumulators
   } u;
   float p[MAX_ROWS][PSTR];        // the chunk's probabilities
   float red_m[WARPS][MAX_ROWS], red_l[WARPS][MAX_ROWS];
   float m[MAX_ROWS], l[MAX_ROWS]; // after the walk: this CTA's statistics
 };
+
+// the instance's shared memory is dynamic where it outgrows a static block
+template <int DM>
+__host__ __device__ constexpr size_t dynamic_smem() {
+  return sizeof(Smem<DM>) > STATIC_SMEM ? sizeof(Smem<DM>) : 0;
+}
 
 // Exact int -> f32 conversions without the quarter-rate I2F unit: the value,
 // biased to be non-negative, is placed in the mantissa of 2^23 (bytes) or
@@ -122,17 +151,18 @@ __device__ __forceinline__ float s22_to_f32(int s) {
 // Where a thread's 16-byte copies of a chunk land, computed once: copy n
 // (i = tid + n * THREADS < CHUNK * D / 16) is key row i / (D / 16), bytes
 // 16 (i % (D / 16)).
-constexpr int COPIES = CHUNK * MAX_D / 16 / THREADS;
+template <int DM>
 struct CopyPlan {
-  int key[COPIES];
-  long long src[COPIES];   // from the chunk's first row
-  int dst_k[COPIES], dst_v[COPIES];
+  int key[Dims<DM>::COPIES];
+  long long src[Dims<DM>::COPIES];   // from the chunk's first row
+  int dst_k[Dims<DM>::COPIES], dst_v[Dims<DM>::COPIES];
 };
 
 // keys [c0, c0 + CHUNK) of one (slot, group) into a stage: key s's row is
 // (slot_row + s) * G + g.  Keys at or past len are zero-filled, not read.
 // vec16: D % 16 == 0 and 16-byte aligned rows, copied as the plan says.
-__device__ __forceinline__ void load_chunk(Stage& st, const CopyPlan& plan,
+template <int DM>
+__device__ __forceinline__ void load_chunk(Stage<DM>& st, const CopyPlan<DM>& plan,
                                            const int8_t* __restrict__ k,
                                            const float* __restrict__ ks,
                                            const int8_t* __restrict__ v,
@@ -142,7 +172,7 @@ __device__ __forceinline__ void load_chunk(Stage& st, const CopyPlan& plan,
   if (vec16) {
     const size_t base = ((slot_row + c0) * G + g) * D;
 #pragma unroll
-    for (int n = 0; n < COPIES; ++n) {
+    for (int n = 0; n < Dims<DM>::COPIES; ++n) {
       if (plan.key[n] >= CHUNK) break;
       const bool ok = c0 + plan.key[n] < len;
       const size_t off = base + plan.src[n];
@@ -172,8 +202,9 @@ __device__ __forceinline__ void load_chunk(Stage& st, const CopyPlan& plan,
 // [B,S,G] f32 -> out [B,G,T*rep,D] f32.  lim: kSlotLength lengths [B];
 // kRowLength lengths [B,T]; kTree pos [B] with anc [B,T] (T <= 31).
 // blockDim.x == THREADS; grid (NC, G * row_blocks, B) in clusters of
-// (NC, 1, 1); D % 4 == 0 and D <= MAX_D.
-template <int MASK>
+// (NC, 1, 1); D % 4 == 0 and D <= DM; dynamic_smem<DM>() bytes of dynamic
+// shared memory.
+template <int MASK, int DM>
 __global__ void __launch_bounds__(THREADS)
 attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
             const int8_t* __restrict__ k, const float* __restrict__ ks,
@@ -181,7 +212,16 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
             const int32_t* __restrict__ lim, const int32_t* __restrict__ anc,
             float* __restrict__ out, int S, int G, int T, int rep, int D,
             float sqrt_d, bool vec16) {
-  __shared__ __align__(16) Smem sm;
+  using Dm = Dims<DM>;
+  Smem<DM>* smp;
+  if constexpr (dynamic_smem<DM>() > 0) {
+    extern __shared__ __align__(16) unsigned char dyn_smem[];
+    smp = reinterpret_cast<Smem<DM>*>(dyn_smem);
+  } else {
+    __shared__ __align__(16) Smem<DM> static_smem;
+    smp = &static_smem;
+  }
+  Smem<DM>& sm = *smp;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.z, g = blockIdx.y % G, rb = blockIdx.y / G;
@@ -207,7 +247,7 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
   len = max(len, 0);
 
   // this thread's two mma rows, gid and gid + 8: q fragments, scale, mask
-  uint32_t a[KSTEPS][4];
+  uint32_t a[Dm::KSTEPS][4];
   float q_sc[2] = {0.f, 0.f};
   int row_lim[2] = {0, 0};
   unsigned row_anc[2] = {0u, 0u};
@@ -218,7 +258,7 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
     row_ok[h] = r < nr;
     const uint32_t* qrow = reinterpret_cast<const uint32_t*>(q + (bg * R + r0 + r) * D);
 #pragma unroll
-    for (int s = 0; s < KSTEPS; ++s)
+    for (int s = 0; s < Dm::KSTEPS; ++s)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int w = 8 * s + 4 * half + tig;
@@ -233,23 +273,25 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
   }
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
   // P . V accumulators in the mma layout: n-tile t, element e is row
-  // gid + 8 (e / 2), column d = 32 warp + 4 (2 tig + e % 2) + t
-  float acc[4][4];
+  // gid + 8 (e / 2), column out_col(n = 2 tig + e % 2, t)
+  const int cw = Dm::CPW * warp;   // the warp's first output column
+  auto out_col = [cw](int n, int t) { return t < 4 ? cw + 4 * n + t : cw + 28 + 2 * n + t; };
+  float acc[Dm::NT][4];
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+  for (int t = 0; t < Dm::NT; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
-  CopyPlan plan;
+  CopyPlan<DM> plan;
   {
     const int D16 = D / 16;
 #pragma unroll
-    for (int n = 0; n < COPIES; ++n) {
+    for (int n = 0; n < Dm::COPIES; ++n) {
       const int i = tid + n * THREADS, j = vec16 ? i / D16 : CHUNK, c = i - j * D16;
       plan.key[n] = j;
       plan.src[n] = (long long)j * G * D + 16 * c;
-      plan.dst_k[n] = j * KSTR + 16 * c;
-      plan.dst_v[n] = CHUNK * KSTR + j * VSTR + 16 * c;
+      plan.dst_k[n] = j * Dm::KSTR + 16 * c;
+      plan.dst_v[n] = CHUNK * Dm::KSTR + j * Dm::VSTR + 16 * c;
     }
   }
   const int n_chunks = (len + CHUNK - 1) / CHUNK;
@@ -266,13 +308,13 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
       load_chunk(sm.u.st[(it + 1) % STAGES], plan, k, ks, v, vs, slot_row, G, g, D,
                  (ch + NC) * CHUNK, len, vec16, tid);
     cp_async_commit();
-    const Stage& st = sm.u.st[it % STAGES];
+    const Stage<DM>& st = sm.u.st[it % STAGES];
     const int c0 = ch * CHUNK;
 
     // q . K^T: keys 16 warp .. 16 warp + 15 of the chunk, two n8 tiles
     int cc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
 #pragma unroll
-    for (int s = 0; s < KSTEPS; ++s)
+    for (int s = 0; s < Dm::KSTEPS; ++s)
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         const uint32_t* kr =
@@ -350,10 +392,11 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
     // B = V; the chunk's sum in a fresh accumulator, then acc * corr + sum.
     // All eight k-steps run: past the walk p = 0 and V = 0 add exact zeros.
     {
-      const bool col_ok = 8 * warp + gid < D4;
-      float cpv[4][4];
+      const bool word_ok = cw + 4 * gid < D;
+      const bool half_ok = Dm::NT > 4 && cw + 32 + 2 * gid < D;
+      float cpv[Dm::NT][4];
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
+      for (int t = 0; t < Dm::NT; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e) cpv[t][e] = 0.f;
 #pragma unroll
@@ -365,11 +408,11 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
         split_tf32(__fmul_rn(sm.p[gid + 8][k0], vs0), ahi[1], alo[1]);
         split_tf32(__fmul_rn(sm.p[gid][k1], vs1), ahi[2], alo[2]);
         split_tf32(__fmul_rn(sm.p[gid + 8][k1], vs1), ahi[3], alo[3]);
-        // columns 32 warp + 4 gid + t of the four n-tiles: one word a key
-        const uint32_t* v0 = reinterpret_cast<const uint32_t*>(st.v[k0]);
-        const uint32_t* v1 = reinterpret_cast<const uint32_t*>(st.v[k1]);
-        const uint32_t w0 = col_ok ? v0[8 * warp + gid] : 0u;
-        const uint32_t w1 = col_ok ? v1[8 * warp + gid] : 0u;
+        // columns cw + 4 gid + t of the first four n-tiles: one word a key
+        const uint32_t w0 =
+            word_ok ? reinterpret_cast<const uint32_t*>(st.v[k0] + cw)[gid] : 0u;
+        const uint32_t w1 =
+            word_ok ? reinterpret_cast<const uint32_t*>(st.v[k1] + cw)[gid] : 0u;
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
           const uint32_t b0 = __float_as_uint(s8_to_f32(w0, t));
@@ -377,9 +420,23 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
           mma_tf32(cpv[t], alo, b0, b1);
           mma_tf32(cpv[t], ahi, b0, b1);
         }
+        if constexpr (Dm::NT > 4) {
+          // columns cw + 32 + 2 gid + t - 4 of the other two: a half-word a key
+          const uint32_t h0 =
+              half_ok ? reinterpret_cast<const uint16_t*>(st.v[k0] + cw + 32)[gid] : 0u;
+          const uint32_t h1 =
+              half_ok ? reinterpret_cast<const uint16_t*>(st.v[k1] + cw + 32)[gid] : 0u;
+#pragma unroll
+          for (int t = 4; t < Dm::NT; ++t) {
+            const uint32_t b0 = __float_as_uint(s8_to_f32(h0, t - 4));
+            const uint32_t b1 = __float_as_uint(s8_to_f32(h1, t - 4));
+            mma_tf32(cpv[t], alo, b0, b1);
+            mma_tf32(cpv[t], ahi, b0, b1);
+          }
+        }
       }
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
+      for (int t = 0; t < Dm::NT; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[t][e] = __fmaf_rn(acc[t][e], corr[e >> 1], cpv[t][e]);
     }
@@ -388,11 +445,11 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
   __syncthreads();   // the ring is free: the accumulators take its place
 
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+  for (int t = 0; t < Dm::NT; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int n = 2 * tig + (e & 1);
-      if (8 * warp + n < D4) sm.u.acc[gid + 8 * (e >> 1)][32 * warp + 4 * n + t] = acc[t][e];
+      const int col = out_col(2 * tig + (e & 1), t);
+      if (col < D) sm.u.acc[gid + 8 * (e >> 1)][col] = acc[t][e];
     }
   if (warp == 0 && tig == 0) {
 #pragma unroll
@@ -409,7 +466,7 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
     float mc[NC], lc[NC], ac[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const Smem* peer = cluster.map_shared_rank(&sm, c);
+      const Smem<DM>* peer = cluster.map_shared_rank(&sm, c);
       mc[c] = peer->m[r];
       lc[c] = peer->l[r];
       ac[c] = peer->u.acc[r][d];
@@ -429,6 +486,53 @@ attn_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
   cluster.sync();      // no CTA leaves while another reads its shared memory
 }
 
+template <int MASK, int DM>
+int launch_dm(const void* q, const void* qs, const void* k, const void* ks,
+              const void* v, const void* vs, const void* lim, const void* anc,
+              void* out, int B, int S, int G, int T, int rep, int D, float sqrt_d,
+              void* stream) {
+  constexpr size_t dyn = dynamic_smem<DM>();
+  if constexpr (dyn > 0) {   // once a device: the attribute is not a stream operation
+    static bool ready[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (!ready[dev]) {
+      err = cudaFuncSetAttribute(attn_kernel<MASK, DM>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+      if (err != cudaSuccess) return (int)err;
+      ready[dev] = true;
+    }
+  }
+  const int row_blocks = (T * rep + MAX_ROWS - 1) / MAX_ROWS;
+  const bool vec16 = D % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0
+      && reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(NC, G * row_blocks, B);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = NC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, attn_kernel<MASK, DM>, static_cast<const int8_t*>(q),
+      static_cast<const float*>(qs), static_cast<const int8_t*>(k),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(v),
+      static_cast<const float*>(vs), static_cast<const int32_t*>(lim),
+      static_cast<const int32_t*>(anc), static_cast<float*>(out), S, G, T, rep, D, sqrt_d,
+      vec16);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// the instance for D: 128 for D <= 128 (every head dim before nemotron's),
+// 192 above
 template <int MASK>
 int launch(const void* q, const void* qs, const void* k, const void* ks,
            const void* v, const void* vs, const void* lim, const void* anc,
@@ -439,28 +543,11 @@ int launch(const void* q, const void* qs, const void* k, const void* ks,
       || D % 4 != 0 || (MASK == kTree && T > 31) || B > 65535
       || (long long)G * row_blocks > 65535)
     return (int)cudaErrorInvalidValue;
-  const bool vec16 = D % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0
-      && reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(NC, G * row_blocks, B);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = NC;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, attn_kernel<MASK>, static_cast<const int8_t*>(q), static_cast<const float*>(qs),
-      static_cast<const int8_t*>(k), static_cast<const float*>(ks),
-      static_cast<const int8_t*>(v), static_cast<const float*>(vs),
-      static_cast<const int32_t*>(lim), static_cast<const int32_t*>(anc),
-      static_cast<float*>(out), S, G, T, rep, D, sqrt_d, vec16);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (D <= 128)
+    return launch_dm<MASK, 128>(q, qs, k, ks, v, vs, lim, anc, out, B, S, G, T, rep, D,
+                                sqrt_d, stream);
+  return launch_dm<MASK, 192>(q, qs, k, ks, v, vs, lim, anc, out, B, S, G, T, rep, D,
+                              sqrt_d, stream);
 }
 
 }  // namespace
@@ -496,4 +583,11 @@ extern "C" int verify_tree_attn_launch(const void* q, const void* qs,
                                        void* stream) {
   return launch<kTree>(q, qs, k, ks, v, vs, pos, anc, out, B, S, G, T, rep, D,
                        sqrt_d, stream);
+}
+
+// Shared memory a CTA of the instance that takes head dim D uses, in bytes
+// (static for D <= 128, dynamic above); 0 for a D the body does not take.
+extern "C" int decode_attn_smem_bytes(int D) {
+  if (D < 4 || D > MAX_D || D % 4 != 0) return 0;
+  return D <= 128 ? (int)sizeof(Smem<128>) : (int)sizeof(Smem<192>);
 }

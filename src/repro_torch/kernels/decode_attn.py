@@ -16,7 +16,9 @@ order, so a row's bits do not depend on the pool size, the walk or the
 mask.  The float stages sum in another order than the plain version, so the
 two agree within ``rtol=3e-5, atol=3e-6`` (the Pallas kernel's tolerance).
 The verify kernels B3 and B4 (``verify_attn``, ``verify_tree_attn``) share
-this kernel's source and :func:`attn_plain`, with other masks.
+this kernel's source and :func:`attn_plain`, with other masks.  Head dims
+up to ``MAX_D`` (192, nemotron-4-340b's) in steps of 4: the body has one
+instance for D <= 128 and one, in dynamic shared memory, above.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 MAX_REP = 16
-MAX_D = 128
+MAX_D = 192
 launches = 0
 
 
@@ -69,6 +71,15 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def smem_bytes(D: int) -> int:
+    """Shared memory a CTA of the body's instance for head dim D takes
+    (static up to D 128, dynamic above), read from the built library."""
+    fn = _lib().decode_attn_smem_bytes
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(D)
 
 
 def decode_attn_cuda(q_q, q_s, k_q, k_s, v_q, v_s, lengths) -> torch.Tensor:

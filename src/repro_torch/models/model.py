@@ -2,9 +2,11 @@
 
 PyTorch counterpart of the ``repro.models.model`` facades that the plain
 decode path, the fused multi-step lane, chunked prefill (cold or warm from
-the prefix cache) and the speculative lanes use, for dense GQA decoders and SSM
-(Mamba2) stacks; other families raise until their slice is ported (ROADMAP
-A.11), and ``verify_step`` raises for SSM stacks, as in the reference.
+the prefix cache) and the speculative lanes use, for dense GQA/MHA decoders
+(token inputs, or the embeddings that a ``vlm`` configuration's stubbed
+front end gives) and SSM (Mamba2) stacks.  Experts, MLA, hybrid stacks and
+encoder-decoders raise until their slice is ported (ROADMAP A.11), and
+``verify_step`` raises for SSM stacks, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int,
             rt: Runtime):
-    """``batch`` holds ``inputs`` ([B, T] int tokens) and may carry
+    """``batch`` holds ``inputs`` ([B, T] int tokens, or [B, T, d] float
+    embeddings where ``cfg.input_mode == "embeddings"``) and may carry
     ``lengths`` ([B] int32) for ragged right-padded prompts."""
     return T.prefill(params, cfg, batch["inputs"], max_len, rt,
                      lengths=batch.get("lengths"))
@@ -64,8 +67,9 @@ def warm_prefill_carry(cfg: ModelConfig, state: dict, slot: int, n: int,
 
 def prefill_chunk(params: Params, cfg: ModelConfig, carry: dict, tokens,
                   n_real, rt: Runtime):
-    """One ``[1, C]`` chunk at the carry's cursor -> (logits of its last real
-    token [1, V], carry updated in place)."""
+    """One ``[1, C]`` chunk (or ``[1, C, d]`` embeddings) at the carry's
+    cursor -> (logits of its last real token [1, V], carry updated in
+    place)."""
     return T.prefill_chunk(params, cfg, carry, tokens, n_real, rt)
 
 

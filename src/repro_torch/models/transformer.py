@@ -44,15 +44,19 @@ class Runtime:
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves dense decoders (GQA or MHA, with RoPE or with
-    sinusoidal positions when ``rope_theta == 0``) and attention-free SSM
-    (Mamba2) stacks so far."""
+    sinusoidal positions when ``rope_theta == 0``, with or without QK-norm;
+    family ``vlm`` too, whose stubbed early-fusion front end hands the
+    backbone embeddings, ``input_mode="embeddings"``) and attention-free SSM
+    (Mamba2) stacks so far.  Experts, MLA, hybrid stacks and
+    encoder-decoders wait on ROADMAP A.11."""
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: hybrid SSM/attention stacks wait on models/moe.py "
             "(ROADMAP A.11)")
-    dense = cfg.family == "dense" and cfg.attn_type == "gqa"
+    dense = cfg.family in ("dense", "vlm") and cfg.attn_type == "gqa"
     ssm = cfg.family == "ssm" and cfg.attn_type == "none" and not cfg.d_ff
-    if not (dense or ssm) or cfg.n_experts or cfg.input_mode != "tokens":
+    inputs = cfg.input_mode == "tokens" or (dense and cfg.input_mode == "embeddings")
+    if not (dense or ssm) or cfg.n_experts or not inputs:
         raise NotImplementedError(
             f"{cfg.name}: only dense GQA/MHA decoders and SSM stacks are "
             "ported so far (other families: ROADMAP A.11)")
@@ -94,13 +98,23 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return p
 
 
+def embedded(cfg: ModelConfig, inputs: torch.Tensor) -> bool:
+    """Whether ``inputs`` are embeddings rather than token ids: float rows
+    ([B, d] or [B, T, d], what the stubbed front end of a configuration with
+    ``input_mode="embeddings"`` gives) where the configuration takes them,
+    as the reference's ``_embed`` and ``decode_step`` tell them apart."""
+    return cfg.input_mode == "embeddings" and inputs.is_floating_point()
+
+
 def _embed(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
            positions: torch.Tensor | None) -> torch.Tensor:
-    """Token embeddings of ``inputs``, plus the sinusoidal embedding of
-    ``positions`` for the families without RoPE (a tensor of the same shape
-    as ``inputs``, never a host int, so a captured step reads its positions
-    on every replay; it may be None where ``cfg.rope_theta`` is set)."""
-    x = p["embed"]["w"][inputs]
+    """Token embeddings of ``inputs``, or ``inputs`` themselves where they
+    are embeddings (:func:`embedded`), plus the sinusoidal embedding of
+    ``positions`` for the families without RoPE (a tensor of the shape of
+    the token axes, never a host int, so a captured step reads its
+    positions on every replay; it may be None where ``cfg.rope_theta`` is
+    set)."""
+    x = inputs if embedded(cfg, inputs) else p["embed"]["w"][inputs]
     if not cfg.rope_theta:
         x = x + L.sinusoid_at(positions, cfg.d_model).to(x.dtype)
     return x
@@ -246,9 +260,9 @@ def apply_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
 
 def decode_step(p: Params, cfg: ModelConfig, state: dict, token: torch.Tensor,
                 rt: Runtime) -> tuple[torch.Tensor, dict]:
-    """token: [B] -> (logits [B, V], state).  The caches and the cursor
-    update in place (the cursor advances by one); the returned state holds
-    the same tensors."""
+    """token: [B] (or [B, d] embeddings, see :func:`embedded`) -> (logits
+    [B, V], state).  The caches and the cursor update in place (the cursor
+    advances by one); the returned state holds the same tensors."""
     B = token.shape[0]
     pos = state["pos"].to(torch.int32).reshape(-1).expand(B)
     x = _embed(p, cfg, token, pos)[:, None]
@@ -329,7 +343,7 @@ def verify_step(p: Params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
         raise NotImplementedError(
             "speculative verify needs a rewindable cache; SSM stacks keep the "
             "one-token decode path (see serve engine)")
-    B, T = tokens.shape
+    B, T = tokens.shape[:2]
     pos = state["pos"].to(torch.int32).reshape(-1).expand(B)
     positions = None
     if not cfg.rope_theta:
@@ -410,15 +424,16 @@ def chunk_pieces(cursor: int, n: int) -> int:
 def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor,
                    start: int, n_real: torch.Tensor, rt: Runtime,
                    skip: int = 0) -> torch.Tensor:
-    """One ``[B, PREFILL_PIECE]`` piece at positions ``start + arange`` in
-    every row (``start`` a multiple of ``PREFILL_PIECE``; ``n_real``: [B]
+    """One ``[B, PREFILL_PIECE]`` piece (or its ``[B, PREFILL_PIECE, d]``
+    embeddings) at positions ``start + arange`` in every row (``start`` a
+    multiple of ``PREFILL_PIECE``; ``n_real``: [B]
     int32, row b's first ``n_real[b]`` tokens are real) through every
     layer: the piece's K/V from its row ``skip`` on land in the float
     buffers ``bufs`` in place (the rows before stay as they are), and
     its queries attend keys ``< start + n_real`` among the buffers' first
     ``start + PREFILL_PIECE`` rows.  Returns the hidden states after
     ``ln_f`` [B, PREFILL_PIECE, d]."""
-    B, P = tokens.shape
+    B, P = tokens.shape[:2]
     dev = tokens.device
     key_rows = start + P
     start_t = torch.full((B,), start, dtype=torch.int32, device=dev)
@@ -441,17 +456,20 @@ def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor
     return L.apply_norm(p["ln_f"], x)
 
 
-def _piece(tokens: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """Columns ``[lo, hi)`` of ``tokens``, right-padded with token 0 to a
-    piece."""
-    part = tokens[:, lo:hi]
-    return torch.nn.functional.pad(part, (0, PREFILL_PIECE - part.shape[1]))
+def _piece(inputs: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``[lo, hi)`` of the token axis of ``inputs`` ([B, T] ids or
+    [B, T, d] embeddings), right-padded to a piece with token 0 or zero
+    rows."""
+    part = inputs[:, lo:hi]
+    pad = (0, PREFILL_PIECE - part.shape[1])
+    return torch.nn.functional.pad(part, (0, 0) * (part.dim() - 2) + pad)
 
 
 def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
             rt: Runtime, lengths: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, dict]:
-    """Process prompts [B, T]; return (last-token logits, decode state).
+    """Process prompts [B, T] (or [B, T, d] embeddings, see
+    :func:`embedded`); return (last-token logits, decode state).
 
     ``lengths`` ([B] int32, optional) admits a ragged right-padded batch:
     attention masks each row's keys to its own prefix, logits are gathered
@@ -464,7 +482,7 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
     (the engine prefills SSM stacks at exact length); under ``fused_int8``
     its intra-chunk part runs B6, under every other backend the tensor
     path, as attention takes B2 by the same rule."""
-    B, T = inputs.shape
+    B, T = inputs.shape[:2]
     if T > max_len:
         raise ValueError(f"prompt of {T} tokens exceeds max_len {max_len}")
     dev = inputs.device
@@ -554,19 +572,30 @@ def prefill_chunk(p: Params, cfg: ModelConfig, carry: dict, tokens: torch.Tensor
     the cached rows, dequantized, which is what the chunk attends.
     ``n_real`` (1 <= n_real <= C) counts the chunk's real tokens: a
     prompt's last chunk is right-padded to C, and the engine's token budget
-    may cut a chunk short.  Returns (logits of the chunk's last real token
-    [1, V], the carry), the carry's K/V, token ids and cursor updated in
-    place (the cursor advances by ``n_real``)."""
+    may cut a chunk short.  ``tokens`` may be ``[1, C, d]`` embeddings
+    (:func:`embedded`): the carry then keeps every row's input as an
+    embedding (``embeds``, the rows fed so far as ids looked up in the
+    table), so a rerun piece reads the same rows, and takes no id chunk
+    after that (``ValueError``).  Returns (logits of the
+    chunk's last real token [1, V], the carry), the carry's K/V, inputs and
+    cursor updated in place (the cursor advances by ``n_real``)."""
     n = int(n_real)
     if not 1 <= n <= tokens.shape[1]:
         raise ValueError(f"n_real {n} outside a chunk of {tokens.shape[1]}")
     cursor = int(carry["pos"].reshape(-1)[0])     # one cursor: a carry is B = 1
     end = cursor + n
-    ids = carry["tokens"]
-    ids[:, cursor:end] = tokens[:, :n]
+    if embedded(cfg, tokens):
+        if "embeds" not in carry:
+            carry["embeds"] = p["embed"]["w"][carry["tokens"]]
+        src = carry["embeds"]
+    elif "embeds" in carry:
+        raise ValueError("a prefill carry that holds embeddings takes embedding chunks only")
+    else:
+        src = carry["tokens"]
+    src[:, cursor:end] = tokens[:, :n]
     for lo in range(cursor - cursor % PREFILL_PIECE, end, PREFILL_PIECE):
         k = min(PREFILL_PIECE, end - lo)
-        h = _prefill_piece(p, cfg, carry["layers"], ids[:, lo:lo + PREFILL_PIECE],
+        h = _prefill_piece(p, cfg, carry["layers"], src[:, lo:lo + PREFILL_PIECE],
                            lo, torch.full_like(carry["pos"], k), rt,
                            skip=max(cursor - lo, 0))
     carry["pos"].add_(n)

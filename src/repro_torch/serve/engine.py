@@ -167,7 +167,10 @@ class Engine:
                  generator: torch.Generator | None = None
                  ) -> tuple[torch.Tensor, dict]:
         """Prefill the prompt batch then generate ``steps`` tokens.  Returns
-        (tokens [B, steps], per-stage timings).  ``greedy=False`` samples
+        (tokens [B, steps], per-stage timings).  ``batch["inputs"]`` may be
+        [B, T, d] embeddings where the configuration takes them (float
+        inputs land on the card as f32); decode then feeds token ids, as
+        the reference's does.  ``greedy=False`` samples
         each step's token from the softmax of its logits with ``generator``
         (a ``torch.Generator`` on the engine's device), which it requires;
         its draws are torch's, not ``jax.random``'s."""
@@ -175,6 +178,8 @@ class Engine:
             raise ValueError("generate(greedy=False) needs a torch.Generator "
                              "to sample from")
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        batch = {k: v.to(torch.float32) if v.is_floating_point() else v
+                 for k, v in batch.items()}
         t0 = time.perf_counter()
         logits, one = M.prefill(self.params, self.cfg, batch, self.max_len, self.rt)
         _sync(self.device)

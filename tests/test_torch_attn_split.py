@@ -192,6 +192,8 @@ def _window(b, s, g, rep, d, t, seed):
     (1, 1100, 1, 16, 16, [1090]),              # 18 chunks: CTAs take a third round
     (3, 300, 4, 1, 96, [150, 1, 299]),         # MHA (rep 1) at phi3's head dim 96
     (2, 200, 3, 1, 128, [63, 200]),            # MHA at OPT's head dim 128
+    (2, 200, 2, 12, 192, [63, 200]),           # nemotron-4-340b: rep 12 at head dim 192
+    (2, 200, 3, 1, 192, [65, 130]),            # MHA at head dim 192
 ])
 def test_split_matches_plain_and_jax_reference(b, s, g, rep, d, lengths):
     rng = np.random.default_rng(b * s + d)
@@ -252,13 +254,20 @@ def test_masks_give_b3_equal_b2_and_chain_equal_b3(t, pos):
     _check_masks(t, pos, g=2, rep=4, d=32)
 
 
-@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("d", [96, 128, 192])
 @pytest.mark.parametrize("t,pos", [(5, [0, 61, 124, 250]), (7, [3, 60, 200, 248])])
 def test_masks_at_rep_1(t, pos, d):
     """The same at MHA's rep 1 (a block holds the window's T rows) and the
-    head dims of phi3-mini (96: three int8 k-steps of the four) and OPT
-    (128)."""
+    head dims of phi3-mini (96: three int8 k-steps of the four), OPT (128)
+    and nemotron-4-340b (192: the wider instance, six k-steps)."""
     _check_masks(t, pos, g=3, rep=1, d=d)
+
+
+@pytest.mark.parametrize("t,pos", [(5, [0, 61, 124, 250]), (7, [3, 60, 200, 248])])
+def test_masks_at_nemotron_rep_12(t, pos):
+    """The same at nemotron-4-340b's rep 12 and head dim 192: a window of
+    T * 12 rows in blocks of 16."""
+    _check_masks(t, pos, g=2, rep=12, d=192)
 
 
 def _check_masks(t, pos, g, rep, d):

@@ -13,7 +13,9 @@ in a pool T - 1 rows smaller; B6 within ``rtol=2e-4, atol=2e-5`` (its
 decay within ``rtol=1e-5``); the RMSNorm kernel within ``rtol=1e-6`` and
 the LayerNorm kernel within ``rtol=1e-6`` (``atol`` 1e-6 of the output's
 scale), both row-invariant bit for bit; B2-B4 also at MHA's rep 1 with head
-dims 96 and 128.  The engines' captured steps (CUDA graphs) are
+dims 96 and 128, and at head dim 192 (nemotron-4-340b's rep 12, and rep 1);
+the three quantizers' scales and codes equal to the CPU's (IEEE division by
+127).  The engines' captured steps (CUDA graphs) are
 held bit-equal to the eager steps, logits and every state tensor, with their
 launch counts, and chunked serving token-identical to one-shot prefill.
 """
@@ -520,13 +522,14 @@ def test_attention_kernels_at_rep_1_match_plain(cuda, g, d):
                                    rtol=3e-5, atol=3e-6)
 
 
-@pytest.mark.parametrize("arch", ["opt-30b", "granite-3-8b", "phi3-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["opt-30b", "granite-3-8b", "phi3-mini-3.8b",
+                                  "chameleon-34b", "nemotron-4-340b"])
 def test_reduced_families_serve_on_the_card_like_the_cpu(cuda, arch):
     """The continuous engine on the card under ``fused_int8`` launches B1
-    once a linear (6 a layer under gelu, 7 under SwiGLU) and B2 once a
-    layer a decode step, and one norm kernel (LayerNorm for OPT, RMSNorm
-    otherwise) a norm, and its first tokens (prefill, float only) equal
-    the CPU's."""
+    once a linear (6 a layer under gelu and relu2, 7 under SwiGLU) and B2
+    once a layer a decode step, and one norm kernel (LayerNorm for OPT,
+    RMSNorm otherwise) a norm, QK-norm's two a layer included, and its
+    first tokens (prefill, float only) equal the CPU's."""
     cfg = registry.get(arch).reduced()
     params = M.init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(2)
@@ -543,7 +546,8 @@ def test_reduced_families_serve_on_the_card_like_the_cpu(cuda, arch):
     steps, L = eng.stats["decode_steps"], cfg.n_layers
     norm = "layer_norm" if cfg.norm_type == "layernorm" else "rms_norm"
     counts = launch_counts()
-    assert counts[norm] == (2 * L + 1) * (steps + len(prompts))
+    qk = 2 * L if cfg.use_qk_norm else 0
+    assert counts[norm] == (2 * L + 1 + qk) * (steps + len(prompts))
     linears = 7 if cfg.mlp_type == "swiglu" else 6
     assert counts["int8_matmul"] == linears * L * steps and counts["decode_attn"] == L * steps
     assert counts["layer_norm" if norm == "rms_norm" else "rms_norm"] == 0
@@ -734,6 +738,137 @@ def test_quantize_kv_division_and_round_trip_on_the_card(cuda):
     np.testing.assert_array_equal(s2.reshape(-1).cpu().numpy(), host_s2)
     if division[0] == "ieee":
         assert torch.equal(s2, s) and torch.equal(q2, q)
+
+
+def _mantissa_rows():
+    """Rows whose amax is each float32 mantissa in [1, 2), and random rows."""
+    amax = (np.arange(1 << 23, dtype=np.uint32) | np.uint32(127 << 23)).view(np.float32)
+    frac = np.array([-0.5, 0.3, -0.99], np.float32)
+    rows = np.concatenate([amax[:, None], amax[:, None] * frac], 1)
+    rand = (np.random.default_rng(5).standard_normal((4096, 128)) * 3).astype(np.float32)
+    return amax, rows, rand
+
+
+@pytest.mark.parametrize("which", ["weight", "activation", "kv"])
+def test_quantizers_on_the_card_equal_the_cpu(cuda, which):
+    """Each quantizer on the card gives the CPU's scales and codes bit for
+    bit: on rows whose amax runs over all 2^23 float32 mantissas in [1, 2)
+    (the scales IEEE ``amax / 127``) and on random rows."""
+    amax, rows, rand = _mantissa_rows()
+    fn = {"weight": lambda x: quant.quantize_weight(x.T.contiguous(), axis=0),
+          "activation": quant.quantize_activation,
+          "kv": lambda x: quant.quantize_kv(x[:, None, :])}[which]
+    for x in (rows, rand):
+        cpu = fn(torch.from_numpy(x))
+        card = fn(torch.from_numpy(x).to(cuda))
+        for a, b in zip(cpu, card):
+            assert torch.equal(a, b.cpu()), which
+    scales = fn(torch.from_numpy(rows).to(cuda))[1].reshape(-1).cpu().numpy()
+    np.testing.assert_array_equal(scales, amax / np.float32(127.0))
+
+
+def test_quantizer_divisor_is_made_once_outside_capture(cuda, monkeypatch):
+    """The quantizers' divisor is made on the first eager call on a device
+    and reused: a captured quantizer then adds no fill node and replays the
+    eager bits; a first call inside a capture raises, because the capture
+    would record the divisor's fill without running it."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn((4, 4096), device=cuda) * 3
+    monkeypatch.setattr(quant, "_DIVISORS", {})
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph):
+            quant.quantize_activation(x)
+    want = quant.quantize_activation(x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = quant.quantize_activation(x)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    assert not [e for e in prof.events() if "FillFunctor" in e.name]
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("g,rep", [(8, 12), (3, 1)], ids=["nemotron", "rep1"])
+def test_attention_kernels_at_head_dim_192(cuda, g, rep):
+    """B2, B3 (T 5) and B4 (T 7) at head dim 192 (nemotron-4-340b's 8 groups
+    of 12 heads, and MHA's rep 1): each within ``rtol=3e-5, atol=3e-6`` of
+    its plain version; B3's rows equal B2 in the same pool and in a pool
+    T - 1 rows smaller, and B4 on a chain equals B3, bit for bit."""
+    b, max_len, d = 4, 256, 192
+    for t in (1, 5, 7):
+        s = max_len + t - 1
+        q_q, q_s, cache = _window(b, s, g, rep, d, t, 7 * t + rep, cuda)
+        small = [c[:, :max_len].contiguous() for c in cache]
+        pos = torch.tensor([0, 61, 125, max_len - t], dtype=torch.int32, device=cuda)
+        lengths = (pos[:, None] + torch.arange(1, t + 1, dtype=torch.int32,
+                                               device=cuda)).contiguous()
+        reset_launch_counts()
+        got3 = va.verify_attn_cuda(q_q, q_s, *cache, lengths)
+        assert launch_counts()["verify_attn"] == 1
+        torch.testing.assert_close(got3, va.verify_attn_plain(q_q, q_s, *cache, lengths),
+                                   rtol=3e-5, atol=3e-6)
+        for i in range(t):
+            args = (q_q[:, :, i].contiguous(), q_s[:, :, i].contiguous())
+            dec = da.decode_attn_cuda(*args, *cache, lengths[:, i].contiguous())
+            torch.testing.assert_close(dec, da.decode_attn_plain(*args, *cache,
+                                                                 lengths[:, i].contiguous()),
+                                       rtol=3e-5, atol=3e-6)
+            assert torch.equal(got3[:, :, i], dec), (t, i)
+            assert torch.equal(da.decode_attn_cuda(*args, *small, lengths[:, i].contiguous()),
+                               dec), (t, i)
+        chain = ((1 << torch.arange(1, t + 1, dtype=torch.int64)) - 1).to(torch.int32)
+        chain = chain.expand(b, t).contiguous().to(cuda)
+        assert torch.equal(vt.verify_tree_attn_cuda(q_q, q_s, *cache, pos, chain), got3)
+        anc = _trees(b, t, t).to(cuda)
+        torch.testing.assert_close(vt.verify_tree_attn_cuda(q_q, q_s, *cache, pos, anc),
+                                   vt.verify_tree_attn_plain(q_q, q_s, *cache, pos, anc),
+                                   rtol=3e-5, atol=3e-6)
+    assert da.smem_bytes(d) > 48 * 1024 >= da.smem_bytes(128)
+
+
+def test_rms_norm_row_invariant_on_qk_norm_rows(cuda):
+    """QK-norm's rows (chameleon-34b's 64 query heads of 128): a token's
+    rows normalise to the same bits whether the call holds 1, 4, 20 or 28
+    tokens' rows or 140."""
+    h, d = 64, 128
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn((140, h, d), generator=g).to(cuda)
+    scale = torch.randn((d,), generator=g).to(cuda)
+    full = rn.rms_norm_cuda(x, scale)
+    torch.testing.assert_close(full, rn.rms_norm_plain(x, scale), rtol=1e-6, atol=0)
+    for m in (1, 4, 20, 28):
+        parts = torch.cat([rn.rms_norm_cuda(x[i:i + m], scale) for i in range(0, 140, m)])
+        assert torch.equal(parts, full), m
+
+
+def test_reduced_chameleon_prefill_from_embeddings_on_the_card(cuda):
+    """Reduced chameleon-34b prefilled from [B, T, d] embeddings (ragged)
+    and decoding from [B, d] embeddings on the card under ``fused_int8``:
+    within 2% of the CPU's logit scale, argmax equal; QK-norm runs the
+    RMSNorm kernel."""
+    cfg = registry.get("chameleon-34b").reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    qparams = quantize_tree(params)
+    rng = np.random.default_rng(4)
+    emb = torch.from_numpy((rng.standard_normal((2, 24, cfg.d_model)) * 0.5).astype(np.float32))
+    nxt = torch.from_numpy((rng.standard_normal((2, cfg.d_model)) * 0.5).astype(np.float32))
+    lengths = torch.tensor([24, 17], dtype=torch.int32)
+    rt = Runtime("fused_int8")
+    res = {}
+    for dev in ("cpu", cuda):
+        reset_launch_counts()
+        lg0, st = M.prefill(convert.to_device(params, dev), cfg,
+                            {"inputs": emb.to(dev), "lengths": lengths.to(dev)}, 64, rt)
+        lg1, _ = M.decode_step(convert.to_device(qparams, dev), cfg, st, nxt.to(dev), rt)
+        res[str(dev)] = (lg0.cpu(), lg1.cpu(), launch_counts())
+    L = cfg.n_layers
+    assert res["cuda"][2]["rms_norm"] == (4 * L + 1) * 2
+    for a, b in zip(res["cpu"][:2], res["cuda"][:2]):
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+        assert float((a - b).abs().max()) <= 2e-2 * float(a.abs().max())
 
 
 def _pool(cfg, device, B=3, S=40, seed=0):

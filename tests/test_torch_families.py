@@ -1,7 +1,9 @@
 """The port's remaining dense decoders against the JAX reference on the CPU:
 the paper's own OPT family (sinusoidal positions, LayerNorm, gelu, MHA,
-tied embedding), granite-3-8b (GQA, tied embedding) and phi3-mini-3.8b
-(MHA, head dim 96), each ``.reduced()``.
+tied embedding), granite-3-8b (GQA, tied embedding), phi3-mini-3.8b
+(MHA, head dim 96), chameleon-34b (family ``vlm``: embedding inputs,
+QK-norm) and nemotron-4-340b (relu2; also at its head dim 192), each
+``.reduced()``.
 
 Tolerances: configs, converted trees and quantized trees equal; the
 sinusoidal tables within 1e-4 (XLA's f32 ``exp`` differs from torch's by an
@@ -9,9 +11,11 @@ ulp in some of the frequencies, which an angle of a few hundred radians
 carries to about 3e-5); the LayerNorm plain version within rtol 1e-6 /
 atol 1e-6 of the reference's branch; logits within 1e-3 of the logit scale
 with the argmax equal (as every port test); OPT's engines token-identical
-to JAX's with equal stats.  The Pallas kernels run in interpret mode at
-S <= 512 (ROADMAP C: NaN past 512).  The LayerNorm kernel and B2-B4 at
-rep 1 are held against their plain versions in ``test_torch_cuda.py``.
+to JAX's with equal stats, and chameleon's too, its embedding prefill bit
+for bit equal to prefill from the token ids whose table rows they are.  The
+Pallas kernels run in interpret mode at S <= 512 (ROADMAP C: NaN past 512).
+The LayerNorm kernel and B2-B4 at rep 1 and at head dim 192 are held
+against their plain versions in ``test_torch_cuda.py``.
 """
 import dataclasses
 
@@ -40,7 +44,7 @@ from repro_torch.serve.engine import ContinuousBatchingEngine, Engine
 from repro_torch.serve.quantize import quantize_tree as t_quantize_tree
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-ARCHS = ("opt-30b", "granite-3-8b", "phi3-mini-3.8b")
+ARCHS = ("opt-30b", "granite-3-8b", "phi3-mini-3.8b", "chameleon-34b", "nemotron-4-340b")
 BACKENDS = ("dense", "ref_int8", "fused_int8", "pim_bitserial")
 MAX_LEN = 48
 
@@ -64,13 +68,23 @@ def _close(j, t, frac=1e-3):
 
 
 _WEIGHTS: dict = {}
+HD192 = "nemotron-4-340b@192"     # reduced nemotron at its own head dim
+
+
+def _configs(arch: str):
+    """(JAX config, port config) of a reduced family; ``HD192`` is reduced
+    nemotron-4-340b with head_dim 192 (4 heads, 2 KV groups: rep 2)."""
+    if arch == HD192:
+        return tuple(dataclasses.replace(R.get("nemotron-4-340b").reduced(), head_dim=192)
+                     for R in (JR, TR))
+    return JR.get(arch).reduced(), TR.get(arch).reduced()
 
 
 def _weights(arch: str) -> dict:
     """The reduced family's JAX init, quantized, and both converted; made
     once a module."""
     if arch not in _WEIGHTS:
-        params = JM.init_params(jax.random.key(0), JR.get(arch).reduced())
+        params = JM.init_params(jax.random.key(0), _configs(arch)[0])
         qparams = j_quantize_tree(params)
         _WEIGHTS[arch] = {"j": params, "jq": qparams,
                           "t": convert.from_numpy(_np(params), device="cpu"),
@@ -109,13 +123,23 @@ def test_opt_module_copy_matches_reference(name):
 
 def test_registry_ids_are_the_references():
     assert set(TR.ARCHS) <= set(JR.ARCHS)
-    assert {"opt-30b", "opt-125m", "granite-3-8b", "phi3-mini-3.8b"} <= set(TR.ARCHS)
+    assert {"opt-30b", "opt-125m", "granite-3-8b", "phi3-mini-3.8b", "chameleon-34b",
+            "nemotron-4-340b"} <= set(TR.ARCHS)
 
 
 def test_check_supported_refuses_what_is_not_ported():
+    """Embedding inputs and family ``vlm`` (chameleon-34b) are admitted;
+    experts, MLA, hybrid stacks and encoder-decoders still raise, naming
+    ROADMAP A.11."""
     base = TR.get("opt-30b").reduced()
-    for kw in ({"n_experts": 4, "n_experts_active": 2}, {"input_mode": "embeddings"},
-               {"attn_type": "mla"}, {"family": "vlm"}):
+    for kw in ({"input_mode": "embeddings"}, {"family": "vlm"},
+               {"family": "vlm", "input_mode": "embeddings", "use_qk_norm": True}):
+        TT.check_supported(dataclasses.replace(base, **kw))
+    for kw in ({"n_experts": 4, "n_experts_active": 2}, {"attn_type": "mla"},
+               {"family": "hybrid", "attn_every": 2, "ssm_state": 16},
+               {"family": "encdec", "encoder_layers": 2, "encoder_seq": 16},
+               {"family": "ssm", "attn_type": "none", "d_ff": 0,
+                "input_mode": "embeddings"}):
         with pytest.raises(NotImplementedError, match="A.11"):
             TT.check_supported(dataclasses.replace(base, **kw))
 
@@ -290,3 +314,181 @@ def test_opt_engine_generate_token_identical():
     got, _ = Engine(cfg=tcfg, params=opt_weights["t"], rt=TT.Runtime("fused_int8"),
                     max_len=32, device="cpu").generate({"inputs": torch.from_numpy(toks)}, 6)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# nemotron-4-340b at its own head dim (192): B2-B4's plain versions against
+# the Pallas kernels in interpret mode
+# ---------------------------------------------------------------------------
+def _prefill_both(jcfg, tcfg, w, inputs, lengths, backend="fused_int8"):
+    jl, jstate = JM.prefill(w["j"], jcfg, {"inputs": jnp.asarray(inputs),
+                                           "lengths": jnp.asarray(lengths)}, MAX_LEN,
+                            JT.Runtime(backend=backend))
+    tl, tstate = TM.prefill(w["t"], tcfg, {"inputs": torch.from_numpy(inputs),
+                                           "lengths": torch.from_numpy(lengths)}, MAX_LEN,
+                            TT.Runtime(backend))
+    return jl, jstate, tl, tstate
+
+
+@pytest.mark.parametrize("backend", ["fused_int8", "ref_int8"])
+def test_nemotron_at_head_dim_192_logits_match(backend):
+    """Reduced nemotron-4-340b with head_dim 192 (rep 2 at D 192): ragged
+    prefill, then three greedy decode steps from JAX's prefilled cache.
+    The two float prefills' K/V differ by ulps, which moves a scale's last
+    bit and now and then an int8 code (one V code of 18,432 in layer 3 with
+    this seed; a later logit then parts by 1.6e-3 of the scale), so the
+    prefilled caches are held to 99.9% equal codes and decode starts from
+    the same one."""
+    jcfg, tcfg = _configs(HD192)
+    assert tcfg.head_dim == 192 and tcfg.n_heads // tcfg.n_kv_heads == 2
+    w = _weights(HD192)
+    toks = np.random.default_rng(5).integers(0, jcfg.vocab_size, (2, 24)).astype(np.int32)
+    jl, jstate, tl, tstate = _prefill_both(jcfg, tcfg, w, toks, np.array([24, 13], np.int32),
+                                           backend)
+    _close(jl, tl)
+    for name in ("k_q", "v_q"):
+        jk = np.asarray(jstate["groups"][0][0][name])
+        assert np.mean(jk == np.stack([c[name].numpy() for c in tstate["layers"]])) > 0.999
+    tstate = convert.from_numpy(_np(jstate), device="cpu")
+    jrt, trt = JT.Runtime(backend=backend), TT.Runtime(backend)
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for _ in range(3):
+        jl, jstate = JM.decode_step(w["jq"], jcfg, jstate, jnp.asarray(tok), jrt)
+        tl, tstate = TM.decode_step(w["tq"], tcfg, tstate, torch.from_numpy(tok), trt)
+        _close(jl, tl)
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("mode", ["linear", "tree"])
+def test_nemotron_at_head_dim_192_verify_matches(mode):
+    """A verify window of 5 tokens at ragged cursors under ``fused_int8``
+    (B3 / B4 at D 192): logits, hidden states and cursors."""
+    jcfg, tcfg = _configs(HD192)
+    w = _weights(HD192)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, jcfg.vocab_size, (2, 24)).astype(np.int32)
+    _, jstate = JM.prefill(w["j"], jcfg, {"inputs": jnp.asarray(toks),
+                                          "lengths": jnp.asarray([24, 9])}, MAX_LEN,
+                           JT.Runtime())
+    tstate = convert.from_numpy(_np(jstate), device="cpu")
+    win = rng.integers(0, jcfg.vocab_size, (2, 5)).astype(np.int32)
+    kw_j, kw_t = {}, {}
+    if mode == "tree":
+        depth = np.array([[0, 1, 1, 2, 2], [0, 1, 2, 3, 1]], np.int32)
+        anc = np.array([[1, 3, 5, 11, 13], [1, 3, 7, 15, 17]], np.int32)
+        kw_j = {"depth": jnp.asarray(depth), "anc": jnp.asarray(anc)}
+        kw_t = {"depth": torch.from_numpy(depth), "anc": torch.from_numpy(anc)}
+    jl, jh, jst = JM.verify_step(w["jq"], jcfg, jstate, jnp.asarray(win),
+                                 JT.Runtime(backend="fused_int8"), **kw_j)
+    tl, th, tst = TM.verify_step(w["tq"], tcfg, tstate, torch.from_numpy(win),
+                                 TT.Runtime("fused_int8"), **kw_t)
+    _close(jl, tl)
+    _close(jh, th)
+    np.testing.assert_array_equal(tst["pos"].numpy(), np.asarray(jst["pos"]))
+
+
+# ---------------------------------------------------------------------------
+# chameleon-34b: embedding inputs and QK-norm
+# ---------------------------------------------------------------------------
+def _embeddings(shape, seed):
+    return (np.random.default_rng(seed).standard_normal(shape) * 0.5).astype(np.float32)
+
+
+def test_chameleon_prefill_from_embeddings_matches_reference():
+    """Ragged prefill from [B, T, d] embeddings (two 64-row pieces) against
+    JAX's: logits and cursors."""
+    jcfg, tcfg = _configs("chameleon-34b")
+    w = _weights("chameleon-34b")
+    emb = _embeddings((2, 40, jcfg.d_model), 7)
+    lengths = np.array([40, 23], np.int32)
+    jl, jstate, tl, tstate = _prefill_both(jcfg, tcfg, w, emb, lengths)
+    _close(jl, tl)
+    np.testing.assert_array_equal(tstate["pos"].numpy(), np.asarray(jstate["pos"]))
+
+
+def test_chameleon_embedding_prefill_equals_id_prefill():
+    """Prefill (one-shot, 70 rows: two pieces, ragged) and chunked prefill
+    from the table rows of token ids give the bits that prefill from the ids
+    gives: logits and every cache entry.  A carry that holds embeddings
+    refuses an id chunk."""
+    _, tcfg = _configs("chameleon-34b")
+    w = _weights("chameleon-34b")["t"]
+    toks = torch.from_numpy(np.random.default_rng(8).integers(0, tcfg.vocab_size, (2, 70)))
+    emb = w["embed"]["w"][toks]
+    assert emb.dtype == torch.float32
+    lengths = torch.tensor([70, 45], dtype=torch.int32)
+    rt = TT.Runtime("fused_int8")
+    a, sa = TM.prefill(w, tcfg, {"inputs": toks, "lengths": lengths}, 96, rt)
+    b, sb = TM.prefill(w, tcfg, {"inputs": emb, "lengths": lengths}, 96, rt)
+    assert torch.equal(a, b)
+    for x, y in zip(sa["layers"], sb["layers"]):
+        for k in x:
+            assert torch.equal(x[k], y[k]), k
+    one, _ = TM.prefill(w, tcfg, {"inputs": toks[:1]}, 96, rt)
+    for ids_first in (False, True):  # the first chunk as ids: the carry takes their rows
+        carry = TM.init_prefill_carry(tcfg, TT.carry_len(96), "cpu")
+        for lo, n in ((0, 30), (30, 25), (55, 15)):
+            src = toks if ids_first and lo == 0 else emb
+            got, carry = TM.prefill_chunk(w, tcfg, carry, src[:1, lo:lo + n], n, rt)
+        assert torch.equal(got, one), ids_first
+    with pytest.raises(ValueError, match="embedding chunks only"):
+        TM.prefill_chunk(w, tcfg, carry, toks[:1, :4], 4, rt)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_chameleon_decode_from_embeddings_matches_reference(backend):
+    """Decode steps fed [B, d] embeddings (QK-norm on every query and key)
+    against JAX's, from JAX's prefilled cache: the two float prefills' K
+    rows differ by ulps, which flips an int8 code now and then (two K codes
+    of 20,480 with this seed, which move later logits by 1.5% of the scale
+    through the random layers), so the prefilled caches are held to 99.9%
+    equal codes and decode starts from the same one."""
+    jcfg, tcfg = _configs("chameleon-34b")
+    w = _weights("chameleon-34b")
+    toks = np.random.default_rng(9).integers(0, jcfg.vocab_size, (2, 20)).astype(np.int32)
+    jl, jstate, tl, tstate = _prefill_both(jcfg, tcfg, w, toks, np.array([20, 11], np.int32),
+                                           backend)
+    _close(jl, tl)
+    for name in ("k_q", "v_q"):
+        jk = np.asarray(jstate["groups"][0][0][name])
+        assert np.mean(jk == np.stack([c[name].numpy() for c in tstate["layers"]])) > 0.999
+    tstate = convert.from_numpy(_np(jstate), device="cpu")
+    jrt, trt = JT.Runtime(backend=backend), TT.Runtime(backend)
+    for i in range(3):
+        e = _embeddings((2, jcfg.d_model), 10 + i)
+        jl, jstate = JM.decode_step(w["jq"], jcfg, jstate, jnp.asarray(e), jrt)
+        tl, tstate = TM.decode_step(w["tq"], tcfg, tstate, torch.from_numpy(e), trt)
+        _close(jl, tl)
+    np.testing.assert_array_equal(tstate["pos"].numpy(), np.asarray(jstate["pos"]))
+
+
+def test_chameleon_engine_generate_from_embeddings_token_identical():
+    """``Engine.generate`` prefills from an embedding prompt, then decodes
+    token ids, token for token as JAX's does."""
+    jcfg, tcfg = _configs("chameleon-34b")
+    w = _weights("chameleon-34b")
+    emb = _embeddings((2, 13, jcfg.d_model), 11)
+    want, _ = JEngine(cfg=jcfg, params=w["j"], rt=JT.Runtime(backend="fused_int8"),
+                      max_len=32).generate({"inputs": jnp.asarray(emb)}, 6)
+    got, _ = Engine(cfg=tcfg, params=w["t"], rt=TT.Runtime("fused_int8"),
+                    max_len=32, device="cpu").generate({"inputs": emb}, 6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("lane", [{}, {"spec_k": 4}], ids=["fifo", "spec_k"])
+def test_chameleon_continuous_batching_token_identical(lane):
+    """The continuous engine serves chameleon's token prompts under
+    ``fused_int8`` token for token as JAX's, with equal stats."""
+    jcfg, tcfg = _configs("chameleon-34b")
+    w = _weights("chameleon-34b")
+    prompts, budgets = _trace()
+    jeng = JCB(jcfg, w["j"], n_slots=2, max_len=64, rt=JT.Runtime(backend="fused_int8"),
+               **lane)
+    want = jeng.generate_all(prompts, budgets)
+    teng = ContinuousBatchingEngine(tcfg, w["t"], n_slots=2, max_len=64,
+                                    rt=TT.Runtime("fused_int8"), device="cpu", **lane)
+    assert teng.generate_all(prompts, budgets) == want
+    for key in STATS:
+        assert teng.stats.get(key) == jeng.stats.get(key), key
+    if lane:
+        assert teng.stats["verify_steps"] > 0

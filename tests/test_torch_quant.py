@@ -133,3 +133,71 @@ def test_int8_matmul_ref_int32_exact(m, k, n):
     tlin = tq.QuantizedLinear(w_q=torch.from_numpy(w), w_scale=torch.from_numpy(ws))
     _eq(jq.int8_matmul_ref(jnp.asarray(x), jnp.asarray(xs), jlin),
         tq.int8_matmul_ref(torch.from_numpy(x), torch.from_numpy(xs), tlin))
+
+
+def _mantissa_rows():
+    """[2^23, 4] f32 rows: row i's amax is the i-th float32 mantissa in
+    [1, 2) (first column), its other entries of smaller magnitude."""
+    amax = (np.arange(1 << 23, dtype=np.uint32) | np.uint32(127 << 23)).view(np.float32)
+    frac = np.array([-0.5, 0.3, -0.99], np.float32)
+    return amax, np.concatenate([amax[:, None], amax[:, None] * frac], 1)
+
+
+@pytest.mark.parametrize("which", ["weight", "activation", "kv"])
+def test_quantizers_divide_over_every_mantissa(which):
+    """Each quantizer's scale is the IEEE f32 quotient ``amax / 127`` (numpy's)
+    for all 2^23 mantissas in [1, 2), bit for bit, and its scales and codes
+    equal JAX's."""
+    amax, rows = _mantissa_rows()
+    if which == "weight":        # one output channel a mantissa: [in 4, out 2^23]
+        jx, tx = _both(np.ascontiguousarray(rows.T))
+        (jc, js), (tc, ts) = jq.quantize_weight(jx, axis=0), tq.quantize_weight(tx, axis=0)
+    elif which == "activation":
+        jx, tx = _both(rows)
+        (jc, js), (tc, ts) = jq.quantize_activation(jx), tq.quantize_activation(tx)
+    else:                        # one (token, head) a mantissa
+        jx, tx = _both(rows[:, None, :])
+        (jc, js), (tc, ts) = jq.quantize_kv(jx), tq.quantize_kv(tx)
+    np.testing.assert_array_equal(ts.reshape(-1).numpy(), amax / np.float32(127.0))
+    _eq(js, ts)
+    _eq(jc, tc)
+
+
+def test_quantizer_divisor_is_made_once_a_device(monkeypatch):
+    """The three quantizers share one 0-d divisor of 127 a (device, dtype),
+    made on the first call and reused after it."""
+    monkeypatch.setattr(tq, "_DIVISORS", {})
+    x = torch.from_numpy(_rand((6, 2, 16), 12, scale=2.0))
+    tq.quantize_activation(x)
+    div = tq._DIVISORS[(x.device, torch.float32)]
+    tq.quantize_kv(x)
+    tq.quantize_weight(x[0], axis=0)
+    assert list(tq._DIVISORS) == [(x.device, torch.float32)]
+    assert tq._DIVISORS[(x.device, torch.float32)] is div
+    assert div.dim() == 0 and float(div) == 127.0
+
+
+def test_exact_int_matmul_in_column_blocks(monkeypatch):
+    """A weight wider than a block runs in column blocks (the last one
+    ragged) with the same int32 sums as one product."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.integers(-127, 128, (4, 300)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (300, 70)).astype(np.int8))
+    whole = tq.exact_int_matmul(x, w)
+    monkeypatch.setattr(tq, "EXACT_BLOCK", 300 * 16)
+    assert torch.equal(tq.exact_int_matmul(x, w), whole)
+    np.testing.assert_array_equal(whole.numpy(), x.numpy().astype(np.int64) @ w.numpy())
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_quantize_weight_in_channel_blocks(monkeypatch, axis):
+    """A weight of more than a block quantizes in blocks of whole channels
+    (the last one ragged) to the codes and scales of one pass and of
+    JAX's."""
+    jw, tw = _both(_rand((96, 70), 11))
+    whole = tq.quantize_weight(tw, axis=axis)
+    monkeypatch.setattr(tq, "QUANT_BLOCK", 96 * 8)
+    blocked = tq.quantize_weight(tw, axis=axis)
+    for a, b, j in zip(whole, blocked, jq.quantize_weight(jw, axis=axis)):
+        assert torch.equal(a, b)
+        _eq(j, b)

@@ -64,7 +64,8 @@ def time_steps(torch, step, n: int) -> dict:
 
 def device_busy(torch, step) -> dict:
     """Device-busy milliseconds of one call of ``step`` (the sum of its
-    device events' durations) and that call's wall under the profiler."""
+    device events' durations), that call's wall under the profiler, and its
+    device events and fill kernels (``torch.full`` and the like) counted."""
     from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -74,9 +75,10 @@ def device_busy(torch, step) -> dict:
             wall = (time.perf_counter() - t0) * 1e3
     except Exception as e:  # noqa: BLE001 - a measurement: its fault is recorded
         return {"busy_error": f"{type(e).__name__}: {e}"}
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
-    return {"busy_ms": busy, "profiled_wall_ms": wall}
+    dev = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return {"busy_ms": sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+            "profiled_wall_ms": wall, "device_events": len(dev),
+            "fill_kernels": sum("FillFunctor" in e.name for e in dev)}
 
 
 def b1_call(torch, quant, mm) -> dict:
@@ -247,7 +249,8 @@ def main() -> int:
         for kind, rec in res[arch].items():
             for how, r in rec.items():
                 busy = (f", device busy {r['busy_ms']:.2f} ms, idle share "
-                        f"{r['idle_share']:.3f}" if "busy_ms" in r else "")
+                        f"{r['idle_share']:.3f}, {r['device_events']} device events, "
+                        f"{r['fill_kernels']} fills" if "busy_ms" in r else "")
                 print(f"{args.label}: {arch} {kind} {how}: host {r['host_ms']:.2f} ms, "
                       f"wall {r['wall_ms']:.2f} ms (median of {args.steps}){busy}")
     for t in res["trace"]:

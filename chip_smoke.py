@@ -157,8 +157,22 @@ Phases (any failure makes the script exit non-zero):
    full width with 2 of its 96 layers (65.4 GB of f32 weights; 3 layers do
    not fit): B1 / B5 at its linears (K up to 73728), B2-B4 at G 8, rep 12,
    D 192 (the body's wider instance) also across pool sizes, the reduced
-   model, the three backends, and its captured decode step; each family's
-   peak device memory recorded.
+   model, the three backends, and its captured decode step; then
+   grok-1-314b (d 6144, 48 heads of 128 in 8 groups, 8 SwiGLU experts of
+   32768 with top-2 routing and capacity, untied vocab 131072) at full
+   width with 2 of its 64 layers (39.4 GB of f32 layers, 6.4 GB of
+   embedding and head; a third layer does not fit): B1 / B5 at its
+   attention linears, B1's grouped entry (``int8_matmul_grouped``) at its
+   expert stacks (K 6144 / 32768) for C 2 (a decode step at 4 slots) and
+   C 10 (a ``spec_k = 4`` window) with experts of 0, 1 and C rows,
+   bit-equal to its plain version and to B1 on each expert's slice, beside
+   the summed per-expert ``torch._int_mm``; B2-B4 at G 8, rep 6, D 128,
+   also across pool sizes; the reduced model and the same at 8 experts on
+   the card against the CPU; the three backends (``pim_bitserial`` gated
+   equal to ``ref_int8``, the dropped choices on the trace gated above 0,
+   ``fused_int8`` held to the served rows' near-ties), ``Engine``,
+   ``multi_step = 4`` (gated 8 of 8 on a lockstep trace) and its captured
+   decode step; each family's peak device memory recorded.
 
 Every path runs a row-invariant norm kernel for every norm on the card
 (``rms_norm``, or ``layer_norm`` for OPT; QK-norm's two a layer through
@@ -706,7 +720,8 @@ def phase_attention(torch, da, quant) -> dict:
 
 # the device kernel of each hand kernel's wrapper: B2, B3 and B4 launch one
 # attention body
-DEVICE_KERNELS = {"int8_matmul": "int8_mm_cluster", "pim_mvm": "pim_mvm_cluster",
+DEVICE_KERNELS = {"int8_matmul": "int8_mm_cluster", "int8_matmul_grouped": "int8_mm_grouped",
+                  "pim_mvm": "pim_mvm_cluster",
                   "decode_attn": "attn_kernel", "verify_attn": "attn_kernel",
                   "verify_tree_attn": "attn_kernel", "ssd_chunk": "ssd_chunk_kernel",
                   "rms_norm": "rms_norm_kernel", "layer_norm": "layer_norm_kernel"}
@@ -873,18 +888,18 @@ def phase_engine(torch, ctx) -> dict:
     return out
 
 
-def reduced_vs_cpu(torch, cfg, embeddings: bool = False) -> dict:
-    """A small input against a reference: the reduced model under
-    ``fused_int8`` on the card (kernels) and on the CPU (plain versions),
-    prefill (from [2, 24, d] embeddings where ``embeddings``) plus one
-    decode step from the same weights and prompts, within 2% of the logit
-    scale, argmax equal."""
+def reduced_vs_cpu(torch, cfg, embeddings: bool = False, rcfg=None) -> dict:
+    """A small input against a reference: the reduced model (``rcfg``, by
+    default ``cfg.reduced()``) under ``fused_int8`` on the card (kernels)
+    and on the CPU (plain versions), prefill (from [2, 24, d] embeddings
+    where ``embeddings``) plus one decode step from the same weights and
+    prompts, within 2% of the logit scale, argmax equal."""
     from repro_torch import convert
     from repro_torch.models import model as M
     from repro_torch.models.transformer import Runtime
     from repro_torch.serve.quantize import quantize_tree
 
-    rcfg = cfg.reduced()
+    rcfg = cfg.reduced() if rcfg is None else rcfg
     rp_cpu = M.init_params(rcfg, seed=0, device="cpu")
     rp_gpu = convert.to_device(rp_cpu, "cuda")
     rq_cpu = quantize_tree(rp_cpu)
@@ -907,7 +922,8 @@ def reduced_vs_cpu(torch, cfg, embeddings: bool = False) -> dict:
             raise AssertionError(f"reduced {what}: card vs cpu max diff {d} (scale {sc})")
         out[f"reduced_{what}_max_abs"] = d
         out[f"reduced_{what}_logit_scale"] = sc
-    print(f"   reduced {cfg.name}{' from embeddings' if embeddings else ''}, card (kernels) "
+    print(f"   reduced {rcfg.name}{' from embeddings' if embeddings else ''}"
+          f"{f' at {rcfg.n_experts} experts' if rcfg.n_experts else ''}, card (kernels) "
           f"vs CPU (plain): prefill max |diff| "
           f"{out['reduced_prefill_max_abs']:.3g} of {out['reduced_prefill_logit_scale']:.3g}, "
           f"decode {out['reduced_decode_max_abs']:.3g} of "
@@ -930,13 +946,26 @@ def norm_kernel(cfg) -> str:
     return "layer_norm" if cfg.norm_type == "layernorm" else "rms_norm"
 
 
-def linears_per_layer(cfg) -> int:
-    """W8A8 linears of one layer's step: a mamba2 layer's w_z, w_x and
-    out_proj; an attention layer's wq, wk, wv, wo and its MLP's w_up and
-    w_down, with w_gate under SwiGLU (gelu and relu2: 6)."""
+def linears_per_layer(cfg, i: int = 0) -> int:
+    """W8A8 linears of layer ``i``'s step through B1 (or B5): a mamba2
+    layer's w_z, w_x and out_proj; an attention layer's wq, wk, wv, wo and
+    its MLP's w_up and w_down, with w_gate under SwiGLU (gelu and relu2:
+    6); a MoE layer's 4 attention linears (its experts run B1's grouped
+    entry: :func:`expert_launches_per_layer`)."""
     if cfg.family == "ssm":
         return 3
+    if cfg.is_moe_layer(i):
+        return 4
     return 4 + (3 if cfg.mlp_type == "swiglu" else 2)
+
+
+def expert_launches_per_layer(cfg, i: int = 0) -> int:
+    """Grouped B1 launches of layer ``i``'s step: one an expert stack of a
+    MoE layer (w_up, w_down and, under SwiGLU, w_gate), under every
+    backend (quantized experts on the card always run the grouped entry)."""
+    if not cfg.is_moe_layer(i):
+        return 0
+    return 3 if cfg.mlp_type == "swiglu" else 2
 
 
 def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
@@ -950,18 +979,24 @@ def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
     a mamba2 layer's step 3 B1 launches (w_z, w_x, out_proj), and a mamba2
     prefill one B6 launch per layer and 128-token chunk (float weights: no
     B1 in prefill); under ``pim_bitserial`` the same linears launch B5
-    instead, and attention runs its plain version."""
+    instead, and attention runs its plain version.  A MoE layer's step
+    launches B1's grouped entry once an expert stack under every backend
+    (3 under SwiGLU), besides its 4 attention linears."""
     L = cfg.n_layers
     prefills = len(prompt_lens) if prefills is None else prefills
-    want = {"int8_matmul": 0, "pim_mvm": 0, "decode_attn": 0, "verify_attn": 0,
-            "verify_tree_attn": 0, "ssd_chunk": 0, "rms_norm": 0, "layer_norm": 0}
+    want = {"int8_matmul": 0, "int8_matmul_grouped": 0, "pim_mvm": 0, "decode_attn": 0,
+            "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0, "rms_norm": 0,
+            "layer_norm": 0}
     want[norm_kernel(cfg)] = (2 * L + 1) * (steps + prefills)
     if cfg.use_qk_norm:          # q and k of every attention layer: RMSNorm on rows of D
         want["rms_norm"] += 2 * L * (steps + prefills)
+    linears = sum(linears_per_layer(cfg, i) for i in range(L))
+    want["int8_matmul_grouped"] = sum(expert_launches_per_layer(cfg, i)
+                                      for i in range(L)) * steps
     if backend == "pim_bitserial":
-        want["pim_mvm"] = linears_per_layer(cfg) * L * steps
+        want["pim_mvm"] = linears * steps
     if backend == "fused_int8":
-        want["int8_matmul"] = linears_per_layer(cfg) * L * steps
+        want["int8_matmul"] = linears * steps
         if cfg.family == "ssm":
             want["ssd_chunk"] = L * sum(math.ceil(n / 128) for n in prompt_lens)
         else:
@@ -986,19 +1021,24 @@ SERVE_SLOTS, SERVE_ROWS = 4, 256     # the phase-4 trace's pool: slots, rows a s
 
 
 def serve(torch, cfg, params, lane: dict, attn: str | None,
-          backend: str = "fused_int8", request=None) -> tuple:
-    """Serve the trace on 4 slots (``max_len`` 256) under ``backend`` with
-    the given lane arguments (``request(i)``: request i's extra ``submit``
-    arguments), the launch counts reset just before and read just after;
-    they must equal :func:`want_launches`.  Every step on the card replays
-    a CUDA graph, captured when the engine is built; prefill is eager."""
+          backend: str = "fused_int8", request=None, trace: tuple | None = None,
+          setup=None) -> tuple:
+    """Serve the trace (``trace``: other (prompts, budgets)) on 4 slots
+    (``max_len`` 256) under ``backend`` with the given lane arguments
+    (``request(i)``: request i's extra ``submit`` arguments), the launch
+    counts reset just before and read just after; they must equal
+    :func:`want_launches`.  ``setup(engine)``, where given, runs once the
+    engine is built.  Every step on the card replays a CUDA graph, captured
+    when the engine is built; prefill is eager."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import Runtime
     from repro_torch.serve.engine import ContinuousBatchingEngine
 
     cb = ContinuousBatchingEngine(cfg, params, n_slots=SERVE_SLOTS, max_len=SERVE_ROWS,
                                   rt=Runtime(backend), **lane)
-    prompts, budgets = serve_trace(cfg.vocab_size)
+    prompts, budgets = trace or serve_trace(cfg.vocab_size)
+    if setup is not None:
+        setup(cb)
     torch.cuda.synchronize()
     cb.reset_clock()
     reset_launch_counts()                      # the path's run starts here
@@ -2945,8 +2985,8 @@ def phase_ssm(torch, ctx, build: dict | None) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase families: the paper's OPT-30B (16 of its 48 layers), granite-3-8b
-# and phi3-mini-3.8b (8 layers each), chameleon-34b and nemotron-4-340b, at
-# full width
+# and phi3-mini-3.8b (8 layers each), chameleon-34b, nemotron-4-340b and
+# grok-1-314b (2 of its 64 layers), at full width
 # ---------------------------------------------------------------------------
 OPT_LAYERS = 16      # of OPT-30B's 48: 118 GB of f32 weights do not fit one card
 OPT_ATTN = (4, 56, 1, 128)         # 4 slots, 56 heads of 128, MHA (rep 1)
@@ -2964,6 +3004,15 @@ CHAMELEON_ATTN = (4, 8, 8, 128)    # 4 slots, 8 groups of 8 heads of 128
 # 65.4 GB of f32 and 6.9 GB of int8 weights; 3 would not fit
 NEMOTRON_LAYERS = 2
 NEMOTRON_ATTN = (4, 8, 12, 192)    # 4 slots, 8 groups of 12 heads of 192
+# grok-1-314b: a layer is 4.92 G parameters (19.7 GB in f32, 4.92 GB in
+# int8: 8 SwiGLU experts of 6144 x 32768), its untied embedding and head
+# 3.22 GB each: 2 layers hold about 55.6 GB with both copies; 3 would not fit
+GROK_LAYERS = 2
+GROK_ATTN = (4, 8, 6, 128)         # 4 slots, 8 groups of 6 heads of 128
+# the 8 experts' row counts in a decode step at 4 slots (top-2 of 8: cap 2,
+# 8 choices) and in a spec_k = 4 verify window (20 rows: cap 10, 40
+# choices), each with experts of 0, 1 and C rows
+GROUPED_COUNTS = {2: (2, 1, 0, 2, 1, 0, 1, 1), 10: (10, 3, 0, 1, 10, 5, 7, 4)}
 FAMILY_B2 = (512, (1, 200, 377, 512))
 # B3 (spec_k 4) and B4 (spec_tree 6) windows in their lanes' pools of
 # 512 + T - 1 rows, the last cursor a slot at 511
@@ -2975,12 +3024,14 @@ LN_ROWS = 140        # 1, 4, 20 and 28 rows a call divide it
 def layer_shapes(cfg) -> dict:
     """{(K, N): count} of one attention layer's W8A8 linears: wq, wk, wv,
     wo, w_up, w_down and, under SwiGLU, w_gate (llama3-8b's are
-    ``LINEAR_SHAPES``)."""
+    ``LINEAR_SHAPES``); a MoE layer's attention linears only (its experts:
+    :func:`grouped_b1`)."""
     d, hd = cfg.d_model, cfg.head_dim
     kns = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd), (d, cfg.n_kv_heads * hd),
-           (cfg.n_heads * hd, d), (d, cfg.d_ff), (cfg.d_ff, d)]
-    if cfg.mlp_type == "swiglu":
-        kns.append((d, cfg.d_ff))
+           (cfg.n_heads * hd, d)]
+    if not cfg.n_experts:
+        kns += [(d, cfg.d_ff), (cfg.d_ff, d)] + ([(d, cfg.d_ff)] if cfg.mlp_type == "swiglu"
+                                                 else [])
     shapes: dict = {}
     for kn in kns:
         shapes[kn] = shapes.get(kn, 0) + 1
@@ -3056,6 +3107,196 @@ def family_kernels(torch, mods, cfg, attn: tuple) -> dict:
     return out
 
 
+def expert_stacks(cfg) -> list:
+    """(K, N) of a MoE layer's expert stacks: w_up (and w_gate under
+    SwiGLU) d -> ff, w_down ff -> d."""
+    d, ff = cfg.d_model, cfg.moe_d_ff
+    return [(d, ff)] * (2 if cfg.mlp_type == "swiglu" else 1) + [(ff, d)]
+
+
+def grouped_bound(C: int, counts: tuple, K: int, N: int, live: int) -> tuple:
+    """The grouped entry's bound with the weights of ``live`` experts read:
+    those bytes, x, the scales read and the output written, over the memory
+    rate; the int8 operations of the rows held, over the int8 rate."""
+    E = len(counts)
+    n_bytes = live * K * N + E * C * K + 4 * E * C + 4 * live * N + 4 * E * C * N + 4 * E
+    return bound_ms(n_bytes, [(2 * sum(counts) * K * N, INT8_OPS_PER_S)])
+
+
+def grouped_b1(torch, mm, cfg) -> dict:
+    """B1's grouped entry at a MoE layer's expert stacks (``expert_stacks``,
+    ``cfg.n_experts`` experts) for C rows an expert at the row counts of
+    ``GROUPED_COUNTS`` (experts with 0, 1 and C rows): bit-equal to its
+    plain version and to B1 (``int8_matmul_cuda``) on each expert's slice,
+    the rows past a count zero (gated); its device time a layer (every
+    stack), the plain version's, the library's (``torch._int_mm`` on each
+    expert that holds a row, x zero-padded to 32 rows, summed: the faster
+    weight layout) and two bounds: the weight bytes it reads (the experts
+    that hold a row) and every expert's."""
+    from repro_torch.kernels import int8_matmul_grouped as gmm
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    E = cfg.n_experts
+    out = {}
+    for C, counts in GROUPED_COUNTS.items():
+        cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
+        live = [e for e, c in enumerate(counts) if c]
+        rec = {"C": C, "counts": list(counts), "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0, "bound_all_experts_ms": 0.0, "max_abs_err": 0.0,
+               "stacks": []}
+        by = {"bytes": 0.0, "operations": 0.0}
+        for K, N in expert_stacks(cfg):
+            w_q = torch.randint(-127, 128, (E, K, N), generator=g, device="cuda",
+                                dtype=torch.int8)
+            w_s = torch.rand((E, N), generator=g, device="cuda") + 0.01
+            x_q = torch.randint(-127, 128, (E, C, K), generator=g, device="cuda",
+                                dtype=torch.int8)
+            x_s = torch.rand((E, C, 1), generator=g, device="cuda") + 0.01
+            args = (x_q, x_s, w_q, w_s, cnt)
+            got = gmm.int8_matmul_grouped_cuda(*args)
+            plain = gmm.int8_matmul_grouped_plain(*args)
+            per = all(torch.equal(got[e, :c], mm.int8_matmul_cuda(
+                x_q[e, :c].contiguous(), x_s[e, :c].contiguous(), w_q[e], w_s[e],
+                with_acc=False)[0]) for e, c in enumerate(counts) if c)
+            zero = all(not got[e, c:].any() for e, c in enumerate(counts))
+            if not (torch.equal(got, plain) and per and zero):
+                raise AssertionError(f"grouped B1 at C={C} K={K} N={N}: plain "
+                                     f"{torch.equal(got, plain)}, per-expert B1 {per}, "
+                                     f"zero rows {zero}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], float((got - plain).abs().max()))
+            t = graph_ms(torch, lambda i: gmm.int8_matmul_grouped_cuda(*args), 20)
+            t_plain = graph_ms(torch, lambda i: gmm.int8_matmul_grouped_plain(*args), 2)
+            xs = [torch.cat([x_q[e], x_q.new_zeros((32 - C, K))]) if C <= 16 else x_q[e]
+                  for e in live]
+            layouts = {}
+            for layout in ("row-major", "column-major"):
+                ws = [w_q[e] if layout == "row-major" else w_q[e].t().contiguous().t()
+                      for e in live]
+
+                def lib(i, ws=ws):
+                    for x, w in zip(xs, ws):
+                        torch._int_mm(x, w)
+                try:
+                    layouts[layout] = graph_ms(torch, lib, 10)
+                except RuntimeError as e:
+                    layouts[layout] = None
+                    layouts[layout + " refused"] = str(e).splitlines()[0][:120]
+                del ws
+            ok = [v for k, v in layouts.items() if k in ("row-major", "column-major")
+                  and v is not None]
+            t_lib = min(ok) if ok else None
+            b = grouped_bound(C, counts, K, N, len(live))
+            b_all = grouped_bound(C, counts, K, N, E)
+            by[b[1]] += b[0]
+            rec["ms"] += t
+            rec["plain_ms"] += t_plain
+            rec["library_ms"] = (None if t_lib is None or rec["library_ms"] is None
+                                 else rec["library_ms"] + t_lib)
+            rec["bound_ms"] += b[0]
+            rec["bound_all_experts_ms"] += b_all[0]
+            rec["stacks"].append({"K": K, "N": N, "ms": t, "plain_ms": t_plain,
+                                  "library_ms": t_lib, "library_layouts_ms": layouts,
+                                  "bound_ms": b[0], "bound_all_experts_ms": b_all[0],
+                                  "plan": mm.launch_plan(C, K, N, 132)._asdict()})
+            lib_us = "n/a" if t_lib is None else f"{t_lib * 1e3:.1f}"
+            print(f"   grouped B1 E={E} C={C} K={K:5d} N={N:5d} counts {list(counts)}: "
+                  f"{t * 1e3:.1f} us (bound {b[0] * 1e3:.1f} for the {len(live)} experts "
+                  f"with a row, {b_all[0] * 1e3:.1f} for all {E}; plain {t_plain * 1e3:.1f}), "
+                  f"per-expert torch._int_mm {lib_us} us {layouts}; bit-equal to the plain "
+                  f"version and to B1 on each expert")
+            del args, got, plain, w_q, x_q, xs
+            torch.cuda.empty_cache()
+        rec["bound_by"] = max(by, key=by.get)
+        lib = rec["library_ms"]
+        print(f"   grouped B1 C={C}, a layer's {len(expert_stacks(cfg))} stacks: "
+              f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; all "
+              f"experts {rec['bound_all_experts_ms']:.4f}), plain {rec['plain_ms']:.3f} ms, "
+              f"library {'n/a' if lib is None else f'{lib:.4f}'} ms")
+        out[C] = rec
+    return out
+
+
+def moe_margins(torch, cfg, params, outputs: dict) -> list:
+    """Where ``ref_int8`` parts from ``fused_int8`` on a MoE stack: both
+    lanes served again, each parting request's logits row recorded at its
+    first differing token from the served step itself (a single-request
+    rerun would route other rows with it, and a MoE's row depends on the
+    rows it is routed with), with the engine step that emitted it; and a
+    second witness on the fused lane's own inputs: its decode state and
+    every slot's token at that step, through one ``ref_int8`` decode step
+    (teacher-forced, launches not counted).  Each record: the two
+    candidates' gap in each lane, the served rows' distance, the logit
+    scale, whether each served row picks its lane's token, the step; and
+    the teacher-forced row's token, its distance from the fused row and
+    the fused row's gap between the two tokens."""
+    from repro_torch.kernels import launch_counts, set_launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.scheduler import RequestState
+
+    first = {rid: next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+             for rid, (a, b) in enumerate(zip(outputs["fused_int8"], outputs["ref_int8"]))
+             if a != b}
+    rows, steps, forced = {}, {}, {}
+    for backend in ("fused_int8", "ref_int8"):
+        got, at = rows.setdefault(backend, {}), steps.setdefault(backend, {})
+
+        def setup(cb, got=got, at=at, witness=backend == "fused_int8"):
+            served = cb._steps
+            real = served.decode
+
+            def decode():
+                want = [(slot, req.rid) for slot, req in cb.scheduler.active.items()
+                        if req.rid in first and req.state is RequestState.DECODING
+                        and len(req.output) == first[req.rid]]
+                inputs = ((clone_state(served.state), served.tok.clone())
+                          if witness and want else None)
+                logits, argmax = real()
+                for slot, rid in want:
+                    got[rid] = logits[slot].float().cpu()
+                    at[rid] = cb.stats["steps"]
+                if inputs is not None:
+                    counts = launch_counts()
+                    lg, _ = T.decode_step(served.params, cfg, *inputs, Runtime("ref_int8"))
+                    for slot, rid in want:
+                        forced[rid] = lg[slot].float().cpu()
+                    set_launch_counts(counts)
+                    del lg, inputs
+                return logits, argmax
+            served.decode = decode
+        cb, reqs, _, _ = serve(torch, cfg, params, {},
+                               "decode_attn" if backend == "fused_int8" else None, backend,
+                               setup=setup)
+        if [list(r.output) for r in reqs] != outputs[backend]:
+            raise AssertionError(f"{cfg.name} {backend}: the recording run parts from the "
+                                 "first run")
+        del cb._steps.decode            # the hook's cycle would hold the engine's weights
+        del cb, reqs
+        torch.cuda.empty_cache()
+    res = []
+    for rid, d in sorted(first.items()):
+        a, b = outputs["fused_int8"][rid][d], outputs["ref_int8"][rid][d]
+        f, r, t = rows["fused_int8"][rid], rows["ref_int8"][rid], forced[rid]
+        tf = int(t.argmax())
+        rec = {"rid": rid, "token": d, "tokens": [a, b], "step": steps["fused_int8"][rid],
+               "ref_step": steps["ref_int8"][rid],
+               "fused_gap": float(f[a] - f[b]), "ref_gap": float(r[a] - r[b]),
+               "fused_top2_gap": float(torch.topk(f, 2).values.diff().abs()[0]),
+               "logit_scale": float(f.abs().max()),
+               "lanes_max_abs_diff": float((f - r).abs().max()),
+               "fused_reproduced": int(f.argmax()) == a, "ref_reproduced": int(r.argmax()) == b,
+               "forced_token": tf, "forced_max_abs_diff": float((f - t).abs().max()),
+               "forced_fused_gap": float(f[a] - f[tf])}
+        res.append(rec)
+        print(f"   req {rid} parts at token {d} ({a} vs {b}), step {rec['step']}: gap fused "
+              f"{rec['fused_gap']:.4g}, ref {rec['ref_gap']:.4g} (logit scale "
+              f"{rec['logit_scale']:.3g}); lanes' rows apart by {rec['lanes_max_abs_diff']:.3g}; "
+              f"served rows pick the lanes' tokens: fused {rec['fused_reproduced']}, ref "
+              f"{rec['ref_reproduced']}; ref_int8 on the fused lane's inputs picks {tf} "
+              f"(fused gap to it {rec['forced_fused_gap']:.4g}), rows apart by "
+              f"{rec['forced_max_abs_diff']:.3g}")
+    return res
+
 def same_streams(outs: dict, want: list) -> dict:
     """Per lane, the requests whose tokens equal ``want``'s, and where each
     other one first parts from it."""
@@ -3098,9 +3339,30 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
     kernels equal to its credits), whose profile gives the replayed step's
     wall, device-busy time and idle share at 4 slots.  The peak of device
     memory over the whole family (initialisation included) is recorded
-    beside the card's total."""
+    beside the card's total.
+
+    A MoE stack (grok-1-314b) routes each call's rows together with a
+    capacity, so a slot's tokens depend on the other slots': each served
+    run records the calls, the dropped choices (gated above 0 under
+    ``fused_int8``) and the experts that got a row (``moe.count_routing``),
+    the captured steps' calls apart from the prefill calls; where
+    ``fused_int8`` parts from ``ref_int8`` the lanes' rows are held to
+    :func:`moe_margins` (the first step where any request parts must be a
+    near-tie in the served rows as above; a request that parts later may
+    part there through the other slots' rows; on the fused lane's own
+    inputs at each parting step, ``ref_int8`` must pick the fused token or
+    a near-tie of it, its row within 10% of the logit scale); the verify window is not held to
+    sequential decode (it routes T times the rows at another capacity, so
+    the K/V from the second layer on part by design), and ``multi_step =
+    4`` is gated 8 of 8 on a lockstep trace (the phase-4 prompts, every
+    budget 16: a fused block never runs with an idle slot) against the
+    plain lane on it; on the phase-4 trace a fused block feeds an idle
+    slot its own argmax where the plain step feeds it its last token, which
+    can move a live slot's choices (the reference's lanes part the same
+    way: ``tests/test_torch_moe.py``), so that run is recorded, not gated."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.models import transformer as T
     from repro_torch.models.transformer import Runtime
     from repro_torch.serve.engine import Engine
@@ -3118,24 +3380,57 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
 
     out = {"n_layers": cfg.n_layers, "init_s": time.perf_counter() - t0, "serve_s": secs,
            "f32_weight_bytes": sum(t.numel() * 4 for lp in params["layers"]
-                                   for t in (lp["attn"] | lp["mlp"]).values()
-                                   if isinstance(t, torch.Tensor)),
+                                   for k in ("attn", "mlp", "moe") if k in lp
+                                   for t in lp[k].values() if isinstance(t, torch.Tensor)),
            "f32_embed_head_bytes": sum(params[k]["w"].numel() * 4 for k in ("embed", "lm_head")
                                        if k in params)}
+    # a MoE stack's routing on each served run (calls, dropped choices,
+    # experts that got a row), the captured steps' calls (decode, or a
+    # verify window) apart from the eager prefill calls: a graph adds to
+    # the counter set when the engine captured it, prefill to the one set
+    # at its call
+    routing = ({k: torch.zeros((3,), dtype=torch.int64, device="cuda")
+                for k in ("steps", "prefill")} if cfg.n_experts else None)
+
+    def count_steps():                  # before an engine captures its steps
+        if routing is not None:
+            moe.count_routing(routing["steps"])
+
+    def zero_routing(cb):               # once it has
+        if routing is not None:
+            for t in routing.values():
+                t.zero_()
+            moe.count_routing(routing["prefill"])
+
+    def routing_record():
+        rec = {}
+        for k, t in routing.items():
+            calls, dropped, live = t.tolist()
+            rec[k] = {"calls": calls, "dropped_choices": dropped,
+                      "experts_with_rows_per_call": live / max(1, calls)}
+        return rec
     outs = {}
     for backend in ("fused_int8", "pim_bitserial", "ref_int8"):
+        count_steps()
         cb, reqs, wall, counts = serve(torch, cfg, params, {},
                                        "decode_attn" if backend == "fused_int8" else None,
-                                       backend)
+                                       backend, setup=zero_routing)
         outs[backend] = [list(r.output) for r in reqs]
         out[backend] = dict(serve_record(reqs, wall, cfg), stats=dict(cb.stats),
                             launches=counts, max_memory_allocated=torch.cuda.max_memory_allocated())
+        if routing is not None:
+            out[backend]["routing"] = routing_record()
         print(f"   {cfg.name} {backend}: served {out[backend]['tokens_served']} tokens in "
               f"{wall:.2f} s ({out[backend]['tokens_per_s']:.1f} tokens/s), "
               f"{cb.stats['decode_steps']} decode steps, launches {counts}, peak "
-              f"{out[backend]['max_memory_allocated'] / 1e9:.1f} GB")
+              f"{out[backend]['max_memory_allocated'] / 1e9:.1f} GB"
+              + (f", routing {out[backend]['routing']}" if routing is not None else ""))
         del cb, reqs
         torch.cuda.empty_cache()
+    if routing is not None and sum(v["dropped_choices"]
+                                   for v in out["fused_int8"]["routing"].values()) < 1:
+        raise AssertionError(f"{cfg.name}: no choice was dropped on the trace, so capacity "
+                             "went untested")
     part("backends")
     plain = outs["fused_int8"]
     out["backends_vs_fused_int8"] = same_streams(outs, plain)
@@ -3148,11 +3443,26 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
     if out["pim_eq_ref_int8_requests"] != len(plain):
         raise AssertionError(f"{cfg.name}: pim_bitserial and ref_int8 part")
     if out["backends_vs_fused_int8"]["ref_int8"]["same"] != len(plain):
-        margins = divergence_margins(torch, cfg, params, outs)
+        if cfg.n_experts:
+            moe.count_routing(None)
+            margins = moe_margins(torch, cfg, params, outs)
+            first_step = min(m["step"] for m in margins)
+        else:
+            margins, first_step = divergence_margins(torch, cfg, params, outs), None
         out["divergence_margins"] = margins
+        # a MoE request that parts after another one did may part through
+        # the other slots' rows (capacity), so its served rows need not be
+        # near; on the fused lane's own inputs ref_int8 must pick the fused
+        # token or a near-tie of it, for every parting request
         far = [m["rid"] for m in margins if not m["fused_reproduced"]
-               or abs(m["fused_gap"]) > m["lanes_max_abs_diff"]
-               or m["lanes_max_abs_diff"] > 0.1 * m["logit_scale"]]
+               or (first_step is not None
+                   and not (m["ref_reproduced"] and m["step"] == m["ref_step"]))
+               or ((first_step is None or m["step"] == first_step)
+                   and (abs(m["fused_gap"]) > m["lanes_max_abs_diff"]
+                        or m["lanes_max_abs_diff"] > 0.1 * m["logit_scale"]))
+               or (first_step is not None
+                   and (m["forced_fused_gap"] > m["forced_max_abs_diff"]
+                        or m["forced_max_abs_diff"] > 0.1 * m["logit_scale"]))]
         if exact or far:
             raise AssertionError(f"{cfg.name}: fused_int8 parts from ref_int8 "
                                  f"{out['backends_vs_fused_int8']['ref_int8']}; "
@@ -3183,11 +3493,14 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
               f"launches {counts}")
         qparams = eng.qparams
         del eng
-        _, state = M.prefill(params, cfg, {"inputs": prompts}, 128, Runtime("fused_int8"))
-        win = torch.randint(0, cfg.vocab_size, (4, 5), generator=g, device="cuda",
-                            dtype=torch.int32)
-        out["full_width_parity"] = full_width_parity(torch, params, cfg, qparams, state, win)
-        del state, qparams
+        if not cfg.n_experts:
+            _, state = M.prefill(params, cfg, {"inputs": prompts}, 128, Runtime("fused_int8"))
+            win = torch.randint(0, cfg.vocab_size, (4, 5), generator=g, device="cuda",
+                                dtype=torch.int32)
+            out["full_width_parity"] = full_width_parity(torch, params, cfg, qparams, state,
+                                                         win)
+            del state
+        del qparams
         torch.cuda.empty_cache()
         lane_runs = {"spec_k": ({"spec_k": 4}, "verify_attn"),
                      "spec_tree": ({"spec_tree": 6, "spec_branch": 2}, "verify_tree_attn"),
@@ -3196,7 +3509,8 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
         lane_outs = {}
         for label in lanes:
             lane, attn = lane_runs[label]
-            cb, reqs, wall, counts = serve(torch, cfg, params, lane, attn)
+            count_steps()
+            cb, reqs, wall, counts = serve(torch, cfg, params, lane, attn, setup=zero_routing)
             lane_outs[label] = [list(r.output) for r in reqs]
             st = cb.stats
             rec = dict(serve_record(reqs, wall, cfg), stats=dict(st), launches=counts)
@@ -3204,6 +3518,8 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
                 rec["acceptance_rate"] = cb.acceptance_rate
                 rec["tokens_per_verify_step"] = ((rec["tokens_served"] - len(reqs))
                                                  / st["verify_steps"])
+            if routing is not None:
+                rec["routing"] = routing_record()
             out[label] = rec
             print(f"   {cfg.name} {label}: served {rec['tokens_served']} tokens in {wall:.2f} s, "
                   f"{st['decode_steps']} steps ({st['verify_steps']} verify, "
@@ -3213,10 +3529,36 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
         out["lanes_vs_plain"] = same_streams(lane_outs, plain)
         print(f"   {cfg.name}: requests equal to the plain trace "
               f"{ {k: v['same'] for k, v in out['lanes_vs_plain'].items()} } of {len(plain)}")
-        if any(v["same"] != len(plain) for v in out["lanes_vs_plain"].values()):
-            raise AssertionError(f"{cfg.name}: a lane parts from the plain trace: "
-                                 f"{out['lanes_vs_plain']}")
+        gated = {k: v for k, v in out["lanes_vs_plain"].items()
+                 if not (cfg.n_experts and k == "multi_step_4")}
+        if cfg.n_experts and "multi_step_4" in lanes:
+            prompts_l, budgets_l = serve_trace(cfg.vocab_size)
+            lock = (prompts_l, [16] * len(budgets_l))
+            lock_outs = {}
+            for label, lane in (("plain", {}), ("multi_step_4", {"multi_step": 4})):
+                count_steps()
+                cb, reqs, wall, counts = serve(torch, cfg, params, lane, "decode_attn",
+                                               trace=lock, setup=zero_routing)
+                lock_outs[label] = [list(r.output) for r in reqs]
+                out[f"lockstep_{label}"] = dict(serve_record(reqs, wall, cfg),
+                                                stats=dict(cb.stats), launches=counts,
+                                                routing=routing_record())
+                del cb, reqs
+                torch.cuda.empty_cache()
+            if out["lockstep_multi_step_4"]["stats"]["multi_blocks"] < 1:
+                raise AssertionError(f"{cfg.name}: the lockstep trace fused no block")
+            gated["multi_step_4_lockstep"] = same_streams(
+                {"multi_step_4": lock_outs["multi_step_4"]}, lock_outs["plain"])["multi_step_4"]
+            out["lanes_vs_plain"]["multi_step_4_lockstep"] = gated["multi_step_4_lockstep"]
+            print(f"   {cfg.name}: on the lockstep trace (every budget 16) multi_step = 4 "
+                  f"equals the plain lane in {gated['multi_step_4_lockstep']['same']} of "
+                  f"{len(plain)} ({out['lockstep_multi_step_4']['stats']['multi_blocks']} "
+                  f"fused blocks); on the phase-4 trace in "
+                  f"{out['lanes_vs_plain']['multi_step_4']['same']} (recorded)")
+        if any(v["same"] != len(plain) for v in gated.values()):
+            raise AssertionError(f"{cfg.name}: a lane parts from the plain trace: {gated}")
     part("lanes")
+    moe.count_routing(None)              # the captured step's graph adds nothing
     # the captured decode step: the float weights go first, and the int8
     # ones and the pool before a fresh-process profile (the last resort of
     # replay_vs_eager), so that the child has the card's memory
@@ -3281,10 +3623,15 @@ def phase_families(torch, ctx, mods: dict) -> dict:
     step; then chameleon-34b at full width with 16 of its 48 layers (its
     kernels, QK-norm's rows, the reduced model from embeddings, the three
     backends, ``Engine`` from an embedding prompt, the spec lanes, the
-    captured decode step) and nemotron-4-340b at full width with 2 of its 96
+    captured decode step), nemotron-4-340b at full width with 2 of its 96
     layers (its kernels, B2-B4 at D 192 also across pools, the reduced
-    model, the three backends, the captured decode step), each family's
-    weights freed before the next."""
+    model, the three backends, the captured decode step) and grok-1-314b at
+    full width with 2 of its 64 layers (about 55.6 GB of f32 and int8
+    weights; 3 layers would hold about 80 GB): its attention kernels at
+    rep 6, B1's grouped entry at its expert stacks, the reduced model at 4
+    and at 8 experts, the three backends, ``Engine``, ``multi_step = 4``
+    and the captured decode step), each family's weights freed before the
+    next."""
     import dataclasses
     import gc
 
@@ -3333,6 +3680,31 @@ def phase_families(torch, ctx, mods: dict) -> dict:
     rec.update(serve_family(torch, ctx, nem))
     rec["family_s"] = time.perf_counter() - t0
     out["nemotron-4-340b"] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    grok_cfg = registry.get("grok-1-314b")
+    grok = dataclasses.replace(grok_cfg, n_layers=GROK_LAYERS)
+    t0 = time.perf_counter()
+    rec = {"kernels": family_kernels(torch, mods, grok, GROK_ATTN)}
+    rec["kernels"]["cross_pool"] = cross_pool(torch, mods["da"], mods["va"], mods["vt"],
+                                              mods["quant"], GROK_ATTN, CROSS_POOL[:1])
+    rec["grouped_b1"] = grouped_b1(torch, mods["mm"], grok)
+    rec.update(reduced_vs_cpu(torch, grok_cfg))
+    e8 = reduced_vs_cpu(torch, grok_cfg,
+                        rcfg=dataclasses.replace(grok_cfg.reduced(), n_experts=8))
+    rec.update({f"e8_{k}": v for k, v in e8.items()})
+    rec.update(serve_family(torch, ctx, grok, lanes=("multi_step_4",)))
+    ctx["grouped_launches"] = rec["fused_int8"]["launches"]["int8_matmul_grouped"]
+    # the grouped entry's byte floor at the experts the trace's decode steps
+    # routed rows to (a layer's stacks; the prefill calls run float experts)
+    live = rec["fused_int8"]["routing"]["steps"]["experts_with_rows_per_call"]
+    rec["grouped_b1"]["bound_on_trace_ms"] = sum(
+        live * K * N for K, N in expert_stacks(grok)) / HBM_BYTES_PER_S * 1e3
+    print(f"   grok-1-314b: {live:.2f} of {grok.n_experts} experts hold a row a decode call "
+          f"on the trace: the expert stacks' byte floor "
+          f"{rec['grouped_b1']['bound_on_trace_ms']:.4f} ms a layer")
+    rec["family_s"] = time.perf_counter() - t0
+    out["grok-1-314b"] = rec
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3399,10 +3771,14 @@ def main() -> int:
     ver = s.record.get("verify", {}).get("kernels", {})
     ssm = s.record.get("ssm", {})
     main = ctx.get("main_launches", {})
+    grok = s.record.get("families", {}).get("grok-1-314b", {})
     for name, src, replaces, rec, launches in (
             ("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
              "src/repro/kernels/int8_matmul/kernel.py:45", lin.get("int8_matmul"),
              main.get("int8_matmul")),
+            ("int8_matmul_grouped", "src/repro_torch/csrc/int8_matmul.cu",
+             "src/repro/models/moe.py:61 _int8_expert_mm (XLA einsum; no Pallas kernel)",
+             grok.get("grouped_b1", {}).get(2), ctx.get("grouped_launches")),
             ("decode_attn", "src/repro_torch/csrc/decode_attn.cu",
              "src/repro/kernels/decode_attn/kernel.py:130", att or None,
              main.get("decode_attn")),

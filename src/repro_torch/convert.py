@@ -6,8 +6,10 @@ leading ``[n_p, ...]`` axis) and scans over them.  The port keeps one dict
 per layer under ``params["layers"]``.  :func:`from_numpy` unstacks a
 reference tree — float or ``quantize_tree``'d, with its leaves already
 turned into numpy arrays — into port tensors, keeping every key name;
-:func:`to_numpy` stacks a port tree back (one group, period 1: the dense
-decoders' layout).
+:func:`to_numpy` stacks a port tree back, each run of consecutive layers of
+one structure a group of period 1 (the dense and MoE decoders' layout; a
+stack whose first layers are dense and the rest MoE gets two groups, as
+the reference's ``first_dense_layers`` does).
 """
 from __future__ import annotations
 
@@ -62,9 +64,15 @@ def from_numpy(params: dict, device: str | torch.device = "cuda") -> dict:
     return out
 
 
+def _structure(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return tuple((k, _structure(v)) for k, v in tree.items())
+    return None
+
+
 def to_numpy(params: dict) -> dict:
-    """Port params -> the reference's layout with numpy leaves (all layers
-    in one group of period 1)."""
+    """Port params -> the reference's layout with numpy leaves (each run of
+    layers of one structure in a group of period 1)."""
     out = {k: _map(v, lambda t: t.detach().cpu().numpy())
            for k, v in params.items() if k != "layers"}
 
@@ -73,5 +81,11 @@ def to_numpy(params: dict) -> dict:
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
         return np.stack([t.detach().cpu().numpy() for t in trees])
 
-    out["groups"] = ((stack(params["layers"]),),)
+    runs: list[list] = []
+    for layer in params["layers"]:
+        if runs and _structure(runs[-1][0]) == _structure(layer):
+            runs[-1].append(layer)
+        else:
+            runs.append([layer])
+    out["groups"] = tuple((stack(run),) for run in runs)
     return out

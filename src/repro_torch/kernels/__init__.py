@@ -17,8 +17,8 @@ import importlib
 
 import torch
 
-KERNELS = ("int8_matmul", "pim_mvm", "decode_attn", "verify_attn",
-           "verify_tree_attn", "ssd_chunk", "rms_norm", "layer_norm")
+KERNELS = ("int8_matmul", "int8_matmul_grouped", "pim_mvm", "decode_attn",
+           "verify_attn", "verify_tree_attn", "ssd_chunk", "rms_norm", "layer_norm")
 
 
 def _module(name: str):

@@ -38,10 +38,11 @@ after its first tokens); it ends by printing ``SERVE_SHUTDOWN_CLEAN``:
 Fault injection (``--ber``, ``--fault-steps``, ``--fault-every``,
 ``--slot-loss``), request deadlines (``--deadline``) and the fault layer
 alone (``--faults``) work in both engine modes.  ``--arch`` takes every
-dense and SSM configuration of the reference's registry (chameleon-34b
-prompts with token ids here, as the reference's CLI does); its MoE, MLA,
-hybrid and encoder-decoder ones (ROADMAP A.11) are not ported yet, and
-neither is ``--mesh`` (sharded serving, ROADMAP A.14): both raise.
+dense, MoE (grok-1-314b) and SSM configuration of the reference's registry
+(chameleon-34b prompts with token ids here, as the reference's CLI does);
+its MLA, hybrid and encoder-decoder ones (ROADMAP A.11) are not ported
+yet, and neither is ``--mesh`` (sharded serving, expert parallelism
+included, ROADMAP A.14): both raise.
 """
 from __future__ import annotations
 

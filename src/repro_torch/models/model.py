@@ -2,11 +2,12 @@
 
 PyTorch counterpart of the ``repro.models.model`` facades that the plain
 decode path, the fused multi-step lane, chunked prefill (cold or warm from
-the prefix cache) and the speculative lanes use, for dense GQA/MHA decoders
+the prefix cache) and the speculative lanes use, for GQA/MHA decoders
 (token inputs, or the embeddings that a ``vlm`` configuration's stubbed
-front end gives) and SSM (Mamba2) stacks.  Experts, MLA, hybrid stacks and
-encoder-decoders raise until their slice is ported (ROADMAP A.11), and
-``verify_step`` raises for SSM stacks, as in the reference.
+front end gives) whose FFNs are dense or mixture-of-experts
+(``models/moe.py``; token inputs), and SSM (Mamba2) stacks.  MLA, hybrid
+stacks and encoder-decoders raise until their slice is ported (ROADMAP
+A.11), and ``verify_step`` raises for SSM stacks, as in the reference.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ def multi_decode_step(params: Params, cfg: ModelConfig, state: dict, token,
 
 def init_prefill_carry(cfg: ModelConfig, buf_len: int,
                        device: str | torch.device = "cuda") -> dict:
-    """A zero float K/V carry of ``buf_len`` rows (``carry_len(max_len)``)
+    """A zero float K/V carry of ``buf_len`` rows (``carry_len(max_len, chunk)``)
     for one chunked prefill; see
     :func:`repro_torch.models.transformer.init_prefill_carry`."""
     return T.init_prefill_carry(cfg, buf_len, device)

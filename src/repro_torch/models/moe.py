@@ -1,0 +1,208 @@
+"""Mixture-of-Experts FFN: top-k routing with per-expert capacity (a
+dropping MoE), the experts' SwiGLU / relu2 / gelu FFNs, and the combine.
+
+PyTorch counterpart of ``repro.models.moe`` outside a mesh (expert
+parallelism over a mesh axis is ROADMAP A.14).  The router is a float
+"controller op"; the expert weights are static, flash-resident stacks.
+Float experts run a batched float product; quantized experts (weight-only
+int8 from ``serve/quantize.py``) take per-row int8 activations through the
+grouped B1 kernel (``kernels/int8_matmul.py``, one launch for every expert)
+on CUDA tensors, or its plain version on CPU tensors: the integers and the
+epilogue of the reference's ``_int8_expert_mm``.
+
+Routing is the reference's, row for row.  A call routes its ``N`` rows
+(``[B, T]`` flattened b-major) into ``N * k`` (token, choice) slots; expert
+e keeps at most ``cap = ceil(N * k / E * CAPACITY_FACTOR)`` of them, the
+earliest in slot order, and drops the rest (their weight is lost; nothing
+renormalises).  The reference sorts the slots by expert with a stable
+``argsort``; here a slot's rank is the count of earlier slots that chose
+the same expert (a cumulative sum over one-hot choices), which gives the
+same kept set in the same rows, with no sort, no host sync and no shape
+that depends on the data, so a decode or verify step that routes can be
+captured as a CUDA graph.  So whether a row reaches an expert depends on
+the other rows of the same call, idle decode slots included.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant
+from repro_torch.kernels import int8_matmul_grouped as grouped_ops
+from repro_torch.models import layers as L
+
+Params = dict[str, Any]
+CAPACITY_FACTOR = 2.0
+
+# optional int64 [3] tensor that every moe_local call adds to (see
+# count_routing)
+_counter: torch.Tensor | None = None
+
+
+def count_routing(counter: torch.Tensor | None) -> None:
+    """From now on every :func:`moe_local` call on ``counter``'s device (an
+    int64 [3] tensor) adds, in place, 1 to ``counter[0]``, the choices that
+    capacity dropped to ``counter[1]`` and the experts that got a row to
+    ``counter[2]``; ``None`` stops it.  A step captured as a CUDA graph
+    while counting keeps adding to ``counter`` on every replay."""
+    global _counter
+    _counter = counter
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Params:
+    """Random router and expert stacks (``router`` [d, E] f32, ``w_up`` /
+    ``w_gate`` [E, d, ff], ``w_down`` [E, ff, d]) from ``gen``, scaled as the
+    reference scales them, and a shared expert where the configuration has
+    one."""
+    d, ff, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    dev = gen.device
+
+    def normal(shape, scale, dt=dtype):
+        return torch.randn(shape, generator=gen, dtype=dt, device=dev).mul_(scale)
+    scale = 1.0 / math.sqrt(d)
+    p = {"router": normal((d, E), scale, torch.float32),
+         "w_up": normal((E, d, ff), scale),
+         "w_down": normal((E, ff, d), 1.0 / math.sqrt(ff))}
+    if cfg.mlp_type == "swiglu":
+        p["w_gate"] = normal((E, d, ff), scale)
+    if cfg.n_shared_experts:
+        p["shared"] = L.mlp_init(gen, d, cfg.moe_d_ff * cfg.n_shared_experts,
+                                 cfg.mlp_type, dtype)
+    return p
+
+
+def _capacity(n_slots: int, n_experts: int) -> int:
+    return max(1, math.ceil(n_slots / n_experts * CAPACITY_FACTOR))
+
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest of each row in descending order and their indices,
+    a tie to the lower index (as ``jax.lax.top_k``): ``k`` rounds of
+    ``torch.argmax``, which returns the first maximum (``torch.topk``
+    promises no order among equal values)."""
+    rest, vals, idx = probs, [], []
+    for _ in range(k):
+        i = torch.argmax(rest, dim=-1, keepdim=True)
+        vals.append(torch.gather(probs, -1, i))
+        idx.append(i)
+        rest = rest.scatter(-1, i, float("-inf"))
+    return torch.cat(vals, -1), torch.cat(idx, -1)
+
+
+def _expert_mm(x: torch.Tensor, p: Params, nm: str, counts: torch.Tensor) -> torch.Tensor:
+    """[E, C, d] by expert stack ``nm`` -> [E, C, f].  Quantized: per-row
+    int8 activations, int32 sums, ``(float(acc) * x_s) * w_s`` (grouped B1,
+    expert e's rows at or past ``counts[e]`` zero, as the zero rows the
+    reference multiplies give); float: the batched float product."""
+    if nm + "_q" in p:
+        x_q, x_s = quant.quantize_activation(x)
+        return grouped_ops.int8_matmul_grouped(x_q, x_s, p[nm + "_q"], p[nm + "_s"],
+                                          counts).to(x.dtype)
+    return torch.bmm(x, p[nm].to(x.dtype))
+
+
+def _expert_ffn(xe: torch.Tensor, p: Params, cfg: ModelConfig,
+                counts: torch.Tensor) -> torch.Tensor:
+    """xe: [E, C, d] -> [E, C, d] through the expert stack."""
+    up = _expert_mm(xe, p, "w_up", counts)
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(_expert_mm(xe, p, "w_gate", counts)) * up
+    elif cfg.mlp_type == "relu2":
+        h = torch.square(F.relu(up))
+    else:   # gelu (jax.nn.gelu's default is the tanh approximation)
+        h = F.gelu(up, approximate="tanh")
+    return _expert_mm(h, p, "w_down", counts)
+
+
+class Routing(NamedTuple):
+    """Where a call's routed choices go: expert e's buffer row r (of
+    ``cap``) holds token ``toks[e, r]`` with weight ``ws[e, r]`` for
+    ``r < counts[e]``; the rest of the rows are empty (token 0, weight 0)."""
+    toks: torch.Tensor        # [E, cap] int64
+    ws: torch.Tensor          # [E, cap] f32
+    counts: torch.Tensor      # [E] int32
+    dropped: torch.Tensor     # 0-d int64: choices past an expert's capacity
+    probs: torch.Tensor       # [N, E] f32: the router's softmax
+    topi: torch.Tensor        # [N, k] int64: each token's experts, best first
+
+
+def route(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """Route ``x`` [N, d] over the ``E`` experts: top-k of the router's
+    softmax (ties to the lower expert), weights renormalised over the k;
+    slot ``n * k + j`` is token n's j-th choice; expert e's row r holds the
+    r-th slot, in slot order, that chose e, and a slot of rank ``cap`` or
+    more is dropped."""
+    N, _ = x.shape
+    E, k = cfg.n_experts, cfg.n_experts_active
+    dev = x.device
+    probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)   # controller op
+    topw, topi = _top_k(probs, k)
+    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+    slot_e, slot_w = topi.reshape(-1), topw.reshape(-1)
+    slot_tok = torch.arange(N * k, device=dev) // k
+    hot = (slot_e[:, None] == torch.arange(E, device=dev)).to(torch.int64)
+    rank = (torch.cumsum(hot, 0) - hot).gather(1, slot_e[:, None])[:, 0]
+    cap = _capacity(N * k, E)
+    kept = rank < cap
+    # kept slot -> row slot_e * cap + rank; a dropped slot -> a spare last row
+    rows = E * cap
+    dest = torch.where(kept, slot_e * cap + rank, rows)
+    toks = torch.zeros((rows + 1,), dtype=torch.int64, device=dev).scatter_(
+        0, dest, slot_tok)[:rows].view(E, cap)
+    ws = torch.zeros((rows + 1,), dtype=slot_w.dtype, device=dev).scatter_(
+        0, dest, slot_w)[:rows].view(E, cap)
+    counts = torch.clamp(hot.sum(0), max=cap).to(torch.int32)
+    return Routing(toks, ws, counts, (~kept).sum(), probs, topi)
+
+
+def moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              with_aux: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """MoE over ``x`` [N, d], routed by :func:`route`.  Returns
+    ``(out [N, d], aux)``: ``aux`` is the Switch-style load-balance loss
+    where ``with_aux`` asks for it (serving discards it, as the reference's
+    serve paths do), else None.  Each expert's output row is scaled by its
+    slot's weight and added onto its token's row with ``index_add_``
+    (atomics on the card): a token gets at most k such rows, and the empty
+    buffer rows add exact zeros to token 0, so for top-2 the sum onto a
+    zero row is ``a + b`` in any order; a larger k needs a fixed order
+    (ROADMAP)."""
+    N, d = x.shape
+    E, k = cfg.n_experts, cfg.n_experts_active
+    r = route(p, x, cfg)
+    if _counter is not None and _counter.device == x.device:
+        _counter.add_(torch.stack([torch.ones_like(r.dropped), r.dropped,
+                                   (r.counts > 0).sum()]))
+    aux = None
+    if with_aux:
+        ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
+            0, r.topi.reshape(-1), torch.ones((N * k,), dtype=torch.float32,
+                                              device=x.device))
+        aux = E * torch.sum(r.probs.mean(dim=0) * (ce / (N * k)))
+    valid = torch.arange(r.toks.shape[1], device=x.device)[None, :] < r.counts[:, None]
+    xe = x[r.toks] * valid[..., None].to(x.dtype)                    # gather
+    ye = _expert_ffn(xe, p, cfg, r.counts)
+    ye = ye * r.ws[..., None].to(ye.dtype)
+    out = torch.zeros((N, d), dtype=ye.dtype, device=x.device).index_add_(
+        0, r.toks.reshape(-1), ye.reshape(-1, d))
+    if cfg.n_shared_experts and "shared" in p:
+        out = out + L.apply_mlp(p["shared"], x, cfg.mlp_type)
+    return out, aux
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, axis_name: str | None = None,
+              with_aux: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """MoE over ``x`` [B, T, d]: its ``B * T`` rows routed together, b-major,
+    as the reference's call routes them.  Returns ``(out [B, T, d], aux)``
+    (see :func:`moe_local`).  Expert parallelism over a mesh axis
+    (``axis_name``) is not ported."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            f"moe_apply over mesh axis {axis_name!r}: expert parallelism is not "
+            "ported yet (ROADMAP A.14)")
+    B, T, d = x.shape
+    out, aux = moe_local(p, x.reshape(B * T, d), cfg, with_aux=with_aux)
+    return out.reshape(B, T, d).to(x.dtype), aux

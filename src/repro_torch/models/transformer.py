@@ -1,4 +1,5 @@
-"""Decoder-LM assembly for the dense GQA/MHA and SSM (Mamba2) families.
+"""Decoder-LM assembly for the dense GQA/MHA (with or without
+mixture-of-experts FFNs) and SSM (Mamba2) families.
 
 PyTorch counterpart of ``repro.models.transformer``.  Layers are a per-layer
 list (``params["layers"]``), not the reference's stacked ``lax.scan``, and
@@ -11,7 +12,9 @@ those tensors and never swaps one for a new one, so a step captured as a
 CUDA graph (``models/graphs.py``) replays over fixed addresses.  The
 decode path is the paper's technique: every static linear can run W8A8
 ("QLC region"), attention runs against the int8 cache, and norms and softmax
-are fp32 "controller ops".
+are fp32 "controller ops".  A MoE layer (``models/moe.py``) routes the rows
+of each call together, so a MoE stack runs each call's rows in one piece
+(see ``PREFILL_PIECE``).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.core.quant import quantize_kv
 from repro_torch.device import resolve
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Params = dict[str, Any]
@@ -43,27 +47,34 @@ class Runtime:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense decoders (GQA or MHA, with RoPE or with
-    sinusoidal positions when ``rope_theta == 0``, with or without QK-norm;
-    family ``vlm`` too, whose stubbed early-fusion front end hands the
-    backbone embeddings, ``input_mode="embeddings"``) and attention-free SSM
-    (Mamba2) stacks so far.  Experts, MLA, hybrid stacks and
-    encoder-decoders wait on ROADMAP A.11."""
+    """The port serves GQA/MHA decoders (with RoPE or with sinusoidal
+    positions when ``rope_theta == 0``, with or without QK-norm; family
+    ``vlm`` too, whose stubbed early-fusion front end hands the backbone
+    embeddings, ``input_mode="embeddings"``), their FFNs dense or
+    mixture-of-experts (``n_experts``, any mix of the two by
+    ``is_moe_layer``; token inputs), and attention-free SSM (Mamba2)
+    stacks.  MLA, hybrid stacks and encoder-decoders wait on ROADMAP
+    A.11."""
     if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: hybrid SSM/attention stacks wait on models/moe.py "
-            "(ROADMAP A.11)")
-    dense = cfg.family in ("dense", "vlm") and cfg.attn_type == "gqa"
+            f"{cfg.name}: hybrid SSM/attention stacks (whose moe layers "
+            "models/moe.py serves) wait on the hybrid stack (ROADMAP A.11.4)")
+    gqa = cfg.family in ("dense", "vlm", "moe") and cfg.attn_type == "gqa"
     ssm = cfg.family == "ssm" and cfg.attn_type == "none" and not cfg.d_ff
-    inputs = cfg.input_mode == "tokens" or (dense and cfg.input_mode == "embeddings")
-    if not (dense or ssm) or cfg.n_experts or not inputs:
+    inputs = cfg.input_mode == "tokens" or (gqa and not cfg.n_experts
+                                            and cfg.input_mode == "embeddings")
+    if not (gqa or ssm) or (ssm and cfg.n_experts) or not inputs:
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA/MHA decoders and SSM stacks are "
-            "ported so far (other families: ROADMAP A.11)")
+            f"{cfg.name}: only GQA/MHA decoders (dense or MoE FFNs) and SSM "
+            "stacks are ported so far (other families: ROADMAP A.11)")
 
 
 def has_ssm(cfg: ModelConfig) -> bool:
     return any(cfg.layer_kind(i) == "ssm" for i in range(cfg.n_layers))
+
+
+def has_moe(cfg: ModelConfig) -> bool:
+    return any(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
 
 
 # ---------------------------------------------------------------------------
@@ -76,10 +87,24 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, i: int,
         p["ssm"] = SSM.ssm_init(gen, cfg, dtype)
     else:
         p["attn"] = A.attn_init(gen, cfg, dtype)
-    if cfg.d_ff:
+    if cfg.is_moe_layer(i):
+        p["ln2"] = L.norm_init(cfg.d_model, cfg.norm_type, gen.device)
+        p["moe"] = MOE.moe_init(gen, cfg, dtype)
+    elif cfg.d_ff:
         p["ln2"] = L.norm_init(cfg.d_model, cfg.norm_type, gen.device)
         p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
     return p
+
+
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """A layer's feed-forward block with its residual: the MoE (the rows of
+    ``x`` [B, T, d] routed together, b-major), the MLP, or nothing."""
+    if "moe" in p:
+        return x + MOE.moe_apply(p["moe"], L.apply_norm(p["ln2"], x), cfg)[0]
+    if "mlp" in p:
+        return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x), cfg.mlp_type,
+                               rt.backend)
+    return x
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -251,11 +276,7 @@ def apply_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     else:
         mix, _ = A.gqa_decode(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
                               cache["v_q"], cache["v_s"], rt.backend)
-    x = x + mix
-    if "mlp" in p:
-        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x), cfg.mlp_type,
-                            rt.backend)
-    return x
+    return _ffn(p, cfg, x + mix, rt)
 
 
 def decode_step(p: Params, cfg: ModelConfig, state: dict, token: torch.Tensor,
@@ -309,11 +330,7 @@ def apply_layer_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     mix, _ = A.gqa_verify(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
                           cache["v_q"], cache["v_s"], rt.backend,
                           depth=depth, anc=anc)
-    x = x + mix
-    if "mlp" in p:
-        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x), cfg.mlp_type,
-                            rt.backend)
-    return x
+    return _ffn(p, cfg, x + mix, rt)
 
 
 def verify_step(p: Params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
@@ -399,40 +416,52 @@ def tree_commit(state: dict, base, sel, keep, pos) -> dict:
 # (a float GEMM or reduction of another row count sums in another order).
 # A piece dispatches the same ops wherever it starts, so a prompt's
 # dispatch grows with its pieces.
+#
+# A stack with MoE layers runs each call as one piece instead: the prompt's
+# T rows (B rows b-major) one-shot, a chunk's C rows at the cursor.  Its
+# layers route the rows of a call together, with a capacity counted from
+# the call's rows, so a MoE stack must route exactly the rows of the
+# reference's call (no row padded past it, none before the cursor run
+# again); its one-shot and chunked prefill then differ as the reference's
+# do.
 PREFILL_PIECE = 64
 
 
-def carry_len(max_len: int) -> int:
-    """Rows of the float K/V carry for prompts of up to ``max_len`` tokens:
-    a piece starts at or before a real token (``< max_len``) and spans
-    ``PREFILL_PIECE`` rows, so it never clamps onto valid rows."""
-    return max_len + PREFILL_PIECE
+def carry_len(max_len: int, chunk: int | None = None) -> int:
+    """Rows of the float K/V carry for prompts of up to ``max_len`` tokens,
+    prefilled in chunks of ``chunk`` rows (``None``: in one shot, for any
+    stack): a piece starts at or before a real token (``< max_len``) and
+    spans ``PREFILL_PIECE`` rows (a MoE stack's chunk its ``chunk`` rows),
+    so it never clamps onto valid rows."""
+    return max_len + max(PREFILL_PIECE, chunk or 0)
 
 
 def prefill_pieces(cfg: ModelConfig, n_tokens: int) -> int:
     """Prefill calls (pieces) a prompt of ``n_tokens`` (padded) tokens
-    takes in one shot: an SSM stack prefills in one."""
-    return 1 if has_ssm(cfg) else -(-n_tokens // PREFILL_PIECE)
+    takes in one shot: an SSM or MoE stack prefills in one."""
+    return 1 if has_ssm(cfg) or has_moe(cfg) else -(-n_tokens // PREFILL_PIECE)
 
 
-def chunk_pieces(cursor: int, n: int) -> int:
+def chunk_pieces(cfg: ModelConfig, cursor: int, n: int) -> int:
     """Pieces a chunk of ``n`` tokens at ``cursor`` runs: every piece it
-    touches."""
+    touches (one for a MoE stack)."""
+    if has_moe(cfg):
+        return 1
     return (cursor + n - 1) // PREFILL_PIECE - cursor // PREFILL_PIECE + 1
 
 
 def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor,
                    start: int, n_real: torch.Tensor, rt: Runtime,
                    skip: int = 0) -> torch.Tensor:
-    """One ``[B, PREFILL_PIECE]`` piece (or its ``[B, PREFILL_PIECE, d]``
-    embeddings) at positions ``start + arange`` in every row (``start`` a
-    multiple of ``PREFILL_PIECE``; ``n_real``: [B]
-    int32, row b's first ``n_real[b]`` tokens are real) through every
-    layer: the piece's K/V from its row ``skip`` on land in the float
-    buffers ``bufs`` in place (the rows before stay as they are), and
-    its queries attend keys ``< start + n_real`` among the buffers' first
-    ``start + PREFILL_PIECE`` rows.  Returns the hidden states after
-    ``ln_f`` [B, PREFILL_PIECE, d]."""
+    """One ``[B, P]`` piece (or its ``[B, P, d]`` embeddings) at positions
+    ``start + arange(P)`` in every row (``P`` is ``PREFILL_PIECE`` and
+    ``start`` a multiple of it, but for a MoE stack's one piece a call;
+    ``n_real``: [B] int32, row b's first ``n_real[b]`` tokens are real)
+    through every layer: the piece's K/V from its row ``skip`` on land in
+    the float buffers ``bufs`` in place (the rows before stay as they are),
+    and its queries attend keys ``< start + n_real`` among the buffers'
+    first ``start + P`` rows.  Returns the hidden states after ``ln_f``
+    [B, P, d]."""
     B, P = tokens.shape[:2]
     dev = tokens.device
     key_rows = start + P
@@ -450,18 +479,16 @@ def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor
         x = x + A.gqa_chunk(lp["attn"], cfg, h, positions, buf, start, kv_lengths,
                             key_rows, rt.backend, rope=rope, hidden=hidden,
                             skip=skip)
-        if "mlp" in lp:
-            x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], x),
-                                cfg.mlp_type, rt.backend)
+        x = _ffn(lp, cfg, x, rt)
     return L.apply_norm(p["ln_f"], x)
 
 
-def _piece(inputs: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """Rows ``[lo, hi)`` of the token axis of ``inputs`` ([B, T] ids or
-    [B, T, d] embeddings), right-padded to a piece with token 0 or zero
-    rows."""
-    part = inputs[:, lo:hi]
-    pad = (0, PREFILL_PIECE - part.shape[1])
+def _piece(inputs: torch.Tensor, lo: int, size: int) -> torch.Tensor:
+    """Rows ``[lo, lo + size)`` of the token axis of ``inputs`` ([B, T] ids
+    or [B, T, d] embeddings), right-padded to ``size`` rows with token 0 or
+    zero rows."""
+    part = inputs[:, lo:lo + size]
+    pad = (0, size - part.shape[1])
     return torch.nn.functional.pad(part, (0, 0) * (part.dim() - 2) + pad)
 
 
@@ -475,7 +502,8 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
     attention masks each row's keys to its own prefix, logits are gathered
     at each row's last real token, and the state carries per-slot
     positions.  An attention stack runs in pieces of ``PREFILL_PIECE`` rows
-    against a float K/V carry (see above), whose rows ``[0, T)`` are
+    (a MoE stack in one piece of T rows) against a float K/V carry (see
+    above), whose rows ``[0, T)`` are
     quantized into the int8 cache (padded rows included; decode masks and
     then overwrites them).  An SSM layer runs the chunked
     SSD over all T tokens and hands its final recurrent state to decode
@@ -493,14 +521,14 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
         return _prefill_ssm(p, cfg, inputs, max_len, rt, lengths)
     carry = init_prefill_carry(cfg, carry_len(max_len), dev, batch=B)
     rows = torch.arange(B, device=dev)
+    size = T if has_moe(cfg) else PREFILL_PIECE
     last = None
-    for lo in range(0, T, PREFILL_PIECE):
-        n_real = torch.clamp(lengths - lo, 0, PREFILL_PIECE)
-        h = _prefill_piece(p, cfg, carry["layers"], _piece(inputs, lo, lo + PREFILL_PIECE),
-                           lo, n_real, rt)
+    for lo in range(0, T, size):
+        n_real = torch.clamp(lengths - lo, 0, size)
+        h = _prefill_piece(p, cfg, carry["layers"], _piece(inputs, lo, size), lo, n_real, rt)
         at = lengths - 1 - lo                  # each row's last token, if here
-        cand = h[rows, torch.clamp(at, 0, PREFILL_PIECE - 1).long()]
-        here = ((at >= 0) & (at < PREFILL_PIECE))[:, None]
+        cand = h[rows, torch.clamp(at, 0, size - 1).long()]
+        here = ((at >= 0) & (at < size))[:, None]
         last = cand if last is None else torch.where(here, cand, last)
     state = init_decode_state(cfg, B, max_len, dev)
     for cache, buf in zip(state["layers"], carry["layers"]):
@@ -523,10 +551,7 @@ def _prefill_ssm(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int
                                    return_state=True,
                                    use_kernel=rt.backend == "fused_int8")
         cache.update(new)
-        x = x + mix
-        if "mlp" in lp:
-            x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], x),
-                                cfg.mlp_type, rt.backend)
+        x = _ffn(lp, cfg, x + mix, rt)
     x = L.apply_norm(p["ln_f"], x)
     last = x[torch.arange(B, device=x.device), (lengths - 1).long()]
     state["pos"] = lengths.clone()
@@ -544,7 +569,7 @@ def init_prefill_carry(cfg: ModelConfig, buf_len: int,
     earlier prefix at prefill precision, the token ids consumed
     (``tokens``, [batch, buf_len] int64), so a chunk can run the piece it
     starts in from that piece's first row, and the cursor ``pos`` ([batch]
-    int32).  ``buf_len`` is ``carry_len(max_len)``.  SSM stacks prefill at exact length (their
+    int32).  ``buf_len`` is ``carry_len(max_len, chunk)``.  SSM stacks prefill at exact length (their
     recurrent state would integrate the chunk boundary), so a carry for one
     raises."""
     check_supported(cfg)
@@ -576,9 +601,11 @@ def prefill_chunk(p: Params, cfg: ModelConfig, carry: dict, tokens: torch.Tensor
     (:func:`embedded`): the carry then keeps every row's input as an
     embedding (``embeds``, the rows fed so far as ids looked up in the
     table), so a rerun piece reads the same rows, and takes no id chunk
-    after that (``ValueError``).  Returns (logits of the
-    chunk's last real token [1, V], the carry), the carry's K/V, inputs and
-    cursor updated in place (the cursor advances by ``n_real``)."""
+    after that (``ValueError``).  A MoE stack runs the chunk as one piece
+    of its C rows at the cursor, padding included, as the reference's call
+    routes them (nothing before the cursor runs again).  Returns (logits of
+    the chunk's last real token [1, V], the carry), the carry's K/V, inputs
+    and cursor updated in place (the cursor advances by ``n_real``)."""
     n = int(n_real)
     if not 1 <= n <= tokens.shape[1]:
         raise ValueError(f"n_real {n} outside a chunk of {tokens.shape[1]}")
@@ -593,6 +620,11 @@ def prefill_chunk(p: Params, cfg: ModelConfig, carry: dict, tokens: torch.Tensor
     else:
         src = carry["tokens"]
     src[:, cursor:end] = tokens[:, :n]
+    if has_moe(cfg):
+        h = _prefill_piece(p, cfg, carry["layers"], tokens, cursor,
+                           torch.full_like(carry["pos"], n), rt)
+        carry["pos"].add_(n)
+        return _lm_head(p, cfg, h[:, n - 1], rt), carry
     for lo in range(cursor - cursor % PREFILL_PIECE, end, PREFILL_PIECE):
         k = min(PREFILL_PIECE, end - lo)
         h = _prefill_piece(p, cfg, carry["layers"], src[:, lo:lo + PREFILL_PIECE],

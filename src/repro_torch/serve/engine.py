@@ -658,7 +658,7 @@ class ContinuousBatchingEngine:
     def _cold_carry(self, slot: int) -> None:
         self._warm_rows.pop(slot, None)
         self._carries[slot] = self._dev(
-            M.init_prefill_carry, self.cfg, T.carry_len(self.max_len), self.device)
+            M.init_prefill_carry, self.cfg, T.carry_len(self.max_len, self.chunk), self.device)
 
     def _drop_carry(self, slot: int) -> None:
         self._carries.pop(slot, None)
@@ -702,7 +702,7 @@ class ContinuousBatchingEngine:
             self._in_place(T.copy_slot_prefix, self.state, src, req.slot, n_hit)
         self._carries[req.slot] = self._dev(
             M.warm_prefill_carry, self.cfg, self.state, req.slot, n_hit,
-            T.carry_len(self.max_len), req.prompt[:n_hit])
+            T.carry_len(self.max_len, self.chunk), req.prompt[:n_hit])
         self._warm_rows[req.slot] = n_hit
         req.prefill_pos = n_hit
         self.stats["prefix_hits"] += 1
@@ -742,7 +742,7 @@ class ContinuousBatchingEngine:
             logits, self._carries[slot] = self._dev(
                 M.prefill_chunk, self.params, self.cfg, self._carries[slot],
                 torch.from_numpy(toks).to(self.device), n, self.rt)
-            self.prefill_pieces += T.chunk_pieces(req.prefill_pos, n)
+            self.prefill_pieces += T.chunk_pieces(self.cfg, req.prefill_pos, n)
             req.prefill_pos += n
             self.stats["chunks"] += 1
             if req.prefill_pos >= req.prompt_len:

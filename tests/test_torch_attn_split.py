@@ -192,6 +192,7 @@ def _window(b, s, g, rep, d, t, seed):
     (1, 1100, 1, 16, 16, [1090]),              # 18 chunks: CTAs take a third round
     (3, 300, 4, 1, 96, [150, 1, 299]),         # MHA (rep 1) at phi3's head dim 96
     (2, 200, 3, 1, 128, [63, 200]),            # MHA at OPT's head dim 128
+    (2, 200, 2, 6, 128, [63, 200]),            # grok-1-314b: rep 6 at head dim 128
     (2, 200, 2, 12, 192, [63, 200]),           # nemotron-4-340b: rep 12 at head dim 192
     (2, 200, 3, 1, 192, [65, 130]),            # MHA at head dim 192
 ])

@@ -15,7 +15,8 @@ the LayerNorm kernel within ``rtol=1e-6`` (``atol`` 1e-6 of the output's
 scale), both row-invariant bit for bit; B2-B4 also at MHA's rep 1 with head
 dims 96 and 128, and at head dim 192 (nemotron-4-340b's rep 12, and rep 1);
 the three quantizers' scales and codes equal to the CPU's (IEEE division by
-127).  The engines' captured steps (CUDA graphs) are
+127); B1's grouped entry bit-equal to its plain version and to B1 on each
+expert's slice, and B2 at grok-1-314b's rep 6.  The engines' captured steps (CUDA graphs) are
 held bit-equal to the eager steps, logits and every state tensor, with their
 launch counts, and chunked serving token-identical to one-shot prefill.
 """
@@ -28,6 +29,7 @@ from repro_torch.configs import registry
 from repro_torch.core import quant
 from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import int8_matmul as mm
+from repro_torch.kernels import int8_matmul_grouped as gmm
 from repro_torch.kernels import launch_counts, pim_mvm as pim, reset_launch_counts
 from repro_torch.kernels import layer_norm as lnk
 from repro_torch.kernels import rms_norm as rn
@@ -269,6 +271,7 @@ def test_engine_runs_the_kernels_and_agrees_with_the_cpu(cuda):
     got = eng.generate_all(prompts, budgets)
     steps = eng.stats["decode_steps"]
     assert launch_counts() == {"int8_matmul": 7 * cfg.n_layers * steps,
+                               "int8_matmul_grouped": 0,
                                "pim_mvm": 0, "decode_attn": cfg.n_layers * steps,
                                "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
                                "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts)),
@@ -371,7 +374,8 @@ def test_spec_engine_runs_the_verify_kernels(cuda, lane):
     got = eng.generate_all(prompts, budgets)
     steps = eng.stats["verify_steps"]
     attn = "verify_tree_attn" if "spec_tree" in lane else "verify_attn"
-    want = {"int8_matmul": 7 * cfg.n_layers * steps, "pim_mvm": 0, "decode_attn": 0,
+    want = {"int8_matmul": 7 * cfg.n_layers * steps, "int8_matmul_grouped": 0,
+            "pim_mvm": 0, "decode_attn": 0,
             "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
             "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts)), "layer_norm": 0}
     want[attn] = cfg.n_layers * steps
@@ -523,12 +527,13 @@ def test_attention_kernels_at_rep_1_match_plain(cuda, g, d):
 
 
 @pytest.mark.parametrize("arch", ["opt-30b", "granite-3-8b", "phi3-mini-3.8b",
-                                  "chameleon-34b", "nemotron-4-340b"])
+                                  "chameleon-34b", "nemotron-4-340b", "grok-1-314b"])
 def test_reduced_families_serve_on_the_card_like_the_cpu(cuda, arch):
     """The continuous engine on the card under ``fused_int8`` launches B1
-    once a linear (6 a layer under gelu and relu2, 7 under SwiGLU) and B2
-    once a layer a decode step, and one norm kernel (LayerNorm for OPT,
-    RMSNorm otherwise) a norm, QK-norm's two a layer included, and its
+    once a linear (6 a layer under gelu and relu2, 7 under SwiGLU; a MoE
+    layer's 4 attention linears and 3 grouped launches for its experts)
+    and B2 once a layer a decode step, and one norm kernel (LayerNorm for
+    OPT, RMSNorm otherwise) a norm, QK-norm's two a layer included, and its
     first tokens (prefill, float only) equal the CPU's."""
     cfg = registry.get(arch).reduced()
     params = M.init_params(cfg, seed=0, device="cpu")
@@ -548,8 +553,9 @@ def test_reduced_families_serve_on_the_card_like_the_cpu(cuda, arch):
     counts = launch_counts()
     qk = 2 * L if cfg.use_qk_norm else 0
     assert counts[norm] == (2 * L + 1 + qk) * (steps + len(prompts))
-    linears = 7 if cfg.mlp_type == "swiglu" else 6
+    linears = 4 if cfg.n_experts else 7 if cfg.mlp_type == "swiglu" else 6
     assert counts["int8_matmul"] == linears * L * steps and counts["decode_attn"] == L * steps
+    assert counts["int8_matmul_grouped"] == (3 * L * steps if cfg.n_experts else 0)
     assert counts["layer_norm" if norm == "rms_norm" else "rms_norm"] == 0
     assert [len(o) for o in got] == budgets
     assert [o[0] for o in got] == [o[0] for o in want]
@@ -574,7 +580,8 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
         res[dev] = (lg0.cpu(), lg1.cpu(), launch_counts())
     L = cfg.n_layers
     assert res["cpu"][2] == {k: 0 for k in res["cpu"][2]}
-    assert res["cuda"][2] == {"int8_matmul": 3 * L, "pim_mvm": 0, "decode_attn": 0,
+    assert res["cuda"][2] == {"int8_matmul": 3 * L, "int8_matmul_grouped": 0,
+                              "pim_mvm": 0, "decode_attn": 0,
                               "verify_attn": 0, "verify_tree_attn": 0,
                               "ssd_chunk": 2 * L, "rms_norm": 2 * (2 * L + 1),
                               "layer_norm": 0}
@@ -589,7 +596,8 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
     reset_launch_counts()          # after the capture's eager warm-up step
     got = eng.generate_all(trace, budgets)
     steps = eng.stats["decode_steps"]
-    assert launch_counts() == {"int8_matmul": 3 * L * steps, "pim_mvm": 0, "decode_attn": 0,
+    assert launch_counts() == {"int8_matmul": 3 * L * steps, "int8_matmul_grouped": 0,
+                               "pim_mvm": 0, "decode_attn": 0,
                                "verify_attn": 0, "verify_tree_attn": 0,
                                "ssd_chunk": L * len(trace),
                                "rms_norm": (2 * L + 1) * (steps + len(trace)),
@@ -1034,3 +1042,157 @@ def test_pool_rebuild_keeps_the_captured_steps(cuda, monkeypatch):
     assert eng.stats["pool_rebuilds"] == eng.stats["step_retries"] == 1
     assert [t.data_ptr() for t in bufs] == ptrs and not captures
     assert {k: g.graph for k, g in eng._steps.graphs.items()} == graphs
+
+
+# ---------------------------------------------------------------------------
+# the MoE slice (grok-1-314b): B1's grouped entry, routing, B2 at rep 6
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("C,K,N", [(1, 128, 256), (2, 6144, 1000), (10, 520, 77),
+                                   (33, 1000, 528), (2, 777, 1024)])
+def test_int8_matmul_grouped_matches_plain_and_per_expert_b1(cuda, C, K, N):
+    """The grouped entry (one launch) against its plain version and against
+    B1 on each expert's slice, bit for bit, with counts 0, 1, C and between
+    (rows past a count zero), odd N (byte loads) and K not a multiple of 32;
+    a misaligned weight and a count vector of the wrong dtype raise."""
+    E = 6
+    counts = [0, 1, C, max(0, C // 2), C, 0][:E]
+    g = torch.Generator().manual_seed(C * K + N)
+    x_q = torch.randint(-127, 128, (E, C, K), generator=g, dtype=torch.int8).to(cuda)
+    x_s = (torch.rand((E, C, 1), generator=g) + 0.01).to(cuda)
+    w_q = torch.randint(-127, 128, (E, K, N), generator=g, dtype=torch.int8).to(cuda)
+    w_s = (torch.rand((E, N), generator=g) + 0.01).to(cuda)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    reset_launch_counts()
+    got = gmm.int8_matmul_grouped_cuda(x_q, x_s, w_q, w_s, cnt)
+    assert launch_counts()["int8_matmul_grouped"] == 1 and launch_counts()["int8_matmul"] == 0
+    assert torch.equal(got, gmm.int8_matmul_grouped_plain(x_q, x_s, w_q, w_s, cnt))
+    for e, n in enumerate(counts):
+        if n:
+            # a copy: B1 takes a 16-byte aligned weight, and expert e's
+            # slice starts e * K * N bytes in
+            want, _ = mm.int8_matmul_cuda(x_q[e, :n].contiguous(), x_s[e, :n].contiguous(),
+                                          w_q[e].clone(), w_s[e])
+            assert torch.equal(got[e, :n], want), e
+        assert not got[e, n:].any(), e
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.empty(E * K * N + 1, dtype=torch.int8, device=cuda)
+        gmm.int8_matmul_grouped_cuda(x_q, x_s, flat[1:].view(E, K, N), w_s, cnt)
+    with pytest.raises(TypeError):
+        gmm.int8_matmul_grouped_cuda(x_q, x_s, w_q, w_s, cnt.to(torch.int64))
+
+
+def _grok8():
+    import dataclasses
+    return dataclasses.replace(registry.get("grok-1-314b").reduced(), n_experts=8)
+
+
+@pytest.mark.parametrize("N", [4, 20, 208])
+def test_moe_local_on_the_card_matches_the_cpu(cuda, N):
+    """Reduced grok at 8 experts: the card routes every choice where the
+    CPU does (kept sets and counts equal, drops counted alike) and its
+    MoE output, float and quantized experts, lies within 1e-5 of the
+    output's scale of the CPU's."""
+    from repro_torch.models import moe
+    cfg = _grok8()
+    p = M.init_params(cfg, seed=0, device="cpu")["layers"][1]["moe"]
+    q = quantize_tree({"moe": p})["moe"]
+    x = torch.randn((N, cfg.d_model), generator=torch.Generator().manual_seed(N))
+    rc, rg = moe.route(p, x, cfg), moe.route(convert.to_device(p, cuda), x.to(cuda), cfg)
+    assert torch.equal(rc.counts, rg.counts.cpu()) and int(rc.dropped) == int(rg.dropped)
+    for e in range(cfg.n_experts):
+        n = int(rc.counts[e])
+        assert torch.equal(rc.toks[e, :n], rg.toks[e, :n].cpu()), e
+    for tree in (p, q):
+        want, _ = moe.moe_local(tree, x, cfg)
+        got, _ = moe.moe_local(convert.to_device(tree, cuda), x.to(cuda), cfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_captured_steps_of_reduced_grok_equal_eager(cuda):
+    """Reduced grok at 8 experts, 4 slots at ragged cursors: the captured
+    decode step (routing included: no host sync) replays bit-equal to the
+    eager step over 8 steps, logits and every state tensor, crediting 4 B1
+    and 3 grouped launches, one B2 and two RMSNorms a layer and one more
+    RMSNorm a step; so do the verify step (T 5, 20 rows routed), the tree
+    step (T 7) and a fused block of 4 decode replays, each state committed
+    alike between steps; capacity drops choices on the way."""
+    from repro_torch.models import graphs as G
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.drafter import tree_depths_ancestors
+    cfg = _grok8()
+    params = convert.to_device(M.init_params(cfg, seed=0, device="cpu"), cuda)
+    qparams = quantize_tree(params)
+    rt = Runtime("fused_int8")
+    state = M.init_decode_state(cfg, 4, 64, cuda)
+    gen = torch.Generator().manual_seed(3)
+    for slot, n in enumerate((5, 17, 30, 9)):
+        toks = torch.randint(0, cfg.vocab_size, (1, n), generator=gen).to(cuda)
+        _, one = M.prefill(params, cfg, {"inputs": toks}, 64, rt)
+        T.write_slot(state, slot, one)
+    eager = {"layers": [{k: v.clone() for k, v in c.items()} for c in state["layers"]],
+             "pos": state["pos"].clone()}
+
+    def same_state(i):
+        for a, b in zip(G.state_tensors(state), G.state_tensors(eager)):
+            assert torch.equal(a, b), i
+    routing = torch.zeros((3,), dtype=torch.int64, device=cuda)
+    moe.count_routing(routing)
+    try:
+        steps = G.ServeSteps(qparams, cfg, rt, state, verify=(5,), tree=(7,))
+        L = cfg.n_layers
+        per = {"int8_matmul": 4 * L, "int8_matmul_grouped": 3 * L, "rms_norm": 2 * L + 1}
+        assert steps.graphs[("decode",)].launches == dict(per, decode_attn=L)
+        assert steps.graphs[("verify", 5)].launches == dict(per, verify_attn=L)
+        assert steps.graphs[("tree", 7)].launches == dict(per, verify_tree_attn=L)
+        tok = torch.randint(0, cfg.vocab_size, (4,), generator=gen, dtype=torch.int32).to(cuda)
+        routing.zero_()
+        for i in range(8):
+            steps.tok.copy_(tok)
+            logits, _ = steps.decode()
+            want, _ = M.decode_step(qparams, cfg, eager, tok, rt)
+            assert torch.equal(logits, want), i
+            same_state(i)
+            tok = torch.argmax(want, -1).to(torch.int32)
+        depth, anc = (torch.tensor(x, dtype=torch.int32, device=cuda).repeat(4, 1)
+                      for x in tree_depths_ancestors([-1, -1, 0, 0, 1, 2]))
+        for i, (kind, t) in enumerate((("verify", 5), ("verify", 5), ("tree", 7))):
+            win = torch.randint(0, cfg.vocab_size, (4, t), generator=gen,
+                                dtype=torch.int32).to(cuda)
+            steps.window[t].copy_(win)
+            kw = {}
+            if kind == "tree":
+                steps.depth[t].copy_(depth)
+                steps.anc[t].copy_(anc)
+                kw = {"depth": depth, "anc": anc}
+            logits, _ = getattr(steps, kind)(t)
+            want, _, _ = M.verify_step(qparams, cfg, eager, win, rt, **kw)
+            assert torch.equal(logits, want), (kind, i)
+            same_state((kind, i))
+            pos = (eager["pos"] - t + 1 + i).cpu().numpy()    # commit 1 + i rows
+            for st in (state, eager):
+                T.rewind_pos(st, pos)
+        steps.tok.copy_(tok)
+        blk = steps.multi(4)
+        want, _ = M.multi_decode_step(qparams, cfg, eager, tok, 4, rt)
+        assert torch.equal(blk, want)
+        same_state("multi")
+    finally:
+        moe.count_routing(None)
+    # each step routed once a layer replayed and once eager
+    assert int(routing[0]) == 2 * (8 + 3 + 4) * L and int(routing[1]) > 0
+
+
+def test_decode_attn_at_rep_6_matches_plain(cuda):
+    """B2 at grok-1-314b's attention (8 groups of 6 heads of 128, 4 slots)
+    in a pool of 512 rows, within ``rtol=3e-5, atol=3e-6`` of its plain
+    version, at lengths 1, 200, 377 and 512."""
+    b, s, g, rep, d = 4, 512, 8, 6, 128
+    q_q, q_s, cache = _window(b, s, g, rep, d, 1, 66, cuda)
+    args = (q_q[:, :, 0].contiguous(), q_s[:, :, 0].contiguous(), *cache,
+            torch.tensor([1, 200, 377, 512], dtype=torch.int32, device=cuda))
+    reset_launch_counts()
+    got = da.decode_attn_cuda(*args)
+    assert launch_counts()["decode_attn"] == 1
+    torch.testing.assert_close(got, da.decode_attn_plain(*args), rtol=3e-5, atol=3e-6)

@@ -2,7 +2,9 @@
 the paper's own OPT family (sinusoidal positions, LayerNorm, gelu, MHA,
 tied embedding), granite-3-8b (GQA, tied embedding), phi3-mini-3.8b
 (MHA, head dim 96), chameleon-34b (family ``vlm``: embedding inputs,
-QK-norm) and nemotron-4-340b (relu2; also at its head dim 192), each
+QK-norm), nemotron-4-340b (relu2; also at its head dim 192) and
+grok-1-314b (family ``moe``: top-2 of 4 experts reduced; its routing at
+grok's own 8 experts is held in ``test_torch_moe.py``), each
 ``.reduced()``.
 
 Tolerances: configs, converted trees and quantized trees equal; the
@@ -44,7 +46,8 @@ from repro_torch.serve.engine import ContinuousBatchingEngine, Engine
 from repro_torch.serve.quantize import quantize_tree as t_quantize_tree
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-ARCHS = ("opt-30b", "granite-3-8b", "phi3-mini-3.8b", "chameleon-34b", "nemotron-4-340b")
+ARCHS = ("opt-30b", "granite-3-8b", "phi3-mini-3.8b", "chameleon-34b", "nemotron-4-340b",
+         "grok-1-314b")
 BACKENDS = ("dense", "ref_int8", "fused_int8", "pim_bitserial")
 MAX_LEN = 48
 
@@ -124,18 +127,24 @@ def test_opt_module_copy_matches_reference(name):
 def test_registry_ids_are_the_references():
     assert set(TR.ARCHS) <= set(JR.ARCHS)
     assert {"opt-30b", "opt-125m", "granite-3-8b", "phi3-mini-3.8b", "chameleon-34b",
-            "nemotron-4-340b"} <= set(TR.ARCHS)
+            "nemotron-4-340b", "grok-1-314b"} <= set(TR.ARCHS)
 
 
 def test_check_supported_refuses_what_is_not_ported():
-    """Embedding inputs and family ``vlm`` (chameleon-34b) are admitted;
-    experts, MLA, hybrid stacks and encoder-decoders still raise, naming
+    """Embedding inputs, family ``vlm`` (chameleon-34b) and experts
+    (grok-1-314b; every layer or every other one) are admitted; MLA, hybrid
+    stacks, encoder-decoders and experts fed embeddings still raise, naming
     ROADMAP A.11."""
     base = TR.get("opt-30b").reduced()
     for kw in ({"input_mode": "embeddings"}, {"family": "vlm"},
-               {"family": "vlm", "input_mode": "embeddings", "use_qk_norm": True}):
+               {"family": "vlm", "input_mode": "embeddings", "use_qk_norm": True},
+               {"n_experts": 4, "n_experts_active": 2},
+               {"family": "moe", "n_experts": 8, "n_experts_active": 2, "moe_d_ff": 64,
+                "moe_every": 2}):
         TT.check_supported(dataclasses.replace(base, **kw))
-    for kw in ({"n_experts": 4, "n_experts_active": 2}, {"attn_type": "mla"},
+    for kw in ({"attn_type": "mla"},
+               {"family": "moe", "n_experts": 8, "n_experts_active": 2,
+                "input_mode": "embeddings"},
                {"family": "hybrid", "attn_every": 2, "ssm_state": 16},
                {"family": "encdec", "encoder_layers": 2, "encoder_seq": 16},
                {"family": "ssm", "attn_type": "none", "d_ff": 0,
@@ -212,7 +221,11 @@ def test_quantize_tree_matches_reference(fam):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_prefill_and_decode_logits_match(fam, backend):
-    """Ragged prefill and three greedy decode steps (W8A8 weights)."""
+    """Ragged prefill and three greedy decode steps (W8A8 weights).  A MoE
+    stack (grok-1-314b) decodes from JAX's prefilled cache, the two caches
+    held to 99.9% equal codes first: with this seed one K code of 24,576
+    flips in layer 2 (the float prefills' K differ by ulps), which moves a
+    router's near-tie and so a slot's expert two steps later."""
     _, jcfg, tcfg, w = fam
     toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 24)).astype(np.int32)
     lengths = np.array([24, 17], np.int32)
@@ -223,6 +236,11 @@ def test_prefill_and_decode_logits_match(fam, backend):
                                            "lengths": torch.from_numpy(lengths)}, MAX_LEN, trt)
     _close(jl, tl)
     np.testing.assert_array_equal(tstate["pos"].numpy(), np.asarray(jstate["pos"]))
+    if tcfg.n_experts:
+        for name in ("k_q", "v_q"):
+            jk = np.asarray(jstate["groups"][0][0][name])
+            assert np.mean(jk == np.stack([c[name].numpy() for c in tstate["layers"]])) > 0.999
+        tstate = convert.from_numpy(_np(jstate), device="cpu")
     tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
     for _ in range(3):
         jl, jstate = JM.decode_step(w["jq"], jcfg, jstate, jnp.asarray(tok), jrt)

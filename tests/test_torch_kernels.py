@@ -19,6 +19,7 @@ from repro_torch import kernels as KN
 from repro_torch.core import quant as tq
 from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import int8_matmul as mm
+from repro_torch.kernels import int8_matmul_grouped as gmm
 from repro_torch.kernels import pim_mvm as pim
 from repro_torch.kernels import layer_norm as lnk
 from repro_torch.kernels import rms_norm as rn
@@ -126,6 +127,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     KN.reset_launch_counts()
     _, _, _, t = _linear(2, 64, 32, 3)
     mm.int8_matmul_2d(t["x_q"], t["x_s"], t["w_q"], t["w_s"])
+    gmm.int8_matmul_grouped(t["x_q"][None], t["x_s"][None], t["w_q"][None], t["w_s"][None],
+                           torch.tensor([2], dtype=torch.int32))
     out5, acc5 = pim.pim_mvm_2d(t["x_q"], t["x_s"], t["w_q"], t["w_s"])
     hi, lo = tq.pack_qlc(t["w_q"])
     want5, want_acc5 = pim.pim_mvm_plain(t["x_q"], t["x_s"], hi, lo, t["w_s"])
@@ -137,8 +140,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     x = torch.ones(1, 4, 2, 8)
     ssd.ssd_chunk(x, torch.ones(1, 4, 2, 3), torch.ones(1, 4, 2, 3), torch.ones(1, 4, 2),
                   -torch.ones(2), torch.ones(2), torch.zeros(1, 2, 8, 3))
-    assert KN.launch_counts() == {"int8_matmul": 0, "pim_mvm": 0, "decode_attn": 0,
-                                  "verify_attn": 0, "verify_tree_attn": 0,
+    assert KN.launch_counts() == {"int8_matmul": 0, "int8_matmul_grouped": 0, "pim_mvm": 0,
+                                  "decode_attn": 0, "verify_attn": 0, "verify_tree_attn": 0,
                                   "ssd_chunk": 0, "rms_norm": 0, "layer_norm": 0}
 
 
@@ -148,6 +151,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         mm.int8_matmul_cuda(t["x_q"], t["x_s"], t["w_q"], t["w_s"])
     with pytest.raises(ValueError, match="CUDA"):
         pim.pim_mvm_cuda(t["x_q"], t["x_s"], t["w_q"], t["w_s"])
+    with pytest.raises(ValueError, match="CUDA"):
+        gmm.int8_matmul_grouped_cuda(t["x_q"][None], t["x_s"][None], t["w_q"][None],
+                                    t["w_s"][None], torch.tensor([2], dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         rn.rms_norm_cuda(torch.ones(2, 8), torch.ones(8))
     with pytest.raises(ValueError, match="CUDA"):

@@ -401,7 +401,7 @@ class TestChunkedPrefill:
     @pytest.mark.parametrize("cursor,n,want", [(0, 64, 1), (0, 65, 2), (60, 8, 2),
                                                (64, 1, 1), (100, 100, 3)])
     def test_chunk_pieces(self, cursor, n, want):
-        assert TT.chunk_pieces(cursor, n) == want
+        assert TT.chunk_pieces(TCFG, cursor, n) == want
 
     def test_ssm_carry_raises(self):
         with pytest.raises(NotImplementedError):

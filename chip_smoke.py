@@ -172,7 +172,26 @@ Phases (any failure makes the script exit non-zero):
    equal to ``ref_int8``, the dropped choices on the trace gated above 0,
    ``fused_int8`` held to the served rows' near-ties), ``Engine``,
    ``multi_step = 4`` (gated 8 of 8 on a lockstep trace) and its captured
-   decode step; each family's peak device memory recorded.
+   decode step; then deepseek-v3-671b (d 7168, MLA with 128 heads, q_lora
+   1536, kv_lora 512, nope 128, rope 64, v 128; 3 dense SwiGLU layers of
+   18432, then MoE layers of 256 SwiGLU experts of 2048, top-8, one shared
+   expert; untied vocab 129280; the MTP head) at full width with 4 of its
+   61 layers (the 3 dense and 1 MoE) and the MTP head, its int8 tree (32.6
+   GB) drawn and quantized a part at a time, an expert at a time (the f32
+   tree, about 107 GB, does not fit), prefill served int8 too: B1 / B5 over
+   the MLA linears (N 576 included) and the dense FFN at M 4, the grouped
+   B1 at E 256 for C 1 and C 2 with experts of 0, 1 and C rows, RMSNorm at
+   1536, 512 and 7168 (all gated as for the other families), the reduced
+   model on the card against the CPU (logits, and the served streams under
+   the three backends and the MTP lanes ``spec_k = 3`` and ``spec_tree =
+   3, spec_branch = 2``, gated equal to the CPU's), the phase-4 trace under
+   ``fused_int8``, ``pim_bitserial`` and ``ref_int8`` (gated 8 of 8 equal,
+   exact launch counts, the dropped choices gated above 0), the MTP lanes
+   ``spec_k = 4`` and ``spec_tree = 6, spec_branch = 2`` (each run twice,
+   gated equal, at budget, with verify steps and exact launch counts), the
+   top-8 combine on the card (bit-equal to the CPU's sums, repeating its
+   bits), the decode step's parts timed apart, and the captured verify and
+   decode steps against eager; each family's peak device memory recorded.
 
 Every path runs a row-invariant norm kernel for every norm on the card
 (``rms_norm``, or ``layer_norm`` for OPT; QK-norm's two a layer through
@@ -969,7 +988,8 @@ def expert_launches_per_layer(cfg, i: int = 0) -> int:
 
 
 def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
-                  backend: str = "fused_int8", prefills: int | None = None) -> dict:
+                  backend: str = "fused_int8", prefills: int | None = None,
+                  int8_prefill: bool = False, draft_cells: int = 0) -> dict:
     """Exact kernel launches of ``steps`` decode (or verify) steps plus one
     prefill per prompt (or ``prefills`` prefill calls: the chunks of a
     chunked admission, an admission again after a preemption): each norm one
@@ -981,25 +1001,37 @@ def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
     B1 in prefill); under ``pim_bitserial`` the same linears launch B5
     instead, and attention runs its plain version.  A MoE layer's step
     launches B1's grouped entry once an expert stack under every backend
-    (3 under SwiGLU), besides its 4 attention linears."""
+    (3 under SwiGLU), besides its 4 attention linears.  An MLA layer's
+    step runs 4 linears too (wq_a, wq_b, wkv_a, wo: decode dequantizes
+    wkv_b) and two RMSNorm launches more (q_norm, kv_norm), its attention
+    plain under every backend.  ``int8_prefill`` (a tree served int8 from
+    prefill on, deepseek-v3-671b's) adds each prefill call's linears (an
+    MLA layer's wkv_b too) and expert stacks; ``draft_cells`` counts the
+    MTP head's cells, each a MoE layer's norms, 5 linears and expert
+    stacks (its ``mtp_proj`` is float)."""
     L = cfg.n_layers
+    mla = cfg.attn_type == "mla"
     prefills = len(prompt_lens) if prefills is None else prefills
     want = {"int8_matmul": 0, "int8_matmul_grouped": 0, "pim_mvm": 0, "decode_attn": 0,
             "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0, "rms_norm": 0,
             "layer_norm": 0}
-    want[norm_kernel(cfg)] = (2 * L + 1) * (steps + prefills)
-    if cfg.use_qk_norm:          # q and k of every attention layer: RMSNorm on rows of D
+    want[norm_kernel(cfg)] = (2 * L + 1) * (steps + prefills) + 4 * draft_cells
+    if cfg.use_qk_norm or mla:   # QK-norm's q and k, or MLA's q_norm and kv_norm
         want["rms_norm"] += 2 * L * (steps + prefills)
     linears = sum(linears_per_layer(cfg, i) for i in range(L))
-    want["int8_matmul_grouped"] = sum(expert_launches_per_layer(cfg, i)
-                                      for i in range(L)) * steps
+    experts = sum(expert_launches_per_layer(cfg, i) for i in range(L))
+    cell = expert_launches_per_layer(cfg, L - 1)
+    want["int8_matmul_grouped"] = (experts * (steps + (prefills if int8_prefill else 0))
+                                   + cell * draft_cells)
+    linears = (linears * steps + (linears + L * mla) * prefills * int8_prefill
+               + 5 * draft_cells)
     if backend == "pim_bitserial":
-        want["pim_mvm"] = linears * steps
+        want["pim_mvm"] = linears
     if backend == "fused_int8":
-        want["int8_matmul"] = linears * steps
+        want["int8_matmul"] = linears
         if cfg.family == "ssm":
             want["ssd_chunk"] = L * sum(math.ceil(n / 128) for n in prompt_lens)
-        else:
+        elif not mla:
             want[attn] = L * steps
     return want
 
@@ -1020,22 +1052,32 @@ def prefill_calls(cb, reqs) -> int:
 SERVE_SLOTS, SERVE_ROWS = 4, 256     # the phase-4 trace's pool: slots, rows a slot
 
 
+def mtp_cells(lane: dict) -> int:
+    """MTP head cells a verify step of ``lane`` drafts with: ``spec_k``
+    cells a chain, a tree of n nodes on b branches 1 + n - b."""
+    if lane.get("drafter") != "mtp":
+        return 0
+    n = lane.get("spec_tree") or lane.get("spec_k")
+    return 1 + n - min(lane.get("spec_branch", 2), n) if lane.get("spec_tree") else n
+
+
 def serve(torch, cfg, params, lane: dict, attn: str | None,
           backend: str = "fused_int8", request=None, trace: tuple | None = None,
-          setup=None) -> tuple:
+          setup=None, quantized: bool = False) -> tuple:
     """Serve the trace (``trace``: other (prompts, budgets)) on 4 slots
     (``max_len`` 256) under ``backend`` with the given lane arguments
     (``request(i)``: request i's extra ``submit`` arguments), the launch
     counts reset just before and read just after; they must equal
     :func:`want_launches`.  ``setup(engine)``, where given, runs once the
     engine is built.  Every step on the card replays a CUDA graph, captured
-    when the engine is built; prefill is eager."""
+    when the engine is built; prefill is eager.  ``quantized``: ``params``
+    is already the int8 tree, served as it is (prefill too)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import Runtime
     from repro_torch.serve.engine import ContinuousBatchingEngine
 
     cb = ContinuousBatchingEngine(cfg, params, n_slots=SERVE_SLOTS, max_len=SERVE_ROWS,
-                                  rt=Runtime(backend), **lane)
+                                  rt=Runtime(backend), quantize=not quantized, **lane)
     prompts, budgets = trace or serve_trace(cfg.vocab_size)
     if setup is not None:
         setup(cb)
@@ -1051,7 +1093,8 @@ def serve(torch, cfg, params, lane: dict, attn: str | None,
     counts = launch_counts()                   # ... and ends here
     steps = cb.stats["decode_steps"]
     want = want_launches(cfg, steps, [len(p) for p in prompts], attn, backend,
-                         prefill_calls(cb, reqs))
+                         prefill_calls(cb, reqs), int8_prefill=quantized,
+                         draft_cells=mtp_cells(lane) * cb.stats["verify_steps"])
     if counts != want or steps < 1:
         raise AssertionError(f"launch counts {counts} != {want}")
     return cb, reqs, wall, counts
@@ -1769,8 +1812,11 @@ def replay_profile_child(arch: str, kind: str, width: int, n_layers: int) -> dic
 
     set_float32_precision()
     cfg = dataclasses.replace(registry.get(arch), n_layers=n_layers)
-    params = M.init_params(cfg, seed=0, device="cuda")
-    qparams = quantize_tree(params)
+    if cfg.attn_type == "mla":          # its f32 tree does not fit: int8 from the draw
+        params = qparams = int8_params(torch, cfg)
+    else:
+        params = M.init_params(cfg, seed=0, device="cuda")
+        qparams = quantize_tree(params)
     state = ragged_pool(torch, cfg, params, 320, 256)
     del params
     torch.cuda.empty_cache()
@@ -3123,7 +3169,7 @@ def grouped_bound(C: int, counts: tuple, K: int, N: int, live: int) -> tuple:
     return bound_ms(n_bytes, [(2 * sum(counts) * K * N, INT8_OPS_PER_S)])
 
 
-def grouped_b1(torch, mm, cfg) -> dict:
+def grouped_b1(torch, mm, cfg, counts_by_c: dict | None = None) -> dict:
     """B1's grouped entry at a MoE layer's expert stacks (``expert_stacks``,
     ``cfg.n_experts`` experts) for C rows an expert at the row counts of
     ``GROUPED_COUNTS`` (experts with 0, 1 and C rows): bit-equal to its
@@ -3132,16 +3178,19 @@ def grouped_b1(torch, mm, cfg) -> dict:
     stack), the plain version's, the library's (``torch._int_mm`` on each
     expert that holds a row, x zero-padded to 32 rows, summed: the faster
     weight layout) and two bounds: the weight bytes it reads (the experts
-    that hold a row) and every expert's."""
+    that hold a row) and every expert's.  ``counts_by_c``
+    (``{C: row counts}``) replaces ``GROUPED_COUNTS``."""
     from repro_torch.kernels import int8_matmul_grouped as gmm
 
     g = torch.Generator(device="cuda").manual_seed(13)
     E = cfg.n_experts
     out = {}
-    for C, counts in GROUPED_COUNTS.items():
+    for C, counts in (counts_by_c or GROUPED_COUNTS).items():
         cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
         live = [e for e, c in enumerate(counts) if c]
-        rec = {"C": C, "counts": list(counts), "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+        rec = {"C": C, "counts": list(counts) if E <= 16 else
+               {"experts_with_C_rows": sum(c == C for c in counts),
+                "experts_with_rows": len(live), "rows": sum(counts)}, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bound_ms": 0.0, "bound_all_experts_ms": 0.0, "max_abs_err": 0.0,
                "stacks": []}
         by = {"bytes": 0.0, "operations": 0.0}
@@ -3199,7 +3248,7 @@ def grouped_b1(torch, mm, cfg) -> dict:
                                   "bound_ms": b[0], "bound_all_experts_ms": b_all[0],
                                   "plan": mm.launch_plan(C, K, N, 132)._asdict()})
             lib_us = "n/a" if t_lib is None else f"{t_lib * 1e3:.1f}"
-            print(f"   grouped B1 E={E} C={C} K={K:5d} N={N:5d} counts {list(counts)}: "
+            print(f"   grouped B1 E={E} C={C} K={K:5d} N={N:5d} counts {rec['counts']}: "
                   f"{t * 1e3:.1f} us (bound {b[0] * 1e3:.1f} for the {len(live)} experts "
                   f"with a row, {b_all[0] * 1e3:.1f} for all {E}; plain {t_plain * 1e3:.1f}), "
                   f"per-expert torch._int_mm {lib_us} us {layouts}; bit-equal to the plain "
@@ -3216,7 +3265,7 @@ def grouped_b1(torch, mm, cfg) -> dict:
     return out
 
 
-def moe_margins(torch, cfg, params, outputs: dict) -> list:
+def moe_margins(torch, cfg, params, outputs: dict, quantized: bool = False) -> list:
     """Where ``ref_int8`` parts from ``fused_int8`` on a MoE stack: both
     lanes served again, each parting request's logits row recorded at its
     first differing token from the served step itself (a single-request
@@ -3266,7 +3315,7 @@ def moe_margins(torch, cfg, params, outputs: dict) -> list:
             served.decode = decode
         cb, reqs, _, _ = serve(torch, cfg, params, {},
                                "decode_attn" if backend == "fused_int8" else None, backend,
-                               setup=setup)
+                               setup=setup, quantized=quantized)
         if [list(r.output) for r in reqs] != outputs[backend]:
             raise AssertionError(f"{cfg.name} {backend}: the recording run parts from the "
                                  "first run")
@@ -3612,6 +3661,428 @@ def qk_norm_rows(torch, rn, cfg) -> dict:
     return out
 
 
+# deepseek-v3-671b at full width with 4 of its 61 layers: its 3 dense layers
+# (MLA, SwiGLU of 18432) and 1 MoE layer (256 SwiGLU experts of 2048, top-8,
+# one shared expert), plus the MTP head's MoE layer.  A MoE layer's experts
+# are 11.27 G parameters (45.1 GB in f32), so the f32 tree of these layers
+# (about 107 GB) does not fit one card; the int8 tree it serves (about 32.6
+# GB) does, drawn and quantized a part at a time (:func:`int8_params`)
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_E = 256
+# the grouped entry's row counts at E 256: a decode step at 4 slots (32
+# choices, cap 1) and a spec_k = 4 window (160 choices, cap 2), each with
+# experts of 0, 1 and C rows; which experts hold them is drawn from seed 17
+DEEPSEEK_ROWS = {1: (28, 0), 2: (50, 60)}     # C: (experts with C rows, with 1 row)
+
+
+def deepseek_counts() -> dict:
+    import numpy as np
+    rng = np.random.default_rng(17)
+    out = {}
+    for C, (full, one) in DEEPSEEK_ROWS.items():
+        counts = np.zeros(DEEPSEEK_E, np.int64)
+        pick = rng.permutation(DEEPSEEK_E)
+        counts[pick[:full]] = C
+        counts[pick[full:full + one]] = 1
+        out[C] = tuple(int(c) for c in counts)
+    return out
+
+
+def int8_params(torch, cfg, seed: int = 0) -> dict:
+    """A model's served int8 tree drawn a part at a time on the card (seed
+    ``seed``): each layer's attention and dense FFN drawn in f32 and
+    quantized (``quantize_tree``) before the next part is drawn, a MoE
+    layer's expert stacks one expert at a time (``quantize_weight`` over an
+    expert's [in, out] weight, what ``_quantize_3d`` does for each expert,
+    scale for each (expert, out)); norms, the router, the embedding, the
+    ``lm_head`` and ``mtp_proj`` stay f32, as ``quantize_tree`` leaves
+    them.  Scales as the port's initialisers draw (1 / sqrt(in), the
+    embedding 0.02); the draws differ from ``init_params``'."""
+    from repro_torch.core import quant
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.serve.quantize import quantize_tree
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = cfg.d_model
+
+    def experts() -> dict:
+        E, ff = cfg.n_experts, cfg.moe_d_ff
+        p = {"router": torch.randn((d, E), generator=gen, device="cuda").mul_(d ** -0.5)}
+        stacks = {"w_up": (d, ff), "w_gate": (d, ff), "w_down": (ff, d)}
+        for name, (K, N) in stacks.items():
+            p[name + "_q"] = torch.empty((E, K, N), dtype=torch.int8, device="cuda")
+            p[name + "_s"] = torch.empty((E, N), dtype=torch.float32, device="cuda")
+        for e in range(E):
+            for name, (K, N) in stacks.items():
+                w = torch.randn((K, N), generator=gen, device="cuda").mul_(K ** -0.5)
+                q, sc = quant.quantize_weight(w, axis=0)
+                p[name + "_q"][e].copy_(q)
+                p[name + "_s"][e].copy_(sc)
+                del w, q, sc
+        p["shared"] = quantize_tree(L.mlp_init(gen, d, ff * cfg.n_shared_experts,
+                                               cfg.mlp_type))
+        return p
+
+    def layer(i: int) -> dict:
+        p = {"ln1": L.norm_init(d, device="cuda"), "attn": quantize_tree(A.attn_init(gen, cfg)),
+             "ln2": L.norm_init(d, device="cuda")}
+        if cfg.is_moe_layer(i):
+            p["moe"] = experts()
+        else:
+            p["mlp"] = quantize_tree(L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_type))
+        return p
+
+    params = {"embed": L.embed_init(gen, cfg.vocab_size, d),
+              "ln_f": L.norm_init(d, device="cuda"),
+              "lm_head": L.dense_init(gen, d, cfg.vocab_size),
+              "layers": [layer(i) for i in range(cfg.n_layers)]}
+    if cfg.mtp:
+        params["mtp_proj"] = L.dense_init(gen, 2 * d, d)
+        params["mtp_layer"] = layer(cfg.n_layers - 1)
+    torch.cuda.synchronize()
+    return params
+
+
+def mla_shapes(cfg) -> dict:
+    """{(K, N): count} of an MLA layer's W8A8 linears (wq_a, wq_b, wkv_a,
+    wkv_b: prefill only, decode dequantizes it; wo) and of a dense layer's
+    SwiGLU FFN."""
+    d, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    kns = [(d, cfg.q_lora_rank), (cfg.q_lora_rank, H * (dn + dr)), (d, r + dr),
+           (r, H * (dn + dv)), (H * dv, d), (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+    shapes: dict = {}
+    for kn in kns:
+        shapes[kn] = shapes.get(kn, 0) + 1
+    return shapes
+
+
+def rms_norm_widths(torch, rn, widths: tuple) -> dict:
+    """The RMSNorm kernel at the given widths: within rtol 1e-6 of its plain
+    version and row-invariant bit for bit (1, 4, 20 and 28 rows a call
+    against 140), timed at [4, d] beside the plain version and
+    ``F.rms_norm``, with its bound."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(18)
+    out = {}
+    for d in widths:
+        x = torch.randn((LN_ROWS, d), generator=g, device="cuda")
+        scale = torch.randn((d,), generator=g, device="cuda")
+        full = rn.rms_norm_cuda(x, scale)
+        torch.testing.assert_close(full, rn.rms_norm_plain(x, scale), rtol=1e-6, atol=0.0)
+        rows = {m: torch.equal(torch.cat([rn.rms_norm_cuda(x[i:i + m], scale)
+                                          for i in range(0, LN_ROWS, m)]), full)
+                for m in (1, 4, 20, 28)}
+        if not all(rows.values()):
+            raise AssertionError(f"rms_norm d={d}: rows differ across calls {rows}")
+        x4 = x[:4].contiguous()
+        err = float((rn.rms_norm_cuda(x4, scale) - rn.rms_norm_plain(x4, scale)).abs().max())
+        tk = timed(torch, lambda i: rn.rms_norm_cuda(x4, scale), 200)
+        tp = graph_ms(torch, lambda i: rn.rms_norm_plain(x4, scale), 200)
+        lib = (graph_ms(torch, lambda i: F.rms_norm(x4, (d,), scale, 1e-5), 200)
+               if hasattr(F, "rms_norm") else None)
+        b = bound_ms(4 * (2 * 4 * d + d), [(4 * 4 * d, FP32_FLOPS_PER_S)])
+        out[d] = {"M": 4, "d": d, "ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+                  "plain_ms": tp, "library_ms": lib, "bound_ms": b[0], "bound_by": b[1],
+                  "max_abs_err": err, "row_invariant": rows}
+        print(f"   rms_norm [4, {d}]: {tk['device_ms'] * 1e3:.2f} us (bound {b[0] * 1e3:.3f}, "
+              f"plain {tp * 1e3:.2f}, F.rms_norm {'n/a' if lib is None else f'{lib * 1e3:.2f}'}); "
+              f"row-invariant at 1, 4, 20, 28 and {LN_ROWS} rows a call")
+    return out
+
+
+def combine_top8(torch, cfg, qparams) -> dict:
+    """The fixed-order combine at top-8 of 256 on the card (gated): on the
+    same weighted expert rows the card's sums equal the CPU's bit for bit,
+    and the full-width MoE layer (routing, grouped B1, combine, shared
+    expert) repeats its bits on the same rows at 4 and 20 rows a call."""
+    from repro_torch.models import moe
+    p = next(lp["moe"] for lp in qparams["layers"] if "moe" in lp)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    out = {}
+    for N in (4, 20):
+        x = torch.randn((N, cfg.d_model), generator=g, device="cuda")
+        r = moe.route(p, x, cfg)
+        ye = torch.randn(tuple(r.toks.shape) + (cfg.d_model,), generator=g, device="cuda")
+        same_cpu = torch.equal(moe.combine(ye, r.order).cpu(),
+                               moe.combine(ye.cpu(), r.order.cpu()))
+        a, _ = moe.moe_local(p, x, cfg)
+        b, _ = moe.moe_local(p, x, cfg)
+        out[N] = {"card_eq_cpu": same_cpu, "repeats": torch.equal(a, b),
+                  "dropped_choices": int(r.dropped), "experts_with_rows": int((r.counts > 0).sum()),
+                  "cap": int(r.toks.shape[1])}
+        if not (same_cpu and out[N]["repeats"]):
+            raise AssertionError(f"top-8 combine at N={N}: {out[N]}")
+    print(f"   top-8 combine at E {cfg.n_experts}: card sums equal the CPU's bit for bit and "
+          f"the MoE layer repeats its bits: {out}")
+    return out
+
+
+def mla_step_parts(torch, cfg, qparams) -> dict:
+    """Device ms (graph replay) of the parts of a deepseek decode step at 4
+    slots under ``fused_int8``, each on its own: one MLA layer's attention
+    (``mla_decode`` at 4 cursors in a pool of 256 rows: 4 B1 launches and
+    the plain latent-space ops), ``wkv_b``'s dequantization alone (16.8 M
+    elements a layer a step), the dense FFN (3 B1), the MoE layer
+    (``moe_local``: routing, 3 grouped B1, the fixed-order combine, the
+    shared expert), the shared expert alone (its plain int8 path: float64
+    products), and the f32 ``lm_head``."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    d, B, S = cfg.d_model, 4, 256
+    x = torch.randn((B, 1, d), generator=g, device="cuda")
+    dim = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    c_q = torch.randint(-127, 128, (B, S, dim), generator=g, device="cuda", dtype=torch.int8)
+    c_s = torch.rand((B, S, 1), generator=g, device="cuda") * 0.02
+    pos = torch.tensor([37, 64, 91, 130], dtype=torch.int32, device="cuda")
+    dense = next(lp for lp in qparams["layers"] if "mlp" in lp)
+    moe_p = next(lp["moe"] for lp in qparams["layers"] if "moe" in lp)
+    parts = {
+        "mla_decode": lambda i: A.mla_decode(dense["attn"], cfg, x, pos, c_q, c_s, "fused_int8"),
+        "wkv_b_dequantize": lambda i: A._absorbed(dense["attn"], cfg),
+        "dense_ffn": lambda i: L.apply_mlp(dense["mlp"], x, cfg.mlp_type, "fused_int8"),
+        "moe_layer": lambda i: moe.moe_apply(moe_p, x, cfg),
+        "shared_expert": lambda i: L.apply_mlp(moe_p["shared"], x, cfg.mlp_type),
+        "lm_head": lambda i: L.apply_linear(L._lin(qparams["lm_head"], "w"), x[:, 0],
+                                            "fused_int8")}
+    out = {k: graph_ms(torch, fn, 20) for k, fn in parts.items()}
+    print(f"   {cfg.name} decode step parts at 4 slots, device ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def reduced_mla_lanes(torch, cfg) -> dict:
+    """The reduced model served by the continuous engine on the card under
+    the three quantized backends and, under ``fused_int8``, the MTP lanes
+    (``spec_k = 3``; ``spec_tree = 3, spec_branch = 2``): every stream
+    gated equal to the CPU's plain ``fused_int8`` stream (at 4 experts and
+    top-2 the capacity is N: nothing drops, so the lanes are lossless)."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    rcfg = cfg.reduced()
+    p_cpu = M.init_params(rcfg, seed=0, device="cpu")
+    p_gpu = convert.to_device(p_cpu, "cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, rcfg.vocab_size, int(rng.integers(4, 40))).tolist()
+               for _ in range(6)]
+    budgets = [int(rng.integers(4, 13)) for _ in range(6)]
+
+    def run(params, device, backend="fused_int8", **lane):
+        eng = ContinuousBatchingEngine(rcfg, params, n_slots=4, max_len=64,
+                                       rt=Runtime(backend), device=device, **lane)
+        return eng.generate_all(prompts, budgets), eng.stats
+    want, _ = run(p_cpu, "cpu")
+    out = {}
+    for label, kw in (("fused_int8", {}), ("pim_bitserial", {"backend": "pim_bitserial"}),
+                      ("ref_int8", {"backend": "ref_int8"}),
+                      ("spec_k_3_mtp", {"spec_k": 3, "drafter": "mtp"}),
+                      ("spec_tree_3_mtp", {"spec_tree": 3, "spec_branch": 2, "drafter": "mtp"})):
+        got, st = run(p_gpu, "cuda", **kw)
+        out[label] = {"equal_to_cpu": got == want, "verify_steps": st["verify_steps"],
+                      "spec_accepted": st["spec_accepted"], "spec_drafted": st["spec_drafted"]}
+        if got != want or ("drafter" in kw and st["verify_steps"] < 1):
+            raise AssertionError(f"reduced {rcfg.name} {label} on the card: {out[label]}")
+    print(f"   reduced {rcfg.name}: the card's streams under fused_int8, pim_bitserial, "
+          f"ref_int8 and the MTP lanes equal the CPU's: {out}")
+    return out
+
+
+def serve_deepseek(torch, ctx, cfg) -> dict:
+    """deepseek-v3-671b at full width (``DEEPSEEK_LAYERS`` layers and the MTP
+    head) on its int8 tree (:func:`int8_params`; prefill runs int8 too): the
+    phase-4 trace under ``fused_int8``, ``pim_bitserial`` and ``ref_int8``
+    with exact launch counts (B1 or B5 for every linear, prefill's too, the
+    grouped B1 for every expert stack, RMSNorm), the dropped choices under
+    ``fused_int8`` gated above 0 (cap 1 at a 4-slot decode step) and the
+    three lanes gated token-identical (MLA's attention is the same plain ops
+    in each, and B1 and B5 give the plain integers); where they part, the
+    lanes are held to :func:`moe_margins` instead, and the record names the
+    stage.  The MTP lanes ``spec_k = 4`` and ``spec_tree = 6, spec_branch =
+    2`` are each served twice (gated equal to each other, every request at
+    its budget, verify steps run, exact launch counts with the drafts'
+    cells), not against the plain trace (a verify window routes T times
+    the rows at another capacity), with their drafted and accepted counts
+    and the drafts' device time (CUDA events around each eager draft
+    call).  Then the top-8 combine (:func:`combine_top8`), the decode
+    step's parts timed apart (:func:`mla_step_parts`) and the captured
+    verify (T 5) and decode steps against eager over 8 steps, the decode
+    step's replay profiled in a fresh process (the verify step's here,
+    there if a profile here misses records).  Peak device memory is
+    recorded beside the card's total."""
+    from repro_torch.models import moe
+    from repro_torch.serve.quantize import quantized_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = int8_params(torch, cfg)
+    secs, t_part = {"init": time.perf_counter() - t0}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        secs[name], t_part = time.perf_counter() - t_part, time.perf_counter()
+    out = {"n_layers": cfg.n_layers, "serve_s": secs,
+           "int8_tree_bytes": quantized_bytes(qparams),
+           "after_draw_allocated_bytes": torch.cuda.memory_allocated()}
+    print(f"   {cfg.name}: int8 tree of {cfg.n_layers} layers and the MTP head drawn in "
+          f"{secs['init']:.1f} s, {out['int8_tree_bytes'] / 1e9:.2f} GB")
+    routing = {k: torch.zeros((3,), dtype=torch.int64, device="cuda")
+               for k in ("steps", "prefill")}
+
+    def count_steps():
+        moe.count_routing(routing["steps"])
+
+    def zero_routing(cb):
+        for t in routing.values():
+            t.zero_()
+        moe.count_routing(routing["prefill"])
+
+    def routing_record():
+        rec = {}
+        for k, t in routing.items():
+            calls, dropped, live = t.tolist()
+            rec[k] = {"calls": calls, "dropped_choices": dropped,
+                      "experts_with_rows_per_call": live / max(1, calls)}
+        return rec
+    outs = {}
+    for backend in ("fused_int8", "pim_bitserial", "ref_int8"):
+        count_steps()
+        cb, reqs, wall, counts = serve(torch, cfg, qparams, {}, None, backend,
+                                       setup=zero_routing, quantized=True)
+        outs[backend] = [list(r.output) for r in reqs]
+        out[backend] = dict(serve_record(reqs, wall, cfg), stats=dict(cb.stats),
+                            launches=counts, routing=routing_record())
+        print(f"   {cfg.name} {backend}: served {out[backend]['tokens_served']} tokens in "
+              f"{wall:.2f} s, {cb.stats['decode_steps']} decode steps, launches {counts}, "
+              f"routing {out[backend]['routing']}")
+        del cb, reqs
+        torch.cuda.empty_cache()
+    moe.count_routing(None)
+    if out["fused_int8"]["routing"]["steps"]["dropped_choices"] < 1:
+        raise AssertionError(f"{cfg.name}: no choice was dropped at a decode step")
+    part("backends")
+    plain = outs["fused_int8"]
+    out["backends_vs_fused_int8"] = same_streams(outs, plain)
+    same = {k: v["same"] for k, v in out["backends_vs_fused_int8"].items()}
+    print(f"   {cfg.name}: requests equal to fused_int8's {same} of {len(plain)}")
+    if same["pim_bitserial"] != len(plain) or same["ref_int8"] != len(plain):
+        margins = moe_margins(torch, cfg, qparams, outs, quantized=True)
+        out["divergence_margins"] = margins
+        raise AssertionError(f"{cfg.name}: the backends part ({same}); margins {margins}")
+    part("margins")
+    lane_outs = {}
+    for label, lane in (("spec_k_4_mtp", {"spec_k": 4, "drafter": "mtp"}),
+                        ("spec_tree_6_mtp", {"spec_tree": 6, "spec_branch": 2,
+                                             "drafter": "mtp"})):
+        runs = []
+        for _ in range(2):
+            events = []
+
+            def timing(cb, events=events):
+                d = cb._drafter
+                for name in ("draft_batch", "draft_tree_batch"):
+                    real = getattr(d, name)
+
+                    def fn(*a, real=real):
+                        ev = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                        ev[0].record()
+                        res = real(*a)
+                        ev[1].record()
+                        events.append(ev)
+                        return res
+                    setattr(d, name, fn)
+            cb, reqs, wall, counts = serve(torch, cfg, qparams, lane, None, setup=timing,
+                                           quantized=True)
+            st = dict(cb.stats)
+            runs.append([list(r.output) for r in reqs])
+            draft_ms = [a.elapsed_time(b) for a, b in events]
+            rec = dict(serve_record(reqs, wall, cfg), stats=st, launches=counts,
+                       acceptance_rate=cb.acceptance_rate, draft_calls=len(draft_ms),
+                       draft_device_ms=sum(draft_ms),
+                       draft_ms_per_call=sum(draft_ms) / max(1, len(draft_ms)))
+            if st["verify_steps"] < 1:
+                raise AssertionError(f"{cfg.name} {label}: no verify step ran")
+            del cb, reqs
+            torch.cuda.empty_cache()
+        out[label] = rec
+        lane_outs[label] = runs[0]
+        out[label]["runs_equal"] = runs[0] == runs[1]
+        print(f"   {cfg.name} {label}: served {rec['tokens_served']} tokens in {rec['wall_s']:.2f} "
+              f"s, {st['verify_steps']} verify steps, drafted {st['spec_drafted']}, accepted "
+              f"{st['spec_accepted']}; {rec['draft_calls']} draft calls, "
+              f"{rec['draft_ms_per_call']:.2f} ms each on the device; two runs equal "
+              f"{out[label]['runs_equal']}; launches {counts}")
+        if runs[0] != runs[1]:
+            raise AssertionError(f"{cfg.name} {label}: two runs part")
+    out["mtp_lanes_vs_plain"] = same_streams(lane_outs, plain)
+    part("mtp_lanes")
+    out["combine_top8"] = combine_top8(torch, cfg, qparams)
+    out["step_parts_ms"] = mla_step_parts(torch, cfg, qparams)
+    pool = ragged_pool(torch, cfg, qparams, 256, 256)
+    out["graph_verify"], _, _ = replay_vs_eager(torch, cfg, qparams, pool, "verify", 5)
+    hold = [qparams, pool]
+    del qparams, pool
+    out["graph_decode"], _, _ = replay_vs_eager(torch, cfg, *hold, "decode",
+                                                release=hold.clear, fresh=True)
+    prof = out["graph_decode"]["profile"]
+    print(f"   {cfg.name}: replayed decode step at 4 slots: wall {prof['wall_us'] / 1e3:.2f} ms, "
+          f"device busy {prof['device_busy_us'] / 1e3:.2f} ms, idle share "
+          f"{prof['idle_share']:.3f}, {prof['device_kernels']} device events")
+    del hold
+    torch.cuda.empty_cache()
+    part("graphs")
+    total = torch.cuda.get_device_properties(0).total_memory
+    out["memory"] = {"device_total_bytes": total,
+                     "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                     "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+    print(f"   {cfg.name}: peak device memory {out['memory']['peak_reserved_bytes'] / 1e9:.2f} GB "
+          f"reserved ({out['memory']['peak_allocated_bytes'] / 1e9:.2f} allocated) of "
+          f"{total / 1e9:.2f} GB")
+    return out
+
+
+def deepseek_family(torch, ctx, mods: dict) -> dict:
+    """deepseek-v3-671b: its kernels at its shapes (B1 and B5 over the MLA
+    linears and the dense FFN at M 4; the grouped B1 at E 256 for C 1 and
+    C 2; RMSNorm at 1536, 512 and 7168), the reduced model on the card
+    against the CPU (logits, and the served streams with the MTP lanes),
+    then :func:`serve_deepseek` at full width."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    full = registry.get("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, n_layers=DEEPSEEK_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    shapes = mla_shapes(cfg)
+    print(f"   {cfg.name}: an MLA layer's and a dense FFN's linears {shapes}")
+    rec = {"kernels": {"b1": b1_per_layer(torch, mods["mm"], g, 4, shapes),
+                       "b5": b5_per_layer(torch, mods["mm"], mods["pim"], mods["quant"], g, 4,
+                                          shapes),
+                       "rms_norm": rms_norm_widths(torch, mods["rn"], (1536, 512, 7168))},
+           "grouped_b1": grouped_b1(torch, mods["mm"], cfg, deepseek_counts())}
+    rec.update(reduced_vs_cpu(torch, full))
+    rec["reduced_lanes"] = reduced_mla_lanes(torch, full)
+    rec.update(serve_deepseek(torch, ctx, cfg))
+    # the grouped entry's byte floor at the experts the trace's decode steps
+    # routed rows to (a layer's stacks)
+    live = rec["fused_int8"]["routing"]["steps"]["experts_with_rows_per_call"]
+    rec["grouped_b1"]["bound_on_trace_ms"] = sum(
+        live * K * N for K, N in expert_stacks(cfg)) / HBM_BYTES_PER_S * 1e3
+    print(f"   {cfg.name}: {live:.2f} of {cfg.n_experts} experts hold a row a decode call on the "
+          f"trace: the expert stacks' byte floor {rec['grouped_b1']['bound_on_trace_ms']:.4f} ms "
+          f"a layer")
+    return rec
+
+
 def phase_families(torch, ctx, mods: dict) -> dict:
     """OPT-30B at full width with 16 of its 48 layers (free of llama's and
     mamba2's weights): its kernels at its shapes, the LayerNorm kernel, the
@@ -3705,6 +4176,12 @@ def phase_families(torch, ctx, mods: dict) -> dict:
           f"{rec['grouped_b1']['bound_on_trace_ms']:.4f} ms a layer")
     rec["family_s"] = time.perf_counter() - t0
     out["grok-1-314b"] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = deepseek_family(torch, ctx, mods)
+    rec["family_s"] = time.perf_counter() - t0
+    out["deepseek-v3-671b"] = rec
     gc.collect()
     torch.cuda.empty_cache()
     return out

@@ -6,8 +6,9 @@ families are ported.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (chameleon_34b, granite3_8b, grok1_314b, llama3_8b,
-                                 mamba2_2_7b, nemotron4_340b, opt, phi3_mini_3_8b)
+from repro_torch.configs import (chameleon_34b, deepseek_v3_671b, granite3_8b, grok1_314b,
+                                 llama3_8b, mamba2_2_7b, nemotron4_340b, opt,
+                                 phi3_mini_3_8b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
@@ -18,6 +19,7 @@ ARCHS: dict[str, ModelConfig] = {
     "mamba2-2.7b": mamba2_2_7b.CONFIG,
     "chameleon-34b": chameleon_34b.CONFIG,
     "grok-1-314b": grok1_314b.CONFIG,
+    "deepseek-v3-671b": deepseek_v3_671b.CONFIG,
     # the paper's own model family
     "opt-30b": opt.CONFIG,
     "opt-125m": opt.OPT_125M,

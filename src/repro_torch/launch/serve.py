@@ -28,6 +28,11 @@ Speculative decode, linear (``--spec-k``) or a draft tree (``--spec-tree``,
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --reduced \\
         --continuous --chunk 4 --spec-k 4 --drafter ngram
 
+DeepSeek-V3's MTP head drafts instead with ``--drafter mtp``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \\
+        --reduced --continuous --spec-k 3 --drafter mtp --device cpu
+
 Streaming front end (the async serve loop: per-request token streams with
 bounded-queue backpressure, live admission, and one request cancelled
 after its first tokens); it ends by printing ``SERVE_SHUTDOWN_CLEAN``:
@@ -38,11 +43,11 @@ after its first tokens); it ends by printing ``SERVE_SHUTDOWN_CLEAN``:
 Fault injection (``--ber``, ``--fault-steps``, ``--fault-every``,
 ``--slot-loss``), request deadlines (``--deadline``) and the fault layer
 alone (``--faults``) work in both engine modes.  ``--arch`` takes every
-dense, MoE (grok-1-314b) and SSM configuration of the reference's registry
-(chameleon-34b prompts with token ids here, as the reference's CLI does);
-its MLA, hybrid and encoder-decoder ones (ROADMAP A.11) are not ported
-yet, and neither is ``--mesh`` (sharded serving, expert parallelism
-included, ROADMAP A.14): both raise.
+dense, MoE (grok-1-314b), MLA (deepseek-v3-671b) and SSM configuration of
+the reference's registry (chameleon-34b prompts with token ids here, as
+the reference's CLI does); its hybrid and encoder-decoder ones (ROADMAP
+A.11) are not ported yet, and neither is ``--mesh`` (sharded serving,
+expert parallelism included, ROADMAP A.14): both raise.
 """
 from __future__ import annotations
 
@@ -316,7 +321,7 @@ def main(argv: list[str] | None = None):
                     help="tree-draft branching factor (with --spec-tree)")
     ap.add_argument("--drafter", default="ngram",
                     help='draft proposer: ngram[:N] (prompt lookup) | mtp '
-                         '(multi-token-prediction head, not ported yet)')
+                         '(multi-token-prediction head)')
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache: retired requests publish their "
                          "committed KV rows; later admissions sharing a "

@@ -1,13 +1,17 @@
-"""GQA attention: blocked (flash-style) prefill attention and int8-KV decode
-attention (the paper's dMVM, Sec. IV-B / Fig. 13).
+"""Attention: GQA / MHA and MLA; blocked (flash-style) prefill attention and
+int8-KV decode attention (the paper's dMVM, Sec. IV-B / Fig. 13).
 
-PyTorch counterpart of the GQA parts of ``repro.models.attention``.  Decode
+PyTorch counterpart of ``repro.models.attention``.  Decode
 attention computes ``q . K^T`` and ``S . V`` against the int8 "SLC-region"
 cache: under ``fused_int8`` through the B2 kernel, otherwise through the
 plain version of the same function.  Speculative verify attention scores a
 window of T tokens per slot the same way: under ``fused_int8`` through the
 B3 (linear window) or B4 (draft tree) kernel, otherwise through their plain
-versions.  MLA is ported with a later slice.
+versions.  MLA (DeepSeek-V3) caches one int8 compressed latent a token
+(``kv_lora_rank + qk_rope_head_dim`` wide) instead of per-head K/V and
+decodes in the latent space; the reference computes it with plain einsums
+(no Pallas kernel), and so does the port, its linears through the same
+backends as every other linear.
 """
 from __future__ import annotations
 
@@ -29,10 +33,20 @@ NEG_INF = -1e30
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Params:
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(
-            f"{cfg.attn_type} attention is not ported yet (ROADMAP A.11)")
     d, hd = cfg.d_model, cfg.head_dim
+    if cfg.attn_type == "mla":
+        qk_head = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        return {"wq_a": L.dense_init(gen, d, cfg.q_lora_rank, dtype)["w"],
+                "q_norm": L.norm_init(cfg.q_lora_rank, device=gen.device),
+                "wq_b": L.dense_init(gen, cfg.q_lora_rank, cfg.n_heads * qk_head, dtype)["w"],
+                "wkv_a": L.dense_init(gen, d, cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                                      dtype)["w"],
+                "kv_norm": L.norm_init(cfg.kv_lora_rank, device=gen.device),
+                "wkv_b": L.dense_init(gen, cfg.kv_lora_rank, cfg.n_heads * (
+                    cfg.qk_nope_head_dim + cfg.v_head_dim), dtype)["w"],
+                "wo": L.dense_init(gen, cfg.n_heads * cfg.v_head_dim, d, dtype)["w"]}
+    if cfg.attn_type != "gqa":
+        raise NotImplementedError(f"{cfg.attn_type} attention is not ported")
     p = {"wq": L.dense_init(gen, d, cfg.n_heads * hd, dtype)["w"],
          "wk": L.dense_init(gen, d, cfg.n_kv_heads * hd, dtype)["w"],
          "wv": L.dense_init(gen, d, cfg.n_kv_heads * hd, dtype)["w"],
@@ -257,3 +271,159 @@ def gqa_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     o = verify_attention_int8(q, k_q, k_s, v_q, v_s, pos_b, backend, anc=anc)
     out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend)
     return out, (k_q, k_s, v_q, v_s)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): compressed-latent cache, absorbed decode
+# ---------------------------------------------------------------------------
+def rope_dim(cfg: ModelConfig) -> int:
+    """The width RoPE turns: MLA's rope half, else the head."""
+    return cfg.qk_rope_head_dim if cfg.attn_type == "mla" else cfg.head_dim
+
+
+def _quantize_latent(latent: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 of MLA latent rows ``[..., r + dr]`` ->
+    (int8 codes, f32 scales ``[..., 1]``), the one quantizer of every latent
+    the port caches (decode, verify, one-shot prefill and a chunked
+    prefill's finalize), so their rows are the same bits for the same
+    floats.  It divides by 127 as ``core/quant.py`` does (an IEEE division
+    on every device)."""
+    return quant.quantize_activation(latent)
+
+
+def _mla_q(p: Params, cfg: ModelConfig, x: torch.Tensor, positions, backend: str,
+           rope=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Queries ``[B, T, H, dn]`` (no position) and ``[B, T, H, dr]`` (turned
+    at ``positions``)."""
+    B, T, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_lat = L.apply_norm(p["q_norm"], L.apply_linear(L._lin(p, "wq_a"), x, backend))
+    q = L.apply_linear(L._lin(p, "wq_b"), q_lat, backend).reshape(B, T, cfg.n_heads, dn + dr)
+    return q[..., :dn], L.apply_rope(q[..., dn:], positions, cfg.rope_theta, tables=rope)
+
+
+def _mla_latent(p: Params, cfg: ModelConfig, x: torch.Tensor, positions, backend: str,
+                rope=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The latent's two halves: the normed ``c_kv`` ``[B, T, r]`` and the
+    key's rope part ``[B, T, dr]`` turned at ``positions``."""
+    r = cfg.kv_lora_rank
+    kv_a = L.apply_linear(L._lin(p, "wkv_a"), x, backend)
+    c_kv = L.apply_norm(p["kv_norm"], kv_a[..., :r])
+    k_rope = L.apply_rope(kv_a[:, :, None, r:], positions, cfg.rope_theta, tables=rope)
+    return c_kv, k_rope[:, :, 0]
+
+
+def mla_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, buf: dict, start: int,
+              kv_lengths: torch.Tensor, key_rows: int, backend: str = "dense",
+              rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+              hidden: list[torch.Tensor] | None = None,
+              skip: int = 0) -> torch.Tensor:
+    """Prefill MLA over a chunk, :func:`gqa_chunk`'s sibling: per-head float
+    keys ``[k_nope; k_rope]`` (width ``dn + dr``, the rope part shared by
+    every head) and values (width ``dv``) land in ``buf["k"]`` /
+    ``buf["v"]`` from the chunk's row ``skip`` on, and the latent's two
+    halves in ``buf["lat_c"]`` / ``buf["lat_r"]`` (what the int8 cache is
+    quantized from); queries attend keys ``[0, kv_lengths)`` among the
+    buffer's first ``key_rows`` rows at full precision, scores scaled by
+    ``1 / sqrt(dn + dr)``.  ``rope`` holds tables of width ``dr``."""
+    B, C, _ = x.shape
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend, rope)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions, backend, rope)
+    kv = L.apply_linear(L._lin(p, "wkv_b"), c_kv, backend).reshape(B, C, H, dn + dv)
+    k = torch.cat([kv[..., :dn], k_rope[:, :, None].expand(B, C, H, dr)], dim=-1)
+    for name, val in (("k", k), ("v", kv[..., dn:]), ("lat_c", c_kv), ("lat_r", k_rope)):
+        KV.chunk_update(buf[name], val[:, skip:], start + skip)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    o = flash_attention(qf, buf["k"][:, :key_rows].to(qf.dtype),
+                        buf["v"][:, :key_rows].to(qf.dtype), q_offset=start,
+                        kv_lengths=kv_lengths, kv_block=key_rows, hidden=hidden)
+    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, C, -1), backend)
+
+
+def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                backend: str = "dense") -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill MLA over ``x`` [B, T, d] at ``positions`` with no cache (the
+    MTP head's cell): (out, latent ``[B, T, r + dr]``)."""
+    B, T, _ = x.shape
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions, backend)
+    kv = L.apply_linear(L._lin(p, "wkv_b"), c_kv, backend).reshape(B, T, H, dn + dv)
+    k = torch.cat([kv[..., :dn], k_rope[:, :, None].expand(B, T, H, dr)], dim=-1)
+    o = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, kv[..., dn:])
+    out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend)
+    return out, torch.cat([c_kv, k_rope], dim=-1)
+
+
+def _absorbed(p: Params, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """``wkv_b`` as float ``[r, H, dn + dv]`` (a quantized tree's codes
+    times their per-column scales, as the reference dequantizes them every
+    step), split into ``w_uk`` [r, H, dn] and ``w_uv`` [r, H, dv]."""
+    dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    w = p["wkv_b"] if "wkv_b" in p else p["wkv_b_q"].to(torch.float32) * p["wkv_b_s"]
+    w = w.reshape(cfg.kv_lora_rank, cfg.n_heads, dn + dv)
+    return w[..., :dn], w[..., dn:]
+
+
+def _mla_latent_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, pos_b: torch.Tensor,
+                          pp: torch.Tensor, c_q: torch.Tensor, c_s: torch.Tensor,
+                          mask: torch.Tensor, backend: str) -> torch.Tensor:
+    """Absorbed MLA over ``x`` [B, T, d] whose token t sits at ``pp[:, t]``:
+    the T int8 latents append in place at rows ``pos_b .. pos_b + T - 1``,
+    then attention runs in the latent space against the dequantized cache,
+    ``mask`` [B, T, S] (True where a key is visible), and ``wo``."""
+    B, T, _ = x.shape
+    r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, pp, backend)
+    c_kv, k_rope = _mla_latent(p, cfg, x, pp, backend)
+    lq, sc = _quantize_latent(torch.cat([c_kv, k_rope], dim=-1))
+    KV.batched_update(c_q, lq, pos_b)
+    KV.batched_update(c_s, sc, pos_b)
+    w_uk, w_uv = _absorbed(p, cfg)
+    q_eff = torch.einsum("bthd,rhd->bthr", q_nope.to(torch.float32), w_uk)   # absorb W_UK
+    cache = c_q.to(torch.float32) * c_s                                      # [B, S, r + dr]
+    scores = (torch.einsum("bthr,bsr->bths", q_eff, cache[..., :r])
+              + torch.einsum("bthd,bsd->bths", q_rope.to(torch.float32), cache[..., r:]))
+    scores = (scores / math.sqrt(dn + dr)).masked_fill(~mask[:, :, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bths,bsr->bthr", w, cache[..., :r])                # latent-space SV
+    o = torch.einsum("bthr,rhd->bthd", o_lat, w_uv)                          # expand W_UV
+    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1).to(x.dtype), backend)
+
+
+def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Tensor,
+               c_s: torch.Tensor, backend: str = "dense"):
+    """Absorbed MLA decode of one token a slot: its int8 latent appends in
+    place at each slot's ``pos`` (scalar or [B]) and the step reads only the
+    ``[S, r + dr]`` int8 latent rows, the paper's SLC-cache read.  Returns
+    (out, (c_q, c_s))."""
+    B = x.shape[0]
+    pos_b = KV.slot_positions(pos, B, x.device).to(x.device)
+    S = c_q.shape[1]
+    mask = (torch.arange(S, device=x.device)[None, :] < (pos_b + 1)[:, None])[:, None]
+    out = _mla_latent_attention(p, cfg, x, pos_b, pos_b[:, None], c_q, c_s, mask, backend)
+    return out, (c_q, c_s)
+
+
+def mla_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Tensor,
+               c_s: torch.Tensor, backend: str = "dense", depth=None, anc=None):
+    """:func:`mla_decode` over a verify window ``x`` [B, T, d]: the T latents
+    append at each slot's cursor and query t sees the cache up to
+    ``pos + t``; tree mode (``depth``/``anc``) turns token i at
+    ``pos + depth[:, i]`` and masks by ancestry (see :func:`gqa_verify`).
+    Returns (out, (c_q, c_s))."""
+    B, T, _ = x.shape
+    dev = x.device
+    pos_b = KV.slot_positions(pos, B, dev).to(dev)
+    off = torch.arange(T, device=dev)[None, :] if depth is None else depth.to(dev)
+    pp = pos_b[:, None] + off
+    S = c_q.shape[1]
+    if anc is not None:
+        mask = vt_ops.tree_visibility_mask(pos_b, anc.to(dev), S, T)
+    else:
+        mask = torch.arange(S, device=dev)[None, None, :] < (pos_b[:, None] + torch.arange(
+            T, device=dev)[None, :] + 1)[..., None]
+    out = _mla_latent_attention(p, cfg, x, pos_b, pp, c_q, c_s, mask, backend)
+    return out, (c_q, c_s)

@@ -97,7 +97,9 @@ class ServeSteps:
 
     * :meth:`decode`: ``decode_step`` -> (logits [n, V], argmax [n] int32);
     * :meth:`verify` (``T`` in ``verify``) and :meth:`tree` (``T`` in
-      ``tree``): ``verify_step`` -> (logits [n, T, V], argmax [n, T]);
+      ``tree``): ``verify_step`` -> (logits [n, T, V], argmax [n, T]), its
+      post-``ln_f`` hidden states [n, T, d] left in :attr:`hidden` (the
+      MTP drafter's carry);
     * :meth:`multi`: ``multi_decode_step`` as m replays of the decode step
       -> tokens [n, m] int32.
     """
@@ -117,6 +119,7 @@ class ServeSteps:
         self.anc = {t: zeros(n, t) for t in tree}
         self.pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
         self.graphs: dict[tuple, StepGraph] = {}
+        self.hidden: torch.Tensor | None = None
         if decode:
             self._add(("decode",), self._decode)
         for t in verify:
@@ -138,18 +141,20 @@ class ServeSteps:
 
     def _verify(self, t: int, tree: bool = False):
         kw = {"depth": self.depth[t], "anc": self.anc[t]} if tree else {}
-        logits, _, _ = T.verify_step(self.params, self.cfg, self.state,
-                                     self.window[t], self.rt, **kw)
-        return logits, torch.argmax(logits, -1).to(torch.int32)
+        logits, hidden, _ = T.verify_step(self.params, self.cfg, self.state,
+                                          self.window[t], self.rt, **kw)
+        return logits, torch.argmax(logits, -1).to(torch.int32), hidden
 
     def decode(self):
         return self.graphs[("decode",)]()
 
     def verify(self, t: int):
-        return self.graphs[("verify", t)]()
+        logits, argmax, self.hidden = self.graphs[("verify", t)]()
+        return logits, argmax
 
     def tree(self, t: int):
-        return self.graphs[("tree", t)]()
+        logits, argmax, self.hidden = self.graphs[("tree", t)]()
+        return logits, argmax
 
     def multi(self, m: int) -> torch.Tensor:
         """The fused block: ``m`` decode steps from the tokens in ``tok``,

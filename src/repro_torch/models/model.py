@@ -4,10 +4,12 @@ PyTorch counterpart of the ``repro.models.model`` facades that the plain
 decode path, the fused multi-step lane, chunked prefill (cold or warm from
 the prefix cache) and the speculative lanes use, for GQA/MHA decoders
 (token inputs, or the embeddings that a ``vlm`` configuration's stubbed
-front end gives) whose FFNs are dense or mixture-of-experts
-(``models/moe.py``; token inputs), and SSM (Mamba2) stacks.  MLA, hybrid
-stacks and encoder-decoders raise until their slice is ported (ROADMAP
-A.11), and ``verify_step`` raises for SSM stacks, as in the reference.
+front end gives) and MLA decoders (with DeepSeek-V3's MTP head, which
+drafts through :func:`mtp_draft` / :func:`mtp_draft_tree`), whose FFNs are
+dense or mixture-of-experts (``models/moe.py``; token inputs), and SSM
+(Mamba2) stacks.  Hybrid stacks and encoder-decoders raise until their
+slice is ported (ROADMAP A.11), and ``verify_step`` raises for SSM stacks,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -93,6 +95,21 @@ def tree_commit(state: dict, base, sel, keep, pos) -> dict:
     contiguous committed rows and rewind the cursor; see
     :func:`repro_torch.models.transformer.tree_commit`."""
     return T.tree_commit(state, base, sel, keep, pos)
+
+
+def mtp_draft(params: Params, cfg: ModelConfig, hidden, token, pos, k: int,
+              rt: Runtime):
+    """Draft ``k`` tokens a slot from the MTP head (requires ``cfg.mtp``);
+    see :func:`repro_torch.models.transformer.mtp_draft`."""
+    return T.mtp_draft(params, cfg, hidden, token, pos, k, rt)
+
+
+def mtp_draft_tree(params: Params, cfg: ModelConfig, hidden, token, pos, n: int,
+                   branch: int, rt: Runtime):
+    """Beam the MTP head into a static draft tree (tokens [B, n],
+    chain-major; topology from
+    :func:`repro_torch.models.transformer.mtp_chain_lengths`)."""
+    return T.mtp_draft_tree(params, cfg, hidden, token, pos, n, branch, rt)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,

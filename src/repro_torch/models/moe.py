@@ -21,6 +21,12 @@ same kept set in the same rows, with no sort, no host sync and no shape
 that depends on the data, so a decode or verify step that routes can be
 captured as a CUDA graph.  So whether a row reaches an expert depends on
 the other rows of the same call, idle decode slots included.
+
+The combine adds a token's kept expert rows in one fixed order, the order
+in which the reference's scatter-add visits them (its ``[E, cap]`` buffer
+flattened: ascending expert), each from a zero row: the same code on the
+CPU and on the card, with no atomics, so a token's sum is the same bits
+whatever its k (top-8 as top-2).
 """
 from __future__ import annotations
 
@@ -125,6 +131,7 @@ class Routing(NamedTuple):
     toks: torch.Tensor        # [E, cap] int64
     ws: torch.Tensor          # [E, cap] f32
     counts: torch.Tensor      # [E] int32
+    order: torch.Tensor       # [N, k] int64: each token's buffer rows, ascending
     dropped: torch.Tensor     # 0-d int64: choices past an expert's capacity
     probs: torch.Tensor       # [N, E] f32: the router's softmax
     topi: torch.Tensor        # [N, k] int64: each token's experts, best first
@@ -135,7 +142,9 @@ def route(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Routing:
     softmax (ties to the lower expert), weights renormalised over the k;
     slot ``n * k + j`` is token n's j-th choice; expert e's row r holds the
     r-th slot, in slot order, that chose e, and a slot of rank ``cap`` or
-    more is dropped."""
+    more is dropped.  ``order[n]`` lists token n's buffer rows
+    (``e * cap + r``) in ascending order, its dropped choices last as the
+    spare row ``E * cap``."""
     N, _ = x.shape
     E, k = cfg.n_experts, cfg.n_experts_active
     dev = x.device
@@ -156,7 +165,28 @@ def route(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Routing:
     ws = torch.zeros((rows + 1,), dtype=slot_w.dtype, device=dev).scatter_(
         0, dest, slot_w)[:rows].view(E, cap)
     counts = torch.clamp(hot.sum(0), max=cap).to(torch.int32)
-    return Routing(toks, ws, counts, (~kept).sum(), probs, topi)
+    # a token's k rows in ascending order (its experts differ, so its kept
+    # rows do; dropped ones tie at the spare row and keep choice order):
+    # each row's place is the count of the token's rows that sort before it
+    d = dest.view(N, k)
+    j = torch.arange(k, device=dev)
+    before = (d[:, None, :] < d[:, :, None]) | ((d[:, None, :] == d[:, :, None])
+                                                & (j[None, :] < j[:, None]))
+    order = torch.empty_like(d).scatter_(1, before.sum(-1), d)
+    return Routing(toks, ws, counts, order, (~kept).sum(), probs, topi)
+
+
+def combine(ye: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Each token's weighted expert rows (``ye`` [E, cap, d]) summed left to
+    right from a zero row in the order of ``order`` [N, k] (the spare row
+    ``E * cap`` adds an exact zero) -> [N, d]: the order the reference's
+    scatter-add visits them, with no atomics and no shape that depends on
+    the data."""
+    rows = torch.cat([ye.reshape(-1, ye.shape[-1]), ye.new_zeros((1, ye.shape[-1]))])
+    out = torch.zeros((order.shape[0], ye.shape[-1]), dtype=ye.dtype, device=ye.device)
+    for i in range(order.shape[1]):
+        out = out + rows[order[:, i]]
+    return out
 
 
 def moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -165,11 +195,8 @@ def moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     ``(out [N, d], aux)``: ``aux`` is the Switch-style load-balance loss
     where ``with_aux`` asks for it (serving discards it, as the reference's
     serve paths do), else None.  Each expert's output row is scaled by its
-    slot's weight and added onto its token's row with ``index_add_``
-    (atomics on the card): a token gets at most k such rows, and the empty
-    buffer rows add exact zeros to token 0, so for top-2 the sum onto a
-    zero row is ``a + b`` in any order; a larger k needs a fixed order
-    (ROADMAP)."""
+    slot's weight, and a token's rows are summed by :func:`combine` in
+    ascending expert order."""
     N, d = x.shape
     E, k = cfg.n_experts, cfg.n_experts_active
     r = route(p, x, cfg)
@@ -186,8 +213,7 @@ def moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     xe = x[r.toks] * valid[..., None].to(x.dtype)                    # gather
     ye = _expert_ffn(xe, p, cfg, r.counts)
     ye = ye * r.ws[..., None].to(ye.dtype)
-    out = torch.zeros((N, d), dtype=ye.dtype, device=x.device).index_add_(
-        0, r.toks.reshape(-1), ye.reshape(-1, d))
+    out = combine(ye, r.order)
     if cfg.n_shared_experts and "shared" in p:
         out = out + L.apply_mlp(p["shared"], x, cfg.mlp_type)
     return out, aux

@@ -1,20 +1,23 @@
-"""Decoder-LM assembly for the dense GQA/MHA (with or without
-mixture-of-experts FFNs) and SSM (Mamba2) families.
+"""Decoder-LM assembly for the GQA/MHA and MLA decoders (dense or
+mixture-of-experts FFNs) and the SSM (Mamba2) family.
 
 PyTorch counterpart of ``repro.models.transformer``.  Layers are a per-layer
 list (``params["layers"]``), not the reference's stacked ``lax.scan``, and
 each layer dispatches on ``cfg.layer_kind(i)``.  The decode state is a
-per-layer list: an attention layer's int8 "SLC" cache, which every step
-updates **in place** (the reference donates its state to the same effect),
-or an SSM layer's constant-size recurrent state (``conv_x``, ``conv_B``,
-``conv_C``, ``h``), and the ``pos`` cursor vector.  Every step writes into
+per-layer list: an attention layer's int8 "SLC" cache (under MLA the int8
+compressed latent ``c_q`` / ``c_s``), which every step updates **in
+place** (the reference donates its state to the same effect), or an SSM
+layer's constant-size recurrent state (``conv_x``, ``conv_B``, ``conv_C``,
+``h``), and the ``pos`` cursor vector.  Every step writes into
 those tensors and never swaps one for a new one, so a step captured as a
 CUDA graph (``models/graphs.py``) replays over fixed addresses.  The
 decode path is the paper's technique: every static linear can run W8A8
 ("QLC region"), attention runs against the int8 cache, and norms and softmax
 are fp32 "controller ops".  A MoE layer (``models/moe.py``) routes the rows
 of each call together, so a MoE stack runs each call's rows in one piece
-(see ``PREFILL_PIECE``).
+(see ``PREFILL_PIECE``).  DeepSeek-V3's multi-token-prediction head
+(``mtp_proj``, ``mtp_layer``) drafts tokens for the speculative lanes
+(:func:`mtp_draft`, :func:`mtp_draft_tree`).
 """
 from __future__ import annotations
 
@@ -50,23 +53,25 @@ def check_supported(cfg: ModelConfig) -> None:
     """The port serves GQA/MHA decoders (with RoPE or with sinusoidal
     positions when ``rope_theta == 0``, with or without QK-norm; family
     ``vlm`` too, whose stubbed early-fusion front end hands the backbone
-    embeddings, ``input_mode="embeddings"``), their FFNs dense or
-    mixture-of-experts (``n_experts``, any mix of the two by
-    ``is_moe_layer``; token inputs), and attention-free SSM (Mamba2)
-    stacks.  MLA, hybrid stacks and encoder-decoders wait on ROADMAP
-    A.11."""
+    embeddings, ``input_mode="embeddings"``), MLA decoders (token inputs,
+    with or without the MTP head), their FFNs dense or mixture-of-experts
+    (``n_experts``, any mix of the two by ``is_moe_layer``; token inputs),
+    and attention-free SSM (Mamba2) stacks.  Hybrid stacks wait on ROADMAP
+    A.11.4 and encoder-decoders on A.11."""
     if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: hybrid SSM/attention stacks (whose moe layers "
             "models/moe.py serves) wait on the hybrid stack (ROADMAP A.11.4)")
     gqa = cfg.family in ("dense", "vlm", "moe") and cfg.attn_type == "gqa"
+    mla = cfg.family in ("dense", "moe") and cfg.attn_type == "mla"
     ssm = cfg.family == "ssm" and cfg.attn_type == "none" and not cfg.d_ff
     inputs = cfg.input_mode == "tokens" or (gqa and not cfg.n_experts
                                             and cfg.input_mode == "embeddings")
-    if not (gqa or ssm) or (ssm and cfg.n_experts) or not inputs:
+    if (not (gqa or mla or ssm) or (ssm and cfg.n_experts) or not inputs
+            or (cfg.mtp and not mla)):
         raise NotImplementedError(
-            f"{cfg.name}: only GQA/MHA decoders (dense or MoE FFNs) and SSM "
-            "stacks are ported so far (other families: ROADMAP A.11)")
+            f"{cfg.name}: only GQA/MHA and MLA decoders (dense or MoE FFNs) and "
+            "SSM stacks are ported so far (other families: ROADMAP A.11)")
 
 
 def has_ssm(cfg: ModelConfig) -> bool:
@@ -75,6 +80,12 @@ def has_ssm(cfg: ModelConfig) -> bool:
 
 def has_moe(cfg: ModelConfig) -> bool:
     return any(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+
+
+def is_seq_cache(cache: dict) -> bool:
+    """Whether a layer's decode state has a sequence axis (an attention
+    layer's int8 K/V, or MLA's latent), unlike an SSM layer's state."""
+    return "k_q" in cache or "c_q" in cache
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +131,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
     p["layers"] = [init_layer(gen, cfg, i, dtype) for i in range(cfg.n_layers)]
+    if cfg.mtp:
+        # the MTP head: a float projection of [h; embed(tok)] and a layer of
+        # the last layer's structure (a MoE layer in DeepSeek-V3)
+        p["mtp_proj"] = L.dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype)
+        p["mtp_layer"] = init_layer(gen, cfg, cfg.n_layers - 1, dtype)
     return p
 
 
@@ -157,8 +173,9 @@ def _lm_head(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime) -> torch
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device: str | torch.device = "cuda") -> dict:
     """Per layer, an int8 K/V cache ([B, S, H_kv, D] + [B, S, H_kv, 1]
-    scales) or an SSM layer's zero recurrent state; and the [B] per-slot
-    position vector."""
+    scales), MLA's int8 latent cache (``c_q`` [B, S, r + dr] + ``c_s``
+    [B, S, 1] scales) or an SSM layer's zero recurrent state; and the [B]
+    per-slot position vector."""
     check_supported(cfg)
     dev = resolve(device)
     kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -167,6 +184,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     def layer(i):
         if cfg.layer_kind(i) == "ssm":
             return SSM.init_ssm_state(cfg, batch, dev)
+        if cfg.attn_type == "mla":
+            dim = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+            return {"c_q": torch.zeros((batch, max_len, dim), dtype=torch.int8, device=dev),
+                    "c_s": torch.zeros((batch, max_len, 1), dtype=torch.float32, device=dev)}
         return {"k_q": torch.zeros(kv, dtype=torch.int8, device=dev),
                 "k_s": torch.zeros(sc, dtype=torch.float32, device=dev),
                 "v_q": torch.zeros(kv, dtype=torch.int8, device=dev),
@@ -189,7 +210,7 @@ def write_slot(state: dict, slot: int, one: dict, start: int = 0) -> dict:
     for full, row in zip(state["layers"], one["layers"]):
         for name, buf in full.items():
             r = torch.as_tensor(row[name])
-            if "k_q" not in full:                    # SSM state: whole
+            if not is_seq_cache(full):               # SSM state: whole
                 buf[s] = r[0].to(buf.device, buf.dtype)
                 continue
             if start + r.shape[1] > buf.shape[1]:
@@ -210,7 +231,7 @@ def read_slot(state: dict, slot: int, n: int | None = None) -> dict:
     B = state["pos"].shape[0]
     s = min(max(int(slot), 0), B - 1)
     rows = slice(None) if n is None else slice(0, int(n))
-    return {"layers": [{k: (v[s:s + 1, rows] if "k_q" in c else v[s:s + 1]).clone()
+    return {"layers": [{k: (v[s:s + 1, rows] if is_seq_cache(c) else v[s:s + 1]).clone()
                         for k, v in c.items()}
                        for c in state["layers"]],
             "pos": state["pos"][s:s + 1].clone()}
@@ -225,7 +246,7 @@ def copy_slot_prefix(state: dict, src: int, dst: int, n: int) -> dict:
     finalize).  Attention pools only (every leaf ``[B, S, H, ...]``)."""
     n = int(n)
     for cache in state["layers"]:
-        if "k_q" not in cache:
+        if not is_seq_cache(cache):
             raise NotImplementedError("copy_slot_prefix targets attention pools")
         for buf in cache.values():
             buf[int(dst), :n] = buf[int(src), :n]
@@ -244,11 +265,16 @@ def warm_prefill_carry(cfg: ModelConfig, state: dict, slot: int, n: int,
     carry's rows below its cursor (:func:`prefill_chunk`), so the resumed
     tail attends exactly these dequantized rows, as the reference's does.
     Attention stacks only: SSM state cannot restart mid-prompt (the engine
-    turns the prefix cache off for SSM stacks)."""
+    turns the prefix cache off for SSM stacks, and for MLA stacks, whose
+    latent cache cannot seed per-head K/V without the weights)."""
     if has_ssm(cfg):
         raise NotImplementedError(
             "prefix-cache warm start targets attention pools; SSM state "
             "cannot restart mid-prompt")
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(
+            "prefix-cache warm start needs per-head K/V in the pool; the MLA "
+            "latent cache cannot seed the float carry without weights")
     dev = state["pos"].device
     carry = init_prefill_carry(cfg, buf_len, dev)
     n = int(n)
@@ -273,6 +299,8 @@ def apply_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
         mix, new = SSM.ssm_decode(p["ssm"], cfg, h, cache, rt.backend)
         for name, val in new.items():
             cache[name].copy_(val)
+    elif cfg.attn_type == "mla":
+        mix, _ = A.mla_decode(p["attn"], cfg, h, pos, cache["c_q"], cache["c_s"], rt.backend)
     else:
         mix, _ = A.gqa_decode(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
                               cache["v_q"], cache["v_s"], rt.backend)
@@ -327,9 +355,13 @@ def apply_layer_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     ([B, T] int32) switch the window to tree mode (see
     :func:`attention.gqa_verify`)."""
     h = L.apply_norm(p["ln1"], x)
-    mix, _ = A.gqa_verify(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
-                          cache["v_q"], cache["v_s"], rt.backend,
-                          depth=depth, anc=anc)
+    if cfg.attn_type == "mla":
+        mix, _ = A.mla_verify(p["attn"], cfg, h, pos, cache["c_q"], cache["c_s"],
+                              rt.backend, depth=depth, anc=anc)
+    else:
+        mix, _ = A.gqa_verify(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
+                              cache["v_q"], cache["v_s"], rt.backend,
+                              depth=depth, anc=anc)
     return _ffn(p, cfg, x + mix, rt)
 
 
@@ -470,15 +502,15 @@ def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor
     x = _embed(p, cfg, tokens, positions)
     kv_lengths = start_t + n_real
     # what every layer shares: the rotary tables and the key blocks' masks
-    rope = (L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rope = (L.rope_tables(positions, A.rope_dim(cfg), cfg.rope_theta)
             if cfg.rope_theta else None)
     hidden = A.hidden_masks(P, key_rows, key_rows, q_offset=start_t,
                             kv_lengths=kv_lengths, device=dev)
+    attn = A.mla_chunk if cfg.attn_type == "mla" else A.gqa_chunk
     for lp, buf in zip(p["layers"], bufs):
         h = L.apply_norm(lp["ln1"], x)
-        x = x + A.gqa_chunk(lp["attn"], cfg, h, positions, buf, start, kv_lengths,
-                            key_rows, rt.backend, rope=rope, hidden=hidden,
-                            skip=skip)
+        x = x + attn(lp["attn"], cfg, h, positions, buf, start, kv_lengths, key_rows,
+                     rt.backend, rope=rope, hidden=hidden, skip=skip)
         x = _ffn(lp, cfg, x, rt)
     return L.apply_norm(p["ln_f"], x)
 
@@ -532,8 +564,7 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
         last = cand if last is None else torch.where(here, cand, last)
     state = init_decode_state(cfg, B, max_len, dev)
     for cache, buf in zip(state["layers"], carry["layers"]):
-        for name, val in zip(("k_q", "k_s", "v_q", "v_s"),
-                             (*quantize_kv(buf["k"][:, :T]), *quantize_kv(buf["v"][:, :T]))):
+        for name, val in _quantize_carry(buf, 0, T).items():
             KV.chunk_update(cache[name], val, 0)
     state["pos"] = lengths.clone()
     return _lm_head(p, cfg, last, rt), state
@@ -566,7 +597,10 @@ def init_prefill_carry(cfg: ModelConfig, buf_len: int,
                        device: str | torch.device = "cuda", batch: int = 1) -> dict:
     """Float K/V carry of one in-flight prefill: each attention layer keeps
     ``[batch, buf_len, H_kv, D]`` f32 K and V, so later chunks attend the
-    earlier prefix at prefill precision, the token ids consumed
+    earlier prefix at prefill precision (under MLA per-head K of width
+    ``dn + dr`` and V of ``dv``, plus the latent's halves ``lat_c``
+    ``[batch, buf_len, r]`` and ``lat_r`` ``[batch, buf_len, dr]``, which
+    the int8 cache is quantized from), the token ids consumed
     (``tokens``, [batch, buf_len] int64), so a chunk can run the piece it
     starts in from that piece's first row, and the cursor ``pos`` ([batch]
     int32).  ``buf_len`` is ``carry_len(max_len, chunk)``.  SSM stacks prefill at exact length (their
@@ -578,10 +612,16 @@ def init_prefill_carry(cfg: ModelConfig, buf_len: int,
         raise NotImplementedError(
             "chunked prefill carries attention K/V only; SSM stacks "
             "prefill at exact length (see serve engine)")
-    kv = (batch, buf_len, cfg.n_kv_heads, cfg.head_dim)
-    layers = [{"k": torch.zeros(kv, dtype=torch.float32, device=dev),
-               "v": torch.zeros(kv, dtype=torch.float32, device=dev)}
-              for _ in range(cfg.n_layers)]
+    def zeros(*shape):
+        return torch.zeros((batch, buf_len, *shape), dtype=torch.float32, device=dev)
+    if cfg.attn_type == "mla":
+        H = cfg.n_heads
+        layers = [{"k": zeros(H, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim),
+                   "v": zeros(H, cfg.v_head_dim), "lat_c": zeros(cfg.kv_lora_rank),
+                   "lat_r": zeros(cfg.qk_rope_head_dim)} for _ in range(cfg.n_layers)]
+    else:
+        layers = [{"k": zeros(cfg.n_kv_heads, cfg.head_dim),
+                   "v": zeros(cfg.n_kv_heads, cfg.head_dim)} for _ in range(cfg.n_layers)]
     return {"layers": layers,
             "tokens": torch.zeros((batch, buf_len), dtype=torch.int64, device=dev),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
@@ -644,9 +684,89 @@ def finalize_prefill_carry(cfg: ModelConfig, carry: dict, max_len: int,
     those rows are already in the slot, and requantizing their dequantized
     values need not give back the same scale bits on every device (a
     division by 127 done as a multiply by its reciprocal drifts by an ulp)."""
-    layers = []
-    for b in carry["layers"]:
-        k_q, k_s = quantize_kv(b["k"][:, start:max_len])
-        v_q, v_s = quantize_kv(b["v"][:, start:max_len])
-        layers.append({"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s})
-    return {"layers": layers, "pos": carry["pos"].to(torch.int32).clone()}
+    return {"layers": [_quantize_carry(b, start, max_len) for b in carry["layers"]],
+            "pos": carry["pos"].to(torch.int32).clone()}
+
+
+def _quantize_carry(buf: dict, lo: int, hi: int) -> dict:
+    """Rows ``[lo, hi)`` of one layer's float carry as its int8 cache
+    leaves: per-(token, head) K/V, or under MLA the latent ``[lat_c;
+    lat_r]`` per token (:func:`attention._quantize_latent`)."""
+    if "lat_c" in buf:
+        c_q, c_s = A._quantize_latent(torch.cat([buf["lat_c"][:, lo:hi],
+                                                 buf["lat_r"][:, lo:hi]], dim=-1))
+        return {"c_q": c_q, "c_s": c_s}
+    k_q, k_s = quantize_kv(buf["k"][:, lo:hi])
+    v_q, v_s = quantize_kv(buf["v"][:, lo:hi])
+    return {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}
+
+
+# ---------------------------------------------------------------------------
+# the MTP head: DeepSeek-V3's depth-1 multi-token prediction, drafting
+# ---------------------------------------------------------------------------
+def _mtp_cell(p: Params, cfg: ModelConfig, h: torch.Tensor, tok: torch.Tensor,
+              pos_i: torch.Tensor, rt: Runtime) -> tuple[torch.Tensor, torch.Tensor]:
+    """One MTP step: ``[h; embed(tok)]`` through ``mtp_proj`` and
+    ``mtp_layer`` at positions ``pos_i`` [B], one position and no cache,
+    then ``lm_head`` with no ``ln_f`` -> (logits [B, V], new h [B, d]).
+    The layer's MoE routes the B rows together."""
+    emb = p["embed"]["w"][tok.long()].to(h.dtype)
+    hm = L.apply_linear(L._lin(p["mtp_proj"], "w"), torch.cat([h, emb], dim=-1), rt.backend)
+    lp, x = p["mtp_layer"], hm[:, None]
+    mix, _ = A.mla_forward(lp["attn"], cfg, L.apply_norm(lp["ln1"], x), pos_i[:, None],
+                           rt.backend)
+    x = _ffn(lp, cfg, x + mix, rt)[:, 0]
+    return _lm_head(p, cfg, x, rt), x
+
+
+def _mtp_inputs(cfg: ModelConfig, hidden, token, pos) -> tuple:
+    if not cfg.mtp:
+        raise ValueError(f"{cfg.name} has no MTP head (cfg.mtp is False)")
+    return (hidden.to(torch.float32), token.to(torch.int32), pos.to(torch.int32))
+
+
+def mtp_draft(p: Params, cfg: ModelConfig, hidden: torch.Tensor, token: torch.Tensor,
+              pos: torch.Tensor, k: int, rt: Runtime) -> torch.Tensor:
+    """``k`` greedy drafts a slot from the MTP head applied recursively:
+    step i feeds the previous step's hidden and token at ``pos + i``.
+    ``hidden`` [B, d] is the post-``ln_f`` hidden at each slot's last
+    committed position (zeros right after a prefill: the head then runs
+    from the embedding alone), ``token`` [B] the last committed tokens,
+    ``pos`` [B] the cursors.  Returns int32 [B, k]."""
+    h, tok, pos = _mtp_inputs(cfg, hidden, token, pos)
+    drafts = []
+    for i in range(k):
+        logits, h = _mtp_cell(p, cfg, h, tok, pos + i, rt)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        drafts.append(tok)
+    return torch.stack(drafts, dim=1)
+
+
+def mtp_chain_lengths(n: int, branch: int) -> list[int]:
+    """Node budgets of the MTP draft tree's chains: ``n`` nodes over
+    ``min(branch, n)`` root-child chains, earlier chains longer."""
+    b = max(1, min(branch, n))
+    return [n // b + (1 if j < n % b else 0) for j in range(b)]
+
+
+def mtp_draft_tree(p: Params, cfg: ModelConfig, hidden: torch.Tensor, token: torch.Tensor,
+                   pos: torch.Tensor, n: int, branch: int, rt: Runtime) -> torch.Tensor:
+    """A static draft tree from the MTP head: the top-``branch`` tokens of
+    its first distribution (ties to the lower id, as ``lax.top_k``) each
+    root a chain extended greedily, with node budgets from
+    :func:`mtp_chain_lengths`.  Returns int32 [B, n] in chain-major order
+    (chain j's nodes consecutive, its first a child of the root); at
+    ``branch = 1`` it is :func:`mtp_draft`."""
+    h, tok, pos = _mtp_inputs(cfg, hidden, token, pos)
+    lens = mtp_chain_lengths(n, branch)
+    logits0, h1 = _mtp_cell(p, cfg, h, tok, pos, rt)
+    _, top = MOE._top_k(logits0, len(lens))
+    drafts = []
+    for j, clen in enumerate(lens):
+        hj, tj = h1, top[:, j].to(torch.int32)
+        drafts.append(tj)
+        for s in range(1, clen):
+            lg, hj = _mtp_cell(p, cfg, hj, tj, pos + s, rt)
+            tj = torch.argmax(lg, -1).to(torch.int32)
+            drafts.append(tj)
+    return torch.stack(drafts, dim=1)

@@ -9,8 +9,9 @@ cheap and approximate.
   last n-gram of the committed context (prompt + emitted tokens) is looked
   up at its most recent earlier occurrence and the tokens that followed it
   are proposed.  Zero model cost, pure host Python.
-* The DeepSeek-V3 multi-token-prediction drafter (``"mtp"``) needs MLA and
-  the MTP head, which are ported with that family (ROADMAP A.11).
+* :class:`MTPDrafter` (``kind="model"``): DeepSeek-V3's
+  multi-token-prediction head drafts every slot at once on the engine's
+  device, from the hidden state at each slot's last committed position.
 
 Tree drafts (the ``spec_tree`` lane) are ``(tokens, parents)`` pairs in
 *draft space*: ``parents[i]`` is the index of node i's parent among the
@@ -22,6 +23,8 @@ accept walk is unambiguous.
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 
 
 def chain_parents(n: int) -> list[int]:
@@ -131,9 +134,52 @@ class NGramDrafter(Drafter):
         return toks, parents
 
 
-def make_drafter(spec: "str | Drafter | None", cfg: ModelConfig) -> Drafter:
-    """``"ngram" | "ngram:N"`` (max n-gram) or a built instance; ``"mtp"``
-    raises until the MTP head is ported."""
+class MTPDrafter(Drafter):
+    """Batched MTP-head drafting over the slot pool: ``hidden`` [B, d] is the
+    post-``ln_f`` hidden at each slot's last committed position (zeros
+    right after a prefill: the head runs from the embedding there),
+    ``token`` [B] the last committed tokens and ``pos`` [B] the cursors,
+    all on the engine's device; the drafts run eagerly there.  With
+    ``tree_branch`` set, :meth:`draft_tree_batch` beams the head instead:
+    the top-``branch`` first tokens each root a greedy chain, the static
+    chain-major topology in :attr:`tree_parents`."""
+
+    name = "mtp"
+    kind = "model"
+
+    def __init__(self, cfg: ModelConfig, rt, k: int, tree_branch: int | None = None):
+        if not cfg.mtp:
+            raise ValueError(f"{cfg.name} has no MTP head (cfg.mtp is False); "
+                             "use the ngram drafter")
+        self.cfg, self.rt, self.k = cfg, rt, k
+        self.tree_branch = tree_branch
+        self.tree_parents: list[int] | None = None
+        if tree_branch is not None:
+            parents: list[int] = []
+            for clen in T.mtp_chain_lengths(k, tree_branch):
+                prev = -1
+                for _ in range(clen):
+                    parents.append(prev)
+                    prev = len(parents) - 1
+            self.tree_parents = parents
+
+    def draft_batch(self, params, hidden, token, pos):
+        """int32 [B, k] drafts on the device."""
+        return M.mtp_draft(params, self.cfg, hidden, token, pos, self.k, self.rt)
+
+    def draft_tree_batch(self, params, hidden, token, pos):
+        """int32 [B, k] tree nodes (chain-major) on the device."""
+        return M.mtp_draft_tree(params, self.cfg, hidden, token, pos, self.k,
+                                self.tree_branch, self.rt)
+
+
+def make_drafter(spec: "str | Drafter | None", cfg: ModelConfig, rt=None, k: int = 0,
+                 tree_branch: int | None = None) -> Drafter:
+    """``"ngram" | "ngram:N"`` (max n-gram) | ``"mtp"`` or a built
+    instance.  ``k`` is the draft budget and ``tree_branch`` (the engine's
+    ``spec_branch``, tree lane only) builds the model drafter's beam
+    topology; ``"mtp"`` raises ``ValueError`` on a configuration without
+    the head."""
     if spec is None:
         return NGramDrafter()
     if isinstance(spec, Drafter):
@@ -142,7 +188,5 @@ def make_drafter(spec: "str | Drafter | None", cfg: ModelConfig) -> Drafter:
     if name == "ngram":
         return NGramDrafter(max_n=int(arg)) if arg else NGramDrafter()
     if name == "mtp":
-        raise NotImplementedError(
-            f"the MTP drafter ({cfg.name}) needs MLA and the MTP head, which "
-            "are not ported yet (ROADMAP A.11)")
+        return MTPDrafter(cfg, rt, k, tree_branch=tree_branch)
     raise ValueError(f"unknown drafter {spec!r}; one of ['ngram', 'mtp']")

@@ -31,7 +31,11 @@ in the int8 SLC cache; decode loops the W8A8 PIM path.
   rows.  A linear verify row scores exactly as the sequential decode step
   would (a tree row past a skipped sibling up to the attention's summation
   order, as in the reference), so greedy speculation emits the plain
-  lane's streams.
+  lane's streams.  The drafter is a host one (``"ngram"``) or, on a
+  configuration with DeepSeek-V3's MTP head, the model (``"mtp"``): it
+  drafts every slot at once on the device, eagerly, from a hidden carry
+  the engine keeps there (each slot's post-``ln_f`` hidden at the window
+  row it emitted last, zeroed at a prefill or a restore).
 
 On the card every decode and verify step replays a CUDA graph captured
 once over the pool and static input buffers (``models/graphs.py``), the
@@ -54,6 +58,8 @@ An SSM stack prefills at exact length (no bucket: padding would run
 through the recurrent state) and keeps the one-token decode loop: its
 state cannot rewind, so ``spec_k``, ``spec_tree``, ``chunk``,
 ``multi_step`` and the prefix cache are silently off there, as in the
+reference.  An MLA stack runs every lane but the prefix cache (its latent
+cannot seed the float carry), which is silently off there, as in the
 reference.
 
 The engine survives transient device errors as the reference does: a
@@ -72,7 +78,7 @@ argmax'd on the device and only [n_slots] (verify: [n_slots, T]; fused:
 [n_slots, m]) int32 arrays cross to the host; sampled slots get a device
 top-k pre-select ([n_slots, k] values and indices).  Every transfer goes
 through the metered ``_fetch`` / ``_push`` helpers (``xfer_bytes``,
-``decode_xfer_bytes``).  A drafter or a family not ported yet raises
+``decode_xfer_bytes``).  A family not ported yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -319,9 +325,10 @@ class ContinuousBatchingEngine:
         self.scheduler = Scheduler(n_slots, max_len, policy)
         self.policy = self.scheduler.policy
         # the prefix cache: radix-indexed KV reuse over the slot pool, for
-        # attention stacks (SSM state cannot restart mid-prompt: silently off)
+        # GQA attention stacks (SSM state cannot restart mid-prompt, and an
+        # MLA latent cannot seed the float carry: silently off for both)
         self._pcache = None
-        if prefix_cache and not self._has_ssm:
+        if prefix_cache and not self._has_ssm and cfg.attn_type != "mla":
             if self.chunk is None:
                 raise ValueError(
                     "prefix_cache needs chunked prefill (chunk=c): warm "
@@ -329,10 +336,13 @@ class ContinuousBatchingEngine:
             self._pcache = RadixPrefixCache(prefix_cache_rows if prefix_cache_rows
                                             else n_slots * max_len)
             self.scheduler.attach_prefix_cache(self._pcache)
+        self._h_last = None
         if self.spec_k or self.spec_tree:
             # the tree lane takes precedence, so the draft budget is the
             # window that runs
-            self._drafter = make_drafter(drafter, cfg)
+            self._drafter = make_drafter(
+                drafter, cfg, self.rt, self.spec_tree or self.spec_k,
+                tree_branch=self.spec_branch if self.spec_tree else None)
         # headroom rows past max_len, so that no lane's in-place appends
         # starting at the last live position clamp back onto live rows
         rows = max_len + KV.pool_headroom(spec_k=self.spec_k, spec_tree=self.spec_tree,
@@ -363,6 +373,15 @@ class ContinuousBatchingEngine:
             self._keep_buf = torch.zeros_like(self._pos_buf)
             self._sel_buf = torch.zeros((n_slots, self.spec_tree), dtype=torch.int32,
                                         device=self.device)
+        if spec and self._drafter.kind == "model":
+            # the model drafter's inputs on the device: the hidden carry (the
+            # post-ln_f hidden at each slot's last committed position, kept
+            # on the card), the last tokens and, for each verify step, the
+            # window row each slot emitted last (-1: the slot did not run)
+            self._h_last = torch.zeros((n_slots, cfg.d_model), dtype=torch.float32,
+                                       device=self.device)
+            self._tok_buf = torch.zeros_like(self._pos_buf)
+            self._hrow_buf = torch.zeros_like(self._pos_buf)
         self._last_tok = np.zeros((n_slots,), np.int32)
         self._slot_pos = np.zeros((n_slots,), np.int64)   # host cursor mirror
         self._carries: dict[int, dict] = {}                # slot -> prefill carry
@@ -626,6 +645,8 @@ class ContinuousBatchingEngine:
         # host mirror of the slot cursor: after prefill the cache holds
         # exactly the prompt
         self._slot_pos[req.slot] = req.prompt_len
+        if self._h_last is not None:
+            self._h_last[req.slot].zero_()     # the MTP head runs from the embedding
         if req.replay_pos >= len(req.output) and req.should_stop():
             self._retire(req, self._now())            # budget of 1 token
 
@@ -816,7 +837,7 @@ class ContinuousBatchingEngine:
     def _write_block(self, slot: int, one: dict, n: int) -> None:
         T.write_slot(self.state, slot, one)
         for cache in self.state["layers"]:
-            if "k_q" in cache:
+            if T.is_seq_cache(cache):
                 for buf in cache.values():
                     buf[slot, n:].zero_()
 
@@ -894,6 +915,8 @@ class ContinuousBatchingEngine:
         req.state = RequestState.DECODING
         self._last_tok[req.slot] = req.output[fed]
         self._slot_pos[req.slot] = rows
+        if self._h_last is not None:
+            self._h_last[req.slot].zero_()     # the MTP head runs from the embedding
         return True
 
     def _demote_leaf_rows(self, slot: int, n_rows: int, key) -> bool:
@@ -1078,6 +1101,8 @@ class ContinuousBatchingEngine:
         bufs = self._steps.inputs() + [self._pos_buf]
         if self.spec_tree:
             bufs += [self._base_buf, self._keep_buf, self._sel_buf]
+        if self._h_last is not None:
+            bufs += [self._h_last, self._tok_buf, self._hrow_buf]
         return bufs
 
     # -- one serving iteration --------------------------------------------
@@ -1316,16 +1341,44 @@ class ContinuousBatchingEngine:
 
         return row_token
 
-    def _draft_for(self, req: Request) -> list[int]:
+    def _model_drafts(self, tree: bool = False) -> np.ndarray | None:
+        """The model drafter's [n_slots, window] drafts (a chain, or the
+        tree's nodes) for every slot (idle ones included: the MTP layer
+        routes the rows together), drafted eagerly on the device from the
+        hidden carry, the last tokens and the cursors, and fetched; None
+        for a host drafter."""
+        if self._h_last is None:
+            return None
+        fn = self._drafter.draft_tree_batch if tree else self._drafter.draft_batch
+        tok = self._push(self._last_tok, self._tok_buf, decode=True)
+        return self._fetch(self._dev(fn, self.qparams, self._h_last, tok,
+                                     self._pos_device()), decode=True)
+
+    def _carry_hidden(self, rows: np.ndarray) -> None:
+        """After a verify step: each slot's hidden carry becomes the step's
+        hidden at the window row it emitted last (``rows[slot]``; -1 keeps
+        the carry), as the reference's host loop leaves it."""
+        if self._h_last is None:
+            return
+        r = self._push(rows, self._hrow_buf, decode=True)
+        n = torch.arange(self.n_slots, device=self.device)
+        got = self._steps.hidden[n, torch.clamp(r, min=0).long()]
+        self._h_last.copy_(torch.where((r >= 0)[:, None], got, self._h_last))
+
+    def _draft_for(self, req: Request, dr: np.ndarray | None) -> list[int]:
         """``spec_k`` drafts for one slot.  A replaying (preempt-resumed)
         request drafts its own recorded tokens, perfect drafts, so replay
         advances k + 1 positions a verify step and stays token-identical;
-        the tail past the recording comes from the drafter."""
+        the tail past the recording comes from the drafter (``dr``: the
+        model drafter's drafts)."""
         k = self.spec_k
         d = list(req.output[req.replay_pos:req.replay_pos + k])
         if len(d) < k:
-            ctx = req.prompt + req.output[:req.replay_pos] + d
-            d += self._drafter.draft(ctx, k - len(d))
+            if dr is not None:
+                d += [int(t) for t in dr[req.slot, :k - len(d)]]
+            else:
+                ctx = req.prompt + req.output[:req.replay_pos] + d
+                d += self._drafter.draft(ctx, k - len(d))
         return d
 
     def _emit_row(self, req: Request, slot: int, i: int, row_token) -> tuple[int, bool]:
@@ -1355,14 +1408,16 @@ class ContinuousBatchingEngine:
         k = self.spec_k
         toks = np.zeros((self.n_slots, k + 1), np.int32)
         toks[:, 0] = self._last_tok
+        dr = self._model_drafts()
         drafts: dict[int, list[int]] = {}
         for slot, req in dec:
-            drafts[slot] = self._draft_for(req)
+            drafts[slot] = self._draft_for(req, dr)
             toks[slot, 1:] = drafts[slot]
         self._push(toks, self._steps.window[k + 1], decode=True)
         logits, argmax = self._in_place(self._steps.verify, k + 1)
         self.stats["verify_steps"] += 1
         row_token = self._row_token_fn(logits, argmax, dec)
+        last_row = np.full((self.n_slots,), -1, np.int32)
         now = self._now()
         for slot, req in dec:
             fed = drafts[slot]
@@ -1371,6 +1426,7 @@ class ContinuousBatchingEngine:
                 # row i is the next-token choice after toks[slot, :i+1], valid
                 # because reaching it means every earlier draft was accepted
                 tok, replaying = self._emit_row(req, slot, i, row_token)
+                last_row[slot] = i
                 accepted = i < k and tok == fed[i]
                 if not replaying and i < k:
                     self.stats["spec_drafted"] += 1
@@ -1384,21 +1440,28 @@ class ContinuousBatchingEngine:
                 committed += 1
             self.stats["spec_accept_hist"][committed] += 1
             self._slot_pos[slot] += 1 + committed
+        self._carry_hidden(last_row)
         self._in_place(T.rewind_pos, self.state, self._pos_device())
 
-    def _tree_draft_for(self, req: Request) -> tuple[list[int], list[int]]:
+    def _tree_draft_for(self, req: Request, dr: np.ndarray | None
+                        ) -> tuple[list[int], list[int]]:
         """(tokens, draft-space parents) of one slot's tree window.  A
         replaying request drafts its recorded tokens as a linear chain
-        (perfect drafts), its tail from the drafter's chain; others get the
-        drafter's tree."""
+        (perfect drafts), its tail from the drafter's chain (the model
+        drafter's first chain, ``dr``); others get the drafter's tree."""
         n = self.spec_tree
         rec = list(req.output[req.replay_pos:req.replay_pos + n])
         if not rec:
+            if dr is not None:
+                return [int(t) for t in dr[req.slot]], list(self._drafter.tree_parents)
             return self._drafter.draft_tree(req.prompt + req.output, n,
                                             self.spec_branch)
         if len(rec) < n:
-            ctx = req.prompt + req.output[:req.replay_pos] + rec
-            rec += self._drafter.draft(ctx, n - len(rec))
+            if dr is not None:
+                rec += [int(t) for t in dr[req.slot, :n - len(rec)]]
+            else:
+                ctx = req.prompt + req.output[:req.replay_pos] + rec
+                rec += self._drafter.draft(ctx, n - len(rec))
         return rec, chain_parents(n)
 
     def _spec_tree_decode(self, dec: list[tuple[int, Request]]) -> None:
@@ -1418,8 +1481,9 @@ class ContinuousBatchingEngine:
         anc = np.tile(((1 << (np.arange(Tw) + 1)) - 1).astype(np.int32),
                       (self.n_slots, 1))
         parents: dict[int, list[int]] = {}
+        dr = self._model_drafts(tree=True)
         for slot, req in dec:
-            d_toks, parents[slot] = self._tree_draft_for(req)
+            d_toks, parents[slot] = self._tree_draft_for(req, dr)
             toks[slot, 1:] = d_toks
             depth[slot], anc[slot] = tree_depths_ancestors(parents[slot])
         self._push(toks, self._steps.window[Tw], decode=True)
@@ -1433,6 +1497,7 @@ class ContinuousBatchingEngine:
         base = np.asarray(self._slot_pos, np.int32)
         sel = np.zeros((self.n_slots, n), np.int32)
         keep = np.zeros((self.n_slots,), np.int32)
+        last_row = np.full((self.n_slots,), -1, np.int32)
         now = self._now()
         for slot, req in dec:
             # children of each window node in draft order; siblings carry
@@ -1444,6 +1509,7 @@ class ContinuousBatchingEngine:
             path: list[int] = []           # accepted nodes, root-path order
             while True:
                 tok, replaying = self._emit_row(req, slot, cur, row_token)
+                last_row[slot] = cur
                 nxt = next((c for c in kids.get(cur, ())
                             if int(toks[slot, c]) == tok), None)
                 if not replaying and kids.get(cur):
@@ -1462,6 +1528,7 @@ class ContinuousBatchingEngine:
             keep[slot] = len(path)
             self.stats["spec_accept_hist"][len(path)] += 1
             self._slot_pos[slot] += 1 + len(path)
+        self._carry_hidden(last_row)
         self._in_place(M.tree_commit, self.state,
                        self._push(base, self._base_buf, decode=True),
                        self._push(sel, self._sel_buf, decode=True),

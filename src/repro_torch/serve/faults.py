@@ -82,11 +82,11 @@ class ColdBlockCorrupt(RuntimeError):
 
 
 def _is_seq_block(b: Any) -> bool:
-    """An attention layer's cache block (``k_q`` ... leaves, sequence axis
-    1).  Everything else (SSM recurrent state) is fixed-size and travels
-    whole.  Mirror of ``serve.kv_swap._is_seq_block`` (kept local: kv_swap
-    imports this module, not the other way around)."""
-    return isinstance(b, dict) and "k_q" in b
+    """An attention layer's cache block (``k_q`` ... or MLA's ``c_q`` /
+    ``c_s`` leaves, sequence axis 1).  Everything else (SSM recurrent
+    state) is fixed-size and travels whole (``serve/kv_swap.py`` splits
+    blocks by it too)."""
+    return isinstance(b, dict) and ("k_q" in b or "c_q" in b)
 
 
 def _split_leaves(blob: dict) -> "tuple[list[np.ndarray], list[np.ndarray]]":
@@ -95,8 +95,11 @@ def _split_leaves(blob: dict) -> "tuple[list[np.ndarray], list[np.ndarray]]":
     ...]`` rows (truncated to the live rows) and ``fixed`` leaves are
     whole-block SSM state.  Each list runs key by key (sorted) and, within
     a key, layer by layer: the byte order of the reference's leaves, which
-    stack a key's layers on a leading axis (``[n_layers, 1, n, ...]``) for
-    the one-group stacks the port serves."""
+    stack a key's layers on a leading axis (``[n_layers, 1, n, ...]``), for
+    a one-group stack.  (A stack the reference splits into groups, such as
+    DeepSeek-V3's dense prefix and MoE tail, orders its bytes group by
+    group there; an injected flip then lands on another byte of the block,
+    but its page, and so every ECC verdict and counter, is the same.)"""
     layers = blob["layers"]
     seq_layers = [b for b in layers if _is_seq_block(b)]
     fixed_layers = [b for b in layers if not _is_seq_block(b)]

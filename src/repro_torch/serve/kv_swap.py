@@ -43,14 +43,7 @@ import numpy as np
 from repro_torch.core import kvcache as KV
 from repro_torch.core.pim import latency as L
 from repro_torch.core.pim.params import PlaneConfig
-from repro_torch.serve.faults import ColdBlockCorrupt, FaultTolerance
-
-
-def _is_seq_block(b: Any) -> bool:
-    """An attention layer's cache block (``k_q`` ... leaves, sequence axis
-    1).  Everything else (SSM recurrent state) is fixed-size and travels
-    whole."""
-    return isinstance(b, dict) and "k_q" in b
+from repro_torch.serve.faults import ColdBlockCorrupt, FaultTolerance, _is_seq_block
 
 
 def slot_template(state: dict) -> dict:

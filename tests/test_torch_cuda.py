@@ -16,7 +16,10 @@ scale), both row-invariant bit for bit; B2-B4 also at MHA's rep 1 with head
 dims 96 and 128, and at head dim 192 (nemotron-4-340b's rep 12, and rep 1);
 the three quantizers' scales and codes equal to the CPU's (IEEE division by
 127); B1's grouped entry bit-equal to its plain version and to B1 on each
-expert's slice, and B2 at grok-1-314b's rep 6.  The engines' captured steps (CUDA graphs) are
+expert's slice, and B2 at grok-1-314b's rep 6; the top-8 combine on the
+card equal to the CPU's sums and repeating (and replaying, captured) its
+bits, MLA's latent quantizer IEEE, and reduced deepseek-v3-671b's streams
+(MTP lanes too) equal to the CPU's.  The engines' captured steps (CUDA graphs) are
 held bit-equal to the eager steps, logits and every state tensor, with their
 launch counts, and chunked serving token-identical to one-shot prefill.
 """
@@ -1196,3 +1199,86 @@ def test_decode_attn_at_rep_6_matches_plain(cuda):
     got = da.decode_attn_cuda(*args)
     assert launch_counts()["decode_attn"] == 1
     torch.testing.assert_close(got, da.decode_attn_plain(*args), rtol=3e-5, atol=3e-6)
+
+
+def _deepseek_top8():
+    import dataclasses
+    return dataclasses.replace(registry.get("deepseek-v3-671b").reduced(), n_experts=64,
+                               n_experts_active=8)
+
+
+@pytest.mark.parametrize("N", [4, 20])
+def test_top8_combine_is_deterministic_and_capturable(cuda, N):
+    """Top-8 of 64 experts with the shared expert (reduced deepseek-v3-671b
+    widths): the combine on the card sums each token's rows in the CPU's
+    order, bit for bit, on the same rows; ``moe_local`` on the card repeats
+    its bits, and captured as a CUDA graph (routing and combine: no host
+    sync) replays them."""
+    from repro_torch.models import moe
+    cfg = _deepseek_top8()
+    q = quantize_tree({"moe": M.init_params(cfg, seed=0, device="cpu")["layers"][1]["moe"]})
+    p = convert.to_device(q["moe"], cuda)
+    x = torch.randn((N, cfg.d_model), generator=torch.Generator().manual_seed(N)).to(cuda)
+    r = moe.route(p, x, cfg)
+    ye = torch.randn(tuple(r.toks.shape) + (cfg.d_model,), device=cuda)
+    assert torch.equal(moe.combine(ye, r.order).cpu(), moe.combine(ye.cpu(), r.order.cpu()))
+    want, _ = moe.moe_local(p, x, cfg)
+    assert torch.equal(moe.moe_local(p, x, cfg)[0], want)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        moe.moe_local(p, x, cfg)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, _ = moe.moe_local(p, x, cfg)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_latent_quantizer_is_ieee_on_the_card(cuda):
+    """MLA's latent quantizer on the card gives the CPU's codes and scales
+    bit for bit, its scales IEEE ``amax / 127`` over all 2^23 mantissas."""
+    from repro_torch.models import attention as A
+    amax, rows, rand = _mantissa_rows()
+    for x in (rows, rand):
+        cpu = A._quantize_latent(torch.from_numpy(x))
+        card = A._quantize_latent(torch.from_numpy(x).to(cuda))
+        for a, b in zip(cpu, card):
+            assert torch.equal(a, b.cpu())
+    scales = A._quantize_latent(torch.from_numpy(rows).to(cuda))[1].reshape(-1).cpu().numpy()
+    np.testing.assert_array_equal(scales, amax / np.float32(127.0))
+
+
+def test_reduced_deepseek_serves_on_the_card_like_the_cpu(cuda):
+    """Reduced deepseek-v3-671b (MLA, 1 dense then 3 MoE layers) on the
+    card under ``fused_int8``: a decode step launches B1 for each layer's
+    wq_a, wq_b, wkv_a and wo and the dense layer's three FFN linears, the
+    grouped B1 three times a MoE layer and RMSNorm four times a layer plus
+    ``ln_f``; the streams equal the CPU's, and so do the MTP lanes'
+    (``spec_k = 3``, ``spec_tree = 3, spec_branch = 2``)."""
+    cfg = registry.get("deepseek-v3-671b").reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(4, 20)).tolist()
+               for _ in range(6)]
+    budgets = [int(rng.integers(4, 13)) for _ in range(6)]
+    want = ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=64,
+                                    rt=Runtime("fused_int8"), device="cpu").generate_all(
+        prompts, budgets)
+    on_card = convert.to_device(params, cuda)
+    eng = ContinuousBatchingEngine(cfg, on_card, n_slots=2, max_len=64, rt=Runtime("fused_int8"))
+    reset_launch_counts()
+    assert eng.generate_all(prompts, budgets) == want
+    steps, L = eng.stats["decode_steps"], cfg.n_layers
+    counts = launch_counts()
+    assert counts["rms_norm"] == (4 * L + 1) * (steps + len(prompts))
+    assert counts["int8_matmul"] == (4 * L + 3) * steps
+    assert counts["int8_matmul_grouped"] == 3 * (L - 1) * steps
+    assert counts["decode_attn"] == counts["verify_attn"] == counts["verify_tree_attn"] == 0
+    for lane in ({"spec_k": 3}, {"spec_tree": 3, "spec_branch": 2}):
+        eng = ContinuousBatchingEngine(cfg, on_card, n_slots=2, max_len=64,
+                                       rt=Runtime("fused_int8"), drafter="mtp", **lane)
+        assert eng.generate_all(prompts, budgets) == want
+        assert eng.stats["verify_steps"] > 0

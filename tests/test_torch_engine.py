@@ -155,7 +155,9 @@ def test_later_slice_arguments_raise(weights, kwargs, item):
     serve CLI's ``--mesh`` too); those of items ported since (chunked
     prefill and policies, A.7; the fused multi-step lane, A.9; the prefix
     cache, the tiered pool and the fault layer, A.10) serve,
-    token-identical to the engine without them."""
+    token-identical to the engine without them.  The MTP drafter (A.11.3)
+    raises the reference's ``ValueError`` on llama, which has no MTP head,
+    and drafts on deepseek-v3-671b, which has, with the plain streams."""
     if next(iter(kwargs)) in SERVES_NOW:
         eng = _serves_a10_lane(weights, **kwargs)
         assert eng.stats[SERVES_NOW[next(iter(kwargs))]] > 0
@@ -166,6 +168,18 @@ def test_later_slice_arguments_raise(weights, kwargs, item):
         assert key is None or eng.stats[key] > 0
         if "faults" in kwargs:
             assert eng._ft is not None and "ecc_checks" in eng.stats
+        return
+    if kwargs.get("drafter") == "mtp":
+        with pytest.raises(ValueError, match="no MTP head"):
+            ContinuousBatchingEngine(TCFG, weights[1], n_slots=2, max_len=32,
+                                     device="cpu", **kwargs)
+        cfg = TR.get("deepseek-v3-671b").reduced()
+        params = TM.init_params(cfg, seed=0, device="cpu")
+        prompts, budgets = _serve_pim_trace()
+        outs = [ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=64, device="cpu",
+                                         **kw) for kw in ({}, kwargs)]
+        assert outs[1].generate_all(prompts, budgets) == outs[0].generate_all(prompts, budgets)
+        assert outs[1].stats["verify_steps"] > 0
         return
     if "mesh" in kwargs:
         with pytest.raises(NotImplementedError, match=item):
@@ -178,9 +192,11 @@ def test_later_slice_arguments_raise(weights, kwargs, item):
 
 
 def test_mtp_drafter_waits_for_its_family():
+    """The MTP drafter needs a configuration with the head: llama's has
+    none, so it raises the reference's ``ValueError``."""
     from repro_torch.serve.drafter import make_drafter
-    with pytest.raises(NotImplementedError, match="A.11"):
-        make_drafter("mtp", TCFG)
+    with pytest.raises(ValueError, match="no MTP head"):
+        make_drafter("mtp", TCFG, Runtime(), 2)
 
 
 @pytest.mark.parametrize("kwargs,item", [({"temperature": 0.7}, "A.7"),

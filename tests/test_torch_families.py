@@ -127,23 +127,22 @@ def test_opt_module_copy_matches_reference(name):
 def test_registry_ids_are_the_references():
     assert set(TR.ARCHS) <= set(JR.ARCHS)
     assert {"opt-30b", "opt-125m", "granite-3-8b", "phi3-mini-3.8b", "chameleon-34b",
-            "nemotron-4-340b", "grok-1-314b"} <= set(TR.ARCHS)
+            "nemotron-4-340b", "grok-1-314b", "deepseek-v3-671b"} <= set(TR.ARCHS)
 
 
 def test_check_supported_refuses_what_is_not_ported():
-    """Embedding inputs, family ``vlm`` (chameleon-34b) and experts
-    (grok-1-314b; every layer or every other one) are admitted; MLA, hybrid
-    stacks, encoder-decoders and experts fed embeddings still raise, naming
-    ROADMAP A.11."""
+    """Embedding inputs, family ``vlm`` (chameleon-34b), experts
+    (grok-1-314b; every layer or every other one) and MLA (deepseek-v3-671b)
+    are admitted; hybrid stacks, encoder-decoders and experts fed
+    embeddings still raise, naming ROADMAP A.11."""
     base = TR.get("opt-30b").reduced()
     for kw in ({"input_mode": "embeddings"}, {"family": "vlm"},
                {"family": "vlm", "input_mode": "embeddings", "use_qk_norm": True},
                {"n_experts": 4, "n_experts_active": 2},
                {"family": "moe", "n_experts": 8, "n_experts_active": 2, "moe_d_ff": 64,
-                "moe_every": 2}):
+                "moe_every": 2}, {"attn_type": "mla"}):
         TT.check_supported(dataclasses.replace(base, **kw))
-    for kw in ({"attn_type": "mla"},
-               {"family": "moe", "n_experts": 8, "n_experts_active": 2,
+    for kw in ({"family": "moe", "n_experts": 8, "n_experts_active": 2,
                 "input_mode": "embeddings"},
                {"family": "hybrid", "attn_every": 2, "ssm_state": 16},
                {"family": "encdec", "encoder_layers": 2, "encoder_seq": 16},

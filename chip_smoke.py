@@ -191,7 +191,34 @@ Phases (any failure makes the script exit non-zero):
    gated equal, at budget, with verify steps and exact launch counts), the
    top-8 combine on the card (bit-equal to the CPU's sums, repeating its
    bits), the decode step's parts timed apart, and the captured verify and
-   decode steps against eager; each family's peak device memory recorded.
+   decode steps against eager; then jamba-1.5-large-398b (the hybrid stack:
+   d 8192, Mamba2 SSD layers of 256 heads of 64 with state 128, GQA of 64
+   heads of 128 in 8 groups every 8th layer, 16 SwiGLU experts of 24576
+   top-2 on every other layer, dense SwiGLU of 24576 on the rest, untied
+   vocab 65536) at full width with 8 of its 72 layers, one period of its
+   interleave (SSM at 0-3 and 5-7, attention at 4), its int8 tree (about
+   48 GB) drawn a part at a time (the f32 tree, about 180 GB, does not
+   fit), prefill served int8 at exact length: B1 / B5 over an attention
+   layer's, an SSM layer's and a dense FFN's linears at M 4, B2 at rep 8,
+   B6 at 256 heads, the grouped B1 at E 16 for C 1 and C 13, RMSNorm at
+   8192 and 16384 (all gated as for the other families), the reduced model
+   on the card against the CPU (logits, and its streams under the three
+   backends), the phase-4 trace under ``fused_int8``, ``pim_bitserial``
+   and ``ref_int8`` (exact launch counts, B6 on prefill; ``pim_bitserial``
+   gated equal to ``ref_int8``, the dropped choices gated above 0, and
+   where ``fused_int8`` parts, ``ref_int8`` on the fused lane's own inputs
+   and the first parting step's served rows gated to near-ties), B6 against its plain version on the
+   trace's prefills, ``Engine``, and the captured decode step against
+   eager; then whisper-tiny (the encoder-decoder: 4 encoder and 4 decoder
+   layers, d 384, 6 heads of 64, gelu, LayerNorm, 1,500 frames from the
+   stubbed front end, tied vocab 51865) uncut: B1 / B5 over a decoder
+   layer's linears, B2 at rep 1, D 64, the reduced model on the card
+   against the CPU (logits and ``Engine`` streams under the three
+   backends), ``Engine.generate`` from seeded frames [4, 1500, 384] under
+   the three backends (exact launch counts, ``pim_bitserial`` gated equal
+   to ``ref_int8``, ``fused_int8`` held to near-ties where it parts) and
+   its captured decode step against eager; each family's peak device
+   memory recorded.
 
 Every path runs a row-invariant norm kernel for every norm on the card
 (``rms_norm``, or ``layer_norm`` for OPT; QK-norm's two a layer through
@@ -911,8 +938,9 @@ def reduced_vs_cpu(torch, cfg, embeddings: bool = False, rcfg=None) -> dict:
     """A small input against a reference: the reduced model (``rcfg``, by
     default ``cfg.reduced()``) under ``fused_int8`` on the card (kernels)
     and on the CPU (plain versions), prefill (from [2, 24, d] embeddings
-    where ``embeddings``) plus one decode step from the same weights and
-    prompts, within 2% of the logit scale, argmax equal."""
+    where ``embeddings``; an encoder-decoder's from [2, S_enc, d] frames and
+    24 tokens) plus one decode step from the same weights and prompts,
+    within 2% of the logit scale, argmax equal."""
     from repro_torch import convert
     from repro_torch.models import model as M
     from repro_torch.models.transformer import Runtime
@@ -927,10 +955,15 @@ def reduced_vs_cpu(torch, cfg, embeddings: bool = False, rcfg=None) -> dict:
                 * 0.5 if embeddings else
                 torch.randint(0, rcfg.vocab_size, (2, 24),
                               generator=torch.Generator().manual_seed(3)))
+    batch = {"inputs": rprompts}
+    if rcfg.family == "encdec":
+        batch = {"frames": torch.randn((2, rcfg.encoder_seq, rcfg.d_model),
+                                       generator=torch.Generator().manual_seed(4)),
+                 "tokens": rprompts}
     rt = Runtime("fused_int8")
     res, out = {}, {}
     for dev, p, q in (("cpu", rp_cpu, rq_cpu), ("cuda", rp_gpu, rq_gpu)):
-        lg0, st = M.prefill(p, rcfg, {"inputs": rprompts.to(dev)}, 64, rt)
+        lg0, st = M.prefill(p, rcfg, {k: v.to(dev) for k, v in batch.items()}, 64, rt)
         t0 = torch.argmax(lg0, -1).to(torch.int32)
         lg1, _ = M.decode_step(q, rcfg, st, t0, rt)
         res[dev] = (lg0.cpu(), lg1.cpu())
@@ -966,16 +999,29 @@ def norm_kernel(cfg) -> str:
 
 
 def linears_per_layer(cfg, i: int = 0) -> int:
-    """W8A8 linears of layer ``i``'s step through B1 (or B5): a mamba2
-    layer's w_z, w_x and out_proj; an attention layer's wq, wk, wv, wo and
-    its MLP's w_up and w_down, with w_gate under SwiGLU (gelu and relu2:
-    6); a MoE layer's 4 attention linears (its experts run B1's grouped
-    entry: :func:`expert_launches_per_layer`)."""
-    if cfg.family == "ssm":
-        return 3
-    if cfg.is_moe_layer(i):
-        return 4
-    return 4 + (3 if cfg.mlp_type == "swiglu" else 2)
+    """W8A8 linears of layer ``i``'s step through B1 (or B5): an SSM
+    layer's w_z, w_x and out_proj or an attention layer's wq, wk, wv and
+    wo, then its MLP's w_up and w_down, with w_gate under SwiGLU (a MoE
+    layer's experts run B1's grouped entry instead:
+    :func:`expert_launches_per_layer`); an encoder-decoder's decoder layer
+    its self-attention's 4, its cross-attention's wq and wo (the cross K/V
+    are cached) and its MLP's."""
+    mlp = 3 if cfg.mlp_type == "swiglu" else 2
+    if cfg.family == "encdec":
+        return 4 + 2 + mlp
+    mixer = 3 if cfg.layer_kind(i) == "ssm" else 4
+    return mixer + (0 if cfg.is_moe_layer(i) or not cfg.d_ff else mlp)
+
+
+def norms_per_pass(cfg) -> int:
+    """Norm launches of one pass over the decoder layers (a decode step or
+    a prefill call): each layer's ``ln1``, an SSM layer's gated norm, each
+    FFN's ``ln2``, then ``ln_f``; an encoder-decoder's decoder layer adds
+    ``ln_x`` before its cross-attention."""
+    if cfg.family == "encdec":
+        return 3 * cfg.n_layers + 1
+    return 1 + sum(1 + (cfg.layer_kind(i) == "ssm") + bool(cfg.is_moe_layer(i) or cfg.d_ff)
+                   for i in range(cfg.n_layers))
 
 
 def expert_launches_per_layer(cfg, i: int = 0) -> int:
@@ -1008,14 +1054,21 @@ def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
     prefill on, deepseek-v3-671b's) adds each prefill call's linears (an
     MLA layer's wkv_b too) and expert stacks; ``draft_cells`` counts the
     MTP head's cells, each a MoE layer's norms, 5 linears and expert
-    stacks (its ``mtp_proj`` is float)."""
+    stacks (its ``mtp_proj`` is float).  A hybrid stack counts each layer
+    by its kind (B6 in prefill for its SSM layers, ``attn`` in decode for
+    its attention layers); an encoder-decoder's prefill adds its encoder's
+    norms (two a layer and ``ln_enc``; its float prefill runs no linear
+    kernel)."""
     L = cfg.n_layers
     mla = cfg.attn_type == "mla"
+    n_ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(L))
     prefills = len(prompt_lens) if prefills is None else prefills
     want = {"int8_matmul": 0, "int8_matmul_grouped": 0, "pim_mvm": 0, "decode_attn": 0,
             "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0, "rms_norm": 0,
             "layer_norm": 0}
-    want[norm_kernel(cfg)] = (2 * L + 1) * (steps + prefills) + 4 * draft_cells
+    want[norm_kernel(cfg)] = norms_per_pass(cfg) * (steps + prefills) + 4 * draft_cells
+    if cfg.family == "encdec":
+        want[norm_kernel(cfg)] += (2 * cfg.encoder_layers + 1) * prefills
     if cfg.use_qk_norm or mla:   # QK-norm's q and k, or MLA's q_norm and kv_norm
         want["rms_norm"] += 2 * L * (steps + prefills)
     linears = sum(linears_per_layer(cfg, i) for i in range(L))
@@ -1029,10 +1082,9 @@ def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
         want["pim_mvm"] = linears
     if backend == "fused_int8":
         want["int8_matmul"] = linears
-        if cfg.family == "ssm":
-            want["ssd_chunk"] = L * sum(math.ceil(n / 128) for n in prompt_lens)
-        elif not mla:
-            want[attn] = L * steps
+        want["ssd_chunk"] = n_ssm * sum(math.ceil(n / 128) for n in prompt_lens)
+        if attn is not None and not mla:
+            want[attn] = (L - n_ssm) * steps
     return want
 
 
@@ -1628,9 +1680,16 @@ RAGGED_LENS = (37, 64, 91, 130)  # the pool's cursors: 4 slots at other position
 TREE_PARENTS = [-1, -1, 0, 0, 1, 2]   # a 6-node draft tree (T 7): two chains
 
 
+def drawn_int8(cfg) -> bool:
+    """Whether the script serves ``cfg`` from an int8 tree drawn a part at
+    a time (:func:`int8_params`): its f32 tree does not fit the card."""
+    return cfg.attn_type == "mla" or cfg.family == "hybrid"
+
+
 def ragged_pool(torch, cfg, params, rows: int, max_len: int, seed: int = 4) -> dict:
     """A pool of ``len(RAGGED_LENS)`` slots and ``rows`` rows, each slot
-    prefilled (full width, ``fused_int8``) with its own random prompt."""
+    prefilled (full width, ``fused_int8``) with its own random prompt (an
+    encoder-decoder's with its own random frames too)."""
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     from repro_torch.models.transformer import Runtime
@@ -1639,7 +1698,11 @@ def ragged_pool(torch, cfg, params, rows: int, max_len: int, seed: int = 4) -> d
     g = torch.Generator(device="cuda").manual_seed(seed)
     for slot, n in enumerate(RAGGED_LENS):
         toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g, device="cuda")
-        _, one = M.prefill(params, cfg, {"inputs": toks}, max_len, Runtime("fused_int8"))
+        batch = {"inputs": toks}
+        if cfg.family == "encdec":
+            batch = {"frames": torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=g,
+                                           device="cuda"), "tokens": toks}
+        _, one = M.prefill(params, cfg, batch, max_len, Runtime("fused_int8"))
         T.write_slot(state, slot, one)
     return state
 
@@ -1812,7 +1875,7 @@ def replay_profile_child(arch: str, kind: str, width: int, n_layers: int) -> dic
 
     set_float32_precision()
     cfg = dataclasses.replace(registry.get(arch), n_layers=n_layers)
-    if cfg.attn_type == "mla":          # its f32 tree does not fit: int8 from the draw
+    if drawn_int8(cfg):                 # its f32 tree does not fit: int8 from the draw
         params = qparams = int8_params(torch, cfg)
     else:
         params = M.init_params(cfg, seed=0, device="cuda")
@@ -2577,11 +2640,11 @@ SSD_GROUPS = 1                                       # mamba2-2.7b: one B/C grou
 SSD_SHAPES = ((4, 128), (1, 37), (2, 1), (2, 33))
 
 
-def ssd_inputs(torch, g, N: int, Q: int) -> tuple:
-    """B6's operands at full width, drawn as the reference's kernel test
-    draws them (``tests/test_kernels_ssm.py``), with B and C per group as
-    the model's kernel route passes them."""
-    H, dh, S, G = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_GROUPS
+def ssd_inputs(torch, g, N: int, Q: int, H: int = SSD_HEADS) -> tuple:
+    """B6's operands at full width (``H`` heads of ``SSD_HEAD_DIM``), drawn
+    as the reference's kernel test draws them (``tests/test_kernels_ssm.py``),
+    with B and C per group as the model's kernel route passes them."""
+    dh, S, G = SSD_HEAD_DIM, SSD_STATE, SSD_GROUPS
 
     def normal(*shape):
         return torch.randn(shape, generator=g, device="cuda")
@@ -2590,15 +2653,15 @@ def ssd_inputs(torch, g, N: int, Q: int) -> tuple:
             torch.ones(H, device="cuda"), normal(N, H, dh, S) * 0.1)
 
 
-def ssd_work(N: int, Q: int, G: int) -> tuple[int, int, int]:
+def ssd_work(N: int, Q: int, G: int, H: int = SSD_HEADS) -> tuple[int, int, int]:
     """Bytes B6 must move (each input read once, each output written once,
     B and C per group of G) and its operations on these inputs: the four
     products (the scores C.B once per group over the causal triangle
     k <= q; per head the scores times x*dt over the same triangle, C*exp(cs)
     times h_in, and the chunk state from B*decay and x*dt) and the
     elementwise f32 terms (the decay scale over the triangle, C*exp(cs),
-    B*decay, x*dt, the skip D*x and the sums)."""
-    H, dh, S = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE
+    B*decay, x*dt, the skip D*x and the sums), at ``H`` heads."""
+    dh, S = SSD_HEAD_DIM, SSD_STATE
     n_bytes = 4 * (2 * N * Q * H * dh + 2 * N * Q * G * S + N * Q * H + 2 * H
                    + 2 * N * H * dh * S + N * H)
     tri = Q * (Q + 1) // 2
@@ -2607,33 +2670,34 @@ def ssd_work(N: int, Q: int, G: int) -> tuple[int, int, int]:
     return n_bytes, products, elementwise
 
 
-def ssd_bound(N: int, Q: int) -> tuple[float, str]:
+def ssd_bound(N: int, Q: int, H: int = SSD_HEADS) -> tuple[float, str]:
     """B6's bound as it is called: B and C per group, the products at the
     TF32 tensor rate three times over (3xTF32: hi*hi, hi*lo, lo*hi), the
     elementwise terms at the f32 rate."""
-    n_bytes, products, elementwise = ssd_work(N, Q, SSD_GROUPS)
+    n_bytes, products, elementwise = ssd_work(N, Q, SSD_GROUPS, H)
     return bound_ms(n_bytes, [(3 * products, TF32_FLOPS_PER_S),
                               (elementwise, FP32_FLOPS_PER_S)])
 
 
-def ssd_bound_per_head(N: int, Q: int) -> tuple[float, str]:
+def ssd_bound_per_head(N: int, Q: int, H: int = SSD_HEADS) -> tuple[float, str]:
     """The per-head count, kept beside it for comparison with the kernel's
     first design: B and C read for each head and every operation at the
     f32 rate outside the tensor cores."""
-    n_bytes, products, elementwise = ssd_work(N, Q, SSD_HEADS)
+    n_bytes, products, elementwise = ssd_work(N, Q, H, H)
     return bound_ms(n_bytes, [(products + elementwise, FP32_FLOPS_PER_S)])
 
 
-def ssd_kernel_checks(torch, ssd) -> dict:
+def ssd_kernel_checks(torch, ssd, H: int = SSD_HEADS, shapes: tuple = SSD_SHAPES) -> dict:
     """B6 against its plain version at N 4 / Q 128, N 1 / Q 37, N 2 / Q 1
-    and N 2 / Q 33 (80 heads of 64 in one group, state 128): y and the
-    chunk state within rtol 2e-4
+    and N 2 / Q 33 (or ``shapes``; ``H`` heads of 64 in one group, mamba2's
+    80 by default, state 128): y and the chunk state within rtol 2e-4
     / atol 2e-5, the decay within rtol 1e-5; device time (graph replay),
-    eager time, the plain version's time and the bound at each shape."""
+    eager time, the plain version's time and the bound at each shape.  The
+    record is the first shape's, with every shape's under ``shapes``."""
     g = torch.Generator(device="cuda").manual_seed(7)
     out = {}
-    for N, Q in SSD_SHAPES:
-        args = ssd_inputs(torch, g, N, Q)
+    for N, Q in shapes:
+        args = ssd_inputs(torch, g, N, Q, H)
         got = ssd.ssd_chunk_cuda(*args)
         want = ssd.ssd_chunk_plain(*args)
         torch.cuda.synchronize()
@@ -2644,19 +2708,19 @@ def ssd_kernel_checks(torch, ssd) -> dict:
             torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
                                        msg=lambda m, n=name: f"B6 N={N} Q={Q} {n}: {m}")
         errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-        n_bytes, products, elementwise = ssd_work(N, Q, SSD_GROUPS)
-        sets = copies(torch, lambda: ssd_inputs(torch, g, N, Q), n_bytes)
+        n_bytes, products, elementwise = ssd_work(N, Q, SSD_GROUPS, H)
+        sets = copies(torch, lambda: ssd_inputs(torch, g, N, Q, H), n_bytes)
         n = len(sets)
         tk = timed(torch, lambda i: ssd.ssd_chunk_cuda(*sets[i % n]), 20)
         tp = timed(torch, lambda i: ssd.ssd_chunk_plain(*sets[i % n]), 5)
-        b, b_head = ssd_bound(N, Q), ssd_bound_per_head(N, Q)
-        out[f"N{N}_Q{Q}"] = {"N": N, "Q": Q, "ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+        b, b_head = ssd_bound(N, Q, H), ssd_bound_per_head(N, Q, H)
+        out[f"N{N}_Q{Q}"] = {"N": N, "Q": Q, "H": H, "ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
                              "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
                              "bound_ms": b[0], "bound_by": b[1], "bytes": n_bytes,
                              "product_flops": products, "elementwise_flops": elementwise,
                              "bound_ms_per_head": b_head[0], "bound_by_per_head": b_head[1],
                              "max_abs_err": max(errs), "max_abs_err_y_state_decay": errs}
-        print(f"   B6 N={N} Q={Q:3d} H={SSD_HEADS} dh={SSD_HEAD_DIM} S={SSD_STATE}: "
+        print(f"   B6 N={N} Q={Q:3d} H={H} dh={SSD_HEAD_DIM} S={SSD_STATE}: "
               f"{tk['device_ms'] * 1e3:.1f} us device / {tk['eager_ms'] * 1e3:.1f} eager "
               f"(bound {b[0] * 1e3:.2f} by {b[1]}: {n_bytes / 1e6:.1f} MB, "
               f"{products / 1e9:.3f} GFLOP of products as 3xTF32, {elementwise / 1e9:.4f} "
@@ -2664,7 +2728,7 @@ def ssd_kernel_checks(torch, ssd) -> dict:
               f"{tp['device_ms'] * 1e3:.1f}); max |err| y {errs[0]:.3g}, state "
               f"{errs[1]:.3g}, decay {errs[2]:.3g}")
         del sets
-    head = out["N4_Q128"]
+    head = out["N{}_Q{}".format(*shapes[0])]
     # no single PyTorch call computes the masked-decay chunk (scores, decay
     # mask, state and decay together), so there is no library yardstick
     return dict(head, library_ms=None, shapes=out)
@@ -2914,6 +2978,33 @@ def divergence_margins(torch, cfg, params, outputs: dict) -> list:
               f"{rec['ref_reproduced']}")
     del qparams
     return res
+
+
+NEAR_TIE_SHARE = 0.1        # how far a near-tie's two rows may lie apart, of the logit scale
+
+
+def near_tie_failures(margins: list, forced: bool = False) -> list:
+    """The parting requests that the near-tie rule leaves unexplained.  The
+    rule: the fused lane's row picks its token, and a witness row lies
+    within ``NEAR_TIE_SHARE`` of the logit scale of it, with the fused
+    row's gap between the two tokens within that distance.  The witness is
+    the other lane's row at the parting token (:func:`divergence_margins`,
+    :func:`whisper_margins`).  With ``forced`` (a MoE stack's records,
+    :func:`moe_margins`) the witness is ``ref_int8`` run on the fused
+    lane's own inputs, each lane's served row must pick its token at the
+    same engine step, and the served rows are held to the rule only at the
+    first parting step: a request that parts later may part through the
+    other slots' rows (capacity)."""
+    def near(gap, dist, scale):
+        return abs(gap) <= dist <= NEAR_TIE_SHARE * scale
+    first = min((m["step"] for m in margins), default=None) if forced else None
+    return [m["rid"] for m in margins
+            if not m["fused_reproduced"]
+            or (forced and not (m["ref_reproduced"] and m["step"] == m["ref_step"]))
+            or ((not forced or m["step"] == first)
+                and not near(m["fused_gap"], m["lanes_max_abs_diff"], m["logit_scale"]))
+            or (forced and not near(m["forced_fused_gap"], m["forced_max_abs_diff"],
+                                    m["logit_scale"]))]
 
 
 def serve_mamba2(torch, ctx, cfg) -> dict:
@@ -3277,8 +3368,14 @@ def moe_margins(torch, cfg, params, outputs: dict, quantized: bool = False) -> l
     candidates' gap in each lane, the served rows' distance, the logit
     scale, whether each served row picks its lane's token, the step; and
     the teacher-forced row's token, its distance from the fused row and
-    the fused row's gap between the two tokens."""
+    the fused row's gap between the two tokens.  A request whose first
+    token parts (its prefill's logits: under an int8 tree, or with B6 in
+    an SSM layer, prefill differs across the lanes) is recorded from each
+    lane's prefill of its prompt alone, as the engine admits it
+    (engine step 0; both lanes then have the same inputs, so the
+    ``ref_int8`` prefill is also its witness)."""
     from repro_torch.kernels import launch_counts, set_launch_counts
+    from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     from repro_torch.models.transformer import Runtime
     from repro_torch.serve.scheduler import RequestState
@@ -3287,6 +3384,22 @@ def moe_margins(torch, cfg, params, outputs: dict, quantized: bool = False) -> l
              for rid, (a, b) in enumerate(zip(outputs["fused_int8"], outputs["ref_int8"]))
              if a != b}
     rows, steps, forced = {}, {}, {}
+    prompts, _ = serve_trace(cfg.vocab_size)
+    for rid in [r for r, d in first.items() if d == 0]:
+        n = len(prompts[rid])
+        width = n if T.has_ssm(cfg) else min(SERVE_ROWS, -(-n // 16) * 16)
+        toks = torch.zeros((1, width), dtype=torch.int64, device="cuda")
+        toks[0, :n] = torch.tensor(prompts[rid], device="cuda")
+        batch = {"inputs": toks}
+        if not T.has_ssm(cfg):
+            batch["lengths"] = torch.tensor([n], dtype=torch.int32, device="cuda")
+        counts = launch_counts()
+        for backend in ("fused_int8", "ref_int8"):
+            lg, _ = M.prefill(params, cfg, batch, SERVE_ROWS, Runtime(backend))
+            rows.setdefault(backend, {})[rid] = lg[0].float().cpu()
+            steps.setdefault(backend, {})[rid] = 0           # no engine step yet
+        forced[rid] = rows["ref_int8"][rid]
+        set_launch_counts(counts)
     for backend in ("fused_int8", "ref_int8"):
         got, at = rows.setdefault(backend, {}), steps.setdefault(backend, {})
 
@@ -3296,7 +3409,7 @@ def moe_margins(torch, cfg, params, outputs: dict, quantized: bool = False) -> l
 
             def decode():
                 want = [(slot, req.rid) for slot, req in cb.scheduler.active.items()
-                        if req.rid in first and req.state is RequestState.DECODING
+                        if first.get(req.rid, 0) > 0 and req.state is RequestState.DECODING
                         and len(req.output) == first[req.rid]]
                 inputs = ((clone_state(served.state), served.tok.clone())
                           if witness and want else None)
@@ -3396,12 +3509,8 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
     ``fused_int8``) and the experts that got a row (``moe.count_routing``),
     the captured steps' calls apart from the prefill calls; where
     ``fused_int8`` parts from ``ref_int8`` the lanes' rows are held to
-    :func:`moe_margins` (the first step where any request parts must be a
-    near-tie in the served rows as above; a request that parts later may
-    part there through the other slots' rows; on the fused lane's own
-    inputs at each parting step, ``ref_int8`` must pick the fused token or
-    a near-tie of it, its row within 10% of the logit scale); the verify window is not held to
-    sequential decode (it routes T times the rows at another capacity, so
+    near-ties by :func:`moe_margins` and :func:`near_tie_failures` with
+    ``forced``; the verify window is not held to sequential decode (it routes T times the rows at another capacity, so
     the K/V from the second layer on part by design), and ``multi_step =
     4`` is gated 8 of 8 on a lockstep trace (the phase-4 prompts, every
     budget 16: a fused block never runs with an idle slot) against the
@@ -3438,26 +3547,9 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
     # verify window) apart from the eager prefill calls: a graph adds to
     # the counter set when the engine captured it, prefill to the one set
     # at its call
-    routing = ({k: torch.zeros((3,), dtype=torch.int64, device="cuda")
-                for k in ("steps", "prefill")} if cfg.n_experts else None)
-
-    def count_steps():                  # before an engine captures its steps
-        if routing is not None:
-            moe.count_routing(routing["steps"])
-
-    def zero_routing(cb):               # once it has
-        if routing is not None:
-            for t in routing.values():
-                t.zero_()
-            moe.count_routing(routing["prefill"])
-
-    def routing_record():
-        rec = {}
-        for k, t in routing.items():
-            calls, dropped, live = t.tolist()
-            rec[k] = {"calls": calls, "dropped_choices": dropped,
-                      "experts_with_rows_per_call": live / max(1, calls)}
-        return rec
+    routing = cfg.n_experts > 0
+    count_steps, zero_routing, routing_record = (
+        routing_counters(torch) if routing else (lambda: None, lambda cb: None, None))
     outs = {}
     for backend in ("fused_int8", "pim_bitserial", "ref_int8"):
         count_steps()
@@ -3467,16 +3559,16 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
         outs[backend] = [list(r.output) for r in reqs]
         out[backend] = dict(serve_record(reqs, wall, cfg), stats=dict(cb.stats),
                             launches=counts, max_memory_allocated=torch.cuda.max_memory_allocated())
-        if routing is not None:
+        if routing:
             out[backend]["routing"] = routing_record()
         print(f"   {cfg.name} {backend}: served {out[backend]['tokens_served']} tokens in "
               f"{wall:.2f} s ({out[backend]['tokens_per_s']:.1f} tokens/s), "
               f"{cb.stats['decode_steps']} decode steps, launches {counts}, peak "
               f"{out[backend]['max_memory_allocated'] / 1e9:.1f} GB"
-              + (f", routing {out[backend]['routing']}" if routing is not None else ""))
+              + (f", routing {out[backend]['routing']}" if routing else ""))
         del cb, reqs
         torch.cuda.empty_cache()
-    if routing is not None and sum(v["dropped_choices"]
+    if routing and sum(v["dropped_choices"]
                                    for v in out["fused_int8"]["routing"].values()) < 1:
         raise AssertionError(f"{cfg.name}: no choice was dropped on the trace, so capacity "
                              "went untested")
@@ -3495,23 +3587,10 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
         if cfg.n_experts:
             moe.count_routing(None)
             margins = moe_margins(torch, cfg, params, outs)
-            first_step = min(m["step"] for m in margins)
         else:
-            margins, first_step = divergence_margins(torch, cfg, params, outs), None
+            margins = divergence_margins(torch, cfg, params, outs)
         out["divergence_margins"] = margins
-        # a MoE request that parts after another one did may part through
-        # the other slots' rows (capacity), so its served rows need not be
-        # near; on the fused lane's own inputs ref_int8 must pick the fused
-        # token or a near-tie of it, for every parting request
-        far = [m["rid"] for m in margins if not m["fused_reproduced"]
-               or (first_step is not None
-                   and not (m["ref_reproduced"] and m["step"] == m["ref_step"]))
-               or ((first_step is None or m["step"] == first_step)
-                   and (abs(m["fused_gap"]) > m["lanes_max_abs_diff"]
-                        or m["lanes_max_abs_diff"] > 0.1 * m["logit_scale"]))
-               or (first_step is not None
-                   and (m["forced_fused_gap"] > m["forced_max_abs_diff"]
-                        or m["forced_max_abs_diff"] > 0.1 * m["logit_scale"]))]
+        far = near_tie_failures(margins, forced=bool(cfg.n_experts))
         if exact or far:
             raise AssertionError(f"{cfg.name}: fused_int8 parts from ref_int8 "
                                  f"{out['backends_vs_fused_int8']['ref_int8']}; "
@@ -3567,7 +3646,7 @@ def serve_family(torch, ctx, cfg, lanes: tuple = (), exact: bool = False,
                 rec["acceptance_rate"] = cb.acceptance_rate
                 rec["tokens_per_verify_step"] = ((rec["tokens_served"] - len(reqs))
                                                  / st["verify_steps"])
-            if routing is not None:
+            if routing:
                 rec["routing"] = routing_record()
             out[label] = rec
             print(f"   {cfg.name} {label}: served {rec['tokens_served']} tokens in {wall:.2f} s, "
@@ -3690,7 +3769,8 @@ def deepseek_counts() -> dict:
 
 def int8_params(torch, cfg, seed: int = 0) -> dict:
     """A model's served int8 tree drawn a part at a time on the card (seed
-    ``seed``): each layer's attention and dense FFN drawn in f32 and
+    ``seed``): each layer's attention (or an SSM layer's Mamba2 block) and
+    dense FFN drawn in f32 and
     quantized (``quantize_tree``) before the next part is drawn, a MoE
     layer's expert stacks one expert at a time (``quantize_weight`` over an
     expert's [in, out] weight, what ``_quantize_3d`` does for each expert,
@@ -3701,6 +3781,7 @@ def int8_params(torch, cfg, seed: int = 0) -> dict:
     from repro_torch.core import quant
     from repro_torch.models import attention as A
     from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
     from repro_torch.serve.quantize import quantize_tree
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -3720,13 +3801,18 @@ def int8_params(torch, cfg, seed: int = 0) -> dict:
                 p[name + "_q"][e].copy_(q)
                 p[name + "_s"][e].copy_(sc)
                 del w, q, sc
-        p["shared"] = quantize_tree(L.mlp_init(gen, d, ff * cfg.n_shared_experts,
-                                               cfg.mlp_type))
+        if cfg.n_shared_experts:
+            p["shared"] = quantize_tree(L.mlp_init(gen, d, ff * cfg.n_shared_experts,
+                                                   cfg.mlp_type))
         return p
 
     def layer(i: int) -> dict:
-        p = {"ln1": L.norm_init(d, device="cuda"), "attn": quantize_tree(A.attn_init(gen, cfg)),
-             "ln2": L.norm_init(d, device="cuda")}
+        p = {"ln1": L.norm_init(d, device="cuda")}
+        if cfg.layer_kind(i) == "ssm":
+            p["ssm"] = quantize_tree(SSM.ssm_init(gen, cfg))
+        else:
+            p["attn"] = quantize_tree(A.attn_init(gen, cfg))
+        p["ln2"] = L.norm_init(d, device="cuda")
         if cfg.is_moe_layer(i):
             p["moe"] = experts()
         else:
@@ -3861,38 +3947,9 @@ def reduced_mla_lanes(torch, cfg) -> dict:
     (``spec_k = 3``; ``spec_tree = 3, spec_branch = 2``): every stream
     gated equal to the CPU's plain ``fused_int8`` stream (at 4 experts and
     top-2 the capacity is N: nothing drops, so the lanes are lossless)."""
-    import numpy as np
-    from repro_torch import convert
-    from repro_torch.models import model as M
-    from repro_torch.models.transformer import Runtime
-    from repro_torch.serve.engine import ContinuousBatchingEngine
-
-    rcfg = cfg.reduced()
-    p_cpu = M.init_params(rcfg, seed=0, device="cpu")
-    p_gpu = convert.to_device(p_cpu, "cuda")
-    rng = np.random.default_rng(6)
-    prompts = [rng.integers(0, rcfg.vocab_size, int(rng.integers(4, 40))).tolist()
-               for _ in range(6)]
-    budgets = [int(rng.integers(4, 13)) for _ in range(6)]
-
-    def run(params, device, backend="fused_int8", **lane):
-        eng = ContinuousBatchingEngine(rcfg, params, n_slots=4, max_len=64,
-                                       rt=Runtime(backend), device=device, **lane)
-        return eng.generate_all(prompts, budgets), eng.stats
-    want, _ = run(p_cpu, "cpu")
-    out = {}
-    for label, kw in (("fused_int8", {}), ("pim_bitserial", {"backend": "pim_bitserial"}),
-                      ("ref_int8", {"backend": "ref_int8"}),
-                      ("spec_k_3_mtp", {"spec_k": 3, "drafter": "mtp"}),
-                      ("spec_tree_3_mtp", {"spec_tree": 3, "spec_branch": 2, "drafter": "mtp"})):
-        got, st = run(p_gpu, "cuda", **kw)
-        out[label] = {"equal_to_cpu": got == want, "verify_steps": st["verify_steps"],
-                      "spec_accepted": st["spec_accepted"], "spec_drafted": st["spec_drafted"]}
-        if got != want or ("drafter" in kw and st["verify_steps"] < 1):
-            raise AssertionError(f"reduced {rcfg.name} {label} on the card: {out[label]}")
-    print(f"   reduced {rcfg.name}: the card's streams under fused_int8, pim_bitserial, "
-          f"ref_int8 and the MTP lanes equal the CPU's: {out}")
-    return out
+    return reduced_streams(torch, cfg, dict(
+        BACKEND_LANES, spec_k_3_mtp={"spec_k": 3, "drafter": "mtp"},
+        spec_tree_3_mtp={"spec_tree": 3, "spec_branch": 2, "drafter": "mtp"}))
 
 
 def serve_deepseek(torch, ctx, cfg) -> dict:
@@ -3933,24 +3990,7 @@ def serve_deepseek(torch, ctx, cfg) -> dict:
            "after_draw_allocated_bytes": torch.cuda.memory_allocated()}
     print(f"   {cfg.name}: int8 tree of {cfg.n_layers} layers and the MTP head drawn in "
           f"{secs['init']:.1f} s, {out['int8_tree_bytes'] / 1e9:.2f} GB")
-    routing = {k: torch.zeros((3,), dtype=torch.int64, device="cuda")
-               for k in ("steps", "prefill")}
-
-    def count_steps():
-        moe.count_routing(routing["steps"])
-
-    def zero_routing(cb):
-        for t in routing.values():
-            t.zero_()
-        moe.count_routing(routing["prefill"])
-
-    def routing_record():
-        rec = {}
-        for k, t in routing.items():
-            calls, dropped, live = t.tolist()
-            rec[k] = {"calls": calls, "dropped_choices": dropped,
-                      "experts_with_rows_per_call": live / max(1, calls)}
-        return rec
+    count_steps, zero_routing, routing_record = routing_counters(torch)
     outs = {}
     for backend in ("fused_int8", "pim_bitserial", "ref_int8"):
         count_steps()
@@ -4083,6 +4123,462 @@ def deepseek_family(torch, ctx, mods: dict) -> dict:
     return rec
 
 
+# jamba-1.5-large-398b at full width with 8 of its 72 layers: one period of
+# its interleave (Mamba2 SSD layers at 0-3 and 5-7, GQA attention at 4; MoE
+# at the odd layers, dense SwiGLU at the even ones), the least depth that
+# holds every layer kind (the reference's groups need whole periods).  8
+# layers and the vocab are 45.14 G parameters: the f32 tree (about 180 GB)
+# does not fit one card, the int8 tree (about 48.4 GB; two periods about
+# 92 GB) does, drawn a part at a time (:func:`int8_params`)
+JAMBA_LAYERS = 8
+JAMBA_ATTN = (4, 8, 8, 128)        # 4 slots, 8 groups of 8 heads of 128
+JAMBA_HEADS = 256                  # SSM heads of 64 (d_inner 16384), state 128
+# B6 on the trace's prefills: prompts of up to 200 tokens, one chunk or two
+JAMBA_SSD_SHAPES = ((2, 128), (1, 37))
+# the grouped entry's row counts at E 16: a decode step at 4 slots (8
+# choices, cap 1) and a prefill call of 52 rows (104 choices, cap 13),
+# each with experts of 0, 1 and C rows
+JAMBA_ROWS = {1: (1, 0, 1, 1, 0, 1, 0, 0, 1, 1, 0, 0, 1, 0, 0, 1),
+              13: (13, 0, 1, 13, 7, 13, 0, 2, 13, 13, 5, 0, 13, 9, 1, 13)}
+
+
+def jamba_shapes(cfg) -> dict:
+    """{(K, N): count} of the W8A8 linears of an attention layer (wq, wk, wv,
+    wo), an SSM layer (w_z, w_x, out_proj; w_B, w_C and w_dt stay float)
+    and a dense SwiGLU FFN (w_up, w_gate, w_down)."""
+    d, hd, di, ff = cfg.d_model, cfg.head_dim, cfg.d_inner, cfg.d_ff
+    kns = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd), (d, cfg.n_kv_heads * hd),
+           (cfg.n_heads * hd, d), (d, di), (d, di), (di, d), (d, ff), (d, ff), (ff, d)]
+    shapes: dict = {}
+    for kn in kns:
+        shapes[kn] = shapes.get(kn, 0) + 1
+    return shapes
+
+
+def routing_counters(torch) -> tuple:
+    """int64 [3] routing counters (``moe.count_routing``) for the captured
+    steps and the eager prefill calls of a served run, and the functions a
+    serve run calls around them: ``count_steps`` before the engine captures
+    its steps, ``zero_routing(engine)`` once it has, and ``record()``."""
+    from repro_torch.models import moe
+
+    routing = {k: torch.zeros((3,), dtype=torch.int64, device="cuda")
+               for k in ("steps", "prefill")}
+
+    def count_steps():
+        moe.count_routing(routing["steps"])
+
+    def zero_routing(cb):
+        for t in routing.values():
+            t.zero_()
+        moe.count_routing(routing["prefill"])
+
+    def record():
+        rec = {}
+        for k, t in routing.items():
+            calls, dropped, live = t.tolist()
+            rec[k] = {"calls": calls, "dropped_choices": dropped,
+                      "experts_with_rows_per_call": live / max(1, calls)}
+        return rec
+    return count_steps, zero_routing, record
+
+
+def reduced_streams(torch, cfg, lanes: dict) -> dict:
+    """The reduced model served by the continuous engine on the card under
+    each of ``lanes`` (label: engine arguments, ``backend`` among them),
+    every stream gated equal to the CPU's plain ``fused_int8`` stream."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    rcfg = cfg.reduced()
+    p_cpu = M.init_params(rcfg, seed=0, device="cpu")
+    p_gpu = convert.to_device(p_cpu, "cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, rcfg.vocab_size, int(rng.integers(4, 40))).tolist()
+               for _ in range(6)]
+    budgets = [int(rng.integers(4, 13)) for _ in range(6)]
+
+    def run(params, device, backend="fused_int8", **lane):
+        eng = ContinuousBatchingEngine(rcfg, params, n_slots=4, max_len=64,
+                                       rt=Runtime(backend), device=device, **lane)
+        return eng.generate_all(prompts, budgets), eng.stats
+    want, _ = run(p_cpu, "cpu")
+    out = {}
+    for label, kw in lanes.items():
+        got, st = run(p_gpu, "cuda", **kw)
+        out[label] = {"equal_to_cpu": got == want, "verify_steps": st["verify_steps"],
+                      "spec_accepted": st["spec_accepted"], "spec_drafted": st["spec_drafted"]}
+        if got != want or ("drafter" in kw and st["verify_steps"] < 1):
+            raise AssertionError(f"reduced {rcfg.name} {label} on the card: {out[label]}")
+    print(f"   reduced {rcfg.name}: the card's streams under {list(lanes)} equal the CPU's: "
+          f"{out}")
+    return out
+
+
+BACKEND_LANES = {"fused_int8": {}, "pim_bitserial": {"backend": "pim_bitserial"},
+                 "ref_int8": {"backend": "ref_int8"}}
+
+
+def serve_jamba(torch, ctx, cfg) -> dict:
+    """jamba-1.5-large-398b at full width (``JAMBA_LAYERS`` layers) on its
+    int8 tree (:func:`int8_params`; prefill runs int8 too, one piece a
+    prompt at exact length): the phase-4 trace under ``fused_int8``,
+    ``pim_bitserial`` and ``ref_int8`` with exact launch counts (B1 or B5
+    for every linear, prefill's too, the grouped B1 for every expert stack,
+    B6 for each SSM layer's prefill chunks under ``fused_int8``, B2 for the
+    attention layer's decode, RMSNorm), the dropped choices at the decode
+    steps under ``fused_int8`` gated above 0 (cap 1 at 4 slots) and
+    ``pim_bitserial`` gated token-identical to ``ref_int8``.  Where
+    ``fused_int8`` parts from ``ref_int8`` (B6 in its prefill is within
+    tolerance of the plain SSD, not bit-equal, and B2 of the plain
+    attention), the lanes are held to near-ties (:func:`moe_margins`,
+    :func:`near_tie_failures`): at each parting step ``ref_int8`` on the
+    fused lane's own inputs, and at the first one the served rows (a
+    first token's rows: the two lanes' prefills, B6 against the plain
+    SSD).  Then B6 against its plain version on the trace's own
+    prefills (H 256), ``Engine`` (4 prompts of 64 tokens, 16 steps, exact
+    launch counts) and the captured decode step against eager over 8
+    steps, its replay profiled in a fresh process.  Peak device memory is
+    recorded beside the card's total."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.quantize import quantized_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = int8_params(torch, cfg)
+    secs, t_part = {"init": time.perf_counter() - t0}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        secs[name], t_part = time.perf_counter() - t_part, time.perf_counter()
+    out = {"n_layers": cfg.n_layers, "serve_s": secs,
+           "int8_tree_bytes": quantized_bytes(qparams),
+           "after_draw_allocated_bytes": torch.cuda.memory_allocated()}
+    print(f"   {cfg.name}: int8 tree of {cfg.n_layers} layers drawn in {secs['init']:.1f} s, "
+          f"{out['int8_tree_bytes'] / 1e9:.2f} GB")
+    count_steps, zero_routing, routing_record = routing_counters(torch)
+    outs = {}
+    for backend in ("fused_int8", "pim_bitserial", "ref_int8"):
+        count_steps()
+        cb, reqs, wall, counts = serve(torch, cfg, qparams, {},
+                                       "decode_attn" if backend == "fused_int8" else None,
+                                       backend, setup=zero_routing, quantized=True)
+        outs[backend] = [list(r.output) for r in reqs]
+        out[backend] = dict(serve_record(reqs, wall, cfg), stats=dict(cb.stats),
+                            launches=counts, routing=routing_record(),
+                            max_memory_allocated=torch.cuda.max_memory_allocated())
+        print(f"   {cfg.name} {backend}: served {out[backend]['tokens_served']} tokens in "
+              f"{wall:.2f} s ({out[backend]['tokens_per_s']:.1f} tokens/s), "
+              f"{cb.stats['decode_steps']} decode steps, launches {counts}, routing "
+              f"{out[backend]['routing']}")
+        del cb, reqs
+        torch.cuda.empty_cache()
+    moe.count_routing(None)
+    if out["fused_int8"]["routing"]["steps"]["dropped_choices"] < 1:
+        raise AssertionError(f"{cfg.name}: no choice was dropped at a decode step")
+    part("backends")
+    plain = outs["fused_int8"]
+    out["backends_vs_fused_int8"] = same_streams(outs, plain)
+    same = {k: v["same"] for k, v in out["backends_vs_fused_int8"].items()}
+    out["pim_eq_ref_int8_requests"] = sum(a == b for a, b in zip(outs["pim_bitserial"],
+                                                                 outs["ref_int8"]))
+    print(f"   {cfg.name}: requests equal to fused_int8's {same} of {len(plain)}; "
+          f"pim_bitserial equal to ref_int8 in {out['pim_eq_ref_int8_requests']}")
+    if out["pim_eq_ref_int8_requests"] != len(plain):
+        raise AssertionError(f"{cfg.name}: pim_bitserial and ref_int8 part")
+    if same["ref_int8"] != len(plain):
+        margins = moe_margins(torch, cfg, qparams, outs, quantized=True)
+        out["divergence_margins"] = margins
+        far = near_tie_failures(margins, forced=True)
+        if far:
+            raise AssertionError(f"{cfg.name}: fused_int8 parts from ref_int8 off a near-tie "
+                                 f"for requests {far}")
+    part("margins")
+    out["b6_on_trace_prefills"] = b6_on_trace_prefills(torch, cfg, qparams)
+    eng = Engine(cfg=cfg, params=qparams, rt=Runtime("fused_int8"), max_len=128,
+                 quantize=False)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, device="cuda")
+    eng.generate({"inputs": prompts}, steps=1)                 # warm-up
+    count_steps()
+    reset_launch_counts()
+    toks, tm = eng.generate({"inputs": prompts}, steps=16)
+    counts = launch_counts()
+    moe.count_routing(None)
+    want = want_launches(cfg, 16, [64], "decode_attn", prefills=T.prefill_pieces(cfg, 64),
+                         int8_prefill=True)
+    if counts != want or tuple(toks.shape) != (4, 16):
+        raise AssertionError(f"{cfg.name} Engine: launch counts {counts} != {want}")
+    if not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+        raise AssertionError(f"{cfg.name} Engine: token out of range")
+    out["engine"] = {"prefill_s": tm["prefill_s"], "tpot_s": tm["tpot_s"], "launches": counts,
+                     "prompt": list(prompts.shape)}
+    print(f"   {cfg.name} Engine from a [4, 64] prompt: prefill {tm['prefill_s'] * 1e3:.1f} ms, "
+          f"TPOT {tm['tpot_s'] * 1e3:.2f} ms, launches {counts}")
+    del eng
+    torch.cuda.empty_cache()
+    part("engine")
+    pool = ragged_pool(torch, cfg, qparams, 256, 256)
+    hold = [qparams, pool]
+    del qparams, pool
+    out["memory"] = {"device_total_bytes": torch.cuda.get_device_properties(0).total_memory,
+                     "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                     "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+    out["graph_decode"], _, _ = replay_vs_eager(torch, cfg, *hold, "decode",
+                                                release=hold.clear, fresh=True)
+    prof = out["graph_decode"]["profile"]
+    print(f"   {cfg.name}: replayed decode step at 4 slots: wall {prof['wall_us'] / 1e3:.2f} ms, "
+          f"device busy {prof['device_busy_us'] / 1e3:.2f} ms, idle share "
+          f"{prof['idle_share']:.3f}, {prof['device_kernels']} device events")
+    del hold
+    torch.cuda.empty_cache()
+    part("graph")
+    mem = out["memory"]
+    print(f"   {cfg.name}: peak device memory {mem['peak_reserved_bytes'] / 1e9:.2f} GB reserved "
+          f"({mem['peak_allocated_bytes'] / 1e9:.2f} allocated) of "
+          f"{mem['device_total_bytes'] / 1e9:.2f} GB")
+    return out
+
+
+def jamba_family(torch, ctx, mods: dict) -> dict:
+    """jamba-1.5-large-398b: its kernels at its shapes before the tree is
+    drawn (B1 and B5 over an attention layer's, an SSM layer's and a dense
+    FFN's linears at M 4; B2 at rep 8, D 128; the grouped B1 at E 16 for C
+    1 and C 13; B6 at 256 heads of 64, state 128; RMSNorm at 8192 and at
+    the SSM's gated 16384), the reduced model on the card against the CPU
+    (logits, and the served streams under the three backends), then
+    :func:`serve_jamba` at full width."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    full = registry.get("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    if cfg.ssm_heads != JAMBA_HEADS or cfg.ssm_head_dim != SSD_HEAD_DIM:
+        raise AssertionError(f"{cfg.name}: SSM heads {cfg.ssm_heads} of {cfg.ssm_head_dim}")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    shapes = jamba_shapes(cfg)
+    print(f"   {cfg.name}: an attention layer's, an SSM layer's and a dense FFN's linears "
+          f"{shapes}; attention (B, G, rep, D) {JAMBA_ATTN}")
+    rec = {"kernels": {"b1": b1_per_layer(torch, mods["mm"], g, 4, shapes),
+                       "b5": b5_per_layer(torch, mods["mm"], mods["pim"], mods["quant"], g, 4,
+                                          shapes),
+                       "b2": b2_case(torch, mods["da"], mods["quant"], *FAMILY_B2, JAMBA_ATTN),
+                       "ssd_chunk": ssd_kernel_checks(torch, ssd, JAMBA_HEADS,
+                                                      JAMBA_SSD_SHAPES),
+                       "rms_norm": rms_norm_widths(torch, mods["rn"],
+                                                   (cfg.d_model, cfg.d_inner))},
+           "grouped_b1": grouped_b1(torch, mods["mm"], cfg, JAMBA_ROWS)}
+    rec.update(reduced_vs_cpu(torch, full))
+    rec["reduced_lanes"] = reduced_streams(torch, full, BACKEND_LANES)
+    rec.update(serve_jamba(torch, ctx, cfg))
+    live = rec["fused_int8"]["routing"]["steps"]["experts_with_rows_per_call"]
+    rec["grouped_b1"]["bound_on_trace_ms"] = sum(
+        live * K * N for K, N in expert_stacks(cfg)) / HBM_BYTES_PER_S * 1e3
+    print(f"   {cfg.name}: {live:.2f} of {cfg.n_experts} experts hold a row a decode call on the "
+          f"trace: the expert stacks' byte floor {rec['grouped_b1']['bound_on_trace_ms']:.4f} ms "
+          f"a layer")
+    prof = rec["graph_decode"]["profile"]
+    print(f"   {cfg.name} on {ctx.get('card')}: int8 tree {rec['int8_tree_bytes'] / 1e9:.2f} GB, "
+          f"peak allocated {rec['memory']['peak_allocated_bytes'] / 1e9:.2f} GB, {live:.2f} of "
+          f"{cfg.n_experts} experts with a row a decode call, phase-4 trace "
+          f"{rec['fused_int8']['tokens_per_s']:.1f} / {rec['pim_bitserial']['tokens_per_s']:.1f} "
+          f"/ {rec['ref_int8']['tokens_per_s']:.1f} tokens a second (fused_int8 / pim_bitserial "
+          f"/ ref_int8), replayed decode step wall {prof['wall_us'] / 1e3:.2f} ms, busy "
+          f"{prof['device_busy_us'] / 1e3:.2f} ms, idle share {prof['idle_share']:.3f}, "
+          f"{prof['device_kernels']} device events")
+    return rec
+
+
+# whisper-tiny, uncut: 4 encoder and 4 decoder layers, d 384, MHA of 6 heads
+# of 64, gelu, LayerNorm, sinusoidal positions, 1,500 encoder frames from
+# the stubbed front end, tied vocab 51865 (39 M parameters)
+WHISPER_ATTN = (4, 6, 1, 64)       # 4 slots, 6 heads of 64, MHA (rep 1)
+WHISPER_PROMPT, WHISPER_STEPS = 16, 32
+
+
+def whisper_shapes(cfg) -> dict:
+    """{(K, N): count} of a decoder layer's W8A8 linears a decode step: its
+    self-attention's wq, wk, wv and wo, its cross-attention's wq and wo
+    (the cross K/V are cached at prefill) and its gelu MLP's w_up and
+    w_down."""
+    d, hd = cfg.d_model, cfg.head_dim
+    return {(d, cfg.n_heads * hd): 6, (d, cfg.d_ff): 1, (cfg.d_ff, d): 1}
+
+
+def whisper_margins(torch, cfg, params, qparams, batch: dict, outs: dict) -> list:
+    """Where ``fused_int8`` parts from ``ref_int8`` on ``Engine.generate``:
+    both lanes' decode steps run eagerly from the same (float) prefill,
+    each fed the ``ref_int8`` stream, so each row's inputs are its served
+    inputs in both lanes up to the token where it parts; there, the fused
+    row's gap between the two tokens, whether it picks the fused token, how
+    far the two rows lie apart and the logit scale."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+
+    fused, ref = outs["fused_int8"], outs["ref_int8"]
+    first = {i: int((fused[i] != ref[i]).nonzero()[0]) for i in range(fused.shape[0])
+             if not torch.equal(fused[i], ref[i])}
+    _, state = M.prefill(params, cfg, batch, 128, Runtime("fused_int8"))
+    states = {b: clone_state(state) for b in ("fused_int8", "ref_int8")}
+    res = []
+    for t in range(max(first.values())):
+        f, r = (M.decode_step(qparams, cfg, states[b], ref[:, t].contiguous(), Runtime(b))[0]
+                .float() for b in ("fused_int8", "ref_int8"))
+        for i, d in first.items():
+            if d == t + 1:
+                a, b = int(fused[i, d]), int(ref[i, d])
+                res.append({"rid": i, "token": d, "tokens": [a, b],
+                            "fused_gap": float(f[i, a] - f[i, b]),
+                            "fused_reproduced": int(f[i].argmax()) == a,
+                            "lanes_max_abs_diff": float((f[i] - r[i]).abs().max()),
+                            "logit_scale": float(f[i].abs().max())})
+    return res
+
+
+def serve_whisper(torch, ctx, cfg) -> dict:
+    """whisper-tiny at full width, nothing cut (random f32 weights, seed 0):
+    ``Engine.generate`` from seeded frames [4, 1500, 384] and 16-token
+    prompts for 32 greedy steps under ``fused_int8``, ``pim_bitserial`` and
+    ``ref_int8``, exact launch counts on each (prefill float: the encoder's
+    and decoder's LayerNorms; decode: B1 or B5 for 8 linears a layer, B2
+    for the self-attention under ``fused_int8``, the cross-attention on the
+    plain int8 path under every backend, as the reference's), the tokens
+    in range, ``pim_bitserial`` gated token-identical to ``ref_int8``, and
+    where ``fused_int8`` parts, :func:`whisper_margins` gated to near-ties
+    (:func:`near_tie_failures`); then the captured decode step on a pool of
+    4 slots at ragged cursors (each slot its own frames) against eager over
+    8 steps."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.quantize import quantize_tree
+
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    batch = {"frames": torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=g,
+                                   device="cuda"),
+             "tokens": torch.randint(0, cfg.vocab_size, (4, WHISPER_PROMPT), generator=g,
+                                     device="cuda")}
+    out, outs = {"n_layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+                 "frames": list(batch["frames"].shape)}, {}
+    for backend in ("fused_int8", "pim_bitserial", "ref_int8"):
+        eng = Engine(cfg=cfg, params=params, rt=Runtime(backend), max_len=128)
+        eng.generate(batch, steps=1)                          # warm-up: capture
+        reset_launch_counts()
+        toks, tm = eng.generate(batch, steps=WHISPER_STEPS)
+        counts = launch_counts()
+        want = want_launches(cfg, WHISPER_STEPS, [WHISPER_PROMPT],
+                             "decode_attn" if backend == "fused_int8" else None, backend)
+        if counts != want or tuple(toks.shape) != (4, WHISPER_STEPS):
+            raise AssertionError(f"{cfg.name} {backend}: launch counts {counts} != {want}")
+        if not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+            raise AssertionError(f"{cfg.name} {backend}: token out of range")
+        outs[backend] = toks
+        out[backend] = {"prefill_s": tm["prefill_s"], "tpot_s": tm["tpot_s"],
+                        "decode_s": tm["decode_s"],
+                        "tokens_per_s": toks.numel() / tm["decode_s"], "launches": counts,
+                        "tokens_row0": toks[0].tolist()}
+        print(f"   {cfg.name} {backend}: Engine from frames {list(batch['frames'].shape)} and "
+              f"[4, {WHISPER_PROMPT}] tokens: prefill {tm['prefill_s'] * 1e3:.1f} ms, TPOT "
+              f"{tm['tpot_s'] * 1e3:.2f} ms ({out[backend]['tokens_per_s']:.1f} tokens/s), "
+              f"launches {counts}")
+        del eng
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    same = {b: int((outs[b] == outs["fused_int8"]).all(dim=1).sum()) for b in outs}
+    out["rows_equal_to_fused_int8"] = same
+    print(f"   {cfg.name}: rows equal to fused_int8's {same} of 4")
+    if not torch.equal(outs["pim_bitserial"], outs["ref_int8"]):
+        raise AssertionError(f"{cfg.name}: pim_bitserial and ref_int8 part")
+    qparams = quantize_tree(params)
+    if same["ref_int8"] != 4:
+        margins = whisper_margins(torch, cfg, params, qparams, batch, outs)
+        out["divergence_margins"] = margins
+        far = near_tie_failures(margins)
+        print(f"   {cfg.name}: where fused_int8 parts: {margins}")
+        if far or len(margins) != 4 - same["ref_int8"]:
+            raise AssertionError(f"{cfg.name}: fused_int8 parts from ref_int8 off a near-tie "
+                                 f"in rows {far} ({margins})")
+    pool = ragged_pool(torch, cfg, params, 256, 256)
+    out["graph_decode"], _, _ = replay_vs_eager(torch, cfg, qparams, pool, "decode")
+    prof = out["graph_decode"]["profile"]
+    print(f"   {cfg.name}: replayed decode step at 4 slots: wall {prof['wall_us'] / 1e3:.2f} ms, "
+          f"device busy {prof['device_busy_us'] / 1e3:.2f} ms, idle share "
+          f"{prof['idle_share']:.3f}, {prof['device_kernels']} device events")
+    del params, qparams, pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_engine_streams(torch, cfg) -> dict:
+    """The reduced encoder-decoder's ``Engine.generate`` (frames [2, S_enc,
+    d] and 6 tokens, 8 greedy steps) under the three backends on the card,
+    each gated token-identical to the CPU's ``fused_int8`` stream."""
+    from repro_torch import convert
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import Engine
+
+    rcfg = cfg.reduced()
+    p_cpu = M.init_params(rcfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    batch = {"frames": torch.randn((2, rcfg.encoder_seq, rcfg.d_model), generator=gen),
+             "tokens": torch.randint(0, rcfg.vocab_size, (2, 6), generator=gen)}
+    want, _ = Engine(cfg=rcfg, params=p_cpu, rt=Runtime("fused_int8"), max_len=64,
+                     device="cpu").generate(batch, 8)
+    p_gpu = convert.to_device(p_cpu, "cuda")
+    out = {}
+    for backend in BACKEND_LANES:
+        got, _ = Engine(cfg=rcfg, params=p_gpu, rt=Runtime(backend), max_len=64,
+                        device="cuda").generate(batch, 8)
+        out[backend] = bool(torch.equal(got.cpu(), want))
+    print(f"   reduced {rcfg.name}: the card's Engine streams equal the CPU's {out}")
+    if not all(out.values()):
+        raise AssertionError(f"reduced {rcfg.name}: the card's streams part from the CPU's "
+                             f"{out}")
+    return out
+
+
+def whisper_family(torch, ctx, mods: dict) -> dict:
+    """whisper-tiny: B1 and B5 over a decoder layer's linears at M 4, B2 at
+    rep 1, D 64, the reduced model on the card against the CPU, then
+    :func:`serve_whisper` at full width."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get("whisper-tiny")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    shapes = whisper_shapes(cfg)
+    print(f"   {cfg.name}: a decoder layer's linears {shapes}; attention (B, G, rep, D) "
+          f"{WHISPER_ATTN}")
+    rec = {"kernels": {"b1": b1_per_layer(torch, mods["mm"], g, 4, shapes),
+                       "b5": b5_per_layer(torch, mods["mm"], mods["pim"], mods["quant"], g, 4,
+                                          shapes),
+                       "b2": b2_case(torch, mods["da"], mods["quant"], *FAMILY_B2,
+                                     WHISPER_ATTN)}}
+    rec.update(reduced_vs_cpu(torch, cfg))
+    rec["reduced_streams"] = reduced_engine_streams(torch, cfg)
+    rec.update(serve_whisper(torch, ctx, cfg))
+    prof = rec["graph_decode"]["profile"]
+    print(f"   {cfg.name} on {ctx.get('card')}: peak allocated "
+          f"{rec['max_memory_allocated'] / 1e9:.2f} GB, Engine TPOT "
+          f"{rec['fused_int8']['tpot_s'] * 1e3:.2f} / {rec['pim_bitserial']['tpot_s'] * 1e3:.2f} / "
+          f"{rec['ref_int8']['tpot_s'] * 1e3:.2f} ms at 4 rows (fused_int8 / pim_bitserial / "
+          f"ref_int8), replayed decode step wall {prof['wall_us'] / 1e3:.2f} ms, busy "
+          f"{prof['device_busy_us'] / 1e3:.2f} ms, idle share {prof['idle_share']:.3f}, "
+          f"{prof['device_kernels']} device events")
+    return rec
+
+
 def phase_families(torch, ctx, mods: dict) -> dict:
     """OPT-30B at full width with 16 of its 48 layers (free of llama's and
     mamba2's weights): its kernels at its shapes, the LayerNorm kernel, the
@@ -4101,7 +4597,10 @@ def phase_families(torch, ctx, mods: dict) -> dict:
     weights; 3 layers would hold about 80 GB): its attention kernels at
     rep 6, B1's grouped entry at its expert stacks, the reduced model at 4
     and at 8 experts, the three backends, ``Engine``, ``multi_step = 4``
-    and the captured decode step), each family's weights freed before the
+    and the captured decode step), deepseek-v3-671b with 4 of its 61 layers
+    and the MTP head (:func:`deepseek_family`), jamba-1.5-large-398b with 8
+    of its 72 layers (:func:`jamba_family`) and whisper-tiny uncut
+    (:func:`whisper_family`), each family's weights freed before the
     next."""
     import dataclasses
     import gc
@@ -4178,12 +4677,15 @@ def phase_families(torch, ctx, mods: dict) -> dict:
     out["grok-1-314b"] = rec
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    rec = deepseek_family(torch, ctx, mods)
-    rec["family_s"] = time.perf_counter() - t0
-    out["deepseek-v3-671b"] = rec
-    gc.collect()
-    torch.cuda.empty_cache()
+    for arch, family in (("deepseek-v3-671b", deepseek_family),
+                         ("jamba-1.5-large-398b", jamba_family),
+                         ("whisper-tiny", whisper_family)):
+        t0 = time.perf_counter()
+        rec = family(torch, ctx, mods)
+        rec["family_s"] = time.perf_counter() - t0
+        out[arch] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4222,7 +4724,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}; {kind} x {count}", flush=True)
 
     s = Smoke(torch)
-    ctx: dict = {}
+    ctx: dict = {"card": card}
     if not card:
         s.failures.append("nvidia-smi did not report the card")
     s.phase("build", lambda: phase_build(torch, _build))

@@ -1,17 +1,17 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Lists only the configurations the port serves so far, under the
-reference's ids; the rest of the reference's catalogue joins as their model
-families are ported.
+Every configuration of the reference's catalogue, under the reference's
+ids.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (chameleon_34b, deepseek_v3_671b, granite3_8b, grok1_314b,
-                                 llama3_8b, mamba2_2_7b, nemotron4_340b, opt,
-                                 phi3_mini_3_8b)
+                                 jamba15_large_398b, llama3_8b, mamba2_2_7b, nemotron4_340b,
+                                 opt, phi3_mini_3_8b, whisper_tiny)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
+    "whisper-tiny": whisper_tiny.CONFIG,
     "nemotron-4-340b": nemotron4_340b.CONFIG,
     "granite-3-8b": granite3_8b.CONFIG,
     "llama3-8b": llama3_8b.CONFIG,
@@ -20,6 +20,7 @@ ARCHS: dict[str, ModelConfig] = {
     "chameleon-34b": chameleon_34b.CONFIG,
     "grok-1-314b": grok1_314b.CONFIG,
     "deepseek-v3-671b": deepseek_v3_671b.CONFIG,
+    "jamba-1.5-large-398b": jamba15_large_398b.CONFIG,
     # the paper's own model family
     "opt-30b": opt.CONFIG,
     "opt-125m": opt.OPT_125M,

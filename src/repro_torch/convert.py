@@ -6,10 +6,10 @@ leading ``[n_p, ...]`` axis) and scans over them.  The port keeps one dict
 per layer under ``params["layers"]``.  :func:`from_numpy` unstacks a
 reference tree — float or ``quantize_tree``'d, with its leaves already
 turned into numpy arrays — into port tensors, keeping every key name;
-:func:`to_numpy` stacks a port tree back, each run of consecutive layers of
-one structure a group of period 1 (the dense and MoE decoders' layout; a
-stack whose first layers are dense and the rest MoE gets two groups, as
-the reference's ``first_dense_layers`` does).
+:func:`to_numpy` stacks a port tree back in the reference's groups.  An
+encoder-decoder keeps its encoder and decoder layers under ``enc`` and
+``dec``, each one stacked tree in the reference and a per-layer list in the
+port.
 """
 from __future__ import annotations
 
@@ -47,45 +47,72 @@ def to_device(params: Any, device: str | torch.device) -> Any:
 def from_numpy(params: dict, device: str | torch.device = "cuda") -> dict:
     """Reference params (numpy leaves) -> port params on ``device``.  Layer
     ``start + pi * period + s`` of group ``(start, count, period)`` is slot
-    ``s``'s tree indexed at ``pi``; groups follow each other."""
+    ``s``'s tree indexed at ``pi``; groups follow each other.  An
+    encoder-decoder's stacked ``enc`` / ``dec`` trees become per-layer
+    lists."""
     dev = resolve(device)
 
     def tensor(a):
         return torch.from_numpy(np.array(a)).to(dev)
 
-    out = {k: _map(v, tensor) for k, v in params.items() if k != "groups"}
-    layers = []
-    for slots in params["groups"]:
-        n_p = _leaves(slots[0])[0].shape[0]
-        for pi in range(n_p):
-            for slot_tree in slots:
-                layers.append(_map(slot_tree, lambda a: tensor(a[pi])))
-    out["layers"] = layers
+    def unstack(tree):
+        return [_map(tree, lambda a, i=i: tensor(a[i]))
+                for i in range(_leaves(tree)[0].shape[0])]
+
+    out = {k: unstack(v) if k in _ENCDEC else _map(v, tensor)
+           for k, v in params.items() if k != "groups"}
+    if "groups" in params:
+        layers = []
+        for slots in params["groups"]:
+            n_p = _leaves(slots[0])[0].shape[0]
+            for pi in range(n_p):
+                for slot_tree in slots:
+                    layers.append(_map(slot_tree, lambda a: tensor(a[pi])))
+        out["layers"] = layers
     return out
 
 
-def _structure(tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return tuple((k, _structure(v)) for k, v in tree.items())
-    return None
+_ENCDEC = ("enc", "dec")      # an encoder-decoder's stacked layer trees
 
 
-def to_numpy(params: dict) -> dict:
-    """Port params -> the reference's layout with numpy leaves (each run of
-    layers of one structure in a group of period 1)."""
-    out = {k: _map(v, lambda t: t.detach().cpu().numpy())
+def layer_groups(cfg) -> list[tuple[int, int, int]]:
+    """The reference's ``[(start, count, period)]`` over ``cfg.n_layers``
+    decoder layers: a hybrid stack one group whose period is ``attn_every``
+    (a slot tree for each layer of a period), a stack with
+    ``first_dense_layers`` two groups, every other stack one group of
+    period 1."""
+    n = cfg.n_layers
+    if cfg.family == "hybrid":
+        if n % cfg.attn_every:
+            raise ValueError(f"{cfg.name}: {n} layers are not whole periods of "
+                             f"{cfg.attn_every}")
+        return [(0, n, cfg.attn_every)]
+    if cfg.first_dense_layers:
+        f = cfg.first_dense_layers
+        return [(0, f, 1), (f, n - f, 1)]
+    return [(0, n, 1)]
+
+
+def _stack(trees: list) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([t.detach().cpu().numpy() for t in trees])
+
+
+def to_numpy(params: dict, cfg) -> dict:
+    """Port params of configuration ``cfg`` -> the reference's layout with
+    numpy leaves: the decoder layers go into the reference's groups
+    (:func:`layer_groups`), an encoder-decoder's ``enc`` / ``dec`` lists are
+    stacked back."""
+    out = {k: _stack(v) if k in _ENCDEC else _map(v, lambda t: t.detach().cpu().numpy())
            for k, v in params.items() if k != "layers"}
-
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return np.stack([t.detach().cpu().numpy() for t in trees])
-
-    runs: list[list] = []
-    for layer in params["layers"]:
-        if runs and _structure(runs[-1][0]) == _structure(layer):
-            runs[-1].append(layer)
-        else:
-            runs.append([layer])
-    out["groups"] = tuple((stack(run),) for run in runs)
+    if "layers" not in params:
+        return out
+    layers = params["layers"]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {len(layers)} layers in the tree, "
+                         f"{cfg.n_layers} in the configuration")
+    out["groups"] = tuple(tuple(_stack(layers[start + s:start + count:period])
+                                for s in range(period))
+                          for start, count, period in layer_groups(cfg))
     return out

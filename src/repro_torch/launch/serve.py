@@ -43,11 +43,12 @@ after its first tokens); it ends by printing ``SERVE_SHUTDOWN_CLEAN``:
 Fault injection (``--ber``, ``--fault-steps``, ``--fault-every``,
 ``--slot-loss``), request deadlines (``--deadline``) and the fault layer
 alone (``--faults``) work in both engine modes.  ``--arch`` takes every
-dense, MoE (grok-1-314b), MLA (deepseek-v3-671b) and SSM configuration of
-the reference's registry (chameleon-34b prompts with token ids here, as
-the reference's CLI does); its hybrid and encoder-decoder ones (ROADMAP
-A.11) are not ported yet, and neither is ``--mesh`` (sharded serving,
-expert parallelism included, ROADMAP A.14): both raise.
+configuration of the reference's registry (chameleon-34b prompts with
+token ids here, as the reference's CLI does).  An encoder-decoder
+(whisper-tiny) serves in the fixed-batch mode only, from frame embeddings
+drawn from the seed; the continuous engine refuses it as the reference's
+does.  ``--mesh`` (sharded serving, expert parallelism included, ROADMAP
+A.14) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -77,8 +78,12 @@ def _run_fixed(cfg, params, rt, args):
     eng = Engine(cfg=cfg, params=params, max_len=args.prompt_len + args.steps + 1,
                  rt=rt, quantize=not args.no_quantize, device=args.device)
     g = torch.Generator().manual_seed(1)
-    batch = {"inputs": torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                                     generator=g)}
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=g)
+    if cfg.family == "encdec":         # the stubbed front end's frame embeddings
+        batch = {"frames": torch.randn((args.batch, cfg.encoder_seq, cfg.d_model),
+                                       generator=g), "tokens": tokens}
+    else:
+        batch = {"inputs": tokens}
     toks, times = eng.generate(batch, steps=args.steps)
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"steps={args.steps}")
@@ -389,9 +394,6 @@ def main(argv: list[str] | None = None):
     cfg = registry.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder serving is not ported yet (ROADMAP A.11)")
     params = M.init_params(cfg, seed=0, device=args.device)
     if args.serve:
         _run_serve(cfg, params, rt, args)

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch import kernels as KN
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Runtime
 
@@ -95,7 +96,8 @@ class ServeSteps:
 
     Steps (each returns outputs that hold until the next replay):
 
-    * :meth:`decode`: ``decode_step`` -> (logits [n, V], argmax [n] int32);
+    * :meth:`decode`: ``decode_step`` (an encoder-decoder's too) ->
+      (logits [n, V], argmax [n] int32);
     * :meth:`verify` (``T`` in ``verify``) and :meth:`tree` (``T`` in
       ``tree``): ``verify_step`` -> (logits [n, T, V], argmax [n, T]), its
       post-``ln_f`` hidden states [n, T, d] left in :attr:`hidden` (the
@@ -135,7 +137,7 @@ class ServeSteps:
         self.graphs[key] = StepGraph(fn, self.state, self.pool)
 
     def _decode(self):
-        logits, _ = T.decode_step(self.params, self.cfg, self.state, self.tok,
+        logits, _ = M.decode_step(self.params, self.cfg, self.state, self.tok,
                                   self.rt)
         return logits, torch.argmax(logits, -1).to(torch.int32)
 

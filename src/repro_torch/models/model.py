@@ -7,9 +7,12 @@ the prefix cache) and the speculative lanes use, for GQA/MHA decoders
 front end gives) and MLA decoders (with DeepSeek-V3's MTP head, which
 drafts through :func:`mtp_draft` / :func:`mtp_draft_tree`), whose FFNs are
 dense or mixture-of-experts (``models/moe.py``; token inputs), and SSM
-(Mamba2) stacks.  Hybrid stacks and encoder-decoders raise until their
-slice is ported (ROADMAP A.11), and ``verify_step`` raises for SSM stacks,
-as in the reference.
+(Mamba2) stacks, hybrid stacks that interleave SSM and GQA layers
+(Jamba), and encoder-decoders (Whisper, ``models/encdec.py``: prefill from
+``{"frames", "tokens"}``, then decode).  As in the reference,
+``verify_step`` raises for stacks with SSM layers, and chunked prefill,
+the fused multi-step lane and the speculative lanes raise for
+encoder-decoders ("... targets decoder-only LMs").
 """
 from __future__ import annotations
 
@@ -18,15 +21,33 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Runtime  # noqa: F401
 
 Params = dict[str, Any]
 
 
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration the port does not
+    serve (see :func:`transformer.check_supported`,
+    :func:`encdec.check_supported`)."""
+    if cfg.family == "encdec":
+        encdec.check_supported(cfg)
+    else:
+        T.check_supported(cfg)
+
+
+def _decoder_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"{what} targets decoder-only LMs")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: str | torch.device = "cuda",
                 dtype=torch.float32) -> Params:
+    if cfg.family == "encdec":
+        return encdec.init_params(cfg, seed=seed, device=device, dtype=dtype)
     return T.init_params(cfg, seed=seed, device=device, dtype=dtype)
 
 
@@ -34,13 +55,19 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int,
             rt: Runtime):
     """``batch`` holds ``inputs`` ([B, T] int tokens, or [B, T, d] float
     embeddings where ``cfg.input_mode == "embeddings"``) and may carry
-    ``lengths`` ([B] int32) for ragged right-padded prompts."""
+    ``lengths`` ([B] int32) for ragged right-padded prompts; an
+    encoder-decoder's holds ``frames`` ([B, S_enc, d]) and ``tokens``
+    ([B, T])."""
+    if cfg.family == "encdec":
+        return encdec.prefill(params, cfg, batch["frames"], batch["tokens"], max_len, rt)
     return T.prefill(params, cfg, batch["inputs"], max_len, rt,
                      lengths=batch.get("lengths"))
 
 
 def decode_step(params: Params, cfg: ModelConfig, state: dict, token,
                 rt: Runtime):
+    if cfg.family == "encdec":
+        return encdec.decode_step(params, cfg, state, token, rt)
     return T.decode_step(params, cfg, state, token, rt)
 
 
@@ -49,6 +76,7 @@ def multi_decode_step(params: Params, cfg: ModelConfig, state: dict, token,
     """``m`` greedy decode steps with the argmax fed back on the device ->
     (tokens [B, m] int32, state advanced by m); see
     :func:`repro_torch.models.transformer.multi_decode_step`."""
+    _decoder_only(cfg, "fused multi-step decode")
     return T.multi_decode_step(params, cfg, state, token, m, rt)
 
 
@@ -57,6 +85,7 @@ def init_prefill_carry(cfg: ModelConfig, buf_len: int,
     """A zero float K/V carry of ``buf_len`` rows (``carry_len(max_len, chunk)``)
     for one chunked prefill; see
     :func:`repro_torch.models.transformer.init_prefill_carry`."""
+    _decoder_only(cfg, "chunked prefill")
     return T.init_prefill_carry(cfg, buf_len, device)
 
 
@@ -65,6 +94,7 @@ def warm_prefill_carry(cfg: ModelConfig, state: dict, slot: int, n: int,
     """A carry seeded from rows ``[0:n)`` of pool ``slot`` with its cursor
     at ``n`` (the prefix-cache warm start); see
     :func:`repro_torch.models.transformer.warm_prefill_carry`."""
+    _decoder_only(cfg, "chunked prefill")
     return T.warm_prefill_carry(cfg, state, slot, n, buf_len, tokens)
 
 
@@ -73,11 +103,13 @@ def prefill_chunk(params: Params, cfg: ModelConfig, carry: dict, tokens,
     """One ``[1, C]`` chunk (or ``[1, C, d]`` embeddings) at the carry's
     cursor -> (logits of its last real token [1, V], carry updated in
     place)."""
+    _decoder_only(cfg, "chunked prefill")
     return T.prefill_chunk(params, cfg, carry, tokens, n_real, rt)
 
 
 def finalize_prefill_carry(cfg: ModelConfig, carry: dict, max_len: int,
                            start: int = 0) -> dict:
+    _decoder_only(cfg, "chunked prefill")
     return T.finalize_prefill_carry(cfg, carry, max_len, start)
 
 
@@ -87,6 +119,7 @@ def verify_step(params: Params, cfg: ModelConfig, state: dict, tokens,
     T-1 drafts per slot) -> (logits [B, T, V], hidden [B, T, d], state with
     ``pos + T``).  With ``depth``/``anc`` ([B, T] int32) the window is a
     draft tree.  See :func:`repro_torch.models.transformer.verify_step`."""
+    _decoder_only(cfg, "speculative decode")
     return T.verify_step(params, cfg, state, tokens, rt, depth=depth, anc=anc)
 
 
@@ -101,6 +134,7 @@ def mtp_draft(params: Params, cfg: ModelConfig, hidden, token, pos, k: int,
               rt: Runtime):
     """Draft ``k`` tokens a slot from the MTP head (requires ``cfg.mtp``);
     see :func:`repro_torch.models.transformer.mtp_draft`."""
+    _decoder_only(cfg, "speculative decode")
     return T.mtp_draft(params, cfg, hidden, token, pos, k, rt)
 
 
@@ -109,9 +143,12 @@ def mtp_draft_tree(params: Params, cfg: ModelConfig, hidden, token, pos, n: int,
     """Beam the MTP head into a static draft tree (tokens [B, n],
     chain-major; topology from
     :func:`repro_torch.models.transformer.mtp_chain_lengths`)."""
+    _decoder_only(cfg, "speculative decode")
     return T.mtp_draft_tree(params, cfg, hidden, token, pos, n, branch, rt)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device: str | torch.device = "cuda") -> dict:
+    if cfg.family == "encdec":
+        return encdec.init_decode_state(cfg, batch, max_len, device)
     return T.init_decode_state(cfg, batch, max_len, device)

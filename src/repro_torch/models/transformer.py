@@ -1,5 +1,7 @@
 """Decoder-LM assembly for the GQA/MHA and MLA decoders (dense or
-mixture-of-experts FFNs) and the SSM (Mamba2) family.
+mixture-of-experts FFNs), the SSM (Mamba2) family and hybrid stacks that
+interleave the two (Jamba: SSM layers, a GQA layer every ``attn_every``,
+dense or MoE FFNs).
 
 PyTorch counterpart of ``repro.models.transformer``.  Layers are a per-layer
 list (``params["layers"]``), not the reference's stacked ``lax.scan``, and
@@ -50,28 +52,32 @@ class Runtime:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves GQA/MHA decoders (with RoPE or with sinusoidal
-    positions when ``rope_theta == 0``, with or without QK-norm; family
-    ``vlm`` too, whose stubbed early-fusion front end hands the backbone
-    embeddings, ``input_mode="embeddings"``), MLA decoders (token inputs,
-    with or without the MTP head), their FFNs dense or mixture-of-experts
-    (``n_experts``, any mix of the two by ``is_moe_layer``; token inputs),
-    and attention-free SSM (Mamba2) stacks.  Hybrid stacks wait on ROADMAP
-    A.11.4 and encoder-decoders on A.11."""
-    if cfg.family == "hybrid":
+    """The port's decoder stack serves GQA/MHA decoders (with RoPE or with
+    sinusoidal positions when ``rope_theta == 0``, with or without QK-norm;
+    family ``vlm`` too, whose stubbed early-fusion front end hands the
+    backbone embeddings, ``input_mode="embeddings"``), MLA decoders (token
+    inputs, with or without the MTP head), their FFNs dense or
+    mixture-of-experts (``n_experts``, any mix of the two by
+    ``is_moe_layer``; token inputs), attention-free SSM (Mamba2) stacks,
+    and hybrid stacks that interleave SSM and GQA attention layers
+    (``layer_kind``; Jamba), their FFNs dense or mixture-of-experts, token
+    inputs.  Encoder-decoders are served by ``models/encdec.py`` (A.11.5),
+    not by this stack."""
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"{cfg.name}: hybrid SSM/attention stacks (whose moe layers "
-            "models/moe.py serves) wait on the hybrid stack (ROADMAP A.11.4)")
+            f"{cfg.name}: encoder-decoders are served by models/encdec.py (ROADMAP "
+            "A.11.5), not by the decoder stack")
     gqa = cfg.family in ("dense", "vlm", "moe") and cfg.attn_type == "gqa"
     mla = cfg.family in ("dense", "moe") and cfg.attn_type == "mla"
     ssm = cfg.family == "ssm" and cfg.attn_type == "none" and not cfg.d_ff
+    hybrid = cfg.family == "hybrid" and cfg.attn_type == "gqa" and cfg.attn_every > 0
     inputs = cfg.input_mode == "tokens" or (gqa and not cfg.n_experts
                                             and cfg.input_mode == "embeddings")
-    if (not (gqa or mla or ssm) or (ssm and cfg.n_experts) or not inputs
+    if (not (gqa or mla or ssm or hybrid) or (ssm and cfg.n_experts) or not inputs
             or (cfg.mtp and not mla)):
         raise NotImplementedError(
-            f"{cfg.name}: only GQA/MHA and MLA decoders (dense or MoE FFNs) and "
-            "SSM stacks are ported so far (other families: ROADMAP A.11)")
+            f"{cfg.name}: only GQA/MHA and MLA decoders (dense or MoE FFNs), SSM stacks "
+            "and hybrid SSM/GQA stacks are ported so far (other families: ROADMAP A.11)")
 
 
 def has_ssm(cfg: ModelConfig) -> bool:
@@ -537,11 +543,12 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
     (a MoE stack in one piece of T rows) against a float K/V carry (see
     above), whose rows ``[0, T)`` are
     quantized into the int8 cache (padded rows included; decode masks and
-    then overwrites them).  An SSM layer runs the chunked
-    SSD over all T tokens and hands its final recurrent state to decode
-    (the engine prefills SSM stacks at exact length); under ``fused_int8``
-    its intra-chunk part runs B6, under every other backend the tensor
-    path, as attention takes B2 by the same rule."""
+    then overwrites them).  A stack with SSM layers (hybrid included) runs
+    every layer over all T tokens in one piece (:func:`_prefill_exact`):
+    an SSM layer the chunked SSD, handing its final recurrent state to
+    decode (the engine prefills SSM stacks at exact length); under
+    ``fused_int8`` its intra-chunk part runs B6, under every other backend
+    the tensor path, as attention takes B2 by the same rule."""
     B, T = inputs.shape[:2]
     if T > max_len:
         raise ValueError(f"prompt of {T} tokens exceeds max_len {max_len}")
@@ -550,7 +557,7 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
                else torch.as_tensor(lengths, dtype=torch.int32,
                                     device=dev).reshape(-1).expand(B))
     if has_ssm(cfg):
-        return _prefill_ssm(p, cfg, inputs, max_len, rt, lengths)
+        return _prefill_exact(p, cfg, inputs, max_len, rt, lengths)
     carry = init_prefill_carry(cfg, carry_len(max_len), dev, batch=B)
     rows = torch.arange(B, device=dev)
     size = T if has_moe(cfg) else PREFILL_PIECE
@@ -570,18 +577,42 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
     return _lm_head(p, cfg, last, rt), state
 
 
-def _prefill_ssm(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
-                 rt: Runtime, lengths: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """:func:`prefill` of an SSM stack: every layer over all T tokens."""
-    B, T = inputs.shape
-    x = _embed(p, cfg, inputs, torch.arange(T, device=inputs.device).expand(B, T))
-    state = init_decode_state(cfg, B, max_len, x.device)
+def _prefill_exact(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
+                   rt: Runtime, lengths: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """:func:`prefill` of a stack with SSM layers (Mamba2, or a hybrid that
+    interleaves attention layers), each layer over all T tokens in one
+    piece, as the reference's prefill dispatches them.  An SSM layer runs
+    the chunked SSD and hands its final recurrent state to decode (B6 under
+    ``fused_int8``).  An attention layer attends the T rows as one block of
+    keys, each row's keys masked to its ``lengths`` (the padding the SSM
+    layers scan through is not masked: the engine prefills SSM stacks at
+    exact length), and its K/V rows ``[0, T)`` are quantized into the int8
+    cache as the other stacks' are."""
+    B, T = inputs.shape[:2]
+    dev = inputs.device
+    positions = torch.arange(T, device=dev).expand(B, T)
+    x = _embed(p, cfg, inputs, positions)
+    state = init_decode_state(cfg, B, max_len, dev)
+    if any("attn" in lp for lp in p["layers"]):
+        rope = (L.rope_tables(positions, A.rope_dim(cfg), cfg.rope_theta)
+                if cfg.rope_theta else None)
+        hidden = A.hidden_masks(T, T, T, q_offset=torch.zeros_like(lengths),
+                                kv_lengths=lengths, device=dev)
     for lp, cache in zip(p["layers"], state["layers"]):
         h = L.apply_norm(lp["ln1"], x)
-        mix, new = SSM.ssm_forward(lp["ssm"], cfg, h, backend=rt.backend,
-                                   return_state=True,
-                                   use_kernel=rt.backend == "fused_int8")
-        cache.update(new)
+        if "ssm" in lp:
+            mix, new = SSM.ssm_forward(lp["ssm"], cfg, h, backend=rt.backend,
+                                       return_state=True,
+                                       use_kernel=rt.backend == "fused_int8")
+            cache.update(new)
+        else:
+            kv = (B, T, cfg.n_kv_heads, cfg.head_dim)
+            buf = {"k": torch.zeros(kv, dtype=torch.float32, device=dev),
+                   "v": torch.zeros(kv, dtype=torch.float32, device=dev)}
+            mix = A.gqa_chunk(lp["attn"], cfg, h, positions, buf, 0, lengths, T,
+                              rt.backend, rope=rope, hidden=hidden)
+            for name, val in _quantize_carry(buf, 0, T).items():
+                KV.chunk_update(cache[name], val, 0)
         x = _ffn(lp, cfg, x + mix, rt)
     x = L.apply_norm(p["ln_f"], x)
     last = x[torch.arange(B, device=x.device), (lengths - 1).long()]

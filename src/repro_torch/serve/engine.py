@@ -156,7 +156,7 @@ class Engine:
     def __post_init__(self):
         self.device = resolve(self.device)
         set_float32_precision()
-        T.check_supported(self.cfg)
+        M.check_supported(self.cfg)
         _check_on(self.params, self.device)
         self.qparams = quantize_tree(self.params) if self.quantize else self.params
         self._steps: dict[int, G.ServeSteps] = {}     # batch -> captured step
@@ -176,7 +176,8 @@ class Engine:
         (tokens [B, steps], per-stage timings).  ``batch["inputs"]`` may be
         [B, T, d] embeddings where the configuration takes them (float
         inputs land on the card as f32); decode then feeds token ids, as
-        the reference's does.  ``greedy=False`` samples
+        the reference's does.  An encoder-decoder's batch holds ``frames``
+        [B, S_enc, d] and ``tokens`` [B, T].  ``greedy=False`` samples
         each step's token from the softmax of its logits with ``generator``
         (a ``torch.Generator`` on the engine's device), which it requires;
         its draws are torch's, not ``jax.random``'s."""
@@ -262,6 +263,8 @@ class ContinuousBatchingEngine:
                  faults: FaultInjector | bool | None = None, max_step_retries: int = 3,
                  retry_backoff_s: float = 0.02, watchdog_factor: float = 8.0,
                  device: str | torch.device = "cuda"):
+        if cfg.family == "encdec":
+            raise NotImplementedError("continuous batching targets decoder-only LMs")
         self._has_ssm = T.has_ssm(cfg)
         # an SSM stack's recurrent state cannot rewind or restart
         # mid-prompt: these lanes are silently off, as in the reference

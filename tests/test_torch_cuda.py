@@ -19,7 +19,10 @@ the three quantizers' scales and codes equal to the CPU's (IEEE division by
 expert's slice, and B2 at grok-1-314b's rep 6; the top-8 combine on the
 card equal to the CPU's sums and repeating (and replaying, captured) its
 bits, MLA's latent quantizer IEEE, and reduced deepseek-v3-671b's streams
-(MTP lanes too) equal to the CPU's.  The engines' captured steps (CUDA graphs) are
+(MTP lanes too) equal to the CPU's; B6 at jamba-1.5-large-398b's 256
+heads, the grouped B1 at its 16 experts, B2 at whisper-tiny's rep 1 and
+head dim 64, and both reduced models' streams equal to the CPU's with
+their launch counts.  The engines' captured steps (CUDA graphs) are
 held bit-equal to the eager steps, logits and every state tensor, with their
 launch counts, and chunked serving token-identical to one-shot prefill.
 """
@@ -1282,3 +1285,126 @@ def test_reduced_deepseek_serves_on_the_card_like_the_cpu(cuda):
                                        rt=Runtime("fused_int8"), drafter="mtp", **lane)
         assert eng.generate_all(prompts, budgets) == want
         assert eng.stats["verify_steps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the hybrid stack (jamba-1.5-large-398b) and the encoder-decoder
+# (whisper-tiny): B6 at 256 heads, the grouped B1 at 16 experts, B2 at rep 1
+# and head dim 64, the reduced models' streams
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("N,Q", [(2, 128), (1, 37)])
+def test_ssd_chunk_at_jamba_heads_matches_plain(cuda, N, Q):
+    """B6 at jamba-1.5-large-398b's 256 SSM heads of 64 in one group, state
+    128 (the H the model's kernel route passes it), against its plain
+    version: y and the chunk state within ``rtol=2e-4, atol=2e-5``, the
+    decay within ``rtol=1e-5``, one launch."""
+    x, B, C, dt, A, D, h0 = _ssd_inputs(N, Q, 256, 64, 128, 11 * N + Q, cuda)
+    B, C = B[:, :, :1].contiguous(), C[:, :, :1].contiguous()
+    reset_launch_counts()
+    y, s_out, dec = ssd.ssd_chunk(x, B, C, dt, A, D, h0)
+    assert launch_counts()["ssd_chunk"] == 1
+    py, ps, pd = ssd.ssd_chunk_plain(x, B, C, dt, A, D, h0)
+    torch.testing.assert_close(y, py, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(s_out, ps, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(dec, pd, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("C", [1, 13])
+def test_int8_matmul_grouped_at_16_experts(cuda, C):
+    """The grouped entry at jamba's 16 experts (a decode step's cap 1 and a
+    prefill call's cap 13, experts of 0, 1 and C rows), K 8192 -> N 3072
+    and back: bit-equal to its plain version and to B1 on each expert's
+    slice, rows past a count zero, one launch a call."""
+    E = 16
+    counts = [C if e % 3 == 0 else (1 if e % 3 == 1 else 0) for e in range(E)]
+    g = torch.Generator().manual_seed(16 + C)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    for K, N in ((8192, 3072), (3072, 8192)):
+        x_q = torch.randint(-127, 128, (E, C, K), generator=g, dtype=torch.int8).to(cuda)
+        x_s = (torch.rand((E, C, 1), generator=g) + 0.01).to(cuda)
+        w_q = torch.randint(-127, 128, (E, K, N), generator=g, dtype=torch.int8).to(cuda)
+        w_s = (torch.rand((E, N), generator=g) + 0.01).to(cuda)
+        reset_launch_counts()
+        got = gmm.int8_matmul_grouped_cuda(x_q, x_s, w_q, w_s, cnt)
+        assert launch_counts()["int8_matmul_grouped"] == 1
+        assert torch.equal(got, gmm.int8_matmul_grouped_plain(x_q, x_s, w_q, w_s, cnt))
+        for e, c in enumerate(counts):
+            assert not got[e, c:].any()
+            if c:
+                want, _ = mm.int8_matmul_cuda(x_q[e, :c].contiguous(), x_s[e, :c].contiguous(),
+                                             w_q[e], w_s[e], with_acc=False)
+                assert torch.equal(got[e, :c], want), e
+
+
+def test_decode_attn_at_rep_1_head_dim_64_matches_plain(cuda):
+    """B2 at whisper-tiny's self-attention (6 heads of 64, MHA) in a pool of
+    512 rows at ragged lengths, within ``rtol=3e-5, atol=3e-6`` of its
+    plain version."""
+    q_q, q_s, cache = _window(4, 512, 6, 1, 64, 1, 64, cuda)
+    lengths = torch.tensor([1, 200, 377, 512], dtype=torch.int32, device=cuda)
+    args = (q_q[:, :, 0].contiguous(), q_s[:, :, 0].contiguous(), *cache, lengths)
+    reset_launch_counts()
+    got = da.decode_attn_cuda(*args)
+    assert launch_counts()["decode_attn"] == 1
+    torch.testing.assert_close(got, da.decode_attn_plain(*args), rtol=3e-5, atol=3e-6)
+
+
+def test_reduced_jamba_serves_on_the_card_like_the_cpu(cuda):
+    """Reduced jamba-1.5-large-398b (SSM layers, attention at 1 and 5, MoE
+    on the odd layers) on the card under ``fused_int8``: each prompt
+    prefilled alone at exact length launches B6 once an SSM layer (prompts
+    under 128 tokens); a decode step launches B1 for each SSM layer's 3 and
+    each attention layer's 4 linears and each dense FFN's 3, the grouped B1
+    three times a MoE layer, B2 once an attention layer and RMSNorm once a
+    norm (an SSM layer's gated norm included); the streams equal the
+    CPU's."""
+    cfg = registry.get("jamba-1.5-large-398b").reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, rng.integers(4, 20)).tolist()
+               for _ in range(6)]
+    budgets = [int(rng.integers(4, 13)) for _ in range(6)]
+    want = ContinuousBatchingEngine(cfg, params, n_slots=2, max_len=64,
+                                    rt=Runtime("fused_int8"), device="cpu").generate_all(
+        prompts, budgets)
+    eng = ContinuousBatchingEngine(cfg, convert.to_device(params, cuda), n_slots=2,
+                                   max_len=64, rt=Runtime("fused_int8"))
+    reset_launch_counts()
+    assert eng.generate_all(prompts, budgets) == want
+    L = cfg.n_layers
+    ssm = [cfg.layer_kind(i) == "ssm" for i in range(L)]
+    moe = [cfg.is_moe_layer(i) for i in range(L)]
+    steps, n = eng.stats["decode_steps"], len(prompts)
+    linears = sum((3 if s else 4) + (0 if e else 3) for s, e in zip(ssm, moe))
+    counts = launch_counts()
+    assert counts["int8_matmul"] == linears * steps
+    assert counts["int8_matmul_grouped"] == 3 * sum(moe) * steps
+    assert counts["decode_attn"] == (L - sum(ssm)) * steps
+    assert counts["ssd_chunk"] == sum(ssm) * n
+    assert counts["rms_norm"] == (1 + sum(2 + s for s in ssm)) * (steps + n)
+
+
+def test_reduced_whisper_serves_on_the_card_like_the_cpu(cuda):
+    """Reduced whisper-tiny through ``Engine.generate`` on the card under
+    ``fused_int8``: a decode step launches B1 for each decoder layer's 8
+    linears, B2 once a layer (the cross-attention runs the plain int8
+    path) and LayerNorm three times a layer plus ``ln_f``; the float
+    prefill only LayerNorm; the tokens equal the CPU's."""
+    cfg = registry.get("whisper-tiny").reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    batch = {"frames": torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g),
+             "tokens": torch.randint(0, cfg.vocab_size, (2, 6), generator=g)}
+    from repro_torch.serve.engine import Engine
+    want, _ = Engine(cfg=cfg, params=params, rt=Runtime("fused_int8"), max_len=64,
+                     device="cpu").generate(batch, 8)
+    eng = Engine(cfg=cfg, params=convert.to_device(params, cuda), rt=Runtime("fused_int8"),
+                 max_len=64)
+    eng.generate(batch, 1)                       # captures the decode step
+    reset_launch_counts()
+    got, _ = eng.generate(batch, 8)
+    assert torch.equal(got.cpu(), want)
+    L, counts = cfg.n_layers, launch_counts()
+    assert counts["int8_matmul"] == 8 * L * 8 and counts["decode_attn"] == L * 8
+    assert counts["layer_norm"] == (3 * L + 1) * 9 + 2 * cfg.encoder_layers + 1
+    assert counts["rms_norm"] == counts["int8_matmul_grouped"] == 0

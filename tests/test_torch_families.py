@@ -127,24 +127,27 @@ def test_opt_module_copy_matches_reference(name):
 def test_registry_ids_are_the_references():
     assert set(TR.ARCHS) <= set(JR.ARCHS)
     assert {"opt-30b", "opt-125m", "granite-3-8b", "phi3-mini-3.8b", "chameleon-34b",
-            "nemotron-4-340b", "grok-1-314b", "deepseek-v3-671b"} <= set(TR.ARCHS)
+            "nemotron-4-340b", "grok-1-314b", "deepseek-v3-671b", "jamba-1.5-large-398b",
+            "whisper-tiny"} <= set(TR.ARCHS)
 
 
 def test_check_supported_refuses_what_is_not_ported():
     """Embedding inputs, family ``vlm`` (chameleon-34b), experts
-    (grok-1-314b; every layer or every other one) and MLA (deepseek-v3-671b)
-    are admitted; hybrid stacks, encoder-decoders and experts fed
-    embeddings still raise, naming ROADMAP A.11."""
+    (grok-1-314b; every layer or every other one), MLA (deepseek-v3-671b)
+    and hybrid SSM/GQA stacks (jamba-1.5-large-398b) are admitted; experts
+    fed embeddings still raise, naming ROADMAP A.11, and so does an
+    encoder-decoder, which ``models/encdec.py`` serves instead of the
+    decoder stack (A.11.5)."""
     base = TR.get("opt-30b").reduced()
     for kw in ({"input_mode": "embeddings"}, {"family": "vlm"},
                {"family": "vlm", "input_mode": "embeddings", "use_qk_norm": True},
                {"n_experts": 4, "n_experts_active": 2},
                {"family": "moe", "n_experts": 8, "n_experts_active": 2, "moe_d_ff": 64,
-                "moe_every": 2}, {"attn_type": "mla"}):
+                "moe_every": 2}, {"attn_type": "mla"},
+               {"family": "hybrid", "attn_every": 2, "ssm_state": 16}):
         TT.check_supported(dataclasses.replace(base, **kw))
     for kw in ({"family": "moe", "n_experts": 8, "n_experts_active": 2,
                 "input_mode": "embeddings"},
-               {"family": "hybrid", "attn_every": 2, "ssm_state": 16},
                {"family": "encdec", "encoder_layers": 2, "encoder_seq": 16},
                {"family": "ssm", "attn_type": "none", "d_ff": 0,
                 "input_mode": "embeddings"}):
@@ -190,9 +193,9 @@ def test_layer_norm_plain_matches_reference(shape):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("tree", ["j", "jq"])
 def test_convert_round_trips(fam, tree):
-    arch, jcfg, _, w = fam
+    arch, jcfg, tcfg, w = fam
     src = _flat(_np(w[tree]))
-    back = _flat(convert.to_numpy(convert.from_numpy(_np(w[tree]), device="cpu")))
+    back = _flat(convert.to_numpy(convert.from_numpy(_np(w[tree]), device="cpu"), tcfg))
     assert src.keys() == back.keys()
     assert ("/lm_head/w" in back) != jcfg.tie_embeddings and "/embed/w" in back
     if jcfg.norm_type == "layernorm":
@@ -205,9 +208,9 @@ def test_convert_round_trips(fam, tree):
 
 
 def test_quantize_tree_matches_reference(fam):
-    _, _, _, w = fam
-    want = _flat(convert.to_numpy(w["tq"]))
-    got = _flat(convert.to_numpy(t_quantize_tree(w["t"])))
+    _, _, tcfg, w = fam
+    want = _flat(convert.to_numpy(w["tq"], tcfg))
+    got = _flat(convert.to_numpy(t_quantize_tree(w["t"]), tcfg))
     assert want.keys() == got.keys()
     assert got["/embed/w"].dtype == np.float32                    # the tied embedding stays float
     for k in want:

@@ -131,12 +131,12 @@ def test_init_convert_and_quantize_match_reference():
     w = _weights()
     own = TT.init_params(tcfg, seed=0, device="cpu")
     flat = lambda tree: sorted(jax.tree_util.keystr(k) for k, _ in
-                               jax.tree_util.tree_flatten_with_path(convert.to_numpy(tree))[0])
+                               jax.tree_util.tree_flatten_with_path(convert.to_numpy(tree, tcfg))[0])
     assert flat(own) == flat(w["t"])
     assert set(own["layers"][0]["attn"]) == {"wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm",
                                              "wkv_b", "wo"}
     assert "mlp" in own["layers"][0] and "moe" in own["mtp_layer"]
-    back = convert.to_numpy(w["tq"])
+    back = convert.to_numpy(w["tq"], tcfg)
     for (ka, a), (kb, b) in zip(jax.tree_util.tree_flatten_with_path(_np(w["jq"]))[0],
                                 jax.tree_util.tree_flatten_with_path(back)[0]):
         assert ka == kb
@@ -146,7 +146,7 @@ def test_init_convert_and_quantize_match_reference():
     assert {k for k in attn if k.endswith("_q")} == {"wq_a_q", "wq_b_q", "wkv_a_q",
                                                      "wkv_b_q", "wo_q"}
     assert set(got["mtp_proj"]) == {"w"}
-    for a, b in zip(jax.tree_util.tree_leaves(convert.to_numpy(got)),
+    for a, b in zip(jax.tree_util.tree_leaves(convert.to_numpy(got, tcfg)),
                     jax.tree_util.tree_leaves(back)):
         np.testing.assert_array_equal(a, b)
 

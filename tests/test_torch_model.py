@@ -73,7 +73,7 @@ def test_config_copy_matches_reference(reduced):
 @pytest.mark.parametrize("tree", ["j", "jq"])
 def test_convert_round_trips(weights, tree):
     src = _flat(_np(weights[tree]))
-    back = _flat(convert.to_numpy(convert.from_numpy(_np(weights[tree]), device="cpu")))
+    back = _flat(convert.to_numpy(convert.from_numpy(_np(weights[tree]), device="cpu"), TCFG))
     assert src.keys() == back.keys()
     for k in src:
         assert src[k].dtype == back[k].dtype, k
@@ -92,8 +92,8 @@ def test_convert_unstacks_layers_in_order(weights):
 
 
 def test_quantize_tree_matches_reference_exactly(weights):
-    want = _flat(convert.to_numpy(weights["tq"]))
-    got = _flat(convert.to_numpy(t_quantize_tree(weights["t"])))
+    want = _flat(convert.to_numpy(weights["tq"], TCFG))
+    got = _flat(convert.to_numpy(t_quantize_tree(weights["t"]), TCFG))
     assert want.keys() == got.keys()
     assert "/groups/0/0/attn/wq_q" in got and "/lm_head/w" in got and "/embed/w" in got
     for k in want:
@@ -104,8 +104,8 @@ def test_quantize_tree_matches_reference_exactly(weights):
 def test_init_params_mirrors_reference_structure(weights):
     mine = TM.init_params(TCFG, seed=0, device="cpu")
     ref = weights["t"]
-    shapes = {k: v.shape for k, v in _flat(convert.to_numpy(mine)).items()}
-    assert shapes == {k: v.shape for k, v in _flat(convert.to_numpy(ref)).items()}
+    shapes = {k: v.shape for k, v in _flat(convert.to_numpy(mine, TCFG)).items()}
+    assert shapes == {k: v.shape for k, v in _flat(convert.to_numpy(ref, TCFG)).items()}
     # the analytical count leaves out the final norm (ln_f), as in the reference
     assert sum(int(np.prod(s)) for s in shapes.values()) == TCFG.param_count() + TCFG.d_model
     again = TM.init_params(TCFG, seed=0, device="cpu")

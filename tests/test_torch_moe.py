@@ -461,7 +461,7 @@ def test_convert_groups_runs_of_one_structure():
     params = JM.init_params(jax.random.key(1), jcfg)
     assert [c for _, c, _ in JT.layer_groups(jcfg)] == [1, 3]
     for tree in (params, j_quantize_tree(params)):
-        back = convert.to_numpy(convert.from_numpy(_np(tree), device="cpu"))
+        back = convert.to_numpy(convert.from_numpy(_np(tree), device="cpu"), tcfg)
         flat_a, flat_b = jax.tree_util.tree_flatten_with_path(_np(tree))[0], \
             jax.tree_util.tree_flatten_with_path(back)[0]
         assert [k for k, _ in flat_a] == [k for k, _ in flat_b]
@@ -471,8 +471,8 @@ def test_convert_groups_runs_of_one_structure():
     assert "mlp" in t["layers"][0] and all("moe" in lp for lp in t["layers"][1:])
     want = convert.from_numpy(_np(j_quantize_tree(params)), device="cpu")
     got = t_quantize_tree(t)
-    for a, b in zip(jax.tree_util.tree_leaves(convert.to_numpy(want)),
-                    jax.tree_util.tree_leaves(convert.to_numpy(got))):
+    for a, b in zip(jax.tree_util.tree_leaves(convert.to_numpy(want, tcfg)),
+                    jax.tree_util.tree_leaves(convert.to_numpy(got, tcfg))):
         np.testing.assert_array_equal(a, b)
 
 

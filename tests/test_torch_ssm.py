@@ -250,7 +250,7 @@ def test_config_copy_matches_reference(reduced):
 @pytest.mark.parametrize("tree", ["j", "jq"])
 def test_convert_round_trips_ssm_keys(weights, tree):
     src = _flat(_np(weights[tree]))
-    back = _flat(convert.to_numpy(convert.from_numpy(_np(weights[tree]), device="cpu")))
+    back = _flat(convert.to_numpy(convert.from_numpy(_np(weights[tree]), device="cpu"), TCFG))
     assert src.keys() == back.keys() and "/lm_head/w" not in back
     for leaf in ("A_log", "D", "dt_bias", "conv_x", "conv_bB", "norm/scale"):
         assert f"/groups/0/0/ssm/{leaf}" in back, leaf
@@ -260,8 +260,8 @@ def test_convert_round_trips_ssm_keys(weights, tree):
 
 
 def test_quantize_tree_matches_reference_exactly(weights):
-    want = _flat(convert.to_numpy(weights["tq"]))
-    got = _flat(convert.to_numpy(t_quantize_tree(weights["t"])))
+    want = _flat(convert.to_numpy(weights["tq"], TCFG))
+    got = _flat(convert.to_numpy(t_quantize_tree(weights["t"]), TCFG))
     assert want.keys() == got.keys()
     for name in ("w_z", "w_x", "out_proj"):
         assert f"/groups/0/0/ssm/{name}_q" in got and f"/groups/0/0/ssm/{name}_s" in got
@@ -274,8 +274,8 @@ def test_quantize_tree_matches_reference_exactly(weights):
 
 def test_init_params_mirrors_reference_structure(weights):
     mine = TM.init_params(TCFG, seed=0, device="cpu")
-    shapes = {k: v.shape for k, v in _flat(convert.to_numpy(mine)).items()}
-    assert shapes == {k: v.shape for k, v in _flat(convert.to_numpy(weights["t"])).items()}
+    shapes = {k: v.shape for k, v in _flat(convert.to_numpy(mine, TCFG)).items()}
+    assert shapes == {k: v.shape for k, v in _flat(convert.to_numpy(weights["t"], TCFG)).items()}
     again = TM.init_params(TCFG, seed=0, device="cpu")
     assert torch.equal(again["layers"][1]["ssm"]["w_x"], mine["layers"][1]["ssm"]["w_x"])
     # log(linspace(1, 16, H)) as the reference draws it, up to the last bit
@@ -312,9 +312,10 @@ def test_verify_step_and_hybrid_stacks_raise(weights):
     with pytest.raises(NotImplementedError, match="rewindable"):
         TM.verify_step(weights["tq"], TCFG, TM.init_decode_state(TCFG, 1, 8, device="cpu"),
                        torch.zeros((1, 2), dtype=torch.int32), TT.Runtime())
-    hybrid = dataclasses.replace(TCFG, family="hybrid", attn_every=4)
-    with pytest.raises(NotImplementedError, match="moe.*A.11"):
-        TT.check_supported(hybrid)
+    # a hybrid stack (SSM layers and a GQA layer every attn_every) is admitted
+    hybrid = dataclasses.replace(TCFG, family="hybrid", attn_every=4, attn_type="gqa")
+    TT.check_supported(hybrid)
+    assert [hybrid.layer_kind(i) for i in range(4)] == ["attn", "ssm", "ssm", "ssm"]
 
 
 # ---------------------------------------------------------------------------

@@ -218,11 +218,29 @@ Phases (any failure makes the script exit non-zero):
    the three backends (exact launch counts, ``pim_bitserial`` gated equal
    to ``ref_int8``, ``fused_int8`` held to near-ties where it parts) and
    its captured decode step against eager; each family's peak device
-   memory recorded.
+   memory recorded;
+8. ``train`` (the training path, after every family's weights are freed):
+   both norms' backward kernels against autograd of their plain versions
+   at [1024, 4096] and [1024, 768] (within 1e-5 of the gradient's scale,
+   the same bits on a second call), timed beside the plain version and
+   ``torch.ops.aten``'s fused backward, with their byte bounds; llama3-8b
+   at full width with 8 of its 32 layers in f32, batch 8 x 128 from the
+   seeded synthetic stream: one step's gradient through the norm kernels
+   against the plain norms (every leaf within 1e-3 of its scale, every
+   norm scale's gradient nonzero, one forward and one backward launch a
+   norm), then 4 AdamW steps on the repeated batch under f32 and under
+   int8 moments (gated: finite losses that fall), with step time, tokens a
+   second, peak memory and 6 N tokens over the step; and opt-125m uncut
+   through ``ResilientRunner`` (checkpoints every 5 steps, failures
+   injected at steps 7 and 13, 20 steps, int8 moments) in a process of its
+   own under ``torch.use_deterministic_algorithms(True)``, gated bit-equal
+   to a clean run (final weights and every logged loss).
 
 Every path runs a row-invariant norm kernel for every norm on the card
 (``rms_norm``, or ``layer_norm`` for OPT; QK-norm's two a layer through
-``rms_norm``); each serve run's launch counts include it.
+``rms_norm``); each serve run's launch counts include it.  The training
+path's norms run it through an autograd Function whose backward is the
+norm's backward kernel (``rms_norm_backward``, ``layer_norm_backward``).
 
 The script prints its seconds; its last three lines are the
 ``kernels`` JSON, the ``nvidia-smi`` name and power limit, and
@@ -770,7 +788,9 @@ DEVICE_KERNELS = {"int8_matmul": "int8_mm_cluster", "int8_matmul_grouped": "int8
                   "pim_mvm": "pim_mvm_cluster",
                   "decode_attn": "attn_kernel", "verify_attn": "attn_kernel",
                   "verify_tree_attn": "attn_kernel", "ssd_chunk": "ssd_chunk_kernel",
-                  "rms_norm": "rms_norm_kernel", "layer_norm": "layer_norm_kernel"}
+                  "rms_norm": "rms_norm_kernel", "layer_norm": "layer_norm_kernel",
+                  "rms_norm_backward": "rms_norm_bwd_rows",
+                  "layer_norm_backward": "layer_norm_bwd_rows"}
 
 
 def device_launches(counts: dict) -> dict:
@@ -1065,7 +1085,7 @@ def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
     prefills = len(prompt_lens) if prefills is None else prefills
     want = {"int8_matmul": 0, "int8_matmul_grouped": 0, "pim_mvm": 0, "decode_attn": 0,
             "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0, "rms_norm": 0,
-            "layer_norm": 0}
+            "layer_norm": 0, "rms_norm_backward": 0, "layer_norm_backward": 0}
     want[norm_kernel(cfg)] = norms_per_pass(cfg) * (steps + prefills) + 4 * draft_cells
     if cfg.family == "encdec":
         want[norm_kernel(cfg)] += (2 * cfg.encoder_layers + 1) * prefills
@@ -4689,6 +4709,384 @@ def phase_families(torch, ctx, mods: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase train: the training path (llama3-8b at full width, opt-125m uncut)
+# ---------------------------------------------------------------------------
+TRAIN_LAYERS = 8              # of llama3-8b's 32: 2.80 B parameters, 11.2 GB of f32
+TRAIN_BATCH, TRAIN_SEQ = 8, 128      # the training CLI's defaults
+TRAIN_STEPS = 4               # AdamW steps on one repeated batch, per moment type
+TRAIN_LR = 3e-4
+GRAD_TOL = 1e-3               # of a leaf's largest gradient: norm kernels against plain norms
+NORM_BWD_ROWS = TRAIN_BATCH * TRAIN_SEQ
+OPT125_STEPS = 20
+OPT125_FAIL_AT = (7, 13)
+OPT125_CKPT_EVERY = 5
+
+
+def norm_bwd_bound(M: int, d: int, layer_norm: bool) -> tuple[float, str]:
+    """The backward's least time: x and g read and dx written once, the
+    scale read and its (and the bias's) gradient written once; about 8
+    (RMSNorm) or 11 (LayerNorm) f32 operations an element."""
+    n_params = 3 if layer_norm else 2
+    return bound_ms(4 * (3 * M * d + n_params * d),
+                    [((11 if layer_norm else 8) * M * d, FP32_FLOPS_PER_S)])
+
+
+def kernel_breakdown(torch, fn, iters: int = 20) -> dict:
+    """Each device kernel's mean µs a call of ``fn`` over ``iters`` profiled
+    calls (torch.profiler's device events, by kernel name)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            out[e.name[:60]] = out.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / iters
+    return out
+
+
+def norm_backward_checks(torch, rn, lnk) -> dict:
+    """Both norms' backward kernels against autograd of their plain
+    versions at llama3-8b's [1024, 4096] and opt-125m's [1024, 768] (a
+    train step's B*T rows), within 1e-5 of the gradient's scale (dx is a
+    difference of terms of that size; the column sums run in another order
+    than autograd's), the same bits on a second call (no atomics); times of
+    the RMSNorm backward at [1024, 4096] and the LayerNorm backward at
+    [1024, 768] beside the plain version's (autograd through it) and the
+    library's (``torch.ops.aten._fused_rms_norm_backward`` /
+    ``native_layer_norm_backward``, a yardstick only), all captured as CUDA
+    graphs and replayed, with the byte bound."""
+    aten = torch.ops.aten
+    g = torch.Generator(device="cuda").manual_seed(25)
+    out = {}
+    for name, d in (("rms_norm_backward", 4096), ("rms_norm_backward", 768),
+                    ("layer_norm_backward", 768), ("layer_norm_backward", 4096)):
+        M = NORM_BWD_ROWS
+        x = torch.randn((M, d), generator=g, device="cuda") * 3 + 0.5
+        scale = torch.randn((d,), generator=g, device="cuda")
+        bias = torch.randn((d,), generator=g, device="cuda")
+        dy = torch.randn((M, d), generator=g, device="cuda")
+        ln = name == "layer_norm_backward"
+        if ln:
+            def kern(i):
+                return lnk.layer_norm_backward_cuda(x, scale, dy)
+
+            def plain(i):
+                return lnk.layer_norm_backward_plain(x, scale, bias, dy)
+            _, mean, rstd = aten.native_layer_norm(x, [d], scale, bias, 1e-5)
+
+            def lib(i):
+                return aten.native_layer_norm_backward(dy, x, [d], mean, rstd, scale, bias,
+                                                       [True, True, True])
+        else:
+            def kern(i):
+                return rn.rms_norm_backward_cuda(x, scale, dy)
+
+            def plain(i):
+                return rn.rms_norm_backward_plain(x, scale, dy)
+            lib = None
+            if hasattr(aten, "_fused_rms_norm_backward") and hasattr(aten, "_fused_rms_norm"):
+                rstd = aten._fused_rms_norm(x, [d], scale, 1e-5)[1]
+
+                def lib(i):
+                    return aten._fused_rms_norm_backward(dy, x, [d], rstd, scale, [True, True])
+        got, want = kern(0), plain(0)
+        errs = []
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+            errs.append(float((a - b).abs().max()))
+        if not all(torch.equal(a, b) for a, b in zip(got, kern(1))):
+            raise AssertionError(f"{name} [{M}, {d}]: a second call gave other bits")
+        rec = {"M": M, "d": d, "max_abs_err": max(errs)}
+        timed_here = (name, d) in (("rms_norm_backward", 4096), ("layer_norm_backward", 768))
+        if timed_here:
+            tk, tp = timed(torch, kern, 50), timed(torch, plain, 50)
+            lib_ms = None
+            if lib is not None:
+                try:        # a yardstick only: an aten signature of another version
+                    lib_ms = graph_ms(torch, lib, 50)
+                except (RuntimeError, TypeError) as e:
+                    print(f"   {name}: the library call did not run here: {e}")
+            b = norm_bwd_bound(M, d, ln)
+            rec["device_kernels_us"] = kernel_breakdown(torch, kern)
+            rec.update({"ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+                        "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
+                        "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1]})
+            print(f"   {name} [{M}, {d}]: {tk['device_ms'] * 1e3:.2f} us device / "
+                  f"{tk['eager_ms'] * 1e3:.2f} eager (bound {b[0] * 1e3:.2f}, plain "
+                  f"{tp['device_ms'] * 1e3:.2f} / {tp['eager_ms'] * 1e3:.2f} eager, library "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f}'}); max |err| "
+                  f"{max(errs):.3g}; repeats its bits; device kernels "
+                  f"{ {k: round(v, 2) for k, v in rec['device_kernels_us'].items()} } us")
+            out[name] = rec
+        else:
+            print(f"   {name} [{M}, {d}]: within 1e-5 of autograd's, max |err| "
+                  f"{max(errs):.3g}; repeats its bits")
+        out.setdefault("shapes", []).append(rec)
+    return out
+
+
+def plain_norms(rn, lnk):
+    """A context in which ``apply_norm`` runs the plain versions on CUDA
+    tensors too (autograd through them), for the gradient gate."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = rn.rms_norm, lnk.layer_norm
+        rn.rms_norm = lambda x, scale, eps=1e-5: rn.rms_norm_plain(x, scale, eps)
+        lnk.layer_norm = lambda x, scale, bias, eps=1e-5: lnk.layer_norm_plain(x, scale,
+                                                                                bias, eps)
+        try:
+            yield
+        finally:
+            rn.rms_norm, lnk.layer_norm = saved
+    return ctx()
+
+
+def train_steps(torch, cfg, batch, quantized: bool, card: str,
+                profiled: bool = False) -> dict:
+    """``TRAIN_STEPS`` AdamW steps (f32 or int8 moments) from the seeded
+    weights on one repeated batch: each step's loss and wall time (host
+    clock, the loss read back), tokens a second, peak device memory and
+    6 N tokens over the step time (N the model's parameters)."""
+    from repro_torch import kernels as KN
+    from repro_torch.convert import tree_leaves
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    params = M.init_params(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = AdamW(lr=TRAIN_LR, warmup_steps=2, total_steps=100, weight_decay=0.0,
+                quantized_state=quantized)
+    state = opt.init(params)
+    step = make_train_step(cfg, Runtime(), opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KN.reset_launch_counts()
+    losses, wall = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    counts = KN.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    prof = (profile_step(torch, lambda: step(params, state, batch), "llama3-8b train")
+            if profiled else None)
+    del params, state, m
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = sorted(wall[1:])[len(wall[1:]) // 2]          # median past the first
+    rec = {"moments": "int8" if quantized else "f32", "losses": losses, "step_ms": wall,
+           "steady_step_ms": steady, "tokens_per_s": tokens / steady * 1e3,
+           "model_tflop_per_s": 6 * n_params * tokens / steady * 1e-9,
+           "peak_gb": peak / 1e9, "n_params": n_params, "launches": counts,
+           "profile": prof}
+    print(f"   llama3-8b x{cfg.n_layers} AdamW ({rec['moments']} moments), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {[round(x, 4) for x in losses]}; step "
+          f"{[round(w, 1) for w in wall]} ms (steady {steady:.1f} ms), "
+          f"{rec['tokens_per_s']:.0f} tok/s, 6 N tokens / step {rec['model_tflop_per_s']:.2f} "
+          f"TFLOP/s, peak {rec['peak_gb']:.2f} GB ({card})")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{rec['moments']} moments: the loss did not fall: {losses}")
+    return rec
+
+
+def llama_gradient_gate(torch, cfg, batch, rn, lnk) -> dict:
+    """One step's gradient at full width through the norm kernels against
+    the same step through the plain norms, on the same weights and batch:
+    every leaf within ``GRAD_TOL`` of its largest magnitude, every norm
+    scale's gradient present and nonzero, and one backward launch a norm."""
+    from repro_torch import kernels as KN
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.optim.adamw import _paths
+    from repro_torch.train.train_step import value_and_grad
+
+    params = M.init_params(cfg, seed=0, device="cuda")
+    KN.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss_k, gk = value_and_grad(params, cfg, batch, Runtime())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = KN.launch_counts()
+    with plain_norms(rn, lnk):
+        loss_p, gp = value_and_grad(params, cfg, batch, Runtime())
+    norms = 2 * cfg.n_layers + 1
+    if counts["rms_norm"] != norms or counts["rms_norm_backward"] != norms:
+        raise AssertionError(f"norm launches {counts} for {norms} norms")
+    worst, zero_scales = 0.0, []
+    leaves_p = dict(_paths(gp))
+    for path, a in _paths(gk):
+        b = leaves_p[path]
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, err)
+        if err > GRAD_TOL or not torch.isfinite(a).all():
+            raise AssertionError(f"gradient of {path}: {err:.3g} of its scale apart")
+        if "scale" in path and torch.count_nonzero(a) == 0:
+            zero_scales.append(path)
+    if zero_scales:
+        raise AssertionError(f"norm scales with a zero gradient: {zero_scales}")
+    rec = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+           "worst_leaf_err": worst, "leaves": len(leaves_p), "norm_scales": sum(
+               "scale" in p for p in leaves_p), "fwd_bwd_s": wall, "launches": counts}
+    print(f"   llama3-8b x{cfg.n_layers} gradient: loss {float(loss_k):.6f} (kernels) / "
+          f"{float(loss_p):.6f} (plain norms); {len(leaves_p)} leaves within {worst:.3g} of "
+          f"their scale (gate {GRAD_TOL}), {rec['norm_scales']} norm scales all nonzero; "
+          f"{norms} forward and {norms} backward norm launches; fwd+bwd {wall:.2f} s")
+    return rec
+
+
+def opt125m_resilience_child() -> dict:
+    """opt-125m uncut (LayerNorm, the tied head), run in a process of its own
+    with ``torch.use_deterministic_algorithms(True)`` (and the
+    ``CUBLAS_WORKSPACE_CONFIG`` it needs, set before the process started):
+    ``ResilientRunner`` with checkpoints every ``OPT125_CKPT_EVERY`` steps
+    and failures injected at ``OPT125_FAIL_AT`` for ``OPT125_STEPS`` steps,
+    int8 moments, against a clean run: the final weights equal bit for bit
+    and every logged step's loss equal."""
+    import tempfile
+
+    import torch
+    from repro_torch import kernels as KN
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.convert import tree_leaves
+    from repro_torch.data.pipeline import SyntheticTokens, put_batch
+    from repro_torch.device import set_float32_precision
+    from repro_torch.ft.failures import FailureInjector, ResilientRunner
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    torch.use_deterministic_algorithms(True)
+    set_float32_precision()
+    cfg = registry.get("opt-125m")
+    data = SyntheticTokens(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=0)
+    opt = AdamW(lr=TRAIN_LR, warmup_steps=2, total_steps=OPT125_STEPS, quantized_state=True)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fail_at in (("clean", ()), ("failed", OPT125_FAIL_AT)):
+            params = M.init_params(cfg, seed=0, device="cuda")
+            runner = ResilientRunner(step_fn=make_train_step(cfg, Runtime(), opt),
+                                     ckpt_dir=f"{tmp}/{label}", ckpt_every=OPT125_CKPT_EVERY,
+                                     injector=FailureInjector(fail_at=fail_at))
+            KN.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, _, log = runner.run(params, opt.init(params), data, OPT125_STEPS)
+            torch.cuda.synchronize()
+            runs[label] = {"params": tree_leaves(params), "log": log,
+                           "wall_s": time.perf_counter() - t0,
+                           "launches": KN.launch_counts(), "seen": sorted(runner.injector.seen)}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    # where a step's time goes, then the same step without deterministic algorithms
+    params = M.init_params(cfg, seed=0, device="cuda")
+    state, step = opt.init(params), make_train_step(cfg, Runtime(), opt)
+    batch = put_batch(data.batch_at(0), "cuda")
+    prof = profile_step(torch, lambda: step(params, state, batch), "opt-125m train")
+    torch.use_deterministic_algorithms(False)
+    free_ms = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        float(step(params, state, batch)[2]["loss"])
+        free_ms.append((time.perf_counter() - t0) * 1e3)
+    clean = {m["step"]: m["loss"] for m in runs["clean"]["log"]}
+    failed = runs["failed"]
+    equal_params = all(torch.equal(a, b) for a, b in zip(runs["clean"]["params"],
+                                                         failed["params"]))
+    equal_losses = all(m["loss"] == clean[m["step"]] for m in failed["log"])
+    steps = len(runs["clean"]["log"])
+    return {"deterministic_algorithms": deterministic,
+            "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+            "equal_params": equal_params, "equal_losses": equal_losses,
+            "losses": [m["loss"] for m in runs["clean"]["log"]],
+            "failed_steps_logged": [m["step"] for m in failed["log"]],
+            "injected": failed["seen"],
+            "clean_wall_s": runs["clean"]["wall_s"], "failed_wall_s": failed["wall_s"],
+            "clean_step_ms": [m["dt"] * 1e3 for m in runs["clean"]["log"]],
+            "launches_clean": runs["clean"]["launches"],
+            "layer_norm_backward_per_step": runs["clean"]["launches"]["layer_norm_backward"]
+            / steps, "profile": prof, "nondeterministic_step_ms": free_ms}
+
+
+def opt125m_resilience(torch) -> dict:
+    """:func:`opt125m_resilience_child` in a fresh process (deterministic
+    algorithms need ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts)."""
+    code = ("import json, sys; sys.path[:0] = ['src', '.']; import chip_smoke as S; "
+            "print('CHILD ' + json.dumps(S.opt125m_resilience_child()))")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    child = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
+                           env=env, capture_output=True, text=True, timeout=900)
+    line = next((x for x in child.stdout.splitlines() if x.startswith("CHILD ")), None)
+    if child.returncode != 0 or line is None:
+        raise AssertionError(f"opt-125m resilience run failed (exit {child.returncode}): "
+                             f"{child.stderr[-3000:]}")
+    print("\n".join(x for x in child.stdout.splitlines() if not x.startswith("CHILD ")))
+    rec = json.loads(line[6:])
+    steady = sorted(rec["clean_step_ms"][1:])[len(rec["clean_step_ms"][1:]) // 2]
+    rec["steady_step_ms"] = steady
+    print(f"   opt-125m: {OPT125_STEPS} steps, failures at {rec['injected']}, checkpoints "
+          f"every {OPT125_CKPT_EVERY}: final weights equal {rec['equal_params']}, losses "
+          f"equal {rec['equal_losses']} (deterministic algorithms "
+          f"{rec['deterministic_algorithms']}); losses {rec['losses'][0]:.4f} -> "
+          f"{rec['losses'][-1]:.4f}; steady step {steady:.1f} ms; runs {rec['clean_wall_s']:.1f}"
+          f" / {rec['failed_wall_s']:.1f} s; {rec['layer_norm_backward_per_step']:.0f} "
+          f"LayerNorm backward launches a step; without deterministic algorithms "
+          f"{[round(x, 1) for x in rec['nondeterministic_step_ms']]} ms a step")
+    if not (rec["equal_params"] and rec["equal_losses"]) or rec["injected"] != list(
+            OPT125_FAIL_AT):
+        raise AssertionError("opt-125m: the resilient run does not equal the clean run")
+    return rec
+
+
+def phase_train(torch, ctx, rn, lnk) -> dict:
+    """The training path on the card: both norms' backward kernels against
+    autograd of their plain versions (:func:`norm_backward_checks`);
+    llama3-8b at full width with ``TRAIN_LAYERS`` layers in f32: one step's
+    gradient through the norm kernels against the plain norms
+    (:func:`llama_gradient_gate`) and ``TRAIN_STEPS`` AdamW steps under f32
+    and int8 moments, the loss gated to fall (their backward launches are
+    what the ``kernels`` line reports for the RMSNorm backward); and
+    opt-125m uncut through ``ResilientRunner`` with injected failures,
+    gated equal to a clean run (its launches are the LayerNorm
+    backward's)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokens, put_batch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = norm_backward_checks(torch, rn, lnk)
+    cfg = dataclasses.replace(registry.get("llama3-8b"), n_layers=TRAIN_LAYERS)
+    batch = put_batch(SyntheticTokens(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                                       "train"), seed=0).batch_at(0), "cuda")
+    out["gradient"] = llama_gradient_gate(torch, cfg, batch, rn, lnk)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = 0
+    for quantized in (False, True):
+        rec = train_steps(torch, cfg, batch, quantized, ctx["card"], profiled=not quantized)
+        out["int8" if quantized else "f32"] = rec
+        launches += rec["launches"]["rms_norm_backward"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    ctx["rms_norm_backward_launches"] = launches
+    out["opt-125m"] = opt125m_resilience(torch)
+    ctx["layer_norm_backward_launches"] = out["opt-125m"]["launches_clean"]["layer_norm_backward"]
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4744,6 +5142,7 @@ def main() -> int:
         mods = {"mm": mm, "pim": pim, "da": da, "va": va, "vt": vt, "quant": quant, "lnk": lnk,
                 "rn": rn}
         s.phase("families", lambda: phase_families(torch, ctx, mods))
+        s.phase("train", lambda: phase_train(torch, ctx, rn, lnk))
 
     kernels = []
     lin, att = s.record.get("linears", {}), s.record.get("attention", {})
@@ -4751,6 +5150,7 @@ def main() -> int:
     ssm = s.record.get("ssm", {})
     main = ctx.get("main_launches", {})
     grok = s.record.get("families", {}).get("grok-1-314b", {})
+    train = s.record.get("train", {})
     for name, src, replaces, rec, launches in (
             ("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
              "src/repro/kernels/int8_matmul/kernel.py:45", lin.get("int8_matmul"),
@@ -4778,7 +5178,15 @@ def main() -> int:
              ssm.get("rms_norm"), ctx.get("rms_norm_launches")),
             ("layer_norm", "src/repro_torch/csrc/layer_norm.cu",
              "src/repro/models/layers.py apply_norm, LayerNorm branch (jnp; no Pallas kernel)",
-             s.record.get("families", {}).get("layer_norm"), ctx.get("layer_norm_launches"))):
+             s.record.get("families", {}).get("layer_norm"), ctx.get("layer_norm_launches")),
+            ("rms_norm_backward", "src/repro_torch/csrc/rms_norm.cu",
+             "src/repro/models/layers.py apply_norm's gradient (XLA autodiff of jnp; "
+             "no Pallas kernel)", train.get("rms_norm_backward"),
+             ctx.get("rms_norm_backward_launches")),
+            ("layer_norm_backward", "src/repro_torch/csrc/layer_norm.cu",
+             "src/repro/models/layers.py apply_norm's gradient, LayerNorm branch (XLA "
+             "autodiff of jnp; no Pallas kernel)", train.get("layer_norm_backward"),
+             ctx.get("layer_norm_backward_launches"))):
         if rec is None or not launches:
             s.failures.append(f"{name}: no measurement or no launch on its path")
             continue

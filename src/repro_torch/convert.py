@@ -21,19 +21,23 @@ import torch
 from repro_torch.device import resolve
 
 
-def _map(tree: Any, fn) -> Any:
+def tree_map(tree: Any, fn) -> Any:
+    """``fn`` of every leaf of a tree of dicts, lists and tuples (named
+    tuples too), in the tree's structure."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
+        return {k: tree_map(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
+        vals = [tree_map(v, fn) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else type(tree)(vals)
     return fn(tree)
 
 
-def _leaves(tree: Any) -> list:
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a tree of dicts, lists and tuples, in order."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
+        return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
@@ -41,7 +45,7 @@ def to_device(params: Any, device: str | torch.device) -> Any:
     """A copy of a port parameter (or state) tree with every tensor on
     ``device``."""
     dev = resolve(device)
-    return _map(params, lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t)
+    return tree_map(params, lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t)
 
 
 def from_numpy(params: dict, device: str | torch.device = "cuda") -> dict:
@@ -56,18 +60,18 @@ def from_numpy(params: dict, device: str | torch.device = "cuda") -> dict:
         return torch.from_numpy(np.array(a)).to(dev)
 
     def unstack(tree):
-        return [_map(tree, lambda a, i=i: tensor(a[i]))
-                for i in range(_leaves(tree)[0].shape[0])]
+        return [tree_map(tree, lambda a, i=i: tensor(a[i]))
+                for i in range(tree_leaves(tree)[0].shape[0])]
 
-    out = {k: unstack(v) if k in _ENCDEC else _map(v, tensor)
+    out = {k: unstack(v) if k in _ENCDEC else tree_map(v, tensor)
            for k, v in params.items() if k != "groups"}
     if "groups" in params:
         layers = []
         for slots in params["groups"]:
-            n_p = _leaves(slots[0])[0].shape[0]
+            n_p = tree_leaves(slots[0])[0].shape[0]
             for pi in range(n_p):
                 for slot_tree in slots:
-                    layers.append(_map(slot_tree, lambda a: tensor(a[pi])))
+                    layers.append(tree_map(slot_tree, lambda a: tensor(a[pi])))
         out["layers"] = layers
     return out
 
@@ -104,7 +108,7 @@ def to_numpy(params: dict, cfg) -> dict:
     numpy leaves: the decoder layers go into the reference's groups
     (:func:`layer_groups`), an encoder-decoder's ``enc`` / ``dec`` lists are
     stacked back."""
-    out = {k: _stack(v) if k in _ENCDEC else _map(v, lambda t: t.detach().cpu().numpy())
+    out = {k: _stack(v) if k in _ENCDEC else tree_map(v, lambda t: t.detach().cpu().numpy())
            for k, v in params.items() if k != "layers"}
     if "layers" not in params:
         return out

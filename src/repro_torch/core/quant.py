@@ -29,22 +29,28 @@ QUANT_BLOCK = 2 ** 28    # elements of w a block of quantize_weight
 _DIVISORS: dict = {}     # (device, dtype) -> 0-d tensor holding 127
 
 
-def _scale(amax: torch.Tensor) -> torch.Tensor:
-    """``max(amax, 1e-8) / 127`` as an IEEE division on any device.  The
-    divisor is one 0-d tensor a (device, dtype), made on the first call
-    there, which must not be inside a CUDA-graph capture (a capture records
-    the fill without running it); the serve steps' eager warm-up makes it,
-    so a captured step adds no node for it and copies nothing from the
-    host."""
-    key = (amax.device, amax.dtype)
+def div127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` as an IEEE division on any device.  The divisor is one
+    0-d tensor a (device, dtype), made on the first call there, which must
+    not be inside a CUDA-graph capture (a capture records the fill without
+    running it); the serve steps' eager warm-up makes it, so a captured step
+    adds no node for it and copies nothing from the host.  The training
+    path's int8 quantizers (``optim/adamw.py``, ``ft/compress.py``) divide
+    through it too."""
+    key = (t.device, t.dtype)
     div = _DIVISORS.get(key)
     if div is None:
-        if amax.is_cuda and torch.cuda.is_current_stream_capturing():
+        if t.is_cuda and torch.cuda.is_current_stream_capturing():
             raise RuntimeError("quantizer divisor first made inside a CUDA-graph "
                                "capture: run the step eagerly once before capturing")
-        div = _DIVISORS[key] = torch.full((), INT8_MAX, dtype=amax.dtype,
-                                          device=amax.device)
-    return torch.clamp_min(amax, 1e-8) / div
+        div = _DIVISORS[key] = torch.full((), INT8_MAX, dtype=t.dtype, device=t.device)
+    return t / div
+
+
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-8) / 127`` as an IEEE division on any device
+    (:func:`div127`)."""
+    return div127(torch.clamp_min(amax, 1e-8))
 
 
 @dataclasses.dataclass

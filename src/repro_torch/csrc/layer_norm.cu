@@ -28,12 +28,31 @@
 // bytes.  At the decode shapes (4 rows of 7168) a call is a few microseconds
 // of launch latency; the design aims at one launch instead of torch's
 // several.
+//
+// The backward (the training path's gradient through the norm; the
+// reference leaves it to XLA's autodiff of the jnp norm), with
+// xhat = (x - mean) * r and gs = g * scale:
+//
+//   dx[m, i]   = r * ((gs[m, i] - sum_i gs / d) - xhat[m, i] * (sum_i gs * xhat / d)),
+//   dscale[i]  = sum_m g[m, i] * xhat[m, i],    dbias[i] = sum_m g[m, i],
+//
+// mean and r as the forward computes them (the same sums in the same
+// order: the same bits).  layer_norm_bwd_rows takes ROWS consecutive rows a
+// block: for each, the forward's two sums and the backward's two, each in
+// the fixed order above, then for each of its columns dx of every row and
+// the column's two sums over the block's rows in row order, written to a
+// [2, blocks, d] partial; layer_norm_bwd_cols adds the blocks' partials of
+// a column in block order.  Every sum has one fixed order for a given M,
+// with no atomics, so the gradient is the same bits on every run.  Bound:
+// bytes (x and g read, dx written, the partials a fraction of a row each
+// block).
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int NT = 256;
 constexpr int WARPS = NT / 32;
+constexpr int ROWS = 8;     // rows of one backward block
 
 // The block's sum of every thread's ``s``, the same bits in every thread.
 // ``warp_sum`` is shared; the leading barrier lets a second call reuse it.
@@ -71,7 +90,100 @@ layer_norm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
     orow[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(xr[i], mean), r), scale[i]), bias[i]);
 }
 
+__global__ void __launch_bounds__(NT)
+layer_norm_bwd_rows(const float* __restrict__ x, const float* __restrict__ scale,
+                    const float* __restrict__ g, float* __restrict__ dx,
+                    float* __restrict__ partial, int M, int d, int nblk, float eps) {
+  __shared__ float warp_sum[WARPS];
+  __shared__ float row_mean[ROWS], row_r[ROWS], row_a[ROWS], row_b[ROWS];
+  const int row0 = blockIdx.x * ROWS;
+  const int rows = min(ROWS, M - row0);
+  for (int k = 0; k < rows; ++k) {
+    const float* xr = x + (size_t)(row0 + k) * d;
+    const float* gr = g + (size_t)(row0 + k) * d;
+    float s = 0.f;
+    for (int i = threadIdx.x; i < d; i += NT) s += xr[i];
+    const float mean = __fdiv_rn(block_sum(s, warp_sum), (float)d);
+    s = 0.f;
+    for (int i = threadIdx.x; i < d; i += NT) {
+      const float dev = __fsub_rn(xr[i], mean);
+      s = fmaf(dev, dev, s);
+    }
+    const float var = __fdiv_rn(block_sum(s, warp_sum), (float)d);
+    const float r = rsqrtf(__fadd_rn(var, eps));
+    float a = 0.f, b = 0.f;
+    for (int i = threadIdx.x; i < d; i += NT) {
+      const float gs = __fmul_rn(gr[i], scale[i]);
+      a += gs;
+      b = fmaf(gs, __fmul_rn(__fsub_rn(xr[i], mean), r), b);
+    }
+    a = block_sum(a, warp_sum);
+    b = block_sum(b, warp_sum);
+    if (threadIdx.x == 0) {
+      row_mean[k] = mean;
+      row_r[k] = r;
+      row_a[k] = __fdiv_rn(a, (float)d);
+      row_b[k] = __fdiv_rn(b, (float)d);
+    }
+  }
+  __syncthreads();
+  float* part_s = partial + (size_t)blockIdx.x * d;
+  float* part_b = partial + ((size_t)nblk + blockIdx.x) * d;
+  for (int i = threadIdx.x; i < d; i += NT) {
+    const float si = scale[i];
+    float acc_s = 0.f, acc_b = 0.f;
+    for (int k = 0; k < rows; ++k) {
+      const size_t o = (size_t)(row0 + k) * d + i;
+      const float gi = g[o];
+      const float xhat = __fmul_rn(__fsub_rn(x[o], row_mean[k]), row_r[k]);
+      const float inner = __fsub_rn(__fsub_rn(__fmul_rn(gi, si), row_a[k]),
+                                    __fmul_rn(xhat, row_b[k]));
+      dx[o] = __fmul_rn(row_r[k], inner);
+      acc_s = fmaf(gi, xhat, acc_s);
+      acc_b += gi;
+    }
+    part_s[i] = acc_s;
+    part_b[i] = acc_b;
+  }
+}
+
+// out[j, i] = sum over b < nblk of partial[j, b, i], in block order, for
+// j = blockIdx.y (0: dscale, 1: dbias).
+__global__ void __launch_bounds__(NT)
+layer_norm_bwd_cols(const float* __restrict__ partial, float* __restrict__ out, int nblk,
+                    int d) {
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i >= d) return;
+  const float* p = partial + (size_t)blockIdx.y * nblk * d;
+  float acc = 0.f;
+  for (int b = 0; b < nblk; ++b) acc += p[(size_t)b * d + i];
+  out[(size_t)blockIdx.y * d + i] = acc;
+}
+
 }  // namespace
+
+// Rows of one backward block: the partial the wrapper allocates is
+// [2, ceil(M / rows), d].
+extern "C" int layer_norm_backward_rows() { return ROWS; }
+
+// x, g f32 [M, d]; scale f32 [d] -> dx f32 [M, d], dparams f32 [2, d]
+// (dscale, then dbias); partial f32 [2, ceil(M / ROWS), d] is scratch.
+extern "C" int layer_norm_backward_launch(const void* x, const void* scale, const void* g,
+                                          void* dx, void* dparams, void* partial, int M,
+                                          int d, float eps, void* stream) {
+  if (M < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  const int nblk = (M + ROWS - 1) / ROWS;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  layer_norm_bwd_rows<<<nblk, NT, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(g), static_cast<float*>(dx), static_cast<float*>(partial),
+      M, d, nblk, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  layer_norm_bwd_cols<<<dim3((d + NT - 1) / NT, 2), NT, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dparams), nblk, d);
+  return (int)cudaGetLastError();
+}
 
 // x f32 [M, d] -> out f32 [M, d]; scale, bias f32 [d].
 extern "C" int layer_norm_launch(const void* x, const void* scale, const void* bias,

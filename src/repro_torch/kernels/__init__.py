@@ -3,7 +3,10 @@
 Each kernel module holds the CUDA wrapper (``*_cuda``), the plain PyTorch
 version of the same function (``*_plain``), a dispatcher that takes the
 plain version only for CPU tensors and the kernel for CUDA tensors, and a
-``launches`` counter that the CUDA wrapper bumps once per launch.  A call
+``launches`` counter that the CUDA wrapper bumps once per launch (the two
+norms' backward wrappers, ``rms_norm_backward`` and
+``layer_norm_backward``, count theirs in their module's
+``backward_launches``).  A call
 recorded into a CUDA graph launches nothing: the graph
 (``models/graphs.py``) takes the counts its capture added back off with
 :func:`set_launch_counts` and credits them on every replay with
@@ -18,31 +21,36 @@ import importlib
 import torch
 
 KERNELS = ("int8_matmul", "int8_matmul_grouped", "pim_mvm", "decode_attn",
-           "verify_attn", "verify_tree_attn", "ssd_chunk", "rms_norm", "layer_norm")
+           "verify_attn", "verify_tree_attn", "ssd_chunk", "rms_norm", "layer_norm",
+           "rms_norm_backward", "layer_norm_backward")
 
 
-def _module(name: str):
-    return importlib.import_module(f"repro_torch.kernels.{name}")
+def _counter(name: str) -> tuple:
+    """(module, attribute) of a kernel's launch count."""
+    if name.endswith("_backward"):
+        return (importlib.import_module(f"repro_torch.kernels.{name[:-len('_backward')]}"),
+                "backward_launches")
+    return importlib.import_module(f"repro_torch.kernels.{name}"), "launches"
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: _module(name).launches for name in KERNELS}
+    return {name: getattr(*_counter(name)) for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for name in KERNELS:
-        _module(name).launches = 0
+    set_launch_counts(dict.fromkeys(KERNELS, 0))
 
 
 def set_launch_counts(counts: dict[str, int]) -> None:
     for name in KERNELS:
-        _module(name).launches = counts[name]
+        setattr(*_counter(name), counts[name])
 
 
 def credit_launches(delta: dict[str, int]) -> None:
     """Add the launches of one replayed graph to the counters."""
     for name, n in delta.items():
-        _module(name).launches += n
+        mod, attr = _counter(name)
+        setattr(mod, attr, getattr(mod, attr) + n)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

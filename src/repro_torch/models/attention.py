@@ -125,6 +125,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, Dv).to(q.dtype)
 
 
+def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                backend: str = "dense"
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Training GQA over ``x`` [B, T, d] at ``positions`` [B, T]: causal
+    :func:`flash_attention` over the call's own K/V, no buffer written (the
+    training forward runs under autograd; :func:`gqa_chunk` writes a carry
+    in place).  Returns (out, (k, v))."""
+    B, T, _ = x.shape
+    hd = cfg.head_dim
+    q = L.apply_linear(L._lin(p, "wq"), x, backend).reshape(B, T, cfg.n_heads, hd)
+    k = L.apply_linear(L._lin(p, "wk"), x, backend).reshape(B, T, cfg.n_kv_heads, hd)
+    v = L.apply_linear(L._lin(p, "wv"), x, backend).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.use_qk_norm:
+        q = L.apply_norm(p["q_norm"], q)
+        k = L.apply_norm(p["k_norm"], k)
+    if cfg.rope_theta:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v)
+    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend), (k, v)
+
+
 def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, buf: dict, start: int,
               kv_lengths: torch.Tensor, key_rows: int, backend: str = "dense",

@@ -16,7 +16,8 @@ every step updates those tensors in place, so a decode step captured as a
 CUDA graph (``models/graphs.py``) replays over fixed addresses.  Decode
 self-attention takes ``rt.backend`` (B2 under ``fused_int8``); decode
 cross-attention runs the plain int8 attention under every backend, as the
-reference calls it without the backend.
+reference calls it without the backend.  :func:`forward_train` and
+:func:`lm_loss` are the teacher-forced training path.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from repro_torch.core.quant import quantize_kv
 from repro_torch.device import resolve
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import Runtime
+from repro_torch.models.transformer import Runtime, remat_call, token_nll
 
 Params = dict[str, Any]
 
@@ -117,6 +118,43 @@ def _cross_attn(pl: Params, cfg: ModelConfig, h: torch.Tensor, enc_kv: tuple,
         k, v = enc_kv
         o = A.flash_attention(q, k, v, causal=False)
     return L.apply_linear(L._lin(pl, "wo"), o.reshape(B, T, -1), rt.backend)
+
+
+def forward_train(p: Params, cfg: ModelConfig, frames: torch.Tensor, tokens: torch.Tensor,
+                  rt: Runtime) -> torch.Tensor:
+    """Teacher-forced decoder over ``tokens`` [B, T] attending to the encoded
+    ``frames`` -> logits [B, T, V] (the tied head): each decoder layer's
+    causal self-attention through :func:`attention.gqa_forward` (no
+    buffer), its cross-attention over float K/V of the encoder output,
+    under ``rt.remat`` each layer recomputed in the backward."""
+    enc = encode(p, cfg, frames, rt)
+    B, T = tokens.shape
+    dev = tokens.device
+    x = p["embed"]["w"][tokens]
+    x = x + L.sinusoidal_positions(T, cfg.d_model, device=dev).to(x.dtype)
+    positions = torch.arange(T, device=dev).expand(B, T)
+    G, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def body(pl: Params, xx: torch.Tensor) -> torch.Tensor:
+        mix, _ = A.gqa_forward(pl["attn"], cfg, L.apply_norm(pl["ln1"], xx), positions,
+                               rt.backend)
+        xx = xx + mix
+        k = _heads(pl["xattn"], "wk", enc, G, hd, rt.backend)
+        v = _heads(pl["xattn"], "wv", enc, G, hd, rt.backend)
+        xx = xx + _cross_attn(pl["xattn"], cfg, L.apply_norm(pl["ln_x"], xx), (k, v), rt)
+        return xx + L.apply_mlp(pl["mlp"], L.apply_norm(pl["ln2"], xx), cfg.mlp_type,
+                                rt.backend)
+
+    for pl in p["dec"]:
+        x = remat_call(rt, body, pl, x)
+    x = L.apply_norm(p["ln_f"], x)
+    return torch.matmul(x, p["embed"]["w"].to(x.dtype).T)
+
+
+def lm_loss(p: Params, cfg: ModelConfig, frames: torch.Tensor, tokens: torch.Tensor,
+            labels: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """Mean next-token cross-entropy of :func:`forward_train`'s logits."""
+    return torch.mean(token_nll(forward_train(p, cfg, frames, tokens, rt), labels))
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,6 +1,7 @@
-"""Model facade: the entry points the serve engines call.
+"""Model facade: the entry points the serve engines and the train step call.
 
-PyTorch counterpart of the ``repro.models.model`` facades that the plain
+PyTorch counterpart of the ``repro.models.model`` facades that training
+(:func:`train_loss`, :func:`model_flops`), the plain
 decode path, the fused multi-step lane, chunked prefill (cold or warm from
 the prefix cache) and the speculative lanes use, for GQA/MHA decoders
 (token inputs, or the embeddings that a ``vlm`` configuration's stubbed
@@ -21,9 +22,10 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.models import encdec
 from repro_torch.models import transformer as T
-from repro_torch.models.transformer import Runtime  # noqa: F401
+from repro_torch.models.transformer import Runtime
 
 Params = dict[str, Any]
 
@@ -49,6 +51,30 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if cfg.family == "encdec":
         return encdec.init_params(cfg, seed=seed, device=device, dtype=dtype)
     return T.init_params(cfg, seed=seed, device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# MODEL_FLOPS (the reference's roofline convention, DESIGN.md Sec. 7)
+# ---------------------------------------------------------------------------
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    n_active = cfg.active_param_count()
+    tokens = shape.global_batch * shape.seq_len
+    if shape.kind == "train":
+        return 6.0 * n_active * tokens
+    if shape.kind == "prefill":
+        return 2.0 * n_active * tokens
+    # decode: one token per sequence against a seq_len cache
+    return 2.0 * n_active * shape.global_batch
+
+
+def train_loss(params: Params, cfg: ModelConfig, batch: dict, rt: Runtime) -> torch.Tensor:
+    """The training loss of one batch of tensors: ``inputs`` and ``labels``
+    ([B, T]; ``inputs`` [B, T, d] embeddings where the configuration takes
+    them), an encoder-decoder's ``frames``, ``tokens`` and ``labels``."""
+    if cfg.family == "encdec":
+        return encdec.lm_loss(params, cfg, batch["frames"], batch["tokens"],
+                              batch["labels"], rt)
+    return T.lm_loss(params, cfg, batch["inputs"], batch["labels"], rt)
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int,

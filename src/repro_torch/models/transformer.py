@@ -19,7 +19,11 @@ are fp32 "controller ops".  A MoE layer (``models/moe.py``) routes the rows
 of each call together, so a MoE stack runs each call's rows in one piece
 (see ``PREFILL_PIECE``).  DeepSeek-V3's multi-token-prediction head
 (``mtp_proj``, ``mtp_layer``) drafts tokens for the speculative lanes
-(:func:`mtp_draft`, :func:`mtp_draft_tree`).
+(:func:`mtp_draft`, :func:`mtp_draft_tree`).  The training forward
+(:func:`forward_train`, :func:`lm_loss`, with the MTP term and the MoE
+aux loss) runs every layer over the whole sequence under autograd, with
+no buffer written in place; ``Runtime.remat`` recomputes each layer in the
+backward.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvcache as KV
@@ -45,6 +50,7 @@ BACKENDS = ("dense", "ref_int8", "fused_int8", "pim_bitserial")
 class Runtime:
     """Execution context threaded through model apply functions."""
     backend: str = "dense"               # dense | ref_int8 | fused_int8 | pim_bitserial
+    remat: bool = False                  # training: recompute each layer in the backward
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -171,6 +177,103 @@ def _lm_head(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime) -> torch
     if cfg.tie_embeddings:
         return torch.matmul(h, p["embed"]["w"].to(h.dtype).T)
     return L.apply_linear(L._lin(p["lm_head"], "w"), h, rt.backend)
+
+
+# ---------------------------------------------------------------------------
+# training forward and loss
+# ---------------------------------------------------------------------------
+def apply_layer_train(p: Params, cfg: ModelConfig, i: int, x: torch.Tensor,
+                      positions: torch.Tensor, rt: Runtime
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer ``i`` of the training forward over ``x`` [B, T, d] -> (x, the
+    MoE block's load-balance loss, 0 for other layers).  An SSM layer takes
+    :func:`ssm.ssm_forward`'s tensor path (``use_kernel`` left False, as the
+    reference leaves it in training), attention the causal full-sequence
+    form with no K/V buffer."""
+    h = L.apply_norm(p["ln1"], x)
+    if cfg.layer_kind(i) == "ssm":
+        mix = SSM.ssm_forward(p["ssm"], cfg, h, backend=rt.backend)
+    elif cfg.attn_type == "mla":
+        mix, _ = A.mla_forward(p["attn"], cfg, h, positions, rt.backend)
+    else:
+        mix, _ = A.gqa_forward(p["attn"], cfg, h, positions, rt.backend)
+    x = x + mix
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "moe" in p:
+        mo, aux = MOE.moe_apply(p["moe"], L.apply_norm(p["ln2"], x), cfg, with_aux=True)
+        x = x + mo
+    elif "mlp" in p:
+        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x), cfg.mlp_type, rt.backend)
+    return x, aux
+
+
+def remat_call(rt: Runtime, fn, *args):
+    """``fn(*args)``; under ``rt.remat`` through ``torch.utils.checkpoint``
+    (non-reentrant), which keeps only the inputs and recomputes the body in
+    the backward, as the reference's ``jax.checkpoint`` does."""
+    if rt.remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def forward_train(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
+                  rt: Runtime) -> tuple[torch.Tensor, torch.Tensor]:
+    """inputs: [B, T] int tokens (or [B, T, d] embeddings, see
+    :func:`embedded`) -> (hidden after ``ln_f`` [B, T, d], the layers'
+    summed MoE aux loss), over the per-layer list in order (the order in
+    which the reference's scans over its groups add the aux)."""
+    B, T = inputs.shape[:2]
+    positions = torch.arange(T, device=inputs.device).expand(B, T)
+    x = _embed(p, cfg, inputs, positions)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, lp in enumerate(p["layers"]):
+        x, aux = remat_call(rt, lambda lp_, x_, i=i: apply_layer_train(
+            lp_, cfg, i, x_, positions, rt), lp, x)
+        aux_total = aux_total + aux
+    return L.apply_norm(p["ln_f"], x), aux_total
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logsumexp(logits) - logits[label]`` per row, in f32."""
+    logits = logits.to(torch.float32)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def lm_loss(p: Params, cfg: ModelConfig, inputs: torch.Tensor, labels: torch.Tensor,
+            rt: Runtime, chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy over [B, T], the head applied to
+    ``chunk``-token pieces of the sequence (to bound the logits' memory, as
+    the reference's scan does), plus DeepSeek-V3's ``0.3 *`` MTP term where
+    the configuration has the head and ``0.01 *`` the MoE aux loss."""
+    h, aux = forward_train(p, cfg, inputs, rt)
+    B, T = h.shape[:2]
+    n_chunks = max(1, T // chunk)
+    if T % n_chunks:
+        n_chunks = 1
+    tc = T // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        logits = _lm_head(p, cfg, h[:, c * tc:(c + 1) * tc], rt)
+        total = total + torch.sum(token_nll(logits, labels[:, c * tc:(c + 1) * tc]))
+    loss = total / torch.full((), float(B * T), device=h.device)
+    if cfg.mtp:
+        loss = loss + 0.3 * _mtp_loss(p, cfg, h, inputs, labels, rt)
+    return loss + 0.01 * aux
+
+
+def _mtp_loss(p: Params, cfg: ModelConfig, h: torch.Tensor, inputs: torch.Tensor,
+              labels: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction (depth 1): ``hm[:, t]``, from
+    ``h[:, t]`` and the embedding of token t+1, predicts ``labels[:, t+1]``
+    (token t+2)."""
+    B, T = inputs.shape[:2]
+    emb_next = _embed(p, cfg, inputs, torch.arange(T, device=h.device).expand(B, T))[:, 1:]
+    hm = L.apply_linear(L._lin(p["mtp_proj"], "w"), torch.cat([h[:, :-1], emb_next], dim=-1),
+                        rt.backend)
+    positions = torch.arange(T - 1, device=h.device).expand(B, T - 1)
+    hm, _ = apply_layer_train(p["mtp_layer"], cfg, cfg.n_layers - 1, hm, positions, rt)
+    return torch.mean(token_nll(_lm_head(p, cfg, hm, rt), labels[:, 1:]))
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,10 @@ bits, MLA's latent quantizer IEEE, and reduced deepseek-v3-671b's streams
 (MTP lanes too) equal to the CPU's; B6 at jamba-1.5-large-398b's 256
 heads, the grouped B1 at its 16 experts, B2 at whisper-tiny's rep 1 and
 head dim 64, and both reduced models' streams equal to the CPU's with
-their launch counts.  The engines' captured steps (CUDA graphs) are
+their launch counts; the two norms' backward kernels against autograd of
+their plain versions within 1e-5 of the gradient's scale, repeating their
+bits, ``apply_norm`` on CUDA tensors keeping the gradient, and a reduced
+train step on the card against the CPU's.  The engines' captured steps (CUDA graphs) are
 held bit-equal to the eager steps, logits and every state tensor, with their
 launch counts, and chunked serving token-identical to one-shot prefill.
 """
@@ -281,7 +284,8 @@ def test_engine_runs_the_kernels_and_agrees_with_the_cpu(cuda):
                                "pim_mvm": 0, "decode_attn": cfg.n_layers * steps,
                                "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
                                "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts)),
-                               "layer_norm": 0}
+                               "layer_norm": 0,
+                               "rms_norm_backward": 0, "layer_norm_backward": 0}
     assert [len(o) for o in got] == budgets
     assert [o[0] for o in got] == [o[0] for o in want]     # prefill: float only
 
@@ -383,7 +387,8 @@ def test_spec_engine_runs_the_verify_kernels(cuda, lane):
     want = {"int8_matmul": 7 * cfg.n_layers * steps, "int8_matmul_grouped": 0,
             "pim_mvm": 0, "decode_attn": 0,
             "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
-            "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts)), "layer_norm": 0}
+            "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts)), "layer_norm": 0,
+            "rms_norm_backward": 0, "layer_norm_backward": 0}
     want[attn] = cfg.n_layers * steps
     assert steps == eng.stats["decode_steps"] > 0 and launch_counts() == want
     assert [len(o) for o in got] == budgets
@@ -479,6 +484,113 @@ def test_rms_norm_matches_plain_and_is_row_invariant(cuda, d):
         parts = torch.cat([rn.rms_norm_cuda(x[i:i + m], scale) for i in range(0, 124, m)])
         assert torch.equal(parts, full), m
     assert torch.equal(rn.rms_norm_cuda(x[:20].reshape(4, 5, d), scale).reshape(20, d), full[:20])
+
+
+def _norm_backward_inputs(rows, d, device):
+    g = torch.Generator().manual_seed(rows * 7 + d)
+    x = (torch.randn((rows, d), generator=g) * 3 + 0.5).to(device)
+    scale = torch.randn((d,), generator=g).to(device)
+    bias = torch.randn((d,), generator=g).to(device)
+    dy = torch.randn((rows, d), generator=g).to(device)
+    return x, scale, bias, dy
+
+
+def _close_to(got, want):
+    """Within 1e-5 of the plain gradient's scale: dx is a difference of
+    terms of that size, dscale and dbias sums over the rows, in other
+    orders than autograd's."""
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 1024])
+@pytest.mark.parametrize("d", [768, 4096, 8192])
+def test_rms_norm_backward_matches_autograd_of_plain(cuda, rows, d):
+    """The backward kernel against autograd through ``rms_norm_plain``,
+    one launch, the same bits on a second call (no atomics)."""
+    x, scale, _, dy = _norm_backward_inputs(rows, d, cuda)
+    reset_launch_counts()
+    dx, dscale = rn.rms_norm_backward_cuda(x, scale, dy)
+    assert launch_counts()["rms_norm_backward"] == 1
+    want_dx, want_ds = rn.rms_norm_backward_plain(x, scale, dy)
+    _close_to(dx, want_dx)
+    _close_to(dscale, want_ds)
+    dx2, ds2 = rn.rms_norm_backward_cuda(x, scale, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dscale, ds2)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 1024])
+@pytest.mark.parametrize("d", [768, 4096, 8192])
+def test_layer_norm_backward_matches_autograd_of_plain(cuda, rows, d):
+    x, scale, bias, dy = _norm_backward_inputs(rows, d, cuda)
+    reset_launch_counts()
+    got = lnk.layer_norm_backward_cuda(x, scale, dy)
+    assert launch_counts()["layer_norm_backward"] == 1
+    for a, b in zip(got, lnk.layer_norm_backward_plain(x, scale, bias, dy)):
+        _close_to(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(got, lnk.layer_norm_backward_cuda(x, scale, dy)))
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_apply_norm_keeps_the_gradient_on_the_card(cuda, kind):
+    """``apply_norm`` on CUDA tensors under ``requires_grad`` has a
+    ``grad_fn`` (the autograd Function), launches the forward and then the
+    backward kernel once each, and its gradients are autograd's of the
+    plain version."""
+    from repro_torch.models import layers as L
+    x, scale, bias, dy = _norm_backward_inputs(20, 768, cuda)
+    p = {"scale": scale.clone().requires_grad_(True)}
+    if kind == "layernorm":
+        p["bias"] = bias.clone().requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    reset_launch_counts()
+    y = L.apply_norm(p, xr)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, [xr, *p.values()], dy)
+    name = "layer_norm" if kind == "layernorm" else "rms_norm"
+    counts = launch_counts()
+    assert counts[name] == 1 and counts[f"{name}_backward"] == 1
+    want = (lnk.layer_norm_backward_plain(x, scale, bias, dy) if kind == "layernorm"
+            else rn.rms_norm_backward_plain(x, scale, dy))
+    for a, b in zip(got, want):
+        _close_to(a, b)
+    assert torch.count_nonzero(got[1]) > 0
+    with torch.no_grad():
+        assert L.apply_norm(p, xr).grad_fn is None
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
+    """llama3-8b and opt-125m reduced: the loss and every leaf's gradient
+    on the card (norm kernels, their backward kernels) against the CPU's
+    (plain norms), the loss within rtol 1e-5 and each gradient within 1e-4
+    of its leaf's scale (f32 sums in other orders), one forward and one
+    backward norm launch a norm; then a train step runs on the card.  (The
+    weights after an AdamW step are not compared elementwise: Adam's first
+    step divides a gradient by its own magnitude, so an entry whose
+    gradient is near zero moves by an amount its last bits decide.)"""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokens, put_batch
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    for arch in ("llama3-8b", "opt-125m"):
+        cfg = registry.get(arch).reduced()
+        batch = SyntheticTokens(cfg, ShapeConfig("t", 16, 2, "train"), seed=3).batch_at(0)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = convert.to_device(M.init_params(cfg, seed=0, device="cpu"), dev)
+            reset_launch_counts()
+            loss, grads = value_and_grad(params, cfg, put_batch(batch, dev), Runtime())
+            out[dev] = (float(loss), convert.tree_leaves(grads), launch_counts())
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+        for a, b in zip(out["cpu"][1], out["cuda"][1]):
+            torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4 * float(a.abs().max()))
+        name = "layer_norm" if cfg.norm_type == "layernorm" else "rms_norm"
+        norms = 2 * cfg.n_layers + 1
+        assert out["cuda"][2][name] == norms and out["cuda"][2][f"{name}_backward"] == norms
+        assert set(out["cpu"][2].values()) == {0}
+        opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10, quantized_state=True)
+        params = M.init_params(cfg, seed=0, device="cuda")
+        params, state, m = make_train_step(cfg, Runtime(), opt)(params, opt.init(params), batch)
+        assert np.isfinite(float(m["loss"])) and int(state.count) == 1
 
 
 @pytest.mark.parametrize("d", [96, 128, 768, 3072, 7168])
@@ -590,7 +702,8 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
                               "pim_mvm": 0, "decode_attn": 0,
                               "verify_attn": 0, "verify_tree_attn": 0,
                               "ssd_chunk": 2 * L, "rms_norm": 2 * (2 * L + 1),
-                              "layer_norm": 0}
+                              "layer_norm": 0,
+                              "rms_norm_backward": 0, "layer_norm_backward": 0}
     for a, b in zip(res["cpu"][:2], res["cuda"][:2]):
         assert torch.equal(a.argmax(-1), b.argmax(-1))
         assert float((a - b).abs().max()) <= 2e-2 * float(a.abs().max())
@@ -607,7 +720,8 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
                                "verify_attn": 0, "verify_tree_attn": 0,
                                "ssd_chunk": L * len(trace),
                                "rms_norm": (2 * L + 1) * (steps + len(trace)),
-                               "layer_norm": 0}
+                               "layer_norm": 0,
+                               "rms_norm_backward": 0, "layer_norm_backward": 0}
     assert [len(o) for o in got] == budgets
 
 

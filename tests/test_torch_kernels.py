@@ -142,7 +142,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                   -torch.ones(2), torch.ones(2), torch.zeros(1, 2, 8, 3))
     assert KN.launch_counts() == {"int8_matmul": 0, "int8_matmul_grouped": 0, "pim_mvm": 0,
                                   "decode_attn": 0, "verify_attn": 0, "verify_tree_attn": 0,
-                                  "ssd_chunk": 0, "rms_norm": 0, "layer_norm": 0}
+                                  "ssd_chunk": 0, "rms_norm": 0, "layer_norm": 0,
+                                  "rms_norm_backward": 0, "layer_norm_backward": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -162,11 +162,12 @@ Phases (any failure makes the script exit non-zero):
    32768 with top-2 routing and capacity, untied vocab 131072) at full
    width with 2 of its 64 layers (39.4 GB of f32 layers, 6.4 GB of
    embedding and head; a third layer does not fit): B1 / B5 at its
-   attention linears, B1's grouped entry (``int8_matmul_grouped``) at its
+   attention linears, the grouped B1 (``int8_matmul_grouped``) at its
    expert stacks (K 6144 / 32768) for C 2 (a decode step at 4 slots) and
    C 10 (a ``spec_k = 4`` window) with experts of 0, 1 and C rows,
    bit-equal to its plain version and to B1 on each expert's slice, beside
-   the summed per-expert ``torch._int_mm``; B2-B4 at G 8, rep 6, D 128,
+   the summed per-expert ``torch._int_mm``, with the kernel's own plan (its
+   persistent grid, full waves and cut tiles); B2-B4 at G 8, rep 6, D 128,
    also across pool sizes; the reduced model and the same at 8 experts on
    the card against the CPU; the three backends (``pim_bitserial`` gated
    equal to ``ref_int8``, the dropped choices on the trace gated above 0,
@@ -222,8 +223,10 @@ Phases (any failure makes the script exit non-zero):
 8. ``train`` (the training path, after every family's weights are freed):
    both norms' backward kernels against autograd of their plain versions
    at [1024, 4096] and [1024, 768] (within 1e-5 of the gradient's scale,
-   the same bits on a second call), timed beside the plain version and
-   ``torch.ops.aten``'s fused backward, with their byte bounds; llama3-8b
+   the same bits on a second call; the RMSNorm backward handed the
+   forward's ``rstd``, the same bits without it, one device kernel a call
+   and the same bits on two graph replays), timed beside the plain version
+   and ``torch.ops.aten``'s fused backward, with their byte bounds; llama3-8b
    at full width with 8 of its 32 layers in f32, batch 8 x 128 from the
    seeded synthetic stream: one step's gradient through the norm kernels
    against the plain norms (every leaf within 1e-3 of its scale, every
@@ -789,7 +792,7 @@ DEVICE_KERNELS = {"int8_matmul": "int8_mm_cluster", "int8_matmul_grouped": "int8
                   "decode_attn": "attn_kernel", "verify_attn": "attn_kernel",
                   "verify_tree_attn": "attn_kernel", "ssd_chunk": "ssd_chunk_kernel",
                   "rms_norm": "rms_norm_kernel", "layer_norm": "layer_norm_kernel",
-                  "rms_norm_backward": "rms_norm_bwd_rows",
+                  "rms_norm_backward": "rms_norm_bwd",
                   "layer_norm_backward": "layer_norm_bwd_rows"}
 
 
@@ -3281,15 +3284,17 @@ def grouped_bound(C: int, counts: tuple, K: int, N: int, live: int) -> tuple:
 
 
 def grouped_b1(torch, mm, cfg, counts_by_c: dict | None = None) -> dict:
-    """B1's grouped entry at a MoE layer's expert stacks (``expert_stacks``,
+    """The grouped B1 at a MoE layer's expert stacks (``expert_stacks``,
     ``cfg.n_experts`` experts) for C rows an expert at the row counts of
     ``GROUPED_COUNTS`` (experts with 0, 1 and C rows): bit-equal to its
     plain version and to B1 (``int8_matmul_cuda``) on each expert's slice,
-    the rows past a count zero (gated); its device time a layer (every
+    the rows past a count zero, one kernel a call and the same bits on two
+    replays of a captured call (gated); its device time a layer (every
     stack), the plain version's, the library's (``torch._int_mm`` on each
     expert that holds a row, x zero-padded to 32 rows, summed: the faster
-    weight layout) and two bounds: the weight bytes it reads (the experts
-    that hold a row) and every expert's.  ``counts_by_c``
+    weight layout), two bounds: the weight bytes it reads (the experts
+    that hold a row) and every expert's, and the kernel's own plan (its
+    grid and split from its C interface, ``launch_plan``).  ``counts_by_c``
     (``{C: row counts}``) replaces ``GROUPED_COUNTS``."""
     from repro_torch.kernels import int8_matmul_grouped as gmm
 
@@ -3323,6 +3328,11 @@ def grouped_b1(torch, mm, cfg, counts_by_c: dict | None = None) -> dict:
                 raise AssertionError(f"grouped B1 at C={C} K={K} N={N}: plain "
                                      f"{torch.equal(got, plain)}, per-expert B1 {per}, "
                                      f"zero rows {zero}")
+            same, nodes = replay_bits(torch, lambda i: (gmm.int8_matmul_grouped_cuda(*args),),
+                                      (got,))
+            if not same or nodes != [0]:
+                raise AssertionError(f"grouped B1 at C={C} K={K} N={N}: replays equal {same}, "
+                                     f"device operations {nodes} (not one kernel)")
             rec["max_abs_err"] = max(rec["max_abs_err"], float((got - plain).abs().max()))
             t = graph_ms(torch, lambda i: gmm.int8_matmul_grouped_cuda(*args), 20)
             t_plain = graph_ms(torch, lambda i: gmm.int8_matmul_grouped_plain(*args), 2)
@@ -3357,13 +3367,16 @@ def grouped_b1(torch, mm, cfg, counts_by_c: dict | None = None) -> dict:
             rec["stacks"].append({"K": K, "N": N, "ms": t, "plain_ms": t_plain,
                                   "library_ms": t_lib, "library_layouts_ms": layouts,
                                   "bound_ms": b[0], "bound_all_experts_ms": b_all[0],
-                                  "plan": mm.launch_plan(C, K, N, 132)._asdict()})
+                                  "plan": gmm.launch_plan(counts, C, K, N, 132)._asdict()})
             lib_us = "n/a" if t_lib is None else f"{t_lib * 1e3:.1f}"
+            plan = rec["stacks"][-1]["plan"]
             print(f"   grouped B1 E={E} C={C} K={K:5d} N={N:5d} counts {rec['counts']}: "
                   f"{t * 1e3:.1f} us (bound {b[0] * 1e3:.1f} for the {len(live)} experts "
                   f"with a row, {b_all[0] * 1e3:.1f} for all {E}; plain {t_plain * 1e3:.1f}), "
                   f"per-expert torch._int_mm {lib_us} us {layouts}; bit-equal to the plain "
-                  f"version and to B1 on each expert")
+                  f"version and to B1 on each expert; {plan['ctas']} CTAs, "
+                  f"{plan['waves']} full waves, {plan['stages_per_cta']} of "
+                  f"{plan['stages']} stages a CTA at most, {plan['cut_tiles']} cut tiles")
             del args, got, plain, w_q, x_q, xs
             torch.cuda.empty_cache()
         rec["bound_by"] = max(by, key=by.get)
@@ -4754,8 +4767,13 @@ def norm_backward_checks(torch, rn, lnk) -> dict:
     versions at llama3-8b's [1024, 4096] and opt-125m's [1024, 768] (a
     train step's B*T rows), within 1e-5 of the gradient's scale (dx is a
     difference of terms of that size; the column sums run in another order
-    than autograd's), the same bits on a second call (no atomics); times of
-    the RMSNorm backward at [1024, 4096] and the LayerNorm backward at
+    than autograd's), the same bits on a second call (no float atomics);
+    the RMSNorm backward as the training path runs it, handed the
+    forward's ``rstd``, with the same bits as without it (the kernel then
+    recomputes r), one device kernel a call (the captured call's graph
+    holds one kernel node) and the same bits on two replays of it (both
+    gated); times of the RMSNorm backward
+    at [1024, 4096] and [1024, 768] and the LayerNorm backward at
     [1024, 768] beside the plain version's (autograd through it) and the
     library's (``torch.ops.aten._fused_rms_norm_backward`` /
     ``native_layer_norm_backward``, a yardstick only), all captured as CUDA
@@ -4783,8 +4801,10 @@ def norm_backward_checks(torch, rn, lnk) -> dict:
                 return aten.native_layer_norm_backward(dy, x, [d], mean, rstd, scale, bias,
                                                        [True, True, True])
         else:
+            _, rstd_k = rn.rms_norm_cuda(x, scale, with_rstd=True)
+
             def kern(i):
-                return rn.rms_norm_backward_cuda(x, scale, dy)
+                return rn.rms_norm_backward_cuda(x, scale, dy, rstd=rstd_k)
 
             def plain(i):
                 return rn.rms_norm_backward_plain(x, scale, dy)
@@ -4802,7 +4822,16 @@ def norm_backward_checks(torch, rn, lnk) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(got, kern(1))):
             raise AssertionError(f"{name} [{M}, {d}]: a second call gave other bits")
         rec = {"M": M, "d": d, "max_abs_err": max(errs)}
-        timed_here = (name, d) in (("rms_norm_backward", 4096), ("layer_norm_backward", 768))
+        if not ln:
+            own = rn.rms_norm_backward_cuda(x, scale, dy)
+            rec["replays_equal"], rec["graph_nodes"] = replay_bits(torch, kern, got)
+            if not (all(torch.equal(a, b) for a, b in zip(got, own)) and rec["replays_equal"]
+                    and rec["graph_nodes"] == [0]):
+                raise AssertionError(f"{name} [{M}, {d}]: other bits without rstd or on a "
+                                     f"replay ({rec['replays_equal']}), or device operations "
+                                     f"{rec['graph_nodes']} (not one kernel)")
+        timed_here = (name, d) in (("rms_norm_backward", 4096), ("rms_norm_backward", 768),
+                                   ("layer_norm_backward", 768))
         if timed_here:
             tk, tp = timed(torch, kern, 50), timed(torch, plain, 50)
             lib_ms = None
@@ -4822,12 +4851,43 @@ def norm_backward_checks(torch, rn, lnk) -> dict:
                   f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f}'}); max |err| "
                   f"{max(errs):.3g}; repeats its bits; device kernels "
                   f"{ {k: round(v, 2) for k, v in rec['device_kernels_us'].items()} } us")
-            out[name] = rec
+            if d == (4096 if not ln else 768):
+                out[name] = rec
         else:
             print(f"   {name} [{M}, {d}]: within 1e-5 of autograd's, max |err| "
                   f"{max(errs):.3g}; repeats its bits")
         out.setdefault("shapes", []).append(rec)
     return out
+
+
+def captured(torch, fn):
+    """``fn(0)`` captured in a CUDA graph kept for inspection, after a call
+    on a side stream: (graph, the call's outputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        got = fn(0)
+    return graph, got
+
+
+def replay_bits(torch, fn, want) -> tuple[bool, list[int]]:
+    """``fn(0)`` captured in a CUDA graph: whether each of two replays gives
+    the tensors ``want``, and the graph's node types (one call's device
+    operations)."""
+    from repro_torch.models.graphs import node_types
+    graph, got = captured(torch, fn)
+    types = node_types(graph)
+    same = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(all(torch.equal(a, b) for a, b in zip(got, want)))
+    del graph
+    return all(same), types
 
 
 def plain_norms(rn, lnk):
@@ -5155,7 +5215,7 @@ def main() -> int:
             ("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
              "src/repro/kernels/int8_matmul/kernel.py:45", lin.get("int8_matmul"),
              main.get("int8_matmul")),
-            ("int8_matmul_grouped", "src/repro_torch/csrc/int8_matmul.cu",
+            ("int8_matmul_grouped", "src/repro_torch/csrc/int8_matmul_grouped.cu",
              "src/repro/models/moe.py:61 _int8_expert_mm (XLA einsum; no Pallas kernel)",
              grok.get("grouped_b1", {}).get(2), ctx.get("grouped_launches")),
             ("decode_attn", "src/repro_torch/csrc/decode_attn.cu",

@@ -41,15 +41,8 @@
 //   16-byte aligned weight; other N take byte loads, a misaligned weight
 //   base is refused.
 //
-// The grouped entry (int8_matmul_grouped_launch) runs the same body over a
-// stack of E experts in one launch: x int8 [E,C,K], w int8 [E,K,N], xs f32
-// [E,C], ws f32 [E,N] and an int32 row count for each expert, read on the
-// device (so a CUDA graph replays it with the counts of the step).  The
-// expert is the grid's z index; its operands start at 64-bit offsets.
-// Expert e multiplies its first min(count[e], C) rows, the rows past them
-// are written as zero, and an expert with no row reads none of its weight:
-// at a decode step of top-2 routing over 8 experts about 5.5 of them hold a
-// row, and the call's bound is the routed experts' weight bytes.
+// The grouped products of a stack of experts have their own kernel
+// (int8_matmul_grouped.cu).
 #include <algorithm>
 
 #include <cooperative_groups.h>
@@ -66,7 +59,7 @@ using namespace skinny;   // the stage geometry, ring, x staging and launch B5 s
 
 constexpr int MAX_M_TILES = 4;          // n8 tiles of x a pass: 32 rows
 
-// The body of both entries: rows [0, M) of x by the CTA's (K range, BN
+// The body: rows [0, M) of x by the CTA's (K range, BN
 // columns) share of w; M may be 0 (the CTA then reads and writes nothing).
 template <int MT, bool VEC>
 __device__ __forceinline__ void int8_mm_body(const int8_t* __restrict__ x,
@@ -176,29 +169,6 @@ int8_mm_cluster(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   int8_mm_body<MT, VEC>(x, w, xs, ws, acc_out, out, M, K, N, k_chunk, xstride);
 }
 
-// Expert blockIdx.z of the stack: its live rows through the body (every CTA
-// of a cluster holds the same expert, so a cluster skips the body, and its
-// barriers, together), then its rows [rows, C) of the CTA's columns zeroed
-// by the cluster's CTAs in turn.
-template <int MT, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-int8_mm_grouped(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                const float* __restrict__ xs, const float* __restrict__ ws,
-                const int32_t* __restrict__ counts, float* __restrict__ out, int C, int K,
-                int N, int k_chunk, int xstride) {
-  const size_t e = blockIdx.z;
-  const int rows = min(max(counts[e], 0), C);
-  float* oe = out + e * C * N;
-  int8_mm_body<MT, VEC>(x + e * C * K, w + e * K * N, xs + e * C, ws + e * N, nullptr, oe,
-                        rows, K, N, k_chunk, xstride);
-  const int n0 = blockIdx.y * BN;
-  for (int i = blockIdx.x * THREADS + threadIdx.x; i < (C - rows) * BN;
-       i += gridDim.x * THREADS) {
-    const int m = rows + i / BN, n = n0 + i % BN;
-    if (n < N) oe[(size_t)m * N + n] = 0.0f;
-  }
-}
-
 size_t smem_bytes(int m_tiles, int xstride) {
   return (size_t)STAGES * STAGE_BYTES + (size_t)8 * m_tiles * BN * 4 +
          (size_t)8 * m_tiles * xstride;
@@ -229,15 +199,6 @@ Plan make_plan(int M, int K, int N, int num_sms) {
                   }));
 }
 
-// The grouped entry's plan: B1's for C rows of one expert, its split of K
-// chosen for a grid of every expert's column tiles
-Plan make_grouped_plan(int C, int K, int N, int E, int num_sms) {
-  const int cols = (int)std::min<long long>((long long)N * E, 1LL << 30);
-  return plan_for(C, K, N, choose_split(K, cols, num_sms, [&](int split) {
-                    return plan_for(C, K, N, split).smem;
-                  }));
-}
-
 template <int MT, bool VEC>
 cudaError_t launch(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
                    int32_t* acc, float* out, int M, int K, int N, const Plan& p,
@@ -246,17 +207,6 @@ cudaError_t launch(const int8_t* x, const int8_t* w, const float* xs, const floa
   return launch_cluster<int8_mm_cluster<MT, VEC>>(p.cluster, p.n_tiles, smem_bytes(MT, xstride),
                                                   stream, x, w, xs, ws, acc, out, M, K, N,
                                                   p.k_chunk, xstride);
-}
-
-template <int MT, bool VEC>
-cudaError_t launch_grouped(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
-                           const int32_t* counts, float* out, int C, int K, int N, int E,
-                           const Plan& p, cudaStream_t stream) {
-  const int xstride = p.k_chunk + 16;
-  return launch_cluster_grid<int8_mm_grouped<MT, VEC>>(p.cluster, p.n_tiles, E,
-                                                       smem_bytes(MT, xstride), stream, x, w,
-                                                       xs, ws, counts, out, C, K, N,
-                                                       p.k_chunk, xstride);
 }
 
 }  // namespace
@@ -304,46 +254,5 @@ extern "C" int int8_matmul_launch(const void* x, const void* w, const void* xs,
       B1_CASE(4)
   }
 #undef B1_CASE
-  return (int)err;
-}
-
-// The grouped entry: x int8 [E,C,K], w int8 [E,K,N] (16-byte aligned), xs
-// f32 [E,C], ws f32 [E,N], counts int32 [E] (on the device); out f32
-// [E,C,N], expert e's rows at or past counts[e] zero.  One launch.  Returns
-// cudaErrorInvalidValue or cudaErrorMisalignedAddress, launching nothing,
-// for dimensions or an operand the kernel cannot take.
-extern "C" int int8_matmul_grouped_launch(const void* x, const void* w, const void* xs,
-                                          const void* ws, const void* counts, void* out,
-                                          int E, int C, int K, int N, int num_sms,
-                                          void* stream) {
-  if (E < 1 || E > 65535 || C < 1 || K < 1 || N < 1 || num_sms < 1)
-    return (int)cudaErrorInvalidValue;
-  const Plan p = make_grouped_plan(C, K, N, E, num_sms);
-  if (p.n_tiles > 65535 || p.smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const bool vec = N % 16 == 0;
-  // every expert's weight must start on a 16-byte boundary for the 16-byte copies
-  if (reinterpret_cast<uintptr_t>(w) % 16 != 0 || (vec && (size_t)K * N % 16 != 0))
-    return (int)cudaErrorMisalignedAddress;
-  const auto* xp = static_cast<const int8_t*>(x);
-  const auto* wp = static_cast<const int8_t*>(w);
-  const auto* xsp = static_cast<const float*>(xs);
-  const auto* wsp = static_cast<const float*>(ws);
-  const auto* cp = static_cast<const int32_t*>(counts);
-  auto* op = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define B1G_CASE(MT)                                                                   \
-  case MT:                                                                             \
-    err = vec ? launch_grouped<MT, true>(xp, wp, xsp, wsp, cp, op, C, K, N, E, p, s)   \
-              : launch_grouped<MT, false>(xp, wp, xsp, wsp, cp, op, C, K, N, E, p, s); \
-    break;
-  switch (p.m_tiles) {
-    B1G_CASE(1)
-    B1G_CASE(2)
-    B1G_CASE(3)
-    default:
-      B1G_CASE(4)
-  }
-#undef B1G_CASE
   return (int)err;
 }

@@ -1,5 +1,5 @@
-// Device helpers shared by the kernels (int8_matmul.cu, pim_mvm.cu,
-// decode_attn.cu, ssd_chunk.cu): cp.async copies from device to shared
+// Device helpers shared by the kernels (int8_matmul.cu, int8_matmul_grouped.cu,
+// pim_mvm.cu, decode_attn.cu, ssd_chunk.cu): cp.async copies from device to shared
 // memory, the int8 and tf32 mma.sync tiles, and (namespace skinny) the
 // weight stream, x staging, cluster reduction and launch that B1 and B5
 // share.
@@ -194,12 +194,12 @@ inline int choose_split(int K, int N, int num_sms, SmemOf smem_of) {
   return split;
 }
 
-// One launch of Kern on a grid of (cluster, n_tiles, depth) CTAs of THREADS
+// One launch of Kern on a grid of (cluster, n_tiles) CTAs of THREADS
 // threads in clusters of `cluster` along x, with smem bytes of dynamic
 // shared memory; the kernel's attributes are raised once, as needed.
 template <auto Kern, class... Args>
-inline cudaError_t launch_cluster_grid(int cluster, int n_tiles, int depth, size_t smem,
-                                       cudaStream_t stream, Args... args) {
+inline cudaError_t launch_cluster(int cluster, int n_tiles, size_t smem, cudaStream_t stream,
+                                  Args... args) {
   static size_t smem_set = 0;           // the largest limit asked for so far
   static bool wide_set = false;
   if (smem > smem_set) {
@@ -215,7 +215,7 @@ inline cudaError_t launch_cluster_grid(int cluster, int n_tiles, int depth, size
     wide_set = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, n_tiles, depth);
+  cfg.gridDim = dim3(cluster, n_tiles, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -228,13 +228,6 @@ inline cudaError_t launch_cluster_grid(int cluster, int n_tiles, int depth, size
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, Kern, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-// launch_cluster_grid on a grid of (cluster, n_tiles) CTAs
-template <auto Kern, class... Args>
-inline cudaError_t launch_cluster(int cluster, int n_tiles, size_t smem, cudaStream_t stream,
-                                  Args... args) {
-  return launch_cluster_grid<Kern>(cluster, n_tiles, 1, smem, stream, args...);
 }
 
 }  // namespace skinny

@@ -80,6 +80,26 @@ def require(tensor: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: must be contiguous")
 
 
+_tickets: dict = {}
+
+
+def tickets(device: torch.device, kernel: str, n: int) -> torch.Tensor:
+    """The int32 [n] ticket array of ``kernel`` on ``device``: made zero
+    once, outside any CUDA graph capture, and kept, so that a captured call
+    and its replays use the same one; the kernel that counts on it sets
+    every ticket back to zero before it ends."""
+    key = (kernel, device.index)
+    t = _tickets.get(key)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kernel}: call it once outside a CUDA graph capture on "
+                               f"this device before capturing it (it makes its tickets)")
+        t = _tickets[key] = torch.zeros((n,), dtype=torch.int32, device=device)
+    if t.numel() < n:
+        raise ValueError(f"{kernel}: {n} tickets asked, {t.numel()} made")
+    return t
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -11,7 +11,7 @@ rate.  The TPU padding of K to 512 and N to 128 is gone: the kernel masks
 its tails.  The kernel picks the cluster's split of K itself
 (:func:`launch_plan` reads it).
 
-The same library holds a grouped entry over a stack of experts
+The grouped products of a stack of experts have their own kernel
 (``kernels/int8_matmul_grouped.py``).
 """
 from __future__ import annotations

@@ -12,16 +12,20 @@ with the plain version within ``rtol=1e-6`` (the sum's order and
 ``rsqrtf``).  Bound: bytes (each element read and written once).
 
 The training path's gradient runs through :class:`RMSNormFunction`, whose
-forward is the kernel and whose backward is a second hand kernel of the
-same source (``rms_norm_backward_cuda``): ``dx`` a row at a time in the
-forward's summation order, ``dscale`` summed over rows in a fixed order
-(no atomics).  Its plain version is autograd through
-:func:`rms_norm_plain`.  Each wrapper counts its own launches:
-``launches`` the forward, ``backward_launches`` the backward.
+forward is the kernel (saving each row's ``rstd``) and whose backward is a
+second hand kernel of the same source (``rms_norm_backward_cuda``): one
+launch in clusters of 8 blocks, each block a fixed range of rows held in
+registers while its dot is reduced, ``dscale`` summed over blocks, then
+clusters, in fixed orders (no float atomics), the last block of each
+column share found by a ticket (:func:`repro_torch.kernels.tickets`).  Its
+plain version is autograd through :func:`rms_norm_plain`.  Each wrapper
+counts its own launches: ``launches`` the forward, ``backward_launches``
+the backward.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,19 +54,43 @@ def rms_norm_backward_plain(x: torch.Tensor, scale: torch.Tensor, g: torch.Tenso
         return torch.autograd.grad(rms_norm_plain(xr, sr, eps), (xr, sr), g)
 
 
+CLUSTER = 8           # blocks of a backward cluster (csrc/rms_norm.cu's CL)
+MAX_BACKWARD_D = 49152
+
+
+def backward_grid(M: int, d: int, clusters: int) -> tuple[int, int]:
+    """(blocks, rows a block) of the backward at [M, d] when the card holds
+    ``clusters`` clusters of :data:`CLUSTER` blocks at once: one wave of
+    them at most, consecutive rows a block, whole clusters, none empty."""
+    rows = -(-M // (max(1, clusters) * CLUSTER))
+    blocks = -(-M // rows)
+    return -(-blocks // CLUSTER) * CLUSTER, rows
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(device_index: int, d: int) -> int:
+    """The clusters of the backward the card holds at once for rows of d
+    (asked of the CUDA runtime)."""
+    with torch.cuda.device(device_index):
+        n = _lib().rms_norm_backward_max_clusters(d)
+    if n < 1:
+        raise RuntimeError(f"rms_norm_backward: no cluster of {CLUSTER} blocks fits at d={d}")
+    return n
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rms_norm")
     fn = lib.rms_norm_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         bwd = lib.rms_norm_backward_launch
-        bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+        bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_void_p]
         bwd.restype = ctypes.c_int
-        lib.rms_norm_backward_rows.argtypes = []
-        lib.rms_norm_backward_rows.restype = ctypes.c_int
+        lib.rms_norm_backward_max_clusters.argtypes = [ctypes.c_int]
+        lib.rms_norm_backward_max_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -75,41 +103,56 @@ def _rows(x: torch.Tensor, what: str) -> torch.Tensor:
     return x2
 
 
-def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
-                  eps: float = 1e-5) -> torch.Tensor:
+def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+                  with_rstd: bool = False):
     """Launch the kernel on CUDA tensors; same contract as
-    :func:`rms_norm_plain`."""
+    :func:`rms_norm_plain`.  With ``with_rstd`` it returns ``(out, rstd)``,
+    ``rstd`` f32 [M] each row's ``rsqrt(mean(x^2) + eps)`` as the kernel
+    computed it (the output's bits are the same either way)."""
     global launches
     x2 = _rows(x, "rms_norm")
     M, d = x2.shape
     KN.require(x2, "x", torch.float32, (M, d))
     KN.require(scale, "scale", torch.float32, (d,))
     out = torch.empty_like(x2)
-    err = _lib().rms_norm_launch(KN.ptr(x2), KN.ptr(scale), KN.ptr(out), M, d,
-                                 eps, KN.stream(x2))
+    rstd = torch.empty((M,), dtype=torch.float32, device=x2.device) if with_rstd else None
+    err = _lib().rms_norm_launch(KN.ptr(x2), KN.ptr(scale), KN.ptr(out),
+                                 KN.ptr(rstd) if with_rstd else None, M, d, eps,
+                                 KN.stream(x2))
     KN.check(err, "rms_norm")
     launches += 1
-    return out.reshape(x.shape)
+    return (out.reshape(x.shape), rstd) if with_rstd else out.reshape(x.shape)
 
 
 def rms_norm_backward_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
-                           eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels on CUDA tensors; same contract as
-    :func:`rms_norm_backward_plain`."""
+                           eps: float = 1e-5, rstd: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel on CUDA tensors; same contract as
+    :func:`rms_norm_backward_plain`.  ``rstd`` (f32 [M], from
+    ``rms_norm_cuda(..., with_rstd=True)`` on the same x) spares the kernel
+    the sum of squares; without it the kernel recomputes it in the forward's
+    order, to the same bits.  The call can be captured in a CUDA graph once
+    it has run outside a capture on the device (which makes the device's
+    tickets); calls on one device must not overlap in time."""
     global backward_launches
     x2, g2 = _rows(x, "rms_norm_backward"), _rows(g, "rms_norm_backward")
     M, d = x2.shape
+    if d > MAX_BACKWARD_D:
+        raise ValueError(f"rms_norm_backward: rows of {d} > {MAX_BACKWARD_D}")
     KN.require(x2, "x", torch.float32, (M, d))
     KN.require(g2, "g", torch.float32, (M, d))
     KN.require(scale, "scale", torch.float32, (d,))
-    lib = _lib()
-    rows = lib.rms_norm_backward_rows()
+    if rstd is not None:
+        KN.require(rstd, "rstd", torch.float32, (M,))
+    blocks, rows = backward_grid(M, d, _max_clusters(x2.device.index, d))
     dx = torch.empty_like(x2)
     dscale = torch.empty((d,), dtype=torch.float32, device=x2.device)
-    partial = torch.empty((-(-M // rows), d), dtype=torch.float32, device=x2.device)
-    err = lib.rms_norm_backward_launch(KN.ptr(x2), KN.ptr(scale), KN.ptr(g2), KN.ptr(dx),
-                                       KN.ptr(dscale), KN.ptr(partial), M, d, eps,
-                                       KN.stream(x2))
+    part = torch.empty((blocks // CLUSTER, d), dtype=torch.float32, device=x2.device)
+    tickets = KN.tickets(x2.device, "rms_norm_backward", CLUSTER)
+    err = _lib().rms_norm_backward_launch(
+        KN.ptr(x2), KN.ptr(scale), KN.ptr(g2), KN.ptr(rstd) if rstd is not None else None,
+        KN.ptr(dx), KN.ptr(dscale), KN.ptr(part), KN.ptr(tickets), M, d, blocks, rows, eps,
+        KN.stream(x2))
     KN.check(err, "rms_norm_backward")
     backward_launches += 1
     return dx.reshape(x.shape), dscale
@@ -122,14 +165,15 @@ class RMSNormFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-        ctx.save_for_backward(x, scale)
+        out, rstd = rms_norm_cuda(x, scale, eps, with_rstd=True)
+        ctx.save_for_backward(x, scale, rstd)
         ctx.eps = eps
-        return rms_norm_cuda(x, scale, eps)
+        return out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        x, scale = ctx.saved_tensors
-        dx, dscale = rms_norm_backward_cuda(x, scale, g, ctx.eps)
+        x, scale, rstd = ctx.saved_tensors
+        dx, dscale = rms_norm_backward_cuda(x, scale, g, ctx.eps, rstd)
         return dx.to(x.dtype), dscale, None
 
 

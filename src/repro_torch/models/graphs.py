@@ -36,6 +36,29 @@ from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Runtime
 
 
+def node_types(graph: torch.cuda.CUDAGraph) -> list[int]:
+    """The types of a captured graph's nodes (libcuda's
+    ``CUgraphNodeType``: 0 a kernel, 1 a copy, 2 a memset), read through
+    ``libcuda``; the graph must have been made with ``keep_graph=True``.
+    What a captured call puts on the device, with no profiler."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        types.append(t.value)
+    return types
+
+
 def state_tensors(state: dict) -> list[torch.Tensor]:
     """Every tensor of a decode state: each layer's leaves, then ``pos``."""
     return [t for layer in state["layers"] for t in layer.values()] + [state["pos"]]

@@ -502,20 +502,64 @@ def _close_to(got, want):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("rows", [1, 8, 1024])
+@pytest.mark.parametrize("rows", [1, 7, 8, 1024, 4099])
 @pytest.mark.parametrize("d", [768, 4096, 8192])
 def test_rms_norm_backward_matches_autograd_of_plain(cuda, rows, d):
     """The backward kernel against autograd through ``rms_norm_plain``,
-    one launch, the same bits on a second call (no atomics)."""
+    one launch (one device kernel), the same bits on a second call (no
+    float atomics), with and without the forward's ``rstd``."""
     x, scale, _, dy = _norm_backward_inputs(rows, d, cuda)
+    _, rstd = rn.rms_norm_cuda(x, scale, with_rstd=True)
     reset_launch_counts()
-    dx, dscale = rn.rms_norm_backward_cuda(x, scale, dy)
+    dx, dscale = rn.rms_norm_backward_cuda(x, scale, dy, rstd=rstd)
     assert launch_counts()["rms_norm_backward"] == 1
     want_dx, want_ds = rn.rms_norm_backward_plain(x, scale, dy)
     _close_to(dx, want_dx)
     _close_to(dscale, want_ds)
-    dx2, ds2 = rn.rms_norm_backward_cuda(x, scale, dy)
+    dx2, ds2 = rn.rms_norm_backward_cuda(x, scale, dy, rstd=rstd)
     assert torch.equal(dx, dx2) and torch.equal(dscale, ds2)
+    dx3, ds3 = rn.rms_norm_backward_cuda(x, scale, dy)
+    _close_to(dx3, want_dx)
+    _close_to(ds3, want_ds)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 1024, 4099])
+@pytest.mark.parametrize("d", [768, 4096, 8192])
+def test_rms_norm_rstd_equals_the_backwards_own(cuda, rows, d):
+    """The forward's ``rstd`` is the r the backward recomputes without it
+    (the same sum in the same order): both backwards give the same bits;
+    the forward's output is the same with and without ``rstd``; ``rstd``
+    is within 1e-6 of torch's ``rsqrt(mean(x^2) + eps)``."""
+    x, scale, _, dy = _norm_backward_inputs(rows, d, cuda)
+    out, rstd = rn.rms_norm_cuda(x, scale, with_rstd=True)
+    assert torch.equal(out, rn.rms_norm_cuda(x, scale))
+    torch.testing.assert_close(rstd, torch.rsqrt((x * x).mean(-1) + 1e-5), rtol=1e-6, atol=0)
+    got = rn.rms_norm_backward_cuda(x, scale, dy, rstd=rstd)
+    own = rn.rms_norm_backward_cuda(x, scale, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, own))
+
+
+@pytest.mark.parametrize("rows,d", [(1024, 4096), (7, 768)])
+def test_rms_norm_backward_replays_its_bits(cuda, rows, d):
+    """The backward captured in a CUDA graph (after one call outside it)
+    gives the eager call's bits on every replay (its tickets are back at
+    zero after each launch), and the graph holds one kernel node."""
+    x, scale, _, dy = _norm_backward_inputs(rows, d, cuda)
+    _, rstd = rn.rms_norm_cuda(x, scale, with_rstd=True)
+    want = rn.rms_norm_backward_cuda(x, scale, dy, rstd=rstd)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rn.rms_norm_backward_cuda(x, scale, dy, rstd=rstd)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        got = rn.rms_norm_backward_cuda(x, scale, dy, rstd=rstd)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _captured_node_types(lambda: rn.rms_norm_backward_cuda(x, scale, dy, rstd=rstd)) == [0]
 
 
 @pytest.mark.parametrize("rows", [1, 8, 1024])
@@ -1168,7 +1212,8 @@ def test_pool_rebuild_keeps_the_captured_steps(cuda, monkeypatch):
 # the MoE slice (grok-1-314b): B1's grouped entry, routing, B2 at rep 6
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("C,K,N", [(1, 128, 256), (2, 6144, 1000), (10, 520, 77),
-                                   (33, 1000, 528), (2, 777, 1024)])
+                                   (33, 1000, 528), (2, 777, 1024), (33, 1024, 512),
+                                   (13, 8192, 3072)])
 def test_int8_matmul_grouped_matches_plain_and_per_expert_b1(cuda, C, K, N):
     """The grouped entry (one launch) against its plain version and against
     B1 on each expert's slice, bit for bit, with counts 0, 1, C and between
@@ -1199,6 +1244,90 @@ def test_int8_matmul_grouped_matches_plain_and_per_expert_b1(cuda, C, K, N):
         gmm.int8_matmul_grouped_cuda(x_q, x_s, flat[1:].view(E, K, N), w_s, cnt)
     with pytest.raises(TypeError):
         gmm.int8_matmul_grouped_cuda(x_q, x_s, w_q, w_s, cnt.to(torch.int64))
+
+
+def _captured_node_types(fn):
+    """The device operations of one ``fn()`` captured in a CUDA graph (after
+    a call on a side stream): the graph's node types, 0 a kernel."""
+    from repro_torch.models.graphs import node_types
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    return node_types(graph)
+
+
+def _grouped_inputs(E, C, K, N, counts, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    x_q = torch.randint(-127, 128, (E, C, K), generator=g, dtype=torch.int8).to(device)
+    x_s = (torch.rand((E, C, 1), generator=g) + 0.01).to(device)
+    w_q = torch.randint(-127, 128, (E, K, N), generator=g, dtype=torch.int8).to(device)
+    w_s = (torch.rand((E, N), generator=g) + 0.01).to(device)
+    return x_q, x_s, w_q, w_s, torch.tensor(counts, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("E", [8, 16, 256])
+@pytest.mark.parametrize("live", ["none", "one", "all"])
+def test_int8_matmul_grouped_with_no_one_or_every_expert_live(cuda, E, live):
+    """The grouped kernel with no expert live (every row zero), one (the
+    last) and all, bit-equal to its plain version, one device kernel a call
+    (a captured call's graph holds one kernel node: no memset, no copy)."""
+    C = 3
+    counts = ([0] * E if live == "none" else [0] * (E - 1) + [C] if live == "one"
+              else [C] * E)
+    args = _grouped_inputs(E, C, 512, 1024, counts, E, cuda)
+    got = gmm.int8_matmul_grouped_cuda(*args)
+    assert torch.equal(got, gmm.int8_matmul_grouped_plain(*args))
+    assert _captured_node_types(lambda: gmm.int8_matmul_grouped_cuda(*args)) == [0]
+    plan = gmm.launch_plan(counts, C, 512, 1024, 132)
+    assert plan.passes == sum(1 for c in counts if c) and plan.tma == 1
+    assert plan.stages == plan.passes * plan.tiles_per_pass * plan.stages_per_tile
+
+
+def test_int8_matmul_grouped_replays_with_counts_changed_in_place(cuda):
+    """A captured grouped call replayed after the counts change in place
+    (as a decode step's routing does): bit-equal to the plain version at
+    the new counts after every replay, the grid sized from the SM count
+    alone."""
+    E, C, K, N = 8, 4, 1024, 2048
+    first = [4, 0, 1, 2, 0, 3, 4, 1]
+    x_q, x_s, w_q, w_s, cnt = _grouped_inputs(E, C, K, N, first, 26, cuda)
+    gmm.int8_matmul_grouped_cuda(x_q, x_s, w_q, w_s, cnt)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gmm.int8_matmul_grouped_cuda(x_q, x_s, w_q, w_s, cnt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gmm.int8_matmul_grouped_cuda(x_q, x_s, w_q, w_s, cnt)
+    for counts in (first, [0] * E, [C] * E, [1, 2, 3, 4, 0, 0, 0, 1], first):
+        cnt.copy_(torch.tensor(counts, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, gmm.int8_matmul_grouped_plain(x_q, x_s, w_q, w_s, cnt)), counts
+
+
+@pytest.mark.parametrize("counts", [(2, 1, 0, 2, 1, 0, 1, 1), (10, 3, 0, 1, 10, 5, 7, 4)])
+@pytest.mark.parametrize("K,N", [(6144, 32768), (32768, 6144)])
+def test_int8_matmul_grouped_plan_shares_the_live_weight_evenly(cuda, counts, K, N):
+    """The plan at grok-1-314b's expert stacks: one CTA an SM, full waves of
+    whole tiles and the last wave's stages split to within one stage, no
+    stage for a dead expert."""
+    C = max(counts)
+    plan = gmm.launch_plan(list(counts), C, K, N, 132)
+    live = sum(1 for c in counts if c)
+    assert plan.ctas == 132 and plan.passes == live
+    assert plan.stages == live * -(-N // 128) * -(-K // 128)
+    tiles = plan.stages // plan.stages_per_tile
+    assert plan.waves == tiles // 132
+    assert plan.stages_per_cta == (plan.waves * plan.stages_per_tile
+                                   + -(-(tiles % 132) * plan.stages_per_tile // 132))
+    assert plan.cut_tiles <= tiles % 132
 
 
 def _grok8():

@@ -176,7 +176,7 @@ def test_top_k_ties_go_to_the_lower_index():
 
 
 @pytest.mark.parametrize("C,counts", [(1, [1, 0, 1]), (2, [0, 2, 1]), (10, [10, 0, 3]),
-                                      (33, [33, 1, 0])])
+                                      (33, [33, 1, 0]), (2, [0, 0, 0]), (4, [4, 4, 4])])
 def test_grouped_plain_matches_per_expert_b1(C, counts):
     """The grouped plain version: expert e's rows below ``counts[e]`` equal
     B1's plain version on that expert's slice bit for bit (odd N 37), the

@@ -106,7 +106,12 @@ Phases (any failure makes the script exit non-zero):
    vocab 50280) after llama3-8b's parameters are freed.  B6 (``ssd_chunk``)
    against its plain version at full width (Q 128, 37, 1 and 33; B and C
    per group, as the model passes them) with its time,
-   bound and ``ptxas`` line, and the RMSNorm kernel's; ``ssd_forward`` over
+   bound and ``ptxas`` line, and the RMSNorm kernel's; the RMSNorm fused
+   with the activation quantizer (``rms_norm_quant``) at every width an
+   RMSNorm feeds quantized linears at (1536 to 18432), gated bit-equal to
+   the RMSNorm kernel followed by ``quantize_activation``, row-invariant, one
+   kernel node a call and equal on two replays, timed at [4, 4096] and
+   [4, 5120] beside that unfused pair captured as a graph; ``ssd_forward`` over
    two chunks against the model's chunked tensor path; the reduced config
    on the card against the CPU; and the full-width model served by
    ``Engine`` and ``ContinuousBatchingEngine`` under ``fused_int8`` with
@@ -223,9 +228,9 @@ Phases (any failure makes the script exit non-zero):
 8. ``train`` (the training path, after every family's weights are freed):
    both norms' backward kernels against autograd of their plain versions
    at [1024, 4096] and [1024, 768] (within 1e-5 of the gradient's scale,
-   the same bits on a second call; the RMSNorm backward handed the
-   forward's ``rstd``, the same bits without it, one device kernel a call
-   and the same bits on two graph replays), timed beside the plain version
+   the same bits on a second call; each handed the forward's statistics,
+   the same bits without them, one device kernel a call and the same bits
+   on two graph replays), timed beside the plain version
    and ``torch.ops.aten``'s fused backward, with their byte bounds; llama3-8b
    at full width with 8 of its 32 layers in f32, batch 8 x 128 from the
    seeded synthetic stream: one step's gradient through the norm kernels
@@ -241,7 +246,12 @@ Phases (any failure makes the script exit non-zero):
 
 Every path runs a row-invariant norm kernel for every norm on the card
 (``rms_norm``, or ``layer_norm`` for OPT; QK-norm's two a layer through
-``rms_norm``); each serve run's launch counts include it.  The training
+``rms_norm``); each serve run's launch counts include it.  Under
+``fused_int8`` and ``pim_bitserial`` an RMSNorm whose output feeds
+quantized linears on the int8 tree runs ``rms_norm_quant`` instead, which
+also writes the output's int8 codes and scales for those linears (a
+LayerNorm's output is quantized once); ``ref_int8`` quantizes a linear's
+input in each linear.  The training
 path's norms run it through an autograd Function whose backward is the
 norm's backward kernel (``rms_norm_backward``, ``layer_norm_backward``).
 
@@ -791,9 +801,9 @@ DEVICE_KERNELS = {"int8_matmul": "int8_mm_cluster", "int8_matmul_grouped": "int8
                   "pim_mvm": "pim_mvm_cluster",
                   "decode_attn": "attn_kernel", "verify_attn": "attn_kernel",
                   "verify_tree_attn": "attn_kernel", "ssd_chunk": "ssd_chunk_kernel",
-                  "rms_norm": "rms_norm_kernel", "layer_norm": "layer_norm_kernel",
-                  "rms_norm_backward": "rms_norm_bwd",
-                  "layer_norm_backward": "layer_norm_bwd_rows"}
+                  "rms_norm": "rms_norm_kernel", "rms_norm_quant": "rms_norm_quant_kernel",
+                  "layer_norm": "layer_norm_kernel", "rms_norm_backward": "rms_norm_bwd",
+                  "layer_norm_backward": "layer_norm_bwd"}
 
 
 def device_launches(counts: dict) -> dict:
@@ -1047,6 +1057,23 @@ def norms_per_pass(cfg) -> int:
                    for i in range(cfg.n_layers))
 
 
+def fused_norms_per_pass(cfg) -> int:
+    """RMSNorm launches of one pass over a quantized tree under a kernel
+    backend that the entry fused with the activation quantizer
+    (``rms_norm_quant``) takes: the norms whose output feeds quantized
+    linears, each layer's ``ln1``, an SSM layer's gated norm, a dense FFN's
+    ``ln2`` and an MLA layer's ``q_norm`` (a MoE layer's ``ln2``, MLA's
+    ``kv_norm``, QK-norm and ``ln_f`` keep the plain RMSNorm kernel; a
+    LayerNorm stack quantizes its norms' outputs once each, with no fused
+    kernel)."""
+    if cfg.norm_type == "layernorm":
+        return 0
+    return sum(1 + (cfg.layer_kind(i) == "ssm")
+               + bool(cfg.d_ff and not cfg.is_moe_layer(i))
+               + (cfg.attn_type == "mla" and cfg.layer_kind(i) != "ssm")
+               for i in range(cfg.n_layers))
+
+
 def expert_launches_per_layer(cfg, i: int = 0) -> int:
     """Grouped B1 launches of layer ``i``'s step: one an expert stack of a
     MoE layer (w_up, w_down and, under SwiGLU, w_gate), under every
@@ -1081,19 +1108,30 @@ def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
     by its kind (B6 in prefill for its SSM layers, ``attn`` in decode for
     its attention layers); an encoder-decoder's prefill adds its encoder's
     norms (two a layer and ``ln_enc``; its float prefill runs no linear
-    kernel)."""
+    kernel).  Under ``fused_int8`` and ``pim_bitserial`` the norms of each
+    pass over the int8 tree (decode and verify steps, an int8 prefill, the
+    MTP cells' ``ln1`` and ``q_norm``) whose outputs feed quantized linears
+    launch ``rms_norm_quant`` in place of ``rms_norm``
+    (:func:`fused_norms_per_pass`); ``ref_int8`` keeps ``rms_norm`` and the
+    per-linear quantizer."""
     L = cfg.n_layers
     mla = cfg.attn_type == "mla"
     n_ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(L))
     prefills = len(prompt_lens) if prefills is None else prefills
     want = {"int8_matmul": 0, "int8_matmul_grouped": 0, "pim_mvm": 0, "decode_attn": 0,
             "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0, "rms_norm": 0,
-            "layer_norm": 0, "rms_norm_backward": 0, "layer_norm_backward": 0}
+            "rms_norm_quant": 0, "layer_norm": 0, "rms_norm_backward": 0,
+            "layer_norm_backward": 0}
     want[norm_kernel(cfg)] = norms_per_pass(cfg) * (steps + prefills) + 4 * draft_cells
     if cfg.family == "encdec":
         want[norm_kernel(cfg)] += (2 * cfg.encoder_layers + 1) * prefills
     if cfg.use_qk_norm or mla:   # QK-norm's q and k, or MLA's q_norm and kv_norm
         want["rms_norm"] += 2 * L * (steps + prefills)
+    if backend in ("fused_int8", "pim_bitserial") and cfg.norm_type != "layernorm":
+        passes = steps + (prefills if int8_prefill else 0)
+        want["rms_norm_quant"] = (fused_norms_per_pass(cfg) * passes
+                                  + 2 * draft_cells * (cfg.attn_type == "mla"))
+        want["rms_norm"] -= want["rms_norm_quant"]
     linears = sum(linears_per_layer(cfg, i) for i in range(L))
     experts = sum(expert_launches_per_layer(cfg, i) for i in range(L))
     cell = expert_launches_per_layer(cfg, L - 1)
@@ -1467,13 +1505,16 @@ def reduced_verify(torch, drafter) -> dict:
     return out
 
 
-def row_invariance(torch, cfg, params, B: int, T: int) -> dict:
+def row_invariance(torch, cfg, params, B: int, T: int, q: dict) -> dict:
     """The float stages that a verify step runs over B*T rows and a decode
     step over B, each run on the same random rows once as the verify step
     calls it and T times as the decode step does: how many outputs differ,
     and by how much.  The norm (the configuration's norm kernel, RMSNorm or
-    LayerNorm) must differ in none."""
+    LayerNorm) and the int8 pair it hands the attention linears of ``q``
+    (the int8 tree) under ``fused_int8`` (``norm_pair``: the fused RMSNorm
+    entry, or the LayerNorm's output quantized once) must differ in none."""
     from repro_torch.core import quant
+    from repro_torch.models import attention as A
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TT
     from repro_torch.models.transformer import Runtime
@@ -1486,6 +1527,9 @@ def row_invariance(torch, cfg, params, B: int, T: int) -> dict:
     norm = norm_kernel(cfg)
     stages = {
         norm: lambda h: L.apply_norm(ln, h),
+        "norm_pair": lambda h: torch.cat(
+            [t.to(torch.float32) for t in L.apply_norm_q(
+                ln, h, "fused_int8", q["layers"][0]["attn"], A.INPUT_LINEARS)[1]], -1),
         "quantize_activation": lambda h: torch.cat(
             [t.to(torch.float32) for t in quant.quantize_activation(h)], -1),
         "lm_head": lambda h: TT._lm_head(params, cfg, h.reshape(-1, d), rt).reshape(
@@ -1500,8 +1544,8 @@ def row_invariance(torch, cfg, params, B: int, T: int) -> dict:
     print(f"   float stages at M = {B * T} against M = {B} rows: " + ", ".join(
         f"{k} {v['differing']} of {v['of']} differ (max {v['max_abs']:.3g})"
         for k, v in out.items()))
-    if out[norm]["differing"]:
-        raise AssertionError(f"apply_norm is not row-invariant: {out[norm]}")
+    if out[norm]["differing"] or out["norm_pair"]["differing"]:
+        raise AssertionError(f"apply_norm or its int8 pair is not row-invariant: {out}")
     return out
 
 
@@ -1517,7 +1561,7 @@ def full_width_parity(torch, params, cfg, q, state, toks) -> dict:
 
     rt = Runtime("fused_int8")
     B, T = toks.shape
-    out = {"row_invariance": row_invariance(torch, cfg, params, B, T),
+    out = {"row_invariance": row_invariance(torch, cfg, params, B, T, q),
            "window_vs_decode": window_vs_decode(torch, M, cfg, q, state, toks, rt)[0]}
     print(f"   full width, verify_step vs sequential decode_step: "
           f"{describe_window(out['window_vs_decode'])}")
@@ -2795,7 +2839,73 @@ def rms_norm_checks(torch, rn) -> dict:
               f"{tp['device_ms'] * 1e3:.2f} / {tp['eager_ms'] * 1e3:.2f} eager, "
               f"F.rms_norm {'n/a' if lib is None else f'{lib * 1e3:.2f}'}); max |err| {err:.3g}; "
               f"row-invariant at M 4, 20, 124 for d 2560, 4096, 5120")
-    return dict(out["shapes"][5120], shapes=out["shapes"], row_invariant=True)
+    return dict(out["shapes"][5120], shapes=out["shapes"], row_invariant=True,
+                quant=rms_norm_quant_checks(torch, rn))
+
+
+# every width at which an RMSNorm's output feeds quantized linears on the
+# served paths: the RMSNorm families' d_model, MLA's q_lora rank and the
+# SSM blocks' inner widths (mamba2-2.7b's 5120, jamba's 16384)
+SERVED_RMS_WIDTHS = (1536, 2560, 3072, 4096, 5120, 6144, 7168, 8192, 16384, 18432)
+QUANT_ROWS = 124
+
+
+def rms_norm_quant_checks(torch, rn) -> dict:
+    """The RMSNorm fused with the activation quantizer (``rms_norm_quant``)
+    at every width of :data:`SERVED_RMS_WIDTHS` (a zero row among random
+    ones): its output bit-equal to the RMSNorm kernel's and its codes and
+    scales to ``quantize_activation`` of that output, at 1, 4 and 20 rows a
+    call, each call's rows equal to the 124-row call's (row-invariant), one
+    kernel node when captured and the same bits on two replays (all
+    gated); timed at [4, 4096] and [4, 5120] beside the RMSNorm kernel
+    alone, the unfused pair (the kernel, then ``quantize_activation``)
+    captured as a CUDA graph, the yardstick, and the plain version (no one
+    library call computes the three outputs)."""
+    from repro_torch.core import quant
+    g = torch.Generator(device="cuda").manual_seed(27)
+    out = {"widths": {}, "shapes": {}}
+    for d in SERVED_RMS_WIDTHS:
+        x = torch.randn((QUANT_ROWS, d), generator=g, device="cuda") * 2
+        x[7] = 0                                   # the scale's floor
+        scale = torch.randn((d,), generator=g, device="cuda")
+        whole = rn.rms_norm_quant_cuda(x, scale)
+        h = rn.rms_norm_cuda(x, scale)
+        same = [torch.equal(a, b) for a, b in zip(whole, (h, *quant.quantize_activation(h)))]
+        rows = {m: all(torch.equal(torch.cat([rn.rms_norm_quant_cuda(x[i:i + m], scale)[j]
+                                              for i in range(0, QUANT_ROWS, m)]), whole[j])
+                       for j in range(3)) for m in (1, 4, 20)}
+        x4 = x[:4].contiguous()
+        replays, nodes = replay_bits(torch, lambda i: rn.rms_norm_quant_cuda(x4, scale),
+                                     tuple(t[:4] for t in whole))
+        out["widths"][d] = {"equal_to_pair": same, "row_invariant": rows,
+                            "replays_equal": replays, "graph_nodes": nodes}
+        if not (all(same) and all(rows.values()) and replays and nodes == [0]):
+            raise AssertionError(f"rms_norm_quant d={d}: equal to the kernel and the quantizer "
+                                 f"{same}, rows across calls {rows}, replays {replays}, "
+                                 f"device operations {nodes}")
+    print(f"   rms_norm_quant: h, codes and scales equal to rms_norm_cuda then "
+          f"quantize_activation at d {SERVED_RMS_WIDTHS}, row-invariant at 1, 4, 20 and "
+          f"{QUANT_ROWS} rows a call, one kernel node a call, replays equal")
+    for d in (4096, 5120):
+        M = 4
+        x = torch.randn((M, d), generator=g, device="cuda")
+        scale = torch.randn((d,), generator=g, device="cuda")
+        err = float((rn.rms_norm_quant_cuda(x, scale)[0] - rn.rms_norm_plain(x, scale))
+                    .abs().max())
+        tk = timed(torch, lambda i: rn.rms_norm_quant_cuda(x, scale), 200)
+        tn = graph_ms(torch, lambda i: rn.rms_norm_cuda(x, scale), 200)
+        tu = graph_ms(torch, lambda i: quant.quantize_activation(rn.rms_norm_cuda(x, scale)), 200)
+        tp = graph_ms(torch, lambda i: rn.rms_norm_quant_plain(x, scale), 200)
+        b = bound_ms(4 * (2 * M * d + d + M) + M * d, [(6 * M * d, FP32_FLOPS_PER_S)])
+        out["shapes"][d] = {"M": M, "d": d, "ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+                            "rms_norm_ms": tn, "unfused_ms": tu, "plain_ms": tp,
+                            "library_ms": None, "bound_ms": b[0], "bound_by": b[1],
+                            "max_abs_err": err}
+        print(f"   rms_norm_quant [{M}, {d}]: {tk['device_ms'] * 1e3:.2f} us device / "
+              f"{tk['eager_ms'] * 1e3:.2f} eager (bound {b[0] * 1e3:.3f}; rms_norm alone "
+              f"{tn * 1e3:.2f}, rms_norm + quantize_activation {tu * 1e3:.2f}, plain "
+              f"{tp * 1e3:.2f}); max |err| of h {err:.3g}")
+    return dict(out["shapes"][4096], shapes=out["shapes"], widths=out["widths"])
 
 
 def ssd_forward_check(torch, cfg) -> dict:
@@ -4768,13 +4878,13 @@ def norm_backward_checks(torch, rn, lnk) -> dict:
     train step's B*T rows), within 1e-5 of the gradient's scale (dx is a
     difference of terms of that size; the column sums run in another order
     than autograd's), the same bits on a second call (no float atomics);
-    the RMSNorm backward as the training path runs it, handed the
-    forward's ``rstd``, with the same bits as without it (the kernel then
-    recomputes r), one device kernel a call (the captured call's graph
-    holds one kernel node) and the same bits on two replays of it (both
-    gated); times of the RMSNorm backward
-    at [1024, 4096] and [1024, 768] and the LayerNorm backward at
-    [1024, 768] beside the plain version's (autograd through it) and the
+    each as the training path runs it, handed the forward's statistics
+    (the RMSNorm's ``rstd``, the LayerNorm's mean and ``rstd``), with the
+    same bits as without them (the kernel then recomputes them in the
+    forward's order), one device kernel a call (the captured call's graph
+    holds one kernel node) and the same bits on two replays of it (all
+    gated); times of both at [1024, 4096] and [1024, 768] beside the plain
+    version's (autograd through it) and the
     library's (``torch.ops.aten._fused_rms_norm_backward`` /
     ``native_layer_norm_backward``, a yardstick only), all captured as CUDA
     graphs and replayed, with the byte bound."""
@@ -4790,7 +4900,12 @@ def norm_backward_checks(torch, rn, lnk) -> dict:
         dy = torch.randn((M, d), generator=g, device="cuda")
         ln = name == "layer_norm_backward"
         if ln:
+            _, mean_k, rstd_k = lnk.layer_norm_cuda(x, scale, bias, with_stats=True)
+
             def kern(i):
+                return lnk.layer_norm_backward_cuda(x, scale, dy, mean=mean_k, rstd=rstd_k)
+
+            def own_stats():
                 return lnk.layer_norm_backward_cuda(x, scale, dy)
 
             def plain(i):
@@ -4805,6 +4920,9 @@ def norm_backward_checks(torch, rn, lnk) -> dict:
 
             def kern(i):
                 return rn.rms_norm_backward_cuda(x, scale, dy, rstd=rstd_k)
+
+            def own_stats():
+                return rn.rms_norm_backward_cuda(x, scale, dy)
 
             def plain(i):
                 return rn.rms_norm_backward_plain(x, scale, dy)
@@ -4822,40 +4940,32 @@ def norm_backward_checks(torch, rn, lnk) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(got, kern(1))):
             raise AssertionError(f"{name} [{M}, {d}]: a second call gave other bits")
         rec = {"M": M, "d": d, "max_abs_err": max(errs)}
-        if not ln:
-            own = rn.rms_norm_backward_cuda(x, scale, dy)
-            rec["replays_equal"], rec["graph_nodes"] = replay_bits(torch, kern, got)
-            if not (all(torch.equal(a, b) for a, b in zip(got, own)) and rec["replays_equal"]
-                    and rec["graph_nodes"] == [0]):
-                raise AssertionError(f"{name} [{M}, {d}]: other bits without rstd or on a "
-                                     f"replay ({rec['replays_equal']}), or device operations "
-                                     f"{rec['graph_nodes']} (not one kernel)")
-        timed_here = (name, d) in (("rms_norm_backward", 4096), ("rms_norm_backward", 768),
-                                   ("layer_norm_backward", 768))
-        if timed_here:
-            tk, tp = timed(torch, kern, 50), timed(torch, plain, 50)
-            lib_ms = None
-            if lib is not None:
-                try:        # a yardstick only: an aten signature of another version
-                    lib_ms = graph_ms(torch, lib, 50)
-                except (RuntimeError, TypeError) as e:
-                    print(f"   {name}: the library call did not run here: {e}")
-            b = norm_bwd_bound(M, d, ln)
-            rec["device_kernels_us"] = kernel_breakdown(torch, kern)
-            rec.update({"ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
-                        "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
-                        "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1]})
-            print(f"   {name} [{M}, {d}]: {tk['device_ms'] * 1e3:.2f} us device / "
-                  f"{tk['eager_ms'] * 1e3:.2f} eager (bound {b[0] * 1e3:.2f}, plain "
-                  f"{tp['device_ms'] * 1e3:.2f} / {tp['eager_ms'] * 1e3:.2f} eager, library "
-                  f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f}'}); max |err| "
-                  f"{max(errs):.3g}; repeats its bits; device kernels "
-                  f"{ {k: round(v, 2) for k, v in rec['device_kernels_us'].items()} } us")
-            if d == (4096 if not ln else 768):
-                out[name] = rec
-        else:
-            print(f"   {name} [{M}, {d}]: within 1e-5 of autograd's, max |err| "
-                  f"{max(errs):.3g}; repeats its bits")
+        rec["replays_equal"], rec["graph_nodes"] = replay_bits(torch, kern, got)
+        if not (all(torch.equal(a, b) for a, b in zip(got, own_stats())) and rec["replays_equal"]
+                and rec["graph_nodes"] == [0]):
+            raise AssertionError(f"{name} [{M}, {d}]: other bits without the saved stats or "
+                                 f"on a replay ({rec['replays_equal']}), or device operations "
+                                 f"{rec['graph_nodes']} (not one kernel)")
+        tk, tp = timed(torch, kern, 50), timed(torch, plain, 50)
+        lib_ms = None
+        if lib is not None:
+            try:        # a yardstick only: an aten signature of another version
+                lib_ms = graph_ms(torch, lib, 50)
+            except (RuntimeError, TypeError) as e:
+                print(f"   {name}: the library call did not run here: {e}")
+        b = norm_bwd_bound(M, d, ln)
+        rec["device_kernels_us"] = kernel_breakdown(torch, kern)
+        rec.update({"ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+                    "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
+                    "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1]})
+        print(f"   {name} [{M}, {d}]: {tk['device_ms'] * 1e3:.2f} us device / "
+              f"{tk['eager_ms'] * 1e3:.2f} eager (bound {b[0] * 1e3:.2f}, plain "
+              f"{tp['device_ms'] * 1e3:.2f} / {tp['eager_ms'] * 1e3:.2f} eager, library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.2f}'}); max |err| "
+              f"{max(errs):.3g}; repeats its bits; device kernels "
+              f"{ {k: round(v, 2) for k, v in rec['device_kernels_us'].items()} } us")
+        if d == (4096 if not ln else 768):
+            out[name] = rec
         out.setdefault("shapes", []).append(rec)
     return out
 
@@ -5236,6 +5346,10 @@ def main() -> int:
             ("rms_norm", "src/repro_torch/csrc/rms_norm.cu",
              "src/repro/models/layers.py apply_norm (jnp; no Pallas kernel)",
              ssm.get("rms_norm"), ctx.get("rms_norm_launches")),
+            ("rms_norm_quant", "src/repro_torch/csrc/rms_norm.cu",
+             "src/repro/models/layers.py apply_norm with src/repro/core/quant.py "
+             "quantize_activation (jnp; no Pallas kernel)",
+             ssm.get("rms_norm", {}).get("quant"), main.get("rms_norm_quant")),
             ("layer_norm", "src/repro_torch/csrc/layer_norm.cu",
              "src/repro/models/layers.py apply_norm, LayerNorm branch (jnp; no Pallas kernel)",
              s.record.get("families", {}).get("layer_norm"), ctx.get("layer_norm_launches")),

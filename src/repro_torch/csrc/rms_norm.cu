@@ -24,6 +24,29 @@
 // the pointer is not null (the training path saves it for the backward;
 // serving passes null).  The output's bits do not depend on it.
 //
+// The forward fused with the per-row int8 quantizer (rms_norm_quant_kernel;
+// it replaces no TPU kernel: the reference quantizes every linear's input
+// in jnp, core/quant.py quantize_activation).  On the serve path every
+// quantized linear that reads a norm's output quantizes it again, eight
+// torch kernels a linear (abs, amax, clamp, the division by 127, the
+// division, round, clamp, the cast), five times for a SwiGLU attention
+// layer's two norms.  This entry writes, one block a row as the forward:
+//   h[m, i]   = (x[m, i] * r) * scale[i], the forward's bits (the same r,
+//               the same products);
+//   s[m]      = max(amax_i |h[m, i]|, 1e-8) / 127, an IEEE division;
+//   q[m, i]   = clamp(rint(h[m, i] / s[m]), -127, 127) as int8, the IEEE
+//               quotient (by one fma step from the reciprocal, see code())
+//               rounded half to even,
+// the bits of quantize_activation(h) on the card (torch's tensor division
+// is IEEE and torch.round rounds half to even).  The amax is a max, so its
+// order changes no bit: a row's h, q and s depend on that row alone.  A
+// thread holds its elements and their scales in registers from one read
+// (up to 72 a thread, d 18432), so the row is read once and each of the
+// two reductions costs one barrier.  Bound: bytes (x read, h and q
+// written, 9 bytes an element); at the decode shapes a launch's fixed
+// cost, against the eight launches it removes for each linear that reads
+// the row.
+//
 // The backward (the training path's gradient through the norm; the
 // reference leaves it to XLA's autodiff of the jnp norm):
 //
@@ -88,6 +111,113 @@ rms_norm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   float* orow = out + base;
   for (int i = threadIdx.x; i < d; i += NT)
     orow[i] = __fmul_rn(__fmul_rn(xr[i], r), scale[i]);
+}
+
+// clamp(rint(h / s), -127, 127) as int8, h / s the IEEE quotient, with y
+// the correctly rounded 1 / s.  Division without its per-element guard:
+// q0 = h y lies within an ulp of h / s, the residual h - s q0 is exact by
+// fma, and one fma step q0 + r y is then the correctly rounded quotient
+// (Markstein's theorem) while h, s and the quotient stay normal, which
+// holds wherever a code can be nonzero (|h / s| >= 1/2 with s >= 1e-8 /
+// 127); below that both quotients round to 0 (held in exact arithmetic at
+// and around every half-integer by tests/test_torch_norm_quant.py).
+// __fdiv_rn's guard and slow path cost more than the rest of the entry at
+// the decode shapes.
+__device__ __forceinline__ signed char code(float h, float s, float y) {
+  const float q0 = __fmul_rn(h, y);
+  const float q = __fmaf_rn(__fmaf_rn(-s, q0, h), y, q0);
+  return (signed char)(int)fminf(fmaxf(rintf(q), -127.f), 127.f);
+}
+
+// V: elements of the row each thread holds in registers (d <= NT V), with
+// their scales; 0 for wider rows, which are read again from L1 / L2.  The
+// sum of squares runs in rms_norm_kernel's order (thread t's elements t,
+// t + NT, ... in order, a warp's butterfly, the warp sums in index order),
+// so h is its bits; every thread adds the warp sums itself (one barrier).
+template <int V>
+__global__ void __launch_bounds__(NT)
+rms_norm_quant_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                      float* __restrict__ out, signed char* __restrict__ codes,
+                      float* __restrict__ row_scale, int d, float eps) {
+  __shared__ float warp_sum[NT / 32], warp_max[NT / 32];
+  constexpr int R = V > 0 ? V : 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t base = (size_t)blockIdx.x * d;
+  const float* xr = x + base;
+  float* orow = out + base;
+  signed char* qrow = codes + base;
+  float h[R], sc[R];
+  float s = 0.f;
+  if constexpr (V > 0) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int i = tid + NT * j;
+      h[j] = i < d ? xr[i] : 0.f;
+      sc[j] = i < d ? scale[i] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (tid + NT * j < d) s = fmaf(h[j], h[j], s);
+  } else {
+    for (int i = tid; i < d; i += NT) {
+      const float v = xr[i];
+      s = fmaf(v, v, s);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) warp_sum[warp] = s;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) t += warp_sum[w];
+  const float r = rsqrtf(__fdiv_rn(t, (float)d) + eps);
+  float amax = 0.f;
+  if constexpr (V > 0) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int i = tid + NT * j;
+      if (i < d) {
+        h[j] = __fmul_rn(__fmul_rn(h[j], r), sc[j]);
+        orow[i] = h[j];
+        amax = fmaxf(amax, fabsf(h[j]));
+      }
+    }
+  } else {
+    for (int i = tid; i < d; i += NT) {
+      const float v = __fmul_rn(__fmul_rn(xr[i], r), scale[i]);
+      orow[i] = v;
+      amax = fmaxf(amax, fabsf(v));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (lane == 0) warp_max[warp] = amax;
+  __syncthreads();
+  float m = warp_max[0];
+#pragma unroll
+  for (int w = 1; w < NT / 32; ++w) m = fmaxf(m, warp_max[w]);
+  const float qs = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
+  if (tid == 0) row_scale[blockIdx.x] = qs;
+  const float y = __frcp_rn(qs);
+  if constexpr (V > 0) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int i = tid + NT * j;
+      if (i < d) qrow[i] = code(h[j], qs, y);
+    }
+  } else {
+    // h again from x (L1 / L2 hits, the same bits as the pass above)
+    for (int i = tid; i < d; i += NT)
+      qrow[i] = code(__fmul_rn(__fmul_rn(xr[i], r), scale[i]), qs, y);
+  }
+}
+
+// rms_norm_quant_kernel's elements a thread for rows of d (0: re-read)
+int quant_vpt(int d) {
+  const int v = (d + NT - 1) / NT;
+  return v <= 4 ? 4 : v <= 8 ? 8 : v <= 12 ? 12 : v <= 16 ? 16 : v <= 24 ? 24 : v <= 32 ? 32
+       : v <= 48 ? 48 : v <= 64 ? 64 : v <= 72 ? 72 : 0;
 }
 
 // The block's sums of every thread's a and b (each warp by a fixed xor
@@ -372,6 +502,35 @@ extern "C" int rms_norm_backward_launch(const void* x, const void* scale, const 
   }
 #undef BWD
   return (int)err;
+}
+
+// x f32 [M, d] -> h f32 [M, d] (rms_norm_launch's bits), codes int8 [M, d]
+// and row_scale f32 [M]: the per-row int8 quantization of h.  One launch.
+extern "C" int rms_norm_quant_launch(const void* x, const void* scale, void* out,
+                                     void* codes, void* row_scale, int M, int d, float eps,
+                                     void* stream) {
+  if (M < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const float*>(x);
+  const auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<float*>(out);
+  auto* qp = static_cast<signed char*>(codes);
+  auto* rp = static_cast<float*>(row_scale);
+#define QUANT(V) rms_norm_quant_kernel<V><<<M, NT, 0, st>>>(xp, sp, op, qp, rp, d, eps)
+  switch (quant_vpt(d)) {
+    case 4: QUANT(4); break;
+    case 8: QUANT(8); break;
+    case 12: QUANT(12); break;
+    case 16: QUANT(16); break;
+    case 24: QUANT(24); break;
+    case 32: QUANT(32); break;
+    case 48: QUANT(48); break;
+    case 64: QUANT(64); break;
+    case 72: QUANT(72); break;
+    default: QUANT(0);
+  }
+#undef QUANT
+  return (int)cudaGetLastError();
 }
 
 // x f32 [M, d] -> out f32 [M, d]; scale f32 [d]; rstd f32 [M] receives each

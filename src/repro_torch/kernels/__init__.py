@@ -6,7 +6,8 @@ plain version only for CPU tensors and the kernel for CUDA tensors, and a
 ``launches`` counter that the CUDA wrapper bumps once per launch (the two
 norms' backward wrappers, ``rms_norm_backward`` and
 ``layer_norm_backward``, count theirs in their module's
-``backward_launches``).  A call
+``backward_launches``, and the RMSNorm fused with the activation
+quantizer, ``rms_norm_quant``, in ``rms_norm.quant_launches``).  A call
 recorded into a CUDA graph launches nothing: the graph
 (``models/graphs.py``) takes the counts its capture added back off with
 :func:`set_launch_counts` and credits them on every replay with
@@ -21,16 +22,19 @@ import importlib
 import torch
 
 KERNELS = ("int8_matmul", "int8_matmul_grouped", "pim_mvm", "decode_attn",
-           "verify_attn", "verify_tree_attn", "ssd_chunk", "rms_norm", "layer_norm",
-           "rms_norm_backward", "layer_norm_backward")
+           "verify_attn", "verify_tree_attn", "ssd_chunk", "rms_norm", "rms_norm_quant",
+           "layer_norm", "rms_norm_backward", "layer_norm_backward")
+
+# (module, attribute) of the counts that are not their module's ``launches``
+_COUNTERS = {"rms_norm_quant": ("rms_norm", "quant_launches"),
+             "rms_norm_backward": ("rms_norm", "backward_launches"),
+             "layer_norm_backward": ("layer_norm", "backward_launches")}
 
 
 def _counter(name: str) -> tuple:
     """(module, attribute) of a kernel's launch count."""
-    if name.endswith("_backward"):
-        return (importlib.import_module(f"repro_torch.kernels.{name[:-len('_backward')]}"),
-                "backward_launches")
-    return importlib.import_module(f"repro_torch.kernels.{name}"), "launches"
+    mod, attr = _COUNTERS.get(name, (name, "launches"))
+    return importlib.import_module(f"repro_torch.kernels.{mod}"), attr
 
 
 def launch_counts() -> dict[str, int]:

@@ -16,16 +16,21 @@ the difference of two rounded terms).  Bound: bytes (each element read and
 written once).
 
 The training path's gradient runs through :class:`LayerNormFunction`, whose
-forward is the kernel and whose backward is a second hand kernel of the
-same source (``layer_norm_backward_cuda``): ``dx`` a row at a time in the
-forward's summation order, ``dscale`` and ``dbias`` summed over rows in a
-fixed order (no atomics).  Its plain version is autograd through
-:func:`layer_norm_plain`.  Each wrapper counts its own launches:
-``launches`` the forward, ``backward_launches`` the backward.
+forward is the kernel (saving each row's mean and ``rstd``) and whose
+backward is a second hand kernel of the same source
+(``layer_norm_backward_cuda``): one launch in clusters of 8 blocks; rows of
+up to 1,024 a warp a row (its sums by a warp's butterfly, no block
+barrier), wider rows a block a row; ``dscale`` and ``dbias`` summed over a
+block's warps, then the cluster's blocks, then the clusters, in fixed
+orders (no float atomics), the last block of each column share found by a
+ticket (:func:`repro_torch.kernels.tickets`).  Its plain version is
+autograd through :func:`layer_norm_plain`.  Each wrapper counts its own
+launches: ``launches`` the forward, ``backward_launches`` the backward.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -59,19 +64,56 @@ def layer_norm_backward_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.
         return torch.autograd.grad(layer_norm_plain(xr, sr, br, eps), (xr, sr, br), g)
 
 
+CLUSTER = 8           # blocks of a backward cluster (csrc/layer_norm.cu's CL)
+WARPS = 8             # warps of a backward block
+WARP_ROWS_D = 1024    # rows up to this wide: a warp a row in the backward
+MAX_BACKWARD_D = 24576
+
+
+def backward_grid(M: int, d: int, clusters: int) -> tuple[int, int]:
+    """(blocks, rows a block) of the backward at [M, d] when the card holds
+    ``clusters`` clusters of :data:`CLUSTER` blocks at once: one wave of
+    them at most, consecutive rows a block (a multiple of :data:`WARPS`
+    where a warp takes a row), whole clusters, none empty."""
+    rows = -(-M // (max(1, clusters) * CLUSTER))
+    if d <= WARP_ROWS_D:
+        rows = -(-rows // WARPS) * WARPS
+    blocks = -(-M // rows)
+    return -(-blocks // CLUSTER) * CLUSTER, rows
+
+
+def backward_scratch(M: int, d: int, clusters: int) -> dict[str, tuple[int, ...]]:
+    """Shapes of what a backward call at [M, d] allocates beside ``dx``:
+    ``dparams`` (dscale and dbias), the clusters' partial sums ``part``
+    and the ``tickets`` kept on the device."""
+    blocks, _ = backward_grid(M, d, clusters)
+    return {"dparams": (2, d), "part": (blocks // CLUSTER, 2 * d), "tickets": (CLUSTER,)}
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(device_index: int, d: int) -> int:
+    """The clusters of the backward the card holds at once for rows of d
+    (asked of the CUDA runtime)."""
+    with torch.cuda.device(device_index):
+        n = _lib().layer_norm_backward_max_clusters(d)
+    if n < 1:
+        raise RuntimeError(f"layer_norm_backward: no cluster of {CLUSTER} blocks fits at d={d}")
+    return n
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("layer_norm")
     fn = lib.layer_norm_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         bwd = lib.layer_norm_backward_launch
-        bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+        bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_void_p]
         bwd.restype = ctypes.c_int
-        lib.layer_norm_backward_rows.argtypes = []
-        lib.layer_norm_backward_rows.restype = ctypes.c_int
+        lib.layer_norm_backward_max_clusters.argtypes = [ctypes.c_int]
+        lib.layer_norm_backward_max_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -85,9 +127,11 @@ def _rows(x: torch.Tensor, what: str) -> torch.Tensor:
 
 
 def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    eps: float = 1e-5) -> torch.Tensor:
+                    eps: float = 1e-5, with_stats: bool = False):
     """Launch the kernel on CUDA tensors; same contract as
-    :func:`layer_norm_plain`."""
+    :func:`layer_norm_plain`.  With ``with_stats`` it returns ``(out, mean,
+    rstd)``, each f32 [M]: every row's mean and ``rsqrt(var + eps)`` as the
+    kernel computed them (the output's bits are the same either way)."""
     global launches
     x2 = _rows(x, "layer_norm")
     M, d = x2.shape
@@ -95,33 +139,54 @@ def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     KN.require(scale, "scale", torch.float32, (d,))
     KN.require(bias, "bias", torch.float32, (d,))
     out = torch.empty_like(x2)
+    stats = (torch.empty((2, M), dtype=torch.float32, device=x2.device) if with_stats
+             else None)
     err = _lib().layer_norm_launch(KN.ptr(x2), KN.ptr(scale), KN.ptr(bias), KN.ptr(out),
+                                   KN.ptr(stats[0]) if with_stats else None,
+                                   KN.ptr(stats[1]) if with_stats else None,
                                    M, d, eps, KN.stream(x2))
     KN.check(err, "layer_norm")
     launches += 1
-    return out.reshape(x.shape)
+    out = out.reshape(x.shape)
+    return (out, stats[0], stats[1]) if with_stats else out
 
 
 def layer_norm_backward_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
-                             eps: float = 1e-5
+                             eps: float = 1e-5, mean: torch.Tensor | None = None,
+                             rstd: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels on CUDA tensors -> (dx, dscale, dbias),
+    """Launch the backward kernel on CUDA tensors -> (dx, dscale, dbias),
     the contract of :func:`layer_norm_backward_plain` (the bias does not
-    enter the gradient)."""
+    enter the gradient).  ``mean`` and ``rstd`` (f32 [M] each, from
+    ``layer_norm_cuda(..., with_stats=True)`` on the same x) spare the
+    kernel the forward's two sums; without them it recomputes them in the
+    forward's order, to the same bits.  The call can be captured in a CUDA
+    graph once it has run outside a capture on the device (which makes the
+    device's tickets); calls on one device must not overlap in time."""
     global backward_launches
     x2, g2 = _rows(x, "layer_norm_backward"), _rows(g, "layer_norm_backward")
     M, d = x2.shape
+    if d > MAX_BACKWARD_D:
+        raise ValueError(f"layer_norm_backward: rows of {d} > {MAX_BACKWARD_D}")
+    if (mean is None) != (rstd is None):
+        raise ValueError("layer_norm_backward: mean and rstd come together")
     KN.require(x2, "x", torch.float32, (M, d))
     KN.require(g2, "g", torch.float32, (M, d))
     KN.require(scale, "scale", torch.float32, (d,))
-    lib = _lib()
-    rows = lib.layer_norm_backward_rows()
+    if mean is not None:
+        KN.require(mean, "mean", torch.float32, (M,))
+        KN.require(rstd, "rstd", torch.float32, (M,))
+    clusters = _max_clusters(x2.device.index, d)
+    blocks, rows = backward_grid(M, d, clusters)
+    shapes = backward_scratch(M, d, clusters)
     dx = torch.empty_like(x2)
-    dparams = torch.empty((2, d), dtype=torch.float32, device=x2.device)
-    partial = torch.empty((2, -(-M // rows), d), dtype=torch.float32, device=x2.device)
-    err = lib.layer_norm_backward_launch(KN.ptr(x2), KN.ptr(scale), KN.ptr(g2), KN.ptr(dx),
-                                         KN.ptr(dparams), KN.ptr(partial), M, d, eps,
-                                         KN.stream(x2))
+    dparams = torch.empty(shapes["dparams"], dtype=torch.float32, device=x2.device)
+    part = torch.empty(shapes["part"], dtype=torch.float32, device=x2.device)
+    tickets = KN.tickets(x2.device, "layer_norm_backward", CLUSTER)
+    err = _lib().layer_norm_backward_launch(
+        KN.ptr(x2), KN.ptr(scale), KN.ptr(g2), KN.ptr(mean) if mean is not None else None,
+        KN.ptr(rstd) if rstd is not None else None, KN.ptr(dx), KN.ptr(dparams),
+        KN.ptr(part), KN.ptr(tickets), M, d, blocks, rows, eps, KN.stream(x2))
     KN.check(err, "layer_norm_backward")
     backward_launches += 1
     return dx.reshape(x.shape), dparams[0], dparams[1]
@@ -135,14 +200,15 @@ class LayerNormFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 eps: float) -> torch.Tensor:
-        ctx.save_for_backward(x, scale)
+        out, mean, rstd = layer_norm_cuda(x, scale, bias, eps, with_stats=True)
+        ctx.save_for_backward(x, scale, mean, rstd)
         ctx.eps = eps
-        return layer_norm_cuda(x, scale, bias, eps)
+        return out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        x, scale = ctx.saved_tensors
-        dx, dscale, dbias = layer_norm_backward_cuda(x, scale, g, ctx.eps)
+        x, scale, mean, rstd = ctx.saved_tensors
+        dx, dscale, dbias = layer_norm_backward_cuda(x, scale, g, ctx.eps, mean, rstd)
         return dx.to(x.dtype), dscale, dbias, None
 
 

@@ -18,9 +18,17 @@ launch in clusters of 8 blocks, each block a fixed range of rows held in
 registers while its dot is reduced, ``dscale`` summed over blocks, then
 clusters, in fixed orders (no float atomics), the last block of each
 column share found by a ticket (:func:`repro_torch.kernels.tickets`).  Its
-plain version is autograd through :func:`rms_norm_plain`.  Each wrapper
-counts its own launches: ``launches`` the forward, ``backward_launches``
-the backward.
+plain version is autograd through :func:`rms_norm_plain`.
+
+The serve path's norms whose output feeds quantized linears run a third
+entry of the same source, the forward fused with the per-row int8
+quantizer (:func:`rms_norm_quant`): one launch writes the normed rows (the
+forward's bits), their int8 codes and each row's scale, the bits of
+``quantize_activation`` over the forward's output, which every such linear
+would otherwise run on its own (eight torch kernels a linear).  Its plain
+version is that pair of calls.  Each wrapper counts its own launches:
+``launches`` the forward, ``quant_launches`` the fused entry,
+``backward_launches`` the backward.
 """
 from __future__ import annotations
 
@@ -30,9 +38,11 @@ import functools
 import torch
 
 from repro_torch import kernels as KN
+from repro_torch.core import quant
 from repro_torch.kernels import _build
 
 launches = 0
+quant_launches = 0
 backward_launches = 0
 
 
@@ -42,6 +52,14 @@ def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor,
     xf = x.to(torch.float32)
     ms = (xf * xf).mean(dim=-1, keepdim=True)
     return xf * torch.rsqrt(ms + eps) * scale
+
+
+def rms_norm_quant_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(h f32 [..., d], codes int8 [..., d], scales f32 [..., 1]): the norm
+    :func:`rms_norm_plain` and ``quantize_activation`` of its output."""
+    h = rms_norm_plain(x, scale, eps)
+    return (h, *quant.quantize_activation(h))
 
 
 def rms_norm_backward_plain(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
@@ -91,6 +109,10 @@ def _lib() -> ctypes.CDLL:
         bwd.restype = ctypes.c_int
         lib.rms_norm_backward_max_clusters.argtypes = [ctypes.c_int]
         lib.rms_norm_backward_max_clusters.restype = ctypes.c_int
+        fused = lib.rms_norm_quant_launch
+        fused.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fused.restype = ctypes.c_int
     return lib
 
 
@@ -122,6 +144,28 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
     KN.check(err, "rms_norm")
     launches += 1
     return (out.reshape(x.shape), rstd) if with_rstd else out.reshape(x.shape)
+
+
+def rms_norm_quant_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the fused entry on CUDA tensors; same contract as
+    :func:`rms_norm_quant_plain`, bit for bit: ``h`` is
+    :func:`rms_norm_cuda`'s output, the codes and scales
+    ``quantize_activation(h)``'s."""
+    global quant_launches
+    x2 = _rows(x, "rms_norm_quant")
+    M, d = x2.shape
+    KN.require(x2, "x", torch.float32, (M, d))
+    KN.require(scale, "scale", torch.float32, (d,))
+    out = torch.empty_like(x2)
+    codes = torch.empty((M, d), dtype=torch.int8, device=x2.device)
+    scales = torch.empty((M, 1), dtype=torch.float32, device=x2.device)
+    err = _lib().rms_norm_quant_launch(KN.ptr(x2), KN.ptr(scale), KN.ptr(out), KN.ptr(codes),
+                                       KN.ptr(scales), M, d, eps, KN.stream(x2))
+    KN.check(err, "rms_norm_quant")
+    quant_launches += 1
+    return (out.reshape(x.shape), codes.reshape(x.shape),
+            scales.reshape(*x.shape[:-1], 1))
 
 
 def rms_norm_backward_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
@@ -186,3 +230,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
             return RMSNormFunction.apply(x, scale, eps)
         return rms_norm_cuda(x, scale, eps)
     return rms_norm_plain(x, scale, eps)
+
+
+def rms_norm_quant(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused entry on CUDA tensors, its plain version on CPU tensors:
+    (h, codes, scales)."""
+    if KN.on_cuda(x, scale):
+        return rms_norm_quant_cuda(x, scale, eps)
+    return rms_norm_quant_plain(x, scale, eps)

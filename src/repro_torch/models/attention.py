@@ -30,6 +30,10 @@ from repro_torch.models import layers as L
 
 Params = dict[str, Any]
 NEG_INF = -1e30
+# the linears that read an attention block's input: a mixer function's
+# ``x_q`` is that input's int8 pair (``layers.apply_norm_q``), which they
+# take in place of quantizing it each
+INPUT_LINEARS = ("wq", "wk", "wv", "wq_a", "wkv_a")
 
 
 def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Params:
@@ -152,7 +156,7 @@ def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
               kv_lengths: torch.Tensor, key_rows: int, backend: str = "dense",
               rope: tuple[torch.Tensor, torch.Tensor] | None = None,
               hidden: list[torch.Tensor] | None = None,
-              skip: int = 0) -> torch.Tensor:
+              skip: int = 0, x_q: tuple | None = None) -> torch.Tensor:
     """One chunk of a chunked prefill.  ``x``: [B, C, d] hidden chunk whose
     tokens sit at ``positions`` (= start + arange(C)); ``buf`` carries the
     float K/V of the whole in-flight prompt ([B, S_buf, H_kv, D]).  The
@@ -169,9 +173,9 @@ def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
     block's output."""
     B, C, _ = x.shape
     hd = cfg.head_dim
-    q = L.apply_linear(L._lin(p, "wq"), x, backend).reshape(B, C, cfg.n_heads, hd)
-    k = L.apply_linear(L._lin(p, "wk"), x, backend).reshape(B, C, cfg.n_kv_heads, hd)
-    v = L.apply_linear(L._lin(p, "wv"), x, backend).reshape(B, C, cfg.n_kv_heads, hd)
+    q = L.apply_linear(L._lin(p, "wq"), x, backend, x_q).reshape(B, C, cfg.n_heads, hd)
+    k = L.apply_linear(L._lin(p, "wk"), x, backend, x_q).reshape(B, C, cfg.n_kv_heads, hd)
+    v = L.apply_linear(L._lin(p, "wv"), x, backend, x_q).reshape(B, C, cfg.n_kv_heads, hd)
     if cfg.use_qk_norm:
         q = L.apply_norm(p["q_norm"], q)
         k = L.apply_norm(p["k_norm"], k)
@@ -209,16 +213,16 @@ def decode_attention_int8(q: torch.Tensor, k_q, k_s, v_q, v_s, length,
 
 
 def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
-               k_q, k_s, v_q, v_s, backend: str = "dense"):
+               k_q, k_s, v_q, v_s, backend: str = "dense", x_q: tuple | None = None):
     """One-token decode.  The new token's int8 K/V append in place at each
     slot's own offset ``pos`` (scalar or [B]); attention covers the cache
     including this position.  Returns (out, (k_q, k_s, v_q, v_s))."""
     B = x.shape[0]
     hd = cfg.head_dim
     pos_b = KV.slot_positions(pos, B, x.device).to(x.device)
-    q = L.apply_linear(L._lin(p, "wq"), x, backend).reshape(B, 1, cfg.n_heads, hd)
-    k = L.apply_linear(L._lin(p, "wk"), x, backend).reshape(B, 1, cfg.n_kv_heads, hd)
-    v = L.apply_linear(L._lin(p, "wv"), x, backend).reshape(B, 1, cfg.n_kv_heads, hd)
+    q = L.apply_linear(L._lin(p, "wq"), x, backend, x_q).reshape(B, 1, cfg.n_heads, hd)
+    k = L.apply_linear(L._lin(p, "wk"), x, backend, x_q).reshape(B, 1, cfg.n_kv_heads, hd)
+    v = L.apply_linear(L._lin(p, "wv"), x, backend, x_q).reshape(B, 1, cfg.n_kv_heads, hd)
     if cfg.use_qk_norm:
         q = L.apply_norm(p["q_norm"], q)
         k = L.apply_norm(p["k_norm"], k)
@@ -260,7 +264,7 @@ def verify_attention_int8(q: torch.Tensor, k_q, k_s, v_q, v_s, pos,
 
 def gqa_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
                k_q, k_s, v_q, v_s, backend: str = "dense", depth=None,
-               anc=None):
+               anc=None, x_q: tuple | None = None):
     """Multi-token decode for the verify step: consume ``x`` ([B, T, d], the
     last committed token plus T-1 drafts per slot) at each slot's cursor.
     The T int8 K/V rows append in place at the per-slot offset and all T
@@ -272,9 +276,9 @@ def gqa_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     B, T, _ = x.shape
     hd = cfg.head_dim
     pos_b = KV.slot_positions(pos, B, x.device).to(x.device)
-    q = L.apply_linear(L._lin(p, "wq"), x, backend).reshape(B, T, cfg.n_heads, hd)
-    k = L.apply_linear(L._lin(p, "wk"), x, backend).reshape(B, T, cfg.n_kv_heads, hd)
-    v = L.apply_linear(L._lin(p, "wv"), x, backend).reshape(B, T, cfg.n_kv_heads, hd)
+    q = L.apply_linear(L._lin(p, "wq"), x, backend, x_q).reshape(B, T, cfg.n_heads, hd)
+    k = L.apply_linear(L._lin(p, "wk"), x, backend, x_q).reshape(B, T, cfg.n_kv_heads, hd)
+    v = L.apply_linear(L._lin(p, "wv"), x, backend, x_q).reshape(B, T, cfg.n_kv_heads, hd)
     if cfg.use_qk_norm:
         q = L.apply_norm(p["q_norm"], q)
         k = L.apply_norm(p["k_norm"], k)
@@ -314,22 +318,25 @@ def _quantize_latent(latent: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _mla_q(p: Params, cfg: ModelConfig, x: torch.Tensor, positions, backend: str,
-           rope=None) -> tuple[torch.Tensor, torch.Tensor]:
+           rope=None, x_q: tuple | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Queries ``[B, T, H, dn]`` (no position) and ``[B, T, H, dr]`` (turned
-    at ``positions``)."""
+    at ``positions``); ``q_norm`` hands ``wq_b`` its output's int8 pair
+    (:func:`layers.apply_norm_q`)."""
     B, T, _ = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q_lat = L.apply_norm(p["q_norm"], L.apply_linear(L._lin(p, "wq_a"), x, backend))
-    q = L.apply_linear(L._lin(p, "wq_b"), q_lat, backend).reshape(B, T, cfg.n_heads, dn + dr)
+    q_lat, q_lat_q = L.apply_norm_q(p["q_norm"], L.apply_linear(L._lin(p, "wq_a"), x, backend,
+                                                                  x_q), backend, p, ("wq_b",))
+    q = L.apply_linear(L._lin(p, "wq_b"), q_lat, backend, q_lat_q).reshape(
+        B, T, cfg.n_heads, dn + dr)
     return q[..., :dn], L.apply_rope(q[..., dn:], positions, cfg.rope_theta, tables=rope)
 
 
 def _mla_latent(p: Params, cfg: ModelConfig, x: torch.Tensor, positions, backend: str,
-                rope=None) -> tuple[torch.Tensor, torch.Tensor]:
+                rope=None, x_q: tuple | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The latent's two halves: the normed ``c_kv`` ``[B, T, r]`` and the
     key's rope part ``[B, T, dr]`` turned at ``positions``."""
     r = cfg.kv_lora_rank
-    kv_a = L.apply_linear(L._lin(p, "wkv_a"), x, backend)
+    kv_a = L.apply_linear(L._lin(p, "wkv_a"), x, backend, x_q)
     c_kv = L.apply_norm(p["kv_norm"], kv_a[..., :r])
     k_rope = L.apply_rope(kv_a[:, :, None, r:], positions, cfg.rope_theta, tables=rope)
     return c_kv, k_rope[:, :, 0]
@@ -340,7 +347,7 @@ def mla_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
               kv_lengths: torch.Tensor, key_rows: int, backend: str = "dense",
               rope: tuple[torch.Tensor, torch.Tensor] | None = None,
               hidden: list[torch.Tensor] | None = None,
-              skip: int = 0) -> torch.Tensor:
+              skip: int = 0, x_q: tuple | None = None) -> torch.Tensor:
     """Prefill MLA over a chunk, :func:`gqa_chunk`'s sibling: per-head float
     keys ``[k_nope; k_rope]`` (width ``dn + dr``, the rope part shared by
     every head) and values (width ``dv``) land in ``buf["k"]`` /
@@ -351,8 +358,8 @@ def mla_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ``1 / sqrt(dn + dr)``.  ``rope`` holds tables of width ``dr``."""
     B, C, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend, rope)
-    c_kv, k_rope = _mla_latent(p, cfg, x, positions, backend, rope)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend, rope, x_q)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions, backend, rope, x_q)
     kv = L.apply_linear(L._lin(p, "wkv_b"), c_kv, backend).reshape(B, C, H, dn + dv)
     k = torch.cat([kv[..., :dn], k_rope[:, :, None].expand(B, C, H, dr)], dim=-1)
     for name, val in (("k", k), ("v", kv[..., dn:]), ("lat_c", c_kv), ("lat_r", k_rope)):
@@ -365,13 +372,14 @@ def mla_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                backend: str = "dense") -> tuple[torch.Tensor, torch.Tensor]:
+                backend: str = "dense", x_q: tuple | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Prefill MLA over ``x`` [B, T, d] at ``positions`` with no cache (the
     MTP head's cell): (out, latent ``[B, T, r + dr]``)."""
     B, T, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend)
-    c_kv, k_rope = _mla_latent(p, cfg, x, positions, backend)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend, x_q=x_q)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions, backend, x_q=x_q)
     kv = L.apply_linear(L._lin(p, "wkv_b"), c_kv, backend).reshape(B, T, H, dn + dv)
     k = torch.cat([kv[..., :dn], k_rope[:, :, None].expand(B, T, H, dr)], dim=-1)
     o = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, kv[..., dn:])
@@ -391,15 +399,16 @@ def _absorbed(p: Params, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _mla_latent_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, pos_b: torch.Tensor,
                           pp: torch.Tensor, c_q: torch.Tensor, c_s: torch.Tensor,
-                          mask: torch.Tensor, backend: str) -> torch.Tensor:
+                          mask: torch.Tensor, backend: str,
+                          x_q: tuple | None = None) -> torch.Tensor:
     """Absorbed MLA over ``x`` [B, T, d] whose token t sits at ``pp[:, t]``:
     the T int8 latents append in place at rows ``pos_b .. pos_b + T - 1``,
     then attention runs in the latent space against the dequantized cache,
     ``mask`` [B, T, S] (True where a key is visible), and ``wo``."""
     B, T, _ = x.shape
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q_nope, q_rope = _mla_q(p, cfg, x, pp, backend)
-    c_kv, k_rope = _mla_latent(p, cfg, x, pp, backend)
+    q_nope, q_rope = _mla_q(p, cfg, x, pp, backend, x_q=x_q)
+    c_kv, k_rope = _mla_latent(p, cfg, x, pp, backend, x_q=x_q)
     lq, sc = _quantize_latent(torch.cat([c_kv, k_rope], dim=-1))
     KV.batched_update(c_q, lq, pos_b)
     KV.batched_update(c_s, sc, pos_b)
@@ -416,7 +425,7 @@ def _mla_latent_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, pos_b: t
 
 
 def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Tensor,
-               c_s: torch.Tensor, backend: str = "dense"):
+               c_s: torch.Tensor, backend: str = "dense", x_q: tuple | None = None):
     """Absorbed MLA decode of one token a slot: its int8 latent appends in
     place at each slot's ``pos`` (scalar or [B]) and the step reads only the
     ``[S, r + dr]`` int8 latent rows, the paper's SLC-cache read.  Returns
@@ -425,12 +434,14 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Ten
     pos_b = KV.slot_positions(pos, B, x.device).to(x.device)
     S = c_q.shape[1]
     mask = (torch.arange(S, device=x.device)[None, :] < (pos_b + 1)[:, None])[:, None]
-    out = _mla_latent_attention(p, cfg, x, pos_b, pos_b[:, None], c_q, c_s, mask, backend)
+    out = _mla_latent_attention(p, cfg, x, pos_b, pos_b[:, None], c_q, c_s, mask, backend,
+                                x_q)
     return out, (c_q, c_s)
 
 
 def mla_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Tensor,
-               c_s: torch.Tensor, backend: str = "dense", depth=None, anc=None):
+               c_s: torch.Tensor, backend: str = "dense", depth=None, anc=None,
+               x_q: tuple | None = None):
     """:func:`mla_decode` over a verify window ``x`` [B, T, d]: the T latents
     append at each slot's cursor and query t sees the cache up to
     ``pos + t``; tree mode (``depth``/``anc``) turns token i at
@@ -447,5 +458,5 @@ def mla_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Ten
     else:
         mask = torch.arange(S, device=dev)[None, None, :] < (pos_b[:, None] + torch.arange(
             T, device=dev)[None, :] + 1)[..., None]
-    out = _mla_latent_attention(p, cfg, x, pos_b, pp, c_q, c_s, mask, backend)
+    out = _mla_latent_attention(p, cfg, x, pos_b, pp, c_q, c_s, mask, backend, x_q)
     return out, (c_q, c_s)

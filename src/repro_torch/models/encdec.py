@@ -77,9 +77,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
 
 
 def _heads(p: Params, name: str, x: torch.Tensor, heads: int, hd: int,
-           backend: str) -> torch.Tensor:
+           backend: str, x_q: tuple | None = None) -> torch.Tensor:
     B, T = x.shape[:2]
-    return L.apply_linear(L._lin(p, name), x, backend).reshape(B, T, heads, hd)
+    return L.apply_linear(L._lin(p, name), x, backend, x_q).reshape(B, T, heads, hd)
 
 
 def encode(p: Params, cfg: ModelConfig, frames: torch.Tensor, rt: Runtime) -> torch.Tensor:
@@ -101,13 +101,14 @@ def encode(p: Params, cfg: ModelConfig, frames: torch.Tensor, rt: Runtime) -> to
 
 
 def _cross_attn(pl: Params, cfg: ModelConfig, h: torch.Tensor, enc_kv: tuple,
-                rt: Runtime, decode: bool = False) -> torch.Tensor:
+                rt: Runtime, decode: bool = False, h_q: tuple | None = None
+                ) -> torch.Tensor:
     """Cross-attention of ``h`` [B, T, d] over the encoder's K/V: in prefill
     float ``(k, v)`` through the plain blocked attention; in decode the int8
     ``(k_q, k_s, v_q, v_s)`` through the plain int8 attention over every
     frame, whatever the backend (as the reference calls it)."""
     B, T = h.shape[:2]
-    q = _heads(pl, "wq", h, cfg.n_heads, cfg.head_dim, rt.backend)
+    q = _heads(pl, "wq", h, cfg.n_heads, cfg.head_dim, rt.backend, h_q)
     if decode:
         k_q, k_s, v_q, v_s = enc_kv
         # every frame visible: a fill on the device, so a captured step
@@ -226,14 +227,15 @@ def decode_step(p: Params, cfg: ModelConfig, state: dict, token: torch.Tensor,
     pos = state["pos"].to(torch.int32).reshape(-1).expand(B)
     x = (p["embed"]["w"][token] + L.sinusoid_at(pos, cfg.d_model))[:, None]
     for pl, c in zip(p["dec"], state["layers"]):
-        h = L.apply_norm(pl["ln1"], x)
+        h, h_q = L.apply_norm_q(pl["ln1"], x, rt.backend, pl["attn"], A.INPUT_LINEARS)
         mix, _ = A.gqa_decode(pl["attn"], cfg, h, pos, c["k_q"], c["k_s"], c["v_q"], c["v_s"],
-                              rt.backend)
+                              rt.backend, h_q)
         x = x + mix
-        hx = L.apply_norm(pl["ln_x"], x)
+        hx, hx_q = L.apply_norm_q(pl["ln_x"], x, rt.backend, pl["xattn"], ("wq",))
         x = x + _cross_attn(pl["xattn"], cfg, hx, (c["xk_q"], c["xk_s"], c["xv_q"], c["xv_s"]),
-                            rt, decode=True)
-        x = x + L.apply_mlp(pl["mlp"], L.apply_norm(pl["ln2"], x), cfg.mlp_type, rt.backend)
+                            rt, decode=True, h_q=hx_q)
+        h, h_q = L.apply_norm_q(pl["ln2"], x, rt.backend, pl["mlp"], L.MLP_INPUTS)
+        x = x + L.apply_mlp(pl["mlp"], h, cfg.mlp_type, rt.backend, h_q)
     x = L.apply_norm(p["ln_f"], x)
     logits = torch.matmul(x[:, 0], p["embed"]["w"].to(x.dtype).T)
     state["pos"].add_(1)

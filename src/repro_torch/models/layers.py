@@ -4,7 +4,9 @@ PyTorch counterpart of ``repro.models.layers``.  Every linear layer is a
 dict ``{"w": [in, out]}`` (float path) or its quantized "QLC-region" form
 ``{"w_q", "w_s", ("smooth")}``.  ``apply_linear`` dispatches on the param
 form and the execution backend: the W8A8 reference matmul, the B1 kernel
-(``fused_int8``) or the bit-serial B5 kernel (``pim_bitserial``).
+(``fused_int8``) or the bit-serial B5 kernel (``pim_bitserial``).  Under
+the two kernel backends a norm whose output feeds quantized linears
+(:func:`apply_norm_q`) hands them its int8 pair, quantized once.
 """
 from __future__ import annotations
 
@@ -44,14 +46,24 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 # ---------------------------------------------------------------------------
 # linear dispatch (dense | quantized-ref | kernels)
 # ---------------------------------------------------------------------------
-def apply_linear(p: Params, x: torch.Tensor, backend: str = "dense") -> torch.Tensor:
-    """x: [..., in] -> [..., out]."""
+# the backends whose quantized linears take a norm output's int8 pair from
+# the norm (:func:`apply_norm_q`) instead of quantizing it each
+PAIR_BACKENDS = ("fused_int8", "pim_bitserial")
+MLP_INPUTS = ("w_up", "w_gate")      # an MLP's linears that read its input
+
+
+def apply_linear(p: Params, x: torch.Tensor, backend: str = "dense",
+                 x_q: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+    """x: [..., in] -> [..., out].  ``x_q``: x's per-row int8 codes and
+    scales (``quantize_activation(x)``'s bits) where the caller has them
+    (:func:`apply_norm_q`); a quantized linear without ``smooth`` takes them
+    instead of quantizing x again."""
     if "w_q" in p:
         lin = quant.QuantizedLinear(w_q=p["w_q"], w_scale=p["w_s"],
                                     smooth=p.get("smooth"))
         if lin.smooth is not None:
-            x = x * (1.0 / lin.smooth)
-        x_q, x_s = quant.quantize_activation(x)
+            x, x_q = x * (1.0 / lin.smooth), None
+        x_q, x_s = x_q if x_q is not None else quant.quantize_activation(x)
         if backend == "pim_bitserial":
             return pim_ops.pim_mvm(x_q, x_s, lin, out_dtype=x.dtype)
         if backend == "fused_int8":
@@ -90,6 +102,28 @@ def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     if "bias" in p:
         return ln_ops.layer_norm(x, p["scale"], p["bias"], eps).to(x.dtype)
     return norm_ops.rms_norm(x, p["scale"], eps).to(x.dtype)
+
+
+def apply_norm_q(p: Params, x: torch.Tensor, backend: str, readers: Params,
+                 names: tuple[str, ...], eps: float = 1e-5
+                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
+    """:func:`apply_norm` and, for the linears ``names`` of ``readers`` that
+    read its output, that output's per-row int8 pair (codes, scales): under
+    :data:`PAIR_BACKENDS` where one of them is quantized without
+    ``smooth`` and the rows are f32 (what the fused kernel takes), else
+    None.  An RMSNorm writes the pair in the same launch
+    (``kernels/rms_norm.py`` ``rms_norm_quant``); a LayerNorm's output is
+    quantized once.  Either way the pair is ``quantize_activation`` of the
+    output, bit for bit, so each reader computes what it would from the
+    float rows, one quantizer a norm output instead of one a linear."""
+    takes = any(n + "_q" in readers and n + "_smooth" not in readers for n in names)
+    if not (takes and backend in PAIR_BACKENDS and x.dtype == torch.float32):
+        return apply_norm(p, x, eps), None
+    if "bias" in p:
+        h = ln_ops.layer_norm(x, p["scale"], p["bias"], eps)
+        return h, quant.quantize_activation(h)
+    h, x_q, x_s = norm_ops.rms_norm_quant(x, p["scale"], eps)
+    return h, (x_q, x_s)
 
 
 # ---------------------------------------------------------------------------
@@ -163,11 +197,13 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, mlp_type: str,
     return p
 
 
-def apply_mlp(p: Params, x: torch.Tensor, mlp_type: str,
-              backend: str = "dense") -> torch.Tensor:
-    up = apply_linear(_lin(p, "w_up"), x, backend)
+def apply_mlp(p: Params, x: torch.Tensor, mlp_type: str, backend: str = "dense",
+              x_q: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+    """The MLP over ``x``; ``x_q`` its int8 pair for ``w_up`` and ``w_gate``
+    (see :func:`apply_linear`)."""
+    up = apply_linear(_lin(p, "w_up"), x, backend, x_q)
     if mlp_type == "swiglu":
-        gate = apply_linear(_lin(p, "w_gate"), x, backend)
+        gate = apply_linear(_lin(p, "w_gate"), x, backend, x_q)
         h = F.silu(gate) * up
     elif mlp_type == "relu2":
         h = torch.square(F.relu(up))

@@ -25,6 +25,9 @@ from repro_torch.kernels import ssd_chunk as ssd_ops
 from repro_torch.models import layers as L
 
 Params = dict[str, Any]
+# the quantized linears that read a block's input: ``x_q`` of the functions
+# below is that input's int8 pair (``layers.apply_norm_q``)
+INPUT_LINEARS = ("w_z", "w_x")
 
 
 def ssm_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> Params:
@@ -67,24 +70,30 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out + b
 
 
-def _projections(p: Params, cfg: ModelConfig, x: torch.Tensor, backend: str):
-    return tuple(L.apply_linear(L._lin(p, name), x, backend)
+def _projections(p: Params, cfg: ModelConfig, x: torch.Tensor, backend: str,
+                 x_q: tuple | None = None):
+    return tuple(L.apply_linear(L._lin(p, name), x, backend, x_q)
                  for name in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
 
 
 def _gate_norm_out(p: Params, y: torch.Tensor, z: torch.Tensor, x: torch.Tensor,
                    backend: str) -> torch.Tensor:
-    """``out_proj(norm(y * silu(z)))``, the block's tail on every path."""
-    y = L.apply_norm(p["norm"], y * F.silu(z.to(torch.float32)).to(y.dtype))
-    return L.apply_linear(L._lin(p, "out_proj"), y.to(x.dtype), backend)
+    """``out_proj(norm(y * silu(z)))``, the block's tail on every path; the
+    norm hands ``out_proj`` its output's int8 pair
+    (:func:`layers.apply_norm_q`)."""
+    y, y_q = L.apply_norm_q(p["norm"], y * F.silu(z.to(torch.float32)).to(y.dtype), backend,
+                            p, ("out_proj",))
+    return L.apply_linear(L._lin(p, "out_proj"), y.to(x.dtype), backend, y_q)
 
 
 def ssm_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                 chunk: int = 128, backend: str = "dense",
                 initial_state: torch.Tensor | None = None,
-                return_state: bool = False, use_kernel: bool = False):
+                return_state: bool = False, use_kernel: bool = False,
+                x_q: tuple | None = None):
     """x: [B, T, d] -> [B, T, d] (chunked SSD), and with ``return_state``
-    the decode state that continues the sequence.
+    the decode state that continues the sequence; ``x_q`` x's int8 pair for
+    :data:`INPUT_LINEARS`.
 
     ``use_kernel=True`` routes the intra-chunk quadratic core through B6
     (:func:`repro_torch.kernels.ssd_chunk.ssd_forward`); the tensor path
@@ -92,7 +101,7 @@ def ssm_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     B, T, _ = x.shape
     di, G, S, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     hd = cfg.ssm_head_dim
-    z, xs_pre, B_pre, C_pre, dt = _projections(p, cfg, x, backend)
+    z, xs_pre, B_pre, C_pre, dt = _projections(p, cfg, x, backend, x_q)
     xs_c1 = F.silu(_causal_conv(xs_pre, p["conv_x"].to(x.dtype), p["conv_bx"].to(x.dtype)))
     B_c = F.silu(_causal_conv(B_pre, p["conv_B"].to(x.dtype), p["conv_bB"].to(x.dtype)))
     C_c = F.silu(_causal_conv(C_pre, p["conv_C"].to(x.dtype), p["conv_bC"].to(x.dtype)))
@@ -182,12 +191,15 @@ def _conv_step(buf, new, w, b):
 
 
 def ssm_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, state: dict,
-               backend: str = "dense") -> tuple[torch.Tensor, dict]:
-    """One-step recurrence.  x: [B, 1, d] -> ([B, 1, d], new state)."""
+               backend: str = "dense", x_q: tuple | None = None
+               ) -> tuple[torch.Tensor, dict]:
+    """One-step recurrence.  x: [B, 1, d] -> ([B, 1, d], new state); ``x_q``
+    x's int8 pair for :data:`INPUT_LINEARS`."""
     B = x.shape[0]
     di, G, S, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     hd = cfg.ssm_head_dim
-    z, xs_pre, B_pre, C_pre, dt = _projections(p, cfg, x[:, 0], backend)
+    z, xs_pre, B_pre, C_pre, dt = _projections(
+        p, cfg, x[:, 0], backend, None if x_q is None else (x_q[0][:, 0], x_q[1][:, 0]))
     xh_c, conv_x = _conv_step(state["conv_x"], xs_pre, p["conv_x"], p["conv_bx"])
     Bm_c, conv_B = _conv_step(state["conv_B"], B_pre, p["conv_B"], p["conv_bB"])
     Cm_c, conv_C = _conv_step(state["conv_C"], C_pre, p["conv_C"], p["conv_bC"])

@@ -119,14 +119,24 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, i: int,
     return p
 
 
+def _ln1(p: Params, x: torch.Tensor, rt: Runtime) -> tuple:
+    """A serve path's ``ln1`` over ``x`` and, where its mixer's input
+    linears take it, its output's int8 pair (:func:`layers.apply_norm_q`)."""
+    if "ssm" in p:
+        return L.apply_norm_q(p["ln1"], x, rt.backend, p["ssm"], SSM.INPUT_LINEARS)
+    return L.apply_norm_q(p["ln1"], x, rt.backend, p["attn"], A.INPUT_LINEARS)
+
+
 def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """A layer's feed-forward block with its residual: the MoE (the rows of
-    ``x`` [B, T, d] routed together, b-major), the MLP, or nothing."""
+    ``x`` [B, T, d] routed together, b-major; the router and the dispatched
+    rows take the float rows), the MLP (its input linears the norm's int8
+    pair where the backend takes it), or nothing."""
     if "moe" in p:
         return x + MOE.moe_apply(p["moe"], L.apply_norm(p["ln2"], x), cfg)[0]
     if "mlp" in p:
-        return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x), cfg.mlp_type,
-                               rt.backend)
+        h, h_q = L.apply_norm_q(p["ln2"], x, rt.backend, p["mlp"], L.MLP_INPUTS)
+        return x + L.apply_mlp(p["mlp"], h, cfg.mlp_type, rt.backend, h_q)
     return x
 
 
@@ -403,16 +413,17 @@ def apply_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
                        cache: dict, rt: Runtime) -> torch.Tensor:
     """One layer of the decode step; an attention layer appends to its cache
     in place, an SSM layer copies its new state into its state's tensors."""
-    h = L.apply_norm(p["ln1"], x)
+    h, h_q = _ln1(p, x, rt)
     if "ssm" in p:
-        mix, new = SSM.ssm_decode(p["ssm"], cfg, h, cache, rt.backend)
+        mix, new = SSM.ssm_decode(p["ssm"], cfg, h, cache, rt.backend, h_q)
         for name, val in new.items():
             cache[name].copy_(val)
     elif cfg.attn_type == "mla":
-        mix, _ = A.mla_decode(p["attn"], cfg, h, pos, cache["c_q"], cache["c_s"], rt.backend)
+        mix, _ = A.mla_decode(p["attn"], cfg, h, pos, cache["c_q"], cache["c_s"], rt.backend,
+                              h_q)
     else:
         mix, _ = A.gqa_decode(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
-                              cache["v_q"], cache["v_s"], rt.backend)
+                              cache["v_q"], cache["v_s"], rt.backend, h_q)
     return _ffn(p, cfg, x + mix, rt)
 
 
@@ -463,14 +474,14 @@ def apply_layer_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     [B, T, d], appending T K/V rows at each slot's cursor.  ``depth``/``anc``
     ([B, T] int32) switch the window to tree mode (see
     :func:`attention.gqa_verify`)."""
-    h = L.apply_norm(p["ln1"], x)
+    h, h_q = _ln1(p, x, rt)
     if cfg.attn_type == "mla":
         mix, _ = A.mla_verify(p["attn"], cfg, h, pos, cache["c_q"], cache["c_s"],
-                              rt.backend, depth=depth, anc=anc)
+                              rt.backend, depth=depth, anc=anc, x_q=h_q)
     else:
         mix, _ = A.gqa_verify(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
                               cache["v_q"], cache["v_s"], rt.backend,
-                              depth=depth, anc=anc)
+                              depth=depth, anc=anc, x_q=h_q)
     return _ffn(p, cfg, x + mix, rt)
 
 
@@ -617,9 +628,9 @@ def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor
                             kv_lengths=kv_lengths, device=dev)
     attn = A.mla_chunk if cfg.attn_type == "mla" else A.gqa_chunk
     for lp, buf in zip(p["layers"], bufs):
-        h = L.apply_norm(lp["ln1"], x)
+        h, h_q = _ln1(lp, x, rt)
         x = x + attn(lp["attn"], cfg, h, positions, buf, start, kv_lengths, key_rows,
-                     rt.backend, rope=rope, hidden=hidden, skip=skip)
+                     rt.backend, rope=rope, hidden=hidden, skip=skip, x_q=h_q)
         x = _ffn(lp, cfg, x, rt)
     return L.apply_norm(p["ln_f"], x)
 
@@ -702,18 +713,18 @@ def _prefill_exact(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: i
         hidden = A.hidden_masks(T, T, T, q_offset=torch.zeros_like(lengths),
                                 kv_lengths=lengths, device=dev)
     for lp, cache in zip(p["layers"], state["layers"]):
-        h = L.apply_norm(lp["ln1"], x)
+        h, h_q = _ln1(lp, x, rt)
         if "ssm" in lp:
             mix, new = SSM.ssm_forward(lp["ssm"], cfg, h, backend=rt.backend,
                                        return_state=True,
-                                       use_kernel=rt.backend == "fused_int8")
+                                       use_kernel=rt.backend == "fused_int8", x_q=h_q)
             cache.update(new)
         else:
             kv = (B, T, cfg.n_kv_heads, cfg.head_dim)
             buf = {"k": torch.zeros(kv, dtype=torch.float32, device=dev),
                    "v": torch.zeros(kv, dtype=torch.float32, device=dev)}
             mix = A.gqa_chunk(lp["attn"], cfg, h, positions, buf, 0, lengths, T,
-                              rt.backend, rope=rope, hidden=hidden)
+                              rt.backend, rope=rope, hidden=hidden, x_q=h_q)
             for name, val in _quantize_carry(buf, 0, T).items():
                 KV.chunk_update(cache[name], val, 0)
         x = _ffn(lp, cfg, x + mix, rt)
@@ -847,8 +858,8 @@ def _mtp_cell(p: Params, cfg: ModelConfig, h: torch.Tensor, tok: torch.Tensor,
     emb = p["embed"]["w"][tok.long()].to(h.dtype)
     hm = L.apply_linear(L._lin(p["mtp_proj"], "w"), torch.cat([h, emb], dim=-1), rt.backend)
     lp, x = p["mtp_layer"], hm[:, None]
-    mix, _ = A.mla_forward(lp["attn"], cfg, L.apply_norm(lp["ln1"], x), pos_i[:, None],
-                           rt.backend)
+    h, h_q = _ln1(lp, x, rt)
+    mix, _ = A.mla_forward(lp["attn"], cfg, h, pos_i[:, None], rt.backend, h_q)
     x = _ffn(lp, cfg, x + mix, rt)[:, 0]
     return _lm_head(p, cfg, x, rt), x
 

@@ -24,8 +24,13 @@ heads, the grouped B1 at its 16 experts, B2 at whisper-tiny's rep 1 and
 head dim 64, and both reduced models' streams equal to the CPU's with
 their launch counts; the two norms' backward kernels against autograd of
 their plain versions within 1e-5 of the gradient's scale, repeating their
-bits, ``apply_norm`` on CUDA tensors keeping the gradient, and a reduced
-train step on the card against the CPU's.  The engines' captured steps (CUDA graphs) are
+bits with and without the forward's saved statistics and on graph replays,
+``apply_norm`` on CUDA tensors keeping the gradient, and a reduced
+train step on the card against the CPU's; the RMSNorm fused with the
+activation quantizer bit-equal to the RMSNorm kernel followed by
+``quantize_activation`` at every served width, row-invariant, one kernel
+node, and reduced decode steps with each norm's int8 pair handed to its
+linears bit-equal to steps with a quantizer a linear.  The engines' captured steps (CUDA graphs) are
 held bit-equal to the eager steps, logits and every state tensor, with their
 launch counts, and chunked serving token-identical to one-shot prefill.
 """
@@ -283,7 +288,8 @@ def test_engine_runs_the_kernels_and_agrees_with_the_cpu(cuda):
                                "int8_matmul_grouped": 0,
                                "pim_mvm": 0, "decode_attn": cfg.n_layers * steps,
                                "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
-                               "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts)),
+                               "rms_norm": (2 * cfg.n_layers + 1) * len(prompts) + steps,
+                               "rms_norm_quant": 2 * cfg.n_layers * steps,
                                "layer_norm": 0,
                                "rms_norm_backward": 0, "layer_norm_backward": 0}
     assert [len(o) for o in got] == budgets
@@ -387,7 +393,8 @@ def test_spec_engine_runs_the_verify_kernels(cuda, lane):
     want = {"int8_matmul": 7 * cfg.n_layers * steps, "int8_matmul_grouped": 0,
             "pim_mvm": 0, "decode_attn": 0,
             "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
-            "rms_norm": (2 * cfg.n_layers + 1) * (steps + len(prompts)), "layer_norm": 0,
+            "rms_norm": (2 * cfg.n_layers + 1) * len(prompts) + steps,
+            "rms_norm_quant": 2 * cfg.n_layers * steps, "layer_norm": 0,
             "rms_norm_backward": 0, "layer_norm_backward": 0}
     want[attn] = cfg.n_layers * steps
     assert steps == eng.stats["decode_steps"] > 0 and launch_counts() == want
@@ -486,6 +493,106 @@ def test_rms_norm_matches_plain_and_is_row_invariant(cuda, d):
     assert torch.equal(rn.rms_norm_cuda(x[:20].reshape(4, 5, d), scale).reshape(20, d), full[:20])
 
 
+SERVED_RMS_WIDTHS = [1536, 2560, 3072, 4096, 5120, 6144, 7168, 8192, 16384, 18432]
+
+
+@pytest.mark.parametrize("d", [64, 300] + SERVED_RMS_WIDTHS)
+def test_rms_norm_quant_equals_the_kernel_and_the_quantizer(cuda, d):
+    """The fused entry's output is the RMSNorm kernel's, bit for bit, and its
+    codes and scales ``quantize_activation`` of that output (a zero row at
+    the scale's floor, a row scaled by 1e-20 and one by 1e20 among random
+    ones), in one launch; each row's three outputs are the same bits
+    whether the call holds 1, 4, 20 or 124 rows, and as [4, 5, d]."""
+    g = torch.Generator().manual_seed(d)
+    x = (torch.randn((124, d), generator=g) * 2).to(cuda)
+    x[7] = 0
+    x[9] *= 1e-20
+    x[11] *= 1e20
+    scale = torch.randn((d,), generator=g).to(cuda)
+    reset_launch_counts()
+    whole = rn.rms_norm_quant(x, scale)
+    assert launch_counts()["rms_norm_quant"] == 1 and launch_counts()["rms_norm"] == 0
+    h = rn.rms_norm_cuda(x, scale)
+    for a, b in zip(whole, (h, *quant.quantize_activation(h))):
+        assert torch.equal(a, b)
+    assert whole[1].dtype == torch.int8 and whole[2].shape == (124, 1)
+    for m in (1, 4, 20):
+        for j in range(3):
+            parts = torch.cat([rn.rms_norm_quant_cuda(x[i:i + m], scale)[j]
+                               for i in range(0, 124, m)])
+            assert torch.equal(parts, whole[j]), (m, j)
+    shaped = rn.rms_norm_quant_cuda(x[:20].reshape(4, 5, d), scale)
+    assert shaped[2].shape == (4, 5, 1)
+    for j in range(3):
+        assert torch.equal(shaped[j].reshape(20, -1), whole[j][:20])
+
+
+def test_rms_norm_quant_codes_equal_the_quantizer_on_many_rows(cuda):
+    """16.8 M codes (4,096 rows of 4,096, rows scaled from 1e-6 to 1e6):
+    the fused entry's division (one fma step from the reciprocal, no
+    ``__fdiv_rn``) gives ``quantize_activation``'s codes and scales on the
+    kernel's own output, every one."""
+    g = torch.Generator().manual_seed(29)
+    x = torch.randn((4096, 4096), generator=g)
+    x = (x * torch.logspace(-6, 6, 4096)[:, None]).to(cuda)
+    scale = (torch.rand((4096,), generator=g) * 4 - 2).to(cuda)
+    h, codes, scales = rn.rms_norm_quant_cuda(x, scale)
+    want_q, want_s = quant.quantize_activation(h)
+    assert torch.equal(scales, want_s)
+    assert int((codes != want_q).sum()) == 0
+
+
+@pytest.mark.parametrize("d", [4096, 5120])
+def test_rms_norm_quant_replays_its_bits(cuda, d):
+    """The fused entry captured in a CUDA graph is one kernel node and gives
+    the eager call's bits on every replay."""
+    g = torch.Generator().manual_seed(d + 1)
+    x = torch.randn((4, d), generator=g).to(cuda)
+    scale = torch.randn((d,), generator=g).to(cuda)
+    want = rn.rms_norm_quant_cuda(x, scale)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = rn.rms_norm_quant_cuda(x, scale)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _captured_node_types(lambda: rn.rms_norm_quant_cuda(x, scale)) == [0]
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "deepseek-v3-671b",
+                                  "opt-30b"])
+@pytest.mark.parametrize("backend", ["fused_int8", "pim_bitserial"])
+def test_norm_pairs_give_the_unfused_logits(cuda, arch, backend, monkeypatch):
+    """A reduced decode step on the card with each norm's int8 pair handed
+    to its linears (the fused RMSNorm entry; OPT's LayerNorm output
+    quantized once) gives the logits of the same step with a quantizer a
+    linear, bit for bit, and launches ``rms_norm_quant`` once for each
+    RMSNorm whose output feeds quantized linears."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = registry.get(arch).reduced()
+    params = convert.to_device(M.init_params(cfg, seed=0, device="cpu"), cuda)
+    qparams = quantize_tree(params)
+    rt = Runtime(backend)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(5))
+    _, state = M.prefill(params, cfg, {"inputs": toks.to(cuda)}, 32, rt)
+    tok = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    reset_launch_counts()
+    fused, _ = M.decode_step(qparams, cfg, _clone_state(state), tok, rt)
+    n_fused = launch_counts()["rms_norm_quant"]
+    monkeypatch.setattr(L, "PAIR_BACKENDS", ())
+    reset_launch_counts()
+    plain, _ = M.decode_step(qparams, cfg, _clone_state(state), tok, rt)
+    assert launch_counts()["rms_norm_quant"] == 0
+    assert torch.equal(fused, plain)
+    L_ = cfg.n_layers
+    want = (0 if cfg.norm_type == "layernorm" else
+            sum(1 + (cfg.layer_kind(i) == "ssm") + bool(cfg.d_ff and not cfg.is_moe_layer(i))
+                + (cfg.attn_type == "mla") for i in range(L_)))
+    assert n_fused == want
+
+
 def _norm_backward_inputs(rows, d, device):
     g = torch.Generator().manual_seed(rows * 7 + d)
     x = (torch.randn((rows, d), generator=g) * 3 + 0.5).to(device)
@@ -562,16 +669,62 @@ def test_rms_norm_backward_replays_its_bits(cuda, rows, d):
     assert _captured_node_types(lambda: rn.rms_norm_backward_cuda(x, scale, dy, rstd=rstd)) == [0]
 
 
-@pytest.mark.parametrize("rows", [1, 8, 1024])
-@pytest.mark.parametrize("d", [768, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 7, 8, 1024, 4099])
+@pytest.mark.parametrize("d", [96, 384, 768, 1000, 4096, 8192, 18432])
 def test_layer_norm_backward_matches_autograd_of_plain(cuda, rows, d):
+    """The backward kernel (``layer_norm_bwd``: a warp a row up to d 1,024,
+    a block a row past it) against autograd through ``layer_norm_plain``,
+    handed the forward's mean and ``rstd``: one launch, the same bits on a
+    second call (no float atomics) and without the saved stats (the kernel
+    recomputes them in the forward's order)."""
     x, scale, bias, dy = _norm_backward_inputs(rows, d, cuda)
+    _, mean, rstd = lnk.layer_norm_cuda(x, scale, bias, with_stats=True)
     reset_launch_counts()
-    got = lnk.layer_norm_backward_cuda(x, scale, dy)
+    got = lnk.layer_norm_backward_cuda(x, scale, dy, mean=mean, rstd=rstd)
     assert launch_counts()["layer_norm_backward"] == 1
     for a, b in zip(got, lnk.layer_norm_backward_plain(x, scale, bias, dy)):
         _close_to(a, b)
+    again = lnk.layer_norm_backward_cuda(x, scale, dy, mean=mean, rstd=rstd)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert all(torch.equal(a, b) for a, b in zip(got, lnk.layer_norm_backward_cuda(x, scale, dy)))
+
+
+@pytest.mark.parametrize("rows", [1, 7, 1024])
+@pytest.mark.parametrize("d", [768, 4096])
+def test_layer_norm_stats_are_the_forwards_own(cuda, rows, d):
+    """The forward's output is the same bits with and without its saved
+    statistics, and the mean and ``rstd`` it saves are within 1e-6 of
+    torch's."""
+    x, scale, bias, _ = _norm_backward_inputs(rows, d, cuda)
+    out, mean, rstd = lnk.layer_norm_cuda(x, scale, bias, with_stats=True)
+    assert torch.equal(out, lnk.layer_norm_cuda(x, scale, bias))
+    torch.testing.assert_close(mean, x.mean(-1), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(rstd, torch.rsqrt(x.var(-1, unbiased=False) + 1e-5),
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("rows,d", [(1024, 768), (1024, 4096), (7, 768)])
+def test_layer_norm_backward_replays_its_bits(cuda, rows, d):
+    """The backward captured in a CUDA graph (after one call outside it)
+    gives the eager call's bits on every replay (its tickets are back at
+    zero after each launch), and the graph holds one kernel node."""
+    x, scale, bias, dy = _norm_backward_inputs(rows, d, cuda)
+    _, mean, rstd = lnk.layer_norm_cuda(x, scale, bias, with_stats=True)
+    want = lnk.layer_norm_backward_cuda(x, scale, dy, mean=mean, rstd=rstd)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lnk.layer_norm_backward_cuda(x, scale, dy, mean=mean, rstd=rstd)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        got = lnk.layer_norm_backward_cuda(x, scale, dy, mean=mean, rstd=rstd)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _captured_node_types(
+        lambda: lnk.layer_norm_backward_cuda(x, scale, dy, mean=mean, rstd=rstd)) == [0]
 
 
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
@@ -714,7 +867,9 @@ def test_reduced_families_serve_on_the_card_like_the_cpu(cuda, arch):
     norm = "layer_norm" if cfg.norm_type == "layernorm" else "rms_norm"
     counts = launch_counts()
     qk = 2 * L if cfg.use_qk_norm else 0
-    assert counts[norm] == (2 * L + 1 + qk) * (steps + len(prompts))
+    fused = 0 if norm == "layer_norm" else (1 if cfg.n_experts else 2) * L * steps
+    assert counts["rms_norm_quant"] == fused
+    assert counts[norm] == (2 * L + 1 + qk) * (steps + len(prompts)) - fused
     linears = 4 if cfg.n_experts else 7 if cfg.mlp_type == "swiglu" else 6
     assert counts["int8_matmul"] == linears * L * steps and counts["decode_attn"] == L * steps
     assert counts["int8_matmul_grouped"] == (3 * L * steps if cfg.n_experts else 0)
@@ -745,8 +900,8 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
     assert res["cuda"][2] == {"int8_matmul": 3 * L, "int8_matmul_grouped": 0,
                               "pim_mvm": 0, "decode_attn": 0,
                               "verify_attn": 0, "verify_tree_attn": 0,
-                              "ssd_chunk": 2 * L, "rms_norm": 2 * (2 * L + 1),
-                              "layer_norm": 0,
+                              "ssd_chunk": 2 * L, "rms_norm": 2 * L + 2,
+                              "rms_norm_quant": 2 * L, "layer_norm": 0,
                               "rms_norm_backward": 0, "layer_norm_backward": 0}
     for a, b in zip(res["cpu"][:2], res["cuda"][:2]):
         assert torch.equal(a.argmax(-1), b.argmax(-1))
@@ -763,8 +918,8 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
                                "pim_mvm": 0, "decode_attn": 0,
                                "verify_attn": 0, "verify_tree_attn": 0,
                                "ssd_chunk": L * len(trace),
-                               "rms_norm": (2 * L + 1) * (steps + len(trace)),
-                               "layer_norm": 0,
+                               "rms_norm": (2 * L + 1) * len(trace) + steps,
+                               "rms_norm_quant": 2 * L * steps, "layer_norm": 0,
                                "rms_norm_backward": 0, "layer_norm_backward": 0}
     assert [len(o) for o in got] == budgets
 
@@ -812,7 +967,7 @@ def test_captured_steps_replay_bit_equal_to_eager(cuda, arch, kind, width):
     key = ("decode",) if kind in ("decode", "multi") else (kind, width)
     L, n_steps = cfg.n_layers, (width if kind == "multi" else 1)
     lin = 3 if cfg.family == "ssm" else 7
-    per = {"int8_matmul": lin * L, "rms_norm": 2 * L + 1}
+    per = {"int8_matmul": lin * L, "rms_norm": 1, "rms_norm_quant": 2 * L}
     if cfg.family != "ssm":
         per[{"tree": "verify_tree_attn", "verify": "verify_attn"}.get(kind, "decode_attn")] = L
     assert steps.graphs[key].launches == per
@@ -885,7 +1040,8 @@ def test_chunked_and_fused_serving_token_identical_on_the_card(cuda, policy):
     from repro_torch.models import transformer as T
     pieces = sum(T.prefill_pieces(cfg, eng._bucket(len(p))) for p in prompts)
     assert counts["int8_matmul"] == 7 * cfg.n_layers * steps
-    assert counts["rms_norm"] == (2 * cfg.n_layers + 1) * (steps + pieces)
+    assert counts["rms_norm"] == (2 * cfg.n_layers + 1) * pieces + steps
+    assert counts["rms_norm_quant"] == 2 * cfg.n_layers * steps
 
 
 # ---------------------------------------------------------------------------
@@ -1037,7 +1193,8 @@ def test_reduced_chameleon_prefill_from_embeddings_on_the_card(cuda):
         lg1, _ = M.decode_step(convert.to_device(qparams, dev), cfg, st, nxt.to(dev), rt)
         res[str(dev)] = (lg0.cpu(), lg1.cpu(), launch_counts())
     L = cfg.n_layers
-    assert res["cuda"][2]["rms_norm"] == (4 * L + 1) * 2
+    assert res["cuda"][2]["rms_norm"] == (4 * L + 1) + (2 * L + 1)
+    assert res["cuda"][2]["rms_norm_quant"] == 2 * L
     for a, b in zip(res["cpu"][:2], res["cuda"][:2]):
         assert torch.equal(a.argmax(-1), b.argmax(-1))
         assert float((a - b).abs().max()) <= 2e-2 * float(a.abs().max())
@@ -1391,7 +1548,8 @@ def test_captured_steps_of_reduced_grok_equal_eager(cuda):
     try:
         steps = G.ServeSteps(qparams, cfg, rt, state, verify=(5,), tree=(7,))
         L = cfg.n_layers
-        per = {"int8_matmul": 4 * L, "int8_matmul_grouped": 3 * L, "rms_norm": 2 * L + 1}
+        per = {"int8_matmul": 4 * L, "int8_matmul_grouped": 3 * L, "rms_norm": L + 1,
+               "rms_norm_quant": L}
         assert steps.graphs[("decode",)].launches == dict(per, decode_attn=L)
         assert steps.graphs[("verify", 5)].launches == dict(per, verify_attn=L)
         assert steps.graphs[("tree", 7)].launches == dict(per, verify_tree_attn=L)
@@ -1519,7 +1677,9 @@ def test_reduced_deepseek_serves_on_the_card_like_the_cpu(cuda):
     assert eng.generate_all(prompts, budgets) == want
     steps, L = eng.stats["decode_steps"], cfg.n_layers
     counts = launch_counts()
-    assert counts["rms_norm"] == (4 * L + 1) * (steps + len(prompts))
+    fused = (2 * L + sum(not cfg.is_moe_layer(i) for i in range(L))) * steps
+    assert counts["rms_norm_quant"] == fused
+    assert counts["rms_norm"] == (4 * L + 1) * (steps + len(prompts)) - fused
     assert counts["int8_matmul"] == (4 * L + 3) * steps
     assert counts["int8_matmul_grouped"] == 3 * (L - 1) * steps
     assert counts["decode_attn"] == counts["verify_attn"] == counts["verify_tree_attn"] == 0
@@ -1624,7 +1784,9 @@ def test_reduced_jamba_serves_on_the_card_like_the_cpu(cuda):
     assert counts["int8_matmul_grouped"] == 3 * sum(moe) * steps
     assert counts["decode_attn"] == (L - sum(ssm)) * steps
     assert counts["ssd_chunk"] == sum(ssm) * n
-    assert counts["rms_norm"] == (1 + sum(2 + s for s in ssm)) * (steps + n)
+    fused = (L + sum(ssm) + sum(not e for e in moe)) * steps
+    assert counts["rms_norm_quant"] == fused
+    assert counts["rms_norm"] == (1 + sum(2 + s for s in ssm)) * (steps + n) - fused
 
 
 def test_reduced_whisper_serves_on_the_card_like_the_cpu(cuda):

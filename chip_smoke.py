@@ -128,14 +128,21 @@ Phases (any failure makes the script exit non-zero):
    ``torch._int_mm``), B2 / B3 / B4 at G 56, rep 1, D 128 in pools of
    512 rows (B3's rows equal to B2, B4 on a chain equal to B3), the
    LayerNorm kernel (``layer_norm``; within rtol 1e-6 of its plain version,
-   row-invariant at 1, 4, 20 and 28 rows a call; its time beside
-   ``F.layer_norm``), the reduced config on the card against the CPU, the
+   row-invariant at 1, 4, 20 and 28 rows a call; its time at [4, 7168],
+   [4, 384], [1024, 768] and [1024, 4096] beside ``F.layer_norm``), the
+   LayerNorm fused with the activation quantizer (``layer_norm_quant``) at
+   d 96 to 24576, gated bit-equal to the LayerNorm kernel followed by
+   ``quantize_activation``, row-invariant, one kernel node a call and
+   equal on 8 replays, timed at [4, 7168] and [4, 384] beside that
+   unfused pair captured as a graph, the reduced config on the card
+   against the CPU, the
    phase-4 trace under ``fused_int8``, ``pim_bitserial`` and ``ref_int8``
    (gated token-identical), ``Engine``, ``spec_k = 4`` and ``spec_tree = 6,
    spec_branch = 2`` with the verify window's K/V gated equal to
    sequential decode's in every layer, ``multi_step = 4`` and ``chunk = 32``
    (each lane gated 8 of 8 equal to the plain trace; its ``fused_int8``
-   run's LayerNorm launches are what the ``kernels`` line reports), and its
+   run's LayerNorm launches, unfused and fused, are what the ``kernels``
+   line reports), and its
    captured decode step gated bit-equal to eager over 8 steps with its
    replayed wall, device-busy time and idle share; then granite-3-8b (8 of
    its 40 layers) and phi3-mini-3.8b (8 of its 32) at full width, each with
@@ -247,11 +254,11 @@ Phases (any failure makes the script exit non-zero):
 Every path runs a row-invariant norm kernel for every norm on the card
 (``rms_norm``, or ``layer_norm`` for OPT; QK-norm's two a layer through
 ``rms_norm``); each serve run's launch counts include it.  Under
-``fused_int8`` and ``pim_bitserial`` an RMSNorm whose output feeds
-quantized linears on the int8 tree runs ``rms_norm_quant`` instead, which
-also writes the output's int8 codes and scales for those linears (a
-LayerNorm's output is quantized once); ``ref_int8`` quantizes a linear's
-input in each linear.  The training
+``fused_int8`` and ``pim_bitserial`` a norm whose output feeds quantized
+linears on the int8 tree runs its fused entry instead (``rms_norm_quant``,
+``layer_norm_quant``), which also writes the output's int8 codes and
+scales for those linears; ``ref_int8`` quantizes a linear's input in each
+linear.  The training
 path's norms run it through an autograd Function whose backward is the
 norm's backward kernel (``rms_norm_backward``, ``layer_norm_backward``).
 
@@ -802,7 +809,9 @@ DEVICE_KERNELS = {"int8_matmul": "int8_mm_cluster", "int8_matmul_grouped": "int8
                   "decode_attn": "attn_kernel", "verify_attn": "attn_kernel",
                   "verify_tree_attn": "attn_kernel", "ssd_chunk": "ssd_chunk_kernel",
                   "rms_norm": "rms_norm_kernel", "rms_norm_quant": "rms_norm_quant_kernel",
-                  "layer_norm": "layer_norm_kernel", "rms_norm_backward": "rms_norm_bwd",
+                  "layer_norm": "layer_norm_kernel",
+                  "layer_norm_quant": "layer_norm_quant_kernel",
+                  "rms_norm_backward": "rms_norm_bwd",
                   "layer_norm_backward": "layer_norm_bwd"}
 
 
@@ -1058,16 +1067,17 @@ def norms_per_pass(cfg) -> int:
 
 
 def fused_norms_per_pass(cfg) -> int:
-    """RMSNorm launches of one pass over a quantized tree under a kernel
-    backend that the entry fused with the activation quantizer
-    (``rms_norm_quant``) takes: the norms whose output feeds quantized
-    linears, each layer's ``ln1``, an SSM layer's gated norm, a dense FFN's
-    ``ln2`` and an MLA layer's ``q_norm`` (a MoE layer's ``ln2``, MLA's
-    ``kv_norm``, QK-norm and ``ln_f`` keep the plain RMSNorm kernel; a
-    LayerNorm stack quantizes its norms' outputs once each, with no fused
-    kernel)."""
-    if cfg.norm_type == "layernorm":
-        return 0
+    """Norm launches of one pass over a quantized tree under a kernel
+    backend that the norm's entry fused with the activation quantizer
+    (``rms_norm_quant``, or ``layer_norm_quant`` for a LayerNorm stack)
+    takes: the norms whose output feeds quantized linears, each layer's
+    ``ln1``, an SSM layer's gated norm, a dense FFN's ``ln2`` and an MLA
+    layer's ``q_norm``; an encoder-decoder's decoder layer its ``ln1``,
+    ``ln_x`` (the cross-attention's ``wq`` reads it) and ``ln2`` (a MoE
+    layer's ``ln2``, MLA's ``kv_norm``, QK-norm and ``ln_f`` keep the
+    unfused kernel)."""
+    if cfg.family == "encdec":
+        return 3 * cfg.n_layers
     return sum(1 + (cfg.layer_kind(i) == "ssm")
                + bool(cfg.d_ff and not cfg.is_moe_layer(i))
                + (cfg.attn_type == "mla" and cfg.layer_kind(i) != "ssm")
@@ -1111,27 +1121,29 @@ def want_launches(cfg, steps: int, prompt_lens: list[int], attn: str | None,
     kernel).  Under ``fused_int8`` and ``pim_bitserial`` the norms of each
     pass over the int8 tree (decode and verify steps, an int8 prefill, the
     MTP cells' ``ln1`` and ``q_norm``) whose outputs feed quantized linears
-    launch ``rms_norm_quant`` in place of ``rms_norm``
-    (:func:`fused_norms_per_pass`); ``ref_int8`` keeps ``rms_norm`` and the
-    per-linear quantizer."""
+    launch the norm's fused entry (``rms_norm_quant`` in place of
+    ``rms_norm``, ``layer_norm_quant`` in place of ``layer_norm``:
+    :func:`fused_norms_per_pass`); ``ref_int8`` keeps the unfused norm and
+    the per-linear quantizer."""
     L = cfg.n_layers
     mla = cfg.attn_type == "mla"
     n_ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(L))
     prefills = len(prompt_lens) if prefills is None else prefills
     want = {"int8_matmul": 0, "int8_matmul_grouped": 0, "pim_mvm": 0, "decode_attn": 0,
             "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0, "rms_norm": 0,
-            "rms_norm_quant": 0, "layer_norm": 0, "rms_norm_backward": 0,
-            "layer_norm_backward": 0}
+            "rms_norm_quant": 0, "layer_norm": 0, "layer_norm_quant": 0,
+            "rms_norm_backward": 0, "layer_norm_backward": 0}
     want[norm_kernel(cfg)] = norms_per_pass(cfg) * (steps + prefills) + 4 * draft_cells
     if cfg.family == "encdec":
         want[norm_kernel(cfg)] += (2 * cfg.encoder_layers + 1) * prefills
     if cfg.use_qk_norm or mla:   # QK-norm's q and k, or MLA's q_norm and kv_norm
         want["rms_norm"] += 2 * L * (steps + prefills)
-    if backend in ("fused_int8", "pim_bitserial") and cfg.norm_type != "layernorm":
+    if backend in ("fused_int8", "pim_bitserial"):
+        fused = norm_kernel(cfg) + "_quant"
         passes = steps + (prefills if int8_prefill else 0)
-        want["rms_norm_quant"] = (fused_norms_per_pass(cfg) * passes
-                                  + 2 * draft_cells * (cfg.attn_type == "mla"))
-        want["rms_norm"] -= want["rms_norm_quant"]
+        want[fused] = (fused_norms_per_pass(cfg) * passes
+                       + 2 * draft_cells * (cfg.attn_type == "mla"))
+        want[norm_kernel(cfg)] -= want[fused]
     linears = sum(linears_per_layer(cfg, i) for i in range(L))
     experts = sum(expert_launches_per_layer(cfg, i) for i in range(L))
     cell = expert_launches_per_layer(cfg, L - 1)
@@ -1511,8 +1523,8 @@ def row_invariance(torch, cfg, params, B: int, T: int, q: dict) -> dict:
     calls it and T times as the decode step does: how many outputs differ,
     and by how much.  The norm (the configuration's norm kernel, RMSNorm or
     LayerNorm) and the int8 pair it hands the attention linears of ``q``
-    (the int8 tree) under ``fused_int8`` (``norm_pair``: the fused RMSNorm
-    entry, or the LayerNorm's output quantized once) must differ in none."""
+    (the int8 tree) under ``fused_int8`` (``norm_pair``: the norm's entry
+    fused with the quantizer) must differ in none."""
     from repro_torch.core import quant
     from repro_torch.models import attention as A
     from repro_torch.models import layers as L
@@ -2804,9 +2816,9 @@ def ssd_kernel_checks(torch, ssd, H: int = SSD_HEADS, shapes: tuple = SSD_SHAPES
 def rms_norm_checks(torch, rn) -> dict:
     """The RMSNorm kernel: within rtol 1e-6 of the plain version and
     row-invariant bit for bit (M 4 and 20 against 124) at d 2560, 4096 and
-    5120; times at the mamba2 decode step's shapes [4, 2560] and [4, 5120]
-    beside the plain version's and ``torch.nn.functional.rms_norm``'s (a
-    yardstick only)."""
+    5120; times at the decode steps' shapes [4, 2560], [4, 4096] and
+    [4, 5120] (mamba2's, llama's, mamba2's inner width) beside the plain
+    version's and ``torch.nn.functional.rms_norm``'s (a yardstick only)."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(8)
     out = {"shapes": {}}
@@ -2819,7 +2831,7 @@ def rms_norm_checks(torch, rn) -> dict:
             parts = torch.cat([rn.rms_norm_cuda(x[i:i + m], scale) for i in range(0, 124, m)])
             if not torch.equal(parts, full):
                 raise AssertionError(f"rms_norm d={d}: rows at M={m} differ from M=124")
-    for d in (2560, 5120):
+    for d in (2560, 4096, 5120):
         M = 4
         x = torch.randn((M, d), generator=g, device="cuda")
         scale = torch.randn((d,), generator=g, device="cuda")
@@ -3313,9 +3325,11 @@ def layer_norm_checks(torch, lnk) -> dict:
     1e-6 of the output's scale: an output near zero is the difference of
     two rounded terms) and row-invariant bit for bit (each row the same
     bits at 1, 4, 20 and 28 rows a call as at 140) at OPT-30B's d 7168 and
-    opt-125m's 768; time at the OPT-30B decode step's shape [4, 7168] beside
-    the plain version's and ``torch.nn.functional.layer_norm``'s (a
-    yardstick only)."""
+    opt-125m's 768; times at the decode steps' shapes [4, 7168] (OPT-30B)
+    and [4, 384] (whisper-tiny) and at the training shapes [1024, 768]
+    (opt-125m) and [1024, 4096] (with and without the saved statistics),
+    each beside the plain version's and ``torch.nn.functional.layer_norm``'s
+    (a yardstick only); then :func:`layer_norm_quant_checks`."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(10)
 
@@ -3323,7 +3337,7 @@ def layer_norm_checks(torch, lnk) -> dict:
         return (torch.randn((M, d), generator=g, device="cuda") * 3 + 0.5,
                 torch.randn((d,), generator=g, device="cuda"),
                 torch.randn((d,), generator=g, device="cuda"))
-    out = {"row_invariant": {}}
+    out = {"row_invariant": {}, "shapes": {}}
     for d in (768, 7168):
         x, scale, bias = inputs(LN_ROWS, d)
         full = lnk.layer_norm_cuda(x, scale, bias)
@@ -3337,24 +3351,101 @@ def layer_norm_checks(torch, lnk) -> dict:
         out["row_invariant"][d] = rows
         if not all(rows.values()):
             raise AssertionError(f"layer_norm d={d}: rows differ from M={LN_ROWS}: {rows}")
-    M, d = 4, 7168
-    x, scale, bias = inputs(M, d)
-    err = float((lnk.layer_norm_cuda(x, scale, bias)
-                 - lnk.layer_norm_plain(x, scale, bias)).abs().max())
-    # warm inputs: on the decode path the previous op has just written x
-    tk = timed(torch, lambda i: lnk.layer_norm_cuda(x, scale, bias), 200)
-    tp = timed(torch, lambda i: lnk.layer_norm_plain(x, scale, bias), 200)
-    lib = graph_ms(torch, lambda i: F.layer_norm(x, (d,), scale, bias, 1e-5), 200)
-    b = bound_ms(4 * (2 * M * d + 2 * d), [(8 * M * d, FP32_FLOPS_PER_S)])
-    out.update({"M": M, "d": d, "ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
-                "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
-                "library_ms": lib, "bound_ms": b[0], "bound_by": b[1], "max_abs_err": err})
-    print(f"   layer_norm [{M}, {d}]: {tk['device_ms'] * 1e3:.2f} us device / "
-          f"{tk['eager_ms'] * 1e3:.2f} eager (bound {b[0] * 1e3:.3f}, plain "
-          f"{tp['device_ms'] * 1e3:.2f} / {tp['eager_ms'] * 1e3:.2f} eager, F.layer_norm "
-          f"{lib * 1e3:.2f}); max |err| {err:.3g}; row-invariant at M 1, 4, 20, 28, "
-          f"{LN_ROWS} for d 768, 7168")
+    print(f"   layer_norm: within rtol 1e-6 of the plain version and row-invariant at M 1, 4, "
+          f"20, 28, {LN_ROWS} for d 768, 7168")
+    for M, d in ((4, 7168), (4, 384), (1024, 768), (1024, 4096)):
+        x, scale, bias = inputs(M, d)
+        err = float((lnk.layer_norm_cuda(x, scale, bias)
+                     - lnk.layer_norm_plain(x, scale, bias)).abs().max())
+        # warm inputs: on the decode path the previous op has just written x
+        tk = timed(torch, lambda i: lnk.layer_norm_cuda(x, scale, bias), 200)
+        ts = graph_ms(torch, lambda i: lnk.layer_norm_cuda(x, scale, bias, with_stats=True), 200)
+        tp = timed(torch, lambda i: lnk.layer_norm_plain(x, scale, bias), 200)
+        lib = graph_ms(torch, lambda i: F.layer_norm(x, (d,), scale, bias, 1e-5), 200)
+        b = bound_ms(4 * (2 * M * d + 2 * d), [(8 * M * d, FP32_FLOPS_PER_S)])
+        out["shapes"][f"{M}x{d}"] = {
+            "M": M, "d": d, "ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+            "with_stats_ms": ts, "plain_ms": tp["device_ms"], "plain_eager_ms": tp["eager_ms"],
+            "library_ms": lib, "bound_ms": b[0], "bound_by": b[1], "max_abs_err": err}
+        print(f"   layer_norm [{M}, {d}]: {tk['device_ms'] * 1e3:.2f} us device / "
+              f"{tk['eager_ms'] * 1e3:.2f} eager, with stats {ts * 1e3:.2f} (bound "
+              f"{b[0] * 1e3:.3f}, plain {tp['device_ms'] * 1e3:.2f} / "
+              f"{tp['eager_ms'] * 1e3:.2f} eager, F.layer_norm {lib * 1e3:.2f}); "
+              f"max |err| {err:.3g}")
+    out.update(out["shapes"]["4x7168"])
+    out["quant"] = layer_norm_quant_checks(torch, lnk)
     return out
+
+
+# every width the fused LayerNorm is gated at: whisper-tiny's 384,
+# opt-125m's 768, opt-6.7b's 4096, OPT-30B's 7168, and widths that take
+# each of the forward's other register budgets or re-read the row
+QUANT_LN_WIDTHS = (96, 384, 768, 1000, 4096, 7168, 18432, 24576)
+LN_REPLAYS = 8
+
+
+def layer_norm_quant_checks(torch, lnk) -> dict:
+    """The LayerNorm fused with the activation quantizer
+    (``layer_norm_quant``) at every width of :data:`QUANT_LN_WIDTHS` (a
+    zero row and a constant row among random ones): its output bit-equal to
+    the LayerNorm kernel's and its codes and scales to
+    ``quantize_activation`` of that output, at 1, 4, 20 and 28 rows a call,
+    each call's rows equal to the 140-row call's (row-invariant), one
+    kernel node when captured and the same bits on
+    :data:`LN_REPLAYS` replays (all gated); timed at [4, 7168] and [4, 384]
+    beside the LayerNorm kernel alone, the unfused pair (the kernel, then
+    ``quantize_activation``) captured as a CUDA graph, the yardstick, and
+    the plain version (no one library call computes the three outputs)."""
+    from repro_torch.core import quant
+    g = torch.Generator(device="cuda").manual_seed(28)
+    out = {"widths": {}, "shapes": {}}
+    for d in QUANT_LN_WIDTHS:
+        x = torch.randn((LN_ROWS, d), generator=g, device="cuda") * 3 + 0.5
+        x[7] = 0                                   # the scale's floor (h is the bias)
+        x[9] = 1.7                                 # a constant row
+        scale = torch.randn((d,), generator=g, device="cuda")
+        bias = torch.randn((d,), generator=g, device="cuda")
+        whole = lnk.layer_norm_quant_cuda(x, scale, bias)
+        h = lnk.layer_norm_cuda(x, scale, bias)
+        same = [torch.equal(a, b) for a, b in zip(whole, (h, *quant.quantize_activation(h)))]
+        rows = {m: all(torch.equal(torch.cat([lnk.layer_norm_quant_cuda(x[i:i + m], scale,
+                                                                         bias)[j]
+                                              for i in range(0, LN_ROWS, m)]), whole[j])
+                       for j in range(3)) for m in (1, 4, 20, 28)}
+        x4 = x[:4].contiguous()
+        replays, nodes = replay_bits(torch, lambda i: lnk.layer_norm_quant_cuda(x4, scale, bias),
+                                     tuple(t[:4] for t in whole), LN_REPLAYS)
+        out["widths"][d] = {"equal_to_pair": same, "row_invariant": rows,
+                            "replays_equal": replays, "graph_nodes": nodes}
+        if not (all(same) and all(rows.values()) and replays and nodes == [0]):
+            raise AssertionError(f"layer_norm_quant d={d}: equal to the kernel and the "
+                                 f"quantizer {same}, rows across calls {rows}, replays "
+                                 f"{replays}, device operations {nodes}")
+    print(f"   layer_norm_quant: h, codes and scales equal to layer_norm_cuda then "
+          f"quantize_activation at d {QUANT_LN_WIDTHS}, row-invariant at 1, 4, 20 and 28 "
+          f"rows a call against {LN_ROWS}, one kernel node a call, {LN_REPLAYS} replays equal")
+    for d in (7168, 384):
+        M = 4
+        x = torch.randn((M, d), generator=g, device="cuda") * 3 + 0.5
+        scale = torch.randn((d,), generator=g, device="cuda")
+        bias = torch.randn((d,), generator=g, device="cuda")
+        err = float((lnk.layer_norm_quant_cuda(x, scale, bias)[0]
+                     - lnk.layer_norm_plain(x, scale, bias)).abs().max())
+        tk = timed(torch, lambda i: lnk.layer_norm_quant_cuda(x, scale, bias), 200)
+        tn = graph_ms(torch, lambda i: lnk.layer_norm_cuda(x, scale, bias), 200)
+        tu = graph_ms(torch, lambda i: quant.quantize_activation(
+            lnk.layer_norm_cuda(x, scale, bias)), 200)
+        tp = graph_ms(torch, lambda i: lnk.layer_norm_quant_plain(x, scale, bias), 200)
+        b = bound_ms(4 * (2 * M * d + 2 * d + M) + M * d, [(12 * M * d, FP32_FLOPS_PER_S)])
+        out["shapes"][d] = {"M": M, "d": d, "ms": tk["device_ms"], "eager_ms": tk["eager_ms"],
+                            "layer_norm_ms": tn, "unfused_ms": tu, "plain_ms": tp,
+                            "library_ms": None, "bound_ms": b[0], "bound_by": b[1],
+                            "max_abs_err": err}
+        print(f"   layer_norm_quant [{M}, {d}]: {tk['device_ms'] * 1e3:.2f} us device / "
+              f"{tk['eager_ms'] * 1e3:.2f} eager (bound {b[0] * 1e3:.3f}; layer_norm alone "
+              f"{tn * 1e3:.2f}, layer_norm + quantize_activation {tu * 1e3:.2f}, plain "
+              f"{tp * 1e3:.2f}); max |err| of h {err:.3g}")
+    return dict(out["shapes"][7168], shapes=out["shapes"], widths=out["widths"])
 
 
 def family_kernels(torch, mods, cfg, attn: tuple) -> dict:
@@ -4760,6 +4851,7 @@ def phase_families(torch, ctx, mods: dict) -> dict:
     rec.update(reduced_vs_cpu(torch, registry.get("opt-30b")))
     rec.update(serve_family(torch, ctx, opt, lanes=ALL_LANES, exact=True))
     ctx["layer_norm_launches"] = rec["fused_int8"]["launches"]["layer_norm"]
+    ctx["layer_norm_quant_launches"] = rec["fused_int8"]["launches"]["layer_norm_quant"]
     rec["family_s"] = time.perf_counter() - t0
     out["opt-30b"] = rec
     # granite-3-8b's attention has llama3-8b's shape: 8 groups of 4 heads of 128
@@ -4984,15 +5076,15 @@ def captured(torch, fn):
     return graph, got
 
 
-def replay_bits(torch, fn, want) -> tuple[bool, list[int]]:
-    """``fn(0)`` captured in a CUDA graph: whether each of two replays gives
-    the tensors ``want``, and the graph's node types (one call's device
-    operations)."""
+def replay_bits(torch, fn, want, replays: int = 2) -> tuple[bool, list[int]]:
+    """``fn(0)`` captured in a CUDA graph: whether each of ``replays``
+    replays gives the tensors ``want``, and the graph's node types (one
+    call's device operations)."""
     from repro_torch.models.graphs import node_types
     graph, got = captured(torch, fn)
     types = node_types(graph)
     same = []
-    for _ in range(2):
+    for _ in range(replays):
         graph.replay()
         torch.cuda.synchronize()
         same.append(all(torch.equal(a, b) for a, b in zip(got, want)))
@@ -5353,6 +5445,11 @@ def main() -> int:
             ("layer_norm", "src/repro_torch/csrc/layer_norm.cu",
              "src/repro/models/layers.py apply_norm, LayerNorm branch (jnp; no Pallas kernel)",
              s.record.get("families", {}).get("layer_norm"), ctx.get("layer_norm_launches")),
+            ("layer_norm_quant", "src/repro_torch/csrc/layer_norm.cu",
+             "src/repro/models/layers.py apply_norm, LayerNorm branch, with "
+             "src/repro/core/quant.py quantize_activation (jnp; no Pallas kernel)",
+             s.record.get("families", {}).get("layer_norm", {}).get("quant"),
+             ctx.get("layer_norm_quant_launches")),
             ("rms_norm_backward", "src/repro_torch/csrc/rms_norm.cu",
              "src/repro/models/layers.py apply_norm's gradient (XLA autodiff of jnp; "
              "no Pallas kernel)", train.get("rms_norm_backward"),

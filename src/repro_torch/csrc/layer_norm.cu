@@ -25,12 +25,27 @@
 // training path saves them for the backward; serving passes null); the
 // output's bits do not depend on it.
 //
+// The forward's design (layer_norm_row): a thread loads its elements of x,
+// scale and bias once, as independent loads, into registers (up to 32 a
+// thread, d 8192; OPT-30B's 7168 is 28 a thread; wider rows re-read from
+// L1 / L2).  The mean, the sum of squared deviations (from registers) and,
+// in the fused entry, the amax each take one barrier on their own shared
+// array, so a row is read from memory once and costs two barriers (three
+// fused), where a block reduction that reuses one array costs two each.
 // What bounds it on the H100: it reads each row and writes it once (8 bytes
-// per element; the three passes over the row after the first hit L1/L2)
-// and does a handful of flops per element, far below the ridge point:
-// bytes.  At the decode shapes (4 rows of 7168) a call is a few microseconds
-// of launch latency; the design aims at one launch instead of torch's
-// several.
+// per element) and does a handful of flops per element, far below the
+// ridge point: bytes.  At the decode shapes (4 rows of 7168) a call is a
+// few microseconds of launch latency and one trip to memory.
+//
+// The forward fused with the per-row int8 quantizer (layer_norm_quant_kernel;
+// it replaces no TPU kernel: the reference quantizes every linear's input
+// in jnp, core/quant.py quantize_activation).  Where a LayerNorm's output
+// feeds quantized linears (OPT's ln1 and ln2, whisper's decoder ln1, ln_x
+// and ln2) the serve path would otherwise run the quantizer after the norm,
+// eight torch kernels.  This entry runs the forward's body and then the
+// quantizer of norm_quant.cuh on the h in registers: h the unfused entry's
+// bits, the codes and scales quantize_activation(h)'s.  Bound: bytes (x
+// read, h and q written, 9 bytes an element).
 //
 // The backward (the training path's gradient through the norm; the
 // reference leaves it to XLA's autodiff of the jnp norm), with
@@ -68,6 +83,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "norm_quant.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -77,8 +94,9 @@ constexpr int WARPS = NT / 32;
 constexpr int CL = 8;          // blocks of a backward cluster
 constexpr int MAX_D = 24576;   // a backward block's column sums fit its shared memory
 
-// The block's sum of every thread's ``s``, the same bits in every thread.
-// ``warp_sum`` is shared; the leading barrier lets a second call reuse it.
+// The block's sum of every thread's ``s``, the same bits in every thread
+// and the forward's row_sum bits.  ``warp_sum`` is shared; the leading
+// barrier lets the backward's next call (its next sum or row) reuse it.
 __device__ __forceinline__ float block_sum(float s, float* warp_sum) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -117,32 +135,149 @@ __device__ __forceinline__ float warp_fold(float s) {
   return s;
 }
 
+// The forward's body, one block a row, behind both entries.  V: elements
+// of the row each thread holds in registers (d <= NT V) with their scale
+// and bias, loaded at once as independent loads; 0 for wider rows, which
+// are read again from L1 / L2.  The mean, the sum of squared deviations
+// (from registers) and (QUANT) the amax each take one barrier on their own
+// shared array; h is computed and stored from registers, and the codes
+// come from the same registers (norm_quant.cuh).  mean_out and rstd_out
+// receive the row's statistics where not null.
+template <int V, bool QUANT>
+__device__ __forceinline__ void layer_norm_row(const float* __restrict__ x,
+                                               const float* __restrict__ scale,
+                                               const float* __restrict__ bias,
+                                               float* __restrict__ out,
+                                               float* __restrict__ mean_out,
+                                               float* __restrict__ rstd_out,
+                                               signed char* __restrict__ codes,
+                                               float* __restrict__ row_scale_out, int d,
+                                               float eps) {
+  __shared__ float warp_sum[WARPS], warp_sq[WARPS], warp_max[WARPS];
+  constexpr int R = V > 0 ? V : 1;
+  const int tid = threadIdx.x;
+  const size_t base = (size_t)blockIdx.x * d;
+  const float* xr = x + base;
+  float* orow = out + base;
+  const float fd = (float)d;
+  float xv[R], sc[R], bi[R];
+  float s = 0.f;
+  if constexpr (V > 0) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int i = tid + NT * j;
+      xv[j] = i < d ? xr[i] : 0.f;
+      sc[j] = i < d ? __ldg(scale + i) : 0.f;
+      bi[j] = i < d ? __ldg(bias + i) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (tid + NT * j < d) s += xv[j];
+  } else {
+    for (int i = tid; i < d; i += NT) s += xr[i];
+  }
+  const float mean = __fdiv_rn(row_sum<WARPS>(s, warp_sum), fd);
+  s = 0.f;
+  if constexpr (V > 0) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (tid + NT * j < d) {
+        const float dev = __fsub_rn(xv[j], mean);
+        s = fmaf(dev, dev, s);
+      }
+    }
+  } else {
+    for (int i = tid; i < d; i += NT) {
+      const float dev = __fsub_rn(xr[i], mean);
+      s = fmaf(dev, dev, s);
+    }
+  }
+  const float var = __fdiv_rn(row_sum<WARPS>(s, warp_sq), fd);
+  const float r = rsqrtf(__fadd_rn(var, eps));
+  if (mean_out != nullptr && tid == 0) {
+    mean_out[blockIdx.x] = mean;
+    rstd_out[blockIdx.x] = r;
+  }
+  float amax = 0.f;
+  if constexpr (V > 0) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int i = tid + NT * j;
+      if (i < d) {
+        xv[j] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(xv[j], mean), r), sc[j]), bi[j]);
+        orow[i] = xv[j];                                   // h from here on
+        amax = fmaxf(amax, fabsf(xv[j]));
+      }
+    }
+  } else {
+    for (int i = tid; i < d; i += NT) {
+      const float h =
+          __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(xr[i], mean), r), scale[i]), bias[i]);
+      orow[i] = h;
+      amax = fmaxf(amax, fabsf(h));
+    }
+  }
+  if constexpr (QUANT) {
+    signed char* qrow = codes + base;
+    const float qs = row_scale<WARPS>(amax, warp_max);
+    if (tid == 0) row_scale_out[blockIdx.x] = qs;
+    const float y = __frcp_rn(qs);
+    if constexpr (V > 0) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int i = tid + NT * j;
+        if (i < d) qrow[i] = code(xv[j], qs, y);
+      }
+    } else {
+      // h again from x (L1 / L2 hits, the same bits as the pass above)
+      for (int i = tid; i < d; i += NT)
+        qrow[i] = code(
+            __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(xr[i], mean), r), scale[i]), bias[i]),
+            qs, y);
+    }
+  }
+}
+
+// The unfused entry: h, and each row's mean and r where the pointers are
+// not null.
+template <int V>
 __global__ void __launch_bounds__(NT)
 layer_norm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
                   const float* __restrict__ bias, float* __restrict__ out,
                   float* __restrict__ mean_out, float* __restrict__ rstd_out, int d,
                   float eps) {
-  __shared__ float warp_sum[WARPS];
-  const size_t base = (size_t)blockIdx.x * d;
-  const float* xr = x + base;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < d; i += NT) s += xr[i];
-  const float mean = __fdiv_rn(block_sum(s, warp_sum), (float)d);
-  s = 0.f;
-  for (int i = threadIdx.x; i < d; i += NT) {
-    const float dev = __fsub_rn(xr[i], mean);
-    s = fmaf(dev, dev, s);
-  }
-  const float var = __fdiv_rn(block_sum(s, warp_sum), (float)d);
-  const float r = rsqrtf(__fadd_rn(var, eps));
-  if (threadIdx.x == 0 && mean_out != nullptr) {
-    mean_out[blockIdx.x] = mean;
-    rstd_out[blockIdx.x] = r;
-  }
-  float* orow = out + base;
-  for (int i = threadIdx.x; i < d; i += NT)
-    orow[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(xr[i], mean), r), scale[i]), bias[i]);
+  layer_norm_row<V, false>(x, scale, bias, out, mean_out, rstd_out, nullptr, nullptr, d, eps);
 }
+
+// The entry fused with the quantizer: h, its codes and its row scales.
+template <int V>
+__global__ void __launch_bounds__(NT)
+layer_norm_quant_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                        const float* __restrict__ bias, float* __restrict__ out,
+                        signed char* __restrict__ codes, float* __restrict__ row_scales,
+                        int d, float eps) {
+  layer_norm_row<V, true>(x, scale, bias, out, nullptr, nullptr, codes, row_scales, d, eps);
+}
+
+// The forward's elements a thread for rows of d (0: re-read); 28 is
+// OPT-30B's d 7168 with no idle slot.
+int fwd_vpt(int d) {
+  const int v = (d + NT - 1) / NT;
+  return v <= 4 ? 4 : v <= 8 ? 8 : v <= 12 ? 12 : v <= 16 ? 16 : v <= 24 ? 24 : v <= 28 ? 28
+       : v <= 32 ? 32 : 0;
+}
+
+#define LN_FWD_DISPATCH(d, CALL)  \
+  switch (fwd_vpt(d)) {           \
+    case 4: CALL(4); break;       \
+    case 8: CALL(8); break;       \
+    case 12: CALL(12); break;     \
+    case 16: CALL(16); break;     \
+    case 24: CALL(24); break;     \
+    case 28: CALL(28); break;     \
+    case 32: CALL(32); break;     \
+    default: CALL(0);             \
+  }
 
 struct BwdArgs {
   const float* x;
@@ -556,15 +691,42 @@ extern "C" int layer_norm_backward_launch(const void* x, const void* scale, cons
 }
 
 // x f32 [M, d] -> out f32 [M, d]; scale, bias f32 [d]; mean and rstd f32
-// [M] receive each row's mean and rsqrt(var + eps) when not null.
+// [M] receive each row's mean and rsqrt(var + eps) when not null.  One
+// launch.
 extern "C" int layer_norm_launch(const void* x, const void* scale, const void* bias,
                                  void* out, void* mean, void* rstd, int M, int d, float eps,
                                  void* stream) {
   if (M < 1 || d < 1 || (mean == nullptr) != (rstd == nullptr))
     return (int)cudaErrorInvalidValue;
-  layer_norm_kernel<<<M, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<float*>(out), static_cast<float*>(mean),
-      static_cast<float*>(rstd), d, eps);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const float*>(x);
+  const auto* sp = static_cast<const float*>(scale);
+  const auto* bp = static_cast<const float*>(bias);
+  auto* op = static_cast<float*>(out);
+  auto* mp = static_cast<float*>(mean);
+  auto* rp = static_cast<float*>(rstd);
+#define PLAIN(V) layer_norm_kernel<V><<<M, NT, 0, st>>>(xp, sp, bp, op, mp, rp, d, eps)
+  LN_FWD_DISPATCH(d, PLAIN)
+#undef PLAIN
+  return (int)cudaGetLastError();
+}
+
+// x f32 [M, d] -> h f32 [M, d] (layer_norm_launch's bits), codes int8
+// [M, d] and row_scale f32 [M]: the per-row int8 quantization of h.  One
+// launch.
+extern "C" int layer_norm_quant_launch(const void* x, const void* scale, const void* bias,
+                                       void* out, void* codes, void* row_scale, int M, int d,
+                                       float eps, void* stream) {
+  if (M < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const float*>(x);
+  const auto* sp = static_cast<const float*>(scale);
+  const auto* bp = static_cast<const float*>(bias);
+  auto* op = static_cast<float*>(out);
+  auto* qp = static_cast<signed char*>(codes);
+  auto* rp = static_cast<float*>(row_scale);
+#define QUANT(V) layer_norm_quant_kernel<V><<<M, NT, 0, st>>>(xp, sp, bp, op, qp, rp, d, eps)
+  LN_FWD_DISPATCH(d, QUANT)
+#undef QUANT
   return (int)cudaGetLastError();
 }

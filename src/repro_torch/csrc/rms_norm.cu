@@ -11,9 +11,9 @@
 //
 // The order: one block of NT threads per row, whatever the row count or the
 // grid.  Thread t sums x[t], x[t + NT], ... in that order; each warp folds
-// its 32 partial sums by a fixed xor butterfly (lane 0's result is kept);
-// warp 0 adds the NT / 32 warp sums in index order.  So a row's output is a
-// function of that row alone, bit for bit.
+// its 32 partial sums by a fixed xor butterfly; every thread adds the NT /
+// 32 warp sums in index order.  So a row's output is a function of that row
+// alone, bit for bit.
 //
 // What bounds it on the H100: it reads each row once and writes it once
 // (8 bytes per element, 3 flops), far below the ridge point: bytes.  At the
@@ -26,7 +26,8 @@
 //
 // The forward fused with the per-row int8 quantizer (rms_norm_quant_kernel;
 // it replaces no TPU kernel: the reference quantizes every linear's input
-// in jnp, core/quant.py quantize_activation).  On the serve path every
+// in jnp, core/quant.py quantize_activation; the quantizer's code lives in
+// norm_quant.cuh, shared with layer_norm.cu).  On the serve path every
 // quantized linear that reads a norm's output quantizes it again, eight
 // torch kernels a linear (abs, amax, clamp, the division by 127, the
 // division, round, clamp, the cast), five times for a SwiGLU attention
@@ -42,7 +43,9 @@
 // order changes no bit: a row's h, q and s depend on that row alone.  A
 // thread holds its elements and their scales in registers from one read
 // (up to 72 a thread, d 18432), so the row is read once and each of the
-// two reductions costs one barrier.  Bound: bytes (x read, h and q
+// two reductions costs one barrier.  The unfused entry (rms_norm_kernel)
+// runs the same body (rms_norm_row) with the quantizer off: one read, one
+// barrier, h the same bits in both.  Bound: bytes (x read, h and q
 // written, 9 bytes an element); at the decode shapes a launch's fixed
 // cost, against the eight launches it removes for each linear that reads
 // the row.
@@ -74,6 +77,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "norm_quant.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -82,70 +87,28 @@ constexpr int NT = 256;
 constexpr int CL = 8;          // blocks of a backward cluster
 constexpr int MAX_D = 49152;   // a backward block's column sums fit its shared memory
 
-__global__ void __launch_bounds__(NT)
-rms_norm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                float* __restrict__ out, float* __restrict__ rstd, int d, float eps) {
-  __shared__ float warp_sum[NT / 32];
-  __shared__ float row_rstd;
-  const size_t base = (size_t)blockIdx.x * d;
-  const float* xr = x + base;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < d; i += NT) {
-    const float v = xr[i];
-    s = fmaf(v, v, s);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) warp_sum[warp] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < NT / 32; ++w) t += warp_sum[w];
-    row_rstd = rsqrtf(__fdiv_rn(t, (float)d) + eps);
-    if (rstd != nullptr) rstd[blockIdx.x] = row_rstd;
-  }
-  __syncthreads();
-  const float r = row_rstd;
-  float* orow = out + base;
-  for (int i = threadIdx.x; i < d; i += NT)
-    orow[i] = __fmul_rn(__fmul_rn(xr[i], r), scale[i]);
-}
-
-// clamp(rint(h / s), -127, 127) as int8, h / s the IEEE quotient, with y
-// the correctly rounded 1 / s.  Division without its per-element guard:
-// q0 = h y lies within an ulp of h / s, the residual h - s q0 is exact by
-// fma, and one fma step q0 + r y is then the correctly rounded quotient
-// (Markstein's theorem) while h, s and the quotient stay normal, which
-// holds wherever a code can be nonzero (|h / s| >= 1/2 with s >= 1e-8 /
-// 127); below that both quotients round to 0 (held in exact arithmetic at
-// and around every half-integer by tests/test_torch_norm_quant.py).
-// __fdiv_rn's guard and slow path cost more than the rest of the entry at
-// the decode shapes.
-__device__ __forceinline__ signed char code(float h, float s, float y) {
-  const float q0 = __fmul_rn(h, y);
-  const float q = __fmaf_rn(__fmaf_rn(-s, q0, h), y, q0);
-  return (signed char)(int)fminf(fmaxf(rintf(q), -127.f), 127.f);
-}
-
-// V: elements of the row each thread holds in registers (d <= NT V), with
-// their scales; 0 for wider rows, which are read again from L1 / L2.  The
-// sum of squares runs in rms_norm_kernel's order (thread t's elements t,
-// t + NT, ... in order, a warp's butterfly, the warp sums in index order),
-// so h is its bits; every thread adds the warp sums itself (one barrier).
-template <int V>
-__global__ void __launch_bounds__(NT)
-rms_norm_quant_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                      float* __restrict__ out, signed char* __restrict__ codes,
-                      float* __restrict__ row_scale, int d, float eps) {
+// The forward's body, one block a row, behind both entries.  V: elements
+// of the row each thread holds in registers (d <= NT V), with their
+// scales; 0 for wider rows, which are read again from L1 / L2.  Thread t
+// sums x[t]^2, x[t + NT]^2, ... in that order, each warp folds its partial
+// sums by a fixed xor butterfly and every thread adds the warp sums in
+// index order (one barrier), so r, h and (QUANT) the codes and scale of a
+// row depend on that row alone.  rstd receives r where not null.  QUANT
+// adds the quantizer epilogue (norm_quant.cuh): the row's amax by a second
+// barrier, then the codes from the h in registers.
+template <int V, bool QUANT>
+__device__ __forceinline__ void rms_norm_row(const float* __restrict__ x,
+                                             const float* __restrict__ scale,
+                                             float* __restrict__ out, float* __restrict__ rstd,
+                                             signed char* __restrict__ codes,
+                                             float* __restrict__ row_scale_out, int d,
+                                             float eps) {
   __shared__ float warp_sum[NT / 32], warp_max[NT / 32];
   constexpr int R = V > 0 ? V : 1;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   const size_t base = (size_t)blockIdx.x * d;
   const float* xr = x + base;
   float* orow = out + base;
-  signed char* qrow = codes + base;
   float h[R], sc[R];
   float s = 0.f;
   if constexpr (V > 0) {
@@ -164,14 +127,8 @@ rms_norm_quant_kernel(const float* __restrict__ x, const float* __restrict__ sca
       s = fmaf(v, v, s);
     }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) warp_sum[warp] = s;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < NT / 32; ++w) t += warp_sum[w];
-  const float r = rsqrtf(__fdiv_rn(t, (float)d) + eps);
+  const float r = rsqrtf(__fdiv_rn(row_sum<NT / 32>(s, warp_sum), (float)d) + eps);
+  if (rstd != nullptr && tid == 0) rstd[blockIdx.x] = r;
   float amax = 0.f;
   if constexpr (V > 0) {
 #pragma unroll
@@ -190,31 +147,44 @@ rms_norm_quant_kernel(const float* __restrict__ x, const float* __restrict__ sca
       amax = fmaxf(amax, fabsf(v));
     }
   }
+  if constexpr (QUANT) {
+    signed char* qrow = codes + base;
+    const float qs = row_scale<NT / 32>(amax, warp_max);
+    if (tid == 0) row_scale_out[blockIdx.x] = qs;
+    const float y = __frcp_rn(qs);
+    if constexpr (V > 0) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if (lane == 0) warp_max[warp] = amax;
-  __syncthreads();
-  float m = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < NT / 32; ++w) m = fmaxf(m, warp_max[w]);
-  const float qs = __fdiv_rn(fmaxf(m, 1e-8f), 127.f);
-  if (tid == 0) row_scale[blockIdx.x] = qs;
-  const float y = __frcp_rn(qs);
-  if constexpr (V > 0) {
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int i = tid + NT * j;
-      if (i < d) qrow[i] = code(h[j], qs, y);
+      for (int j = 0; j < R; ++j) {
+        const int i = tid + NT * j;
+        if (i < d) qrow[i] = code(h[j], qs, y);
+      }
+    } else {
+      // h again from x (L1 / L2 hits, the same bits as the pass above)
+      for (int i = tid; i < d; i += NT)
+        qrow[i] = code(__fmul_rn(__fmul_rn(xr[i], r), scale[i]), qs, y);
     }
-  } else {
-    // h again from x (L1 / L2 hits, the same bits as the pass above)
-    for (int i = tid; i < d; i += NT)
-      qrow[i] = code(__fmul_rn(__fmul_rn(xr[i], r), scale[i]), qs, y);
   }
 }
 
-// rms_norm_quant_kernel's elements a thread for rows of d (0: re-read)
-int quant_vpt(int d) {
+// The unfused entry: h, and r where rstd is not null.
+template <int V>
+__global__ void __launch_bounds__(NT)
+rms_norm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                float* __restrict__ out, float* __restrict__ rstd, int d, float eps) {
+  rms_norm_row<V, false>(x, scale, out, rstd, nullptr, nullptr, d, eps);
+}
+
+// The entry fused with the quantizer: h, its codes and its row scales.
+template <int V>
+__global__ void __launch_bounds__(NT)
+rms_norm_quant_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                      float* __restrict__ out, signed char* __restrict__ codes,
+                      float* __restrict__ row_scale, int d, float eps) {
+  rms_norm_row<V, true>(x, scale, out, nullptr, codes, row_scale, d, eps);
+}
+
+// The forward's elements a thread for rows of d (0: re-read)
+int fwd_vpt(int d) {
   const int v = (d + NT - 1) / NT;
   return v <= 4 ? 4 : v <= 8 ? 8 : v <= 12 ? 12 : v <= 16 ? 16 : v <= 24 ? 24 : v <= 32 ? 32
        : v <= 48 ? 48 : v <= 64 ? 64 : v <= 72 ? 72 : 0;
@@ -504,6 +474,20 @@ extern "C" int rms_norm_backward_launch(const void* x, const void* scale, const 
   return (int)err;
 }
 
+#define FWD_DISPATCH(d, CALL)  \
+  switch (fwd_vpt(d)) {        \
+    case 4: CALL(4); break;    \
+    case 8: CALL(8); break;    \
+    case 12: CALL(12); break;  \
+    case 16: CALL(16); break;  \
+    case 24: CALL(24); break;  \
+    case 32: CALL(32); break;  \
+    case 48: CALL(48); break;  \
+    case 64: CALL(64); break;  \
+    case 72: CALL(72); break;  \
+    default: CALL(0);          \
+  }
+
 // x f32 [M, d] -> h f32 [M, d] (rms_norm_launch's bits), codes int8 [M, d]
 // and row_scale f32 [M]: the per-row int8 quantization of h.  One launch.
 extern "C" int rms_norm_quant_launch(const void* x, const void* scale, void* out,
@@ -517,29 +501,23 @@ extern "C" int rms_norm_quant_launch(const void* x, const void* scale, void* out
   auto* qp = static_cast<signed char*>(codes);
   auto* rp = static_cast<float*>(row_scale);
 #define QUANT(V) rms_norm_quant_kernel<V><<<M, NT, 0, st>>>(xp, sp, op, qp, rp, d, eps)
-  switch (quant_vpt(d)) {
-    case 4: QUANT(4); break;
-    case 8: QUANT(8); break;
-    case 12: QUANT(12); break;
-    case 16: QUANT(16); break;
-    case 24: QUANT(24); break;
-    case 32: QUANT(32); break;
-    case 48: QUANT(48); break;
-    case 64: QUANT(64); break;
-    case 72: QUANT(72); break;
-    default: QUANT(0);
-  }
+  FWD_DISPATCH(d, QUANT)
 #undef QUANT
   return (int)cudaGetLastError();
 }
 
 // x f32 [M, d] -> out f32 [M, d]; scale f32 [d]; rstd f32 [M] receives each
-// row's rsqrt when not null.
+// row's rsqrt when not null.  One launch.
 extern "C" int rms_norm_launch(const void* x, const void* scale, void* out, void* rstd,
                                int M, int d, float eps, void* stream) {
   if (M < 1 || d < 1) return (int)cudaErrorInvalidValue;
-  rms_norm_kernel<<<M, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(scale),
-      static_cast<float*>(out), static_cast<float*>(rstd), d, eps);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const float*>(x);
+  const auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<float*>(out);
+  auto* rp = static_cast<float*>(rstd);
+#define PLAIN(V) rms_norm_kernel<V><<<M, NT, 0, st>>>(xp, sp, op, rp, d, eps)
+  FWD_DISPATCH(d, PLAIN)
+#undef PLAIN
   return (int)cudaGetLastError();
 }

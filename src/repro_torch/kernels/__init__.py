@@ -6,11 +6,11 @@ plain version only for CPU tensors and the kernel for CUDA tensors, and a
 ``launches`` counter that the CUDA wrapper bumps once per launch (the two
 norms' backward wrappers, ``rms_norm_backward`` and
 ``layer_norm_backward``, count theirs in their module's
-``backward_launches``, and the RMSNorm fused with the activation
-quantizer, ``rms_norm_quant``, in ``rms_norm.quant_launches``).  A call
-recorded into a CUDA graph launches nothing: the graph
-(``models/graphs.py``) takes the counts its capture added back off with
-:func:`set_launch_counts` and credits them on every replay with
+``backward_launches``, and the two norms fused with the activation
+quantizer, ``rms_norm_quant`` and ``layer_norm_quant``, in their module's
+``quant_launches``).  A call recorded into a CUDA graph launches nothing:
+the graph (``models/graphs.py``) takes the counts its capture added back
+off with :func:`set_launch_counts` and credits them on every replay with
 :func:`credit_launches`.
 """
 from __future__ import annotations
@@ -23,10 +23,11 @@ import torch
 
 KERNELS = ("int8_matmul", "int8_matmul_grouped", "pim_mvm", "decode_attn",
            "verify_attn", "verify_tree_attn", "ssd_chunk", "rms_norm", "rms_norm_quant",
-           "layer_norm", "rms_norm_backward", "layer_norm_backward")
+           "layer_norm", "layer_norm_quant", "rms_norm_backward", "layer_norm_backward")
 
 # (module, attribute) of the counts that are not their module's ``launches``
 _COUNTERS = {"rms_norm_quant": ("rms_norm", "quant_launches"),
+             "layer_norm_quant": ("layer_norm", "quant_launches"),
              "rms_norm_backward": ("rms_norm", "backward_launches"),
              "layer_norm_backward": ("layer_norm", "backward_launches")}
 

@@ -24,8 +24,17 @@ barrier), wider rows a block a row; ``dscale`` and ``dbias`` summed over a
 block's warps, then the cluster's blocks, then the clusters, in fixed
 orders (no float atomics), the last block of each column share found by a
 ticket (:func:`repro_torch.kernels.tickets`).  Its plain version is
-autograd through :func:`layer_norm_plain`.  Each wrapper counts its own
-launches: ``launches`` the forward, ``backward_launches`` the backward.
+autograd through :func:`layer_norm_plain`.
+
+The serve path's LayerNorms whose output feeds quantized linears (OPT's
+``ln1`` and ``ln2``, whisper's decoder ``ln1``, ``ln_x`` and ``ln2``) run a
+third entry of the same source, the forward fused with the per-row int8
+quantizer (:func:`layer_norm_quant`): one launch of the forward's body
+writes the normed rows (the forward's bits), their int8 codes and each
+row's scale, the bits of ``quantize_activation`` over the forward's
+output.  Its plain version is that pair of calls.  Each wrapper counts its
+own launches: ``launches`` the forward, ``quant_launches`` the fused entry,
+``backward_launches`` the backward.
 """
 from __future__ import annotations
 
@@ -35,9 +44,11 @@ import functools
 import torch
 
 from repro_torch import kernels as KN
+from repro_torch.core import quant
 from repro_torch.kernels import _build
 
 launches = 0
+quant_launches = 0
 backward_launches = 0
 
 
@@ -49,6 +60,15 @@ def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     return (xf - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def layer_norm_quant_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                           eps: float = 1e-5
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(h f32 [..., d], codes int8 [..., d], scales f32 [..., 1]): the norm
+    :func:`layer_norm_plain` and ``quantize_activation`` of its output."""
+    h = layer_norm_plain(x, scale, bias, eps)
+    return (h, *quant.quantize_activation(h))
 
 
 def layer_norm_backward_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -114,6 +134,10 @@ def _lib() -> ctypes.CDLL:
         bwd.restype = ctypes.c_int
         lib.layer_norm_backward_max_clusters.argtypes = [ctypes.c_int]
         lib.layer_norm_backward_max_clusters.restype = ctypes.c_int
+        fused = lib.layer_norm_quant_launch
+        fused.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fused.restype = ctypes.c_int
     return lib
 
 
@@ -149,6 +173,31 @@ def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     launches += 1
     out = out.reshape(x.shape)
     return (out, stats[0], stats[1]) if with_stats else out
+
+
+def layer_norm_quant_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                          eps: float = 1e-5
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the fused entry on CUDA tensors; same contract as
+    :func:`layer_norm_quant_plain`, bit for bit: ``h`` is
+    :func:`layer_norm_cuda`'s output, the codes and scales
+    ``quantize_activation(h)``'s."""
+    global quant_launches
+    x2 = _rows(x, "layer_norm_quant")
+    M, d = x2.shape
+    KN.require(x2, "x", torch.float32, (M, d))
+    KN.require(scale, "scale", torch.float32, (d,))
+    KN.require(bias, "bias", torch.float32, (d,))
+    out = torch.empty_like(x2)
+    codes = torch.empty((M, d), dtype=torch.int8, device=x2.device)
+    scales = torch.empty((M, 1), dtype=torch.float32, device=x2.device)
+    err = _lib().layer_norm_quant_launch(KN.ptr(x2), KN.ptr(scale), KN.ptr(bias), KN.ptr(out),
+                                         KN.ptr(codes), KN.ptr(scales), M, d, eps,
+                                         KN.stream(x2))
+    KN.check(err, "layer_norm_quant")
+    quant_launches += 1
+    return (out.reshape(x.shape), codes.reshape(x.shape),
+            scales.reshape(*x.shape[:-1], 1))
 
 
 def layer_norm_backward_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
@@ -221,3 +270,12 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             return LayerNormFunction.apply(x, scale, bias, eps)
         return layer_norm_cuda(x, scale, bias, eps)
     return layer_norm_plain(x, scale, bias, eps)
+
+
+def layer_norm_quant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused entry on CUDA tensors, its plain version on CPU tensors:
+    (h, codes, scales)."""
+    if KN.on_cuda(x, scale, bias):
+        return layer_norm_quant_cuda(x, scale, bias, eps)
+    return layer_norm_quant_plain(x, scale, bias, eps)

@@ -6,7 +6,8 @@ dict ``{"w": [in, out]}`` (float path) or its quantized "QLC-region" form
 form and the execution backend: the W8A8 reference matmul, the B1 kernel
 (``fused_int8``) or the bit-serial B5 kernel (``pim_bitserial``).  Under
 the two kernel backends a norm whose output feeds quantized linears
-(:func:`apply_norm_q`) hands them its int8 pair, quantized once.
+(:func:`apply_norm_q`) hands them its int8 pair, written by the norm's
+entry fused with the activation quantizer.
 """
 from __future__ import annotations
 
@@ -111,18 +112,18 @@ def apply_norm_q(p: Params, x: torch.Tensor, backend: str, readers: Params,
     read its output, that output's per-row int8 pair (codes, scales): under
     :data:`PAIR_BACKENDS` where one of them is quantized without
     ``smooth`` and the rows are f32 (what the fused kernel takes), else
-    None.  An RMSNorm writes the pair in the same launch
-    (``kernels/rms_norm.py`` ``rms_norm_quant``); a LayerNorm's output is
-    quantized once.  Either way the pair is ``quantize_activation`` of the
+    None.  The norm writes the pair in the same launch (``rms_norm_quant``
+    of ``kernels/rms_norm.py``, ``layer_norm_quant`` of
+    ``kernels/layer_norm.py``).  The pair is ``quantize_activation`` of the
     output, bit for bit, so each reader computes what it would from the
     float rows, one quantizer a norm output instead of one a linear."""
     takes = any(n + "_q" in readers and n + "_smooth" not in readers for n in names)
     if not (takes and backend in PAIR_BACKENDS and x.dtype == torch.float32):
         return apply_norm(p, x, eps), None
     if "bias" in p:
-        h = ln_ops.layer_norm(x, p["scale"], p["bias"], eps)
-        return h, quant.quantize_activation(h)
-    h, x_q, x_s = norm_ops.rms_norm_quant(x, p["scale"], eps)
+        h, x_q, x_s = ln_ops.layer_norm_quant(x, p["scale"], p["bias"], eps)
+    else:
+        h, x_q, x_s = norm_ops.rms_norm_quant(x, p["scale"], eps)
     return h, (x_q, x_s)
 
 

@@ -29,7 +29,10 @@ bits with and without the forward's saved statistics and on graph replays,
 train step on the card against the CPU's; the RMSNorm fused with the
 activation quantizer bit-equal to the RMSNorm kernel followed by
 ``quantize_activation`` at every served width, row-invariant, one kernel
-node, and reduced decode steps with each norm's int8 pair handed to its
+node, the LayerNorm fused the same way at d 64 to 24,576 (16.8 M codes, 8
+replays), the LayerNorm forward's saved mean bit-equal to the numpy
+emulation of its order, and reduced decode steps (OPT-30B and
+whisper-tiny among them) with each norm's int8 pair handed to its
 linears bit-equal to steps with a quantizer a linear.  The engines' captured steps (CUDA graphs) are
 held bit-equal to the eager steps, logits and every state tensor, with their
 launch counts, and chunked serving token-identical to one-shot prefill.
@@ -290,7 +293,7 @@ def test_engine_runs_the_kernels_and_agrees_with_the_cpu(cuda):
                                "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
                                "rms_norm": (2 * cfg.n_layers + 1) * len(prompts) + steps,
                                "rms_norm_quant": 2 * cfg.n_layers * steps,
-                               "layer_norm": 0,
+                               "layer_norm": 0, "layer_norm_quant": 0,
                                "rms_norm_backward": 0, "layer_norm_backward": 0}
     assert [len(o) for o in got] == budgets
     assert [o[0] for o in got] == [o[0] for o in want]     # prefill: float only
@@ -395,7 +398,7 @@ def test_spec_engine_runs_the_verify_kernels(cuda, lane):
             "verify_attn": 0, "verify_tree_attn": 0, "ssd_chunk": 0,
             "rms_norm": (2 * cfg.n_layers + 1) * len(prompts) + steps,
             "rms_norm_quant": 2 * cfg.n_layers * steps, "layer_norm": 0,
-            "rms_norm_backward": 0, "layer_norm_backward": 0}
+            "layer_norm_quant": 0, "rms_norm_backward": 0, "layer_norm_backward": 0}
     want[attn] = cfg.n_layers * steps
     assert steps == eng.stats["decode_steps"] > 0 and launch_counts() == want
     assert [len(o) for o in got] == budgets
@@ -561,33 +564,39 @@ def test_rms_norm_quant_replays_its_bits(cuda, d):
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "deepseek-v3-671b",
-                                  "opt-30b"])
+                                  "opt-30b", "whisper-tiny"])
 @pytest.mark.parametrize("backend", ["fused_int8", "pim_bitserial"])
 def test_norm_pairs_give_the_unfused_logits(cuda, arch, backend, monkeypatch):
     """A reduced decode step on the card with each norm's int8 pair handed
-    to its linears (the fused RMSNorm entry; OPT's LayerNorm output
-    quantized once) gives the logits of the same step with a quantizer a
-    linear, bit for bit, and launches ``rms_norm_quant`` once for each
-    RMSNorm whose output feeds quantized linears."""
+    to its linears (the norm's entry fused with the quantizer:
+    ``rms_norm_quant``, or ``layer_norm_quant`` for OPT and whisper) gives
+    the logits of the same step with a quantizer a linear, bit for bit,
+    and launches the fused entry once for each norm whose output feeds
+    quantized linears."""
     from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T
     cfg = registry.get(arch).reduced()
     params = convert.to_device(M.init_params(cfg, seed=0, device="cpu"), cuda)
     qparams = quantize_tree(params)
     rt = Runtime(backend)
-    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(5))
-    _, state = M.prefill(params, cfg, {"inputs": toks.to(cuda)}, 32, rt)
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g)
+    batch = {"inputs": toks.to(cuda)}
+    if cfg.family == "encdec":
+        batch = {"frames": torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g).to(cuda),
+                 "tokens": toks.to(cuda)}
+    _, state = M.prefill(params, cfg, batch, 32, rt)
     tok = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    fused_name = ("layer_norm" if cfg.norm_type == "layernorm" else "rms_norm") + "_quant"
     reset_launch_counts()
     fused, _ = M.decode_step(qparams, cfg, _clone_state(state), tok, rt)
-    n_fused = launch_counts()["rms_norm_quant"]
+    n_fused = launch_counts()[fused_name]
     monkeypatch.setattr(L, "PAIR_BACKENDS", ())
     reset_launch_counts()
     plain, _ = M.decode_step(qparams, cfg, _clone_state(state), tok, rt)
-    assert launch_counts()["rms_norm_quant"] == 0
+    assert launch_counts()[fused_name] == 0
     assert torch.equal(fused, plain)
     L_ = cfg.n_layers
-    want = (0 if cfg.norm_type == "layernorm" else
+    want = (3 * L_ if cfg.family == "encdec" else
             sum(1 + (cfg.layer_kind(i) == "ssm") + bool(cfg.d_ff and not cfg.is_moe_layer(i))
                 + (cfg.attn_type == "mla") for i in range(L_)))
     assert n_fused == want
@@ -811,6 +820,90 @@ def test_layer_norm_matches_plain_and_is_row_invariant(cuda, d):
         assert torch.equal(parts, full), m
 
 
+QUANT_LN_WIDTHS = [96, 384, 768, 1000, 4096, 7168, 18432, 24576]
+
+
+def _layer_norm_rows(rows, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((rows, d), generator=g) * 3 + 0.5
+    return x, torch.randn((d,), generator=g), torch.randn((d,), generator=g)
+
+
+@pytest.mark.parametrize("d", [64, 300] + QUANT_LN_WIDTHS)
+def test_layer_norm_quant_equals_the_kernel_and_the_quantizer(cuda, d):
+    """The fused LayerNorm entry's output is the LayerNorm kernel's, bit for
+    bit, and its codes and scales ``quantize_activation`` of that output (a
+    zero row, a constant row, a row scaled by 1e-20 and one by 1e20 among
+    random ones), in one launch; each row's three outputs are the same bits
+    whether the call holds 1, 4, 20, 28 or 140 rows, and as [4, 5, d]."""
+    x, scale, bias = (t.to(cuda) for t in _layer_norm_rows(140, d, d))
+    x[7] = 0
+    x[8] = 1.7
+    x[9] *= 1e-20
+    x[11] *= 1e20
+    reset_launch_counts()
+    whole = lnk.layer_norm_quant(x, scale, bias)
+    assert launch_counts()["layer_norm_quant"] == 1 and launch_counts()["layer_norm"] == 0
+    h = lnk.layer_norm_cuda(x, scale, bias)
+    for a, b in zip(whole, (h, *quant.quantize_activation(h))):
+        assert torch.equal(a, b)
+    assert whole[1].dtype == torch.int8 and whole[2].shape == (140, 1)
+    for m in (1, 4, 20, 28):
+        for j in range(3):
+            parts = torch.cat([lnk.layer_norm_quant_cuda(x[i:i + m], scale, bias)[j]
+                               for i in range(0, 140, m)])
+            assert torch.equal(parts, whole[j]), (m, j)
+    shaped = lnk.layer_norm_quant_cuda(x[:20].reshape(4, 5, d), scale, bias)
+    assert shaped[2].shape == (4, 5, 1)
+    for j in range(3):
+        assert torch.equal(shaped[j].reshape(20, -1), whole[j][:20])
+
+
+def test_layer_norm_quant_codes_equal_the_quantizer_on_many_rows(cuda):
+    """16.8 M codes (2,340 rows of 7,168, rows scaled from 1e-6 to 1e6): the
+    fused LayerNorm's division gives ``quantize_activation``'s codes and
+    scales on the kernel's own output, every one."""
+    x, scale, bias = _layer_norm_rows(2340, 7168, 30)
+    x = (x * torch.logspace(-6, 6, 2340)[:, None]).to(cuda)
+    h, codes, scales = lnk.layer_norm_quant_cuda(x, scale.to(cuda), bias.to(cuda))
+    want_q, want_s = quant.quantize_activation(h)
+    assert torch.equal(scales, want_s)
+    assert int((codes != want_q).sum()) == 0
+
+
+@pytest.mark.parametrize("d", [384, 7168])
+def test_layer_norm_quant_replays_its_bits(cuda, d):
+    """The fused LayerNorm captured in a CUDA graph is one kernel node and
+    gives the eager call's bits on each of 8 replays."""
+    x, scale, bias = (t.to(cuda) for t in _layer_norm_rows(4, d, d + 1))
+    want = lnk.layer_norm_quant_cuda(x, scale, bias)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = lnk.layer_norm_quant_cuda(x, scale, bias)
+    for _ in range(8):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _captured_node_types(lambda: lnk.layer_norm_quant_cuda(x, scale, bias)) == [0]
+
+
+@pytest.mark.parametrize("d", [384, 768, 7168])
+def test_layer_norm_mean_is_the_forward_order_emulated(cuda, d):
+    """The forward's saved mean equals, bit for bit, the numpy emulation of
+    its order (``test_torch_norm_split.forward_stats``: thread t's elements
+    t, t + 256, ... in order, each warp's butterfly, the warp sums in
+    order), on rows of three scales and offsets."""
+    from test_torch_norm_split import forward_stats
+    rng = np.random.default_rng(d)
+    rows = np.stack([(rng.standard_normal(d) * a + b).astype(np.float32)
+                     for a, b in ((1.0, 0.0), (3.0, 0.5), (1e-3, 1e3))])
+    _, mean, _ = lnk.layer_norm_cuda(torch.from_numpy(rows).to(cuda),
+                                     torch.ones(d, device=cuda), torch.zeros(d, device=cuda),
+                                     with_stats=True)
+    want = np.array([forward_stats(r)[0] for r in rows], np.float32)
+    assert mean.cpu().numpy().tobytes() == want.tobytes()
+
+
 @pytest.mark.parametrize("g,d", [(32, 96), (56, 128)], ids=["phi3", "opt"])
 def test_attention_kernels_at_rep_1_match_plain(cuda, g, d):
     """B2, B3 (T 5) and B4 (T 7) at MHA's rep 1, with phi3-mini's 32 heads
@@ -848,8 +941,10 @@ def test_reduced_families_serve_on_the_card_like_the_cpu(cuda, arch):
     once a linear (6 a layer under gelu and relu2, 7 under SwiGLU; a MoE
     layer's 4 attention linears and 3 grouped launches for its experts)
     and B2 once a layer a decode step, and one norm kernel (LayerNorm for
-    OPT, RMSNorm otherwise) a norm, QK-norm's two a layer included, and its
-    first tokens (prefill, float only) equal the CPU's."""
+    OPT, RMSNorm otherwise) a norm, QK-norm's two a layer included (a
+    decode step's norms that feed quantized linears through the norm's
+    entry fused with the quantizer), and its first tokens (prefill, float
+    only) equal the CPU's."""
     cfg = registry.get(arch).reduced()
     params = M.init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(2)
@@ -867,13 +962,14 @@ def test_reduced_families_serve_on_the_card_like_the_cpu(cuda, arch):
     norm = "layer_norm" if cfg.norm_type == "layernorm" else "rms_norm"
     counts = launch_counts()
     qk = 2 * L if cfg.use_qk_norm else 0
-    fused = 0 if norm == "layer_norm" else (1 if cfg.n_experts else 2) * L * steps
-    assert counts["rms_norm_quant"] == fused
+    fused = (1 if cfg.n_experts else 2) * L * steps
+    assert counts[norm + "_quant"] == fused
     assert counts[norm] == (2 * L + 1 + qk) * (steps + len(prompts)) - fused
     linears = 4 if cfg.n_experts else 7 if cfg.mlp_type == "swiglu" else 6
     assert counts["int8_matmul"] == linears * L * steps and counts["decode_attn"] == L * steps
     assert counts["int8_matmul_grouped"] == (3 * L * steps if cfg.n_experts else 0)
-    assert counts["layer_norm" if norm == "rms_norm" else "rms_norm"] == 0
+    other = "layer_norm" if norm == "rms_norm" else "rms_norm"
+    assert counts[other] == counts[other + "_quant"] == 0
     assert [len(o) for o in got] == budgets
     assert [o[0] for o in got] == [o[0] for o in want]
 
@@ -902,7 +998,8 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
                               "verify_attn": 0, "verify_tree_attn": 0,
                               "ssd_chunk": 2 * L, "rms_norm": 2 * L + 2,
                               "rms_norm_quant": 2 * L, "layer_norm": 0,
-                              "rms_norm_backward": 0, "layer_norm_backward": 0}
+                              "layer_norm_quant": 0, "rms_norm_backward": 0,
+                              "layer_norm_backward": 0}
     for a, b in zip(res["cpu"][:2], res["cuda"][:2]):
         assert torch.equal(a.argmax(-1), b.argmax(-1))
         assert float((a - b).abs().max()) <= 2e-2 * float(a.abs().max())
@@ -920,7 +1017,8 @@ def test_reduced_mamba2_on_the_card_matches_the_cpu(cuda):
                                "ssd_chunk": L * len(trace),
                                "rms_norm": (2 * L + 1) * len(trace) + steps,
                                "rms_norm_quant": 2 * L * steps, "layer_norm": 0,
-                               "rms_norm_backward": 0, "layer_norm_backward": 0}
+                               "layer_norm_quant": 0, "rms_norm_backward": 0,
+                               "layer_norm_backward": 0}
     assert [len(o) for o in got] == budgets
 
 
@@ -1793,8 +1891,10 @@ def test_reduced_whisper_serves_on_the_card_like_the_cpu(cuda):
     """Reduced whisper-tiny through ``Engine.generate`` on the card under
     ``fused_int8``: a decode step launches B1 for each decoder layer's 8
     linears, B2 once a layer (the cross-attention runs the plain int8
-    path) and LayerNorm three times a layer plus ``ln_f``; the float
-    prefill only LayerNorm; the tokens equal the CPU's."""
+    path), the LayerNorm fused with the quantizer three times a layer
+    (``ln1``, ``ln_x``, ``ln2``) and the unfused LayerNorm for ``ln_f``;
+    the float prefill only the unfused LayerNorm; the tokens equal the
+    CPU's."""
     cfg = registry.get("whisper-tiny").reduced()
     params = M.init_params(cfg, seed=0, device="cpu")
     g = torch.Generator().manual_seed(3)
@@ -1811,5 +1911,6 @@ def test_reduced_whisper_serves_on_the_card_like_the_cpu(cuda):
     assert torch.equal(got.cpu(), want)
     L, counts = cfg.n_layers, launch_counts()
     assert counts["int8_matmul"] == 8 * L * 8 and counts["decode_attn"] == L * 8
-    assert counts["layer_norm"] == (3 * L + 1) * 9 + 2 * cfg.encoder_layers + 1
+    assert counts["layer_norm_quant"] == 3 * L * 8
+    assert counts["layer_norm"] == 3 * L + 9 + 2 * cfg.encoder_layers + 1
     assert counts["rms_norm"] == counts["int8_matmul_grouped"] == 0

@@ -138,14 +138,15 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     rn.rms_norm(torch.ones(2, 8), torch.ones(8))
     rn.rms_norm_quant(torch.ones(2, 8), torch.ones(8))
     lnk.layer_norm(torch.ones(2, 8), torch.ones(8), torch.zeros(8))
+    lnk.layer_norm_quant(torch.ones(2, 8), torch.ones(8), torch.zeros(8))
     x = torch.ones(1, 4, 2, 8)
     ssd.ssd_chunk(x, torch.ones(1, 4, 2, 3), torch.ones(1, 4, 2, 3), torch.ones(1, 4, 2),
                   -torch.ones(2), torch.ones(2), torch.zeros(1, 2, 8, 3))
     assert KN.launch_counts() == {"int8_matmul": 0, "int8_matmul_grouped": 0, "pim_mvm": 0,
                                   "decode_attn": 0, "verify_attn": 0, "verify_tree_attn": 0,
                                   "ssd_chunk": 0, "rms_norm": 0, "rms_norm_quant": 0,
-                                  "layer_norm": 0, "rms_norm_backward": 0,
-                                  "layer_norm_backward": 0}
+                                  "layer_norm": 0, "layer_norm_quant": 0,
+                                  "rms_norm_backward": 0, "layer_norm_backward": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -163,6 +164,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         rn.rms_norm_quant_cuda(torch.ones(2, 8), torch.ones(8))
     with pytest.raises(ValueError, match="CUDA"):
         lnk.layer_norm_cuda(torch.ones(2, 8), torch.ones(8), torch.zeros(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        lnk.layer_norm_quant_cuda(torch.ones(2, 8), torch.ones(8), torch.zeros(8))
 
 
 def test_mixed_devices_raise():

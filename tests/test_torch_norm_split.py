@@ -82,7 +82,7 @@ def warp_stats(row, eps=1e-5):
     return mean, rsqrt(F(var + F(eps)))
 
 
-@pytest.mark.parametrize("d", [1, 31, 64, 100, 255, 256, 257, 384, 768, 1000, 1024])
+@pytest.mark.parametrize("d", [1, 31, 64, 100, 255, 256, 257, 384, 768, 1000, 1024, 7168])
 def test_warp_rows_recompute_the_forwards_statistics_bit_for_bit(d):
     rng = np.random.default_rng(d)
     for scale, shift in ((1.0, 0.0), (3.0, 0.5), (1e-3, 1e3)):

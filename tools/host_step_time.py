@@ -9,7 +9,12 @@ prefill, under ``fused_int8``, at full width, it times one step of each of
 llama3-8b decode, ``spec_k`` verify (4 slots x 5 tokens), ``spec_tree``
 verify (4 slots x 7 tree nodes) and mamba2-2.7b decode, and a fused block of
 4 greedy decode steps with the argmax fed back (eager: 4 steps and 4
-argmaxes; replayed: ``ServeSteps.multi``, 4 replays of the decode graph):
+argmaxes; replayed: ``ServeSteps.multi``, 4 replays of the decode graph).
+``--archs`` names other models instead, each as ``arch`` or ``arch:layers``
+(its first ``layers`` layers), timed on decode steps only (an
+encoder-decoder's prefill takes seeded frames [4, S_enc, d] and 16 tokens),
+e.g. ``--archs opt-30b:16,whisper-tiny --no-trace`` for the LayerNorm
+families:
 
 * eager: the model function called op by op;
 * replayed: the engine's captured step (``models/graphs.py``), for a tree
@@ -98,9 +103,13 @@ def b1_call(torch, quant, mm) -> dict:
     return {"host_us": (t1 - t0) / n * 1e6, "wall_us": (t2 - t0) / n * 1e6}
 
 
-def model_steps(torch, arch: str, n: int, kinds: tuple[str, ...]) -> dict:
+def model_steps(torch, arch: str, n: int, kinds: tuple[str, ...],
+                layers: int | None = None) -> dict:
     """Eager and (where the tree captures them) replayed times of each step
-    kind in ``kinds`` (``decode``, ``verify``, ``tree``, ``block``)."""
+    kind in ``kinds`` (``decode``, ``verify``, ``tree``, ``block``) of
+    ``arch`` (its first ``layers`` layers where given)."""
+    import dataclasses
+
     from repro_torch.configs import registry
     from repro_torch.models import model as M
     from repro_torch.models.transformer import Runtime
@@ -112,6 +121,8 @@ def model_steps(torch, arch: str, n: int, kinds: tuple[str, ...]) -> dict:
         G = None
 
     cfg = registry.get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params = M.init_params(cfg, seed=0, device="cuda")
     qparams = quantize_tree(params)
     rt = Runtime("fused_int8")
@@ -123,7 +134,11 @@ def model_steps(torch, arch: str, n: int, kinds: tuple[str, ...]) -> dict:
     out = {}
     for kind in kinds:
         rows = 64 + width[kind] * 3 * (n + 4)        # eager, replayed, the profiles
-        logits, state = M.prefill(params, cfg, {"inputs": prompts}, rows, rt)
+        batch = {"inputs": prompts}
+        if cfg.family == "encdec":
+            batch = {"frames": torch.randn((4, cfg.encoder_seq, cfg.d_model), generator=g,
+                                           device="cuda"), "tokens": prompts[:, :16]}
+        logits, state = M.prefill(params, cfg, batch, rows, rt)
         cur = {"state": state, "tok": torch.argmax(logits, -1).to(torch.int32)}
         window = torch.randint(0, cfg.vocab_size, (4, width[kind]), generator=g,
                                device="cuda", dtype=torch.int32)
@@ -215,6 +230,10 @@ def main() -> int:
     ap.add_argument("--label", required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--archs", default="",
+                    help="comma-separated arch or arch:layers, decode steps only "
+                         "(default: llama3-8b's four step kinds and mamba2-2.7b decode)")
+    ap.add_argument("--no-trace", action="store_true", help="skip the served trace")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -234,18 +253,27 @@ def main() -> int:
     _build.build()
     res = {"label": args.label, "src": args.src, "card": card,
            "build_s": time.perf_counter() - t0, "b1_call": b1_call(torch, quant, mm)}
-    res["llama3-8b"] = model_steps(torch, "llama3-8b", args.steps,
-                                   ("decode", "verify", "tree", "block"))
-    res["mamba2-2.7b"] = model_steps(torch, "mamba2-2.7b", args.steps, ("decode",))
+    if args.archs:
+        models = []
+        for spec in args.archs.split(","):
+            arch, _, layers = spec.partition(":")
+            res[spec] = model_steps(torch, arch, args.steps, ("decode",),
+                                    int(layers) if layers else None)
+            models.append(spec)
+    else:
+        res["llama3-8b"] = model_steps(torch, "llama3-8b", args.steps,
+                                       ("decode", "verify", "tree", "block"))
+        res["mamba2-2.7b"] = model_steps(torch, "mamba2-2.7b", args.steps, ("decode",))
+        models = ["llama3-8b", "mamba2-2.7b"]
     try:                                  # a tree from before the fused lane refuses it
         import repro_torch.models.graphs  # noqa: F401
         blocks = (1, 4)
     except ImportError:
         blocks = (1,)
-    res["trace"] = [serve_trace(torch, m) for m in blocks]
+    res["trace"] = [] if args.no_trace else [serve_trace(torch, m) for m in blocks]
     print(f"{args.label} ({card}): B1 call host {res['b1_call']['host_us']:.2f} us "
           f"(wall {res['b1_call']['wall_us']:.2f})")
-    for arch in ("llama3-8b", "mamba2-2.7b"):
+    for arch in models:
         for kind, rec in res[arch].items():
             for how, r in rec.items():
                 busy = (f", device busy {r['busy_ms']:.2f} ms, idle share "

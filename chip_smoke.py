@@ -249,7 +249,28 @@ Phases (any failure makes the script exit non-zero):
    through ``ResilientRunner`` (checkpoints every 5 steps, failures
    injected at steps 7 and 13, 20 steps, int8 moments) in a process of its
    own under ``torch.use_deterministic_algorithms(True)``, gated bit-equal
-   to a clean run (final weights and every logged loss).
+   to a clean run (final weights and every logged loss);
+9. ``plan`` (last): ``Runtime.dmvm_dtype`` on the card: llama3-8b at full
+   width (int8 tree, 4 slots at ragged cursors) one decode step under
+   ``fused_int8`` gated bit-equal at bf16 and f32 (B1 and B2 take no
+   dtype), and under ``ref_int8`` the bf16 step's captured replay gated
+   bit-equal to eager over 8 steps, its gap from f32 recorded, the bf16
+   and f32 steps held against the CPU's from the same state (within 10%
+   of the logit scale: 32 random layers carry an ulp's code flip that
+   far) and one layer's attention at bf16 and f32 against the CPU's
+   within 1e-3 of its scale, nearer than bf16 lies to f32;
+   deepseek-v3-671b's part runs in phase ``families`` where its tree
+   lives (an MLA layer's attention timed at bf16 beside f32, 4 B1
+   launches a call, its output held against the CPU's within 1e-3 of its
+   scale, the bf16 captured decode step gated bit-equal to eager) and is
+   gated here to have run; the per-layer cache API
+   (``append_layer``, ``append_layer_chunk``, ``append_latent``,
+   ``layer_view``) gated bit-equal to the CPU's; ``python -m
+   repro_torch.launch.dryrun --quick`` and ``--arch llama3-8b`` in a process
+   of their own (every record ``ok`` or skipped for ``applicable``'s own
+   reason, counted flops > 0, ``model_flops`` equal to the host's, each
+   decode cell's peak over a real step that launched B1, and B2 where the
+   stack attends); and ``examples/quickstart_torch.py`` on the card.
 
 Every path runs a row-invariant norm kernel for every norm on the card
 (``rms_norm``, or ``layer_norm`` for OPT; QK-norm's two a layer through
@@ -1794,7 +1815,7 @@ def same_state(torch, a: dict, b: dict) -> list[str]:
 
 
 def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0,
-                    release=None, fresh: bool = False) -> dict:
+                    release=None, fresh: bool = False, rt=None, profile: bool = True) -> dict:
     """``GRAPH_STEPS`` consecutive steps of one kind (``decode``, ``verify``
     at T ``width``, ``tree`` at T ``width``, ``multi``: a fused block of m
     ``width``, m replays of the decode graph), replayed from the engine's
@@ -1812,7 +1833,10 @@ def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0,
     ``ssm`` and ``families``, late in this process).  ``release`` (optional) drops the caller's references
     to ``qparams`` and ``state``: it is called before a fresh process
     profiles, so that a model that fills the card leaves it the memory
-    (the steps and the replayed state then come back as None)."""
+    (the steps and the replayed state then come back as None).  ``rt``
+    (default ``fused_int8``) is the Runtime the graph is captured under
+    and the eager steps run; ``profile=False`` stops after the bit-equal
+    steps."""
     import numpy as np
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import graphs as G
@@ -1820,7 +1844,7 @@ def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0,
     from repro_torch.models import transformer as T
     from repro_torch.models.transformer import Runtime
 
-    rt = Runtime("fused_int8")
+    rt = rt or Runtime("fused_int8")
     eager, replay = clone_state(state), clone_state(state)
     t0 = time.perf_counter()
     steps = G.ServeSteps(qparams, cfg, rt, replay, decode=kind in ("decode", "multi"),
@@ -1831,8 +1855,9 @@ def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0,
     key = ("decode",) if kind in ("decode", "multi") else (kind, width)
     attn = {"tree": "verify_tree_attn", "verify": "verify_attn"}.get(
         kind, None if cfg.family == "ssm" else "decode_attn")
-    per = want_launches(cfg, width if kind == "multi" else 1, [], attn, prefills=0)
-    want = {k: v for k, v in want_launches(cfg, 1, [], attn, prefills=0).items() if v}
+    per = want_launches(cfg, width if kind == "multi" else 1, [], attn, rt.backend, prefills=0)
+    want = {k: v for k, v in want_launches(cfg, 1, [], attn, rt.backend, prefills=0).items()
+            if v}
     if steps.graphs[key].launches != want:
         raise AssertionError(f"{kind} graph captured {steps.graphs[key].launches} != {want}")
     rng = np.random.default_rng(5)
@@ -1896,6 +1921,8 @@ def replay_vs_eager(torch, cfg, qparams, state: dict, kind: str, width: int = 0,
     print(f"   {kind}{f' ({width})' if width else ''}: {GRAPH_STEPS} steps replayed "
           f"bit-equal to eager (logits and every state tensor); captured in "
           f"{capture_s:.2f} s with launches {rec['launches_a_replay']} a replay")
+    if not profile:
+        return rec, steps, replay
     # the profiler may miss device records, never add one, and a replay runs
     # the same nodes every time: one profiled replay whose hand-kernel events
     # equal the credits shows the graph runs the kernels it is credited
@@ -4175,6 +4202,71 @@ def mla_step_parts(torch, cfg, qparams) -> dict:
     return out
 
 
+# a layer's attention output, card vs CPU, of its scale (the CPU tests' layer tolerance)
+LAYER_CPU_SHARE = 1e-3
+
+
+def mla_bf16(torch, cfg, qparams) -> dict:
+    """Phase ``plan``'s deepseek part: one MLA layer's attention as
+    :func:`mla_step_parts` times it (``mla_decode`` under ``fused_int8`` at
+    4 cursors in a pool of 256 rows) with its SLC intermediates
+    (``Runtime.dmvm_dtype``) at bf16 and at f32: device ms of each (graph
+    replay, in this run), the bf16 output's gap from f32, and B1's 4
+    launches a call (gated: finite, the dtype takes effect, 4 B1 launches,
+    no other hand kernel).  The card's output at each dtype is held
+    against the same call on the CPU from the same inputs (B1's plain
+    version; the path ``tests/test_torch_dmvm.py`` holds against JAX):
+    within ``LAYER_CPU_SHARE`` of its scale, as those tests hold a layer, and
+    at bf16 nearer the CPU's bf16 output than the card's f32 one."""
+    from repro_torch import convert
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    d, B, S = cfg.d_model, 4, 256
+    x = torch.randn((B, 1, d), generator=g, device="cuda")
+    dim = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    c_q = torch.randint(-127, 128, (B, S, dim), generator=g, device="cuda", dtype=torch.int8)
+    c_s = torch.rand((B, S, 1), generator=g, device="cuda") * 0.02
+    pos = torch.tensor([37, 64, 91, 130], dtype=torch.int32, device="cuda")
+    attn = next(lp for lp in qparams["layers"] if "mlp" in lp)["attn"]
+    outs, ms = {}, {}
+    for name, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        def fn(i, dt=dt):
+            return A.mla_decode(attn, cfg, x, pos, c_q, c_s, "fused_int8", inter_dtype=dt)
+        reset_launch_counts()
+        outs[name] = fn(0)[0]
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if counts.get("int8_matmul") != 4 or set(counts) - {"int8_matmul", "rms_norm",
+                                                            "rms_norm_quant"}:
+            raise AssertionError(f"mla_decode at {name} launched {counts}")
+        ms[name] = graph_ms(torch, fn, 20)
+    gap = float((outs["bf16"] - outs["f32"]).abs().max())
+    scale = float(outs["f32"].abs().max())
+    if not torch.isfinite(outs["bf16"]).all() or gap == 0.0:
+        raise AssertionError(f"MLA at bf16: finite {bool(torch.isfinite(outs['bf16']).all())}, "
+                             f"gap from f32 {gap}")
+    attn_cpu = convert.to_device(attn, "cpu")
+    vs_cpu = {}
+    for name, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        want = A.mla_decode(attn_cpu, cfg, x.cpu(), pos.cpu(), c_q.cpu(), c_s.cpu(),
+                            "fused_int8", inter_dtype=dt)[0]
+        vs_cpu[name] = float((outs[name].cpu() - want).abs().max())
+        if vs_cpu[name] > LAYER_CPU_SHARE * float(want.abs().max()):
+            raise AssertionError(f"MLA at {name}: card vs CPU {vs_cpu[name]} (scale "
+                                 f"{float(want.abs().max())})")
+    if not vs_cpu["bf16"] < gap:
+        raise AssertionError(f"MLA at bf16: card vs CPU {vs_cpu['bf16']} not below the gap "
+                             f"from f32 {gap}")
+    print(f"   {cfg.name} plan: an MLA layer's attention at 4 slots, device ms f32 "
+          f"{ms['f32']:.4f}, bf16 {ms['bf16']:.4f}; bf16 output within {gap:.3g} of f32's "
+          f"(scale {scale:.3g}); card vs CPU at bf16 {vs_cpu['bf16']:.3g}, at f32 "
+          f"{vs_cpu['f32']:.3g}; 4 B1 launches a call")
+    return {"mla_decode_ms": ms, "bf16_gap": gap, "scale": scale, "vs_cpu": vs_cpu,
+            "launches_a_call": counts}
+
+
 def reduced_mla_lanes(torch, cfg) -> dict:
     """The reduced model served by the continuous engine on the card under
     the three quantized backends and, under ``fused_int8``, the MTP lanes
@@ -4209,6 +4301,7 @@ def serve_deepseek(torch, ctx, cfg) -> dict:
     there if a profile here misses records).  Peak device memory is
     recorded beside the card's total."""
     from repro_torch.models import moe
+    from repro_torch.models.transformer import Runtime
     from repro_torch.serve.quantize import quantized_bytes
 
     torch.cuda.reset_peak_memory_stats()
@@ -4300,7 +4393,12 @@ def serve_deepseek(torch, ctx, cfg) -> dict:
     part("mtp_lanes")
     out["combine_top8"] = combine_top8(torch, cfg, qparams)
     out["step_parts_ms"] = mla_step_parts(torch, cfg, qparams)
+    out["plan"] = mla_bf16(torch, cfg, qparams)
     pool = ragged_pool(torch, cfg, qparams, 256, 256)
+    out["plan"]["graph_decode_bf16"], _, _ = replay_vs_eager(
+        torch, cfg, qparams, pool, "decode",
+        rt=Runtime("fused_int8", dmvm_dtype=torch.bfloat16), profile=False)
+    ctx["plan_deepseek"] = out["plan"]
     out["graph_verify"], _, _ = replay_vs_eager(torch, cfg, qparams, pool, "verify", 5)
     hold = [qparams, pool]
     del qparams, pool
@@ -5349,6 +5447,259 @@ def phase_train(torch, ctx, rn, lnk) -> dict:
     return out
 
 
+# a full-width step's logits, card vs CPU, of the logit scale: 32 random
+# layers carry an activation code flipped at a rounding boundary (an f32
+# ulp apart) to a few percent of the scale (0.160 of 4.78 at bf16 in a
+# reading), so the step is held loosely and the layer tightly
+# (:func:`gqa_bf16_vs_cpu`)
+STEP_CPU_SHARE = 0.1
+
+
+def gqa_bf16_vs_cpu(torch, cfg, attn) -> dict:
+    """One llama3-8b layer's attention (``gqa_decode`` under ``ref_int8``
+    at 4 cursors in a pool of 256 rows: the plain int8 attention, which
+    takes ``dmvm_dtype``) on the card at bf16 and f32, each held against
+    the same call on the CPU from the same inputs (the path
+    ``tests/test_torch_dmvm.py`` holds against JAX): within
+    ``LAYER_CPU_SHARE`` of its scale, and at bf16 nearer the CPU's bf16
+    output than the card's f32 one."""
+    from repro_torch import convert
+    from repro_torch.core import quant
+    from repro_torch.models import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    B, S = len(RAGGED_LENS), 256
+    x = torch.randn((B, 1, cfg.d_model), generator=g, device="cuda")
+    kv = [quant.quantize_kv(torch.randn((B, S, cfg.n_kv_heads, cfg.head_dim), generator=g,
+                                        device="cuda")) for _ in range(2)]
+    cache = [kv[0][0], kv[0][1], kv[1][0], kv[1][1]]
+    pos = torch.tensor(RAGGED_LENS, dtype=torch.int32, device="cuda")
+    attn_cpu = convert.to_device(attn, "cpu")
+    outs = {}
+    for name, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        for dev, p in (("cuda", attn), ("cpu", attn_cpu)):
+            c = [t.to(dev, copy=True) for t in cache]
+            outs[name, dev] = A.gqa_decode(p, cfg, x.to(dev), pos.to(dev), *c, "ref_int8",
+                                           inter_dtype=dt)[0].cpu()
+    gap = float((outs["bf16", "cuda"] - outs["f32", "cuda"]).abs().max())
+    out = {"bf16_gap": gap, "scale": float(outs["f32", "cpu"].abs().max())}
+    for name in ("f32", "bf16"):
+        want = outs[name, "cpu"]
+        out[f"{name}_vs_cpu"] = float((outs[name, "cuda"] - want).abs().max())
+        if out[f"{name}_vs_cpu"] > LAYER_CPU_SHARE * float(want.abs().max()):
+            raise AssertionError(f"llama3-8b attention at {name}: card vs CPU {out}")
+    if gap == 0.0 or not out["bf16_vs_cpu"] < gap:
+        raise AssertionError(f"llama3-8b attention at bf16: {out}")
+    print(f"   llama3-8b plan: a layer's attention under ref_int8, card vs CPU at bf16 "
+          f"{out['bf16_vs_cpu']:.3g}, at f32 {out['f32_vs_cpu']:.3g}; bf16 within {gap:.3g} "
+          f"of f32 (scale {out['scale']:.3g})")
+    return out
+
+
+def plan_llama(torch) -> dict:
+    """llama3-8b at full width (int8 tree, 4 slots at ragged cursors in a
+    pool of 256 rows): one decode step from one state under ``fused_int8``
+    at bf16 and at f32 (B1 and B2 take no dtype: gated bit-equal, logits
+    and state, with exact launches); under ``ref_int8`` the bf16 step
+    captured as a CUDA graph and replayed over ``GRAPH_STEPS`` steps
+    bit-equal to eager (:func:`replay_vs_eager`), and one bf16 step's logit
+    gap from the f32 step's (recorded; gated finite and nonzero).  The
+    bf16 and f32 steps' logits are held against the same steps on the CPU
+    from the same state and tokens (the tree copied there; the path
+    ``tests/test_torch_dmvm.py`` holds against JAX), within
+    ``STEP_CPU_SHARE`` of the logit scale, and one layer's attention
+    tightly (:func:`gqa_bf16_vs_cpu`)."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.quantize import quantize_tree
+
+    cfg = registry.get("llama3-8b")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    qparams = quantize_tree(params)
+    del params
+    torch.cuda.empty_cache()
+    state = ragged_pool(torch, cfg, qparams, 256, 256)
+    g = torch.Generator(device="cuda").manual_seed(22)
+    tok = torch.randint(0, cfg.vocab_size, (len(RAGGED_LENS),), generator=g, device="cuda",
+                        dtype=torch.int32)
+    bf16 = torch.bfloat16
+    runs = {}
+    for name, rt in (("f32", Runtime("fused_int8")),
+                     ("bf16", Runtime("fused_int8", dmvm_dtype=bf16))):
+        st = clone_state(state)
+        reset_launch_counts()
+        lg, _ = M.decode_step(qparams, cfg, st, tok, rt)
+        torch.cuda.synchronize()
+        runs[name] = (lg, st, launch_counts())
+    want = want_launches(cfg, 1, [], "decode_attn", prefills=0)
+    if any(r[2] != want for r in runs.values()):
+        raise AssertionError(f"fused_int8 decode launches {[r[2] for r in runs.values()]} "
+                             f"!= {want}")
+    if not torch.equal(runs["f32"][0], runs["bf16"][0]) or same_state(torch, runs["f32"][1],
+                                                                      runs["bf16"][1]):
+        raise AssertionError("fused_int8 decode step differs between bf16 and f32")
+    out = {"fused_int8_bf16_eq_f32": True, "launches": want}
+    print("   llama3-8b plan: fused_int8 decode step bit-equal at bf16 and f32 (logits and "
+          "state)")
+    del runs
+    out["graph_ref_int8_bf16"], _, _ = replay_vs_eager(
+        torch, cfg, qparams, state, "decode", rt=Runtime("ref_int8", dmvm_dtype=bf16),
+        profile=False)
+    l32 = M.decode_step(qparams, cfg, clone_state(state), tok, Runtime("ref_int8"))[0]
+    l16 = M.decode_step(qparams, cfg, clone_state(state), tok,
+                        Runtime("ref_int8", dmvm_dtype=bf16))[0]
+    gap, scale = float((l16 - l32).abs().max()), float(l32.abs().max())
+    argmax_eq = int((l16.argmax(-1) == l32.argmax(-1)).sum())
+    if not torch.isfinite(l16).all() or gap == 0.0:
+        raise AssertionError(f"ref_int8 at bf16: gap from f32 {gap}")
+    out["ref_int8_bf16_vs_f32"] = {"max_abs": gap, "logit_scale": scale,
+                                   "argmax_equal": argmax_eq, "slots": len(RAGGED_LENS)}
+    print(f"   llama3-8b plan: ref_int8 bf16 step's logits within {gap:.4g} of f32's (scale "
+          f"{scale:.4g}), argmax equal in {argmax_eq} of {len(RAGGED_LENS)} slots")
+    out["attention_vs_cpu"] = gqa_bf16_vs_cpu(torch, cfg, qparams["layers"][0]["attn"])
+    t0 = time.perf_counter()
+    q_cpu = convert.to_device(qparams, "cpu")
+    rec = {"logit_scale": scale}
+    for name, lg, dt in (("bf16", l16, bf16), ("f32", l32, None)):
+        want = M.decode_step(q_cpu, cfg, convert.to_device(clone_state(state), "cpu"), tok.cpu(),
+                             Runtime("ref_int8", dmvm_dtype=dt))[0]
+        rec[f"{name}_max_abs"] = float((lg.cpu() - want).abs().max())
+        rec[f"{name}_argmax_equal"] = int((lg.argmax(-1).cpu() == want.argmax(-1)).sum())
+    rec["cpu_s"] = time.perf_counter() - t0
+    out["ref_int8_step_vs_cpu"] = rec
+    print(f"   llama3-8b plan: ref_int8 step, card vs CPU: bf16 max |diff| "
+          f"{rec['bf16_max_abs']:.4g}, f32 {rec['f32_max_abs']:.4g} of {scale:.4g}; argmax "
+          f"equal in {rec['bf16_argmax_equal']} / {rec['f32_argmax_equal']} of "
+          f"{len(RAGGED_LENS)} slots (the CPU's two steps {rec['cpu_s']:.1f} s)")
+    if max(rec["bf16_max_abs"], rec["f32_max_abs"]) > STEP_CPU_SHARE * scale:
+        raise AssertionError(f"ref_int8 step, card vs CPU: {rec}")
+    del qparams, q_cpu, state, l32, l16, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def kv_api_vs_cpu(torch) -> dict:
+    """The per-layer cache API on the card and on the CPU from the same
+    floats: ``append_layer`` at [B] positions (one clamped at the pool's
+    end), two ``append_layer_chunk`` calls, ``append_latent`` at deepseek's
+    latent width; every leaf (``layer_view`` of both layers, the latent
+    codes and scales) gated bit-equal."""
+    from repro_torch.core import kvcache as KV
+
+    g = torch.Generator().manual_seed(21)
+    B, S, H, D = 3, 64, 8, 128
+    k, v = (torch.randn((B, 5, H, D), generator=g) * 3 for _ in range(2))
+    lat = torch.randn((B, 2, 576), generator=g)
+    pos = torch.tensor([0, 17, 63], dtype=torch.int32)
+    leaves = {}
+    for dev in ("cpu", "cuda"):
+        c = KV.init_cache(2, B, S, H, D, device=dev)
+        KV.append_layer(c, 1, k.to(dev), v.to(dev), pos.to(dev))
+        KV.append_layer_chunk(c, 0, k[:, :2].to(dev), v[:, :2].to(dev), 3)
+        KV.append_layer_chunk(c, 0, k[:, 2:].to(dev), v[:, 2:].to(dev), 5)
+        lc = KV.init_latent_cache(2, B, S, lat.shape[-1], device=dev)
+        KV.append_latent(lc, 1, lat.to(dev), pos.to(dev))
+        leaves[dev] = [t.cpu() for t in (*KV.layer_view(c, 0), *KV.layer_view(c, 1),
+                                         lc.c_q, lc.c_s)]
+    bad = [i for i, (a, b) in enumerate(zip(leaves["cpu"], leaves["cuda"]))
+           if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"per-layer cache API: leaves {bad} differ from the CPU's")
+    print(f"   per-layer cache API: {len(leaves['cpu'])} leaves bit-equal to the CPU's")
+    return {"leaves": len(leaves["cpu"]), "bit_equal": True}
+
+
+def dryrun_cells(torch) -> dict:
+    """``python -m repro_torch.launch.dryrun`` in processes of their own,
+    the two at once: ``--quick`` and llama3-8b's four full-size cells
+    (``--arch llama3-8b``), counted again (``--force``).  Gated: exit 0,
+    every record ``ok`` or skipped for ``applicable``'s own reason (a cell
+    that applies but was not counted fails), counted flops > 0 and
+    ``model_flops`` equal to this host's, and on each ``ok`` decode cell a
+    peak measured over a real step that launched B1 (and B2 where the stack
+    attends)."""
+    from repro_torch.configs.shapes import applicable
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    runs = (("quick", ["--quick"],
+             [(a, s) for a in D.QUICK_ARCHS for s in D.QUICK_SHAPES], True),
+            ("llama3-8b", ["--arch", "llama3-8b"],
+             [("llama3-8b", s) for s in D.SHAPES], False))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                               "--force"], cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for _, args, _, _ in runs]
+    results = [p.communicate(timeout=600) + (p.returncode,) for p in procs]
+    secs = time.perf_counter() - t0
+    out = {"seconds": secs}
+    for (name, _, cells, quick), (_, err, rc) in zip(runs, results):
+        if rc != 0:
+            raise AssertionError(f"dryrun {name}: exit {rc}: {err[-2000:]}")
+        recs = []
+        for arch, sname in cells:
+            rec = json.loads(D.out_path(arch, sname, quick=quick).read_text())
+            cfg = D.cell_config(arch, quick)
+            shape = (D.QUICK_SHAPES if quick else D.SHAPES)[sname]
+            if rec["model_flops"] != M.model_flops(cfg, shape):
+                raise AssertionError(f"{arch} {sname}: model_flops {rec['model_flops']}")
+            if rec["status"] == "skipped":
+                why = applicable(cfg, shape)[1]
+                if not why or rec.get("reason") != why:
+                    raise AssertionError(f"{arch} {sname}: skipped, but not for applicable's "
+                                         f"reason: {rec.get('reason')}")
+            elif rec["status"] != "ok" or not rec["cost"]["flops"] > 0:
+                raise AssertionError(f"{arch} {sname}: {rec['status']}, {rec.get('cost')}")
+            elif rec["kind"] == "decode":
+                mem = rec["memory"]
+                ran = mem.get("peak_launches", {})
+                if (not mem.get("peak_bytes") or not ran.get("int8_matmul")
+                        or (cfg.family != "ssm" and not ran.get("decode_attn"))):
+                    raise AssertionError(f"{arch} {sname}: peak run {mem}")
+            recs.append({k: rec.get(k) for k in ("arch", "shape", "status", "reason",
+                                                 "model_flops", "cost", "memory", "reduced",
+                                                 "count_s")})
+        out[name] = {"records": recs}
+        print(f"   dryrun {name}: {len(recs)} records (both runs at once: {secs:.1f} s): "
+              + ", ".join(f"{r['arch']}/{r['shape']} {r['status']}"
+                          + (f" {r['cost']['flops']:.4g} flops" if r['status'] == 'ok' else '')
+                          for r in recs), flush=True)
+    return out
+
+
+def phase_plan(torch, ctx) -> dict:
+    """Phase ``plan``: ``Runtime.dmvm_dtype`` on the card
+    (:func:`plan_llama`; deepseek's part runs in phase ``families``, where
+    its tree lives: :func:`mla_bf16` and its bf16 captured decode step, and
+    is gated here to have run), the per-layer cache API against the CPU
+    (:func:`kv_api_vs_cpu`), the dry run (:func:`dryrun_cells`) and
+    ``examples/quickstart_torch.py`` on the card."""
+    t0 = time.perf_counter()
+    out = {"llama3-8b": plan_llama(torch)}
+    if "plan_deepseek" not in ctx:
+        raise AssertionError("plan: deepseek's bf16 MLA step did not run (phase families)")
+    out["deepseek-v3-671b"] = ctx["plan_deepseek"]
+    out["kv_api"] = kv_api_vs_cpu(torch)
+    out["dryrun"] = dryrun_cells(torch)
+    root = Path(__file__).resolve().parent
+    t1 = time.perf_counter()
+    res = subprocess.run([sys.executable, "examples/quickstart_torch.py"], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0 or "generated 16 tokens for 4 requests" not in res.stdout:
+        raise AssertionError(f"quickstart_torch.py: exit {res.returncode}: {res.stderr[-2000:]}")
+    out["quickstart"] = {"seconds": time.perf_counter() - t1, "stdout": res.stdout}
+    print("   quickstart_torch.py on the card: " + " | ".join(
+        ln for ln in res.stdout.splitlines() if "TPOT" in ln))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5405,6 +5756,7 @@ def main() -> int:
                 "rn": rn}
         s.phase("families", lambda: phase_families(torch, ctx, mods))
         s.phase("train", lambda: phase_train(torch, ctx, rn, lnk))
+        s.phase("plan", lambda: phase_plan(torch, ctx))
 
     kernels = []
     lin, att = s.record.get("linears", {}), s.record.get("attention", {})

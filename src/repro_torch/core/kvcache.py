@@ -14,11 +14,14 @@ Layouts (per layer):
   k_q, v_q : [B, S_max, H_kv, D_h]  int8
   k_s, v_s : [B, S_max, H_kv, 1]    f32
 
-The :class:`KVCache` dataclass API (``alloc_slot`` / ``free_slot`` /
+The :class:`KVCache` dataclass API (``append_layer`` /
+``append_layer_chunk`` / ``layer_view``, ``alloc_slot`` / ``free_slot`` /
 ``bump_length`` / ``rewind_lengths`` / ``copy_prefix`` / ``gather_path``)
-is the reference model of the slot discipline, stacked over layers as the
-reference stacks it; the serve engine runs the same moves on its per-layer
-pooled decode state.  The host-side :class:`SlotLedger` (the prefix cache's
+and MLA's :class:`LatentCache` (``init_latent_cache``, ``append_latent``)
+are the reference model of the slot discipline, stacked over layers as the
+reference stacks them; the serve engine runs the same moves on its
+per-layer pooled decode state.  Appends write in place and return the
+cache they were given.  The host-side :class:`SlotLedger` (the prefix cache's
 refcounts) and :class:`ColdStore` (the tiered pool's cold tier) live here
 too, as in the reference.
 """
@@ -29,6 +32,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.core.quant import _scale, quantize_kv
 
 
 def slot_positions(pos: Any, batch: int,
@@ -148,6 +153,40 @@ def init_cache(n_layers: int, n_slots: int, max_len: int, n_kv_heads: int,
         v_s=torch.zeros(sshape, dtype=torch.float32, device=dev),
         lengths=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
     )
+
+
+def append_layer(cache: KVCache, layer: int, k: torch.Tensor, v: torch.Tensor,
+                 pos: Any) -> KVCache:
+    """Append one step's k/v ([B, T, H_kv, D_h] float) to layer ``layer`` at
+    ``pos``, a scalar (every slot aligned, the single-batch paper setting)
+    or a [B] vector of per-slot positions, quantized on the way in
+    (:func:`repro_torch.core.quant.quantize_kv`), in place; returns the
+    cache."""
+    k_q, k_s = quantize_kv(k)
+    v_q, v_s = quantize_kv(v)
+    for buf, new in ((cache.k_q, k_q), (cache.k_s, k_s), (cache.v_q, v_q), (cache.v_s, v_s)):
+        batched_update(buf[layer], new, pos)
+    return cache
+
+
+def append_layer_chunk(cache: KVCache, layer: int, k: torch.Tensor, v: torch.Tensor,
+                       start: int) -> KVCache:
+    """Chunked-prefill append of ``[B, C, H_kv, D_h]`` float k/v into layer
+    ``layer`` at the shared offset ``start`` (clamped as
+    :func:`chunk_update` clamps it), quantized on the way in as
+    :func:`append_layer`, in place; returns the cache.  Chunks appended in
+    order give the bits of one :func:`append_layer` of their rows: the
+    quantizer is per (token, head)."""
+    k_q, k_s = quantize_kv(k)
+    v_q, v_s = quantize_kv(v)
+    for buf, new in ((cache.k_q, k_q), (cache.k_s, k_s), (cache.v_q, v_q), (cache.v_s, v_s)):
+        chunk_update(buf[layer], new, start)
+    return cache
+
+
+def layer_view(cache: KVCache, layer: int) -> tuple[torch.Tensor, ...]:
+    """Layer ``layer``'s ``(k_q, k_s, v_q, v_s)``, views into the cache."""
+    return (cache.k_q[layer], cache.k_s[layer], cache.v_q[layer], cache.v_s[layer])
 
 
 def bump_length(cache: KVCache, n: Any = 1) -> KVCache:
@@ -338,6 +377,47 @@ class ColdStore:
     def touch(self, key: Any) -> None:
         """Refresh LRU recency of ``key`` (a cold-tier hit)."""
         self._blocks[key] = self._blocks.pop(key)
+
+
+@dataclasses.dataclass
+class LatentCache:
+    """MLA compressed-latent cache (DeepSeek-V3): the SLC region holds one
+    latent a token (``kv_lora_rank + qk_rope_head_dim`` wide) instead of
+    per-head K/V, stacked over layers as the reference stacks it."""
+    c_q: torch.Tensor            # [L, B, S, C] int8
+    c_s: torch.Tensor            # [L, B, S, 1] f32
+    lengths: torch.Tensor        # [B] int32
+
+    @property
+    def n_slots(self) -> int:
+        return self.c_q.shape[1]
+
+    @property
+    def max_len(self) -> int:
+        return self.c_q.shape[2]
+
+
+def init_latent_cache(n_layers: int, n_slots: int, max_len: int, dim: int,
+                      device: str | torch.device = "cuda") -> LatentCache:
+    from repro_torch.device import resolve
+    dev = resolve(device)
+    return LatentCache(
+        c_q=torch.zeros((n_layers, n_slots, max_len, dim), dtype=torch.int8, device=dev),
+        c_s=torch.zeros((n_layers, n_slots, max_len, 1), dtype=torch.float32, device=dev),
+        lengths=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
+    )
+
+
+def append_latent(cache: LatentCache, layer: int, c: torch.Tensor, pos: Any) -> LatentCache:
+    """Append latents ``c`` ([B, T, C] float) to layer ``layer`` at ``pos``
+    (scalar or [B]), quantized per token: scale ``max(amax, 1e-8) / 127``
+    (an IEEE division, ``core/quant.py`` ``_scale``), codes
+    ``round(c / scale)`` clipped to +-127; in place, returns the cache."""
+    scale = _scale(torch.amax(torch.abs(c), dim=-1, keepdim=True))
+    c_q = torch.clamp(torch.round(c / scale), -127, 127).to(torch.int8)
+    batched_update(cache.c_q[layer], c_q, pos)
+    batched_update(cache.c_s[layer], scale, pos)
+    return cache
 
 
 def cache_bytes(tree: Any) -> int:

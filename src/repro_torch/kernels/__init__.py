@@ -60,9 +60,10 @@ def credit_launches(delta: dict[str, int]) -> None:
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on a CUDA device, False when every one
-    lies on the CPU; a mix raises."""
+    lies on the CPU (or every one on ``meta``, where the dry run counts the
+    plain version's operations); a mix raises."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds in ({"cpu"}, {"meta"}):
         return False
     if kinds == {"cuda"}:
         return True

@@ -38,11 +38,26 @@ MAX_D = 192
 launches = 0
 
 
-def attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, mask) -> torch.Tensor:
+def at_dtype(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` (``None``: f32) and held in f32.  A product
+    of such operands in f32 is the reference's product of ``dtype``
+    operands with f32 accumulation (``preferred_element_type=float32``):
+    each product of two bf16 values is exact in f32, so only the order of
+    the f32 sums differs from XLA's."""
+    if dtype is None or dtype == torch.float32:
+        return t.to(torch.float32)
+    return t.to(dtype).to(torch.float32)
+
+
+def attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, mask, inter_dtype=None) -> torch.Tensor:
     """The plain body that B2, B3 and B4 share: q_q int8 [B,G,R,D], q_s f32
     [B,G,R,1], k_q/v_q int8 [B,S,G,D], k_s/v_s f32 [B,S,G], ``mask`` bool
     broadcastable to [B,G,R,S] (True: the row sees the key) -> f32
-    [B,G,R,D]."""
+    [B,G,R,D].  ``inter_dtype`` is the SLC intermediates' dtype
+    (``Runtime.dmvm_dtype``; ``None``: f32): the dequantized V (``v_q`` and
+    ``v_s`` cast to it and multiplied in it) and the softmax weights are
+    rounded to it, and P . V sums in f32, as the reference's plain branch
+    does.  The kernels take no such dtype."""
     D = q_q.shape[-1]
     s_int = torch.einsum("bgrd,bsgd->bgrs", q_q.to(torch.float64),
                          k_q.to(torch.float64)).to(torch.int32)   # exact
@@ -50,17 +65,23 @@ def attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, mask) -> torch.Tensor:
     scores = s_int.to(torch.float32) * q_s * k_sc / math.sqrt(D)
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1)
-    vf = v_q.to(torch.float32) * v_s[..., None]                    # [B,S,G,D]
+    if inter_dtype is None or inter_dtype == torch.float32:
+        vf = v_q.to(torch.float32) * v_s[..., None]                # [B,S,G,D]
+    else:
+        vf = (v_q.to(inter_dtype) * v_s[..., None].to(inter_dtype)).to(torch.float32)
+        w = at_dtype(w, inter_dtype)
     return torch.einsum("bgrs,bsgd->bgrd", w, vf)
 
 
-def decode_attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, lengths) -> torch.Tensor:
+def decode_attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, lengths,
+                      inter_dtype=None) -> torch.Tensor:
     """q_q int8 [B,G,rep,D], q_s f32 [B,G,rep,1], k_q/v_q int8 [B,S,G,D],
-    k_s/v_s f32 [B,S,G], lengths int32 [B] -> f32 [B,G,rep,D]."""
+    k_s/v_s f32 [B,S,G], lengths int32 [B] -> f32 [B,G,rep,D]; see
+    :func:`attn_plain` for ``inter_dtype``."""
     S = k_q.shape[1]
     mask = (torch.arange(S, device=k_q.device)[None, None, None, :]
             < lengths.reshape(-1, 1, 1, 1))
-    return attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, mask)
+    return attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, mask, inter_dtype)
 
 
 def _lib() -> ctypes.CDLL:

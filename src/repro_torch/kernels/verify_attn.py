@@ -30,17 +30,19 @@ from repro_torch.kernels.decode_attn import MAX_D, attn_plain
 launches = 0
 
 
-def verify_attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, lengths) -> torch.Tensor:
+def verify_attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, lengths,
+                      inter_dtype=None) -> torch.Tensor:
     """q_q int8 [B,G,T,rep,D], q_s f32 [B,G,T,rep,1], k_q/v_q int8
     [B,S,G,D], k_s/v_s f32 [B,S,G], lengths int32 [B,T] per-row key limits
-    -> f32 [B,G,T,rep,D]."""
+    -> f32 [B,G,T,rep,D]; ``inter_dtype`` as in
+    :func:`repro_torch.kernels.decode_attn.attn_plain`."""
     B, G, T, rep, D = q_q.shape
     S = k_q.shape[1]
     mask = (torch.arange(S, device=k_q.device)[None, None, :]
             < lengths.reshape(B, T, 1))                           # [B,T,S]
     mask = mask[:, None, :, None, :].expand(B, 1, T, rep, S).reshape(B, 1, T * rep, S)
     out = attn_plain(q_q.reshape(B, G, T * rep, D), q_s.reshape(B, G, T * rep, 1),
-                     k_q, k_s, v_q, v_s, mask)
+                     k_q, k_s, v_q, v_s, mask, inter_dtype)
     return out.reshape(B, G, T, rep, D)
 
 
@@ -108,18 +110,20 @@ def quantize_window(q: torch.Tensor, G: int) -> tuple[torch.Tensor, torch.Tensor
             q_s.reshape(B, T, G, rep, 1).permute(0, 2, 1, 3, 4).contiguous())
 
 
-def verify_attention(q, k_q, k_s, v_q, v_s, pos, plain: bool = False) -> torch.Tensor:
+def verify_attention(q, k_q, k_s, v_q, v_s, pos, plain: bool = False,
+                     inter_dtype=None) -> torch.Tensor:
     """Model-facing verify attention: q [B,T,H,D] float (the window's tokens
     at positions ``pos[b] .. pos[b]+T-1``); k_q/v_q int8 [B,S,G,D]; k_s/v_s
     f32 [B,S,G,1]; ``pos`` a scalar or [B] cursors.  Query t of slot b sees
     keys [0, pos[b]+t] -> [B,T,H,D].  ``plain`` runs the plain version on
-    any device."""
+    any device, its SLC intermediates at ``inter_dtype``; the kernel
+    ignores that dtype."""
     B, T, H, D = q.shape
     G = k_q.shape[2]
     q_q, q_s = quantize_window(q, G)
     pos_b = slot_positions(pos, B, q.device).to(q.device)
     lengths = (pos_b[:, None] + torch.arange(1, T + 1, dtype=torch.int32,
                                              device=q.device)).contiguous()
-    attn = verify_attn_plain if plain else verify_attn_5d
-    out = attn(q_q, q_s, k_q, k_s[..., 0], v_q, v_s[..., 0], lengths)
+    args = (q_q, q_s, k_q, k_s[..., 0], v_q, v_s[..., 0], lengths)
+    out = verify_attn_plain(*args, inter_dtype) if plain else verify_attn_5d(*args)
     return out.permute(0, 2, 1, 3, 4).reshape(B, T, H, D).to(q.dtype)

@@ -45,16 +45,18 @@ def tree_visibility_mask(pos_b: torch.Tensor, anc: torch.Tensor, S: int,
     return committed[:, None, :] | (in_win[:, None, :] & (bit == 1))
 
 
-def verify_tree_attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, pos, anc) -> torch.Tensor:
+def verify_tree_attn_plain(q_q, q_s, k_q, k_s, v_q, v_s, pos, anc,
+                           inter_dtype=None) -> torch.Tensor:
     """q_q int8 [B,G,T,rep,D], q_s f32 [B,G,T,rep,1], k_q/v_q int8
     [B,S,G,D], k_s/v_s f32 [B,S,G], pos int32 [B] committed cursors, anc
-    int32 [B,T] ancestor bitmasks -> f32 [B,G,T,rep,D]."""
+    int32 [B,T] ancestor bitmasks -> f32 [B,G,T,rep,D]; ``inter_dtype`` as
+    in :func:`repro_torch.kernels.decode_attn.attn_plain`."""
     B, G, T, rep, D = q_q.shape
     S = k_q.shape[1]
     mask = tree_visibility_mask(pos, anc, S, T)                   # [B,T,S]
     mask = mask[:, None, :, None, :].expand(B, 1, T, rep, S).reshape(B, 1, T * rep, S)
     out = attn_plain(q_q.reshape(B, G, T * rep, D), q_s.reshape(B, G, T * rep, 1),
-                     k_q, k_s, v_q, v_s, mask)
+                     k_q, k_s, v_q, v_s, mask, inter_dtype)
     return out.reshape(B, G, T, rep, D)
 
 
@@ -98,16 +100,17 @@ def verify_tree_attn_5d(q_q, q_s, k_q, k_s, v_q, v_s, pos, anc) -> torch.Tensor:
 
 
 def verify_attention_tree(q, k_q, k_s, v_q, v_s, pos, anc,
-                          plain: bool = False) -> torch.Tensor:
+                          plain: bool = False, inter_dtype=None) -> torch.Tensor:
     """Model-facing tree-verify attention: q [B,T,H,D] float (the window's
     tree nodes); cache as in ``verify_attn.verify_attention``; ``pos`` a
     scalar or [B] cursors; ``anc`` [B,T] int32 ancestor bitmasks ->
-    [B,T,H,D].  ``plain`` runs the plain version on any device."""
+    [B,T,H,D].  ``plain`` runs the plain version on any device, its SLC
+    intermediates at ``inter_dtype``; the kernel ignores that dtype."""
     B, T, H, D = q.shape
     G = k_q.shape[2]
     q_q, q_s = quantize_window(q, G)
     pos_b = slot_positions(pos, B, q.device).to(q.device).contiguous()
     anc = anc.to(device=q.device, dtype=torch.int32).contiguous()
-    attn = verify_tree_attn_plain if plain else verify_tree_attn_5d
-    out = attn(q_q, q_s, k_q, k_s[..., 0], v_q, v_s[..., 0], pos_b, anc)
+    args = (q_q, q_s, k_q, k_s[..., 0], v_q, v_s[..., 0], pos_b, anc)
+    out = verify_tree_attn_plain(*args, inter_dtype) if plain else verify_tree_attn_5d(*args)
     return out.permute(0, 2, 1, 3, 4).reshape(B, T, H, D).to(q.dtype)

@@ -194,11 +194,13 @@ def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
 # decode attention against the int8 SLC cache (dMVM)
 # ---------------------------------------------------------------------------
 def decode_attention_int8(q: torch.Tensor, k_q, k_s, v_q, v_s, length,
-                          backend: str = "dense") -> torch.Tensor:
+                          backend: str = "dense", inter_dtype=None) -> torch.Tensor:
     """q: [B, 1, H, D] float; cache: [B, S, Hkv, D] int8 (+[B, S, Hkv, 1]
     f32); ``length`` a scalar or [B] per-slot cache lengths.  ``fused_int8``
     runs the B2 kernel; every other backend the plain version (as the
-    reference's jnp branch)."""
+    reference's jnp branch), its SLC intermediates (dequantized V, softmax
+    weights) at ``inter_dtype`` (``None``: f32), which B2 ignores as the
+    reference's Pallas branch does."""
     if backend == "fused_int8":
         return da_ops.decode_attention(q, k_q, k_s, v_q, v_s, length)
     B, _, H, D = q.shape
@@ -208,15 +210,17 @@ def decode_attention_int8(q: torch.Tensor, k_q, k_s, v_q, v_s, length,
     q_q, q_scale = quant.quantize_kv(q.reshape(B, H, D))      # per-(B,H) int8
     o = da_ops.decode_attn_plain(q_q.reshape(B, G, rep, D),
                                  q_scale.reshape(B, G, rep, 1), k_q, k_s[..., 0],
-                                 v_q, v_s[..., 0], lengths)
+                                 v_q, v_s[..., 0], lengths, inter_dtype)
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
 def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
-               k_q, k_s, v_q, v_s, backend: str = "dense", x_q: tuple | None = None):
+               k_q, k_s, v_q, v_s, backend: str = "dense", x_q: tuple | None = None,
+               inter_dtype=None):
     """One-token decode.  The new token's int8 K/V append in place at each
     slot's own offset ``pos`` (scalar or [B]); attention covers the cache
-    including this position.  Returns (out, (k_q, k_s, v_q, v_s))."""
+    including this position, its SLC intermediates at ``inter_dtype`` (see
+    :func:`decode_attention_int8`).  Returns (out, (k_q, k_s, v_q, v_s))."""
     B = x.shape[0]
     hd = cfg.head_dim
     pos_b = KV.slot_positions(pos, B, x.device).to(x.device)
@@ -236,7 +240,7 @@ def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     KV.batched_update(k_s, ks_new, pos_b)
     KV.batched_update(v_q, vq_new, pos_b)
     KV.batched_update(v_s, vs_new, pos_b)
-    o = decode_attention_int8(q, k_q, k_s, v_q, v_s, pos_b + 1, backend)
+    o = decode_attention_int8(q, k_q, k_s, v_q, v_s, pos_b + 1, backend, inter_dtype)
     out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, 1, -1), backend)
     return out, (k_q, k_s, v_q, v_s)
 
@@ -245,7 +249,8 @@ def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
 # speculative verify: T tokens per slot against the int8 SLC cache
 # ---------------------------------------------------------------------------
 def verify_attention_int8(q: torch.Tensor, k_q, k_s, v_q, v_s, pos,
-                          backend: str = "dense", anc=None) -> torch.Tensor:
+                          backend: str = "dense", anc=None,
+                          inter_dtype=None) -> torch.Tensor:
     """Speculative-verify attention: ``q`` [B, T, H, D], the T tokens of
     each slot's window at positions ``pos[b] .. pos[b]+T-1``; cache as in
     :func:`decode_attention_int8`.  Query ``t`` of slot ``b`` sees keys
@@ -254,17 +259,19 @@ def verify_attention_int8(q: torch.Tensor, k_q, k_s, v_q, v_s, pos,
     is a draft tree and the mask becomes
     :func:`repro_torch.kernels.verify_tree_attn.tree_visibility_mask`.
     ``fused_int8`` runs the B3 / B4 kernel; every other backend the plain
-    version (as the reference's jnp branch)."""
+    version (as the reference's jnp branch), its SLC intermediates at
+    ``inter_dtype`` (see :func:`decode_attention_int8`)."""
     plain = backend != "fused_int8"
     if anc is not None:
         return vt_ops.verify_attention_tree(q, k_q, k_s, v_q, v_s, pos, anc,
-                                            plain=plain)
-    return va_ops.verify_attention(q, k_q, k_s, v_q, v_s, pos, plain=plain)
+                                            plain=plain, inter_dtype=inter_dtype)
+    return va_ops.verify_attention(q, k_q, k_s, v_q, v_s, pos, plain=plain,
+                                   inter_dtype=inter_dtype)
 
 
 def gqa_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
                k_q, k_s, v_q, v_s, backend: str = "dense", depth=None,
-               anc=None, x_q: tuple | None = None):
+               anc=None, x_q: tuple | None = None, inter_dtype=None):
     """Multi-token decode for the verify step: consume ``x`` ([B, T, d], the
     last committed token plus T-1 drafts per slot) at each slot's cursor.
     The T int8 K/V rows append in place at the per-slot offset and all T
@@ -272,7 +279,8 @@ def gqa_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     of T sequential :func:`gqa_decode` calls.  Tree mode (``depth``/``anc``
     both [B, T] int32): node i's row still lands at ``pos + i`` but RoPE
     turns it at its tree depth ``pos + depth[b, i]`` and the mask follows
-    the ancestry.  Returns (out, (k_q, k_s, v_q, v_s))."""
+    the ancestry.  ``inter_dtype``: see :func:`decode_attention_int8`.
+    Returns (out, (k_q, k_s, v_q, v_s))."""
     B, T, _ = x.shape
     hd = cfg.head_dim
     pos_b = KV.slot_positions(pos, B, x.device).to(x.device)
@@ -294,7 +302,8 @@ def gqa_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     KV.batched_update(k_s, ks_new, pos_b)
     KV.batched_update(v_q, vq_new, pos_b)
     KV.batched_update(v_s, vs_new, pos_b)
-    o = verify_attention_int8(q, k_q, k_s, v_q, v_s, pos_b, backend, anc=anc)
+    o = verify_attention_int8(q, k_q, k_s, v_q, v_s, pos_b, backend, anc=anc,
+                              inter_dtype=inter_dtype)
     out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend)
     return out, (k_q, k_s, v_q, v_s)
 
@@ -400,11 +409,17 @@ def _absorbed(p: Params, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
 def _mla_latent_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, pos_b: torch.Tensor,
                           pp: torch.Tensor, c_q: torch.Tensor, c_s: torch.Tensor,
                           mask: torch.Tensor, backend: str,
-                          x_q: tuple | None = None) -> torch.Tensor:
+                          x_q: tuple | None = None, inter_dtype=None) -> torch.Tensor:
     """Absorbed MLA over ``x`` [B, T, d] whose token t sits at ``pp[:, t]``:
     the T int8 latents append in place at rows ``pos_b .. pos_b + T - 1``,
     then attention runs in the latent space against the dequantized cache,
-    ``mask`` [B, T, S] (True where a key is visible), and ``wo``."""
+    ``mask`` [B, T, S] (True where a key is visible), and ``wo``.  MLA has
+    no kernel, so the SLC intermediates take ``inter_dtype`` (``None``:
+    f32) under every backend, rounded where the reference rounds them: the
+    absorbed query ``q_eff`` (its product's result is of that dtype), the
+    dequantized cache (codes and scales cast to it, multiplied in it), the
+    rope query and the softmax weights; the two score products and the
+    latent P . V sum in f32 and ``w_uv`` stays f32."""
     B, T, _ = x.shape
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q_nope, q_rope = _mla_q(p, cfg, x, pp, backend, x_q=x_q)
@@ -413,35 +428,40 @@ def _mla_latent_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, pos_b: t
     KV.batched_update(c_q, lq, pos_b)
     KV.batched_update(c_s, sc, pos_b)
     w_uk, w_uv = _absorbed(p, cfg)
-    q_eff = torch.einsum("bthd,rhd->bthr", q_nope.to(torch.float32), w_uk)   # absorb W_UK
-    cache = c_q.to(torch.float32) * c_s                                      # [B, S, r + dr]
+    dt = inter_dtype or torch.float32
+    q_eff = da_ops.at_dtype(torch.einsum("bthd,rhd->bthr", da_ops.at_dtype(q_nope, dt),
+                                         da_ops.at_dtype(w_uk, dt)), dt)     # absorb W_UK
+    cache = (c_q.to(dt) * c_s.to(dt)).to(torch.float32)                      # [B, S, r + dr]
     scores = (torch.einsum("bthr,bsr->bths", q_eff, cache[..., :r])
-              + torch.einsum("bthd,bsd->bths", q_rope.to(torch.float32), cache[..., r:]))
+              + torch.einsum("bthd,bsd->bths", da_ops.at_dtype(q_rope, dt), cache[..., r:]))
     scores = (scores / math.sqrt(dn + dr)).masked_fill(~mask[:, :, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
-    o_lat = torch.einsum("bths,bsr->bthr", w, cache[..., :r])                # latent-space SV
+    o_lat = torch.einsum("bths,bsr->bthr", da_ops.at_dtype(w, dt),
+                         cache[..., :r])                                     # latent-space SV
     o = torch.einsum("bthr,rhd->bthd", o_lat, w_uv)                          # expand W_UV
     return L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1).to(x.dtype), backend)
 
 
 def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Tensor,
-               c_s: torch.Tensor, backend: str = "dense", x_q: tuple | None = None):
+               c_s: torch.Tensor, backend: str = "dense", x_q: tuple | None = None,
+               inter_dtype=None):
     """Absorbed MLA decode of one token a slot: its int8 latent appends in
     place at each slot's ``pos`` (scalar or [B]) and the step reads only the
-    ``[S, r + dr]`` int8 latent rows, the paper's SLC-cache read.  Returns
-    (out, (c_q, c_s))."""
+    ``[S, r + dr]`` int8 latent rows, the paper's SLC-cache read, its
+    intermediates at ``inter_dtype`` (see :func:`_mla_latent_attention`).
+    Returns (out, (c_q, c_s))."""
     B = x.shape[0]
     pos_b = KV.slot_positions(pos, B, x.device).to(x.device)
     S = c_q.shape[1]
     mask = (torch.arange(S, device=x.device)[None, :] < (pos_b + 1)[:, None])[:, None]
     out = _mla_latent_attention(p, cfg, x, pos_b, pos_b[:, None], c_q, c_s, mask, backend,
-                                x_q)
+                                x_q, inter_dtype)
     return out, (c_q, c_s)
 
 
 def mla_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Tensor,
                c_s: torch.Tensor, backend: str = "dense", depth=None, anc=None,
-               x_q: tuple | None = None):
+               x_q: tuple | None = None, inter_dtype=None):
     """:func:`mla_decode` over a verify window ``x`` [B, T, d]: the T latents
     append at each slot's cursor and query t sees the cache up to
     ``pos + t``; tree mode (``depth``/``anc``) turns token i at
@@ -458,5 +478,6 @@ def mla_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Ten
     else:
         mask = torch.arange(S, device=dev)[None, None, :] < (pos_b[:, None] + torch.arange(
             T, device=dev)[None, :] + 1)[..., None]
-    out = _mla_latent_attention(p, cfg, x, pos_b, pp, c_q, c_s, mask, backend, x_q)
+    out = _mla_latent_attention(p, cfg, x, pos_b, pp, c_q, c_s, mask, backend, x_q,
+                                inter_dtype)
     return out, (c_q, c_s)

@@ -28,7 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvcache as KV
 from repro_torch.core.quant import quantize_kv
-from repro_torch.device import resolve
+from repro_torch.device import generator, resolve
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Runtime, remat_call, token_nll
@@ -60,7 +60,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
     ``device``, with the reference's leaves and shapes (the draws differ
     from ``jax.random``'s)."""
     check_supported(cfg)
-    gen = torch.Generator(device=resolve(device)).manual_seed(seed)
+    gen = generator(device, seed)
     d, dev = cfg.d_model, gen.device
 
     def norm():
@@ -164,7 +164,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     + [B, max_len, H_kv, 1] scales) and cross K/V ([B, S_enc, H_kv, D] +
     scales), and the [B] cursor."""
     check_supported(cfg)
-    dev = resolve(device)
+    dev = resolve(device, meta=True)
     G, D = cfg.n_kv_heads, cfg.head_dim
 
     def kv(rows):

@@ -127,6 +127,9 @@ class ServeSteps:
       MTP drafter's carry);
     * :meth:`multi`: ``multi_decode_step`` as m replays of the decode step
       -> tokens [n, m] int32.
+
+    Each step runs under ``rt`` (its backend and ``dmvm_dtype``), which a
+    graph keeps: a step captured under bf16 SLC intermediates replays them.
     """
 
     def __init__(self, params: Any, cfg: ModelConfig, rt: Runtime, state: dict,

@@ -1,7 +1,8 @@
 """Model facade: the entry points the serve engines and the train step call.
 
 PyTorch counterpart of the ``repro.models.model`` facades that training
-(:func:`train_loss`, :func:`model_flops`), the plain
+(:func:`train_loss`, :func:`model_flops`), the dry run
+(:func:`abstract_params`, :func:`input_specs`, :func:`param_bytes`), the plain
 decode path, the fused multi-step lane, chunked prefill (cold or warm from
 the prefix cache) and the speculative lanes use, for GQA/MHA decoders
 (token inputs, or the embeddings that a ``vlm`` configuration's stubbed
@@ -51,6 +52,41 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if cfg.family == "encdec":
         return encdec.init_params(cfg, seed=seed, device=device, dtype=dtype)
     return T.init_params(cfg, seed=seed, device=device, dtype=dtype)
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.float32) -> Params:
+    """The full parameter tree on the ``meta`` device: every leaf's shape
+    and dtype, no storage (the dry run's counterpart of the reference's
+    ``jax.eval_shape`` of ``init_params``)."""
+    return init_params(cfg, device="meta", dtype=dtype)
+
+
+def param_bytes(cfg: ModelConfig, bytes_per_param: int = 2) -> int:
+    return cfg.param_count() * bytes_per_param
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Model inputs for (arch x shape) as ``meta`` tensors with the
+    reference's shapes and dtypes: tokens and labels for train, the prompt
+    for prefill, the [B] token for decode (its position lives in the
+    state); an encoder-decoder's ``frames`` (bf16, the stubbed front end's
+    output), and bf16 embeddings where ``cfg.input_mode == "embeddings"``.
+    The port's steps take float inputs as f32, as its engines land them."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+    if shape.kind == "decode":
+        return {"token": spec(B)}
+    if cfg.family == "encdec":
+        out = {"frames": spec(B, cfg.encoder_seq, cfg.d_model, dtype=torch.bfloat16),
+               "tokens": spec(B, S)}
+        return {**out, "labels": spec(B, S)} if shape.kind == "train" else out
+    inp = (spec(B, S, cfg.d_model, dtype=torch.bfloat16) if cfg.input_mode == "embeddings"
+           else spec(B, S))
+    if shape.kind == "train":
+        return {"inputs": inp, "labels": spec(B, S)}
+    return {"inputs": inp}
 
 
 # ---------------------------------------------------------------------------

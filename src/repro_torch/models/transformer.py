@@ -36,7 +36,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvcache as KV
 from repro_torch.core.quant import quantize_kv
-from repro_torch.device import resolve
+from repro_torch.device import generator, resolve
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -48,13 +48,23 @@ BACKENDS = ("dense", "ref_int8", "fused_int8", "pim_bitserial")
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
-    """Execution context threaded through model apply functions."""
+    """Execution context threaded through model apply functions.  The
+    reference's mesh fields (``mesh``, ``data_axes``, ``model_axis``,
+    ``collective``, ``serve_resident_moe``, ``seq_shard``) are mesh code
+    (ROADMAP A.14)."""
     backend: str = "dense"               # dense | ref_int8 | fused_int8 | pim_bitserial
     remat: bool = False                  # training: recompute each layer in the backward
+    # the SLC intermediates' dtype (e.g. torch.bfloat16; None: f32): decode
+    # and verify hand it to the plain int8 attention and to absorbed MLA
+    dmvm_dtype: Any = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of {BACKENDS}")
+        if self.dmvm_dtype is not None and not (isinstance(self.dmvm_dtype, torch.dtype)
+                                                and self.dmvm_dtype.is_floating_point):
+            raise TypeError(f"dmvm_dtype must be a float torch.dtype or None, got "
+                            f"{self.dmvm_dtype!r}")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -147,7 +157,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     ``device`` (the draws differ from ``jax.random``'s; tests that compare
     the two packages convert the JAX parameters instead)."""
     check_supported(cfg)
-    gen = torch.Generator(device=resolve(device)).manual_seed(seed)
+    gen = generator(device, seed)
     p: Params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
                  "ln_f": L.norm_init(cfg.d_model, cfg.norm_type, gen.device)}
     if not cfg.tie_embeddings:
@@ -296,7 +306,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     [B, S, 1] scales) or an SSM layer's zero recurrent state; and the [B]
     per-slot position vector."""
     check_supported(cfg)
-    dev = resolve(device)
+    dev = resolve(device, meta=True)
     kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     sc = (batch, max_len, cfg.n_kv_heads, 1)
 
@@ -420,10 +430,10 @@ def apply_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
             cache[name].copy_(val)
     elif cfg.attn_type == "mla":
         mix, _ = A.mla_decode(p["attn"], cfg, h, pos, cache["c_q"], cache["c_s"], rt.backend,
-                              h_q)
+                              h_q, rt.dmvm_dtype)
     else:
         mix, _ = A.gqa_decode(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
-                              cache["v_q"], cache["v_s"], rt.backend, h_q)
+                              cache["v_q"], cache["v_s"], rt.backend, h_q, rt.dmvm_dtype)
     return _ffn(p, cfg, x + mix, rt)
 
 
@@ -477,11 +487,12 @@ def apply_layer_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     h, h_q = _ln1(p, x, rt)
     if cfg.attn_type == "mla":
         mix, _ = A.mla_verify(p["attn"], cfg, h, pos, cache["c_q"], cache["c_s"],
-                              rt.backend, depth=depth, anc=anc, x_q=h_q)
+                              rt.backend, depth=depth, anc=anc, x_q=h_q,
+                              inter_dtype=rt.dmvm_dtype)
     else:
         mix, _ = A.gqa_verify(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
                               cache["v_q"], cache["v_s"], rt.backend,
-                              depth=depth, anc=anc, x_q=h_q)
+                              depth=depth, anc=anc, x_q=h_q, inter_dtype=rt.dmvm_dtype)
     return _ffn(p, cfg, x + mix, rt)
 
 
@@ -752,7 +763,7 @@ def init_prefill_carry(cfg: ModelConfig, buf_len: int,
     recurrent state would integrate the chunk boundary), so a carry for one
     raises."""
     check_supported(cfg)
-    dev = resolve(device)
+    dev = resolve(device, meta=True)
     if has_ssm(cfg):
         raise NotImplementedError(
             "chunked prefill carries attention K/V only; SSM stacks "

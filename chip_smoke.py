@@ -102,6 +102,28 @@ Phases (any failure makes the script exit non-zero):
    uncorrectable block at BER 2e-4); and ``python -m
    repro_torch.launch.serve --serve`` in a subprocess (exit 0,
    ``SERVE_SHUTDOWN_CLEAN``);
+``mesh``: the (data, model) mesh with its ranks as processes on the one
+   card (every rank on ``cuda:0``; the collectives gloo through pinned host
+   memory), each rank's gates over every rank: llama3-8b at full width (32
+   of 32 layers) on 1x2 under ``fused_int8``, each rank drawing only its
+   blocks (``init_params_sharded``): one decode step from a ragged pool
+   gated bit-equal to one process's (logits and pool) under ``psum`` and
+   ``htree``, with one process's launches a rank, and the phase-4 trace
+   gated token-identical to one process's on every rank (a parting held
+   to the near-tie rule, the one process's row at the parting token as the
+   witness); grok-1-314b with 2 of its 64 layers on 1x2 (``ep2``: 4
+   experts a rank on the grouped B1; its int8 tree by ``int8_params``,
+   served from prefill on): the MoE layer gated within rtol 2e-3 / atol
+   2e-4 of one process's, the step's pool bit-equal, the trace as llama's
+   but the near-tie rule held at the first parting iteration only (from
+   there on capacity couples the slots' routing: ``mesh_tie_failures``);
+   llama3-8b at full width with 2 layers on 2x2 (slots and FSDP-stored
+   dims over data) and 1x4 (an H-tree of depth 2): the step's pool
+   bit-equal (its logits within the near-tie share: a rank's ``lm_head``
+   runs at its own rows; on 2x2 one cold ``psum`` step, its gathers of
+   the f32 ``lm_head`` taking 2.8 s) and a short trace (3 requests,
+   prompts cut to 64, budgets to 2) as llama's; each rank's warm step wall
+   and device-busy time, collectives a step and parameter bytes printed;
 6. ``ssm``: mamba2-2.7b (64 layers, d 2560, 80 SSM heads of 64, state 128,
    vocab 50280) after llama3-8b's parameters are freed.  B6 (``ssd_chunk``)
    against its plain version at full width (Q 128, 37, 1 and 33; B and C
@@ -2734,6 +2756,484 @@ def phase_server(torch, ctx) -> dict:
           f"last line {cli.stdout.strip().splitlines()[-1:]}")
     if cli.returncode != 0 or "SERVE_SHUTDOWN_CLEAN" not in cli.stdout:
         raise AssertionError(f"CLI --serve: {out['cli']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase mesh: the (data, model) mesh of ranks on the one card (A.14a)
+# ---------------------------------------------------------------------------
+MESH_REDUCED_LAYERS = 2      # llama3-8b's depth on the 2x2 and 1x4 meshes (full width)
+MESH_SHORT = (3, 64, 2)      # the 4-rank meshes' trace: requests, prompt cap, budget cap
+MESH_TIMEOUT_S = 600
+
+
+def mesh_short_trace(vocab_size: int) -> tuple[list, list]:
+    """The phase-4 trace cut for the 4-rank meshes (their FSDP gathers move
+    every layer and the 2 GB f32 ``lm_head`` through host memory a call):
+    its first 3 requests (slots 0-2: both data ranks of a 2x2 mesh serve),
+    prompts cut to 64 tokens (one prefill piece), budgets to 2 (a prefill
+    and a decode step each)."""
+    n, cap, budget = MESH_SHORT
+    prompts, budgets = serve_trace(vocab_size)
+    return [p[:cap] for p in prompts[:n]], [min(b, budget) for b in budgets[:n]]
+
+
+def record_rows(cb) -> dict:
+    """Patch an engine to keep, on the host, the logits row that chose each
+    emitted token and the engine iteration that chose it: ``rows[(rid,
+    i)] = (iteration, row)`` for token i of request rid (the prefill's row
+    for token 0), every slot's row on a mesh (gathered over the data axes
+    on every rank, so the ranks stay in step)."""
+    from repro_torch.models import transformer as T
+    rows: dict = {}
+    first, nxt = cb._first_token, cb._next_tokens
+
+    def first_token(req, logits):
+        rows[(req.rid, len(req.output))] = (cb.stats["steps"], logits[0].float().cpu())
+        return first(req, logits)
+
+    def next_tokens(logits, argmax, dec):
+        host = T.gather_rows(logits, cb.state, cb.rt).float().cpu()
+        for slot, req in dec:
+            if req.replay_pos >= len(req.output):
+                rows[(req.rid, len(req.output))] = (cb.stats["steps"], host[slot])
+        return nxt(logits, argmax, dec)
+
+    cb._first_token, cb._next_tokens = first_token, next_tokens
+    return rows
+
+
+def partings(outs: list, want: list) -> list[tuple[int, int]]:
+    """(rid, token) of the first token where each request's stream parts
+    from ``want``'s."""
+    res = []
+    for rid, (a, b) in enumerate(zip(outs, want)):
+        d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if d is None and len(a) != len(b):
+            d = min(len(a), len(b))
+        if d is not None:
+            res.append((rid, d))
+    return res
+
+
+def mesh_margins(torch, mesh_parts: list, base_rows: dict, base_outs: list) -> list:
+    """The near-tie records of the mesh's partings: at a request's first
+    parting token, the mesh row (from rank 0) and the one-process row that
+    chose the two tokens (``near_tie_failures``' fields; the witness is the
+    one-process row), and the engine iteration of each."""
+    res = []
+    for rid, d, tok, (step, row) in mesh_parts:
+        base_step, r1 = base_rows[(rid, d)]
+        rm = torch.as_tensor(row)
+        b = base_outs[rid][d]
+        res.append({"rid": rid, "token": d, "tokens": [tok, b], "step": step,
+                    "one_process_step": base_step,
+                    "fused_gap": float(rm[tok] - rm[b]), "logit_scale": float(rm.abs().max()),
+                    "lanes_max_abs_diff": float((rm - r1).abs().max()),
+                    "fused_reproduced": int(rm.argmax()) == tok})
+    return res
+
+
+def mesh_tie_failures(margins: list, moe: bool) -> list:
+    """The mesh's partings the near-tie rule leaves unexplained: every
+    request's first parting token on a dense stack (its slots share no
+    arithmetic); on a MoE stack only those at the first parting iteration,
+    which must be the one process's too: from there on a slot's tokens
+    feed the routing of every slot (capacity), so another request may part
+    through its neighbour's rows, as ``near_tie_failures(forced=True)``
+    holds the served rows of the families' MoE lanes."""
+    if not moe:
+        return near_tie_failures(margins)
+    first = min((m["step"] for m in margins), default=None)
+    at_first = [m for m in margins if m["step"] == first]
+    return ([m["rid"] for m in at_first if m["one_process_step"] != first]
+            + near_tie_failures(at_first))
+
+
+def mesh_baseline(torch, cfg, params, tmp: str, name: str, trace: tuple,
+                  quantized: bool) -> dict:
+    """One process's side of a mesh gate: the trace served on 4 slots under
+    ``fused_int8`` with every chosen row recorded, and one decode step from
+    a ragged pool (saved to ``tmp``/``name``.pt with the pool after it),
+    timed and profiled."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.quantize import quantized_bytes
+
+    rows: dict = {}
+    cb, reqs, wall, counts = serve(torch, cfg, params, {}, "decode_attn", trace=trace,
+                                   quantized=quantized,
+                                   setup=lambda e: rows.update({"rows": record_rows(e)}))
+    outs = [list(r.output) for r in reqs]
+    qparams = cb.qparams
+    state = ragged_pool(torch, cfg, params, 256, 256)
+    tok = torch.randint(0, cfg.vocab_size, (len(RAGGED_LENS),),
+                        generator=torch.Generator(device="cuda").manual_seed(5),
+                        device="cuda").to(torch.int32)
+    after = clone_state(state)
+    logits, _ = M.decode_step(qparams, cfg, after, tok, Runtime("fused_int8"))
+    torch.save({"state": {"layers": [{k: v.cpu() for k, v in c.items()}
+                                     for c in state["layers"]], "pos": state["pos"].cpu()},
+                "tok": tok.cpu(), "logits": logits.cpu(),
+                "after": {"layers": [{k: v.cpu() for k, v in c.items()}
+                                     for c in after["layers"]]}},
+               os.path.join(tmp, name + ".pt"))
+    try:
+        prof = profile_step(torch, lambda: M.decode_step(qparams, cfg, clone_state(state), tok,
+                                                         Runtime("fused_int8")),
+                            f"{name} one-process decode")
+    except Exception as e:  # noqa: BLE001 - a measurement, not a gate
+        prof = {"error": f"{type(e).__name__}: {e}"}
+    seen: set = set()
+    n_bytes = sum(t.numel() * t.element_size() for tree in (params, qparams)
+                  for t in _tensors(tree) if not (t.data_ptr() in seen or seen.add(t.data_ptr())))
+    rec = {"outputs": outs, "rows": rows["rows"], "serve_wall_s": wall, "launches": counts,
+           "step_profile": prof, "param_bytes": n_bytes,
+           "qparam_bytes": quantized_bytes(qparams)}
+    del cb, reqs, qparams, state, after, logits
+    return rec
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for k, v in tree.items() if k != "specs" for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if hasattr(tree, "data_ptr") else []
+
+
+def mesh_step(torch, cfg, mp, mesh, tmp: str, name: str, profile: bool = True,
+              colls: tuple = ("psum", "htree"), warm: bool = True) -> dict:
+    """On a rank: one decode step of the placed ``mp`` from the saved
+    state's block under each of ``colls`` (after one warm-up step where
+    ``warm``), held bit-equal to the one process's logits (the rank's
+    slots) and pool (its block); its launch counts, wall, collectives a
+    step and (with ``profile``) device-busy time."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+
+    base = torch.load(os.path.join(tmp, name + ".pt"))
+    state = {"layers": [{k: v.cuda() for k, v in c.items()} for c in base["state"]["layers"]],
+             "pos": base["state"]["pos"].cuda()}
+    tok = base["tok"].cuda()
+    out = {}
+    for coll in colls:
+        rt = T.Runtime("fused_int8", mesh=mesh, collective=coll, serve_resident_moe=True)
+        blk = T.decode_block_of(cfg, state, rt)
+        lo, hi, _ = blk["block"]
+        if warm and coll == colls[0]:   # the host buffers and the groups' first calls
+            T.decode_step(mp.qparams, cfg, T.decode_block_of(cfg, state, rt), tok[lo:hi], rt)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        C.reset_stats()
+        t0 = time.perf_counter()
+        logits, blk = T.decode_step(mp.qparams, cfg, blk, tok[lo:hi], rt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, coll_stats = launch_counts(), dict(C.stats)
+        want_pool = T.decode_block_of(cfg, {"layers": base["after"]["layers"],
+                                            "pos": base["state"]["pos"]}, rt)
+        pool_eq = all(torch.equal(a.cpu(), b) for la, lb in zip(blk["layers"],
+                                                               want_pool["layers"])
+                      for a, b in zip(la.values(), lb.values()))
+        rec = {"logits_equal": torch.equal(logits.cpu(), base["logits"][lo:hi]),
+               "scale": float(base["logits"].abs().max()),
+               "max_abs_diff": float((logits.cpu() - base["logits"][lo:hi]).abs().max()),
+               "pool_equal": pool_eq, "launches": counts,
+               "want_launches": want_launches(cfg, 1, [], "decode_attn"),
+               "wall_ms": wall * 1e3, "collectives": coll_stats}
+        if coll == "psum" and profile:
+            try:
+                prof = profile_step(torch, lambda: T.decode_step(
+                    mp.qparams, cfg, T.decode_block_of(cfg, state, rt), tok[lo:hi], rt),
+                    f"{name} mesh decode ({coll})")
+                rec["device_busy_ms"] = prof["device_busy_us"] / 1e3
+                rec["profiled_wall_ms"] = prof["wall_us"] / 1e3
+            except Exception as e:  # noqa: BLE001 - a measurement, not a gate
+                rec["profile_error"] = f"{type(e).__name__}: {e}"
+        out[coll] = rec
+    return out
+
+
+def mesh_serve(torch, cfg, mp, mesh, trace: tuple, base_outs: list, quantized: bool) -> dict:
+    """On a rank: the trace through the continuous engine on the mesh
+    (``fused_int8``, 4 slots, the placed ``mp``), each chosen row recorded;
+    its launch counts against the one process's prediction, its streams and
+    (rank 0) the mesh rows where they part from ``base_outs``."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    rt = T.Runtime("fused_int8", mesh=mesh, data_axes=("data",), serve_resident_moe=True)
+    cb = ContinuousBatchingEngine(cfg, mp, n_slots=SERVE_SLOTS, max_len=SERVE_ROWS, rt=rt)
+    rows = record_rows(cb)
+    prompts, budgets = trace
+    torch.cuda.synchronize()
+    cb.reset_clock()
+    reset_launch_counts()
+    C.reset_stats()
+    t0 = time.perf_counter()
+    reqs = [cb.submit(p, b) for p, b in zip(prompts, budgets)]
+    cb.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    outs = [list(r.output) for r in reqs]
+    want = want_launches(cfg, cb.stats["decode_steps"], [len(p) for p in prompts],
+                         "decode_attn", "fused_int8", prefill_calls(cb, reqs),
+                         int8_prefill=quantized)
+    parts = [(rid, d, outs[rid][d], (rows[(rid, d)][0], rows[(rid, d)][1].numpy()))
+             for rid, d in partings(outs, base_outs) if d < len(outs[rid])]
+    return {"outputs": outs, "partings": parts if mesh.rank == 0 else [],
+            "launches": counts, "want_launches": want, "wall_s": wall,
+            "decode_steps": cb.stats["decode_steps"], "collectives": dict(C.stats),
+            "tokens": sum(len(o) for o in outs)}
+
+
+def mesh_rank_bytes(mp) -> int:
+    seen: set = set()
+    return sum(t.numel() * t.element_size() for tree in mp for t in _tensors(tree)
+               if not (t.data_ptr() in seen or seen.add(t.data_ptr())))
+
+
+def mesh_pair_rank(rank: int, tmp: str, base: dict) -> dict:
+    """A rank of the 1x2 world on the card: llama3-8b at full width, each
+    rank drawing only its blocks (``init_params_sharded``), its decode step
+    and the phase-4 trace; then grok-1-314b (2 of 64 layers, its int8 tree
+    as ``int8_params`` draws it, cut to the rank's 4 experts: ``ep2``), its
+    MoE layer against one process's and the trace."""
+    import gc
+
+    import torch
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.cuda.set_device(0)
+    from repro_torch.configs import registry
+    from repro_torch.device import set_float32_precision
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import transformer as T
+
+    set_float32_precision()
+    mesh = MS.make_local_mesh(1, 2)
+    rt = T.Runtime("fused_int8", mesh=mesh, serve_resident_moe=True)
+    out: dict = {}
+    cfg = registry.get("llama3-8b")
+    t0 = time.perf_counter()
+    mp = T.init_params_sharded(cfg, rt, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out["llama"] = {"init_s": time.perf_counter() - t0, "param_bytes": mesh_rank_bytes(mp),
+                    "step": mesh_step(torch, cfg, mp, mesh, tmp, "llama"),
+                    "serve": mesh_serve(torch, cfg, mp, mesh, serve_trace(cfg.vocab_size),
+                                        base["llama"], False),
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+    del mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    cfg = mesh_grok_cfg()
+    whole = int8_params(torch, cfg)
+    mp = T.place_params(cfg, whole, False, rt)
+    x = torch.load(os.path.join(tmp, "grok_moe.pt"))
+    specs = mp.qparams["specs"]["layers"][1]["moe"]
+    moe = T._moe_block(mp.qparams["layers"][1]["moe"], x["x"].cuda(), cfg, rt, specs)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff = (moe.cpu() - x["out"]).abs()
+    out["grok"] = {"strategy": SH.moe_serve_strategy(cfg, mesh),
+                   "moe_close": bool(torch.allclose(moe.cpu(), x["out"], rtol=2e-3, atol=2e-4)),
+                   "moe_max_abs_diff": float(diff.max()), "param_bytes": mesh_rank_bytes(mp),
+                   "step": mesh_step(torch, cfg, mp, mesh, tmp, "grok"),
+                   "serve": mesh_serve(torch, cfg, mp, mesh, serve_trace(cfg.vocab_size),
+                                       base["grok"], True),
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+    return out
+
+
+def mesh_quad_rank(rank: int, tmp: str, base: list) -> dict:
+    """A rank of the 4-rank world on the card: llama3-8b at full width with
+    ``MESH_REDUCED_LAYERS`` layers on a 2x2 mesh (slots and FSDP-stored dims
+    over data) and then on a 1x4 mesh (an H-tree of depth 2), each its
+    decode step and the short trace."""
+    import gc
+
+    import torch
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.cuda.set_device(0)
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.device import set_float32_precision
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import transformer as T
+
+    set_float32_precision()
+    cfg = dataclasses.replace(registry.get("llama3-8b"), n_layers=MESH_REDUCED_LAYERS)
+    out = {}
+    for shape in ((2, 2), (1, 4)):
+        mesh = MS.make_local_mesh(*shape)
+        rt = T.Runtime("fused_int8", mesh=mesh, serve_resident_moe=True)
+        mp = T.init_params_sharded(cfg, rt, seed=0, device="cuda")
+        # 2x2's steps gather the f32 lm_head (2.8 s each): one cold psum step
+        kw = {"colls": ("psum",), "warm": False} if shape == (2, 2) else {}
+        out[f"{shape[0]}x{shape[1]}"] = {
+            "param_bytes": mesh_rank_bytes(mp),
+            "step": mesh_step(torch, cfg, mp, mesh, tmp, "llama4", profile=False, **kw),
+            "serve": mesh_serve(torch, cfg, mp, mesh, mesh_short_trace(cfg.vocab_size),
+                                base, False)}
+        del mp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_grok_cfg():
+    import dataclasses
+
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get("grok-1-314b"), n_layers=GROK_LAYERS)
+
+
+def mesh_gates(name: str, ranks: list, failures: list, exact_logits: bool) -> dict:
+    """The gates of one config on a mesh, over every rank's record: the
+    step's pool bit-equal under both collectives (its logits too where
+    ``exact_logits``; else within ``NEAR_TIE_SHARE`` of their scale: a
+    rank's float ``lm_head`` runs at its own rows, and cuBLAS's sums are not
+    row-invariant), the predicted launches, every rank's streams equal."""
+    for r, rec in enumerate(ranks):
+        for coll, st in rec["step"].items():
+            if not st["pool_equal"] or not (st["logits_equal"] or (
+                    not exact_logits and st["max_abs_diff"] <= NEAR_TIE_SHARE * st["scale"])):
+                failures.append(f"{name} rank {r} {coll}: step not bit-equal "
+                                f"(max diff {st['max_abs_diff']}, pool equal "
+                                f"{st['pool_equal']})")
+            if st["launches"] != st["want_launches"]:
+                failures.append(f"{name} rank {r} {coll}: launches {st['launches']} != "
+                                f"{st['want_launches']}")
+        sv = rec["serve"]
+        if sv["launches"] != sv["want_launches"]:
+            failures.append(f"{name} rank {r}: serve launches {sv['launches']} != "
+                            f"{sv['want_launches']}")
+        if sv["outputs"] != ranks[0]["serve"]["outputs"]:
+            failures.append(f"{name} rank {r}: its streams differ from rank 0's")
+    return {"partings": [(rid, d) for rid, d, _, _ in ranks[0]["serve"]["partings"]]}
+
+
+def phase_mesh(torch, ctx) -> dict:
+    """The mesh layer on the one H100: ranks are processes sharing ``cuda:0``,
+    their collectives gloo through host memory.  llama3-8b at full width (32
+    of 32 layers) on 1x2 under ``fused_int8``: one decode step from one
+    state bit-equal to one process's (logits and pool) under ``psum`` and
+    ``htree`` with one process's B1 / B2 launches a rank, and the phase-4
+    trace token-identical to one process's (a parting held to the near-tie
+    rule: the one process's row at the parting token as the witness);
+    grok-1-314b with 2 of 64 layers on 1x2 (``ep2``, 4 experts a rank on
+    the grouped B1; its int8 tree served from prefill on): the MoE layer
+    within rtol 2e-3 / atol 2e-4 of one process's, the step, the trace;
+    llama3-8b at full width with 2 layers on 2x2 and 1x4 (4 ranks): the
+    step and a short trace.  Per rank: the step's wall and device-busy time,
+    its collectives' bytes and seconds, the rank's parameter bytes."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    out: dict = {}
+    fails: list = []
+    with tempfile.TemporaryDirectory(prefix="mesh_phase_") as tmp:
+        cfg = registry.get("llama3-8b")
+        t0 = time.perf_counter()
+        base = {"llama": mesh_baseline(torch, cfg, ctx.pop("params"), tmp, "llama",
+                                       serve_trace(cfg.vocab_size), False)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        gcfg = mesh_grok_cfg()
+        whole = int8_params(torch, gcfg)
+        x = torch.randn((SERVE_SLOTS, 1, gcfg.d_model), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(6))
+        moe, _ = MOE.moe_apply(whole["layers"][1]["moe"], x, gcfg)
+        torch.save({"x": x.cpu(), "out": moe.cpu()}, os.path.join(tmp, "grok_moe.pt"))
+        base["grok"] = mesh_baseline(torch, gcfg, whole, tmp, "grok",
+                                     serve_trace(gcfg.vocab_size), True)
+        del whole, x, moe
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg4 = dataclasses.replace(cfg, n_layers=MESH_REDUCED_LAYERS)
+        base["llama4"] = mesh_baseline(torch, cfg4, M.init_params(cfg4, seed=0, device="cuda"),
+                                       tmp, "llama4", mesh_short_trace(cfg.vocab_size), False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["baseline_s"] = time.perf_counter() - t0
+
+        # one world after the other: at once, the 1x2 world's llama (2 x 25 GB
+        # while a rank draws) and the 4-rank world's draws do not fit the card
+        t0 = time.perf_counter()
+        pair = MS.spawn(mesh_pair_rank, 2, tmp,
+                        {k: base[k]["outputs"] for k in ("llama", "grok")},
+                        timeout_s=MESH_TIMEOUT_S)
+        out["pair_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        quad = MS.spawn(mesh_quad_rank, 4, tmp, base["llama4"]["outputs"],
+                        timeout_s=MESH_TIMEOUT_S)
+        out["quad_s"] = time.perf_counter() - t0
+    # name -> (ranks, one process, logits gated bit-equal, a MoE stack)
+    short = f"llama3-8b {MESH_REDUCED_LAYERS}-layer"
+    runs = {"llama3-8b 1x2": ([r["llama"] for r in pair], base["llama"], True, False),
+            "grok-1-314b 1x2": ([r["grok"] for r in pair], base["grok"], False, True),
+            f"{short} 2x2": ([r["2x2"] for r in quad], base["llama4"], False, False),
+            f"{short} 1x4": ([r["1x4"] for r in quad], base["llama4"], False, False)}
+    for name, (ranks, b, exact, moe) in runs.items():
+        rec = mesh_gates(name, ranks, fails, exact)
+        margins = mesh_margins(torch, ranks[0]["serve"]["partings"], b["rows"], b["outputs"])
+        bad = mesh_tie_failures(margins, moe)
+        if bad:
+            fails.append(f"{name}: streams part from one process's beyond a near-tie at "
+                         f"requests {bad}: {margins}")
+        rec.update({"margins": margins, "one_process": {
+            k: b[k] for k in ("serve_wall_s", "param_bytes", "qparam_bytes", "step_profile")},
+            "ranks": [{"param_bytes": r["param_bytes"],
+                       "step": {c: {k: v for k, v in st.items() if k != "want_launches"}
+                                for c, st in r["step"].items()},
+                       "serve": {k: r["serve"][k] for k in ("wall_s", "decode_steps",
+                                                            "collectives", "tokens")}}
+                      for r in ranks]})
+        out[name] = rec
+        steps = ranks[0]["serve"]["decode_steps"]
+        for i, r in enumerate(ranks):
+            st = r["step"]["psum"]
+            c = st["collectives"]
+            ht = r["step"].get("htree", {}).get("wall_ms", float("nan"))
+            print(f"   {name} rank {i}: step wall {st['wall_ms']:.2f} ms (htree "
+                  f"{ht:.2f}), device busy "
+                  f"{st.get('device_busy_ms', float('nan')):.2f} ms; collectives a step "
+                  f"{c['calls']} calls, {c['bytes'] / 1e6:.3f} MB, {c['seconds'] * 1e3:.2f} ms; "
+                  f"params {r['param_bytes'] / 1e9:.3f} GB (one process "
+                  f"{b['param_bytes'] / 1e9:.3f} GB); trace {r['serve']['wall_s']:.2f} s, "
+                  f"{steps} steps")
+        eq = all(st["logits_equal"] for r in ranks for st in r["step"].values())
+        print(f"   {name}: step pool bit-equal under {sorted(ranks[0]['step'])} on every "
+              f"rank, logits "
+              f"{'bit-equal' if eq else 'within the near-tie share'}; streams "
+              f"{'equal' if not margins else f'part at {len(margins)} near-ties'}")
+    grok = [r["grok"] for r in pair]
+    out["grok-1-314b 1x2"]["moe"] = [{k: g[k] for k in ("strategy", "moe_close",
+                                                         "moe_max_abs_diff")} for g in grok]
+    for i, g in enumerate(grok):
+        if g["strategy"] != "ep2" or not g["moe_close"]:
+            fails.append(f"grok-1-314b 1x2 rank {i}: MoE layer ({g['strategy']}) off one "
+                         f"process's by {g['moe_max_abs_diff']}")
+    if fails:
+        out["failures"] = fails
+        raise AssertionError("; ".join(fails))
     return out
 
 
@@ -5749,6 +6249,7 @@ def main() -> int:
             s.phase("verify", lambda: phase_verify(torch, ctx, da, va, vt, quant))
             s.phase("prefix", lambda: phase_prefix(torch, ctx))
             s.phase("server", lambda: phase_server(torch, ctx))
+            s.phase("mesh", lambda: phase_mesh(torch, ctx))
         else:
             s.failures.append("serve: skipped, the engine phase made no params")
         s.phase("ssm", lambda: phase_ssm(torch, ctx, s.record.get("build")))

@@ -10,7 +10,7 @@ into ``.tmp_step_<n>`` and renamed, so half-written checkpoints are
 invisible to :func:`restore`.  :class:`AsyncCheckpointer` copies the tree to
 host memory, then writes on a background thread while training steps on.
 :func:`restore` puts each leaf on ``device`` (where the reference takes
-shardings; resharding onto a mesh is ROADMAP A.14).
+shardings; resharding onto a mesh is ROADMAP A.14b).
 """
 from __future__ import annotations
 

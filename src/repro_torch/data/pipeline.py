@@ -6,7 +6,7 @@ reference draws them, so they equal the reference's batches bit for bit
 and a restarted job regenerates exactly the stream it would have seen (the
 data-side half of fault-tolerant resume).  Batches stay numpy arrays until
 :func:`put_batch` moves them to a device; the sharded form of ``put_batch``
-is mesh code (ROADMAP A.14).
+is mesh code (ROADMAP A.14b).
 """
 from __future__ import annotations
 

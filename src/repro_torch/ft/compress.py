@@ -8,7 +8,7 @@ back into the next step's gradient: the error-feedback trick that restores
 convergence.  The scale divides by 127 and the codes by the scale as IEEE
 divisions on every device (``core/quant.py`` :func:`div127`), so the codes
 and scales are the reference's bit for bit.  The all-reduce itself
-(``compressed_psum``) is a collective (ROADMAP A.14).
+(``compressed_psum``) is a training collective (ROADMAP A.14b).
 """
 from __future__ import annotations
 

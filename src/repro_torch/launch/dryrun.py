@@ -36,7 +36,7 @@ Records go to ``artifacts/dryrun_torch/<arch>__<shape>__h100x1[__variant].json``
 ``--quick`` counts the reference's reduced quick cells uncut and writes
 ``quick_manifest.json``.  Variants: ``baseline`` and ``bf16dmvm``
 (``Runtime.dmvm_dtype = torch.bfloat16``); the reference's mesh variants
-raise (ROADMAP A.14).  A cell that cannot be counted is ``skipped`` with
+raise (ROADMAP A.14b).  A cell that cannot be counted is ``skipped`` with
 its reason, and the run then exits 1: only ``applicable``'s skips pass.
 """
 from __future__ import annotations
@@ -84,8 +84,8 @@ FIT_SHARE = 0.85     # of the card's bytes a peak run may hold in weights and st
 def check_variant(variant: str) -> None:
     if variant in MESH_VARIANTS:
         raise NotImplementedError(
-            f"dry-run variant {variant!r} sets the reference's mesh fields; the mesh "
-            "layer is not ported yet (ROADMAP A.14)")
+            f"dry-run variant {variant!r} sets the reference's mesh fields; the dry "
+            "run's mesh variants are not ported yet (ROADMAP A.14b)")
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of "
                          f"{sorted(VARIANTS) + list(MESH_VARIANTS)}")

@@ -47,31 +47,53 @@ configuration of the reference's registry (chameleon-34b prompts with
 token ids here, as the reference's CLI does).  An encoder-decoder
 (whisper-tiny) serves in the fixed-batch mode only, from frame embeddings
 drawn from the seed; the continuous engine refuses it as the reference's
-does.  ``--mesh`` (sharded serving, expert parallelism included, ROADMAP
-A.14) is not ported and raises.
+does.
+
+Either engine mode accepts ``--mesh DxM`` to serve over a (data, model)
+mesh: ``D * M`` ranks (processes) are spawned in a gloo world, each draws
+its blocks of the seeded weights (``transformer.init_params_sharded``) and
+runs the mode with ``Runtime(mesh=..., data_axes=("data",),
+serve_resident_moe=True)``, as the reference's ``make_serve_runtime``
+builds it (slot pool over the data axis, heads, FFN and experts over
+``model``); rank 0 prints.  With ``--device cuda`` every rank uses the one
+card (the collectives go through host memory); without a card it raises.
+GQA/MHA decoders with dense or MoE FFNs serve on a mesh; other families,
+the prefix cache, the cold tier, the fault flags and the streaming front
+end raise there (ROADMAP A.14b):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --reduced --continuous --mesh 2x2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import os
+import sys
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.device import resolve
+from repro_torch.launch.mesh import make_local_mesh, parse_mesh, spawn
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Runtime
 from repro_torch.serve.engine import ContinuousBatchingEngine, Engine
 from repro_torch.serve.faults import FaultInjector
 
 
 def make_serve_runtime(spec: str | None) -> Runtime:
-    """The serve Runtime; ``--mesh DxM`` (a device mesh) is not ported."""
-    if spec:
-        raise NotImplementedError(
-            f"--mesh {spec}: sharded serving is not ported yet (ROADMAP A.14)")
-    return Runtime()
+    """``--mesh DxM`` -> a serve Runtime over the (data, model) mesh of
+    this process's world (a rank :func:`main` spawned), as the reference's
+    over its first DxM devices; no spec, the one-device Runtime."""
+    if not spec:
+        return Runtime()
+    d, m = parse_mesh(spec)
+    return Runtime(mesh=make_local_mesh(d, m), data_axes=("data",),
+                   serve_resident_moe=True)
 
 
 def _run_fixed(cfg, params, rt, args):
@@ -383,17 +405,28 @@ def main(argv: list[str] | None = None):
                     help="per-request sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=None)
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help='serve over a (data, model) mesh, e.g. "2x4" '
-                         "(not ported yet)")
+                    help='serve over a (data, model) mesh of D*M spawned ranks, '
+                         'e.g. "2x4"')
     ap.add_argument("--device", default="cuda",
                     help='"cuda" (the card, the default) or "cpu" (the '
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
 
-    rt = make_serve_runtime(args.mesh)
     cfg = registry.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.mesh:
+        d, m = parse_mesh(args.mesh)
+        resolve(args.device)                  # no card: raise before spawning
+        T.check_mesh_family(cfg)
+        if args.serve:
+            raise NotImplementedError(
+                "--serve on a mesh: the streaming front end's admissions and "
+                "cancellations follow each rank's own clock, so the ranks' schedules "
+                "could part (ROADMAP A.14b)")
+        spawn(_mesh_rank, d * m, args, threads=max(1, (os.cpu_count() or 1) // (d * m)))
+        return
+    rt = make_serve_runtime(None)
     params = M.init_params(cfg, seed=0, device=args.device)
     if args.serve:
         _run_serve(cfg, params, rt, args)
@@ -401,6 +434,24 @@ def main(argv: list[str] | None = None):
         _run_continuous(cfg, params, rt, args)
     else:
         _run_fixed(cfg, params, rt, args)
+
+
+def _mesh_rank(rank: int, args) -> None:
+    """One rank of ``--mesh``: its blocks of the seeded weights, then the
+    mode; only rank 0 prints."""
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    cfg = registry.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    rt = make_serve_runtime(args.mesh)
+    params = T.init_params_sharded(cfg, rt, seed=0, device=args.device,
+                                   quantize=not args.no_quantize)
+    if args.continuous:
+        _run_continuous(cfg, params, rt, args)
+    else:
+        _run_fixed(cfg, params, rt, args)
+    sys.stdout.flush()
 
 
 if __name__ == "__main__":

@@ -12,6 +12,15 @@ versions.  MLA (DeepSeek-V3) caches one int8 compressed latent a token
 decodes in the latent space; the reference computes it with plain einsums
 (no Pallas kernel), and so does the port, its linears through the same
 backends as every other linear.
+
+On a mesh (``Runtime.mesh``) a GQA layer whose KV heads tile the model
+axis runs each rank's block of heads: the caller hands these functions a
+configuration with the rank's head counts, the rank's column blocks of
+``wq`` / ``wk`` / ``wv``, its row block of ``wo`` with the row-parallel
+reduction (``reduce``, ``layers.RowReduce``) and its block of the int8
+pool (KV heads, dim 2); B2 / B3 / B4 run over that block.  Where the heads
+do not tile, every rank runs them all.  Prefill turns RoPE by
+``layers.apply_rope_spmd`` on a mesh, as the reference's ``_rope`` does.
 """
 from __future__ import annotations
 
@@ -156,7 +165,8 @@ def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
               kv_lengths: torch.Tensor, key_rows: int, backend: str = "dense",
               rope: tuple[torch.Tensor, torch.Tensor] | None = None,
               hidden: list[torch.Tensor] | None = None,
-              skip: int = 0, x_q: tuple | None = None) -> torch.Tensor:
+              skip: int = 0, x_q: tuple | None = None,
+              reduce: L.RowReduce | None = None, mesh: bool = False) -> torch.Tensor:
     """One chunk of a chunked prefill.  ``x``: [B, C, d] hidden chunk whose
     tokens sit at ``positions`` (= start + arange(C)); ``buf`` carries the
     float K/V of the whole in-flight prompt ([B, S_buf, H_kv, D]).  The
@@ -169,8 +179,9 @@ def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
     cannot see adds an exact zero to that row's sums, so rows past the
     visible prefix change no bit.  ``rope`` (:func:`layers.rope_tables` of
     ``positions``) and ``hidden`` (:func:`hidden_masks`) may come
-    precomputed, once for every layer of a call.  Returns the attention
-    block's output."""
+    precomputed, once for every layer of a call (on a ``mesh``, RoPE takes
+    :func:`layers.apply_rope_spmd` instead).  Returns the
+    attention block's output."""
     B, C, _ = x.shape
     hd = cfg.head_dim
     q = L.apply_linear(L._lin(p, "wq"), x, backend, x_q).reshape(B, C, cfg.n_heads, hd)
@@ -179,7 +190,10 @@ def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if cfg.use_qk_norm:
         q = L.apply_norm(p["q_norm"], q)
         k = L.apply_norm(p["k_norm"], k)
-    if cfg.rope_theta:
+    if cfg.rope_theta and mesh:
+        q = L.apply_rope_spmd(q, positions, cfg.rope_theta)
+        k = L.apply_rope_spmd(k, positions, cfg.rope_theta)
+    elif cfg.rope_theta:
         q = L.apply_rope(q, positions, cfg.rope_theta, tables=rope)
         k = L.apply_rope(k, positions, cfg.rope_theta, tables=rope)
     KV.chunk_update(buf["k"], k[:, skip:], start + skip)
@@ -187,7 +201,7 @@ def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
     o = flash_attention(q, buf["k"][:, :key_rows].to(q.dtype),
                         buf["v"][:, :key_rows].to(q.dtype), q_offset=start,
                         kv_lengths=kv_lengths, kv_block=key_rows, hidden=hidden)
-    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, C, -1), backend)
+    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, C, -1), backend, reduce=reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +230,7 @@ def decode_attention_int8(q: torch.Tensor, k_q, k_s, v_q, v_s, length,
 
 def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
                k_q, k_s, v_q, v_s, backend: str = "dense", x_q: tuple | None = None,
-               inter_dtype=None):
+               inter_dtype=None, reduce: L.RowReduce | None = None):
     """One-token decode.  The new token's int8 K/V append in place at each
     slot's own offset ``pos`` (scalar or [B]); attention covers the cache
     including this position, its SLC intermediates at ``inter_dtype`` (see
@@ -241,7 +255,7 @@ def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     KV.batched_update(v_q, vq_new, pos_b)
     KV.batched_update(v_s, vs_new, pos_b)
     o = decode_attention_int8(q, k_q, k_s, v_q, v_s, pos_b + 1, backend, inter_dtype)
-    out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, 1, -1), backend)
+    out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, 1, -1), backend, reduce=reduce)
     return out, (k_q, k_s, v_q, v_s)
 
 
@@ -271,7 +285,8 @@ def verify_attention_int8(q: torch.Tensor, k_q, k_s, v_q, v_s, pos,
 
 def gqa_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
                k_q, k_s, v_q, v_s, backend: str = "dense", depth=None,
-               anc=None, x_q: tuple | None = None, inter_dtype=None):
+               anc=None, x_q: tuple | None = None, inter_dtype=None,
+               reduce: L.RowReduce | None = None):
     """Multi-token decode for the verify step: consume ``x`` ([B, T, d], the
     last committed token plus T-1 drafts per slot) at each slot's cursor.
     The T int8 K/V rows append in place at the per-slot offset and all T
@@ -304,7 +319,7 @@ def gqa_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     KV.batched_update(v_s, vs_new, pos_b)
     o = verify_attention_int8(q, k_q, k_s, v_q, v_s, pos_b, backend, anc=anc,
                               inter_dtype=inter_dtype)
-    out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend)
+    out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend, reduce=reduce)
     return out, (k_q, k_s, v_q, v_s)
 
 
@@ -356,7 +371,8 @@ def mla_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
               kv_lengths: torch.Tensor, key_rows: int, backend: str = "dense",
               rope: tuple[torch.Tensor, torch.Tensor] | None = None,
               hidden: list[torch.Tensor] | None = None,
-              skip: int = 0, x_q: tuple | None = None) -> torch.Tensor:
+              skip: int = 0, x_q: tuple | None = None,
+              reduce: L.RowReduce | None = None, mesh: bool = False) -> torch.Tensor:
     """Prefill MLA over a chunk, :func:`gqa_chunk`'s sibling: per-head float
     keys ``[k_nope; k_rope]`` (width ``dn + dr``, the rope part shared by
     every head) and values (width ``dv``) land in ``buf["k"]`` /
@@ -377,7 +393,7 @@ def mla_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
     o = flash_attention(qf, buf["k"][:, :key_rows].to(qf.dtype),
                         buf["v"][:, :key_rows].to(qf.dtype), q_offset=start,
                         kv_lengths=kv_lengths, kv_block=key_rows, hidden=hidden)
-    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, C, -1), backend)
+    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, C, -1), backend, reduce=reduce)
 
 
 def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,

@@ -70,13 +70,13 @@ class StepGraph:
     captured at construction and :meth:`__call__` replays it; on the CPU
     :meth:`__call__` runs ``fn``."""
 
-    def __init__(self, fn: Callable[[], Any], state: dict, pool=None):
+    def __init__(self, fn: Callable[[], Any], state: dict, pool=None, eager: bool = False):
         self.fn = fn
         self.graph: torch.cuda.CUDAGraph | None = None
         self.out: Any = None
         self.launches: dict[str, int] = {}
         dev = state["pos"].device
-        if dev.type == "cuda":
+        if dev.type == "cuda" and not eager:
             self._capture(state, dev, pool)
 
     def _capture(self, state: dict, dev: torch.device, pool) -> None:
@@ -130,6 +130,9 @@ class ServeSteps:
 
     Each step runs under ``rt`` (its backend and ``dmvm_dtype``), which a
     graph keeps: a step captured under bf16 SLC intermediates replays them.
+    On a mesh (``rt.mesh``) the steps run eagerly on the card too: their
+    gloo collectives copy through host memory, which a CUDA graph cannot
+    hold.
     """
 
     def __init__(self, params: Any, cfg: ModelConfig, rt: Runtime, state: dict,
@@ -160,7 +163,8 @@ class ServeSteps:
         return [self.tok, *self.window.values(), *self.depth.values(), *self.anc.values()]
 
     def _add(self, key: tuple, fn: Callable[[], Any]) -> None:
-        self.graphs[key] = StepGraph(fn, self.state, self.pool)
+        self.graphs[key] = StepGraph(fn, self.state, self.pool,
+                                     eager=self.rt.mesh is not None)
 
     def _decode(self):
         logits, _ = M.decode_step(self.params, self.cfg, self.state, self.tok,

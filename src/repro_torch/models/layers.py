@@ -8,17 +8,29 @@ form and the execution backend: the W8A8 reference matmul, the B1 kernel
 the two kernel backends a norm whose output feeds quantized linears
 (:func:`apply_norm_q`) hands them its int8 pair, written by the norm's
 entry fused with the activation quantizer.
+
+On a mesh (``Runtime.mesh``) a column-parallel linear is the same call on
+the rank's block of output columns; a row-parallel one (``wo``,
+``w_down``) takes a :class:`RowReduce` and sums the ranks' partial
+products over the model axis, with the integer stages kept exact: the
+activation quantizer's ``amax`` is all-reduced with MAX (each rank's codes
+and scale are the one-device quantizer's), the rank's int32 partial
+accumulator is all-reduced (exact in any order, so ``psum`` and ``htree``
+give the same bits) and the epilogue ``acc * x_s * w_s`` runs after it, in
+the plain version's order.  Under ``dense`` the float partials are summed
+and may differ from one device in the last bits.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant
+from repro_torch.dist import collectives as C
 from repro_torch.kernels import int8_matmul as mm_ops
 from repro_torch.kernels import layer_norm as ln_ops
 from repro_torch.kernels import pim_mvm as pim_ops
@@ -53,12 +65,48 @@ PAIR_BACKENDS = ("fused_int8", "pim_bitserial")
 MLP_INPUTS = ("w_up", "w_gate")      # an MLP's linears that read its input
 
 
+class RowReduce(NamedTuple):
+    """A row-parallel linear's reduction: the model axis' process group
+    (``launch.mesh.AxisGroup``) and the collective (``psum`` | ``htree``)."""
+    group: Any
+    collective: str = "psum"
+
+
+def _row_parallel(p: Params, x: torch.Tensor, backend: str, red: RowReduce) -> torch.Tensor:
+    """:func:`apply_linear` of a rank's block of input rows (``x``'s last
+    dim and ``p``'s weight rows are the rank's block of K), summed over
+    ``red.group``."""
+    if "w_q" not in p:
+        part = torch.matmul(x, p["w"].to(x.dtype))
+        return C.allreduce(part, red.group, red.collective)
+    if p.get("smooth") is not None:
+        raise NotImplementedError("a smoothed row-parallel linear on a mesh")
+    amax = C.all_reduce(x.abs().amax(dim=-1, keepdim=True), red.group, "max")
+    x_s = quant._scale(amax)
+    x_q = torch.clamp(torch.round(x / x_s), -127, 127).to(torch.int8)
+    lead = x.shape[:-1]
+    xq2, xs2 = x_q.reshape(-1, x.shape[-1]).contiguous(), x_s.reshape(-1, 1).contiguous()
+    if backend == "pim_bitserial":
+        _, acc = pim_ops.pim_mvm_2d(xq2, xs2, p["w_q"], p["w_s"], with_acc=True)
+    elif backend == "fused_int8":
+        _, acc = mm_ops.int8_matmul_2d(xq2, xs2, p["w_q"], p["w_s"], with_acc=True)
+    else:
+        acc = quant.exact_int_matmul(xq2, p["w_q"])
+    acc = C.allreduce(acc, red.group, red.collective)
+    out = acc.to(torch.float32) * xs2 * p["w_s"]
+    return out.reshape(*lead, out.shape[-1]).to(x.dtype)
+
+
 def apply_linear(p: Params, x: torch.Tensor, backend: str = "dense",
-                 x_q: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+                 x_q: tuple[torch.Tensor, torch.Tensor] | None = None,
+                 reduce: RowReduce | None = None) -> torch.Tensor:
     """x: [..., in] -> [..., out].  ``x_q``: x's per-row int8 codes and
     scales (``quantize_activation(x)``'s bits) where the caller has them
     (:func:`apply_norm_q`); a quantized linear without ``smooth`` takes them
-    instead of quantizing x again."""
+    instead of quantizing x again.  ``reduce``: the linear is row-parallel
+    on a mesh (see the module's docstring)."""
+    if reduce is not None:
+        return _row_parallel(p, x, backend, reduce)
     if "w_q" in p:
         lin = quant.QuantizedLinear(w_q=p["w_q"], w_scale=p["w_s"],
                                     smooth=p.get("smooth"))
@@ -145,6 +193,28 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
     return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
 
 
+def apply_rope_spmd(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """:func:`apply_rope`'s rotation written as a per-position [D, D]
+    rotation *contraction* instead of rotate-half's split and concat, the
+    form the reference's prefill takes under a mesh (its partitioner
+    mis-partitions the concat of a deferred partial sum); the port's mesh
+    prefill takes it too, so both meshes' float K/V part from one device's
+    by the same ulps."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = rope_freqs(d, theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs          # [B, T, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    i = torch.arange(half, device=x.device)
+    rot = torch.zeros((*ang.shape[:-1], d, d), dtype=torch.float32, device=x.device)
+    rot[..., i, i] = cos
+    rot[..., half + i, i] = -sin
+    rot[..., i, half + i] = sin
+    rot[..., half + i, half + i] = cos
+    out = torch.einsum("...thd,...tde->...the", x.to(torch.float32), rot)
+    return out.to(x.dtype)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                tables: tuple[torch.Tensor, torch.Tensor] | None = None
                ) -> torch.Tensor:
@@ -199,9 +269,12 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, mlp_type: str,
 
 
 def apply_mlp(p: Params, x: torch.Tensor, mlp_type: str, backend: str = "dense",
-              x_q: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+              x_q: tuple[torch.Tensor, torch.Tensor] | None = None,
+              reduce: RowReduce | None = None) -> torch.Tensor:
     """The MLP over ``x``; ``x_q`` its int8 pair for ``w_up`` and ``w_gate``
-    (see :func:`apply_linear`)."""
+    (see :func:`apply_linear`); ``reduce``: on a mesh, the FFN dim is split
+    over the model axis (``w_up`` / ``w_gate`` column-parallel, ``w_down``
+    row-parallel)."""
     up = apply_linear(_lin(p, "w_up"), x, backend, x_q)
     if mlp_type == "swiglu":
         gate = apply_linear(_lin(p, "w_gate"), x, backend, x_q)
@@ -210,7 +283,7 @@ def apply_mlp(p: Params, x: torch.Tensor, mlp_type: str, backend: str = "dense",
         h = torch.square(F.relu(up))
     else:  # gelu (jax.nn.gelu's default is the tanh approximation)
         h = F.gelu(up, approximate="tanh")
-    return apply_linear(_lin(p, "w_down"), h, backend)
+    return apply_linear(_lin(p, "w_down"), h, backend, reduce=reduce)
 
 
 def _lin(p: Params, name: str) -> Params:

@@ -1,8 +1,7 @@
 """Mixture-of-Experts FFN: top-k routing with per-expert capacity (a
 dropping MoE), the experts' SwiGLU / relu2 / gelu FFNs, and the combine.
 
-PyTorch counterpart of ``repro.models.moe`` outside a mesh (expert
-parallelism over a mesh axis is ROADMAP A.14).  The router is a float
+PyTorch counterpart of ``repro.models.moe``.  The router is a float
 "controller op"; the expert weights are static, flash-resident stacks.
 Float experts run a batched float product; quantized experts (weight-only
 int8 from ``serve/quantize.py``) take per-row int8 activations through the
@@ -27,6 +26,16 @@ in which the reference's scatter-add visits them (its ``[E, cap]`` buffer
 flattened: ascending expert), each from a zero row: the same code on the
 CPU and on the card, with no atomics, so a token's sum is the same bits
 whatever its k (top-8 as top-2).
+
+Expert parallelism (a mesh, ``launch/mesh.py``): a rank holds a window of
+the experts (``e_first``, ``n_local``: ``ep``) or every expert's block of
+the FFN dim (``etp``), routes every row of the call with the replicated
+router (so every rank keeps the same set, under the global capacity), runs
+its window and adds its rows in the same ascending order; the ranks'
+partial outputs are then summed by the combine collective, whose float
+order differs from one device's (within the reference's rtol 2e-3 / atol
+2e-4).  ``transformer._moe_block`` picks the layout (``dist/sharding.py``
+``moe_param_specs``).
 """
 from __future__ import annotations
 
@@ -190,19 +199,31 @@ def combine(ye: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 
 
 def moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-              with_aux: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+              with_aux: bool = False, e_first: int = 0, n_local: int | None = None,
+              shared_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor | None]:
     """MoE over ``x`` [N, d], routed by :func:`route`.  Returns
     ``(out [N, d], aux)``: ``aux`` is the Switch-style load-balance loss
     where ``with_aux`` asks for it (serving discards it, as the reference's
     serve paths do), else None.  Each expert's output row is scaled by its
     slot's weight, and a token's rows are summed by :func:`combine` in
-    ascending expert order."""
+    ascending expert order.
+
+    On a mesh ``p`` holds the rank's expert stacks, experts ``[e_first,
+    e_first + n_local)`` of the global ``E`` (``n_local`` None: all of
+    them, or all with a block of the FFN dim): routing is global, only the
+    window's rows run, and ``out`` is the rank's partial sum (the other
+    experts' rows add exact zeros), which the caller sums over the ranks;
+    ``shared_scale`` pre-scales the shared expert, replicated over axes
+    that sum."""
     N, d = x.shape
     E, k = cfg.n_experts, cfg.n_experts_active
+    n_local = E if n_local is None else int(n_local)
     r = route(p, x, cfg)
     if _counter is not None and _counter.device == x.device:
         _counter.add_(torch.stack([torch.ones_like(r.dropped), r.dropped,
                                    (r.counts > 0).sum()]))
+    if n_local != E:
+        return _moe_window(p, x, cfg, r, int(e_first), n_local, shared_scale), None
     aux = None
     if with_aux:
         ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
@@ -213,22 +234,68 @@ def moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     xe = x[r.toks] * valid[..., None].to(x.dtype)                    # gather
     ye = _expert_ffn(xe, p, cfg, r.counts)
     ye = ye * r.ws[..., None].to(ye.dtype)
-    out = combine(ye, r.order)
-    if cfg.n_shared_experts and "shared" in p:
-        out = out + L.apply_mlp(p["shared"], x, cfg.mlp_type)
-    return out, aux
+    return _add_shared(combine(ye, r.order), p, x, cfg, shared_scale), aux
+
+
+def _add_shared(out: torch.Tensor, p: Params, x: torch.Tensor, cfg: ModelConfig,
+                scale: float) -> torch.Tensor:
+    """``out`` plus the shared expert's output (scaled by ``scale`` where it
+    is not 1) where the configuration has one."""
+    if not (cfg.n_shared_experts and "shared" in p):
+        return out
+    sh = L.apply_mlp(p["shared"], x, cfg.mlp_type)
+    return out + (sh if scale == 1.0 else scale * sh)
+
+
+def _moe_window(p: Params, x: torch.Tensor, cfg: ModelConfig, r: Routing,
+                e_first: int, n_local: int, shared_scale: float) -> torch.Tensor:
+    """:func:`moe_local`'s rank part for the expert window ``[e_first,
+    e_first + n_local)``: the window's buffer rows through the rank's
+    stacks, each token's window rows added in ascending order (rows of
+    other experts point at the spare zero row)."""
+    cap = r.toks.shape[1]
+    win = slice(e_first, e_first + n_local)
+    toks, ws, counts = r.toks[win], r.ws[win], r.counts[win]
+    valid = torch.arange(cap, device=x.device)[None, :] < counts[:, None]
+    xe = x[toks] * valid[..., None].to(x.dtype)
+    ye = _expert_ffn(xe, p, cfg, counts) * ws[..., None].to(x.dtype)
+    lo, hi = e_first * cap, (e_first + n_local) * cap
+    local = (r.order >= lo) & (r.order < hi)
+    order = torch.where(local, r.order - lo, n_local * cap)
+    return _add_shared(combine(ye, order), p, x, cfg, shared_scale)
+
+
+def ep_capable(cfg: ModelConfig, axis_size: int) -> bool:
+    return cfg.n_experts % axis_size == 0 and cfg.n_experts >= axis_size
 
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, axis_name: str | None = None,
-              with_aux: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+              with_aux: bool = False, mesh=None, reduce_fn=None
+              ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """MoE over ``x`` [B, T, d]: its ``B * T`` rows routed together, b-major,
     as the reference's call routes them.  Returns ``(out [B, T, d], aux)``
-    (see :func:`moe_local`).  Expert parallelism over a mesh axis
-    (``axis_name``) is not ported."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"moe_apply over mesh axis {axis_name!r}: expert parallelism is not "
-            "ported yet (ROADMAP A.14)")
+    (see :func:`moe_local`).  With ``axis_name`` (an axis of ``mesh``, a
+    ``launch.mesh.Mesh``) ``p`` holds the rank's experts: a window of
+    ``E / size`` where the axis tiles the experts (``ep``), else every
+    expert's block of the FFN dim (``etp``), and the partial outputs are
+    summed over the axis by ``reduce_fn`` (default: the gloo all-reduce).
+    The load-balance loss is not computed on a mesh (training on a mesh is
+    ROADMAP A.14b)."""
     B, T, d = x.shape
-    out, aux = moe_local(p, x.reshape(B * T, d), cfg, with_aux=with_aux)
-    return out.reshape(B, T, d).to(x.dtype), aux
+    xf = x.reshape(B * T, d)
+    if axis_name is None:
+        out, aux = moe_local(p, xf, cfg, with_aux=with_aux)
+        return out.reshape(B, T, d).to(x.dtype), aux
+    if with_aux:
+        raise NotImplementedError("the MoE aux loss on a mesh is training (ROADMAP A.14b)")
+    if mesh is None:
+        raise ValueError(f"moe_apply over axis {axis_name!r} needs the mesh it names")
+    from repro_torch.dist import collectives as C
+    group = mesh.group(axis_name)
+    if ep_capable(cfg, group.size):
+        n_local = cfg.n_experts // group.size
+        out, _ = moe_local(p, xf, cfg, e_first=group.index * n_local, n_local=n_local)
+    else:   # etp: all experts local, FFN dim sliced
+        out, _ = moe_local(p, xf, cfg)
+    out = reduce_fn(out) if reduce_fn is not None else C.all_reduce(out, group)
+    return out.reshape(B, T, d).to(x.dtype), None

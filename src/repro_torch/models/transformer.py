@@ -24,11 +24,28 @@ of each call together, so a MoE stack runs each call's rows in one piece
 aux loss) runs every layer over the whole sequence under autograd, with
 no buffer written in place; ``Runtime.remat`` recomputes each layer in the
 backward.
+
+On a mesh (``Runtime.mesh``, a ``launch.mesh.Mesh`` of processes) a GQA/MHA
+decoder with dense or MoE FFNs serves tensor- and expert-parallel, the
+explicit form of what the reference's partitioner computes from its
+shardings: each rank holds its block of every leaf (:func:`place_params`:
+the ``dist/sharding.py`` specs, the tree's ``specs`` key keeping them) and
+of the slot pool (:func:`init_decode_block`: slots over the data axes, KV
+heads over ``model``).  A layer's FSDP-stored dims (the data axes) are
+all-gathered before use, one layer at a time; attention runs the rank's
+heads and ``wo`` is row-parallel, the MLP's FFN dim splits over ``model``
+(``w_down`` row-parallel), the embedding takes the rank's vocabulary rows
+and sums them over ``model`` (exact: one rank adds a row, the others
+zeros), ``lm_head`` gives the rank's vocabulary columns, gathered over
+``model``, and the MoE block (:func:`_moe_block`) runs the reference's
+layouts.  A step's rows are the rank's slots (decode, verify) or the
+whole call, replicated over the data axes (prefill).  Other families on
+a mesh raise (ROADMAP A.14b).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.utils.checkpoint
@@ -37,6 +54,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvcache as KV
 from repro_torch.core.quant import quantize_kv
 from repro_torch.device import generator, resolve
+from repro_torch.dist import collectives as C
+from repro_torch.dist import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -48,19 +67,33 @@ BACKENDS = ("dense", "ref_int8", "fused_int8", "pim_bitserial")
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
-    """Execution context threaded through model apply functions.  The
-    reference's mesh fields (``mesh``, ``data_axes``, ``model_axis``,
-    ``collective``, ``serve_resident_moe``, ``seq_shard``) are mesh code
-    (ROADMAP A.14)."""
+    """Execution context threaded through model apply functions.  ``mesh``
+    (a ``launch.mesh.Mesh``) serves over a (data, model) mesh of processes
+    (see the module's docstring); ``collective`` sums the model axis'
+    partials (``psum`` or the H-tree); ``serve_resident_moe`` keeps decode
+    experts resident.  ``seq_shard`` (sequence-parallel activations) is
+    training on a mesh, ROADMAP A.14b: setting it raises."""
     backend: str = "dense"               # dense | ref_int8 | fused_int8 | pim_bitserial
+    mesh: Any = None                     # launch.mesh.Mesh | None
+    data_axes: tuple = ("data",)
+    model_axis: str = "model"
     remat: bool = False                  # training: recompute each layer in the backward
+    collective: str = "psum"             # psum (ring) | htree (tree all-reduce)
+    serve_resident_moe: bool = False     # decode: experts resident (no FSDP gather)
     # the SLC intermediates' dtype (e.g. torch.bfloat16; None: f32): decode
     # and verify hand it to the plain int8 attention and to absorbed MLA
     dmvm_dtype: Any = None
+    seq_shard: bool = False              # sequence-parallel activations (train)
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of {BACKENDS}")
+        if self.collective not in C.COLLECTIVES:
+            raise ValueError(f"unknown collective {self.collective!r}; want psum|htree")
+        if self.seq_shard:
+            raise NotImplementedError(
+                "Runtime(seq_shard=True): sequence-parallel activations are training "
+                "on a mesh, not ported yet (ROADMAP A.14b)")
         if self.dmvm_dtype is not None and not (isinstance(self.dmvm_dtype, torch.dtype)
                                                 and self.dmvm_dtype.is_floating_point):
             raise TypeError(f"dmvm_dtype must be a float torch.dtype or None, got "
@@ -137,16 +170,22 @@ def _ln1(p: Params, x: torch.Tensor, rt: Runtime) -> tuple:
     return L.apply_norm_q(p["ln1"], x, rt.backend, p["attn"], A.INPUT_LINEARS)
 
 
-def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
+         lm: "_LayerMesh | None" = None) -> torch.Tensor:
     """A layer's feed-forward block with its residual: the MoE (the rows of
     ``x`` [B, T, d] routed together, b-major; the router and the dispatched
     rows take the float rows), the MLP (its input linears the norm's int8
-    pair where the backend takes it), or nothing."""
+    pair where the backend takes it), or nothing.  ``lm``: the layer's
+    place on a mesh."""
     if "moe" in p:
-        return x + MOE.moe_apply(p["moe"], L.apply_norm(p["ln2"], x), cfg)[0]
+        h = L.apply_norm(p["ln2"], x)
+        if lm is None:
+            return x + MOE.moe_apply(p["moe"], h, cfg)[0]
+        return x + _moe_block(p["moe"], h, cfg, rt, lm.specs["moe"], lm.split)
     if "mlp" in p:
         h, h_q = L.apply_norm_q(p["ln2"], x, rt.backend, p["mlp"], L.MLP_INPUTS)
-        return x + L.apply_mlp(p["mlp"], h, cfg.mlp_type, rt.backend, h_q)
+        return x + L.apply_mlp(p["mlp"], h, cfg.mlp_type, rt.backend, h_q,
+                               reduce=lm.mlp_reduce if lm else None)
     return x
 
 
@@ -180,20 +219,26 @@ def embedded(cfg: ModelConfig, inputs: torch.Tensor) -> bool:
 
 
 def _embed(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
-           positions: torch.Tensor | None) -> torch.Tensor:
+           positions: torch.Tensor | None, mc: "_MeshCall | None" = None) -> torch.Tensor:
     """Token embeddings of ``inputs``, or ``inputs`` themselves where they
     are embeddings (:func:`embedded`), plus the sinusoidal embedding of
     ``positions`` for the families without RoPE (a tensor of the shape of
     the token axes, never a host int, so a captured step reads its
     positions on every replay; it may be None where ``cfg.rope_theta`` is
     set)."""
-    x = inputs if embedded(cfg, inputs) else p["embed"]["w"][inputs]
+    if embedded(cfg, inputs):
+        x = inputs
+    else:
+        x = p["embed"]["w"][inputs] if mc is None else _embed_ids(p, inputs, mc)
     if not cfg.rope_theta:
         x = x + L.sinusoid_at(positions, cfg.d_model).to(x.dtype)
     return x
 
 
-def _lm_head(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime) -> torch.Tensor:
+def _lm_head(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime,
+             mc: "_MeshCall | None" = None) -> torch.Tensor:
+    if mc is not None:
+        return _lm_head_mesh(p, cfg, h, rt, mc)
     if cfg.tie_embeddings:
         return torch.matmul(h, p["embed"]["w"].to(h.dtype).T)
     return L.apply_linear(L._lin(p["lm_head"], "w"), h, rt.backend)
@@ -333,8 +378,15 @@ def write_slot(state: dict, slot: int, one: dict, start: int = 0) -> dict:
     ``dynamic_update_slice``; the row's cache may be shorter than the pool's
     (it lands at sequence rows ``[start, start + S_row)``, the rows before
     ``start`` left as they are).  SSM leaves have no sequence axis and land
-    whole.  The slot's cursor becomes ``one["pos"]``."""
+    whole.  The slot's cursor becomes ``one["pos"]``.  On a rank's block of
+    a pool (:func:`init_decode_block`) ``slot`` is global: the rank that
+    holds it writes the row, the others nothing."""
     B = state["pos"].shape[0]
+    if "block" in state:              # a rank's block of a pool on a mesh
+        lo, hi, _ = state["block"]
+        if not lo <= int(slot) < hi:
+            return state              # another data rank owns the slot
+        slot = int(slot) - lo
     s = min(max(int(slot), 0), B - 1)
     for full, row in zip(state["layers"], one["layers"]):
         for name, buf in full.items():
@@ -420,9 +472,11 @@ def warm_prefill_carry(cfg: ModelConfig, state: dict, slot: int, n: int,
 
 
 def apply_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
-                       cache: dict, rt: Runtime) -> torch.Tensor:
+                       cache: dict, rt: Runtime, lm: "_LayerMesh | None" = None
+                       ) -> torch.Tensor:
     """One layer of the decode step; an attention layer appends to its cache
-    in place, an SSM layer copies its new state into its state's tensors."""
+    in place, an SSM layer copies its new state into its state's tensors.
+    ``lm``: the layer's place on a mesh (its heads, its reductions)."""
     h, h_q = _ln1(p, x, rt)
     if "ssm" in p:
         mix, new = SSM.ssm_decode(p["ssm"], cfg, h, cache, rt.backend, h_q)
@@ -432,9 +486,10 @@ def apply_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
         mix, _ = A.mla_decode(p["attn"], cfg, h, pos, cache["c_q"], cache["c_s"], rt.backend,
                               h_q, rt.dmvm_dtype)
     else:
-        mix, _ = A.gqa_decode(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
-                              cache["v_q"], cache["v_s"], rt.backend, h_q, rt.dmvm_dtype)
-    return _ffn(p, cfg, x + mix, rt)
+        mix, _ = A.gqa_decode(p["attn"], lm.attn_cfg if lm else cfg, h, pos, cache["k_q"],
+                              cache["k_s"], cache["v_q"], cache["v_s"], rt.backend, h_q,
+                              rt.dmvm_dtype, reduce=lm.attn_reduce if lm else None)
+    return _ffn(p, cfg, x + mix, rt, lm)
 
 
 def decode_step(p: Params, cfg: ModelConfig, state: dict, token: torch.Tensor,
@@ -443,12 +498,14 @@ def decode_step(p: Params, cfg: ModelConfig, state: dict, token: torch.Tensor,
     [B, V], state).  The caches and the cursor update in place (the cursor
     advances by one); the returned state holds the same tensors."""
     B = token.shape[0]
+    mc = _mesh_call(p, cfg, rt, state)
     pos = state["pos"].to(torch.int32).reshape(-1).expand(B)
-    x = _embed(p, cfg, token, pos)[:, None]
-    for lp, cache in zip(p["layers"], state["layers"]):
-        x = apply_layer_decode(lp, cfg, x, pos, cache, rt)
+    x = _embed(p, cfg, token, pos, mc)[:, None]
+    for i, cache in enumerate(state["layers"]):
+        lp, lm = _layer(p, i, mc)
+        x = apply_layer_decode(lp, cfg, x, pos, cache, rt, lm)
     x = L.apply_norm(p["ln_f"], x)
-    logits = _lm_head(p, cfg, x[:, 0], rt)
+    logits = _lm_head(p, cfg, x[:, 0], rt, mc)
     state["pos"].add_(1)
     return logits, {"layers": state["layers"], "pos": state["pos"]}
 
@@ -478,8 +535,8 @@ def multi_decode_step(p: Params, cfg: ModelConfig, state: dict,
 # speculative decode: batched multi-token verify + cursor rollback
 # ---------------------------------------------------------------------------
 def apply_layer_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
-                       cache: dict, rt: Runtime, depth=None, anc=None
-                       ) -> torch.Tensor:
+                       cache: dict, rt: Runtime, depth=None, anc=None,
+                       lm: "_LayerMesh | None" = None) -> torch.Tensor:
     """One layer of the verify pass: :func:`apply_layer_decode` over ``x``
     [B, T, d], appending T K/V rows at each slot's cursor.  ``depth``/``anc``
     ([B, T] int32) switch the window to tree mode (see
@@ -490,10 +547,11 @@ def apply_layer_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
                               rt.backend, depth=depth, anc=anc, x_q=h_q,
                               inter_dtype=rt.dmvm_dtype)
     else:
-        mix, _ = A.gqa_verify(p["attn"], cfg, h, pos, cache["k_q"], cache["k_s"],
-                              cache["v_q"], cache["v_s"], rt.backend,
-                              depth=depth, anc=anc, x_q=h_q, inter_dtype=rt.dmvm_dtype)
-    return _ffn(p, cfg, x + mix, rt)
+        mix, _ = A.gqa_verify(p["attn"], lm.attn_cfg if lm else cfg, h, pos, cache["k_q"],
+                              cache["k_s"], cache["v_q"], cache["v_s"], rt.backend,
+                              depth=depth, anc=anc, x_q=h_q, inter_dtype=rt.dmvm_dtype,
+                              reduce=lm.attn_reduce if lm else None)
+    return _ffn(p, cfg, x + mix, rt, lm)
 
 
 def verify_step(p: Params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
@@ -524,16 +582,18 @@ def verify_step(p: Params, cfg: ModelConfig, state: dict, tokens: torch.Tensor,
             "speculative verify needs a rewindable cache; SSM stacks keep the "
             "one-token decode path (see serve engine)")
     B, T = tokens.shape[:2]
+    mc = _mesh_call(p, cfg, rt, state)
     pos = state["pos"].to(torch.int32).reshape(-1).expand(B)
     positions = None
     if not cfg.rope_theta:
         positions = pos[:, None] + (torch.arange(T, device=tokens.device)[None, :]
                                     if depth is None else depth.to(tokens.device))
-    x = _embed(p, cfg, tokens, positions)
-    for lp, cache in zip(p["layers"], state["layers"]):
-        x = apply_layer_verify(lp, cfg, x, pos, cache, rt, depth=depth, anc=anc)
+    x = _embed(p, cfg, tokens, positions, mc)
+    for i, cache in enumerate(state["layers"]):
+        lp, lm = _layer(p, i, mc)
+        x = apply_layer_verify(lp, cfg, x, pos, cache, rt, depth=depth, anc=anc, lm=lm)
     x = L.apply_norm(p["ln_f"], x)
-    logits = _lm_head(p, cfg, x, rt)
+    logits = _lm_head(p, cfg, x, rt, mc)
     state["pos"].add_(T)
     return logits, x, {"layers": state["layers"], "pos": state["pos"]}
 
@@ -615,7 +675,7 @@ def chunk_pieces(cfg: ModelConfig, cursor: int, n: int) -> int:
 
 def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor,
                    start: int, n_real: torch.Tensor, rt: Runtime,
-                   skip: int = 0) -> torch.Tensor:
+                   skip: int = 0, mc: "_MeshCall | None" = None) -> torch.Tensor:
     """One ``[B, P]`` piece (or its ``[B, P, d]`` embeddings) at positions
     ``start + arange(P)`` in every row (``P`` is ``PREFILL_PIECE`` and
     ``start`` a multiple of it, but for a MoE stack's one piece a call;
@@ -623,26 +683,33 @@ def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor
     through every layer: the piece's K/V from its row ``skip`` on land in
     the float buffers ``bufs`` in place (the rows before stay as they are),
     and its queries attend keys ``< start + n_real`` among the buffers'
-    first ``start + P`` rows.  Returns the hidden states after ``ln_f``
-    [B, P, d]."""
+    first ``start + P`` rows.  ``mc``: the call's place on a mesh.  Returns
+    the hidden states after ``ln_f`` [B, P, d]."""
     B, P = tokens.shape[:2]
     dev = tokens.device
     key_rows = start + P
     start_t = torch.full((B,), start, dtype=torch.int32, device=dev)
     positions = start_t[:, None] + torch.arange(P, device=dev)
-    x = _embed(p, cfg, tokens, positions)
+    x = _embed(p, cfg, tokens, positions, mc)
     kv_lengths = start_t + n_real
     # what every layer shares: the rotary tables and the key blocks' masks
     rope = (L.rope_tables(positions, A.rope_dim(cfg), cfg.rope_theta)
             if cfg.rope_theta else None)
     hidden = A.hidden_masks(P, key_rows, key_rows, q_offset=start_t,
                             kv_lengths=kv_lengths, device=dev)
-    attn = A.mla_chunk if cfg.attn_type == "mla" else A.gqa_chunk
-    for lp, buf in zip(p["layers"], bufs):
+    for i, buf in enumerate(bufs):
+        lp, lm = _layer(p, i, mc)
         h, h_q = _ln1(lp, x, rt)
-        x = x + attn(lp["attn"], cfg, h, positions, buf, start, kv_lengths, key_rows,
-                     rt.backend, rope=rope, hidden=hidden, skip=skip, x_q=h_q)
-        x = _ffn(lp, cfg, x, rt)
+        if cfg.attn_type == "mla":
+            x = x + A.mla_chunk(lp["attn"], cfg, h, positions, buf, start, kv_lengths,
+                                key_rows, rt.backend, rope=rope, hidden=hidden, skip=skip,
+                                x_q=h_q)
+        else:
+            x = x + A.gqa_chunk(lp["attn"], lm.attn_cfg if lm else cfg, h, positions, buf,
+                                start, kv_lengths, key_rows, rt.backend, rope=rope,
+                                hidden=hidden, skip=skip, x_q=h_q,
+                                reduce=lm.attn_reduce if lm else None, mesh=lm is not None)
+        x = _ffn(lp, cfg, x, rt, lm)
     return L.apply_norm(p["ln_f"], x)
 
 
@@ -677,29 +744,33 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
     B, T = inputs.shape[:2]
     if T > max_len:
         raise ValueError(f"prompt of {T} tokens exceeds max_len {max_len}")
+    check_mesh(cfg, rt)
     dev = inputs.device
     lengths = (torch.full((B,), T, dtype=torch.int32, device=dev) if lengths is None
                else torch.as_tensor(lengths, dtype=torch.int32,
                                     device=dev).reshape(-1).expand(B))
     if has_ssm(cfg):
         return _prefill_exact(p, cfg, inputs, max_len, rt, lengths)
-    carry = init_prefill_carry(cfg, carry_len(max_len), dev, batch=B)
+    mc = _mesh_call(p, cfg, rt)
+    local = local_cfg(cfg, rt)
+    carry = init_prefill_carry(local, carry_len(max_len), dev, batch=B)
     rows = torch.arange(B, device=dev)
     size = T if has_moe(cfg) else PREFILL_PIECE
     last = None
     for lo in range(0, T, size):
         n_real = torch.clamp(lengths - lo, 0, size)
-        h = _prefill_piece(p, cfg, carry["layers"], _piece(inputs, lo, size), lo, n_real, rt)
+        h = _prefill_piece(p, cfg, carry["layers"], _piece(inputs, lo, size), lo, n_real,
+                           rt, mc=mc)
         at = lengths - 1 - lo                  # each row's last token, if here
         cand = h[rows, torch.clamp(at, 0, size - 1).long()]
         here = ((at >= 0) & (at < size))[:, None]
         last = cand if last is None else torch.where(here, cand, last)
-    state = init_decode_state(cfg, B, max_len, dev)
+    state = init_decode_state(local, B, max_len, dev)
     for cache, buf in zip(state["layers"], carry["layers"]):
         for name, val in _quantize_carry(buf, 0, T).items():
             KV.chunk_update(cache[name], val, 0)
     state["pos"] = lengths.clone()
-    return _lm_head(p, cfg, last, rt), state
+    return _lm_head(p, cfg, last, rt, mc), state
 
 
 def _prefill_exact(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
@@ -807,9 +878,11 @@ def prefill_chunk(p: Params, cfg: ModelConfig, carry: dict, tokens: torch.Tensor
         raise ValueError(f"n_real {n} outside a chunk of {tokens.shape[1]}")
     cursor = int(carry["pos"].reshape(-1)[0])     # one cursor: a carry is B = 1
     end = cursor + n
+    mc = _mesh_call(p, cfg, rt)
     if embedded(cfg, tokens):
         if "embeds" not in carry:
-            carry["embeds"] = p["embed"]["w"][carry["tokens"]]
+            carry["embeds"] = (p["embed"]["w"][carry["tokens"]] if mc is None
+                               else _embed_ids(p, carry["tokens"], mc))
         src = carry["embeds"]
     elif "embeds" in carry:
         raise ValueError("a prefill carry that holds embeddings takes embedding chunks only")
@@ -818,16 +891,16 @@ def prefill_chunk(p: Params, cfg: ModelConfig, carry: dict, tokens: torch.Tensor
     src[:, cursor:end] = tokens[:, :n]
     if has_moe(cfg):
         h = _prefill_piece(p, cfg, carry["layers"], tokens, cursor,
-                           torch.full_like(carry["pos"], n), rt)
+                           torch.full_like(carry["pos"], n), rt, mc=mc)
         carry["pos"].add_(n)
-        return _lm_head(p, cfg, h[:, n - 1], rt), carry
+        return _lm_head(p, cfg, h[:, n - 1], rt, mc), carry
     for lo in range(cursor - cursor % PREFILL_PIECE, end, PREFILL_PIECE):
         k = min(PREFILL_PIECE, end - lo)
         h = _prefill_piece(p, cfg, carry["layers"], src[:, lo:lo + PREFILL_PIECE],
                            lo, torch.full_like(carry["pos"], k), rt,
-                           skip=max(cursor - lo, 0))
+                           skip=max(cursor - lo, 0), mc=mc)
     carry["pos"].add_(n)
-    return _lm_head(p, cfg, h[:, k - 1], rt), carry
+    return _lm_head(p, cfg, h[:, k - 1], rt, mc), carry
 
 
 def finalize_prefill_carry(cfg: ModelConfig, carry: dict, max_len: int,
@@ -926,3 +999,396 @@ def mtp_draft_tree(p: Params, cfg: ModelConfig, hidden: torch.Tensor, token: tor
             tj = torch.argmax(lg, -1).to(torch.int32)
             drafts.append(tj)
     return torch.stack(drafts, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the mesh: tensor-parallel GQA decoders, resident expert parallelism
+# ---------------------------------------------------------------------------
+RESIDENT = ("ep2", "ep_data", "etp2")
+
+
+def check_mesh(cfg: ModelConfig, rt: Runtime) -> None:
+    """On a mesh, only GQA/MHA decoders with dense or MoE FFNs serve
+    (llama, granite, phi3, OPT, chameleon, nemotron, grok); any other
+    family raises, citing ROADMAP A.14b."""
+    if rt.mesh is not None:
+        check_mesh_family(cfg)
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """:func:`check_mesh`'s test of the family, with no mesh at hand."""
+    if not (cfg.family in ("dense", "vlm", "moe") and cfg.attn_type == "gqa"):
+        raise NotImplementedError(
+            f"{cfg.name} on a mesh: only GQA/MHA decoders (dense or MoE FFNs) serve over "
+            "a mesh; MLA, SSM, hybrid and encoder-decoder stacks under a mesh are "
+            "ROADMAP A.14b")
+    check_supported(cfg)
+
+
+def attn_tiles(cfg: ModelConfig, mesh) -> bool:
+    """Whether the KV heads (and so the query heads) tile the model axis:
+    then each rank runs its block of heads, else every rank runs them
+    all."""
+    m = mesh.shape[SH.MODEL_AXIS]
+    return cfg.n_kv_heads % m == 0 and cfg.n_kv_heads >= m
+
+
+def local_cfg(cfg: ModelConfig, rt: Runtime) -> ModelConfig:
+    """``cfg`` with the head counts of a rank's block (the shapes of its
+    attention, its carry and its pool), or ``cfg`` off a mesh or where the
+    heads do not tile."""
+    if rt.mesh is None or not attn_tiles(cfg, rt.mesh):
+        return cfg
+    m = rt.mesh.shape[SH.MODEL_AXIS]
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m)
+
+
+def _strip(spec: tuple, axes) -> tuple:
+    """``spec`` without ``axes`` in any entry."""
+    out = []
+    for e in spec:
+        kept = tuple(a for a in SH._entry_axes(e) if a not in axes)
+        out.append(None if not kept else kept[0] if len(kept) == 1 else kept)
+    return tuple(out)
+
+
+def mesh_param_specs(cfg: ModelConfig, tree: Any, mesh, serve: bool = False) -> Any:
+    """The spec of every leaf of ``tree`` on ``mesh``: ``dist/sharding.py``
+    ``param_shardings``, but attention weights stay whole over ``model``
+    where the heads do not tile it (a rank runs whole heads)."""
+    specs = SH.param_shardings(cfg, tree, mesh, serve=serve)
+    if not attn_tiles(cfg, mesh):
+        for ls in specs.get("layers", []):
+            if "attn" in ls:
+                ls["attn"] = {k: _strip(v, (SH.MODEL_AXIS,)) for k, v in ls["attn"].items()}
+    return specs
+
+
+def shard_pair(cfg: ModelConfig, params: Params, qparams: Params, rt: Runtime
+               ) -> tuple[Params, Params]:
+    """The rank's blocks of the float tree (placed for prefill: ``ep`` /
+    ``etp`` experts) and of the decode tree (resident experts where
+    ``rt.serve_resident_moe``), as the reference's ``_place_on_mesh``
+    places them.  A tensor of both trees (the float leaves ``quantize_tree``
+    keeps, or every leaf where the decode tree is the float tree) whose two
+    blocks are the same is held once."""
+    mesh = rt.mesh
+    memo: dict = {}
+
+    def cut(node, spec):
+        if isinstance(node, dict):
+            return {k: cut(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [cut(v, sp) for v, sp in zip(node, spec)]
+        if not isinstance(node, torch.Tensor):
+            return node
+        key = (id(node), SH.live(spec, mesh))
+        if key not in memo:
+            memo[key] = SH.shard(node, spec, mesh)
+        return memo[key]
+
+    out = []
+    for tree, serve in ((params, False), (qparams, rt.serve_resident_moe)):
+        specs = mesh_param_specs(cfg, tree, mesh, serve=serve)
+        local = cut(tree, specs)
+        local["specs"] = specs
+        out.append(local)
+    return out[0], out[1]
+
+
+class MeshParams(NamedTuple):
+    """A rank's placed trees: the float tree for prefill and the decode
+    tree (quantized, or the float tree placed for decode), each with its
+    ``specs``; the engines take it in place of a whole float tree."""
+    params: Params
+    qparams: Params
+
+
+def place_params(cfg: ModelConfig, params, quantize: bool, rt: Runtime) -> MeshParams:
+    """The float tree (prefill) and the decode tree (``quantize_tree`` of it
+    where ``quantize``, else the float tree) an engine serves; on a mesh the
+    rank's blocks of both (quantized whole first, then cut), or ``params``
+    itself where it is a rank's :class:`MeshParams` already."""
+    if isinstance(params, MeshParams):
+        return params
+    from repro_torch.serve.quantize import quantize_tree
+    qparams = quantize_tree(params) if quantize else params
+    if rt.mesh is None:
+        return MeshParams(params, qparams)
+    return MeshParams(*shard_pair(cfg, params, qparams, rt))
+
+
+def gather_rows(t: torch.Tensor, state: dict, rt: Runtime) -> torch.Tensor:
+    """A step's per-slot output (dim 0 the rank's slots of ``state``'s
+    pool) with every slot's row: gathered over the data axes where they
+    split the pool, else ``t``."""
+    block = state.get("block")
+    if rt.mesh is None or block is None or block[1] - block[0] == block[2]:
+        return t
+    return C.all_gather(t, rt.mesh.group(SH.data_axes(rt.mesh)), dim=0)
+
+
+def init_params_sharded(cfg: ModelConfig, rt: Runtime, seed: int = 0,
+                        device: str | torch.device = "cuda", dtype=torch.float32,
+                        quantize: bool = True) -> MeshParams:
+    """This rank's blocks of :func:`init_params`'s tree (the same draws)
+    and of its ``quantize_tree`` form, drawn a piece at a time (the
+    embedding, the head, then one layer) and cut at once, so a rank never
+    holds more than one whole layer: ``(params, qparams)``, the float tree
+    placed for prefill and the quantized one for decode (resident experts
+    where ``rt.serve_resident_moe``).  Without ``quantize`` both are the
+    float tree, placed each way."""
+    from repro_torch.serve.quantize import quantize_tree
+    check_mesh(cfg, rt)
+    gen = generator(device, seed)
+    trees: tuple[Params, Params] = ({}, {})          # float, decode
+    specs: tuple[Params, Params] = ({}, {})
+
+    def place(whole: Params) -> None:
+        w = {"layers": [], **whole}
+        for tree, spec, part in zip(trees, specs, shard_pair(
+                cfg, w, quantize_tree(w) if quantize else w, rt)):
+            for key in whole:
+                if key == "layers":
+                    tree.setdefault("layers", []).extend(part["layers"])
+                    spec.setdefault("layers", []).extend(part["specs"]["layers"])
+                else:
+                    tree[key], spec[key] = part[key], part["specs"][key]
+
+    # init_params's draws, in its order, each piece placed before the next
+    place({"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)})
+    place({"ln_f": L.norm_init(cfg.d_model, cfg.norm_type, gen.device)})
+    if not cfg.tie_embeddings:
+        place({"lm_head": L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)})
+    for i in range(cfg.n_layers):
+        place({"layers": [init_layer(gen, cfg, i, dtype)]})
+    for tree, spec in zip(trees, specs):
+        tree["specs"] = spec
+    return MeshParams(*trees)
+
+
+def slot_block(n_slots: int, rt: Runtime) -> tuple[int, int]:
+    """The rank's slots ``[lo, hi)`` of a pool of ``n_slots``: its block
+    over the data axes where they tile the slots (``batch_entry``), else
+    all of them."""
+    mesh = rt.mesh
+    if mesh is None or SH.batch_entry(n_slots, mesh) is None:
+        return 0, n_slots
+    sl = SH.block(n_slots, mesh, SH.live((SH.data_axes(mesh),), mesh)[0])
+    return sl.start, sl.stop
+
+
+def init_decode_block(cfg: ModelConfig, n_slots: int, max_len: int, rt: Runtime,
+                      device: str | torch.device = "cuda") -> dict:
+    """A rank's block of a pool of ``n_slots`` (:func:`init_decode_state`
+    on a mesh): its slots (:func:`slot_block`) and its KV heads
+    (:func:`local_cfg`); ``block`` holds ``(lo, hi, n_slots)``, which
+    :func:`write_slot` and the steps read."""
+    check_mesh(cfg, rt)
+    lo, hi = slot_block(n_slots, rt)
+    state = init_decode_state(local_cfg(cfg, rt), hi - lo, max_len, device)
+    state["block"] = (lo, hi, n_slots)
+    return state
+
+
+def decode_block_of(cfg: ModelConfig, state: dict, rt: Runtime) -> dict:
+    """The rank's block (:func:`init_decode_block`'s layout) of a whole
+    decode state, copied: its slots and, where the heads tile the model
+    axis, its KV heads."""
+    n = state["pos"].shape[0]
+    lo, hi = slot_block(n, rt)
+    g = local_cfg(cfg, rt).n_kv_heads
+    h0 = rt.mesh.index(rt.model_axis) * g if g != cfg.n_kv_heads else 0
+    layers = [{k: v[lo:hi, :, h0:h0 + g].clone() for k, v in c.items()}
+              for c in state["layers"]]
+    return {"layers": layers, "pos": state["pos"][lo:hi].clone(), "block": (lo, hi, n)}
+
+
+class _LayerMesh:
+    """A layer's place on a mesh: its specs, whether the call's rows are
+    split over the data axes, its attention's head counts and the
+    row-parallel reductions of ``wo`` and ``w_down`` (None where the dim is
+    whole on every rank)."""
+
+    def __init__(self, specs: Params, split: bool, attn_cfg: ModelConfig,
+                 attn_reduce, mlp_reduce):
+        self.specs, self.split = specs, split
+        self.attn_cfg, self.attn_reduce, self.mlp_reduce = attn_cfg, attn_reduce, mlp_reduce
+
+
+class _MeshCall:
+    """What one step on a mesh reads: the runtime, the tree's specs and
+    whether its rows are the rank's slots (split over the data axes)."""
+
+    def __init__(self, cfg: ModelConfig, rt: Runtime, specs: Params, split: bool):
+        self.cfg, self.rt, self.mesh, self.specs, self.split = cfg, rt, rt.mesh, specs, split
+        self.dp = SH.data_axes(rt.mesh)
+        self.model = rt.mesh.group(rt.model_axis)
+        self.red = L.RowReduce(self.model, rt.collective)
+        self.attn_cfg = local_cfg(cfg, rt)
+
+
+def _mesh_call(p: Params, cfg: ModelConfig, rt: Runtime, state: dict | None = None
+               ) -> _MeshCall | None:
+    if rt.mesh is None:
+        return None
+    check_mesh(cfg, rt)
+    if "specs" not in p:
+        raise ValueError("params on a mesh are a rank's blocks with their specs "
+                         "(transformer.place_params / init_params_sharded)")
+    block = state.get("block") if state is not None else None
+    split = block is not None and block[1] - block[0] < block[2]
+    return _MeshCall(cfg, rt, p["specs"], split)
+
+
+def _split_over(spec: tuple, mesh, dim: int, axis: str) -> bool:
+    """Whether dim ``dim`` of a leaf under ``spec`` is split over ``axis``."""
+    live = SH.live(spec, mesh)
+    return dim < len(live) and axis in live[dim]
+
+
+def _gather_data(node, spec, mc: _MeshCall):
+    """A layer's leaves with their data-axis (FSDP) dims gathered; the MoE
+    block's leaves stay as stored (``_moe_block`` places them)."""
+    if isinstance(node, dict):
+        return {k: (v if k == "moe" else _gather_data(v, spec[k], mc)) for k, v in node.items()}
+    if isinstance(node, torch.Tensor):
+        return SH.reshard(node, spec, _strip(spec, mc.dp), mc.mesh)
+    return node
+
+
+def _layer(p: Params, i: int, mc: _MeshCall | None) -> tuple[Params, _LayerMesh | None]:
+    """Layer ``i``'s params and, on a mesh, its FSDP dims gathered and its
+    place (:class:`_LayerMesh`)."""
+    lp = p["layers"][i]
+    if mc is None:
+        return lp, None
+    ls = mc.specs["layers"][i]
+    lp = _gather_data(lp, ls, mc)
+    attn_reduce = mlp_reduce = None
+    if "attn" in ls:
+        wo = ls["attn"].get("wo", ls["attn"].get("wo_q"))
+        attn_reduce = mc.red if _split_over(wo, mc.mesh, 0, mc.rt.model_axis) else None
+    if "mlp" in ls:
+        wd = ls["mlp"].get("w_down", ls["mlp"].get("w_down_q"))
+        mlp_reduce = mc.red if _split_over(wd, mc.mesh, 0, mc.rt.model_axis) else None
+    return lp, _LayerMesh(ls, mc.split, mc.attn_cfg if attn_reduce else mc.cfg,
+                          attn_reduce, mlp_reduce)
+
+
+def _embed_ids(p: Params, ids: torch.Tensor, mc: _MeshCall) -> torch.Tensor:
+    """The embedding rows of ``ids`` on a mesh: each rank looks up the ids
+    in its vocabulary rows (zeros for the others) and the model axis sums
+    them, exactly (one rank adds a row, the others zeros)."""
+    spec = mc.specs["embed"]["w"]
+    w = p["embed"]["w"]
+    vocab, cols = SH.live(spec, mc.mesh)
+    if cols and mc.split:
+        # the feature blocks of one row live on the data ranks, whose rows
+        # differ: look up every rank's ids, keep this rank's rows
+        data = mc.mesh.group(mc.dp)
+        b = ids.shape[0]
+        x = _embed_ids(p, C.all_gather(ids, data, dim=0),
+                       _MeshCall(mc.cfg, mc.rt, mc.specs, False))
+        return x[data.index * b:(data.index + 1) * b]
+    n = w.shape[0]
+    if vocab:
+        idx = ids - mc.mesh.index(vocab) * n
+        hit = (idx >= 0) & (idx < n)
+        x = w[torch.clamp(idx, 0, n - 1)] * hit[..., None].to(w.dtype)
+    else:
+        x = w[ids]
+    # the FSDP-stored feature dim: the rows' blocks, gathered (not the table)
+    x = C.all_gather(x, mc.mesh.group(cols), dim=-1) if cols else x
+    return C.allreduce(x, mc.mesh.group(vocab), mc.rt.collective) if vocab else x
+
+
+def _lm_head_mesh(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime,
+                  mc: _MeshCall) -> torch.Tensor:
+    """``lm_head`` on a mesh: the rank's vocabulary columns (the tied
+    embedding's rows), gathered over the axes that split them."""
+    if cfg.tie_embeddings:
+        spec = mc.specs["embed"]["w"]
+        w = SH.reshard(p["embed"]["w"], spec, _strip(spec, mc.dp), mc.mesh)
+        vocab = SH.live(spec, mc.mesh)[0]
+        logits = torch.matmul(h, w.to(h.dtype).T)
+    else:
+        specs = mc.specs["lm_head"]
+        w_name = "w_q" if "w_q" in p["lm_head"] else "w"
+        spec = specs[w_name]
+        vocab = SH.live(spec, mc.mesh)[-1]
+        lin = {w_name: SH.reshard(p["lm_head"][w_name], spec, _strip(spec, mc.dp), mc.mesh)}
+        if "w_s" in p["lm_head"]:      # the scale is whole: the rank's columns of it
+            lin["w_s"] = SH.reshard(p["lm_head"]["w_s"], specs["w_s"], (vocab,), mc.mesh)
+        logits = L.apply_linear(L._lin(lin, "w"), h, rt.backend)
+    if not vocab:
+        return logits
+    return C.all_gather(logits, mc.mesh.group(vocab), dim=-1)
+
+
+def _moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
+               stored: Params, split: bool = False) -> torch.Tensor:
+    """The MoE over ``x`` [B, T, d] on ``rt.mesh``, in the reference's
+    layouts (``dist/sharding.py`` ``moe_param_specs``): a decode call (T
+    1) with a resident layout (``ep2``, ``ep_data``, ``etp2``) runs the
+    rank's resident window over the call's rows, the combine summed over
+    the layout's axes; any other call the ``ep`` / ``etp`` layout over
+    ``model`` (its FSDP dims gathered).  ``p`` holds the rank's blocks under
+    the specs ``stored`` (a leaf is moved to the layout's block where they
+    differ).  Every rank routes every row of the call (``split``: ``x`` is
+    the rank's rows of a call split over the data axes, gathered first and
+    cut back after), so every rank keeps one set under the call's global
+    capacity.  Partial sums combine by ``rt.collective``."""
+    if rt.mesh is None:
+        return MOE.moe_apply(p, x, cfg)[0]
+    mesh = rt.mesh
+    ms = SH.moe_param_specs(cfg, mesh, serve=rt.serve_resident_moe)
+    dp = SH.data_axes(mesh)
+    resident = ms["strategy"] in RESIDENT and x.shape[1] == 1
+    if not resident and rt.serve_resident_moe:
+        ms = SH.moe_param_specs(cfg, mesh, serve=False)
+
+    def working(nm: str, table: dict, leaf: torch.Tensor) -> tuple:
+        key = nm[:-2] if nm.endswith("_q") else nm
+        spec = table.get(nm, table.get(key, (None,) * leaf.dim()))
+        g = ms["gather"].get(nm, ms["gather"].get(key))
+        if g is not None:
+            spec = spec[:g] + (None,) + spec[g + 1:]
+        return spec
+
+    pp = {}
+    for nm, leaf in p.items():
+        if nm == "shared":
+            pp[nm] = {k: SH.reshard(v, stored[nm][k], working(k, ms["shared"], v), mesh)
+                      for k, v in leaf.items()}
+        else:
+            pp[nm] = SH.reshard(leaf, stored[nm], working(nm, ms["spec"], leaf), mesh)
+    data = mesh.group(dp)
+    rows = C.all_gather(x, data, dim=0) if split else x
+    B, T, d = rows.shape
+    if resident:
+        ep_axes = ms["ep_axes"]
+        if ms["strategy"] == "etp2":
+            e_first, n_local = 0, None
+        else:
+            size = SH.axes_size(mesh, ep_axes)
+            n_local = cfg.n_experts // size
+            e_first = mesh.index(ep_axes) * n_local
+        out, _ = MOE.moe_local(pp, rows.reshape(B * T, d), cfg, e_first=e_first,
+                               n_local=n_local,
+                               shared_scale=1.0 / SH.axes_size(mesh, dp))
+        axes = tuple(ep_axes) + ((rt.model_axis,) if ms["strategy"] == "ep_data" else ())
+        if rt.collective == "htree":
+            for a in axes:              # a tree a mesh axis, as the reference
+                out = C.htree_allreduce(out, mesh.group(a))
+        else:
+            out = C.all_reduce(out, mesh.group(axes))
+        out = out.reshape(B, T, d).to(x.dtype)
+    else:
+        model = mesh.group(rt.model_axis)
+        out, _ = MOE.moe_apply(pp, rows, cfg, axis_name=rt.model_axis, mesh=mesh,
+                               reduce_fn=lambda o: C.allreduce(o, model, rt.collective))
+    if split:
+        n = x.shape[0]
+        out = out[data.index * n:(data.index + 1) * n]
+    return out

@@ -80,6 +80,24 @@ top-k pre-select ([n_slots, k] values and indices).  Every transfer goes
 through the metered ``_fetch`` / ``_push`` helpers (``xfer_bytes``,
 ``decode_xfer_bytes``).  A family not ported yet raises
 ``NotImplementedError`` naming its ROADMAP item.
+
+With a ``Runtime`` whose ``mesh`` is set both engines serve over a (data,
+model) mesh of processes, one engine a rank, as the reference's sharded
+engines do: each rank keeps only its blocks of the float tree (prefill),
+the QLC tree (decode; resident experts with ``serve_resident_moe``) and
+the slot pool (its slots over the data axes, its KV heads over ``model``;
+``transformer.init_decode_block``).  ``params`` is a whole float tree
+(quantized whole, then cut) or a rank's ``transformer.MeshParams``.  The
+host scheduler runs the same on every rank (same trace, same decisions);
+a prefill runs on every rank, replicated over the data axes, and the
+slot's owner lands its row; the decode lanes' per-slot outputs (tokens,
+the host sampler's logits or its top-k) are gathered over the data axes,
+so every rank emits the same streams.  A mesh engine runs its steps
+eagerly (its gloo collectives copy through host memory, which a CUDA
+graph cannot hold).  The lanes on a mesh are the plain one,
+``multi_step``, ``chunk``, ``spec_k`` and ``spec_tree`` (GQA/MHA decoders
+with dense or MoE FFNs); ``prefix_cache``, ``kv_swap`` and ``faults``
+raise (ROADMAP A.14b).
 """
 from __future__ import annotations
 
@@ -107,7 +125,6 @@ from repro_torch.serve.faults import (ColdBlockCorrupt, FaultInjector,
                                       PoolConsumedError)
 from repro_torch.serve.kv_swap import SwapManager, slot_template, to_host
 from repro_torch.serve.prefix_cache import RadixPrefixCache
-from repro_torch.serve.quantize import quantize_tree
 from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
                                          SchedulingPolicy)
 
@@ -127,6 +144,8 @@ class RequestFailedError(RuntimeError):
 
 
 def _check_on(params: Any, device: torch.device) -> None:
+    if isinstance(params, T.MeshParams):
+        params = params.params
     w = params["embed"]["w"]
     if w.device.type != device.type:
         raise ValueError(f"params live on {w.device}, engine runs on {device}")
@@ -158,13 +177,17 @@ class Engine:
         set_float32_precision()
         M.check_supported(self.cfg)
         _check_on(self.params, self.device)
-        self.qparams = quantize_tree(self.params) if self.quantize else self.params
+        T.check_mesh(self.cfg, self.rt)
+        self.params, self.qparams = T.place_params(self.cfg, self.params, self.quantize,
+                                                   self.rt)
         self._steps: dict[int, G.ServeSteps] = {}     # batch -> captured step
 
     def _steps_for(self, batch: int) -> G.ServeSteps:
         steps = self._steps.get(batch)
         if steps is None:
-            state = M.init_decode_state(self.cfg, batch, self.max_len, self.device)
+            state = (M.init_decode_state(self.cfg, batch, self.max_len, self.device)
+                     if self.rt.mesh is None else
+                     T.init_decode_block(self.cfg, batch, self.max_len, self.rt, self.device))
             steps = self._steps[batch] = G.ServeSteps(self.qparams, self.cfg,
                                                       self.rt, state)
         return steps
@@ -194,16 +217,19 @@ class Engine:
         # KV handoff: the prefilled state lands in the captured step's pool,
         # and decode runs against the quantized weights
         step = self._steps_for(logits.shape[0])
+        lo, hi, _ = step.state.get("block", (0, logits.shape[0], None))
         for full, row in zip(G.state_tensors(step.state), G.state_tensors(one)):
-            full.copy_(row)
+            full.copy_(row[lo:hi])          # on a mesh: the rank's slots
         del one
         toks = []
         tok = torch.argmax(logits, -1).to(torch.int32)
         t0 = time.perf_counter()
         for _ in range(steps):
             toks.append(tok)
-            step.tok.copy_(tok)
+            step.tok.copy_(tok[lo:hi])
             logits, nxt = step.decode()
+            logits = T.gather_rows(logits, step.state, self.rt)
+            nxt = T.gather_rows(nxt, step.state, self.rt)
             if greedy:
                 tok = nxt.clone()
             else:
@@ -304,6 +330,14 @@ class ContinuousBatchingEngine:
         self._faults_on = bool(faults)
         self._ft = None
         self.topk_preselect = bool(topk_preselect)
+        rt = rt or Runtime()
+        T.check_mesh(cfg, rt)
+        if rt.mesh is not None:
+            lanes = [n for n, on in (("prefix_cache", prefix_cache), ("kv_swap", kv_swap),
+                                     ("faults", faults)) if on]
+            if lanes:
+                raise NotImplementedError(
+                    f"{', '.join(lanes)} on a mesh: not ported yet (ROADMAP A.14b)")
         if self.chunk:
             self.max_step_tokens = (max_step_tokens if max_step_tokens
                                     else n_slots + self.chunk)
@@ -320,11 +354,11 @@ class ContinuousBatchingEngine:
         _check_on(params, self.device)
         self.cfg = cfg
         self.params = params
-        self.rt = rt or Runtime()
+        self.rt = rt
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_bucket = prefill_bucket
-        self.qparams = quantize_tree(params) if quantize else params
+        self.params, self.qparams = T.place_params(cfg, params, quantize, rt)
         self.scheduler = Scheduler(n_slots, max_len, policy)
         self.policy = self.scheduler.policy
         # the prefix cache: radix-indexed KV reuse over the slot pool, for
@@ -350,7 +384,10 @@ class ContinuousBatchingEngine:
         # starting at the last live position clamp back onto live rows
         rows = max_len + KV.pool_headroom(spec_k=self.spec_k, spec_tree=self.spec_tree,
                                           multi_step=self.multi_step)
-        self.state = M.init_decode_state(cfg, n_slots, rows, self.device)
+        self.state = (M.init_decode_state(cfg, n_slots, rows, self.device) if rt.mesh is None
+                      else T.init_decode_block(cfg, n_slots, rows, rt, self.device))
+        # the rank's slots of the pool (all of them off a mesh)
+        self._lo, self._hi, _ = self.state.get("block", (0, n_slots, n_slots))
         # the tiered pool: hot slot rows stay in the pool above, the cold
         # tier holds swapped-out victims and demoted prefix leaves as host
         # blocks; the crossover prices a victim's replay at the paper's
@@ -370,12 +407,13 @@ class ContinuousBatchingEngine:
             verify=(self.spec_k + 1,) if self.spec_k and not self.spec_tree else (),
             tree=(self.spec_tree + 1,) if self.spec_tree else ())
         # the eager commits' static inputs
-        self._pos_buf = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        self._pos_buf = torch.zeros((self._hi - self._lo,), dtype=torch.int32,
+                                    device=self.device)
         if self.spec_tree:
             self._base_buf = torch.zeros_like(self._pos_buf)
             self._keep_buf = torch.zeros_like(self._pos_buf)
-            self._sel_buf = torch.zeros((n_slots, self.spec_tree), dtype=torch.int32,
-                                        device=self.device)
+            self._sel_buf = torch.zeros((self._hi - self._lo, self.spec_tree),
+                                        dtype=torch.int32, device=self.device)
         if spec and self._drafter.kind == "model":
             # the model drafter's inputs on the device: the hidden carry (the
             # post-ln_f hidden at each slot's last committed position, kept
@@ -481,6 +519,9 @@ class ContinuousBatchingEngine:
         """Explicit device->host fetch of a tensor or a tuple of tensors
         (counted; timed as device wait)."""
         t0 = time.perf_counter()
+        if decode:                   # on a mesh: every slot's row, on every rank
+            x = (tuple(T.gather_rows(t, self.state, self.rt) for t in x)
+                 if isinstance(x, tuple) else T.gather_rows(x, self.state, self.rt))
         out = (tuple(t.cpu().numpy() for t in x) if isinstance(x, tuple)
                else x.cpu().numpy())
         self.stats["device_s"] += time.perf_counter() - t0
@@ -493,7 +534,9 @@ class ContinuousBatchingEngine:
     def _push(self, arr: np.ndarray, into: torch.Tensor,
               decode: bool = False) -> torch.Tensor:
         """Explicit host->device transfer into the static buffer ``into``
-        (counted)."""
+        (counted); on a mesh a per-slot array lands the rank's slots."""
+        if arr.shape[:1] == (self.n_slots,) and into.shape[0] != self.n_slots:
+            arr = arr[self._lo:self._hi]
         self.stats["xfer_bytes"] += arr.nbytes
         if decode:
             self.stats["decode_xfer_bytes"] += arr.nbytes
@@ -682,7 +725,8 @@ class ContinuousBatchingEngine:
     def _cold_carry(self, slot: int) -> None:
         self._warm_rows.pop(slot, None)
         self._carries[slot] = self._dev(
-            M.init_prefill_carry, self.cfg, T.carry_len(self.max_len, self.chunk), self.device)
+            M.init_prefill_carry, T.local_cfg(self.cfg, self.rt),
+            T.carry_len(self.max_len, self.chunk), self.device)
 
     def _drop_carry(self, slot: int) -> None:
         self._carries.pop(slot, None)

@@ -8,7 +8,7 @@ a leaf the loss does not reach (an embedding table that embedding inputs
 bypass) gets a zero gradient, as ``jax.grad`` gives it.  Microbatches are
 summed in the reference's order (from a zero tree, one microbatch after
 another) and divided by their count.  The sharded step
-(``opt_state_shardings``, ``jit_train_step``) is mesh code (ROADMAP A.14).
+(``opt_state_shardings``, ``jit_train_step``) is mesh code (ROADMAP A.14b).
 """
 from __future__ import annotations
 

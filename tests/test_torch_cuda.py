@@ -1914,3 +1914,17 @@ def test_reduced_whisper_serves_on_the_card_like_the_cpu(cuda):
     assert counts["layer_norm_quant"] == 3 * L * 8
     assert counts["layer_norm"] == 3 * L + 9 + 2 * cfg.encoder_layers + 1
     assert counts["rms_norm"] == counts["int8_matmul_grouped"] == 0
+
+
+def test_mesh_decode_step_on_the_card_bit_equal(cuda):
+    """A 1x2 mesh of two processes sharing the card (gloo through host
+    memory): a reduced llama decode step under ``fused_int8`` on each
+    rank's block of heads, columns and rows, its logits and pool bit-equal
+    to one process's under ``psum`` and ``htree``."""
+    import torch_mesh_ranks as R
+    from repro_torch.launch import mesh as MS
+    for res in MS.spawn(R.card_decode, 2):
+        for coll in R.COLLECTIVES:
+            want, got, pools_equal = res[("fused_int8", coll)]
+            np.testing.assert_array_equal(got, want)
+            assert pools_equal

@@ -150,11 +150,11 @@ def _serves_a10_lane(weights, **kwargs):
     ({"kv_swap": True, "chunk": 4, "policy": "priority:preempt"}, "A.10"),
     ({"faults": True}, "A.10"), ({"spec_k": 2, "drafter": "mtp"}, "A.11"),
     ({"mesh": "1x1"}, "A.14")])
-def test_later_slice_arguments_raise(weights, kwargs, item):
-    """Arguments of lanes still to port raise naming their ROADMAP item (the
-    serve CLI's ``--mesh`` too); those of items ported since (chunked
-    prefill and policies, A.7; the fused multi-step lane, A.9; the prefix
-    cache, the tiered pool and the fault layer, A.10) serve,
+def test_later_slice_arguments_raise(weights, kwargs, item, capfd):
+    """Arguments of lanes still to port raise naming their ROADMAP item;
+    those of items ported since (chunked prefill and policies, A.7; the
+    fused multi-step lane, A.9; the prefix cache, the tiered pool and the
+    fault layer, A.10; the serve CLI's ``--mesh``, A.14a) serve,
     token-identical to the engine without them.  The MTP drafter (A.11.3)
     raises the reference's ``ValueError`` on llama, which has no MTP head,
     and drafts on deepseek-v3-671b, which has, with the plain streams."""
@@ -182,9 +182,17 @@ def test_later_slice_arguments_raise(weights, kwargs, item):
         assert outs[1].stats["verify_steps"] > 0
         return
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match=item):
-            launch.main(["--arch", "llama3-8b", "--reduced", "--mesh", kwargs["mesh"],
-                         "--device", "cpu"])
+        argv = ["--arch", "llama3-8b", "--reduced", "--batch", "2", "--prompt-len", "4",
+                "--steps", "3", "--device", "cpu"]
+        capfd.readouterr()
+        launch.main(argv)
+        plain = capfd.readouterr().out
+        launch.main(argv + ["--mesh", kwargs["mesh"]])      # one spawned rank
+        meshed = capfd.readouterr().out
+
+        def tokens(out):
+            return [ln for ln in out.splitlines() if ln.startswith("sample tokens")]
+        assert tokens(meshed) == tokens(plain) and len(tokens(plain)) == 1
         return
     with pytest.raises(NotImplementedError, match=item):
         ContinuousBatchingEngine(TCFG, weights[1], n_slots=2, max_len=32,

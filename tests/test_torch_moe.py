@@ -208,10 +208,16 @@ def test_grouped_plain_matches_per_expert_b1(C, counts):
 
 
 def test_moe_apply_over_a_mesh_axis_raises():
+    """Over a mesh axis ``moe_apply`` needs the mesh the axis belongs to,
+    and the load-balance loss there is training on a mesh (A.14b); expert
+    parallelism itself is held in ``tests/test_torch_mesh.py``."""
     _, tcfg = _configs(8)
     _, tp = _layer_moe(_weights(8), "t")
+    x = torch.zeros((1, 2, tcfg.d_model))
+    with pytest.raises(ValueError, match="needs the mesh"):
+        TMOE.moe_apply(tp, x, tcfg, axis_name="model")
     with pytest.raises(NotImplementedError, match="A.14"):
-        TMOE.moe_apply(tp, torch.zeros((1, 2, tcfg.d_model)), tcfg, axis_name="model")
+        TMOE.moe_apply(tp, x, tcfg, axis_name="model", with_aux=True)
 
 
 # ---------------------------------------------------------------------------
@@ -439,16 +445,21 @@ def test_engine_generate_token_identical():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_serve_cli_takes_grok(capsys):
+def test_serve_cli_takes_grok(capfd):
     """``--arch grok-1-314b`` serves (fixed batch and continuous batching,
-    reduced, on the CPU); ``--mesh`` still raises (A.14)."""
-    launch.main(["--arch", ARCH, "--reduced", "--batch", "2", "--prompt-len", "8",
-                 "--steps", "3", "--device", "cpu"])
+    reduced, on the CPU), and over a 1x2 mesh (``ep2``: two experts a rank)
+    with the tokens of the run without it."""
+    fixed = ["--arch", ARCH, "--reduced", "--batch", "2", "--prompt-len", "8",
+             "--steps", "3", "--device", "cpu"]
+    launch.main(fixed)
     launch.main(["--arch", ARCH, "--reduced", "--continuous", "--requests", "3",
                  "--slots", "2", "--steps", "3", "--device", "cpu"])
-    assert "grok-1-314b" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A.14"):
-        launch.main(["--arch", ARCH, "--reduced", "--mesh", "1x2", "--device", "cpu"])
+    out = capfd.readouterr().out
+    assert "grok-1-314b" in out
+    launch.main(fixed + ["--mesh", "1x2"])
+    meshed = capfd.readouterr().out
+    first = [ln for ln in out.splitlines() if ln.startswith("sample tokens")][0]
+    assert [ln for ln in meshed.splitlines() if ln.startswith("sample tokens")] == [first]
 
 
 def test_convert_groups_runs_of_one_structure():

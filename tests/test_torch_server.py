@@ -452,9 +452,12 @@ class TestServeCli:
         assert "timeouts=0" in out
 
     @pytest.mark.parametrize("argv,item", [
-        (["--mesh", "1x1"], "A.14"),
+        (["--mesh", "1x1", "--serve"], "A.14"),
         (["--arch", "mamba2-2.7b", "--mesh", "2x4"], "A.14")])
     def test_not_ported_options_raise(self, argv, item):
+        """``--mesh`` serves GQA decoders (``tests/test_torch_mesh.py``); the
+        streaming front end and the other families on a mesh raise citing
+        A.14b."""
         with pytest.raises(NotImplementedError, match=item):
             launch.main(["--reduced", "--device", "cpu", *argv])
 

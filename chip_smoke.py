@@ -104,8 +104,8 @@ Phases (any failure makes the script exit non-zero):
    ``SERVE_SHUTDOWN_CLEAN``);
 ``mesh``: the (data, model) mesh with its ranks as processes on the one
    card (every rank on ``cuda:0``; the collectives gloo through pinned host
-   memory), each rank's gates over every rank: llama3-8b at full width (32
-   of 32 layers) on 1x2 under ``fused_int8``, each rank drawing only its
+   memory), each rank's gates over every rank: llama3-8b at full width (8
+   of 32 layers, the first 8 of phase 4's tree) on 1x2 under ``fused_int8``, each rank drawing only its
    blocks (``init_params_sharded``): one decode step from a ragged pool
    gated bit-equal to one process's (logits and pool) under ``psum`` and
    ``htree``, with one process's launches a rank, and the phase-4 trace
@@ -119,11 +119,17 @@ Phases (any failure makes the script exit non-zero):
    there on capacity couples the slots' routing: ``mesh_tie_failures``);
    llama3-8b at full width with 2 layers on 2x2 (slots and FSDP-stored
    dims over data) and 1x4 (an H-tree of depth 2): the step's pool
-   bit-equal (its logits within the near-tie share: a rank's ``lm_head``
-   runs at its own rows; on 2x2 one cold ``psum`` step, its gathers of
-   the f32 ``lm_head`` taking 2.8 s) and a short trace (3 requests,
-   prompts cut to 64, budgets to 2) as llama's; each rank's warm step wall
-   and device-busy time, collectives a step and parameter bytes printed;
+   bit-equal (on 2x2 one cold ``psum`` step, its gathers of the f32
+   ``lm_head`` taking 2.8 s; the head runs over every slot's row, so its
+   logits are one process's too) and a short trace (3 requests, prompts
+   cut to 64, budgets to 2) as llama's; ``--serve``'s front end on 1x2
+   (llama3-8b, 2 layers: rank 0 leads ``AsyncServer``, rank 1 follows;
+   the leader's streams gated equal to one process's, stream 1
+   cancelled); each rank's warm step wall and device-busy time,
+   collectives a step and parameter bytes printed (the script's time does
+   not hold the serving lanes on 2x2 or the other families on 1x2, so
+   ``tests/test_torch_cuda.py`` runs them on the card, with the rank
+   programs in ``tests/torch_mesh_serve_ranks.py``);
 6. ``ssm``: mamba2-2.7b (64 layers, d 2560, 80 SSM heads of 64, state 128,
    vocab 50280) after llama3-8b's parameters are freed.  B6 (``ssd_chunk``)
    against its plain version at full width (Q 128, 37, 1 and 33; B and C
@@ -166,8 +172,8 @@ Phases (any failure makes the script exit non-zero):
    run's LayerNorm launches, unfused and fused, are what the ``kernels``
    line reports), and its
    captured decode step gated bit-equal to eager over 8 steps with its
-   replayed wall, device-busy time and idle share; then granite-3-8b (8 of
-   its 40 layers) and phi3-mini-3.8b (8 of its 32) at full width, each with
+   replayed wall, device-busy time and idle share; then granite-3-8b (2 of
+   its 40 layers) and phi3-mini-3.8b (2 of its 32) at full width, each with
    B1 / B5 / B2-B4 at its shapes (phi3's attention at G 32, rep 1, D 96), its reduced config
    on the card against the CPU, served under ``fused_int8``,
    ``pim_bitserial`` and ``ref_int8`` (``pim_bitserial`` gated
@@ -176,8 +182,8 @@ Phases (any failure makes the script exit non-zero):
    smaller than the two lanes' logit rows lie apart, within 10% of the
    logit scale), and its captured decode step against eager; then
    chameleon-34b (d 8192, 64 heads of 128 in 8 groups, QK-norm, ff 22016
-   SwiGLU, untied vocab 65536, embedding inputs) at full width with 16 of
-   its 48 layers (133 GB of f32 weights at 48; 44.3 GB at 16): B1 / B5 at
+   SwiGLU, untied vocab 65536, embedding inputs) at full width with 4 of
+   its 48 layers (133 GB of f32 weights at 48; 11.1 GB at 4): B1 / B5 at
    K 8192 and 22016, B2-B4 at G 8, rep 8, D 128, QK-norm's rows through
    the RMSNorm kernel row-invariant at 1, 4, 20 and 28 tokens a call, the
    reduced model prefilled from embeddings on the card against the CPU,
@@ -188,8 +194,8 @@ Phases (any failure makes the script exit non-zero):
    ``fused_int8`` trace with the verify window's K/V equal to sequential
    decode's, and its captured decode step; and nemotron-4-340b (d 18432,
    96 heads of 192 in 8 groups, relu2, ff 73728, untied vocab 256000) at
-   full width with 2 of its 96 layers (65.4 GB of f32 weights; 3 layers do
-   not fit): B1 / B5 at its linears (K up to 73728), B2-B4 at G 8, rep 12,
+   full width with 1 of its 96 layers (2 hold 65.4 GB of f32 weights; 3
+   do not fit): B1 / B5 at its linears (K up to 73728), B2-B4 at G 8, rep 12,
    D 192 (the body's wider instance) also across pool sizes, the reduced
    model, the three backends, and its captured decode step; then
    grok-1-314b (d 6144, 48 heads of 128 in 8 groups, 8 SwiGLU experts of
@@ -397,6 +403,8 @@ class Smoke:
             import traceback
             traceback.print_exc()
             self.failures.append(f"{name}: {type(e).__name__}: {e}")
+            if getattr(e, "record", None) is not None:      # what the phase measured
+                self.record[name] = e.record
         self.record.setdefault("phase_s", {})[name] = time.perf_counter() - t0
         print(f"   {name}: {self.record['phase_s'][name]:.1f} s", flush=True)
 
@@ -546,11 +554,35 @@ def phase_linears(torch, mm, pim, quant) -> dict:
     return res
 
 
-def device_ops(torch, fn) -> list:
-    """The names of the device operations (kernels, memsets, copies) of one
-    ``fn()``, from ``torch.profiler``, after one warm-up call; a trace that
-    recorded no device event at all is taken again, up to three times."""
+def one_kernel(torch, fn, kernel: str, what: str) -> list:
+    """The device operations of one ``fn()``, gated to one kernel and no
+    memset or copy.  Captured in a CUDA graph (after a call on a side
+    stream), the call must hold one kernel node and add one to the wrapper
+    launch counts, a check that needs no profiler.  Under
+    ``torch.profiler``, after one warm-up call, its one device event must
+    carry ``kernel`` in its name.  A trace that recorded no device event at
+    all is taken again, up to three times; if every try is empty (a
+    profiler fault, printed), the graph's check stands alone.  Returns the
+    profiled names."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.graphs import node_types
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    before = sum(launch_counts().values())
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    launched = sum(launch_counts().values()) - before
+    types = node_types(graph)
+    del graph
+    if types != [0] or launched != 1:
+        raise AssertionError(f"{what}: a captured call holds graph nodes {types} (0 a "
+                             f"kernel) and {launched} wrapper launches, not one kernel")
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -561,38 +593,37 @@ def device_ops(torch, fn) -> list:
                  if str(getattr(e, "device_type", "")).endswith("CUDA")]
         if names:
             break
+    print(f"   {what}: one kernel node when captured; {len(names)} profiled device "
+          f"operation(s) {[n[:48] for n in names]}"
+          + ("" if names else " (the profiler recorded no device event in 3 tries)"))
+    if names and (len(names) != 1 or kernel not in names[0]):
+        raise AssertionError(f"{what} issued {names}, not one kernel")
     return names
 
 
 def b1_device_ops(torch, mm, g) -> dict:
     """The device operations of one B1 call on the model path (K 4096,
-    N 1024, M 4 and 20), from ``torch.profiler``: one kernel, no memset, no
-    copy."""
+    N 1024, M 4 and 20): one kernel, no memset, no copy (gated,
+    ``one_kernel``)."""
     out = {}
     for M in (4, 20):
         args = linear_inputs(torch, g, M, 4096, 1024)
-        names = device_ops(torch, lambda: mm.int8_matmul_cuda(*args, with_acc=False))
-        out[M] = names
-        print(f"   one B1 call at M={M}, K=4096, N=1024: {len(names)} device operation(s) "
-              f"{[n[:48] for n in names]}; plan {mm.launch_plan(M, 4096, 1024, 132)}")
-        if len(names) != 1 or "int8_mm_cluster" not in names[0]:
-            raise AssertionError(f"B1 at M={M} issued {names}, not one kernel")
+        out[M] = one_kernel(torch, lambda: mm.int8_matmul_cuda(*args, with_acc=False),
+                            "int8_mm_cluster", f"one B1 call at M={M}, K=4096, N=1024")
+        print(f"     plan {mm.launch_plan(M, 4096, 1024, 132)}")
     return out
 
 
 def b5_device_ops(torch, pim, g) -> dict:
     """The device operations of one B5 call on the model path (K 4096,
-    N 1024, M 1, 4 and 20), from ``torch.profiler``: one kernel, no memset,
-    no copy, no epilogue kernel."""
+    N 1024, M 1, 4 and 20): one kernel, no memset, no copy, no epilogue
+    kernel (gated, ``one_kernel``)."""
     out = {}
     for M in (1, 4, 20):
         args = linear_inputs(torch, g, M, 4096, 1024)
-        names = device_ops(torch, lambda: pim.pim_mvm_cuda(*args, with_acc=False))
-        out[M] = names
-        print(f"   one B5 call at M={M}, K=4096, N=1024: {len(names)} device operation(s) "
-              f"{[n[:48] for n in names]}; plan {pim.launch_plan(M, 4096, 1024, 132)}")
-        if len(names) != 1 or "pim_mvm_cluster" not in names[0]:
-            raise AssertionError(f"B5 at M={M} issued {names}, not one kernel")
+        out[M] = one_kernel(torch, lambda: pim.pim_mvm_cuda(*args, with_acc=False),
+                            "pim_mvm_cluster", f"one B5 call at M={M}, K=4096, N=1024")
+        print(f"     plan {pim.launch_plan(M, 4096, 1024, 132)}")
     return out
 
 
@@ -813,26 +844,16 @@ def b2_case(torch, da, quant, S: int, lengths: tuple, attn: tuple = LLAMA_ATTN) 
 
 
 def b2_device_ops(torch, da, quant) -> list:
-    """The device operations of one B2 call at the phase shape, from
-    ``torch.profiler``: one cluster kernel, no memset, no copy (gated)."""
-    from torch.profiler import ProfilerActivity, profile
+    """The device operations of one B2 call at the phase shape: one
+    cluster kernel, no memset, no copy (gated, ``one_kernel``)."""
     g = torch.Generator(device="cuda").manual_seed(5)
     B, G, rep, D = ATTN_B, ATTN_G, ATTN_REP, ATTN_D
     q_q, q_s = quant.quantize_kv(torch.randn((B, G * rep, D), generator=g, device="cuda"))
     args = (q_q.reshape(B, G, rep, D), q_s.reshape(B, G, rep, 1),
             *kv_pool(torch, quant, g, 512),
             torch.tensor(B2_SHAPES[0][1], dtype=torch.int32, device="cuda"))
-    da.decode_attn_cuda(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        da.decode_attn_cuda(*args)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    print(f"   one B2 call: {len(names)} device operation(s) {[n[:48] for n in names]}")
-    if len(names) != 1 or "attn_kernel" not in names[0]:
-        raise AssertionError(f"B2 issued {names}, not one kernel")
-    return names
+    return one_kernel(torch, lambda: da.decode_attn_cuda(*args), "attn_kernel",
+                      "one B2 call")
 
 
 def phase_attention(torch, da, quant) -> dict:
@@ -2020,22 +2041,51 @@ def replay_profile_child(arch: str, kind: str, width: int, n_layers: int) -> dic
                         f"replayed {kind} (fresh process)")
 
 
-def profile_in_child(cfg, kind: str, width: int) -> dict:
-    """:func:`replay_profile_child` in a fresh Python process (waited for,
-    killed at its time limit): its :func:`profile_step` record; a child
-    that fails fails the caller."""
+_WARM: list = []         # a fresh process started ahead, waiting for its call
+
+
+def start_child() -> None:
+    """Start the next fresh process for :func:`profile_in_child` now: it
+    imports the port and brings up the card, then waits for one call's
+    arguments on its stdin, so its start-up runs beside the caller's work
+    (each profile still runs in a process that profiles nothing else)."""
     code = ("import json, sys; sys.path[:0] = ['src', '.']; import torch; "
-            "import chip_smoke as S; print('CHILD ' + json.dumps("
-            "S.replay_profile_child(sys.argv[1], sys.argv[2], int(sys.argv[3]), "
-            "int(sys.argv[4]))))")
-    child = subprocess.run([sys.executable, "-c", code, cfg.name, kind, str(width),
-                            str(cfg.n_layers)],
-                           cwd=Path(__file__).resolve().parent, capture_output=True,
-                           text=True, timeout=900)
-    line = next((x for x in child.stdout.splitlines() if x.startswith("CHILD ")), None)
+            "import chip_smoke as S; torch.zeros(1, device='cuda'); "
+            "a = json.loads(sys.stdin.readline()); "
+            "print('CHILD ' + json.dumps(S.replay_profile_child(*a)))")
+    _WARM.append(subprocess.Popen([sys.executable, "-c", code],
+                                  cwd=Path(__file__).resolve().parent, stdin=subprocess.PIPE,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+
+def stop_children() -> None:
+    """End the fresh process started ahead and not used."""
+    while _WARM:
+        child = _WARM.pop()
+        child.kill()
+        child.communicate()
+
+
+def profile_in_child(cfg, kind: str, width: int) -> dict:
+    """:func:`replay_profile_child` in a fresh Python process (the one
+    :func:`start_child` started ahead, else a new one; waited for, killed
+    at its time limit), the next one started as this one ends: its
+    :func:`profile_step` record; a child that fails fails the caller."""
+    if not _WARM:
+        start_child()
+    child = _WARM.pop()
+    try:
+        stdout, stderr = child.communicate(
+            json.dumps([cfg.name, kind, width, cfg.n_layers]) + "\n", timeout=900)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise
+    start_child()
+    line = next((x for x in stdout.splitlines() if x.startswith("CHILD ")), None)
     if child.returncode != 0 or line is None:
         raise AssertionError(f"{kind}: the fresh-process profile failed (exit "
-                             f"{child.returncode}): {child.stderr[-2000:]}")
+                             f"{child.returncode}): {stderr[-2000:]}")
     prof = json.loads(line[6:])
     print(f"   {kind}: a fresh process's profiled replay ran {prof['hand_kernels']}: wall "
           f"{prof['wall_us'] / 1e3:.2f} ms, device busy {prof['device_busy_us'] / 1e3:.2f} ms, "
@@ -2763,6 +2813,9 @@ def phase_server(torch, ctx) -> dict:
 # phase mesh: the (data, model) mesh of ranks on the one card (A.14a)
 # ---------------------------------------------------------------------------
 MESH_REDUCED_LAYERS = 2      # llama3-8b's depth on the 2x2 and 1x4 meshes (full width)
+# llama3-8b's depth on the 1x2 mesh: 32 until the mesh's families needed
+# the script's time (the first 8 layers of phase 4's tree, drawn alike)
+MESH_PAIR_LAYERS = 8
 MESH_SHORT = (3, 64, 2)      # the 4-rank meshes' trace: requests, prompt cap, budget cap
 MESH_TIMEOUT_S = 600
 
@@ -2956,18 +3009,22 @@ def mesh_step(torch, cfg, mp, mesh, tmp: str, name: str, profile: bool = True,
     return out
 
 
-def mesh_serve(torch, cfg, mp, mesh, trace: tuple, base_outs: list, quantized: bool) -> dict:
+def mesh_serve(torch, cfg, mp, mesh, trace: tuple, base_outs: list, quantized: bool,
+               attn: str | None = "decode_attn", lane: dict | None = None) -> dict:
     """On a rank: the trace through the continuous engine on the mesh
-    (``fused_int8``, 4 slots, the placed ``mp``), each chosen row recorded;
-    its launch counts against the one process's prediction, its streams and
-    (rank 0) the mesh rows where they part from ``base_outs``."""
+    (``fused_int8``, 4 slots, the placed ``mp``, the lane's arguments),
+    each chosen row recorded; its launch counts against the one process's
+    prediction, its streams and (rank 0) the mesh rows where they part from
+    ``base_outs``."""
     from repro_torch.dist import collectives as C
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ContinuousBatchingEngine
 
     rt = T.Runtime("fused_int8", mesh=mesh, data_axes=("data",), serve_resident_moe=True)
-    cb = ContinuousBatchingEngine(cfg, mp, n_slots=SERVE_SLOTS, max_len=SERVE_ROWS, rt=rt)
+    lane = lane or {}
+    cb = ContinuousBatchingEngine(cfg, mp, n_slots=SERVE_SLOTS, max_len=SERVE_ROWS, rt=rt,
+                                  **lane)
     rows = record_rows(cb)
     prompts, budgets = trace
     torch.cuda.synchronize()
@@ -2982,9 +3039,10 @@ def mesh_serve(torch, cfg, mp, mesh, trace: tuple, base_outs: list, quantized: b
     counts = launch_counts()
     outs = [list(r.output) for r in reqs]
     want = want_launches(cfg, cb.stats["decode_steps"], [len(p) for p in prompts],
-                         "decode_attn", "fused_int8", prefill_calls(cb, reqs),
-                         int8_prefill=quantized)
-    parts = [(rid, d, outs[rid][d], (rows[(rid, d)][0], rows[(rid, d)][1].numpy()))
+                         attn, "fused_int8", prefill_calls(cb, reqs), int8_prefill=quantized,
+                         draft_cells=mtp_cells(lane) * cb.stats.get("verify_steps", 0))
+    parts = [(rid, d, outs[rid][d], (rows[(rid, d)][0], rows[(rid, d)][1].numpy())
+              if (rid, d) in rows else None)
              for rid, d in partings(outs, base_outs) if d < len(outs[rid])]
     return {"outputs": outs, "partings": parts if mesh.rank == 0 else [],
             "launches": counts, "want_launches": want, "wall_s": wall,
@@ -3001,9 +3059,12 @@ def mesh_rank_bytes(mp) -> int:
 def mesh_pair_rank(rank: int, tmp: str, base: dict) -> dict:
     """A rank of the 1x2 world on the card: llama3-8b at full width, each
     rank drawing only its blocks (``init_params_sharded``), its decode step
-    and the phase-4 trace; then grok-1-314b (2 of 64 layers, its int8 tree
-    as ``int8_params`` draws it, cut to the rank's 4 experts: ``ep2``), its
-    MoE layer against one process's and the trace."""
+    and the phase-4 trace; llama3-8b with ``MESH_REDUCED_LAYERS`` layers
+    behind ``--serve``'s front end (:func:`mesh_front_end`: rank 0 leads);
+    then grok-1-314b (2 of 64 layers, its int8 tree as ``int8_params``
+    draws it, cut to the rank's 4 experts: ``ep2``), its MoE layer against
+    one process's and the trace."""
+    import dataclasses
     import gc
 
     import torch
@@ -3020,7 +3081,7 @@ def mesh_pair_rank(rank: int, tmp: str, base: dict) -> dict:
     mesh = MS.make_local_mesh(1, 2)
     rt = T.Runtime("fused_int8", mesh=mesh, serve_resident_moe=True)
     out: dict = {}
-    cfg = registry.get("llama3-8b")
+    cfg = dataclasses.replace(registry.get("llama3-8b"), n_layers=MESH_PAIR_LAYERS)
     t0 = time.perf_counter()
     mp = T.init_params_sharded(cfg, rt, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -3033,6 +3094,13 @@ def mesh_pair_rank(rank: int, tmp: str, base: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
+    cfg4 = dataclasses.replace(cfg, n_layers=MESH_REDUCED_LAYERS)
+    mp = T.init_params_sharded(cfg4, rt, seed=0, device="cuda")
+    out["front_end"] = mesh_front_end(torch, cfg4, mp, mesh)
+    del mp
+    gc.collect()
+    torch.cuda.empty_cache()
 
     cfg = mesh_grok_cfg()
     whole = int8_params(torch, cfg)
@@ -3126,8 +3194,8 @@ def mesh_gates(name: str, ranks: list, failures: list, exact_logits: bool) -> di
 
 def phase_mesh(torch, ctx) -> dict:
     """The mesh layer on the one H100: ranks are processes sharing ``cuda:0``,
-    their collectives gloo through host memory.  llama3-8b at full width (32
-    of 32 layers) on 1x2 under ``fused_int8``: one decode step from one
+    their collectives gloo through host memory.  llama3-8b at full width
+    (``MESH_PAIR_LAYERS`` of 32 layers) on 1x2 under ``fused_int8``: one decode step from one
     state bit-equal to one process's (logits and pool) under ``psum`` and
     ``htree`` with one process's B1 / B2 launches a rank, and the phase-4
     trace token-identical to one process's (a parting held to the near-tie
@@ -3146,14 +3214,19 @@ def phase_mesh(torch, ctx) -> dict:
     from repro_torch.launch import mesh as MS
     from repro_torch.models import model as M
     from repro_torch.models import moe as MOE
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import ContinuousBatchingEngine
 
     out: dict = {}
     fails: list = []
     with tempfile.TemporaryDirectory(prefix="mesh_phase_") as tmp:
-        cfg = registry.get("llama3-8b")
+        cfg = dataclasses.replace(registry.get("llama3-8b"), n_layers=MESH_PAIR_LAYERS)
         t0 = time.perf_counter()
-        base = {"llama": mesh_baseline(torch, cfg, ctx.pop("params"), tmp, "llama",
-                                       serve_trace(cfg.vocab_size), False)}
+        whole = ctx.pop("params")
+        base = {"llama": mesh_baseline(torch, cfg,
+                                       dict(whole, layers=whole["layers"][:MESH_PAIR_LAYERS]),
+                                       tmp, "llama", serve_trace(cfg.vocab_size), False)}
+        del whole
         gc.collect()
         torch.cuda.empty_cache()
         gcfg = mesh_grok_cfg()
@@ -3168,8 +3241,13 @@ def phase_mesh(torch, ctx) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         cfg4 = dataclasses.replace(cfg, n_layers=MESH_REDUCED_LAYERS)
-        base["llama4"] = mesh_baseline(torch, cfg4, M.init_params(cfg4, seed=0, device="cuda"),
-                                       tmp, "llama4", mesh_short_trace(cfg.vocab_size), False)
+        p4 = M.init_params(cfg4, seed=0, device="cuda")
+        base["llama4"] = mesh_baseline(torch, cfg4, p4, tmp, "llama4",
+                                       mesh_short_trace(cfg.vocab_size), False)
+        base["front_end"] = serve_streams(ContinuousBatchingEngine(
+            cfg4, p4, n_slots=2, max_len=SERVE_ROWS, rt=Runtime("fused_int8")),
+            *mesh_serve_trace(cfg.vocab_size))
+        del p4
         gc.collect()
         torch.cuda.empty_cache()
         out["baseline_s"] = time.perf_counter() - t0
@@ -3187,7 +3265,8 @@ def phase_mesh(torch, ctx) -> dict:
         out["quad_s"] = time.perf_counter() - t0
     # name -> (ranks, one process, logits gated bit-equal, a MoE stack)
     short = f"llama3-8b {MESH_REDUCED_LAYERS}-layer"
-    runs = {"llama3-8b 1x2": ([r["llama"] for r in pair], base["llama"], True, False),
+    runs = {f"llama3-8b {MESH_PAIR_LAYERS}-layer 1x2": ([r["llama"] for r in pair],
+                                                         base["llama"], True, False),
             "grok-1-314b 1x2": ([r["grok"] for r in pair], base["grok"], False, True),
             f"{short} 2x2": ([r["2x2"] for r in quad], base["llama4"], False, False),
             f"{short} 1x4": ([r["1x4"] for r in quad], base["llama4"], False, False)}
@@ -3224,6 +3303,16 @@ def phase_mesh(torch, ctx) -> dict:
               f"rank, logits "
               f"{'bit-equal' if eq else 'within the near-tie share'}; streams "
               f"{'equal' if not margins else f'part at {len(margins)} near-ties'}")
+    fe = pair[0]["front_end"]
+    out["front_end"] = {"wall_s": fe["wall_s"], "steps": fe["steps"],
+                        "equal": fe["streams"] == base["front_end"]}
+    print(f"   --serve on 1x2 ({short}): the leader's {len(fe['streams'])} streams "
+          f"{'equal' if out['front_end']['equal'] else 'DIFFER FROM'} one process's "
+          f"(stream 1 cancelled: {fe['streams'][1][1]}), {fe['steps']} steps in "
+          f"{fe['wall_s']:.2f} s")
+    if not out["front_end"]["equal"] or not fe["streams"][1][1]:
+        fails.append(f"--serve on 1x2: leader's streams {fe['streams']} != one process's "
+                     f"{base['front_end']}")
     grok = [r["grok"] for r in pair]
     out["grok-1-314b 1x2"]["moe"] = [{k: g[k] for k in ("strategy", "moe_close",
                                                          "moe_max_abs_diff")} for g in grok]
@@ -3233,8 +3322,69 @@ def phase_mesh(torch, ctx) -> dict:
                          f"process's by {g['moe_max_abs_diff']}")
     if fails:
         out["failures"] = fails
-        raise AssertionError("; ".join(fails))
+        err = AssertionError("; ".join(fails))
+        err.record = out
+        raise err
     return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh's streaming front end and the other families on it (A.14b's
+# serving half; the serving lanes on 2x2 at full width move every layer's
+# FSDP-stored dims and the f32 lm_head through host memory a call, 450 s
+# for their traces: tests/test_torch_cuda.py holds them on the card)
+# ---------------------------------------------------------------------------
+def serve_streams(eng, prompts: list, budgets: list, cancel_at: int = 1) -> list:
+    """The trace through ``AsyncServer`` on ``eng``, every request submitted
+    live, stream ``cancel_at`` cancelled after its second token -> each
+    stream's tokens and whether it ended cancelled."""
+    import asyncio
+
+    from repro_torch.serve.server import AsyncServer
+
+    async def consume(i, stream):
+        toks = []
+        async for tok in stream:
+            toks.append(tok)
+            if i == cancel_at and len(toks) >= 2:
+                stream.cancel()
+        return toks
+
+    async def run():
+        async with AsyncServer(eng) as srv:
+            streams = [await srv.submit(p, b) for p, b in zip(prompts, budgets)]
+            outs = await asyncio.gather(*(consume(i, s) for i, s in enumerate(streams)))
+        return [(o, s.cancelled) for o, s in zip(outs, streams)]
+
+    return asyncio.run(run())
+
+
+def mesh_serve_trace(vocab_size: int) -> tuple[list, list]:
+    """``--serve``'s trace on the mesh: the 4-rank trace's 3 prompts with
+    budgets of 8 (so the cancellation lands mid-stream)."""
+    prompts, _ = mesh_short_trace(vocab_size)
+    return prompts, [8] * len(prompts)
+
+
+def mesh_front_end(torch, cfg, mp, mesh) -> dict:
+    """``--serve`` on the mesh: world rank 0 leads (``AsyncServer`` over its
+    engine, each iteration's decisions broadcast), the others follow until
+    it stops them; the leader's streams and its wall."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    rt = T.Runtime("fused_int8", mesh=mesh, data_axes=("data",), serve_resident_moe=True)
+    eng = ContinuousBatchingEngine(cfg, mp, n_slots=2, max_len=SERVE_ROWS, rt=rt)
+    if not eng._leader:
+        eng.follow()
+        return {}
+    t0 = time.perf_counter()
+    try:
+        streams = serve_streams(eng, *mesh_serve_trace(cfg.vocab_size))
+    finally:
+        eng.stop_followers()
+    return {"streams": streams, "wall_s": time.perf_counter() - t0,
+            "steps": eng.stats["steps"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3775,6 +3925,7 @@ def serve_mamba2(torch, ctx, cfg) -> dict:
 def phase_ssm(torch, ctx, build: dict | None) -> dict:
     import gc
 
+    start_child()                  # the first fresh-process profile's (mamba2's)
     from repro_torch.configs import registry
     from repro_torch.kernels import rms_norm as rn
     from repro_torch.kernels import ssd_chunk as ssd
@@ -3794,24 +3945,29 @@ def phase_ssm(torch, ctx, build: dict | None) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase families: the paper's OPT-30B (16 of its 48 layers), granite-3-8b
-# and phi3-mini-3.8b (8 layers each), chameleon-34b, nemotron-4-340b and
-# grok-1-314b (2 of its 64 layers), at full width
+# and phi3-mini-3.8b (2 layers each), chameleon-34b (4 of 48), nemotron-4-340b
+# (1 of 96) and grok-1-314b (2 of its 64 layers), at full width
 # ---------------------------------------------------------------------------
 OPT_LAYERS = 16      # of OPT-30B's 48: 118 GB of f32 weights do not fit one card
 OPT_ATTN = (4, 56, 1, 128)         # 4 slots, 56 heads of 128, MHA (rep 1)
 PHI3_ATTN = (4, 32, 1, 96)         # 4 slots, 32 heads of 96, MHA
 # granite-3-8b (of 40) and phi3-mini-3.8b (of 32): a layer adds nothing a
 # first one does not exercise, and each layer costs the script time (the
-# serve runs, the near-tie reruns, a fresh-process profile)
-SHORT_LAYERS = 8
+# serve runs, the near-tie reruns, a fresh-process profile): 2 each (8
+# until the mesh's families needed the script's time; back at 8 they cost
+# the script about 30 s, which its slowest host cannot spare)
+SHORT_LAYERS = 2
 # chameleon-34b: 48 layers of 0.69 G parameters, 2.77 GB each in f32 (133 GB
-# in all): 16 layers hold 44.3 GB of f32 weights, as OPT-30B's 16 do
-CHAMELEON_LAYERS = 16
+# in all): 16 layers hold 44.3 GB of f32 weights, as OPT-30B's 16 do; 4
+# (11.1 GB) since the mesh's families needed the script's time
+CHAMELEON_LAYERS = 4
 CHAMELEON_ATTN = (4, 8, 8, 128)    # 4 slots, 8 groups of 8 heads of 128
 # nemotron-4-340b: a layer is 3.45 G parameters (13.8 GB in f32, 3.45 GB in
 # int8), its untied embedding and head 18.9 GB each: 2 layers and both take
-# 65.4 GB of f32 and 6.9 GB of int8 weights; 3 would not fit
-NEMOTRON_LAYERS = 2
+# 65.4 GB of f32 and 6.9 GB of int8 weights, 3 would not fit; 1 (a layer
+# adds nothing a first one does not exercise) since the mesh's families
+# needed the script's time
+NEMOTRON_LAYERS = 1
 NEMOTRON_ATTN = (4, 8, 12, 192)    # 4 slots, 8 groups of 12 heads of 192
 # grok-1-314b: a layer is 4.92 G parameters (19.7 GB in f32, 4.92 GB in
 # int8: 8 SwiGLU experts of 6144 x 32768), its untied embedding and head
@@ -4528,7 +4684,7 @@ def deepseek_counts() -> dict:
     return out
 
 
-def int8_params(torch, cfg, seed: int = 0) -> dict:
+def int8_params(torch, cfg, seed: int = 0, rt=None):
     """A model's served int8 tree drawn a part at a time on the card (seed
     ``seed``): each layer's attention (or an SSM layer's Mamba2 block) and
     dense FFN drawn in f32 and
@@ -4538,7 +4694,41 @@ def int8_params(torch, cfg, seed: int = 0) -> dict:
     scale for each (expert, out)); norms, the router, the embedding, the
     ``lm_head`` and ``mtp_proj`` stay f32, as ``quantize_tree`` leaves
     them.  Scales as the port's initialisers draw (1 / sqrt(in), the
-    embedding 0.02); the draws differ from ``init_params``'."""
+    embedding 0.02); the draws differ from ``init_params``'.  With ``rt``
+    (a mesh's runtime) each part is cut to the rank's blocks as soon as it
+    is drawn, placed for prefill and for decode (``transformer.shard_pair``
+    with the int8 tree as both), so a rank never holds more than one whole
+    layer: a ``transformer.MeshParams``."""
+    if rt is None:
+        params: dict = {}
+        for key, val in int8_pieces(torch, cfg, seed):
+            if key == "layers":
+                params.setdefault("layers", []).append(val)
+            else:
+                params[key] = val
+        torch.cuda.synchronize()
+        return params
+    from repro_torch.models import transformer as T
+    trees: tuple = ({}, {})
+    specs: tuple = ({}, {})
+    for key, val in int8_pieces(torch, cfg, seed):
+        w = {"layers": [val]} if key == "layers" else {"layers": [], key: val}
+        for tree, spec, part in zip(trees, specs, T.shard_pair(cfg, w, w, rt)):
+            if key == "layers":
+                tree.setdefault("layers", []).extend(part["layers"])
+                spec.setdefault("layers", []).extend(part["specs"]["layers"])
+            else:
+                tree[key], spec[key] = part[key], part["specs"][key]
+        del w, val
+    for tree, spec in zip(trees, specs):
+        tree["specs"] = spec
+    torch.cuda.synchronize()
+    return T.MeshParams(*trees)
+
+
+def int8_pieces(torch, cfg, seed: int = 0):
+    """:func:`int8_params`' parts in the order it draws them: ``(key,
+    value)``, key ``"layers"`` for each layer."""
     from repro_torch.core import quant
     from repro_torch.models import attention as A
     from repro_torch.models import layers as L
@@ -4580,15 +4770,14 @@ def int8_params(torch, cfg, seed: int = 0) -> dict:
             p["mlp"] = quantize_tree(L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_type))
         return p
 
-    params = {"embed": L.embed_init(gen, cfg.vocab_size, d),
-              "ln_f": L.norm_init(d, device="cuda"),
-              "lm_head": L.dense_init(gen, d, cfg.vocab_size),
-              "layers": [layer(i) for i in range(cfg.n_layers)]}
+    yield "embed", L.embed_init(gen, cfg.vocab_size, d)
+    yield "ln_f", L.norm_init(d, device="cuda")
+    yield "lm_head", L.dense_init(gen, d, cfg.vocab_size)
+    for i in range(cfg.n_layers):
+        yield "layers", layer(i)
     if cfg.mtp:
-        params["mtp_proj"] = L.dense_init(gen, 2 * d, d)
-        params["mtp_layer"] = layer(cfg.n_layers - 1)
-    torch.cuda.synchronize()
-    return params
+        yield "mtp_proj", L.dense_init(gen, 2 * d, d)
+        yield "mtp_layer", layer(cfg.n_layers - 1)
 
 
 def mla_shapes(cfg) -> dict:
@@ -5412,18 +5601,18 @@ def whisper_family(torch, ctx, mods: dict) -> dict:
 
 
 def phase_families(torch, ctx, mods: dict) -> dict:
-    """OPT-30B at full width with 16 of its 48 layers (free of llama's and
+    """OPT-30B at full width with ``OPT_LAYERS`` of its 48 layers (free of llama's and
     mamba2's weights): its kernels at its shapes, the LayerNorm kernel, the
     reduced model on the card against the CPU, and its serve runs
     (:func:`serve_family` with every lane); then granite-3-8b and
     phi3-mini-3.8b at full width with ``SHORT_LAYERS`` layers each, each with its kernels at its
     shapes (phi3's attention at D 96), its reduced config against the CPU,
     and its serve runs under the three backends with its captured decode
-    step; then chameleon-34b at full width with 16 of its 48 layers (its
+    step; then chameleon-34b at full width with ``CHAMELEON_LAYERS`` of its 48 layers (its
     kernels, QK-norm's rows, the reduced model from embeddings, the three
     backends, ``Engine`` from an embedding prompt, the spec lanes, the
-    captured decode step), nemotron-4-340b at full width with 2 of its 96
-    layers (its kernels, B2-B4 at D 192 also across pools, the reduced
+    captured decode step), nemotron-4-340b at full width with
+    ``NEMOTRON_LAYERS`` of its 96 layers (its kernels, B2-B4 at D 192 also across pools, the reduced
     model, the three backends, the captured decode step) and grok-1-314b at
     full width with 2 of its 64 layers (about 55.6 GB of f32 and int8
     weights; 3 layers would hold about 80 GB): its attention kernels at
@@ -6112,10 +6301,25 @@ def kv_api_vs_cpu(torch) -> dict:
     return {"leaves": len(leaves["cpu"]), "bit_equal": True}
 
 
-def dryrun_cells(torch) -> dict:
-    """``python -m repro_torch.launch.dryrun`` in processes of their own,
-    the two at once: ``--quick`` and llama3-8b's four full-size cells
-    (``--arch llama3-8b``), counted again (``--force``).  Gated: exit 0,
+DRYRUN_RUNS = (("quick", ["--quick"], True), ("llama3-8b", ["--arch", "llama3-8b"], False))
+
+
+def start_dryrun() -> tuple:
+    """:func:`dryrun_cells`' two processes, started (each ``--force``):
+    (their handles, the start time)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    return ([subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                               "--force"], cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for _, args, _ in DRYRUN_RUNS],
+            time.perf_counter())
+
+
+def dryrun_cells(torch, started: tuple) -> dict:
+    """``python -m repro_torch.launch.dryrun`` in processes of their own
+    (:func:`start_dryrun`), the two at once: ``--quick`` and llama3-8b's
+    four full-size cells (``--arch llama3-8b``), counted again
+    (``--force``), waited for here.  Gated: exit 0,
     every record ``ok`` or skipped for ``applicable``'s own reason (a cell
     that applies but was not counted fails), counted flops > 0 and
     ``model_flops`` equal to this host's, and on each ``ok`` decode cell a
@@ -6125,16 +6329,10 @@ def dryrun_cells(torch) -> dict:
     from repro_torch.launch import dryrun as D
     from repro_torch.models import model as M
 
-    root = Path(__file__).resolve().parent
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    runs = (("quick", ["--quick"],
-             [(a, s) for a in D.QUICK_ARCHS for s in D.QUICK_SHAPES], True),
-            ("llama3-8b", ["--arch", "llama3-8b"],
-             [("llama3-8b", s) for s in D.SHAPES], False))
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
-                               "--force"], cwd=root, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for _, args, _, _ in runs]
+    cells = {"quick": [(a, s) for a in D.QUICK_ARCHS for s in D.QUICK_SHAPES],
+             "llama3-8b": [("llama3-8b", s) for s in D.SHAPES]}
+    runs = [(name, args, cells[name], quick) for name, args, quick in DRYRUN_RUNS]
+    procs, t0 = started
     results = [p.communicate(timeout=600) + (p.returncode,) for p in procs]
     secs = time.perf_counter() - t0
     out = {"seconds": secs}
@@ -6178,22 +6376,28 @@ def phase_plan(torch, ctx) -> dict:
     its tree lives: :func:`mla_bf16` and its bf16 captured decode step, and
     is gated here to have run), the per-layer cache API against the CPU
     (:func:`kv_api_vs_cpu`), the dry run (:func:`dryrun_cells`) and
-    ``examples/quickstart_torch.py`` on the card."""
+    ``examples/quickstart_torch.py`` on the card.  The dry run's processes
+    start once llama3-8b's steps are done and run beside the cache API's
+    check and the quickstart (the script's time binds)."""
     t0 = time.perf_counter()
     out = {"llama3-8b": plan_llama(torch)}
     if "plan_deepseek" not in ctx:
         raise AssertionError("plan: deepseek's bf16 MLA step did not run (phase families)")
     out["deepseek-v3-671b"] = ctx["plan_deepseek"]
-    out["kv_api"] = kv_api_vs_cpu(torch)
-    out["dryrun"] = dryrun_cells(torch)
-    root = Path(__file__).resolve().parent
-    t1 = time.perf_counter()
-    res = subprocess.run([sys.executable, "examples/quickstart_torch.py"], cwd=root,
-                         env=dict(os.environ, PYTHONPATH=str(root / "src")),
-                         capture_output=True, text=True, timeout=300)
+    started = start_dryrun()
+    try:
+        out["kv_api"] = kv_api_vs_cpu(torch)
+        root = Path(__file__).resolve().parent
+        t1 = time.perf_counter()
+        res = subprocess.run([sys.executable, "examples/quickstart_torch.py"], cwd=root,
+                             env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                             capture_output=True, text=True, timeout=300)
+        quick_s = time.perf_counter() - t1
+    finally:
+        out["dryrun"] = dryrun_cells(torch, started)
     if res.returncode != 0 or "generated 16 tokens for 4 requests" not in res.stdout:
         raise AssertionError(f"quickstart_torch.py: exit {res.returncode}: {res.stderr[-2000:]}")
-    out["quickstart"] = {"seconds": time.perf_counter() - t1, "stdout": res.stdout}
+    out["quickstart"] = {"seconds": quick_s, "stdout": res.stdout}
     print("   quickstart_torch.py on the card: " + " | ".join(
         ln for ln in res.stdout.splitlines() if "TPOT" in ln))
     out["seconds"] = time.perf_counter() - t0
@@ -6258,6 +6462,7 @@ def main() -> int:
         s.phase("families", lambda: phase_families(torch, ctx, mods))
         s.phase("train", lambda: phase_train(torch, ctx, rn, lnk))
         s.phase("plan", lambda: phase_plan(torch, ctx))
+    stop_children()
 
     kernels = []
     lin, att = s.record.get("linears", {}), s.record.get("attention", {})

@@ -1,5 +1,8 @@
-"""Collectives over a mesh's process groups: the H-tree all-reduce and the
-``allreduce`` hook that ``Runtime.collective`` selects.
+"""Collectives over a mesh's process groups: the H-tree all-reduce, the
+``allreduce`` hook that ``Runtime.collective`` selects, and the moves the
+serving lanes make on a mesh (:func:`broadcast` of a row over the data
+axes, :func:`send` / :func:`recv` of a block between two ranks of one
+group, :func:`broadcast_object` of the leader's control messages).
 
 PyTorch counterpart of ``repro.dist.collectives``.  The paper's
 re-architected die replaces the shared output bus with a binary H-tree
@@ -15,10 +18,12 @@ pinned host buffer, reduced there and copied back, so nothing depends on
 gloo's partial support for CUDA tensors and ranks may share one card.  A
 failed collective raises; nothing falls back.  :data:`stats` counts, per
 process, the calls, payload bytes and seconds spent (host copies included)
-since :func:`reset_stats`.
+since :func:`reset_stats`, and apart the bytes of the serving lanes' row
+moves (``move_bytes``: :func:`broadcast`, :func:`send`, :func:`recv`).
 """
 from __future__ import annotations
 
+import pickle
 import time
 
 import torch
@@ -28,7 +33,7 @@ from repro_torch.core.htree import tree_depth
 from repro_torch.launch.mesh import AxisGroup
 
 COLLECTIVES = ("psum", "htree")
-stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "htree_rounds": 0}
+stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "htree_rounds": 0, "move_bytes": 0}
 _pinned: dict[tuple, torch.Tensor] = {}
 
 
@@ -54,8 +59,9 @@ def _back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 class _Timed:
-    def __init__(self, t: torch.Tensor, n_bytes: int | None = None):
+    def __init__(self, t: torch.Tensor, n_bytes: int | None = None, move: bool = False):
         self.n = t.numel() * t.element_size() if n_bytes is None else n_bytes
+        self.move = move
 
     def __enter__(self):
         self.t0 = time.perf_counter()
@@ -63,6 +69,7 @@ class _Timed:
     def __exit__(self, *exc):
         stats["calls"] += 1
         stats["bytes"] += self.n
+        stats["move_bytes"] += self.n if self.move else 0
         stats["seconds"] += time.perf_counter() - self.t0
 
 
@@ -136,3 +143,47 @@ def allreduce(x: torch.Tensor, group: AxisGroup, collective: str = "psum") -> to
     if collective == "psum":
         return all_reduce(x, group)
     raise ValueError(f"unknown collective {collective!r}; want psum|htree")
+
+
+def broadcast(x: torch.Tensor, group: AxisGroup, src: int) -> torch.Tensor:
+    """Member ``src`` (an index into ``group.ranks``) sends ``x`` to every
+    member of ``group`` -> a new tensor on ``x``'s device, ``src``'s values
+    (every member passes a tensor of the same shape and dtype); a group of
+    one returns ``x``."""
+    if group.size == 1:
+        return x
+    with _Timed(x, move=True):
+        h = _host(x)
+        dist.broadcast(h, group.ranks[src], group=group.pg)
+        return _back(h, x)
+
+
+def send(x: torch.Tensor, group: AxisGroup, dst: int) -> None:
+    """Send ``x`` to member ``dst`` of ``group`` (blocking; the member
+    takes it with :func:`recv`)."""
+    with _Timed(x, move=True):
+        dist.send(_host(x), group.ranks[dst], group=group.pg)
+
+
+def recv(like: torch.Tensor, group: AxisGroup, src: int) -> torch.Tensor:
+    """The tensor member ``src`` of ``group`` sends (:func:`send`), of
+    ``like``'s shape and dtype, on ``like``'s device."""
+    with _Timed(like, move=True):
+        h = torch.empty(like.shape, dtype=like.dtype)
+        dist.recv(h, group.ranks[src], group=group.pg)
+        return _back(h, like)
+
+
+def broadcast_object(obj, group: AxisGroup, src: int = 0):
+    """Member ``src`` of ``group`` sends a picklable ``obj`` to every
+    member; each returns ``src``'s object (``broadcast_object_list``: the
+    pickle's length, then its bytes)."""
+    if group.size == 1:
+        return obj
+    objs = [obj if group.index == src else None]
+    t0 = time.perf_counter()
+    dist.broadcast_object_list(objs, group.ranks[src], group=group.pg)
+    stats["calls"] += 2
+    stats["bytes"] += 8 + len(pickle.dumps(objs[0]))
+    stats["seconds"] += time.perf_counter() - t0
+    return objs[0]

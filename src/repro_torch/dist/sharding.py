@@ -133,9 +133,8 @@ def _moe_train_strategy(cfg: ModelConfig, mesh) -> str:
 
 
 def _shared_specs(cfg: ModelConfig, mesh) -> dict:
-    """Shared-expert MLP: FFN dim tensor-sliced over `model` only (the
-    combine sums over `model` in every strategy; the data-axis replication
-    is pre-scaled by ``shared_scale`` in ``moe_local``)."""
+    """Shared-expert MLP: FFN dim tensor-sliced over `model` only (its
+    ``w_down`` runs row-parallel over `model`, ``transformer._moe_block``)."""
     if not cfg.n_shared_experts:
         return {}
     ffs = cfg.moe_d_ff * cfg.n_shared_experts
@@ -317,14 +316,18 @@ def tree_verify_shardings(n_slots: int, mesh) -> dict:
 
 def prefix_gather_shardings(mesh) -> dict:
     """Prefix-cache admission scalars (slot ids, matched row count),
-    replicated (the prefix cache on a mesh is ROADMAP A.14b)."""
+    replicated.  The port has no partitioner to pin them: a cached prefix
+    whose slots' data owners differ moves point to point
+    (``transformer.copy_slot_prefix``), the cross-shard move the reference's
+    partitioner lowers."""
     r = replicated(mesh)
     return {"slot": r, "rows": r}
 
 
 def swap_row_shardings(mesh) -> dict:
     """Tiered-pool swap I/O (the slot id and the batch=1 row tree),
-    replicated (``kv_swap`` on a mesh is ROADMAP A.14b)."""
+    replicated: the port renders it as ``transformer.gather_slot_row`` (a
+    swapped row is whole on every rank's host)."""
     r = replicated(mesh)
     return {"slot": r, "row": r}
 
@@ -333,7 +336,11 @@ def decode_state_shardings(cfg: ModelConfig, shape: ShapeConfig, state_abs: Any,
     """Slot-pool decode state: the slot axis (dim 1 of every cache leaf of
     the reference's ``[n_p, B, ...]`` stacks) over the data axes, and the
     KV heads of a 5-dim ``[n_p, B, S, H_kv, D]`` leaf over ``model`` when
-    they tile it.  ``pos`` and other per-slot scalars replicate."""
+    they tile it.  ``pos`` and other per-slot scalars replicate.  As in the
+    reference, a stacked SSM ``h`` ``[n_p, B, H, P, N]`` is 5-dim too and
+    gets its dim 3 (the head dim ``P``) split; the port's pool places an
+    SSM layer's ``h`` and ``conv_x`` by heads instead
+    (``transformer.layer_cuts``)."""
     b = batch_entry(shape.global_batch, mesh)
 
     def leaf(path_keys, x):

@@ -57,12 +57,17 @@ serve_resident_moe=True)``, as the reference's ``make_serve_runtime``
 builds it (slot pool over the data axis, heads, FFN and experts over
 ``model``); rank 0 prints.  With ``--device cuda`` every rank uses the one
 card (the collectives go through host memory); without a card it raises.
-GQA/MHA decoders with dense or MoE FFNs serve on a mesh; other families,
-the prefix cache, the cold tier, the fault flags and the streaming front
-end raise there (ROADMAP A.14b):
+Every family and every flag serves on a mesh (an encoder-decoder in the
+fixed-batch mode).  With ``--serve`` rank 0 is the leader: it runs the
+streaming front end and owns every decision that reads a clock
+(admissions, the cancellation, deadlines, the straggler watchdog), which
+it broadcasts before each engine iteration; the other ranks follow
+(``ContinuousBatchingEngine.follow``) until it stops them:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --reduced --continuous --mesh 2x2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --reduced --serve --requests 3 --slots 2 --mesh 1x2 --device cpu
 """
 from __future__ import annotations
 
@@ -261,10 +266,21 @@ def _run_continuous(cfg, params, rt, args):
 def _run_serve(cfg, params, rt, args):
     """Async streaming demo: submit ``--requests`` live, stream them
     concurrently, cancel the second one after its first two tokens, and
-    shut down cleanly."""
+    shut down cleanly.  On a mesh the leader streams and its followers
+    step with it."""
+    eng = _make_engine(cfg, params, rt, args)
+    if not eng._leader:               # a follower on a mesh: the leader drives
+        eng.follow()
+        return
+    try:
+        _stream(eng, cfg, args)
+    finally:
+        eng.stop_followers()
+
+
+def _stream(eng, cfg, args):
     from repro_torch.serve.server import AsyncServer, RequestTimedOut
 
-    eng = _make_engine(cfg, params, rt, args)
     prompts, budgets = _trace(cfg, args)
     cancel_at = 1 if args.requests > 1 else None   # disconnect this stream
 
@@ -419,11 +435,6 @@ def main(argv: list[str] | None = None):
         d, m = parse_mesh(args.mesh)
         resolve(args.device)                  # no card: raise before spawning
         T.check_mesh_family(cfg)
-        if args.serve:
-            raise NotImplementedError(
-                "--serve on a mesh: the streaming front end's admissions and "
-                "cancellations follow each rank's own clock, so the ranks' schedules "
-                "could part (ROADMAP A.14b)")
         spawn(_mesh_rank, d * m, args, threads=max(1, (os.cpu_count() or 1) // (d * m)))
         return
     rt = make_serve_runtime(None)
@@ -438,7 +449,8 @@ def main(argv: list[str] | None = None):
 
 def _mesh_rank(rank: int, args) -> None:
     """One rank of ``--mesh``: its blocks of the seeded weights, then the
-    mode; only rank 0 prints."""
+    mode; only rank 0 prints (under ``--serve`` it leads, the others
+    follow)."""
     if rank:
         sys.stdout = open(os.devnull, "w")
     cfg = registry.get(args.arch)
@@ -447,7 +459,9 @@ def _mesh_rank(rank: int, args) -> None:
     rt = make_serve_runtime(args.mesh)
     params = T.init_params_sharded(cfg, rt, seed=0, device=args.device,
                                    quantize=not args.no_quantize)
-    if args.continuous:
+    if args.serve:
+        _run_serve(cfg, params, rt, args)
+    elif args.continuous:
         _run_continuous(cfg, params, rt, args)
     else:
         _run_fixed(cfg, params, rt, args)

@@ -21,6 +21,11 @@ reduction (``reduce``, ``layers.RowReduce``) and its block of the int8
 pool (KV heads, dim 2); B2 / B3 / B4 run over that block.  Where the heads
 do not tile, every rank runs them all.  Prefill turns RoPE by
 ``layers.apply_rope_spmd`` on a mesh, as the reference's ``_rope`` does.
+An MLA layer on a mesh runs the rank's query heads in the same way: its
+column blocks of ``wq_b`` and ``wkv_b``, its row block of ``wo``; the
+narrow outputs of ``wq_a`` and ``wkv_a`` come column-parallel and are
+all-gathered over the model axis (``cols``) before their RMSNorms, so the
+latent every rank writes into its (model-replicated) pool is one device's.
 """
 from __future__ import annotations
 
@@ -341,26 +346,33 @@ def _quantize_latent(latent: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return quant.quantize_activation(latent)
 
 
+def _whole(cols, name: str, t: torch.Tensor) -> torch.Tensor:
+    """``t``, the output of linear ``name``, with every column: ``cols``
+    gathers a column-parallel output on a mesh (None off one)."""
+    return t if cols is None else cols(name, t)
+
+
 def _mla_q(p: Params, cfg: ModelConfig, x: torch.Tensor, positions, backend: str,
-           rope=None, x_q: tuple | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+           rope=None, x_q: tuple | None = None, cols=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Queries ``[B, T, H, dn]`` (no position) and ``[B, T, H, dr]`` (turned
     at ``positions``); ``q_norm`` hands ``wq_b`` its output's int8 pair
-    (:func:`layers.apply_norm_q`)."""
+    (:func:`layers.apply_norm_q`); ``cols`` see :func:`_whole`."""
     B, T, _ = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q_lat, q_lat_q = L.apply_norm_q(p["q_norm"], L.apply_linear(L._lin(p, "wq_a"), x, backend,
-                                                                  x_q), backend, p, ("wq_b",))
+    q_a = _whole(cols, "wq_a", L.apply_linear(L._lin(p, "wq_a"), x, backend, x_q))
+    q_lat, q_lat_q = L.apply_norm_q(p["q_norm"], q_a, backend, p, ("wq_b",))
     q = L.apply_linear(L._lin(p, "wq_b"), q_lat, backend, q_lat_q).reshape(
         B, T, cfg.n_heads, dn + dr)
     return q[..., :dn], L.apply_rope(q[..., dn:], positions, cfg.rope_theta, tables=rope)
 
 
 def _mla_latent(p: Params, cfg: ModelConfig, x: torch.Tensor, positions, backend: str,
-                rope=None, x_q: tuple | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                rope=None, x_q: tuple | None = None, cols=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The latent's two halves: the normed ``c_kv`` ``[B, T, r]`` and the
     key's rope part ``[B, T, dr]`` turned at ``positions``."""
     r = cfg.kv_lora_rank
-    kv_a = L.apply_linear(L._lin(p, "wkv_a"), x, backend, x_q)
+    kv_a = _whole(cols, "wkv_a", L.apply_linear(L._lin(p, "wkv_a"), x, backend, x_q))
     c_kv = L.apply_norm(p["kv_norm"], kv_a[..., :r])
     k_rope = L.apply_rope(kv_a[:, :, None, r:], positions, cfg.rope_theta, tables=rope)
     return c_kv, k_rope[:, :, 0]
@@ -372,7 +384,7 @@ def mla_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
               rope: tuple[torch.Tensor, torch.Tensor] | None = None,
               hidden: list[torch.Tensor] | None = None,
               skip: int = 0, x_q: tuple | None = None,
-              reduce: L.RowReduce | None = None, mesh: bool = False) -> torch.Tensor:
+              reduce: L.RowReduce | None = None, cols=None) -> torch.Tensor:
     """Prefill MLA over a chunk, :func:`gqa_chunk`'s sibling: per-head float
     keys ``[k_nope; k_rope]`` (width ``dn + dr``, the rope part shared by
     every head) and values (width ``dv``) land in ``buf["k"]`` /
@@ -380,11 +392,14 @@ def mla_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
     halves in ``buf["lat_c"]`` / ``buf["lat_r"]`` (what the int8 cache is
     quantized from); queries attend keys ``[0, kv_lengths)`` among the
     buffer's first ``key_rows`` rows at full precision, scores scaled by
-    ``1 / sqrt(dn + dr)``.  ``rope`` holds tables of width ``dr``."""
+    ``1 / sqrt(dn + dr)``.  ``rope`` holds tables of width ``dr``.  On a
+    mesh ``cfg`` holds the rank's heads, ``reduce`` is ``wo``'s reduction
+    and ``cols`` gathers ``wq_a`` / ``wkv_a`` (RoPE turns rotate-half, as
+    one device's, so a rank's floats are one device's for its heads)."""
     B, C, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend, rope, x_q)
-    c_kv, k_rope = _mla_latent(p, cfg, x, positions, backend, rope, x_q)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend, rope, x_q, cols)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions, backend, rope, x_q, cols)
     kv = L.apply_linear(L._lin(p, "wkv_b"), c_kv, backend).reshape(B, C, H, dn + dv)
     k = torch.cat([kv[..., :dn], k_rope[:, :, None].expand(B, C, H, dr)], dim=-1)
     for name, val in (("k", k), ("v", kv[..., dn:]), ("lat_c", c_kv), ("lat_r", k_rope)):
@@ -397,18 +412,20 @@ def mla_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                backend: str = "dense", x_q: tuple | None = None
+                backend: str = "dense", x_q: tuple | None = None,
+                reduce: L.RowReduce | None = None, cols=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Prefill MLA over ``x`` [B, T, d] at ``positions`` with no cache (the
-    MTP head's cell): (out, latent ``[B, T, r + dr]``)."""
+    MTP head's cell): (out, latent ``[B, T, r + dr]``); ``reduce`` and
+    ``cols`` on a mesh, see :func:`mla_chunk`."""
     B, T, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend, x_q=x_q)
-    c_kv, k_rope = _mla_latent(p, cfg, x, positions, backend, x_q=x_q)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, backend, x_q=x_q, cols=cols)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions, backend, x_q=x_q, cols=cols)
     kv = L.apply_linear(L._lin(p, "wkv_b"), c_kv, backend).reshape(B, T, H, dn + dv)
     k = torch.cat([kv[..., :dn], k_rope[:, :, None].expand(B, T, H, dr)], dim=-1)
     o = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, kv[..., dn:])
-    out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend)
+    out = L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend, reduce=reduce)
     return out, torch.cat([c_kv, k_rope], dim=-1)
 
 
@@ -425,7 +442,8 @@ def _absorbed(p: Params, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
 def _mla_latent_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, pos_b: torch.Tensor,
                           pp: torch.Tensor, c_q: torch.Tensor, c_s: torch.Tensor,
                           mask: torch.Tensor, backend: str,
-                          x_q: tuple | None = None, inter_dtype=None) -> torch.Tensor:
+                          x_q: tuple | None = None, inter_dtype=None,
+                          reduce: L.RowReduce | None = None, cols=None) -> torch.Tensor:
     """Absorbed MLA over ``x`` [B, T, d] whose token t sits at ``pp[:, t]``:
     the T int8 latents append in place at rows ``pos_b .. pos_b + T - 1``,
     then attention runs in the latent space against the dequantized cache,
@@ -435,11 +453,13 @@ def _mla_latent_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, pos_b: t
     absorbed query ``q_eff`` (its product's result is of that dtype), the
     dequantized cache (codes and scales cast to it, multiplied in it), the
     rope query and the softmax weights; the two score products and the
-    latent P . V sum in f32 and ``w_uv`` stays f32."""
+    latent P . V sum in f32 and ``w_uv`` stays f32.  On a mesh (``cfg`` the
+    rank's heads, ``reduce``, ``cols``: see :func:`mla_chunk`) every rank
+    writes the whole latent and runs its heads over it."""
     B, T, _ = x.shape
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q_nope, q_rope = _mla_q(p, cfg, x, pp, backend, x_q=x_q)
-    c_kv, k_rope = _mla_latent(p, cfg, x, pp, backend, x_q=x_q)
+    q_nope, q_rope = _mla_q(p, cfg, x, pp, backend, x_q=x_q, cols=cols)
+    c_kv, k_rope = _mla_latent(p, cfg, x, pp, backend, x_q=x_q, cols=cols)
     lq, sc = _quantize_latent(torch.cat([c_kv, k_rope], dim=-1))
     KV.batched_update(c_q, lq, pos_b)
     KV.batched_update(c_s, sc, pos_b)
@@ -455,12 +475,13 @@ def _mla_latent_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, pos_b: t
     o_lat = torch.einsum("bths,bsr->bthr", da_ops.at_dtype(w, dt),
                          cache[..., :r])                                     # latent-space SV
     o = torch.einsum("bthr,rhd->bthd", o_lat, w_uv)                          # expand W_UV
-    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1).to(x.dtype), backend)
+    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1).to(x.dtype), backend,
+                          reduce=reduce)
 
 
 def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Tensor,
                c_s: torch.Tensor, backend: str = "dense", x_q: tuple | None = None,
-               inter_dtype=None):
+               inter_dtype=None, reduce: L.RowReduce | None = None, cols=None):
     """Absorbed MLA decode of one token a slot: its int8 latent appends in
     place at each slot's ``pos`` (scalar or [B]) and the step reads only the
     ``[S, r + dr]`` int8 latent rows, the paper's SLC-cache read, its
@@ -471,13 +492,14 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Ten
     S = c_q.shape[1]
     mask = (torch.arange(S, device=x.device)[None, :] < (pos_b + 1)[:, None])[:, None]
     out = _mla_latent_attention(p, cfg, x, pos_b, pos_b[:, None], c_q, c_s, mask, backend,
-                                x_q, inter_dtype)
+                                x_q, inter_dtype, reduce, cols)
     return out, (c_q, c_s)
 
 
 def mla_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Tensor,
                c_s: torch.Tensor, backend: str = "dense", depth=None, anc=None,
-               x_q: tuple | None = None, inter_dtype=None):
+               x_q: tuple | None = None, inter_dtype=None,
+               reduce: L.RowReduce | None = None, cols=None):
     """:func:`mla_decode` over a verify window ``x`` [B, T, d]: the T latents
     append at each slot's cursor and query t sees the cache up to
     ``pos + t``; tree mode (``depth``/``anc``) turns token i at
@@ -495,5 +517,5 @@ def mla_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos, c_q: torch.Ten
         mask = torch.arange(S, device=dev)[None, None, :] < (pos_b[:, None] + torch.arange(
             T, device=dev)[None, :] + 1)[..., None]
     out = _mla_latent_attention(p, cfg, x, pos_b, pp, c_q, c_s, mask, backend, x_q,
-                                inter_dtype)
+                                inter_dtype, reduce, cols)
     return out, (c_q, c_s)

@@ -18,6 +18,14 @@ self-attention takes ``rt.backend`` (B2 under ``fused_int8``); decode
 cross-attention runs the plain int8 attention under every backend, as the
 reference calls it without the backend.  :func:`forward_train` and
 :func:`lm_loss` are the teacher-forced training path.
+
+On a mesh (``Runtime.mesh``; ``Engine`` only, as in the reference) the
+encoder's and the decoder's attention heads go over the model axis: the
+rank's column blocks of ``wq`` / ``wk`` / ``wv`` (self and cross), its row
+block of ``wo`` (row-parallel), the FFN dim split as a decoder's is, the
+int8 cross K/V cache ``[.., S_enc, H, D]`` holding the rank's heads; the
+LayerNorms stay whole, and the tied head gives the rank's vocabulary
+columns, gathered (``transformer._lm_head``).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from repro_torch.core.quant import quantize_kv
 from repro_torch.device import generator, resolve
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as TR
 from repro_torch.models.transformer import Runtime, remat_call, token_nll
 
 Params = dict[str, Any]
@@ -82,31 +91,51 @@ def _heads(p: Params, name: str, x: torch.Tensor, heads: int, hd: int,
     return L.apply_linear(L._lin(p, name), x, backend, x_q).reshape(B, T, heads, hd)
 
 
-def encode(p: Params, cfg: ModelConfig, frames: torch.Tensor, rt: Runtime) -> torch.Tensor:
+def _layer(p: Params, key: str, i: int, mc) -> tuple[Params, Any, Any]:
+    """Layer ``i`` of ``p[key]`` (``"enc"`` or ``"dec"``) -> (its params,
+    its place on a mesh (``transformer._LayerMesh``), the cross-attention's
+    ``wo`` reduction); off a mesh (``mc`` None) the params and two Nones."""
+    pl = p[key][i]
+    if mc is None:
+        return pl, None, None
+    ls = mc.specs[key][i]
+    pl, lm = TR._place_layer(pl, ls, mc)
+    xred = mc.red if "xattn" in ls and TR._row_split(ls["xattn"], "wo", mc) else None
+    return pl, lm, xred
+
+
+def encode(p: Params, cfg: ModelConfig, frames: torch.Tensor, rt: Runtime,
+           mc=None) -> torch.Tensor:
     """frames: [B, S_enc, d] stubbed front-end output -> [B, S_enc, d]: each
     layer's non-causal attention is :func:`attention.flash_attention` (the
-    reference's plain blocked attention, keys in blocks of 1,024)."""
+    reference's plain blocked attention, keys in blocks of 1,024); ``mc``
+    the call's place on a mesh (a rank's heads)."""
     B, S, _ = frames.shape
     hd = cfg.head_dim
     x = frames + L.sinusoidal_positions(S, cfg.d_model, device=frames.device).to(frames.dtype)
-    for pl in p["enc"]:
+    for i in range(len(p["enc"])):
+        pl, lm, _ = _layer(p, "enc", i, mc)
+        acfg = lm.attn_cfg if lm else cfg
         h = L.apply_norm(pl["ln1"], x)
-        q = _heads(pl["attn"], "wq", h, cfg.n_heads, hd, rt.backend)
-        k = _heads(pl["attn"], "wk", h, cfg.n_kv_heads, hd, rt.backend)
-        v = _heads(pl["attn"], "wv", h, cfg.n_kv_heads, hd, rt.backend)
+        q = _heads(pl["attn"], "wq", h, acfg.n_heads, hd, rt.backend)
+        k = _heads(pl["attn"], "wk", h, acfg.n_kv_heads, hd, rt.backend)
+        v = _heads(pl["attn"], "wv", h, acfg.n_kv_heads, hd, rt.backend)
         o = A.flash_attention(q, k, v, causal=False)
-        x = x + L.apply_linear(L._lin(pl["attn"], "wo"), o.reshape(B, S, -1), rt.backend)
-        x = x + L.apply_mlp(pl["mlp"], L.apply_norm(pl["ln2"], x), cfg.mlp_type, rt.backend)
+        x = x + L.apply_linear(L._lin(pl["attn"], "wo"), o.reshape(B, S, -1), rt.backend,
+                               reduce=lm.attn_reduce if lm else None)
+        x = x + L.apply_mlp(pl["mlp"], L.apply_norm(pl["ln2"], x), cfg.mlp_type, rt.backend,
+                            reduce=lm.mlp_reduce if lm else None)
     return L.apply_norm(p["ln_enc"], x)
 
 
 def _cross_attn(pl: Params, cfg: ModelConfig, h: torch.Tensor, enc_kv: tuple,
-                rt: Runtime, decode: bool = False, h_q: tuple | None = None
-                ) -> torch.Tensor:
+                rt: Runtime, decode: bool = False, h_q: tuple | None = None,
+                reduce: L.RowReduce | None = None) -> torch.Tensor:
     """Cross-attention of ``h`` [B, T, d] over the encoder's K/V: in prefill
     float ``(k, v)`` through the plain blocked attention; in decode the int8
     ``(k_q, k_s, v_q, v_s)`` through the plain int8 attention over every
-    frame, whatever the backend (as the reference calls it)."""
+    frame, whatever the backend (as the reference calls it).  On a mesh
+    ``cfg`` holds the rank's heads and ``reduce`` is ``wo``'s reduction."""
     B, T = h.shape[:2]
     q = _heads(pl, "wq", h, cfg.n_heads, cfg.head_dim, rt.backend, h_q)
     if decode:
@@ -118,7 +147,7 @@ def _cross_attn(pl: Params, cfg: ModelConfig, h: torch.Tensor, enc_kv: tuple,
     else:
         k, v = enc_kv
         o = A.flash_attention(q, k, v, causal=False)
-    return L.apply_linear(L._lin(pl, "wo"), o.reshape(B, T, -1), rt.backend)
+    return L.apply_linear(L._lin(pl, "wo"), o.reshape(B, T, -1), rt.backend, reduce=reduce)
 
 
 def forward_train(p: Params, cfg: ModelConfig, frames: torch.Tensor, tokens: torch.Tensor,
@@ -190,18 +219,22 @@ def prefill(p: Params, cfg: ModelConfig, frames: torch.Tensor, tokens: torch.Ten
     if T > max_len:
         raise ValueError(f"prompt of {T} tokens exceeds max_len {max_len}")
     dev = tokens.device
-    enc = encode(p, cfg, frames, rt)
-    state = init_decode_state(cfg, B, max_len, dev)
-    x = p["embed"]["w"][tokens]
+    mc = TR._mesh_call(p, cfg, rt)
+    enc = encode(p, cfg, frames, rt, mc)
+    acfg = TR.local_cfg(cfg, rt)
+    state = init_decode_state(acfg, B, max_len, dev)
+    x = p["embed"]["w"][tokens] if mc is None else TR._embed_ids(p, tokens, mc)
     x = x + L.sinusoidal_positions(T, cfg.d_model, device=dev).to(x.dtype)
     positions = torch.arange(T, device=dev).expand(B, T)
     lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
-    hd, G = cfg.head_dim, cfg.n_kv_heads
-    for pl, cache in zip(p["dec"], state["layers"]):
+    hd, G = cfg.head_dim, acfg.n_kv_heads
+    for i, cache in enumerate(state["layers"]):
+        pl, lm, xred = _layer(p, "dec", i, mc)
         h = L.apply_norm(pl["ln1"], x)
         buf = {"k": torch.zeros((B, T, G, hd), dtype=torch.float32, device=dev),
                "v": torch.zeros((B, T, G, hd), dtype=torch.float32, device=dev)}
-        x = x + A.gqa_chunk(pl["attn"], cfg, h, positions, buf, 0, lengths, T, rt.backend)
+        x = x + A.gqa_chunk(pl["attn"], acfg, h, positions, buf, 0, lengths, T, rt.backend,
+                            reduce=lm.attn_reduce if lm else None)
         hx = L.apply_norm(pl["ln_x"], x)
         xk = _heads(pl["xattn"], "wk", enc, G, hd, rt.backend)
         xv = _heads(pl["xattn"], "wv", enc, G, hd, rt.backend)
@@ -210,11 +243,12 @@ def prefill(p: Params, cfg: ModelConfig, frames: torch.Tensor, tokens: torch.Ten
             rows[f"{name}_q"], rows[f"{name}_s"] = quantize_kv(val)
         for name, val in rows.items():
             KV.chunk_update(cache[name], val, 0)
-        x = x + _cross_attn(pl["xattn"], cfg, hx, (xk, xv), rt)
-        x = x + L.apply_mlp(pl["mlp"], L.apply_norm(pl["ln2"], x), cfg.mlp_type, rt.backend)
+        x = x + _cross_attn(pl["xattn"], acfg, hx, (xk, xv), rt, reduce=xred)
+        x = x + L.apply_mlp(pl["mlp"], L.apply_norm(pl["ln2"], x), cfg.mlp_type, rt.backend,
+                            reduce=lm.mlp_reduce if lm else None)
     x = L.apply_norm(p["ln_f"], x)
     state["pos"].fill_(T)
-    return torch.matmul(x[:, -1], p["embed"]["w"].to(x.dtype).T), state
+    return TR._lm_head(p, cfg, x[:, -1], rt, mc), state
 
 
 def decode_step(p: Params, cfg: ModelConfig, state: dict, token: torch.Tensor,
@@ -224,19 +258,25 @@ def decode_step(p: Params, cfg: ModelConfig, state: dict, token: torch.Tensor,
     ``rt.backend``; cross-attention reads the int8 cross K/V.  The cursor
     advances by one in place; the returned state holds the same tensors."""
     B = token.shape[0]
+    mc = TR._mesh_call(p, cfg, rt, state)
+    acfg = TR.local_cfg(cfg, rt)
     pos = state["pos"].to(torch.int32).reshape(-1).expand(B)
-    x = (p["embed"]["w"][token] + L.sinusoid_at(pos, cfg.d_model))[:, None]
-    for pl, c in zip(p["dec"], state["layers"]):
+    emb = p["embed"]["w"][token] if mc is None else TR._embed_ids(p, token, mc)
+    x = (emb + L.sinusoid_at(pos, cfg.d_model))[:, None]
+    for i, c in enumerate(state["layers"]):
+        pl, lm, xred = _layer(p, "dec", i, mc)
         h, h_q = L.apply_norm_q(pl["ln1"], x, rt.backend, pl["attn"], A.INPUT_LINEARS)
-        mix, _ = A.gqa_decode(pl["attn"], cfg, h, pos, c["k_q"], c["k_s"], c["v_q"], c["v_s"],
-                              rt.backend, h_q)
+        mix, _ = A.gqa_decode(pl["attn"], acfg, h, pos, c["k_q"], c["k_s"], c["v_q"],
+                              c["v_s"], rt.backend, h_q, reduce=lm.attn_reduce if lm else None)
         x = x + mix
         hx, hx_q = L.apply_norm_q(pl["ln_x"], x, rt.backend, pl["xattn"], ("wq",))
-        x = x + _cross_attn(pl["xattn"], cfg, hx, (c["xk_q"], c["xk_s"], c["xv_q"], c["xv_s"]),
-                            rt, decode=True, h_q=hx_q)
+        x = x + _cross_attn(pl["xattn"], acfg, hx, (c["xk_q"], c["xk_s"], c["xv_q"],
+                                                     c["xv_s"]),
+                            rt, decode=True, h_q=hx_q, reduce=xred)
         h, h_q = L.apply_norm_q(pl["ln2"], x, rt.backend, pl["mlp"], L.MLP_INPUTS)
-        x = x + L.apply_mlp(pl["mlp"], h, cfg.mlp_type, rt.backend, h_q)
+        x = x + L.apply_mlp(pl["mlp"], h, cfg.mlp_type, rt.backend, h_q,
+                            reduce=lm.mlp_reduce if lm else None)
     x = L.apply_norm(p["ln_f"], x)
-    logits = torch.matmul(x[:, 0], p["embed"]["w"].to(x.dtype).T)
+    logits = TR._lm_head(p, cfg, x[:, 0], rt, mc)
     state["pos"].add_(1)
     return logits, {"layers": state["layers"], "pos": state["pos"]}

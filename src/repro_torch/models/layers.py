@@ -72,18 +72,24 @@ class RowReduce(NamedTuple):
     collective: str = "psum"
 
 
-def _row_parallel(p: Params, x: torch.Tensor, backend: str, red: RowReduce) -> torch.Tensor:
+def _row_parallel(p: Params, x: torch.Tensor, backend: str, red: RowReduce,
+                  x_q: tuple | None = None) -> torch.Tensor:
     """:func:`apply_linear` of a rank's block of input rows (``x``'s last
     dim and ``p``'s weight rows are the rank's block of K), summed over
-    ``red.group``."""
+    ``red.group``.  ``x_q``: the block's codes and the whole row's scales,
+    where the caller quantized the whole row (the quantizer's bits, so the
+    ``amax`` all-reduce is skipped)."""
     if "w_q" not in p:
         part = torch.matmul(x, p["w"].to(x.dtype))
         return C.allreduce(part, red.group, red.collective)
     if p.get("smooth") is not None:
         raise NotImplementedError("a smoothed row-parallel linear on a mesh")
-    amax = C.all_reduce(x.abs().amax(dim=-1, keepdim=True), red.group, "max")
-    x_s = quant._scale(amax)
-    x_q = torch.clamp(torch.round(x / x_s), -127, 127).to(torch.int8)
+    if x_q is not None:
+        x_q, x_s = x_q
+    else:
+        amax = C.all_reduce(x.abs().amax(dim=-1, keepdim=True), red.group, "max")
+        x_s = quant._scale(amax)
+        x_q = torch.clamp(torch.round(x / x_s), -127, 127).to(torch.int8)
     lead = x.shape[:-1]
     xq2, xs2 = x_q.reshape(-1, x.shape[-1]).contiguous(), x_s.reshape(-1, 1).contiguous()
     if backend == "pim_bitserial":
@@ -106,7 +112,7 @@ def apply_linear(p: Params, x: torch.Tensor, backend: str = "dense",
     instead of quantizing x again.  ``reduce``: the linear is row-parallel
     on a mesh (see the module's docstring)."""
     if reduce is not None:
-        return _row_parallel(p, x, backend, reduce)
+        return _row_parallel(p, x, backend, reduce, x_q)
     if "w_q" in p:
         lin = quant.QuantizedLinear(w_q=p["w_q"], w_scale=p["w_s"],
                                     smooth=p.get("smooth"))

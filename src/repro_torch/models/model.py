@@ -133,6 +133,20 @@ def decode_step(params: Params, cfg: ModelConfig, state: dict, token,
     return T.decode_step(params, cfg, state, token, rt)
 
 
+def init_decode_block(cfg: ModelConfig, n_slots: int, max_len: int, rt: Runtime,
+                      device: str | torch.device = "cuda") -> dict:
+    """A rank's block of a pool of ``n_slots`` on ``rt.mesh``: its slots
+    and heads (see :func:`repro_torch.models.transformer.init_decode_block`),
+    an encoder-decoder's self and cross K/V too."""
+    if cfg.family != "encdec":
+        return T.init_decode_block(cfg, n_slots, max_len, rt, device)
+    T.check_mesh(cfg, rt)
+    lo, hi = T.slot_block(n_slots, rt)
+    state = encdec.init_decode_state(T.local_cfg(cfg, rt), hi - lo, max_len, device)
+    state["block"], state["cuts"] = (lo, hi, n_slots), T.layer_cuts(cfg, rt)
+    return state
+
+
 def multi_decode_step(params: Params, cfg: ModelConfig, state: dict, token,
                       m: int, rt: Runtime):
     """``m`` greedy decode steps with the argmax fed back on the device ->
@@ -152,12 +166,13 @@ def init_prefill_carry(cfg: ModelConfig, buf_len: int,
 
 
 def warm_prefill_carry(cfg: ModelConfig, state: dict, slot: int, n: int,
-                       buf_len: int, tokens=None) -> dict:
+                       buf_len: int, tokens=None, rt: Runtime | None = None) -> dict:
     """A carry seeded from rows ``[0:n)`` of pool ``slot`` with its cursor
-    at ``n`` (the prefix-cache warm start); see
+    at ``n`` (the prefix-cache warm start; ``rt`` the mesh's, where
+    ``state`` is a rank's block); see
     :func:`repro_torch.models.transformer.warm_prefill_carry`."""
     _decoder_only(cfg, "chunked prefill")
-    return T.warm_prefill_carry(cfg, state, slot, n, buf_len, tokens)
+    return T.warm_prefill_carry(cfg, state, slot, n, buf_len, tokens, rt)
 
 
 def prefill_chunk(params: Params, cfg: ModelConfig, carry: dict, tokens,

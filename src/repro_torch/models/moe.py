@@ -199,8 +199,8 @@ def combine(ye: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 
 
 def moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-              with_aux: bool = False, e_first: int = 0, n_local: int | None = None,
-              shared_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor | None]:
+              with_aux: bool = False, e_first: int = 0, n_local: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """MoE over ``x`` [N, d], routed by :func:`route`.  Returns
     ``(out [N, d], aux)``: ``aux`` is the Switch-style load-balance loss
     where ``with_aux`` asks for it (serving discards it, as the reference's
@@ -212,9 +212,9 @@ def moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     e_first + n_local)`` of the global ``E`` (``n_local`` None: all of
     them, or all with a block of the FFN dim): routing is global, only the
     window's rows run, and ``out`` is the rank's partial sum (the other
-    experts' rows add exact zeros), which the caller sums over the ranks;
-    ``shared_scale`` pre-scales the shared expert, replicated over axes
-    that sum."""
+    experts' rows add exact zeros), which the caller sums over the ranks
+    (a caller on a mesh passes no shared expert and runs it itself,
+    ``transformer._moe_block``)."""
     N, d = x.shape
     E, k = cfg.n_experts, cfg.n_experts_active
     n_local = E if n_local is None else int(n_local)
@@ -223,7 +223,7 @@ def moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         _counter.add_(torch.stack([torch.ones_like(r.dropped), r.dropped,
                                    (r.counts > 0).sum()]))
     if n_local != E:
-        return _moe_window(p, x, cfg, r, int(e_first), n_local, shared_scale), None
+        return _moe_window(p, x, cfg, r, int(e_first), n_local), None
     aux = None
     if with_aux:
         ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
@@ -234,21 +234,20 @@ def moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     xe = x[r.toks] * valid[..., None].to(x.dtype)                    # gather
     ye = _expert_ffn(xe, p, cfg, r.counts)
     ye = ye * r.ws[..., None].to(ye.dtype)
-    return _add_shared(combine(ye, r.order), p, x, cfg, shared_scale), aux
+    return _add_shared(combine(ye, r.order), p, x, cfg), aux
 
 
-def _add_shared(out: torch.Tensor, p: Params, x: torch.Tensor, cfg: ModelConfig,
-                scale: float) -> torch.Tensor:
-    """``out`` plus the shared expert's output (scaled by ``scale`` where it
-    is not 1) where the configuration has one."""
+def _add_shared(out: torch.Tensor, p: Params, x: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """``out`` plus the shared expert's output where the configuration has
+    one."""
     if not (cfg.n_shared_experts and "shared" in p):
         return out
-    sh = L.apply_mlp(p["shared"], x, cfg.mlp_type)
-    return out + (sh if scale == 1.0 else scale * sh)
+    return out + L.apply_mlp(p["shared"], x, cfg.mlp_type)
 
 
 def _moe_window(p: Params, x: torch.Tensor, cfg: ModelConfig, r: Routing,
-                e_first: int, n_local: int, shared_scale: float) -> torch.Tensor:
+                e_first: int, n_local: int) -> torch.Tensor:
     """:func:`moe_local`'s rank part for the expert window ``[e_first,
     e_first + n_local)``: the window's buffer rows through the rank's
     stacks, each token's window rows added in ascending order (rows of
@@ -262,7 +261,7 @@ def _moe_window(p: Params, x: torch.Tensor, cfg: ModelConfig, r: Routing,
     lo, hi = e_first * cap, (e_first + n_local) * cap
     local = (r.order >= lo) & (r.order < hi)
     order = torch.where(local, r.order - lo, n_local * cap)
-    return _add_shared(combine(ye, order), p, x, cfg, shared_scale)
+    return _add_shared(combine(ye, order), p, x, cfg)
 
 
 def ep_capable(cfg: ModelConfig, axis_size: int) -> bool:

@@ -25,22 +25,28 @@ aux loss) runs every layer over the whole sequence under autograd, with
 no buffer written in place; ``Runtime.remat`` recomputes each layer in the
 backward.
 
-On a mesh (``Runtime.mesh``, a ``launch.mesh.Mesh`` of processes) a GQA/MHA
-decoder with dense or MoE FFNs serves tensor- and expert-parallel, the
-explicit form of what the reference's partitioner computes from its
-shardings: each rank holds its block of every leaf (:func:`place_params`:
-the ``dist/sharding.py`` specs, the tree's ``specs`` key keeping them) and
-of the slot pool (:func:`init_decode_block`: slots over the data axes, KV
-heads over ``model``).  A layer's FSDP-stored dims (the data axes) are
-all-gathered before use, one layer at a time; attention runs the rank's
-heads and ``wo`` is row-parallel, the MLP's FFN dim splits over ``model``
-(``w_down`` row-parallel), the embedding takes the rank's vocabulary rows
-and sums them over ``model`` (exact: one rank adds a row, the others
-zeros), ``lm_head`` gives the rank's vocabulary columns, gathered over
-``model``, and the MoE block (:func:`_moe_block`) runs the reference's
-layouts.  A step's rows are the rank's slots (decode, verify) or the
-whole call, replicated over the data axes (prefill).  Other families on
-a mesh raise (ROADMAP A.14b).
+On a mesh (``Runtime.mesh``, a ``launch.mesh.Mesh`` of processes) every
+family the stack serves (GQA/MHA and MLA decoders with dense or MoE FFNs,
+SSM and hybrid stacks) serves tensor- and expert-parallel, the explicit
+form of what the reference's partitioner computes from its shardings:
+each rank holds its block of every leaf (:func:`place_params`: the
+``dist/sharding.py`` specs, the tree's ``specs`` key keeping them) and of
+the slot pool (:func:`init_decode_block`: slots over the data axes, KV
+heads and SSM heads over ``model``, MLA's latent replicated over it).  A
+layer's FSDP-stored dims (the data axes) are all-gathered before use, one
+layer at a time; attention runs the rank's heads and ``wo`` is
+row-parallel (MLA gathers the narrow ``wq_a`` / ``wkv_a`` outputs over
+``model`` before their norms), an SSM layer runs the rank's heads
+(``ssm.HeadBlock``), the MLP's FFN dim splits over ``model`` (``w_down``
+row-parallel), the embedding takes the rank's vocabulary rows and sums
+them over ``model`` (exact: one rank adds a row, the others zeros),
+``lm_head`` gives the rank's vocabulary columns, gathered over ``model``,
+and the MoE block (:func:`_moe_block`) runs the reference's layouts.  A
+step's rows are the rank's slots (decode, verify) or the whole call,
+replicated over the data axes (prefill, the MTP drafts).  The serving
+lanes move a slot's rows between ranks (:func:`gather_slot_row`,
+:func:`copy_slot_prefix`, :func:`warm_prefill_carry`).  Training on a
+mesh raises (ROADMAP A.14b).
 """
 from __future__ import annotations
 
@@ -380,17 +386,22 @@ def write_slot(state: dict, slot: int, one: dict, start: int = 0) -> dict:
     ``start`` left as they are).  SSM leaves have no sequence axis and land
     whole.  The slot's cursor becomes ``one["pos"]``.  On a rank's block of
     a pool (:func:`init_decode_block`) ``slot`` is global: the rank that
-    holds it writes the row, the others nothing."""
+    holds it writes the row, the others nothing; a row with every head (a
+    cold block, :func:`gather_slot_row`) is cut to the rank's heads
+    (``state["cuts"]``)."""
     B = state["pos"].shape[0]
     if "block" in state:              # a rank's block of a pool on a mesh
-        lo, hi, _ = state["block"]
-        if not lo <= int(slot) < hi:
+        slot = local_slot(state, slot)
+        if slot is None:
             return state              # another data rank owns the slot
-        slot = int(slot) - lo
     s = min(max(int(slot), 0), B - 1)
-    for full, row in zip(state["layers"], one["layers"]):
+    cuts = state.get("cuts")
+    for i, (full, row) in enumerate(zip(state["layers"], one["layers"])):
         for name, buf in full.items():
             r = torch.as_tensor(row[name])
+            cut = cuts[i].get(name) if cuts else None
+            if cut is not None and r.shape[cut[0]] != buf.shape[cut[0]]:
+                r = r.narrow(cut[0], cut[1], cut[2] - cut[1])
             if not is_seq_cache(full):               # SSM state: whole
                 buf[s] = r[0].to(buf.device, buf.dtype)
                 continue
@@ -418,25 +429,46 @@ def read_slot(state: dict, slot: int, n: int | None = None) -> dict:
             "pos": state["pos"][s:s + 1].clone()}
 
 
-def copy_slot_prefix(state: dict, src: int, dst: int, n: int) -> dict:
+def copy_slot_prefix(state: dict, src: int, dst: int, n: int, rt: Runtime | None = None
+                     ) -> dict:
     """Prefix-cache row gather, in place: ``dst``'s first ``n`` sequence rows
     of every cache leaf become ``src``'s (int8 payload and scales copied
     verbatim, so the reused prefix is bit-identical to the cached one) and
     ``pos[dst]`` becomes ``n``.  Rows at or past ``n`` keep ``dst``'s dead
     entries (masked, then overwritten by the resumed chunked prefill's
-    finalize).  Attention pools only (every leaf ``[B, S, H, ...]``)."""
+    finalize).  Attention pools only (every leaf ``[B, S, H, ...]``).  On a
+    rank's block of a pool (``rt.mesh``) the slots are global: where their
+    data owners differ, each rank of ``src``'s owner sends its head block
+    of the ``n`` rows to the rank of ``dst``'s owner at its model index
+    (the cross-shard move the reference's partitioner lowers)."""
     n = int(n)
-    for cache in state["layers"]:
-        if not is_seq_cache(cache):
-            raise NotImplementedError("copy_slot_prefix targets attention pools")
-        for buf in cache.values():
-            buf[int(dst), :n] = buf[int(src), :n]
-    state["pos"][int(dst)] = n
+    if any(not is_seq_cache(c) for c in state["layers"]):
+        raise NotImplementedError("copy_slot_prefix targets attention pools")
+    if "block" not in state:
+        for cache in state["layers"]:
+            for buf in cache.values():
+                buf[int(dst), :n] = buf[int(src), :n]
+        state["pos"][int(dst)] = n
+        return state
+    s, d = local_slot(state, src), local_slot(state, dst)
+    bufs = [buf for cache in state["layers"] for buf in cache.values()]
+    if s is not None and d is not None:
+        for buf in bufs:
+            buf[d, :n] = buf[s, :n]
+    elif s is not None or d is not None:
+        data = rt.mesh.group(SH.data_axes(rt.mesh))
+        for buf in bufs:
+            if s is not None:
+                C.send(buf[s, :n].contiguous(), data, slot_owner(state, dst))
+            else:
+                buf[d, :n] = C.recv(buf[d, :n], data, slot_owner(state, src))
+    if d is not None:
+        state["pos"][d] = n
     return state
 
 
 def warm_prefill_carry(cfg: ModelConfig, state: dict, slot: int, n: int,
-                       buf_len: int, tokens=None) -> dict:
+                       buf_len: int, tokens=None, rt: Runtime | None = None) -> dict:
     """Chunked-prefill carry seeded from rows ``[0:n)`` of pool ``slot``, the
     prefix-cache warm start.  The cached int8 rows dequantize into the float
     K/V carry at the same positions (the rest zero), ``tokens`` (the
@@ -447,7 +479,10 @@ def warm_prefill_carry(cfg: ModelConfig, state: dict, slot: int, n: int,
     tail attends exactly these dequantized rows, as the reference's does.
     Attention stacks only: SSM state cannot restart mid-prompt (the engine
     turns the prefix cache off for SSM stacks, and for MLA stacks, whose
-    latent cache cannot seed per-head K/V without the weights)."""
+    latent cache cannot seed per-head K/V without the weights).  On a
+    rank's block of a pool (``rt.mesh``) the carry holds the rank's heads
+    and is replicated over the data axes, like every prefill carry: the
+    slot's data owner broadcasts its head block of the rows over them."""
     if has_ssm(cfg):
         raise NotImplementedError(
             "prefix-cache warm start targets attention pools; SSM state "
@@ -457,12 +492,22 @@ def warm_prefill_carry(cfg: ModelConfig, state: dict, slot: int, n: int,
             "prefix-cache warm start needs per-head K/V in the pool; the MLA "
             "latent cache cannot seed the float carry without weights")
     dev = state["pos"].device
-    carry = init_prefill_carry(cfg, buf_len, dev)
+    carry = init_prefill_carry(local_cfg(cfg, rt) if rt else cfg, buf_len, dev)
     n = int(n)
+    owner = mine = None
+    if pool_split(state):
+        owner, mine = slot_owner(state, slot), local_slot(state, slot)
+        data = rt.mesh.group(SH.data_axes(rt.mesh))
     for buf, cache in zip(carry["layers"], state["layers"]):
         w = min(n, buf_len, cache["k_q"].shape[1])
         for name in ("k", "v"):
-            q, sc = cache[f"{name}_q"][slot, :w], cache[f"{name}_s"][slot, :w]
+            q, sc = cache[f"{name}_q"], cache[f"{name}_s"]
+            if owner is None:
+                q, sc = q[slot, :w], sc[slot, :w]
+            else:                     # the owner's rows, over the data axes
+                at = 0 if mine is None else mine
+                q = C.broadcast(q[at, :w].contiguous(), data, owner)
+                sc = C.broadcast(sc[at, :w].contiguous(), data, owner)
             buf[name][0, :w] = q.to(torch.float32) * sc
     if tokens is not None:
         ids = torch.as_tensor(list(tokens)[:n], dtype=torch.int64)
@@ -479,12 +524,15 @@ def apply_layer_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     ``lm``: the layer's place on a mesh (its heads, its reductions)."""
     h, h_q = _ln1(p, x, rt)
     if "ssm" in p:
-        mix, new = SSM.ssm_decode(p["ssm"], cfg, h, cache, rt.backend, h_q)
+        mix, new = SSM.ssm_decode(p["ssm"], cfg, h, cache, rt.backend, h_q,
+                                  blk=lm.ssm if lm else None)
         for name, val in new.items():
             cache[name].copy_(val)
     elif cfg.attn_type == "mla":
-        mix, _ = A.mla_decode(p["attn"], cfg, h, pos, cache["c_q"], cache["c_s"], rt.backend,
-                              h_q, rt.dmvm_dtype)
+        mix, _ = A.mla_decode(p["attn"], lm.attn_cfg if lm else cfg, h, pos, cache["c_q"],
+                              cache["c_s"], rt.backend, h_q, rt.dmvm_dtype,
+                              reduce=lm.attn_reduce if lm else None,
+                              cols=lm.cols if lm else None)
     else:
         mix, _ = A.gqa_decode(p["attn"], lm.attn_cfg if lm else cfg, h, pos, cache["k_q"],
                               cache["k_s"], cache["v_q"], cache["v_s"], rt.backend, h_q,
@@ -543,9 +591,11 @@ def apply_layer_verify(p: Params, cfg: ModelConfig, x: torch.Tensor, pos,
     :func:`attention.gqa_verify`)."""
     h, h_q = _ln1(p, x, rt)
     if cfg.attn_type == "mla":
-        mix, _ = A.mla_verify(p["attn"], cfg, h, pos, cache["c_q"], cache["c_s"],
-                              rt.backend, depth=depth, anc=anc, x_q=h_q,
-                              inter_dtype=rt.dmvm_dtype)
+        mix, _ = A.mla_verify(p["attn"], lm.attn_cfg if lm else cfg, h, pos, cache["c_q"],
+                              cache["c_s"], rt.backend, depth=depth, anc=anc, x_q=h_q,
+                              inter_dtype=rt.dmvm_dtype,
+                              reduce=lm.attn_reduce if lm else None,
+                              cols=lm.cols if lm else None)
     else:
         mix, _ = A.gqa_verify(p["attn"], lm.attn_cfg if lm else cfg, h, pos, cache["k_q"],
                               cache["k_s"], cache["v_q"], cache["v_s"], rt.backend,
@@ -701,9 +751,11 @@ def _prefill_piece(p: Params, cfg: ModelConfig, bufs: list, tokens: torch.Tensor
         lp, lm = _layer(p, i, mc)
         h, h_q = _ln1(lp, x, rt)
         if cfg.attn_type == "mla":
-            x = x + A.mla_chunk(lp["attn"], cfg, h, positions, buf, start, kv_lengths,
-                                key_rows, rt.backend, rope=rope, hidden=hidden, skip=skip,
-                                x_q=h_q)
+            x = x + A.mla_chunk(lp["attn"], lm.attn_cfg if lm else cfg, h, positions, buf,
+                                start, kv_lengths, key_rows, rt.backend, rope=rope,
+                                hidden=hidden, skip=skip, x_q=h_q,
+                                reduce=lm.attn_reduce if lm else None,
+                                cols=lm.cols if lm else None)
         else:
             x = x + A.gqa_chunk(lp["attn"], lm.attn_cfg if lm else cfg, h, positions, buf,
                                 start, kv_lengths, key_rows, rt.backend, rope=rope,
@@ -765,7 +817,7 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: int,
         cand = h[rows, torch.clamp(at, 0, size - 1).long()]
         here = ((at >= 0) & (at < size))[:, None]
         last = cand if last is None else torch.where(here, cand, last)
-    state = init_decode_state(local, B, max_len, dev)
+    state = init_decode_local(cfg, B, max_len, rt, dev)
     for cache, buf in zip(state["layers"], carry["layers"]):
         for name, val in _quantize_carry(buf, 0, T).items():
             KV.chunk_update(cache[name], val, 0)
@@ -786,34 +838,39 @@ def _prefill_exact(p: Params, cfg: ModelConfig, inputs: torch.Tensor, max_len: i
     cache as the other stacks' are."""
     B, T = inputs.shape[:2]
     dev = inputs.device
+    mc = _mesh_call(p, cfg, rt)
     positions = torch.arange(T, device=dev).expand(B, T)
-    x = _embed(p, cfg, inputs, positions)
-    state = init_decode_state(cfg, B, max_len, dev)
+    x = _embed(p, cfg, inputs, positions, mc)
+    state = init_decode_local(cfg, B, max_len, rt, dev)
     if any("attn" in lp for lp in p["layers"]):
         rope = (L.rope_tables(positions, A.rope_dim(cfg), cfg.rope_theta)
                 if cfg.rope_theta else None)
         hidden = A.hidden_masks(T, T, T, q_offset=torch.zeros_like(lengths),
                                 kv_lengths=lengths, device=dev)
-    for lp, cache in zip(p["layers"], state["layers"]):
+    for i, cache in enumerate(state["layers"]):
+        lp, lm = _layer(p, i, mc)
         h, h_q = _ln1(lp, x, rt)
         if "ssm" in lp:
             mix, new = SSM.ssm_forward(lp["ssm"], cfg, h, backend=rt.backend,
                                        return_state=True,
-                                       use_kernel=rt.backend == "fused_int8", x_q=h_q)
+                                       use_kernel=rt.backend == "fused_int8", x_q=h_q,
+                                       blk=lm.ssm if lm else None)
             cache.update(new)
         else:
-            kv = (B, T, cfg.n_kv_heads, cfg.head_dim)
+            acfg = lm.attn_cfg if lm else cfg
+            kv = (B, T, acfg.n_kv_heads, cfg.head_dim)
             buf = {"k": torch.zeros(kv, dtype=torch.float32, device=dev),
                    "v": torch.zeros(kv, dtype=torch.float32, device=dev)}
-            mix = A.gqa_chunk(lp["attn"], cfg, h, positions, buf, 0, lengths, T,
-                              rt.backend, rope=rope, hidden=hidden, x_q=h_q)
+            mix = A.gqa_chunk(lp["attn"], acfg, h, positions, buf, 0, lengths, T,
+                              rt.backend, rope=rope, hidden=hidden, x_q=h_q,
+                              reduce=lm.attn_reduce if lm else None)
             for name, val in _quantize_carry(buf, 0, T).items():
                 KV.chunk_update(cache[name], val, 0)
-        x = _ffn(lp, cfg, x + mix, rt)
+        x = _ffn(lp, cfg, x + mix, rt, lm)
     x = L.apply_norm(p["ln_f"], x)
     last = x[torch.arange(B, device=x.device), (lengths - 1).long()]
     state["pos"] = lengths.clone()
-    return _lm_head(p, cfg, last, rt), state
+    return _lm_head(p, cfg, last, rt, mc), state
 
 
 # ---------------------------------------------------------------------------
@@ -934,18 +991,31 @@ def _quantize_carry(buf: dict, lo: int, hi: int) -> dict:
 # the MTP head: DeepSeek-V3's depth-1 multi-token prediction, drafting
 # ---------------------------------------------------------------------------
 def _mtp_cell(p: Params, cfg: ModelConfig, h: torch.Tensor, tok: torch.Tensor,
-              pos_i: torch.Tensor, rt: Runtime) -> tuple[torch.Tensor, torch.Tensor]:
+              pos_i: torch.Tensor, rt: Runtime, mc: "_MeshCall | None" = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """One MTP step: ``[h; embed(tok)]`` through ``mtp_proj`` and
     ``mtp_layer`` at positions ``pos_i`` [B], one position and no cache,
     then ``lm_head`` with no ``ln_f`` -> (logits [B, V], new h [B, d]).
-    The layer's MoE routes the B rows together."""
-    emb = p["embed"]["w"][tok.long()].to(h.dtype)
-    hm = L.apply_linear(L._lin(p["mtp_proj"], "w"), torch.cat([h, emb], dim=-1), rt.backend)
-    lp, x = p["mtp_layer"], hm[:, None]
+    The layer's MoE routes the B rows together.  On a mesh (``mc``) every
+    rank runs every slot's row: ``mtp_proj``'s columns are gathered over
+    the model axis, the layer runs as a decoder layer does."""
+    if mc is None:
+        emb = p["embed"]["w"][tok.long()].to(h.dtype)
+        proj, (lp, lm) = p["mtp_proj"], (p["mtp_layer"], None)
+    else:
+        emb = _embed_ids(p, tok.long(), mc).to(h.dtype)
+        proj = _gather_data(p["mtp_proj"], mc.specs["mtp_proj"], mc)
+        lp, lm = _place_layer(p["mtp_layer"], mc.specs["mtp_layer"], mc)
+    hm = L.apply_linear(L._lin(proj, "w"), torch.cat([h, emb], dim=-1), rt.backend)
+    if mc is not None and _split_over(mc.specs["mtp_proj"]["w"], mc.mesh, 1, rt.model_axis):
+        hm = C.all_gather(hm, mc.model, dim=-1)
+    x = hm[:, None]
     h, h_q = _ln1(lp, x, rt)
-    mix, _ = A.mla_forward(lp["attn"], cfg, h, pos_i[:, None], rt.backend, h_q)
-    x = _ffn(lp, cfg, x + mix, rt)[:, 0]
-    return _lm_head(p, cfg, x, rt), x
+    mix, _ = A.mla_forward(lp["attn"], lm.attn_cfg if lm else cfg, h, pos_i[:, None],
+                           rt.backend, h_q, reduce=lm.attn_reduce if lm else None,
+                           cols=lm.cols if lm else None)
+    x = _ffn(lp, cfg, x + mix, rt, lm)[:, 0]
+    return _lm_head(p, cfg, x, rt, mc), x
 
 
 def _mtp_inputs(cfg: ModelConfig, hidden, token, pos) -> tuple:
@@ -963,9 +1033,10 @@ def mtp_draft(p: Params, cfg: ModelConfig, hidden: torch.Tensor, token: torch.Te
     from the embedding alone), ``token`` [B] the last committed tokens,
     ``pos`` [B] the cursors.  Returns int32 [B, k]."""
     h, tok, pos = _mtp_inputs(cfg, hidden, token, pos)
+    mc = _mesh_call(p, cfg, rt)
     drafts = []
     for i in range(k):
-        logits, h = _mtp_cell(p, cfg, h, tok, pos + i, rt)
+        logits, h = _mtp_cell(p, cfg, h, tok, pos + i, rt, mc)
         tok = torch.argmax(logits, -1).to(torch.int32)
         drafts.append(tok)
     return torch.stack(drafts, dim=1)
@@ -987,42 +1058,41 @@ def mtp_draft_tree(p: Params, cfg: ModelConfig, hidden: torch.Tensor, token: tor
     (chain j's nodes consecutive, its first a child of the root); at
     ``branch = 1`` it is :func:`mtp_draft`."""
     h, tok, pos = _mtp_inputs(cfg, hidden, token, pos)
+    mc = _mesh_call(p, cfg, rt)
     lens = mtp_chain_lengths(n, branch)
-    logits0, h1 = _mtp_cell(p, cfg, h, tok, pos, rt)
+    logits0, h1 = _mtp_cell(p, cfg, h, tok, pos, rt, mc)
     _, top = MOE._top_k(logits0, len(lens))
     drafts = []
     for j, clen in enumerate(lens):
         hj, tj = h1, top[:, j].to(torch.int32)
         drafts.append(tj)
         for s in range(1, clen):
-            lg, hj = _mtp_cell(p, cfg, hj, tj, pos + s, rt)
+            lg, hj = _mtp_cell(p, cfg, hj, tj, pos + s, rt, mc)
             tj = torch.argmax(lg, -1).to(torch.int32)
             drafts.append(tj)
     return torch.stack(drafts, dim=1)
 
 
 # ---------------------------------------------------------------------------
-# the mesh: tensor-parallel GQA decoders, resident expert parallelism
+# the mesh: tensor-parallel decoders, resident expert parallelism
 # ---------------------------------------------------------------------------
 RESIDENT = ("ep2", "ep_data", "etp2")
 
 
 def check_mesh(cfg: ModelConfig, rt: Runtime) -> None:
-    """On a mesh, only GQA/MHA decoders with dense or MoE FFNs serve
-    (llama, granite, phi3, OPT, chameleon, nemotron, grok); any other
-    family raises, citing ROADMAP A.14b."""
+    """On a mesh, every family the port serves serves (see
+    :func:`check_mesh_family`)."""
     if rt.mesh is not None:
         check_mesh_family(cfg)
 
 
 def check_mesh_family(cfg: ModelConfig) -> None:
-    """:func:`check_mesh`'s test of the family, with no mesh at hand."""
-    if not (cfg.family in ("dense", "vlm", "moe") and cfg.attn_type == "gqa"):
-        raise NotImplementedError(
-            f"{cfg.name} on a mesh: only GQA/MHA decoders (dense or MoE FFNs) serve over "
-            "a mesh; MLA, SSM, hybrid and encoder-decoder stacks under a mesh are "
-            "ROADMAP A.14b")
-    check_supported(cfg)
+    """:func:`check_mesh`'s test of the family, with no mesh at hand: every
+    decoder the stack serves (:func:`check_supported`) and the
+    encoder-decoders of ``models/encdec.py`` (``Engine`` only) serve on a
+    mesh; training on a mesh is ROADMAP A.14b."""
+    if cfg.family != "encdec":
+        check_supported(cfg)
 
 
 def attn_tiles(cfg: ModelConfig, mesh) -> bool:
@@ -1033,14 +1103,33 @@ def attn_tiles(cfg: ModelConfig, mesh) -> bool:
     return cfg.n_kv_heads % m == 0 and cfg.n_kv_heads >= m
 
 
-def local_cfg(cfg: ModelConfig, rt: Runtime) -> ModelConfig:
+def ssm_tiles(cfg: ModelConfig, mesh) -> bool:
+    """Whether an SSM layer's heads tile the model axis in blocks that hold
+    whole B/C groups or lie inside one (``ssm.group_block``)."""
+    m = mesh.shape[SH.MODEL_AXIS]
+    if not has_ssm(cfg) or cfg.ssm_heads % m or cfg.ssm_heads < m:
+        return False
+    n, per = cfg.ssm_heads // m, cfg.ssm_heads // cfg.ssm_groups
+    return n % per == 0 or per % n == 0
+
+
+def local_cfg(cfg: ModelConfig, rt: Runtime | None) -> ModelConfig:
     """``cfg`` with the head counts of a rank's block (the shapes of its
     attention, its carry and its pool), or ``cfg`` off a mesh or where the
     heads do not tile."""
-    if rt.mesh is None or not attn_tiles(cfg, rt.mesh):
+    if rt is None or rt.mesh is None or not attn_tiles(cfg, rt.mesh):
         return cfg
     m = rt.mesh.shape[SH.MODEL_AXIS]
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m)
+
+
+def ssm_block(cfg: ModelConfig, rt: Runtime) -> tuple[int, int] | None:
+    """A rank's SSM heads ``(h0, n)`` where they tile the model axis, else
+    None (every rank runs every head)."""
+    if rt.mesh is None or not ssm_tiles(cfg, rt.mesh):
+        return None
+    n = cfg.ssm_heads // rt.mesh.shape[SH.MODEL_AXIS]
+    return rt.mesh.index(rt.model_axis) * n, n
 
 
 def _strip(spec: tuple, axes) -> tuple:
@@ -1052,15 +1141,23 @@ def _strip(spec: tuple, axes) -> tuple:
     return tuple(out)
 
 
+def _layer_specs(specs: Any) -> list:
+    """Every layer's spec dict of a spec tree: its decoder (or encoder and
+    decoder) layers and the MTP layer."""
+    out = [ls for key in ("layers", "enc", "dec") for ls in specs.get(key, [])]
+    return out + ([specs["mtp_layer"]] if "mtp_layer" in specs else [])
+
+
 def mesh_param_specs(cfg: ModelConfig, tree: Any, mesh, serve: bool = False) -> Any:
     """The spec of every leaf of ``tree`` on ``mesh``: ``dist/sharding.py``
     ``param_shardings``, but attention weights stay whole over ``model``
-    where the heads do not tile it (a rank runs whole heads)."""
+    where the heads do not tile it (a rank runs whole heads), and so do an
+    SSM layer's where its heads do not."""
     specs = SH.param_shardings(cfg, tree, mesh, serve=serve)
-    if not attn_tiles(cfg, mesh):
-        for ls in specs.get("layers", []):
-            if "attn" in ls:
-                ls["attn"] = {k: _strip(v, (SH.MODEL_AXIS,)) for k, v in ls["attn"].items()}
+    for ls in _layer_specs(specs):
+        for key, tiles in (("attn", attn_tiles), ("xattn", attn_tiles), ("ssm", ssm_tiles)):
+            if key in ls and not tiles(cfg, mesh):
+                ls[key] = {k: _strip(v, (SH.MODEL_AXIS,)) for k, v in ls[key].items()}
     return specs
 
 
@@ -1122,8 +1219,7 @@ def gather_rows(t: torch.Tensor, state: dict, rt: Runtime) -> torch.Tensor:
     """A step's per-slot output (dim 0 the rank's slots of ``state``'s
     pool) with every slot's row: gathered over the data axes where they
     split the pool, else ``t``."""
-    block = state.get("block")
-    if rt.mesh is None or block is None or block[1] - block[0] == block[2]:
+    if rt.mesh is None or not pool_split(state):
         return t
     return C.all_gather(t, rt.mesh.group(SH.data_axes(rt.mesh)), dim=0)
 
@@ -1133,13 +1229,17 @@ def init_params_sharded(cfg: ModelConfig, rt: Runtime, seed: int = 0,
                         quantize: bool = True) -> MeshParams:
     """This rank's blocks of :func:`init_params`'s tree (the same draws)
     and of its ``quantize_tree`` form, drawn a piece at a time (the
-    embedding, the head, then one layer) and cut at once, so a rank never
-    holds more than one whole layer: ``(params, qparams)``, the float tree
-    placed for prefill and the quantized one for decode (resident experts
-    where ``rt.serve_resident_moe``).  Without ``quantize`` both are the
-    float tree, placed each way."""
+    embedding, the head, then one layer, then the MTP head) and cut at
+    once, so a rank never holds more than one whole layer: ``(params,
+    qparams)``, the float tree placed for prefill and the quantized one for
+    decode (resident experts where ``rt.serve_resident_moe``).  Without
+    ``quantize`` both are the float tree, placed each way.  An
+    encoder-decoder is drawn whole (``models/encdec.py``), then cut."""
     from repro_torch.serve.quantize import quantize_tree
     check_mesh(cfg, rt)
+    if cfg.family == "encdec":
+        from repro_torch.models import model as M
+        return place_params(cfg, M.init_params(cfg, seed, device, dtype), quantize, rt)
     gen = generator(device, seed)
     trees: tuple[Params, Params] = ({}, {})          # float, decode
     specs: tuple[Params, Params] = ({}, {})
@@ -1162,6 +1262,9 @@ def init_params_sharded(cfg: ModelConfig, rt: Runtime, seed: int = 0,
         place({"lm_head": L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)})
     for i in range(cfg.n_layers):
         place({"layers": [init_layer(gen, cfg, i, dtype)]})
+    if cfg.mtp:
+        place({"mtp_proj": L.dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype)})
+        place({"mtp_layer": init_layer(gen, cfg, cfg.n_layers - 1, dtype)})
     for tree, spec in zip(trees, specs):
         tree["specs"] = spec
     return MeshParams(*trees)
@@ -1178,42 +1281,146 @@ def slot_block(n_slots: int, rt: Runtime) -> tuple[int, int]:
     return sl.start, sl.stop
 
 
+def pool_split(state: dict) -> bool:
+    """Whether ``state`` is a rank's block of a pool whose slots the data
+    axes split (so other ranks hold other slots)."""
+    block = state.get("block")
+    return block is not None and block[1] - block[0] < block[2]
+
+
+def local_slot(state: dict, slot: int) -> int | None:
+    """Global ``slot``'s row in a rank's block of a pool, None where
+    another data rank holds it (a whole pool: ``slot`` itself)."""
+    if "block" not in state:
+        return int(slot)
+    lo, hi, _ = state["block"]
+    return int(slot) - lo if lo <= int(slot) < hi else None
+
+
+def slot_owner(state: dict, slot: int) -> int:
+    """The data-axes index of the ranks whose block holds ``slot``."""
+    lo, hi, _ = state["block"]
+    return int(slot) // (hi - lo)
+
+
+def layer_cuts(cfg: ModelConfig, rt: Runtime) -> list[dict]:
+    """Per layer of a rank's block of a pool, each leaf the model axis
+    splits: ``{name: (dim, lo, hi)}`` of the whole leaf (KV heads at dim 2,
+    an SSM layer's ``h`` heads at dim 1 and ``conv_x`` channels at dim 2;
+    MLA's latent and ``conv_B`` / ``conv_C`` are whole on every rank).
+    The reference's ``decode_state_shardings`` splits dim 3 of every 5-dim
+    stacked leaf, which for an SSM ``h`` ``[n_p, B, H, P, N]`` is the head
+    dim ``P``; the port places ``h`` and ``conv_x`` by heads instead, so a
+    rank's state is its own heads' (the spec builders stay the
+    reference's)."""
+    g, kv = local_cfg(cfg, rt).n_kv_heads, cfg.n_kv_heads
+    sb = ssm_block(cfg, rt)
+    out = []
+    for i in range(cfg.n_layers):
+        c: dict = {}
+        if cfg.family == "encdec" or (cfg.layer_kind(i) == "attn" and cfg.attn_type != "mla"):
+            if g != kv:
+                h0 = rt.mesh.index(rt.model_axis) * g
+                names = ("k", "v", "xk", "xv") if cfg.family == "encdec" else ("k", "v")
+                c = {f"{n}_{t}": (2, h0, h0 + g) for n in names for t in "qs"}
+        elif cfg.layer_kind(i) == "ssm" and sb is not None:
+            h0, n = sb
+            hd = cfg.ssm_head_dim
+            c = {"h": (1, h0, h0 + n), "conv_x": (2, h0 * hd, (h0 + n) * hd)}
+        out.append(c)
+    return out
+
+
+def init_decode_local(cfg: ModelConfig, batch: int, max_len: int, rt: Runtime,
+                      device: str | torch.device = "cuda") -> dict:
+    """:func:`init_decode_state` of ``batch`` slots with a rank's heads
+    (:func:`layer_cuts`) on a mesh, every head off one."""
+    state = init_decode_state(local_cfg(cfg, rt), batch, max_len, device)
+    sb = ssm_block(cfg, rt)
+    if sb is not None:
+        dev = state["pos"].device
+        for i in range(cfg.n_layers):
+            if cfg.layer_kind(i) == "ssm":
+                state["layers"][i] = SSM.init_ssm_state(cfg, batch, dev, heads=sb[1])
+    return state
+
+
 def init_decode_block(cfg: ModelConfig, n_slots: int, max_len: int, rt: Runtime,
                       device: str | torch.device = "cuda") -> dict:
     """A rank's block of a pool of ``n_slots`` (:func:`init_decode_state`
-    on a mesh): its slots (:func:`slot_block`) and its KV heads
-    (:func:`local_cfg`); ``block`` holds ``(lo, hi, n_slots)``, which
-    :func:`write_slot` and the steps read."""
+    on a mesh): its slots (:func:`slot_block`) and its heads
+    (:func:`layer_cuts`); ``block`` holds ``(lo, hi, n_slots)``, which
+    :func:`write_slot` and the steps read, ``cuts`` the head cuts.  An
+    encoder-decoder's block is ``models/model.py`` ``init_decode_block``."""
     check_mesh(cfg, rt)
     lo, hi = slot_block(n_slots, rt)
-    state = init_decode_state(local_cfg(cfg, rt), hi - lo, max_len, device)
-    state["block"] = (lo, hi, n_slots)
+    state = init_decode_local(cfg, hi - lo, max_len, rt, device)
+    state["block"], state["cuts"] = (lo, hi, n_slots), layer_cuts(cfg, rt)
     return state
 
 
 def decode_block_of(cfg: ModelConfig, state: dict, rt: Runtime) -> dict:
     """The rank's block (:func:`init_decode_block`'s layout) of a whole
-    decode state, copied: its slots and, where the heads tile the model
-    axis, its KV heads."""
+    decode state, copied: its slots and, where the model axis splits them,
+    its heads."""
     n = state["pos"].shape[0]
     lo, hi = slot_block(n, rt)
-    g = local_cfg(cfg, rt).n_kv_heads
-    h0 = rt.mesh.index(rt.model_axis) * g if g != cfg.n_kv_heads else 0
-    layers = [{k: v[lo:hi, :, h0:h0 + g].clone() for k, v in c.items()}
-              for c in state["layers"]]
-    return {"layers": layers, "pos": state["pos"][lo:hi].clone(), "block": (lo, hi, n)}
+    cuts = layer_cuts(cfg, rt)
+    layers = []
+    for c, cut in zip(state["layers"], cuts):
+        blk = {}
+        for k, v in c.items():
+            v = v[lo:hi]
+            if k in cut:
+                d, a, b = cut[k]
+                v = v.narrow(d, a, b - a)
+            blk[k] = v.clone()
+        layers.append(blk)
+    return {"layers": layers, "pos": state["pos"][lo:hi].clone(), "block": (lo, hi, n),
+            "cuts": cuts}
+
+
+def gather_slot_row(cfg: ModelConfig, state: dict, slot: int, n: int | None,
+                    rt: Runtime) -> dict:
+    """Row ``slot`` of a rank's block of a pool as a whole batch=1 row
+    (:func:`read_slot`'s layout, every head) on every rank, the device half
+    of a swap-out on a mesh: the slot's data owner reads its block, the
+    leaves the model axis splits are all-gathered over it, then the owner
+    broadcasts the row over the data axes (the reference's
+    ``swap_row_shardings``: the row comes out replicated)."""
+    mine = local_slot(state, slot)
+    cuts = state.get("cuts") or [{} for _ in state["layers"]]
+    model = rt.mesh.group(rt.model_axis)
+    if mine is not None:
+        one = read_slot(state, mine, n)
+        for c, cut in zip(one["layers"], cuts):
+            for k, (d, _, _) in cut.items():
+                c[k] = C.all_gather(c[k], model, dim=d)
+    if not pool_split(state):
+        return one
+    rows = n if n is not None else next((v.shape[1] for c in state["layers"] if is_seq_cache(c)
+                                         for v in c.values()), 1)
+    like = read_slot(init_decode_state(cfg, 1, max(1, rows), state["pos"].device), 0, n)
+    data = rt.mesh.group(SH.data_axes(rt.mesh))
+    src = slot_owner(state, slot)
+    one = one if mine is not None else like
+    return {"layers": [{k: C.broadcast(v.contiguous(), data, src) for k, v in c.items()}
+                       for c in one["layers"]],
+            "pos": C.broadcast(one["pos"], data, src)}
 
 
 class _LayerMesh:
     """A layer's place on a mesh: its specs, whether the call's rows are
     split over the data axes, its attention's head counts and the
     row-parallel reductions of ``wo`` and ``w_down`` (None where the dim is
-    whole on every rank)."""
+    whole on every rank), MLA's column gather of ``wq_a`` / ``wkv_a``
+    (``cols``) and an SSM layer's head block (``ssm``)."""
 
     def __init__(self, specs: Params, split: bool, attn_cfg: ModelConfig,
-                 attn_reduce, mlp_reduce):
+                 attn_reduce, mlp_reduce, cols=None, ssm=None):
         self.specs, self.split = specs, split
         self.attn_cfg, self.attn_reduce, self.mlp_reduce = attn_cfg, attn_reduce, mlp_reduce
+        self.cols, self.ssm = cols, ssm
 
 
 class _MeshCall:
@@ -1236,9 +1443,7 @@ def _mesh_call(p: Params, cfg: ModelConfig, rt: Runtime, state: dict | None = No
     if "specs" not in p:
         raise ValueError("params on a mesh are a rank's blocks with their specs "
                          "(transformer.place_params / init_params_sharded)")
-    block = state.get("block") if state is not None else None
-    split = block is not None and block[1] - block[0] < block[2]
-    return _MeshCall(cfg, rt, p["specs"], split)
+    return _MeshCall(cfg, rt, p["specs"], state is not None and pool_split(state))
 
 
 def _split_over(spec: tuple, mesh, dim: int, axis: str) -> bool:
@@ -1257,23 +1462,42 @@ def _gather_data(node, spec, mc: _MeshCall):
     return node
 
 
+def _row_split(specs: dict, name: str, mc: _MeshCall) -> bool:
+    """Whether row-parallel linear ``name`` of ``specs`` has its input rows
+    split over the model axis (a float or a quantized tree)."""
+    w = specs.get(name, specs.get(name + "_q"))
+    return w is not None and _split_over(w, mc.mesh, 0, mc.rt.model_axis)
+
+
+def _place_layer(lp: Params, ls: Params, mc: _MeshCall) -> tuple[Params, _LayerMesh]:
+    """A layer's params with their FSDP dims gathered, and its place
+    (:class:`_LayerMesh`) under its specs ``ls``."""
+    lp = _gather_data(lp, ls, mc)
+    attn_reduce = mlp_reduce = cols = blk = None
+    if "attn" in ls:
+        attn_reduce = mc.red if _row_split(ls["attn"], "wo", mc) else None
+        if mc.cfg.attn_type == "mla":
+            split = {n: _split_over(ls["attn"].get(n, ls["attn"].get(n + "_q")), mc.mesh, 1,
+                                    mc.rt.model_axis) for n in ("wq_a", "wkv_a")}
+
+            def cols(name, t, split=split):
+                return C.all_gather(t, mc.model, dim=-1) if split[name] else t
+    if "mlp" in ls:
+        mlp_reduce = mc.red if _row_split(ls["mlp"], "w_down", mc) else None
+    if "ssm" in ls and _row_split(ls["ssm"], "out_proj", mc):
+        h0, n = ssm_block(mc.cfg, mc.rt)
+        blk = SSM.HeadBlock(h0, n, mc.model, mc.red)
+    return lp, _LayerMesh(ls, mc.split, mc.attn_cfg if attn_reduce else mc.cfg,
+                          attn_reduce, mlp_reduce, cols, blk)
+
+
 def _layer(p: Params, i: int, mc: _MeshCall | None) -> tuple[Params, _LayerMesh | None]:
     """Layer ``i``'s params and, on a mesh, its FSDP dims gathered and its
     place (:class:`_LayerMesh`)."""
     lp = p["layers"][i]
     if mc is None:
         return lp, None
-    ls = mc.specs["layers"][i]
-    lp = _gather_data(lp, ls, mc)
-    attn_reduce = mlp_reduce = None
-    if "attn" in ls:
-        wo = ls["attn"].get("wo", ls["attn"].get("wo_q"))
-        attn_reduce = mc.red if _split_over(wo, mc.mesh, 0, mc.rt.model_axis) else None
-    if "mlp" in ls:
-        wd = ls["mlp"].get("w_down", ls["mlp"].get("w_down_q"))
-        mlp_reduce = mc.red if _split_over(wd, mc.mesh, 0, mc.rt.model_axis) else None
-    return lp, _LayerMesh(ls, mc.split, mc.attn_cfg if attn_reduce else mc.cfg,
-                          attn_reduce, mlp_reduce)
+    return _place_layer(lp, mc.specs["layers"][i], mc)
 
 
 def _embed_ids(p: Params, ids: torch.Tensor, mc: _MeshCall) -> torch.Tensor:
@@ -1306,7 +1530,17 @@ def _embed_ids(p: Params, ids: torch.Tensor, mc: _MeshCall) -> torch.Tensor:
 def _lm_head_mesh(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime,
                   mc: _MeshCall) -> torch.Tensor:
     """``lm_head`` on a mesh: the rank's vocabulary columns (the tied
-    embedding's rows), gathered over the axes that split them."""
+    embedding's rows), gathered over the axes that split them.  Where the
+    call's rows are the rank's slots, the head runs over every slot's row
+    (gathered over the data axes) and the rank keeps its own: a float
+    product of another row count may sum in another order, so the rank's
+    logits are one device's bits."""
+    if mc.split:
+        data = mc.mesh.group(mc.dp)
+        n = h.shape[0]
+        whole = _lm_head_mesh(p, cfg, C.all_gather(h, data, dim=0), rt,
+                              _MeshCall(mc.cfg, mc.rt, mc.specs, False))
+        return whole[data.index * n:(data.index + 1) * n]
     if cfg.tie_embeddings:
         spec = mc.specs["embed"]["w"]
         w = SH.reshard(p["embed"]["w"], spec, _strip(spec, mc.dp), mc.mesh)
@@ -1338,7 +1572,10 @@ def _moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     differ).  Every rank routes every row of the call (``split``: ``x`` is
     the rank's rows of a call split over the data axes, gathered first and
     cut back after), so every rank keeps one set under the call's global
-    capacity.  Partial sums combine by ``rt.collective``."""
+    capacity.  Partial sums combine by ``rt.collective``.  The shared
+    expert (FFN-sliced over ``model``) runs row-parallel after the combine
+    (``w_down``'s input quantized over the whole FFN row, as one device
+    quantizes it) and is added last, as one device adds it."""
     if rt.mesh is None:
         return MOE.moe_apply(p, x, cfg)[0]
     mesh = rt.mesh
@@ -1348,24 +1585,25 @@ def _moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     if not resident and rt.serve_resident_moe:
         ms = SH.moe_param_specs(cfg, mesh, serve=False)
 
-    def working(nm: str, table: dict, leaf: torch.Tensor) -> tuple:
+    def working(nm: str, table: dict, leaf: torch.Tensor, gather: bool = True) -> tuple:
         key = nm[:-2] if nm.endswith("_q") else nm
         spec = table.get(nm, table.get(key, (None,) * leaf.dim()))
-        g = ms["gather"].get(nm, ms["gather"].get(key))
+        g = ms["gather"].get(nm, ms["gather"].get(key)) if gather else None
         if g is not None:
             spec = spec[:g] + (None,) + spec[g + 1:]
         return spec
 
     pp = {}
     for nm, leaf in p.items():
-        if nm == "shared":
-            pp[nm] = {k: SH.reshard(v, stored[nm][k], working(k, ms["shared"], v), mesh)
-                      for k, v in leaf.items()}
+        if nm == "shared":           # FFN-sliced over model, no FSDP dim to gather
+            pp[nm] = {k: SH.reshard(v, stored[nm][k], working(k, ms["shared"], v, False),
+                                    mesh) for k, v in leaf.items()}
         else:
             pp[nm] = SH.reshard(leaf, stored[nm], working(nm, ms["spec"], leaf), mesh)
     data = mesh.group(dp)
     rows = C.all_gather(x, data, dim=0) if split else x
     B, T, d = rows.shape
+    shared = pp.pop("shared", None)
     if resident:
         ep_axes = ms["ep_axes"]
         if ms["strategy"] == "etp2":
@@ -1375,8 +1613,7 @@ def _moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
             n_local = cfg.n_experts // size
             e_first = mesh.index(ep_axes) * n_local
         out, _ = MOE.moe_local(pp, rows.reshape(B * T, d), cfg, e_first=e_first,
-                               n_local=n_local,
-                               shared_scale=1.0 / SH.axes_size(mesh, dp))
+                               n_local=n_local)
         axes = tuple(ep_axes) + ((rt.model_axis,) if ms["strategy"] == "ep_data" else ())
         if rt.collective == "htree":
             for a in axes:              # a tree a mesh axis, as the reference
@@ -1388,6 +1625,12 @@ def _moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
         model = mesh.group(rt.model_axis)
         out, _ = MOE.moe_apply(pp, rows, cfg, axis_name=rt.model_axis, mesh=mesh,
                                reduce_fn=lambda o: C.allreduce(o, model, rt.collective))
+    if shared is not None and cfg.n_shared_experts:
+        model = mesh.group(rt.model_axis)
+        wd = stored["shared"].get("w_down", stored["shared"].get("w_down_q"))
+        red = L.RowReduce(model, rt.collective) if _split_over(wd, mesh, 0, rt.model_axis) \
+            else None
+        out = out + L.apply_mlp(shared, rows, cfg.mlp_type, reduce=red).to(out.dtype)
     if split:
         n = x.shape[0]
         out = out[data.index * n:(data.index + 1) * n]

@@ -94,10 +94,31 @@ slot's owner lands its row; the decode lanes' per-slot outputs (tokens,
 the host sampler's logits or its top-k) are gathered over the data axes,
 so every rank emits the same streams.  A mesh engine runs its steps
 eagerly (its gloo collectives copy through host memory, which a CUDA
-graph cannot hold).  The lanes on a mesh are the plain one,
-``multi_step``, ``chunk``, ``spec_k`` and ``spec_tree`` (GQA/MHA decoders
-with dense or MoE FFNs); ``prefix_cache``, ``kv_swap`` and ``faults``
-raise (ROADMAP A.14b).
+graph cannot hold).  Every lane serves on a mesh, for every family the
+port serves (``Engine`` for an encoder-decoder):
+
+* the tiered pool: a swapped-out row is whole and replicated on the host
+  of every rank (``transformer.gather_slot_row``: the owners all-gather
+  the heads over ``model``, the data owner broadcasts the row over the
+  data axes), so the cold store, its checksums, injected flips and the
+  NAND model see one device's bytes on every rank; a swap-in lands each
+  rank's block of it (``write_slot``);
+* the prefix cache: the trie and the ledger are host-side and the same on
+  every rank; a cached prefix copied to a slot of another data owner moves
+  point to point (``copy_slot_prefix``), and the warm carry takes the
+  owner's rows broadcast over the data axes (``warm_prefill_carry``);
+* faults: every rank builds the same injector, so injected failures land
+  on the same step; each step's outcome (ok or failed, and the count of
+  uncorrectable cold blocks) is agreed with a MAX over the whole mesh
+  before a retry, and ranks that disagree raise.  A rank whose step raises
+  outside an injection ends: its peers' next collective fails (or gloo's
+  timeout bounds the wait);
+* the clock: world rank 0 (the leader) owns every decision that reads a
+  clock.  Before each iteration it broadcasts its time, the requests
+  submitted to it since the last one (with their arrival times) and the
+  cancellations it takes, and the followers apply them
+  (:meth:`ContinuousBatchingEngine._sync_control`), so a streaming front
+  end on the leader alone drives every rank.
 """
 from __future__ import annotations
 
@@ -113,6 +134,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kvcache as KV
 from repro_torch.core.mapping import flash_tpot_for
 from repro_torch.device import resolve, set_float32_precision
+from repro_torch.dist import collectives as C
 from repro_torch.ft.failures import StragglerWatchdog
 from repro_torch.models import graphs as G
 from repro_torch.models import model as M
@@ -130,6 +152,11 @@ from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
 
 
 DRAIN_STALL_LIMIT = 8     # idle iterations with work pending before drain() raises
+_STOP = "stop"            # the leader's control message that ends its followers
+
+
+class _Stop(Exception):
+    """A follower's control sync received the leader's stop message."""
 
 
 class RequestFailedError(RuntimeError):
@@ -187,7 +214,7 @@ class Engine:
         if steps is None:
             state = (M.init_decode_state(self.cfg, batch, self.max_len, self.device)
                      if self.rt.mesh is None else
-                     T.init_decode_block(self.cfg, batch, self.max_len, self.rt, self.device))
+                     M.init_decode_block(self.cfg, batch, self.max_len, self.rt, self.device))
             steps = self._steps[batch] = G.ServeSteps(self.qparams, self.cfg,
                                                       self.rt, state)
         return steps
@@ -332,12 +359,6 @@ class ContinuousBatchingEngine:
         self.topk_preselect = bool(topk_preselect)
         rt = rt or Runtime()
         T.check_mesh(cfg, rt)
-        if rt.mesh is not None:
-            lanes = [n for n, on in (("prefix_cache", prefix_cache), ("kv_swap", kv_swap),
-                                     ("faults", faults)) if on]
-            if lanes:
-                raise NotImplementedError(
-                    f"{', '.join(lanes)} on a mesh: not ported yet (ROADMAP A.14b)")
         if self.chunk:
             self.max_step_tokens = (max_step_tokens if max_step_tokens
                                     else n_slots + self.chunk)
@@ -394,9 +415,11 @@ class ContinuousBatchingEngine:
         # modeled per-token decode cost
         self._swap = None
         if kv_swap:
+            # a cold row is a whole row (every head) on every rank of a mesh
             self._swap = SwapManager(
                 cold_rows if cold_rows is not None else n_slots * max_len,
-                slot_template(self.state),
+                slot_template(self.state if rt.mesh is None
+                              else M.init_decode_state(cfg, 1, rows, "meta")),
                 replay_tpot_s=float(flash_tpot_for(cfg, context_len=max_len)["total"]))
         # (direction, bytes, seconds) of every block copy between the pool
         # and the cold tier, each timed between two device synchronizations
@@ -419,10 +442,13 @@ class ContinuousBatchingEngine:
             # post-ln_f hidden at each slot's last committed position, kept
             # on the card), the last tokens and, for each verify step, the
             # window row each slot emitted last (-1: the slot did not run)
+            # (every slot's on every rank of a mesh: the drafts run the
+            # MTP layer's MoE over all of them, as one device does)
             self._h_last = torch.zeros((n_slots, cfg.d_model), dtype=torch.float32,
                                        device=self.device)
-            self._tok_buf = torch.zeros_like(self._pos_buf)
-            self._hrow_buf = torch.zeros_like(self._pos_buf)
+            self._tok_buf = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+            self._hrow_buf = torch.zeros_like(self._tok_buf)
+            self._dpos_buf = torch.zeros_like(self._tok_buf)
         self._last_tok = np.zeros((n_slots,), np.int32)
         self._slot_pos = np.zeros((n_slots,), np.int64)   # host cursor mirror
         self._carries: dict[int, dict] = {}                # slot -> prefill carry
@@ -432,6 +458,16 @@ class ContinuousBatchingEngine:
         # cancellation inbox: cancel() only appends, so a server may call it
         # from another thread while step() runs; the next step drains it
         self._cancels: list[Request] = []
+        # on a mesh: the whole world's group, the leader (world rank 0),
+        # the submissions the leader took since its last broadcast, the
+        # requests by rid (a follower applies the leader's cancellations by
+        # rid), the cancellations and the time of the current iteration
+        self._world = rt.mesh.group(rt.mesh.axis_names) if rt.mesh is not None else None
+        self._leader = self._world is None or self._world.index == 0
+        self._log: list[tuple[int, dict]] = []
+        self._reqs: dict[int, Request] = {}
+        self._step_cancels: list[Request] = []
+        self._clock = 0.0
         # set from the start of an in-place pool update until it returns: a
         # call that raised left the pool in an unknown state (the reference's
         # failed donated call deletes its pool), which only a rebuild clears
@@ -501,10 +537,70 @@ class ContinuousBatchingEngine:
                       top_k=top_k, seed=seed, deadline_s=deadline_s)
         self._next_rid += 1
         self.scheduler.submit(req)
+        if self._world is not None:
+            self._reqs[req.rid] = req
+            if self._leader:
+                self._log.append((req.rid, dict(
+                    prompt=req.prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
+                    arrival_time=req.arrival_time, priority=priority, user=user,
+                    temperature=temperature, top_k=top_k, seed=seed, deadline_s=deadline_s)))
         return req
 
     def _now(self) -> float:
+        """The engine's time; a follower on a mesh reads the leader's, as of
+        the current iteration (:meth:`_sync_control`)."""
+        if not self._leader:
+            return self._clock
         return time.monotonic() - self._t0
+
+    def follow(self) -> None:
+        """A follower's serve loop on a mesh: one :meth:`step` each time the
+        leader steps (its front end drives the world), until the leader's
+        :meth:`stop_followers`."""
+        if self._leader:
+            raise RuntimeError("follow() runs on a follower of a mesh (world rank > 0)")
+        try:
+            while True:
+                self.step()
+        except _Stop:
+            pass
+
+    def stop_followers(self) -> None:
+        """The leader ends its followers' :meth:`follow` loops."""
+        if self._world is not None and self._leader:
+            C.broadcast_object(_STOP, self._world, 0)
+
+    def _sync_control(self) -> None:
+        """On a mesh, the leader's decisions for this iteration: its time,
+        the requests submitted to it since its last broadcast (a follower
+        submits those it lacks and takes the leader's arrival time for the
+        rest) and the cancellations it takes now, broadcast from world rank
+        0 and applied by every rank; the leader's straggler count too."""
+        if self._world is None:
+            return
+        msg = None
+        if self._leader:
+            n = len(self._cancels)             # cancel() may append meanwhile
+            take, self._cancels[:n] = self._cancels[:n], []
+            msg = (self._now(), self._log, [r.rid for r in take], self.stats["slow_steps"])
+            self._log = []
+        msg = C.broadcast_object(msg, self._world, 0)
+        if msg == _STOP:
+            raise _Stop
+        now, subs, cancels, slow = msg
+        if not self._leader:
+            self._clock = now
+            for rid, kw in subs:
+                req = self._reqs.get(rid)
+                if req is None:
+                    req = self.submit(**kw)
+                    if req.rid != rid:
+                        raise RuntimeError(f"follower's request {req.rid} is the leader's {rid}")
+                else:
+                    req.arrival_time = kw["arrival_time"]
+            self.stats["slow_steps"] = slow
+        self._clock = now
+        self._step_cancels = [self._reqs[rid] for rid in cancels]
 
     def now(self) -> float:
         """Engine timebase (monotonic seconds since construction or
@@ -515,11 +611,12 @@ class ContinuousBatchingEngine:
         self._t0 = time.monotonic()
 
     # -- host<->device transfer discipline --------------------------------
-    def _fetch(self, x, decode: bool = False):
+    def _fetch(self, x, decode: bool = False, rows: bool = True):
         """Explicit device->host fetch of a tensor or a tuple of tensors
-        (counted; timed as device wait)."""
+        (counted; timed as device wait); ``rows``: a decode fetch's dim 0 is
+        the rank's slots (not every slot's row already)."""
         t0 = time.perf_counter()
-        if decode:                   # on a mesh: every slot's row, on every rank
+        if decode and rows:          # on a mesh: every slot's row, on every rank
             x = (tuple(T.gather_rows(t, self.state, self.rt) for t in x)
                  if isinstance(x, tuple) else T.gather_rows(x, self.state, self.rt))
         out = (tuple(t.cpu().numpy() for t in x) if isinstance(x, tuple)
@@ -534,12 +631,13 @@ class ContinuousBatchingEngine:
     def _push(self, arr: np.ndarray, into: torch.Tensor,
               decode: bool = False) -> torch.Tensor:
         """Explicit host->device transfer into the static buffer ``into``
-        (counted); on a mesh a per-slot array lands the rank's slots."""
-        if arr.shape[:1] == (self.n_slots,) and into.shape[0] != self.n_slots:
-            arr = arr[self._lo:self._hi]
+        (counted: every slot's bytes, as one device moves them); on a mesh a
+        per-slot array lands the rank's slots."""
         self.stats["xfer_bytes"] += arr.nbytes
         if decode:
             self.stats["decode_xfer_bytes"] += arr.nbytes
+        if arr.shape[:1] == (self.n_slots,) and into.shape[0] != self.n_slots:
+            arr = arr[self._lo:self._hi]
         return into.copy_(torch.from_numpy(np.ascontiguousarray(arr)).reshape(into.shape))
 
     def _dev(self, fn, *args, **kwargs):
@@ -767,10 +865,10 @@ class ContinuousBatchingEngine:
             self._cold_carry(req.slot)
             return
         if src != req.slot:
-            self._in_place(T.copy_slot_prefix, self.state, src, req.slot, n_hit)
+            self._in_place(T.copy_slot_prefix, self.state, src, req.slot, n_hit, self.rt)
         self._carries[req.slot] = self._dev(
             M.warm_prefill_carry, self.cfg, self.state, req.slot, n_hit,
-            T.carry_len(self.max_len, self.chunk), req.prompt[:n_hit])
+            T.carry_len(self.max_len, self.chunk), req.prompt[:n_hit], self.rt)
         self._warm_rows[req.slot] = n_hit
         req.prefill_pos = n_hit
         self.stats["prefix_hits"] += 1
@@ -851,8 +949,10 @@ class ContinuousBatchingEngine:
     def _lift_rows(self, slot: int, n: int) -> dict:
         """The first ``n`` rows of ``slot`` as a numpy host block: copied out
         of the pool on the device, then one timed, metered device-to-host
-        copy (only the live rows cross)."""
-        one = self._dev(T.read_slot, self.state, slot, n)
+        copy (only the live rows cross).  On a mesh the block is the whole
+        row, on every rank (``transformer.gather_slot_row``)."""
+        one = (self._dev(T.read_slot, self.state, slot, n) if self.rt.mesh is None
+               else self._dev(T.gather_slot_row, self.cfg, self.state, slot, n, self.rt))
         _sync(self.device)
         t0 = time.perf_counter()
         host = to_host(one)
@@ -883,10 +983,13 @@ class ContinuousBatchingEngine:
 
     def _write_block(self, slot: int, one: dict, n: int) -> None:
         T.write_slot(self.state, slot, one)
+        mine = T.local_slot(self.state, slot)
+        if mine is None:
+            return                         # another data rank holds the slot
         for cache in self.state["layers"]:
             if T.is_seq_cache(cache):
                 for buf in cache.values():
-                    buf[slot, n:].zero_()
+                    buf[mine, n:].zero_()
 
     def _relay_cold_evictions(self, evicted: list) -> None:
         """Unpinned (prefix-leaf) blocks the cold store LRU-dropped to make
@@ -1047,8 +1150,9 @@ class ContinuousBatchingEngine:
         needs no device work: the row is dead in place until the next
         admission overwrites it."""
         did = False
-        while self._cancels:
-            req = self._cancels.pop(0)
+        inbox = self._cancels if self._world is None else self._step_cancels
+        while inbox:
+            req = inbox.pop(0)
             if req.done:
                 continue                   # raced with retire or fail
             self._release(req)
@@ -1149,7 +1253,7 @@ class ContinuousBatchingEngine:
         if self.spec_tree:
             bufs += [self._base_buf, self._keep_buf, self._sel_buf]
         if self._h_last is not None:
-            bufs += [self._h_last, self._tok_buf, self._hrow_buf]
+            bufs += [self._h_last, self._tok_buf, self._hrow_buf, self._dpos_buf]
         return bufs
 
     # -- one serving iteration --------------------------------------------
@@ -1168,29 +1272,51 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         try:
             with self._on_device():
+                self._sync_control()
                 attempt = 0
                 while True:
                     try:
-                        return self._step()
-                    except Exception as e:            # noqa: BLE001
-                        if not (isinstance(e, InjectedStepFailure)
+                        did, e = self._step(), None
+                    except Exception as err:          # noqa: BLE001
+                        if not (isinstance(err, InjectedStepFailure)
                                 or self._pool_consumed()):
                             raise
-                        self.stats["step_failures"] += 1
-                        if attempt >= self.max_step_retries:
-                            raise RuntimeError(
-                                f"engine step failed {attempt + 1} time(s); "
-                                "retry budget exhausted") from e
-                        if self.retry_backoff_s > 0:
-                            time.sleep(self.retry_backoff_s * (2.0 ** attempt))
-                        attempt += 1
-                        self.stats["step_retries"] += 1
-                        self._rebuild_pool()
+                        did, e = None, err
+                    if not self._agree(e is not None):
+                        return did
+                    if e is None:
+                        e = InjectedStepFailure("a failure on another rank of the mesh")
+                    self.stats["step_failures"] += 1
+                    if attempt >= self.max_step_retries:
+                        raise RuntimeError(
+                            f"engine step failed {attempt + 1} time(s); "
+                            "retry budget exhausted") from e
+                    if self.retry_backoff_s > 0:
+                        time.sleep(self.retry_backoff_s * (2.0 ** attempt))
+                    attempt += 1
+                    self.stats["step_retries"] += 1
+                    self._rebuild_pool()
         finally:
             dt = time.perf_counter() - t0
             self.stats["step_s"] += dt
             if self._watchdog.observe(self.stats["steps"], dt):
                 self.stats["slow_steps"] += 1
+
+    def _agree(self, failed: bool) -> bool:
+        """Whether this attempt failed, agreed over the mesh: a MAX over the
+        whole world of (failed, uncorrectable cold blocks so far) and of
+        their negations; ranks that disagree raise (their host state has
+        parted).  Off a mesh, ``failed``."""
+        if self._world is None:
+            return failed
+        mine = [int(failed), int(self.stats.get("uncorrectable_blocks", 0))]
+        got = C.all_reduce(torch.tensor(mine + [-v for v in mine]), self._world,
+                           "max").tolist()
+        if got[:2] != [-v for v in got[2:]]:
+            raise RuntimeError(f"the ranks disagree on the step's outcome "
+                               f"(failed, uncorrectable blocks: max {got[:2]}, "
+                               f"min {[-v for v in got[2:]]})")
+        return bool(got[0])
 
     def _on_device(self):
         """The engine's card as the calling thread's current device (a
@@ -1200,7 +1326,7 @@ class ContinuousBatchingEngine:
         return contextlib.nullcontext()
 
     def _step(self) -> bool:
-        now = self._now()
+        now = self._now() if self._world is None else self._clock
         self.stats["steps"] += 1
         step_pf = 0
         cancelled = self._apply_cancels(now)
@@ -1398,8 +1524,9 @@ class ContinuousBatchingEngine:
             return None
         fn = self._drafter.draft_tree_batch if tree else self._drafter.draft_batch
         tok = self._push(self._last_tok, self._tok_buf, decode=True)
-        return self._fetch(self._dev(fn, self.qparams, self._h_last, tok,
-                                     self._pos_device()), decode=True)
+        pos = self._push(np.asarray(self._slot_pos, np.int32), self._dpos_buf, decode=True)
+        return self._fetch(self._dev(fn, self.qparams, self._h_last, tok, pos),
+                           decode=True, rows=False)
 
     def _carry_hidden(self, rows: np.ndarray) -> None:
         """After a verify step: each slot's hidden carry becomes the step's
@@ -1409,7 +1536,8 @@ class ContinuousBatchingEngine:
             return
         r = self._push(rows, self._hrow_buf, decode=True)
         n = torch.arange(self.n_slots, device=self.device)
-        got = self._steps.hidden[n, torch.clamp(r, min=0).long()]
+        hidden = T.gather_rows(self._steps.hidden, self.state, self.rt)
+        got = hidden[n, torch.clamp(r, min=0).long()]
         self._h_last.copy_(torch.where((r >= 0)[:, None], got, self._h_last))
 
     def _draft_for(self, req: Request, dr: np.ndarray | None) -> list[int]:

@@ -1928,3 +1928,89 @@ def test_mesh_decode_step_on_the_card_bit_equal(cuda):
             want, got, pools_equal = res[("fused_int8", coll)]
             np.testing.assert_array_equal(got, want)
             assert pools_equal
+
+
+def test_mesh_ssm_step_and_row_moves_on_the_card(cuda):
+    """A 1x2 mesh on the card: mamba2 ``.reduced()`` under ``fused_int8``,
+    B6 prefilling each rank's heads and a decode step from the state it
+    leaves, bit-equal to one process's (logits and every state leaf
+    gathered over the model axis); a 2x2 mesh: a cross-shard prefix copy
+    and a swapped row of llama's pool equal one process's."""
+    import torch_mesh_serve_ranks as R
+    from repro_torch.launch import mesh as MS
+    for res in MS.spawn(R.card_ssm_step, 2):
+        assert res["prefill_logits_equal"] and max(res["prefill_state_diffs"]) == 0.0
+        assert res["logits_equal"] and max(res["state_diffs"]) == 0.0
+    for res in MS.spawn(R.card_row_moves, 4):
+        assert res["copy_equal"] and res["row_equal"]
+
+
+def test_mesh_lanes_on_the_card_token_identical(cuda):
+    """The serving lanes on a 2x2 mesh on the card (every rank on
+    ``cuda:0``): llama3-8b at full width with 2 layers under ``fused_int8``
+    with the prefix cache, the cold tier under ``fair:3`` and faults over
+    the cold tier (step failures, a lost slot, NAND flips under the ECC):
+    every rank's stats (but the clocks) and quarantined slots equal one
+    process's, its streams equal rank 0's, and rank 0's equal one
+    process's or part at a near-tie at the first parting iteration, a
+    parting with its cause named by ``prefill_probes`` (the mesh prefill's
+    RoPE takes the reference's mesh form, a rotation contraction, and its
+    attention runs the rank's heads), each lane exercised."""
+    import dataclasses
+
+    import torch_mesh_serve_ranks as R
+    from repro_torch.launch import mesh as MS
+    cfg = dataclasses.replace(registry.get("llama3-8b"), n_layers=R.CARD_LANE_LAYERS)
+    world = MS.start(R.card_lanes_rank, 4, timeout_s=1200)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    want = R.card_lanes(cfg, params, Runtime("fused_int8"))
+    del params
+    ranks = world.join()
+    for r, res in enumerate(ranks):
+        for lane, (outs, stats, q, rows, _) in want.items():
+            c = res[lane][4]
+            print(f"lane {lane} rank {r}: trace {c['wall_s']:.2f} s (one process "
+                  f"{want[lane][4]['wall_s']:.2f} s); collectives {c['calls']} calls, "
+                  f"{c['bytes'] / 1e6:.3f} MB, {c['seconds']:.2f} s; row moves "
+                  f"{c['move_bytes'] / 1e6:.3f} MB; swap bytes out "
+                  f"{stats.get('swap_out_bytes', 0)}, in {stats.get('swap_in_bytes', 0)}")
+            assert res[lane][0] == ranks[0][lane][0], lane
+            assert res[lane][1] == stats and res[lane][2] == q, lane
+            assert R.near_tie_failures(res[lane][0], res[lane][3], outs, rows) == [], lane
+    # a parting stream needs a named cause: a float stage of the mesh
+    # prefill whose rank's bits are not one process's
+    probes = R.prefill_probes(cfg, 2)
+    parted = sorted(lane for lane in want if ranks[0][lane][0] != want[lane][0])
+    print(f"lanes parting from one process's: {parted}; mesh prefill stages parting: "
+          f"{[k for k, eq in probes.items() if not eq]} of {list(probes)}")
+    assert not parted or not all(probes.values()), parted
+    assert want["prefix"][1]["prefix_hits"] > 0
+    assert want["swap"][1]["preempt_swaps"] > 0
+    st = want["faults_swap"][1]
+    assert st["pool_rebuilds"] == 2 and st["slot_losses"] == 1 and want["faults_swap"][2] == [0]
+
+
+def test_mesh_families_on_the_card(cuda, tmp_path):
+    """mamba2-2.7b (16 of 64 layers), deepseek-v3-671b (4 of 61 layers and
+    the MTP head), jamba-1.5-large-398b (5 of 72: an SSM layer, a MoE FFN,
+    attention) and whisper-tiny uncut at full width on a 1x2 mesh on the
+    card, against one process's baselines drawn here
+    (``torch_mesh_serve_ranks.mesh_families``: each decode step's gathered
+    state and logits bit-equal, a MoE stack layer by layer with its MoE FFN
+    within rtol 2e-3 / atol 2e-4, a float product of the rank's shape that
+    parts named by ``shape_probes`` and held to 1e-3 of its scale; one
+    process's launches a rank; the short trace, deepseek's MTP lane and
+    whisper's ``Engine`` equal or parted at a near-tie).  The chip script's
+    time does not hold them, so they run here."""
+    import gc
+
+    import torch_mesh_serve_ranks as R
+    base = {}
+    for name, (cfg, drawn) in R.mesh_family_cfgs().items():
+        params = R.CS.int8_params(torch, cfg) if drawn else M.init_params(cfg, 0, "cuda")
+        base[name] = R.mesh_family_baseline(str(tmp_path), cfg, params, drawn)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = R.mesh_families(str(tmp_path), base)
+    assert set(out) >= set(R.mesh_family_cfgs()) and "failures" not in out

@@ -18,7 +18,13 @@ torch thread a rank, each world started once for the module.
 * both engines on a 2x2 mesh token-identical to JAX's single-device engine
   and to the port's one-device engine on the reference's sharded-serve
   trace, every rank's streams equal, and the serve CLI's ``--mesh 2x2``;
-* the refusals that cite A.14b.
+* the families and lanes that raised here until A.14b's serving half:
+  each family's tree drawn a piece at a time on 1x2 equals its whole tree
+  placed, and llama with the prefix cache, the cold tier or the fault
+  layer on 2x2 serves the trace as one device does (their parity with the
+  reference: ``tests/test_torch_mesh_lanes.py`` and
+  ``tests/test_torch_mesh_families.py``);
+* the refusals that still cite A.14b (training on a mesh).
 """
 import dataclasses
 import os
@@ -260,7 +266,8 @@ def test_sharded_init_equals_placing_the_whole_tree(worlds):
     """A rank drawing its blocks a piece at a time gets the blocks and specs
     of the whole seeded tree, quantized whole, then cut."""
     for res in worlds["1x2"]:
-        assert res["sharded_init"] == {a: True for a in R.ENGINE_ARCHS}
+        assert {a: res["sharded_init"][a] for a in R.ENGINE_ARCHS} == {
+            a: True for a in R.ENGINE_ARCHS}
 
 
 def test_llama_decode_on_1x4_where_the_kv_heads_do_not_tile(worlds):
@@ -394,29 +401,38 @@ def test_serve_cli_mesh_2x2_tokens_equal_one_device(capfd):
 
 
 # ---------------------------------------------------------------------------
-# (f) refusals
+# (f) what raised here until A.14b's serving half, and the refusals left
 # ---------------------------------------------------------------------------
 MESH_RT = T.Runtime(mesh=MS.AbstractMesh((1, 2), ("data", "model")))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b",
                                   "deepseek-v3-671b", "whisper-tiny"])
-def test_other_families_on_a_mesh_raise(arch):
+def test_other_families_on_a_mesh_raise(worlds, arch):
+    """These families raised on a mesh until A.14b's serving half; now they
+    are accepted, and a rank drawing its blocks a piece at a time
+    (deepseek's MTP head last; whisper drawn whole, then cut) gets the
+    blocks and specs of the whole seeded tree placed on 1x2."""
     cfg = ARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="A.14b"):
-        T.check_mesh_family(cfg)
+    T.check_mesh_family(cfg)
     if cfg.family != "encdec":
-        with pytest.raises(NotImplementedError, match="A.14b"):
-            T.check_mesh(cfg, MESH_RT)
+        T.check_mesh(cfg, MESH_RT)
+    for res in worlds["1x2"]:
+        assert res["sharded_init"][arch]
 
 
 @pytest.mark.parametrize("kwargs", [{"prefix_cache": True, "chunk": 4}, {"kv_swap": True},
                                     {"faults": True}])
-def test_lanes_waiting_for_a14b_raise_on_a_mesh(kwargs):
+def test_lanes_waiting_for_a14b_raise_on_a_mesh(worlds, kwargs):
+    """These lanes raised on a mesh until A.14b's serving half; now llama
+    with each serves the reference's trace on 2x2 as the port's one-device
+    engine does: the same streams on every rank and every stat but the
+    clocks."""
     cfg = ARCHS["llama3-8b"].reduced()
-    with pytest.raises(NotImplementedError, match="A.14b"):
-        ContinuousBatchingEngine(cfg, T.init_params(cfg, 0, "cpu"), n_slots=2, max_len=16,
-                                 rt=MESH_RT, device="cpu", **kwargs)
+    want = R.lane_run(cfg, T.init_params(cfg, 0, "cpu"), kwargs)
+    i = R.NEW_LANES.index(kwargs)
+    for res in worlds["2x2"]:
+        assert res["new_lanes"][i] == want
 
 
 def test_seq_shard_and_unknown_collectives_raise():

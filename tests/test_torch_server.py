@@ -452,14 +452,21 @@ class TestServeCli:
         assert "timeouts=0" in out
 
     @pytest.mark.parametrize("argv,item", [
-        (["--mesh", "1x1", "--serve"], "A.14"),
-        (["--arch", "mamba2-2.7b", "--mesh", "2x4"], "A.14")])
-    def test_not_ported_options_raise(self, argv, item):
-        """``--mesh`` serves GQA decoders (``tests/test_torch_mesh.py``); the
-        streaming front end and the other families on a mesh raise citing
-        A.14b."""
-        with pytest.raises(NotImplementedError, match=item):
-            launch.main(["--reduced", "--device", "cpu", *argv])
+        (["--mesh", "1x1", "--serve"], "req "),
+        (["--arch", "mamba2-2.7b", "--mesh", "1x2"], "sample tokens")])
+    def test_not_ported_options_raise(self, argv, item, capfd):
+        """The streaming front end and the other families raised on a mesh
+        until A.14b's serving half; now ``--serve --mesh 1x1`` (a leader
+        alone) streams, and mamba2 on ``--mesh 1x2`` decodes, the lines
+        ``item`` of the run without ``--mesh``."""
+        plain = [a for i, a in enumerate(argv) if a != "--mesh" and argv[i - 1] != "--mesh"]
+        launch.main(["--reduced", "--device", "cpu", *plain])
+        want = [ln.strip() for ln in capfd.readouterr().out.splitlines()
+                if ln.strip().startswith(item)]
+        launch.main(["--reduced", "--device", "cpu", *argv])
+        got = [ln.strip() for ln in capfd.readouterr().out.splitlines()
+               if ln.strip().startswith(item)]
+        assert got == want and want
 
     def test_fault_flags_build_the_injector(self):
         args = type("A", (), dict(faults=False, ber=2e-4, fault_steps="3,9", slot_loss="12:0",

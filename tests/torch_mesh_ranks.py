@@ -24,6 +24,9 @@ COLLECTIVES = ("psum", "htree")
 LANES = {"plain": {}, "multi_step": {"multi_step": 4}, "chunk": {"chunk": 4},
          "spec_k": {"spec_k": 3}}
 ENGINE_ARCHS = {"llama3-8b": True, "grok-1-314b": False}     # arch -> quantize
+# the families and the lanes that serve on a mesh since A.14b's serving half
+NEW_FAMILIES = ("mamba2-2.7b", "jamba-1.5-large-398b", "deepseek-v3-671b", "whisper-tiny")
+NEW_LANES = ({"prefix_cache": True, "chunk": 4}, {"kv_swap": True}, {"faults": True})
 # (n_experts, T, serve) -> the MoE layout it reaches on each mesh
 MOE_CASES = {(1, 2): [(4, 1, True), (4, 4, False), (3, 4, False)],
              (2, 2): [(4, 1, True), (2, 1, True), (3, 1, True)]}
@@ -139,13 +142,15 @@ def _moe(mesh, shape) -> dict:
 def _sharded_init(mesh) -> dict:
     """``init_params_sharded`` (a rank draws a piece at a time) against
     ``place_params`` of the whole tree: the same blocks and specs, float
-    and decode tree, for llama and grok."""
+    and decode tree, for llama, grok and the families of
+    ``NEW_FAMILIES`` (deepseek's MTP head drawn last, whisper whole)."""
+    from repro_torch.models import model as M
     out = {}
-    for arch in ENGINE_ARCHS:
+    for arch in (*ENGINE_ARCHS, *NEW_FAMILIES):
         cfg = ARCHS[arch].reduced()
         rt = T.Runtime(mesh=mesh, serve_resident_moe=True)
         a = T.init_params_sharded(cfg, rt, 0, "cpu")
-        b = T.place_params(cfg, T.init_params(cfg, 0, "cpu"), True, rt)
+        b = T.place_params(cfg, M.init_params(cfg, 0, "cpu"), True, rt)
         out[arch] = all(x["specs"] == y["specs"] and _same(x, y) for x, y in zip(a, b))
     return out
 
@@ -172,6 +177,23 @@ def _engines(mesh) -> dict:
     return out
 
 
+def _new_lanes(mesh) -> list:
+    """llama's continuous engine on the trace with each lane of
+    ``NEW_LANES`` -> (streams, stats less the clocks) each."""
+    cfg = ARCHS["llama3-8b"].reduced()
+    params = T.init_params(cfg, 0, "cpu")
+    rt = T.Runtime(mesh=mesh, data_axes=("data",), serve_resident_moe=True)
+    return [lane_run(cfg, params, kw, rt) for kw in NEW_LANES]
+
+
+def lane_run(cfg, params, kw: dict, rt=None) -> tuple:
+    eng = ContinuousBatchingEngine(cfg, params, n_slots=4, max_len=48, rt=rt, device="cpu",
+                                   **kw)
+    outs = eng.generate_all(*trace(cfg))
+    return outs, {k: v for k, v in eng.stats.items()
+                  if k not in ("device_s", "step_s", "slow_steps")}
+
+
 def world(rank: int, shape: tuple[int, int], engines: bool) -> dict:
     """The (d, m) world's checks: the linears, the decode step, the MoE
     cases and (``engines``) both engines on the reference's trace."""
@@ -184,6 +206,7 @@ def world(rank: int, shape: tuple[int, int], engines: bool) -> dict:
         res["sharded_init"] = _sharded_init(mesh)
     if engines:
         res["engines"] = _engines(mesh)
+        res["new_lanes"] = _new_lanes(mesh)
     if shape == (2, 2):
         # the same world as a 1x4 mesh: llama's 2 KV heads do not tile 4 ranks
         # (every rank runs every head), its FFN and vocabulary do

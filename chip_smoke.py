@@ -104,7 +104,20 @@ Phases (any failure makes the script exit non-zero):
    ``SERVE_SHUTDOWN_CLEAN``);
 ``mesh``: the (data, model) mesh with its ranks as processes on the one
    card (every rank on ``cuda:0``; the collectives gloo through pinned host
-   memory), each rank's gates over every rank: llama3-8b at full width (8
+   memory), each rank's gates over every rank: first training
+   (``mesh_train_pair``, ``mesh_train_quad``): llama3-8b at full width
+   with 2 of 32 layers on 1x2, one step at phase ``train``'s batch with
+   f32 moments, with and without ``seq_shard`` (the residual 64 of 128
+   rows between layers), its loss within 1e-5 of one process's, every
+   leaf's gradient within 1e-4 of its scale and the params after the step
+   within 5e-3 (the blocks of each rank against the same blocks of one
+   process's step, taken by each rank in turn), 5 RMSNorm forward and
+   backward launches a rank; opt-125m uncut on 2x2 (FSDP over data) with
+   int8 moments under the same bounds, ``compressed_psum`` over the data
+   axis bit-equal to ``compress`` on the host and to the same arithmetic
+   on the rank, and a checkpoint saved on 2x2 restored bit-equal in this
+   process after the world; each rank's step wall, fwd+bwd device-busy,
+   collectives and bytes printed beside one process's; then llama3-8b at full width (8
    of 32 layers, the first 8 of phase 4's tree) on 1x2 under ``fused_int8``, each rank drawing only its
    blocks (``init_params_sharded``): one decode step from a ragged pool
    gated bit-equal to one process's (logits and pool) under ``psum`` and
@@ -298,7 +311,13 @@ Phases (any failure makes the script exit non-zero):
    of their own (every record ``ok`` or skipped for ``applicable``'s own
    reason, counted flops > 0, ``model_flops`` equal to the host's, each
    decode cell's peak over a real step that launched B1, and B2 where the
-   stack attends); and ``examples/quickstart_torch.py`` on the card.
+   stack attends); the mesh dry run's ``pod16x16`` cells in three
+   processes beside them (``POD_CELLS``: llama3-8b ``train_4k`` baseline
+   and ``seqshard``, jamba's and deepseek's ``decode_32k`` baseline,
+   ``resident``, ``opt`` and ``htree``; every record ``ok``, ``resident``
+   and ``opt`` below 0.25x the baseline's collective bytes, ``opt``'s
+   weights and state a rank within 1.02x); and
+   ``examples/quickstart_torch.py`` on the card.
 
 Every path runs a row-invariant norm kernel for every norm on the card
 (``rms_norm``, or ``layer_norm`` for OPT; QK-norm's two a layer through
@@ -3056,8 +3075,450 @@ def mesh_rank_bytes(mp) -> int:
                if not (t.data_ptr() in seen or seen.add(t.data_ptr())))
 
 
+# ---------------------------------------------------------------------------
+# training over the mesh (the training half of A.14b): llama3-8b on 1x2 in
+# the pair world, opt-125m uncut on 2x2 in the 4-rank world
+# ---------------------------------------------------------------------------
+MESH_TRAIN_LAYERS = 2         # llama3-8b's depth in the 1x2 training gate (full width)
+MESH_TRAIN_LOSS_RTOL = 1e-5   # the mesh step's loss against one process's
+MESH_TRAIN_GRAD_TOL = 1e-4    # of each leaf's largest gradient magnitude
+MESH_TRAIN_PARAM_TOL = 5e-3   # params after one step (the reference's bound)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _walk_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k != "specs":
+                yield from _walk_leaves(v, (*path, k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _walk_leaves(v, (*path, i))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _leaf_errors(torch, got, want: dict, mesh=None) -> float:
+    """The largest error of the leaves of ``got`` against ``want`` (``{path:
+    tensor}``), each of its leaf's largest magnitude; on a mesh the rank's
+    blocks of both, the magnitude and the error maxed over every rank."""
+    from repro_torch.dist import collectives as C
+    worst = 0.0
+    for path, w in want.items():
+        g = _at(got, path)
+        scale = w.detach().abs().max().float().reshape(1)
+        err = (g.detach().float() - w.detach().float()).abs().max().reshape(1)
+        if mesh is not None:
+            both = C.all_reduce(torch.cat([scale, err]).cpu(), mesh.group(mesh.axis_names),
+                                "max")
+            scale, err = both[:1], both[1:]
+        worst = max(worst, float(err) / max(float(scale), 1e-30))
+    return worst
+
+
+def mesh_train_pair(torch, mesh) -> dict:
+    """On a rank of the 1x2 world: llama3-8b at full width with
+    ``MESH_TRAIN_LAYERS`` layers, one step at phase ``train``'s batch
+    (``TRAIN_BATCH`` x ``TRAIN_SEQ``, the pipeline's batch 0) with f32
+    moments, each rank drawing its blocks: the gradient (its RMSNorm
+    backward launches counted, its collectives, the residual's rows a
+    layer saw, one profiled fwd+bwd), then the step by ``jit_train_step``;
+    the same under ``seq_shard``, held to the step without it on the
+    rank's blocks; then each rank in turn draws the whole tree and takes
+    one process's step, and holds its blocks of the step's gradient and
+    params against the same blocks of one process's (the errors and the
+    leaves' magnitudes maxed over the ranks: the gathered leaves' numbers,
+    with nothing gathered)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import kernels as KN
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokens, put_batch
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(registry.get("llama3-8b"), n_layers=MESH_TRAIN_LAYERS)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    data = SyntheticTokens(cfg, shape, seed=0).batch_at(0)
+    bspecs = SH.input_shardings(cfg, shape, data, mesh)
+    batch = put_batch(data, "cuda", bspecs, mesh)
+    split = bool(SH.live(bspecs["labels"], mesh)[0])
+
+    def opt():
+        return AdamW(lr=TRAIN_LR, warmup_steps=2, total_steps=100, weight_decay=0.0)
+    out, kept = {}, {}
+    for seq in (False, True):
+        rt = T.Runtime(mesh=mesh, seq_shard=seq)
+        local = T.init_params_sharded(cfg, rt, seed=0, device="cuda", quantize=False).params
+        specs = local["specs"]
+        body = {k: v for k, v in local.items() if k != "specs"}
+        rows = []
+        inner = T.apply_layer_train
+
+        def watch(p, cfg_, i, x, *a, **kw):
+            rows.append(int(x.shape[1]))
+            return inner(p, cfg_, i, x, *a, **kw)
+        T.apply_layer_train = watch
+        try:
+            torch.cuda.synchronize()
+            KN.reset_launch_counts()
+            C.reset_stats()
+            t0 = time.perf_counter()
+            loss, grads = TS.value_and_grad(local, cfg, batch, rt, split)
+            grads = TS.reduce_grads(grads, specs, mesh)
+            torch.cuda.synchronize()
+            grad_wall = time.perf_counter() - t0
+            counts, coll = KN.launch_counts(), dict(C.stats)
+        finally:
+            T.apply_layer_train = inner
+        o = opt()
+        state = o.init(body, specs, mesh)
+        step = TS.jit_train_step(cfg, rt, o, mesh, None, specs, bspecs)
+        torch.cuda.synchronize()
+        C.reset_stats()
+        t0 = time.perf_counter()
+        _, state, metrics = step(local, state, batch)
+        torch.cuda.synchronize()
+        rec = {"loss": float(loss), "step_loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]), "grad_wall_ms": grad_wall * 1e3,
+               "step_wall_ms": (time.perf_counter() - t0) * 1e3,
+               "step_collectives": dict(C.stats), "grad_collectives": coll,
+               "launches": counts, "rows": rows,
+               "param_bytes": _tree_bytes(body), "grad_bytes": _tree_bytes(grads),
+               "moment_bytes": _tree_bytes(state.m) + _tree_bytes(state.v)}
+        del state, step
+        if not seq:
+            try:
+                prof = profile_step(torch, lambda: TS.value_and_grad(local, cfg, batch, rt,
+                                                                     split),
+                                    f"llama3-8b x{MESH_TRAIN_LAYERS} 1x2 rank {mesh.rank} "
+                                    "fwd+bwd")
+                rec["device_busy_ms"] = prof["device_busy_us"] / 1e3
+                rec["profiled_wall_ms"] = prof["wall_us"] / 1e3
+            except Exception as e:  # noqa: BLE001 - a measurement, not a gate
+                rec["profile_error"] = f"{type(e).__name__}: {e}"
+            kept = {"grads": grads, "params": body, "specs": specs, "loss": float(loss)}
+        else:
+            rec["vs_plain_grads"] = _leaf_errors(torch, grads, dict(_walk_leaves(kept["grads"])),
+                                                 mesh)
+            rec["vs_plain_params"] = _leaf_errors(torch, body,
+                                                  dict(_walk_leaves(kept["params"])), mesh)
+            rec["vs_plain_loss"] = abs(float(loss) - kept["loss"]) / abs(kept["loss"])
+        out["seq_shard" if seq else "plain"] = rec
+        del local, body, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one process, a rank at a time (the card holds one whole tree and its
+    # moments at once): the whole tree drawn, its gradient, then its step;
+    # each rank holds its blocks of them against its own, the errors and
+    # the leaves' scales maxed over both ranks
+    world = mesh.group(mesh.axis_names)
+    one = None
+    for turn in range(world.size):
+        if turn == world.index:
+            one = _one_process_train(torch, cfg, data, opt, kept, mesh)
+        C.all_reduce(torch.zeros(1), world)             # the next rank's turn
+    g_err, p_err = one.pop("grad_errors"), one.pop("param_errors")
+    for errs in (g_err, p_err):
+        for path, (err, scale) in errs.items():
+            both = C.all_reduce(torch.tensor([err, scale]), world, "max")
+            errs[path] = float(both[0]) / max(float(both[1]), 1e-30)
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["one_process"] = one
+    out["vs_one_grads"] = {"/".join(map(str, k)): v for k, v in g_err.items()}
+    out["vs_one_params"] = {"/".join(map(str, k)): v for k, v in p_err.items()}
+    return out
+
+
+def _one_process_train(torch, cfg, data, opt, kept: dict, mesh) -> dict:
+    """One process's llama step on this rank's card: the whole tree drawn,
+    its gradient and its step (``opt()``'s AdamW); for each leaf the largest
+    error of the rank's mesh blocks (``kept``) against the same blocks of
+    the whole gradient and params after, and the whole leaf's largest
+    magnitude."""
+    import gc
+
+    from repro_torch.data.pipeline import put_batch
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    batch = put_batch(data, "cuda")
+    loss, grads = TS.value_and_grad(params, cfg, batch, T.Runtime())
+
+    def errors(whole_tree, mine_tree):
+        out = {}
+        for path, w in _walk_leaves(whole_tree):
+            blk = SH.shard(w, _at(kept["specs"], path), mesh)
+            d = (_at(mine_tree, path).float() - blk.float()).abs().max()
+            out[path] = (float(d), float(w.float().abs().max()))
+        return out
+    one = {"loss": float(loss), "param_bytes": _tree_bytes(params),
+           "grad_bytes": _tree_bytes(grads), "grad_errors": errors(grads, kept["grads"])}
+    del grads
+    o = opt()
+    state = o.init(params)
+    _, state, metrics = TS.make_train_step(cfg, T.Runtime(), o)(params, state, batch)
+    one.update(step_loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+               moment_bytes=_tree_bytes(state.m) + _tree_bytes(state.v),
+               param_errors=errors(params, kept["params"]),
+               seconds=time.perf_counter() - t0)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return one
+
+
+def mesh_train_gates(ranks: list, failures: list) -> dict:
+    """The 1x2 training gates over both ranks' records (see
+    :func:`mesh_train_pair`)."""
+    one = ranks[0]["one_process"]
+    norms = 2 * MESH_TRAIN_LAYERS + 1
+    if any(r["one_process"]["loss"] != one["loss"] for r in ranks):
+        failures.append("llama 1x2 train: the ranks' one-process losses differ")
+    for r, rec in enumerate(ranks):
+        for lane in ("plain", "seq_shard"):
+            st = rec[lane]
+            if abs(st["loss"] - one["loss"]) > MESH_TRAIN_LOSS_RTOL * abs(one["loss"]):
+                failures.append(f"llama 1x2 train rank {r} {lane}: loss {st['loss']} != one "
+                                f"process's {one['loss']}")
+            if st["loss"] != ranks[0][lane]["loss"] or st["grad_norm"] != ranks[0][lane][
+                    "grad_norm"]:
+                failures.append(f"llama 1x2 train rank {r} {lane}: loss / grad norm differ "
+                                "from rank 0's")
+            bwd = st["launches"].get("rms_norm_backward", 0)
+            if bwd != norms or st["launches"].get("rms_norm", 0) != norms:
+                failures.append(f"llama 1x2 train rank {r} {lane}: RMSNorm launches "
+                                f"{st['launches'].get('rms_norm')} forward / {bwd} backward, "
+                                f"predicted {norms} each")
+        sq = rec["seq_shard"]
+        if sq["rows"] != [TRAIN_SEQ // 2] * MESH_TRAIN_LAYERS:
+            failures.append(f"llama 1x2 train rank {r}: seq_shard's residual rows {sq['rows']}")
+        if rec["plain"]["rows"] != [TRAIN_SEQ] * MESH_TRAIN_LAYERS:
+            failures.append(f"llama 1x2 train rank {r}: the residual rows {rec['plain']['rows']}")
+        if sq["vs_plain_grads"] > MESH_TRAIN_GRAD_TOL or sq["vs_plain_params"] > \
+                MESH_TRAIN_PARAM_TOL or sq["vs_plain_loss"] > MESH_TRAIN_LOSS_RTOL:
+            failures.append(f"llama 1x2 train rank {r}: seq_shard off the step without it "
+                            f"(grads {sq['vs_plain_grads']}, params {sq['vs_plain_params']}, "
+                            f"loss {sq['vs_plain_loss']})")
+    worst_g = max(ranks[0]["vs_one_grads"].values())
+    worst_p = max(ranks[0]["vs_one_params"].values())
+    if worst_g > MESH_TRAIN_GRAD_TOL:
+        failures.append(f"llama 1x2 train: gradient {worst_g} of its scale off one process's: "
+                        f"{ranks[0]['vs_one_grads']}")
+    if worst_p > MESH_TRAIN_PARAM_TOL:
+        failures.append(f"llama 1x2 train: params after the step {worst_p} off one process's")
+    return {"worst_grad_vs_one": worst_g, "worst_param_vs_one": worst_p}
+
+
+def opt125m_mesh_baseline(torch, tmp: str) -> dict:
+    """One process's opt-125m step (uncut, int8 moments, phase ``train``'s
+    batch) for the 2x2 gate: its loss, gradient and params after, saved to
+    ``tmp``; its bytes."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokens, put_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import train_step as TS
+
+    cfg = registry.get("opt-125m")
+    data = SyntheticTokens(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                           seed=0).batch_at(0)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    batch = put_batch(data, "cuda")
+    loss, grads = TS.value_and_grad(params, cfg, batch, Runtime())
+    opt = AdamW(lr=TRAIN_LR, warmup_steps=2, total_steps=100, quantized_state=True)
+    state = opt.init(params)
+    t0 = time.perf_counter()
+    _, state, m = TS.make_train_step(cfg, Runtime(), opt)(params, state, batch)
+    torch.cuda.synchronize()
+    rec = {"loss": float(loss), "step_loss": float(m["loss"]),
+           "grad_norm": float(m["grad_norm"]), "step_ms": (time.perf_counter() - t0) * 1e3,
+           "param_bytes": _tree_bytes(params), "grad_bytes": _tree_bytes(grads),
+           "moment_bytes": _tree_bytes(state.m) + _tree_bytes(state.v)}
+    torch.save({"loss": float(loss),
+                "grads": {p: g.cpu() for p, g in _walk_leaves(grads)},
+                "params": {p: t.cpu() for p, t in _walk_leaves(params)}},
+               os.path.join(tmp, "opt125m_train.pt"))
+    return rec
+
+
+def _digest(t) -> str:
+    """A leaf's (a tensor's or an array's) bytes' SHA-1."""
+    import hashlib
+
+    import numpy as np
+    a = t.detach().cpu().contiguous().numpy() if hasattr(t, "detach") else np.asarray(t)
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def mesh_train_quad(torch, mesh, tmp: str) -> dict:
+    """On a rank of the 2x2 world: opt-125m uncut (the data axis carries the
+    FSDP gathers and the gradient's reduction), one step with int8 moments
+    against one process's (:func:`opt125m_mesh_baseline`) on the rank's
+    blocks; ``compressed_psum`` over the data axis of the step's gradient,
+    its codes and scales against ``compress`` on the host, its result
+    against the same arithmetic on this rank over the data group's blocks;
+    a checkpoint of the rank's params and moments (rank 0 writes), each
+    block's digest for the restore in one process."""
+    import gc
+
+    from repro_torch.ckpt import checkpoint as CK
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokens, put_batch
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import sharding as SH
+    from repro_torch.ft.compress import compress, compressed_psum
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import train_step as TS
+
+    cfg = registry.get("opt-125m")
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    data = SyntheticTokens(cfg, shape, seed=0).batch_at(0)
+    bspecs = SH.input_shardings(cfg, shape, data, mesh)
+    batch = put_batch(data, "cuda", bspecs, mesh)
+    rt = T.Runtime(mesh=mesh)
+    local = T.init_params_sharded(cfg, rt, seed=0, device="cuda", quantize=False).params
+    specs = local["specs"]
+    body = {k: v for k, v in local.items() if k != "specs"}
+    base = torch.load(os.path.join(tmp, "opt125m_train.pt"))
+    split = bool(SH.live(bspecs["labels"], mesh)[0])
+    # no profile here: on the H100 a rank's profiled first pass took 15-22 s
+    # (against 3 s unprofiled), more than the script's time holds
+    C.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = TS.value_and_grad(local, cfg, batch, rt, split)
+    grads = TS.reduce_grads(grads, specs, mesh)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss), "grad_wall_ms": (time.perf_counter() - t0) * 1e3,
+           "grad_collectives": dict(C.stats)}
+    want_g = {p: SH.shard(g, _at(specs, p), mesh).cuda() for p, g in base["grads"].items()}
+    out["vs_one_grads"] = _leaf_errors(torch, grads, want_g, mesh)
+    opt = AdamW(lr=TRAIN_LR, warmup_steps=2, total_steps=100, quantized_state=True)
+    state = opt.init(body, specs, mesh)
+    C.reset_stats()
+    t0 = time.perf_counter()
+    _, state, m = TS.jit_train_step(cfg, rt, opt, mesh, None, specs, bspecs)(local, state,
+                                                                              batch)
+    torch.cuda.synchronize()
+    out.update(step_loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               step_wall_ms=(time.perf_counter() - t0) * 1e3, step_collectives=dict(C.stats),
+               param_bytes=_tree_bytes(body), grad_bytes=_tree_bytes(grads),
+               moment_bytes=_tree_bytes(state.m) + _tree_bytes(state.v))
+    want_p = {p: SH.shard(t, _at(specs, p), mesh).cuda() for p, t in base["params"].items()}
+    out["vs_one_params"] = _leaf_errors(torch, body, want_p, mesh)
+    out["vs_one_loss"] = abs(float(loss) - base["loss"]) / abs(base["loss"])
+    del base, want_g, want_p
+    # compressed_psum over the data axis of the step's gradient
+    data_g = mesh.group("data")
+    flat = [g for _, g in _walk_leaves(grads)]
+    zeros = [torch.zeros_like(g) for g in flat]
+    C.reset_stats()
+    t0 = time.perf_counter()
+    mean, _ = compressed_psum(flat, zeros, data_g)
+    torch.cuda.synchronize()
+    out["compressed_psum"] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                              "collectives": dict(C.stats)}
+    codes_ok = result_ok = True
+    for g, mn in zip(flat, mean):
+        q, s, _ = compress(g, torch.zeros_like(g))
+        qh, sh, _ = compress(g.cpu(), torch.zeros_like(g.cpu()))
+        codes_ok &= torch.equal(q.cpu(), qh) and torch.equal(s.cpu(), sh)
+        # the same arithmetic on this rank: every data rank's codes and scale
+        qs = C.all_gather(q[None].to(torch.int32), data_g, dim=0)
+        ss = C.all_gather(s.reshape(1), data_g, dim=0)
+        want = qs.sum(0).to(torch.float32) * ss.max() / torch.full(
+            (), float(data_g.size), device=g.device)
+        result_ok &= torch.equal(want, mn)
+    out["compressed_psum"].update(codes_equal_host=bool(codes_ok), result_equal=bool(result_ok))
+    del mean, zeros
+    # checkpoint: the rank's params and moments, rank 0 writes the whole leaves
+    tree = {"params": body, "opt": state}
+    tree_specs = {"params": specs, "opt": TS.opt_state_shardings(
+        opt, _whole_shapes(body, specs, mesh), specs, mesh)}
+    t0 = time.perf_counter()
+    CK.save(os.path.join(tmp, "opt125m_ckpt"), 1, tree, {"mesh": "2x2"}, specs=tree_specs,
+            mesh=mesh)
+    out["ckpt"] = {"save_s": time.perf_counter() - t0,
+                   "digests": {"/".join(p): _digest(t) for p, t in CK._items(tree)}}
+    del local, body, grads, state, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _whole_shapes(body, specs, mesh):
+    """``meta`` tensors of the whole leaves' shapes (``opt_state_shardings``
+    reads shapes)."""
+    import torch
+    from repro_torch.dist import sharding as SH
+    if isinstance(body, dict):
+        return {k: _whole_shapes(v, specs[k], mesh) for k, v in body.items()}
+    if isinstance(body, list):
+        return [_whole_shapes(v, s, mesh) for v, s in zip(body, specs)]
+    return torch.empty(SH.global_shape(body, specs, mesh), device="meta")
+
+
+def opt125m_ckpt_restored(torch, tmp: str, ranks: list) -> dict:
+    """The 2x2 ranks' checkpoint restored whole in this process, after the
+    world ended: each rank's blocks of it (cut as a ``CountingMesh`` rank)
+    bit-equal to the blocks the rank saved (their digests)."""
+    from repro_torch.ckpt import checkpoint as CK
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train import train_step as TS
+
+    cfg = registry.get("opt-125m")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    opt = AdamW(quantized_state=True)
+    t0 = time.perf_counter()
+    whole, extra = CK.restore(os.path.join(tmp, "opt125m_ckpt"),
+                              {"params": params, "opt": opt.init(params)})
+    secs = time.perf_counter() - t0
+    bad = []
+    for r, rec in enumerate(ranks):
+        mesh = MS.CountingMesh((2, 2), ("data", "model"), r)
+        specs = T.mesh_param_specs(cfg, params, mesh)
+        tree_specs = {"params": specs, "opt": TS.opt_state_shardings(opt, params, specs, mesh)}
+        for path, leaf in CK._items(whole):
+            blk = CK._block(leaf.numpy(), CK._spec_at(tree_specs, path), mesh)
+            if _digest(blk) != rec["ckpt"]["digests"]["/".join(path)]:
+                bad.append((r, "/".join(path)))
+    return {"restore_s": secs, "extra": extra, "leaves": len(CK._items(whole)),
+            "mismatched": bad}
+
+
 def mesh_pair_rank(rank: int, tmp: str, base: dict) -> dict:
-    """A rank of the 1x2 world on the card: llama3-8b at full width, each
+    """A rank of the 1x2 world on the card: first llama3-8b's training
+    step (:func:`mesh_train_pair`); llama3-8b at full width, each
     rank drawing only its blocks (``init_params_sharded``), its decode step
     and the phase-4 trace; llama3-8b with ``MESH_REDUCED_LAYERS`` layers
     behind ``--serve``'s front end (:func:`mesh_front_end`: rank 0 leads);
@@ -3080,7 +3541,10 @@ def mesh_pair_rank(rank: int, tmp: str, base: dict) -> dict:
     set_float32_precision()
     mesh = MS.make_local_mesh(1, 2)
     rt = T.Runtime("fused_int8", mesh=mesh, serve_resident_moe=True)
-    out: dict = {}
+    out: dict = {"train": mesh_train_pair(torch, mesh)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     cfg = dataclasses.replace(registry.get("llama3-8b"), n_layers=MESH_PAIR_LAYERS)
     t0 = time.perf_counter()
     mp = T.init_params_sharded(cfg, rt, seed=0, device="cuda")
@@ -3123,7 +3587,8 @@ def mesh_pair_rank(rank: int, tmp: str, base: dict) -> dict:
 
 
 def mesh_quad_rank(rank: int, tmp: str, base: list) -> dict:
-    """A rank of the 4-rank world on the card: llama3-8b at full width with
+    """A rank of the 4-rank world on the card: opt-125m's training step on
+    2x2 (:func:`mesh_train_quad`); llama3-8b at full width with
     ``MESH_REDUCED_LAYERS`` layers on a 2x2 mesh (slots and FSDP-stored dims
     over data) and then on a 1x4 mesh (an H-tree of depth 2), each its
     decode step and the short trace."""
@@ -3145,6 +3610,8 @@ def mesh_quad_rank(rank: int, tmp: str, base: list) -> dict:
     out = {}
     for shape in ((2, 2), (1, 4)):
         mesh = MS.make_local_mesh(*shape)
+        if shape == (2, 2):
+            out["train"] = mesh_train_quad(torch, mesh, tmp)
         rt = T.Runtime("fused_int8", mesh=mesh, serve_resident_moe=True)
         mp = T.init_params_sharded(cfg, rt, seed=0, device="cuda")
         # 2x2's steps gather the f32 lm_head (2.8 s each): one cold psum step
@@ -3165,6 +3632,77 @@ def mesh_grok_cfg():
 
     from repro_torch.configs import registry
     return dataclasses.replace(registry.get("grok-1-314b"), n_layers=GROK_LAYERS)
+
+
+def mesh_train_records(pair: list, quad: list, opt_base: dict, restored: dict,
+                       failures: list, card: str) -> dict:
+    """The training gates of phase ``mesh`` over every rank (llama3-8b on
+    1x2: :func:`mesh_train_gates`; opt-125m on 2x2: the step within the
+    bounds of one process's, the loss and gradient norm equal on every
+    rank, ``compressed_psum``'s codes, scales and result bit-equal, the
+    checkpoint restored bit-equal in one process), each rank's times,
+    collectives and bytes printed beside one process's."""
+    llama = [r["train"] for r in pair]
+    rec = {"llama3-8b 1x2": {"gates": mesh_train_gates(llama, failures), "ranks": llama}}
+    one = llama[0]["one_process"]
+    for i, r in enumerate(llama):
+        for lane in ("plain", "seq_shard"):
+            st = r[lane]
+            c = st["step_collectives"]
+            print(f"   llama3-8b x{MESH_TRAIN_LAYERS} train 1x2 rank {i} {lane}: loss "
+                  f"{st['loss']:.6f} (one process {one['loss']:.6f}); step wall "
+                  f"{st['step_wall_ms']:.1f} ms, fwd+bwd {st['grad_wall_ms']:.1f} ms, device "
+                  f"busy {st.get('device_busy_ms', float('nan')):.2f} ms; collectives a step "
+                  f"{c['calls']} calls, {c['bytes'] / 1e6:.3f} MB, {c['seconds'] * 1e3:.1f} ms; "
+                  f"params {st['param_bytes'] / 1e9:.3f} GB, grads "
+                  f"{st['grad_bytes'] / 1e9:.3f} GB, moments {st['moment_bytes'] / 1e9:.3f} GB "
+                  f"(one process {one['param_bytes'] / 1e9:.3f} / "
+                  f"{one['grad_bytes'] / 1e9:.3f} / {one['moment_bytes'] / 1e9:.3f} GB); "
+                  f"residual rows {st['rows']}; RMSNorm backward launches "
+                  f"{st['launches'].get('rms_norm_backward')} ({card})")
+    g = rec["llama3-8b 1x2"]["gates"]
+    print(f"   llama3-8b x{MESH_TRAIN_LAYERS} train 1x2: gradient within "
+          f"{g['worst_grad_vs_one']:.3g} of each leaf's scale of one process's (gate "
+          f"{MESH_TRAIN_GRAD_TOL}), params after the step within {g['worst_param_vs_one']:.3g} "
+          f"(gate {MESH_TRAIN_PARAM_TOL}); seq_shard off the step without it by "
+          f"{max(r['seq_shard']['vs_plain_grads'] for r in llama):.3g} (grads) / "
+          f"{max(r['seq_shard']['vs_plain_params'] for r in llama):.3g} (params)")
+    opt = [r["train"] for r in quad]
+    for i, r in enumerate(opt):
+        if abs(r["loss"] - opt_base["loss"]) > MESH_TRAIN_LOSS_RTOL * abs(opt_base["loss"]):
+            failures.append(f"opt-125m 2x2 rank {i}: loss {r['loss']} != {opt_base['loss']}")
+        if r["vs_one_grads"] > MESH_TRAIN_GRAD_TOL or r["vs_one_params"] > \
+                MESH_TRAIN_PARAM_TOL:
+            failures.append(f"opt-125m 2x2 rank {i}: gradient {r['vs_one_grads']} / params "
+                            f"{r['vs_one_params']} of their scale off one process's")
+        if r["loss"] != opt[0]["loss"] or r["grad_norm"] != opt[0]["grad_norm"]:
+            failures.append(f"opt-125m 2x2 rank {i}: loss / grad norm differ from rank 0's")
+        cp = r["compressed_psum"]
+        if not (cp["codes_equal_host"] and cp["result_equal"]):
+            failures.append(f"opt-125m 2x2 rank {i}: compressed_psum not bit-equal {cp}")
+        c = r["step_collectives"]
+        print(f"   opt-125m train 2x2 rank {i}: loss {r['loss']:.6f} (one process "
+              f"{opt_base['loss']:.6f}); gradient within {r['vs_one_grads']:.3g}, params within "
+              f"{r['vs_one_params']:.3g} of one process's; step wall {r['step_wall_ms']:.1f} ms, "
+              f"fwd+bwd {r['grad_wall_ms']:.1f} ms; collectives a step {c['calls']} calls, "
+              f"{c['bytes'] / 1e6:.3f} MB, {c['seconds'] * 1e3:.1f} ms; params "
+              f"{r['param_bytes'] / 1e6:.1f} MB, grads {r['grad_bytes'] / 1e6:.1f} MB, int8 "
+              f"moments {r['moment_bytes'] / 1e6:.1f} MB (one process "
+              f"{opt_base['param_bytes'] / 1e6:.1f} / {opt_base['grad_bytes'] / 1e6:.1f} / "
+              f"{opt_base['moment_bytes'] / 1e6:.1f} MB); compressed_psum over data "
+              f"{cp['wall_ms']:.1f} ms, {cp['collectives']['bytes'] / 1e6:.3f} MB, codes "
+              f"{'equal' if cp['codes_equal_host'] else 'DIFFER'} to the host's, result "
+              f"{'bit-equal' if cp['result_equal'] else 'DIFFERS'}; checkpoint saved in "
+              f"{r['ckpt']['save_s']:.2f} s ({card})")
+    if restored["mismatched"] or restored["extra"] != {"mesh": "2x2"}:
+        failures.append(f"opt-125m: the 2x2 checkpoint restored in one process differs: "
+                        f"{restored['mismatched'][:10]}")
+    print(f"   opt-125m: the 2x2 checkpoint restored in one process in "
+          f"{restored['restore_s']:.2f} s: {restored['leaves']} leaves, every rank's blocks "
+          f"{'bit-equal' if not restored['mismatched'] else 'NOT EQUAL'}")
+    rec["opt-125m 2x2"] = {"one_process": opt_base, "ranks": [
+        {k: v for k, v in r.items() if k != "ckpt"} for r in opt], "restore": restored}
+    return rec
 
 
 def mesh_gates(name: str, ranks: list, failures: list, exact_logits: bool) -> dict:
@@ -3250,6 +3788,9 @@ def phase_mesh(torch, ctx) -> dict:
         del p4
         gc.collect()
         torch.cuda.empty_cache()
+        base["opt125m"] = opt125m_mesh_baseline(torch, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
         out["baseline_s"] = time.perf_counter() - t0
 
         # one world after the other: at once, the 1x2 world's llama (2 x 25 GB
@@ -3263,6 +3804,9 @@ def phase_mesh(torch, ctx) -> dict:
         quad = MS.spawn(mesh_quad_rank, 4, tmp, base["llama4"]["outputs"],
                         timeout_s=MESH_TIMEOUT_S)
         out["quad_s"] = time.perf_counter() - t0
+        restored = opt125m_ckpt_restored(torch, tmp, [r["train"] for r in quad])
+    out["train"] = mesh_train_records(pair, quad, base["opt125m"], restored, fails,
+                                      ctx["card"])
     # name -> (ranks, one process, logits gated bit-equal, a MoE stack)
     short = f"llama3-8b {MESH_REDUCED_LAYERS}-layer"
     runs = {f"llama3-8b {MESH_PAIR_LAYERS}-layer 1x2": ([r["llama"] for r in pair],
@@ -6370,6 +6914,77 @@ def dryrun_cells(torch, started: tuple) -> dict:
     return out
 
 
+# the mesh dry run's cells on pod16x16: arch -> (shape, variants)
+POD_CELLS = {"llama3-8b": ("train_4k", ("baseline", "seqshard")),
+             "jamba-1.5-large-398b": ("decode_32k", ("baseline", "resident", "opt", "htree")),
+             "deepseek-v3-671b": ("decode_32k", ("baseline", "resident", "opt", "htree"))}
+POD_COLLECTIVE_SHARE = 0.25   # resident / opt collective bytes of the baseline's, at most
+POD_BYTES_SHARE = 1.02        # opt's weights and state a rank of the baseline's, at most
+
+
+def start_pod_dryrun() -> tuple:
+    """:func:`pod_cells`' processes, one an arch, started: each counts its
+    cells on ``pod16x16`` under each variant (``run_cells``, ``--force``),
+    rank 0 of the counting mesh on ``meta``."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = []
+    for arch, (shape, variants) in POD_CELLS.items():
+        code = ("import sys; from repro_torch.launch import dryrun as D; "
+                f"recs = [D.run_cells([({arch!r}, {shape!r})], v, force=True, device='cuda', "
+                f"mesh='pod16x16')[0] for v in {variants!r}]; "
+                "sys.exit(1 if D.unexplained(recs) else 0)")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=root, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    return procs, time.perf_counter()
+
+
+def pod_cells(torch, started: tuple) -> dict:
+    """The mesh dry run's ``pod16x16`` cells (:func:`start_pod_dryrun`),
+    waited for here.  Gated: every record ``ok``; ``resident`` and ``opt``
+    below ``POD_COLLECTIVE_SHARE`` of the baseline's ``collectives.total``
+    (jamba's and deepseek's ``decode_32k``); ``opt``'s weights and state a
+    rank within ``POD_BYTES_SHARE`` of the baseline's (the reference's
+    ``TestPerfVariants``)."""
+    from repro_torch.launch import dryrun as D
+    procs, t0 = started
+    results = [p.communicate(timeout=600) + (p.returncode,) for p in procs]
+    out = {"seconds": time.perf_counter() - t0}
+    for (arch, (shape, variants)), (_, err, rc) in zip(POD_CELLS.items(), results):
+        if rc != 0:
+            raise AssertionError(f"pod16x16 {arch}: exit {rc}: {err[-2000:]}")
+        recs = {v: json.loads(D.out_path(arch, shape, v, mesh="pod16x16").read_text())
+                for v in variants}
+        for v, r in recs.items():
+            if r["status"] != "ok" or r.get("n_devices") != 256:
+                raise AssertionError(f"pod16x16 {arch} {shape} {v}: {r.get('status')} "
+                                     f"{r.get('reason')}")
+        base = recs["baseline"]
+        held = {v: r["memory"]["tree_bytes"] + r["memory"]["cache_bytes"] + r["memory"][
+            "opt_bytes"] for v, r in recs.items()}
+        for v in ("resident", "opt"):
+            if v not in recs:
+                continue
+            share = recs[v]["collectives"]["total"] / base["collectives"]["total"]
+            if share >= POD_COLLECTIVE_SHARE:
+                raise AssertionError(f"pod16x16 {arch} {v}: collectives {share:.3f} of the "
+                                     "baseline's")
+            if v == "opt" and held["opt"] > POD_BYTES_SHARE * held["baseline"]:
+                raise AssertionError(f"pod16x16 {arch} opt: {held['opt']} bytes a rank against "
+                                     f"the baseline's {held['baseline']}")
+        out[arch] = {v: {k: r.get(k) for k in ("shape", "variant", "collectives", "memory",
+                                              "cost", "reduced", "count_s", "n_devices")}
+                     for v, r in recs.items()}
+        print(f"   dryrun pod16x16 {arch} x {shape}: " + "; ".join(
+            f"{v} collectives {r['collectives']['total'] / 1e9:.3f} GB a rank "
+            f"({ {k: round(b / 1e9, 3) for k, b in r['collectives'].items() if k != 'total'} }), "
+            f"weights+state {held[v] / 1e9:.3f} GB, fits one card "
+            f"{r['memory']['fits_one_card']}, flops {r['cost']['flops']:.4g}"
+            for v, r in recs.items()) + f" [{out['seconds']:.1f} s]", flush=True)
+    return out
+
+
 def phase_plan(torch, ctx) -> dict:
     """Phase ``plan``: ``Runtime.dmvm_dtype`` on the card
     (:func:`plan_llama`; deepseek's part runs in phase ``families``, where
@@ -6385,6 +7000,7 @@ def phase_plan(torch, ctx) -> dict:
         raise AssertionError("plan: deepseek's bf16 MLA step did not run (phase families)")
     out["deepseek-v3-671b"] = ctx["plan_deepseek"]
     started = start_dryrun()
+    pods = start_pod_dryrun()
     try:
         out["kv_api"] = kv_api_vs_cpu(torch)
         root = Path(__file__).resolve().parent
@@ -6394,7 +7010,10 @@ def phase_plan(torch, ctx) -> dict:
                              capture_output=True, text=True, timeout=300)
         quick_s = time.perf_counter() - t1
     finally:
-        out["dryrun"] = dryrun_cells(torch, started)
+        try:
+            out["dryrun"] = dryrun_cells(torch, started)
+        finally:
+            out["dryrun_pod16x16"] = pod_cells(torch, pods)
     if res.returncode != 0 or "generated 16 tokens for 4 requests" not in res.stdout:
         raise AssertionError(f"quickstart_torch.py: exit {res.returncode}: {res.stderr[-2000:]}")
     out["quickstart"] = {"seconds": quick_s, "stdout": res.stdout}

@@ -5,8 +5,9 @@ function of (seed, step), drawn from numpy's Philox exactly as the
 reference draws them, so they equal the reference's batches bit for bit
 and a restarted job regenerates exactly the stream it would have seen (the
 data-side half of fault-tolerant resume).  Batches stay numpy arrays until
-:func:`put_batch` moves them to a device; the sharded form of ``put_batch``
-is mesh code (ROADMAP A.14b).
+:func:`put_batch` moves them to a device, on a mesh each rank its block of
+every input (the global batch is still drawn whole, so the blocks are the
+reference's batch's, bit for bit).
 """
 from __future__ import annotations
 
@@ -56,10 +57,24 @@ class SyntheticTokens:
         return self
 
 
-def put_batch(batch: dict, device: str | torch.device = "cuda") -> dict:
+def put_batch(batch: dict, device: str | torch.device = "cuda", specs: dict | None = None,
+              mesh=None) -> dict:
     """A batch's arrays as tensors on ``device`` (dtypes kept; a tensor
-    already there is passed through)."""
+    already there is passed through).  With ``specs`` (each input's spec,
+    ``dist/sharding.py`` ``input_shardings``) and ``mesh`` each rank keeps
+    its block of every input, cut from the whole array before it moves."""
     dev = resolve(device)
-    return {k: torch.as_tensor(np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v,
-                               device=dev)
-            for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        if specs is not None:
+            v = _block(v, specs[k], mesh)
+        out[k] = torch.as_tensor(np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v,
+                                 device=dev)
+    return out
+
+
+def _block(v, spec: tuple, mesh):
+    """The rank's block of ``v`` (an array or a tensor) under ``spec``."""
+    from repro_torch.dist import sharding as SH
+    sl = tuple(SH.block(v.shape[d], mesh, axes) for d, axes in enumerate(SH.live(spec, mesh)))
+    return v[sl]

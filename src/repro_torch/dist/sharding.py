@@ -84,6 +84,33 @@ def replicated(mesh) -> tuple:
     return P()
 
 
+def fit_spec(spec: tuple, shape, mesh) -> tuple:
+    """``spec`` with the entries whose axes no longer tile their dim of
+    ``shape`` dropped (the reference's ``opt_state_shardings._fit_spec``:
+    the int8 moments' block scales collapse the last dim by 128)."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, e in zip(shape, entries):
+        total = axes_size(mesh, e)
+        out.append(e if (e is not None and dim % total == 0 and dim >= total) else None)
+    return P(*out)
+
+
+def split_axes(spec: tuple, mesh) -> tuple[str, ...]:
+    """Every axis (of size above 1) that splits some dim under ``spec``, in
+    the mesh's order: the ranks of one group over them hold the leaf's
+    blocks, the other axes hold copies."""
+    used = {a for e in live(spec, mesh) for a in e}
+    return tuple(a for a in mesh.axis_names if a in used)
+
+
+def global_shape(t, spec: tuple, mesh) -> tuple[int, ...]:
+    """The whole leaf's shape from a rank's block ``t`` under ``spec``."""
+    lv = live(spec, mesh)
+    return tuple(n * (axes_size(mesh, lv[d]) if d < len(lv) else 1)
+                 for d, n in enumerate(t.shape))
+
+
 def batch_entry(global_batch: int, mesh):
     """Spec entry for a leading batch/slot dim: the (combined) data axes
     when they tile the batch, else None."""

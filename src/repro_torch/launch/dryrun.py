@@ -32,12 +32,28 @@ fit, ``peak_bytes`` (``torch.cuda.max_memory_allocated``) of one real decode
 step at full width under ``fused_int8`` (B1 and B2 run), the batch cut to
 fit the card's free bytes where it must be (said in ``reduced``).
 
-Records go to ``artifacts/dryrun_torch/<arch>__<shape>__h100x1[__variant].json``;
+Records go to ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__variant].json``;
 ``--quick`` counts the reference's reduced quick cells uncut and writes
 ``quick_manifest.json``.  Variants: ``baseline`` and ``bf16dmvm``
-(``Runtime.dmvm_dtype = torch.bfloat16``); the reference's mesh variants
-raise (ROADMAP A.14b).  A cell that cannot be counted is ``skipped`` with
-its reason, and the run then exits 1: only ``applicable``'s skips pass.
+(``Runtime.dmvm_dtype = torch.bfloat16``) on any mesh, and the reference's
+``MESH_VARIANTS`` (resident experts, sequence-parallel activations, the
+H-tree combine, and ``opt`` / ``opt_htree``, which add the bf16 dMVM),
+which need a mesh.  A cell that cannot be counted is ``skipped`` with its
+reason, and the run then exits 1: only ``applicable``'s skips pass.
+
+**Meshes.**  ``h100x1`` (the default) is one card.  ``--mesh pod16x16``,
+``--multi-pod`` (``pod2x16x16``), ``--both-meshes`` and ``--mesh
+quick2x4`` count the reference's meshes: a cell is counted for rank 0 of a
+``launch.mesh.CountingMesh`` (``make_production_mesh``, ``make_quick_mesh``)
+on ``meta``, with ``Runtime(mesh=..., data_axes=..., remat=train)`` and the
+variant, over the rank's blocks of the params (``mesh_param_specs``), of
+the decode pool (``init_decode_block``) and of the batch
+(``input_shardings``), the training step by ``jit_train_step`` with the
+reference's microbatches (a device's backward sees about 4k tokens).  The
+record adds ``collectives`` (the rank's bytes by kind, as the reference's
+HLO names them, and ``total``), ``n_devices``, and the rank's tree, state
+and optimizer bytes with ``fits_one_card`` for the rank; the two-depth
+scaling holds for the collectives too.
 """
 from __future__ import annotations
 
@@ -60,16 +76,32 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import SHAPES, ShapeConfig, applicable
 from repro_torch.core.kvcache import cache_bytes
 from repro_torch.device import resolve, set_float32_precision
+from repro_torch.dist import collectives as C
+from repro_torch.dist import sharding as SH
+from repro_torch.launch import mesh as MS
 from repro_torch.models import model as M
+from repro_torch.models import transformer as TR
 from repro_torch.models.transformer import Runtime
 from repro_torch.optim.adamw import AdamW
 from repro_torch.serve.quantize import quantize_tree
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import jit_train_step, make_train_step
 
 ART = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 MESH = "h100x1"
+# the counted meshes: tag -> a CountingMesh of the reference's shape
+MESHES = {"pod16x16": lambda: MS.make_production_mesh(multi_pod=False),
+          "pod2x16x16": lambda: MS.make_production_mesh(multi_pod=True),
+          "quick2x4": MS.make_quick_mesh}
 VARIANTS = {"baseline": {}, "bf16dmvm": {"dmvm_dtype": torch.bfloat16}}
-MESH_VARIANTS = ("resident", "seqshard", "htree", "opt", "opt_htree")
+MESH_VARIANTS = {
+    "resident": {"serve_resident_moe": True},
+    "seqshard": {"seq_shard": True},
+    "htree": {"collective": "htree"},
+    "opt": {"serve_resident_moe": True, "dmvm_dtype": torch.bfloat16, "seq_shard": True},
+    "opt_htree": {"serve_resident_moe": True, "dmvm_dtype": torch.bfloat16,
+                  "collective": "htree"},
+}
+ALL_VARIANTS = {**VARIANTS, **MESH_VARIANTS}
 # --quick: the reference's reduced configs and CI-sized shapes, uncut
 QUICK_ARCHS = ["llama3-8b", "grok-1-314b", "mamba2-2.7b"]
 QUICK_SHAPES = {
@@ -81,21 +113,32 @@ QUICK_SHAPES = {
 FIT_SHARE = 0.85     # of the card's bytes a peak run may hold in weights and state
 
 
-def check_variant(variant: str) -> None:
-    if variant in MESH_VARIANTS:
-        raise NotImplementedError(
-            f"dry-run variant {variant!r} sets the reference's mesh fields; the dry "
-            "run's mesh variants are not ported yet (ROADMAP A.14b)")
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}; one of "
-                         f"{sorted(VARIANTS) + list(MESH_VARIANTS)}")
+def check_variant(variant: str, mesh: str = MESH) -> None:
+    """``ValueError`` for an unknown variant or mesh, or a mesh variant on
+    one card (``h100x1``)."""
+    if mesh != MESH and mesh not in MESHES:
+        raise ValueError(f"unknown mesh {mesh!r}; one of {[MESH, *MESHES]}")
+    _check(variant, mesh != MESH)
 
 
-def runtime(kind: str, variant: str = "baseline", backend: str = "dense") -> Runtime:
+def _check(variant: str, on_mesh: bool) -> None:
+    if variant not in ALL_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {sorted(ALL_VARIANTS)}")
+    if variant in MESH_VARIANTS and not on_mesh:
+        raise ValueError(f"variant {variant!r} sets the mesh fields and needs a mesh "
+                         f"(--mesh one of {list(MESHES)}), not {MESH}")
+
+
+def runtime(kind: str, variant: str = "baseline", backend: str = "dense",
+            mesh=None) -> Runtime:
     """The reference dry run's Runtime for a cell of ``kind``: remat for
-    training, the variant's dmvm dtype."""
-    check_variant(variant)
-    return Runtime(backend=backend, remat=(kind == "train"), **VARIANTS[variant])
+    training, the variant's fields, on ``mesh`` (a ``CountingMesh``) where
+    one is given."""
+    _check(variant, mesh is not None)
+    kw = dict(ALL_VARIANTS[variant])
+    if mesh is not None:
+        kw.update(mesh=mesh, data_axes=SH.data_axes(mesh))
+    return Runtime(backend=backend, remat=(kind == "train"), **kw)
 
 
 def cell_config(arch: str, quick: bool = False) -> ModelConfig:
@@ -104,16 +147,18 @@ def cell_config(arch: str, quick: bool = False) -> ModelConfig:
 
 
 def base_record(arch: str, shape_name: str, variant: str = "baseline",
-                quick: bool = False) -> dict:
+                quick: bool = False, mesh: str = MESH) -> dict:
     """A cell's fields kept from the reference's record, and its status
     where ``applicable`` skips it; nothing is counted."""
-    check_variant(variant)
+    check_variant(variant, mesh)
     cfg = cell_config(arch, quick)
     shape = (QUICK_SHAPES if quick else SHAPES)[shape_name]
-    rec = {"arch": arch, "shape": shape_name, "mesh": MESH, "variant": variant,
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh, "variant": variant,
            "kind": shape.kind, "params": cfg.param_count(),
            "active_params": cfg.active_param_count(),
            "model_flops": M.model_flops(cfg, shape)}
+    if mesh != MESH:
+        rec["n_devices"] = MESHES[mesh]().world
     ok, why = applicable(cfg, shape)
     if not ok:
         rec.update(status="skipped", reason=why)
@@ -149,9 +194,12 @@ def _inputs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
 
 
 def measure(cfg: ModelConfig, shape: ShapeConfig, variant: str,
-            quantized_state: bool) -> dict:
-    """One configuration's counted flops and bytes on ``meta``."""
+            quantized_state: bool, mesh: str = MESH) -> dict:
+    """One configuration's counted flops and bytes on ``meta`` (on a mesh,
+    rank 0's, with its collectives' bytes by kind)."""
     from torch.utils.flop_counter import FlopCounterMode
+    if mesh != MESH:
+        return _measure_mesh(cfg, shape, variant, quantized_state, MESHES[mesh]())
     rt = runtime(shape.kind, variant)
     params = M.abstract_params(cfg)
     B, S = shape.global_batch, shape.seq_len
@@ -177,45 +225,110 @@ def measure(cfg: ModelConfig, shape: ShapeConfig, variant: str,
     return out
 
 
+def microbatches(shape: ShapeConfig, mesh) -> int:
+    """The reference's ``build_step`` rule: double the microbatches while
+    they divide the batch and a device's backward sees over 4,096 tokens."""
+    dp_total = SH.axes_size(mesh, SH.data_axes(mesh))
+    tokens_per_dev = shape.global_batch * shape.seq_len // dp_total
+    mb = 1
+    while (mb < shape.global_batch and shape.global_batch % (mb * 2) == 0
+           and tokens_per_dev // mb > 4096):
+        mb *= 2
+    return mb
+
+
+def _no_specs(tree: dict) -> dict:
+    return {k: v for k, v in tree.items() if k != "specs"}
+
+
+def _measure_mesh(cfg: ModelConfig, shape: ShapeConfig, variant: str,
+                  quantized_state: bool, mesh) -> dict:
+    """:func:`measure` for rank 0 of the counting ``mesh``: its blocks, its
+    step, its flops and its collectives' bytes by kind."""
+    from torch.utils.flop_counter import FlopCounterMode
+    rt = runtime(shape.kind, variant, mesh=mesh)
+    B, S = shape.global_batch, shape.seq_len
+    inputs = _inputs(cfg, shape)
+    bspecs = SH.input_shardings(cfg, shape, inputs, mesh)
+    batch = {k: SH.shard(v, bspecs[k], mesh) for k, v in inputs.items()}
+    out = {"opt_bytes": 0, "cache_bytes": 0}
+    C.reset_stats()
+    if shape.kind == "decode":
+        tree = quantize_tree(M.abstract_params(cfg))
+        specs = TR.mesh_param_specs(cfg, tree, mesh, serve=rt.serve_resident_moe)
+        local = SH.shard_tree(tree, specs, mesh)
+        state = M.init_decode_block(cfg, B, S, rt, device="meta")
+        out.update(tree_bytes=cache_bytes(local),
+                   cache_bytes=cache_bytes({"layers": state["layers"], "pos": state["pos"]}))
+        with FlopCounterMode(display=False) as fc:
+            M.decode_step(dict(local, specs=specs), cfg, state, batch["token"], rt)
+    elif shape.kind == "prefill":
+        tree = M.abstract_params(cfg)
+        specs = TR.mesh_param_specs(cfg, tree, mesh)
+        local = SH.shard_tree(tree, specs, mesh)
+        out["tree_bytes"] = cache_bytes(local)
+        with FlopCounterMode(display=False) as fc:
+            _, state = M.prefill(dict(local, specs=specs), cfg, inputs, S, rt)
+        out["cache_bytes"] = cache_bytes(_no_specs(state))
+    else:
+        tree = M.abstract_params(cfg)
+        specs = TR.mesh_param_specs(cfg, tree, mesh)
+        local = SH.shard_tree(tree, specs, mesh)
+        opt = AdamW(quantized_state=quantized_state)
+        opt_state = opt.init(local, specs, mesh)
+        out.update(tree_bytes=cache_bytes(local), opt_bytes=cache_bytes(opt_state))
+        step = jit_train_step(cfg, rt, opt, mesh, tree, specs, bspecs,
+                              microbatches=microbatches(shape, mesh))
+        with FlopCounterMode(display=False) as fc:
+            step(dict(local, specs=specs), opt_state, batch)
+    out["flops"] = float(fc.get_total_flops())
+    out.update({f"coll:{k}": C.stats[k] for k in C.KINDS})
+    return out
+
+
 def count_cell(arch: str, shape_name: str, variant: str = "baseline",
-               quick: bool = False) -> dict:
+               quick: bool = False, mesh: str = MESH) -> dict:
     """``cost``, ``memory`` (but the card's fields), ``counted_on`` and
     ``reduced`` of an applicable cell, counted on ``meta``: a quick cell
     uncut, a full one at two depths a layer group and scaled (see the
     module's docstring)."""
     return count_config(cell_config(arch, quick), (QUICK_SHAPES if quick else SHAPES)[shape_name],
-                        variant, cut=not quick)
+                        variant, cut=not quick, mesh=mesh)
 
 
 def count_config(cfg: ModelConfig, shape: ShapeConfig, variant: str = "baseline",
-                 cut: bool = True) -> dict:
+                 cut: bool = True, mesh: str = MESH) -> dict:
     """:func:`count_cell` of a configuration: with ``cut``, counted at two
     depths a layer group and scaled to ``cfg``'s depth."""
     qstate = cfg.param_count() > 50e9
     units = depth_units(cfg) if cut else []
     t0 = time.perf_counter()
     if not units:
-        vals, reduced = measure(cfg, shape, variant, qstate), []
+        vals, reduced = measure(cfg, shape, variant, qstate, mesh), []
     else:
         ones = [1] * len(units)
-        base = measure(cut_config(cfg, ones), shape, variant, qstate)
+        base = measure(cut_config(cfg, ones), shape, variant, qstate, mesh)
         vals = dict(base)
         for g, full in enumerate(units):
             step = measure(cut_config(cfg, [1 + (i == g) for i in range(len(units))]),
-                           shape, variant, qstate)
+                           shape, variant, qstate, mesh)
             for k in vals:
                 vals[k] += (full - 1) * (step[k] - base[k])
         names = ("dense layers", "MoE layers") if len(units) == 2 else (
             "periods" if cfg.family == "hybrid" else "layers",)
         reduced = [f"depth: counted at 1 and 2 {n} (of {u}) and scaled exactly"
                    for n, u in zip(names, units)]
-    return {"cost": {"flops": vals["flops"], "counter": "torch.utils.flop_counter"},
-            "memory": {"param_bytes": M.param_bytes(cfg),
-                       "tree_bytes": int(vals["tree_bytes"]),
-                       "cache_bytes": int(vals["cache_bytes"]),
-                       "opt_bytes": int(vals["opt_bytes"])},
-            "counted_on": "meta", "reduced": reduced,
-            "count_s": time.perf_counter() - t0}
+    rec = {"cost": {"flops": vals["flops"], "counter": "torch.utils.flop_counter"},
+           "memory": {"param_bytes": M.param_bytes(cfg),
+                      "tree_bytes": int(vals["tree_bytes"]),
+                      "cache_bytes": int(vals["cache_bytes"]),
+                      "opt_bytes": int(vals["opt_bytes"])},
+           "counted_on": "meta", "reduced": reduced,
+           "count_s": time.perf_counter() - t0}
+    if mesh != MESH:
+        rec["collectives"] = C.kind_bytes({k: int(vals[f"coll:{k}"]) for k in C.KINDS})
+        rec["counted_rank"] = 0
+    return rec
 
 
 def resident_bytes(kind: str, memory: dict) -> int:
@@ -290,9 +403,10 @@ def peak_decode(arch: str, shape_name: str, variant: str, quick: bool,
 # cells
 # ---------------------------------------------------------------------------
 def out_path(arch: str, shape_name: str, variant: str = "baseline",
-             quick: bool = False) -> Path:
+             quick: bool = False, mesh: str = MESH) -> Path:
     suffix = "" if variant == "baseline" else f"__{variant}"
-    return ART / f"{arch}__{shape_name}__{'quick' if quick else MESH}{suffix}.json"
+    tag = mesh if mesh != MESH else ("quick" if quick else MESH)
+    return ART / f"{arch}__{shape_name}__{tag}{suffix}.json"
 
 
 def finish(rec: dict, counted: dict | Exception, device: torch.device,
@@ -312,7 +426,7 @@ def finish(rec: dict, counted: dict | Exception, device: torch.device,
             if device.type == "cuda" else None)
     mem["card_bytes"] = card
     mem["fits_one_card"] = None if card is None else mem["resident_bytes"] <= card
-    if device.type == "cuda" and rec["kind"] == "decode":
+    if device.type == "cuda" and rec["kind"] == "decode" and rec["mesh"] == MESH:
         try:
             peak = peak_decode(rec["arch"], rec["shape"], rec["variant"], quick, device,
                                mem["tree_bytes"])
@@ -326,14 +440,14 @@ def finish(rec: dict, counted: dict | Exception, device: torch.device,
     else:
         mem["peak_bytes"] = None
         mem["peak_reason"] = ("no card" if device.type != "cuda"
-                              else "peak measured for decode cells only")
+                              else "peak measured for one card's decode cells only")
     rec["status"] = "ok"
     return rec
 
 
-def _count_or_error(arch, shape_name, variant, quick):
+def _count_or_error(arch, shape_name, variant, quick, mesh=MESH):
     try:
-        return count_cell(arch, shape_name, variant, quick)
+        return count_cell(arch, shape_name, variant, quick, mesh)
     except Exception as e:      # a cell that cannot be counted is skipped, not an error
         return e
 
@@ -349,21 +463,22 @@ def count_workers(cells: int) -> int:
 
 
 def run_cells(cells: list[tuple[str, str]], variant: str = "baseline", quick: bool = False,
-              force: bool = False, device: str | torch.device = "cuda") -> list[dict]:
-    """Count ``cells`` (:func:`count_workers` spawned processes at once, or
-    here where one is enough: a spawned process first spends seconds on its
-    imports), finish each record in this process (the card's peak runs one
-    at a time) and write it."""
-    check_variant(variant)
+              force: bool = False, device: str | torch.device = "cuda",
+              mesh: str = MESH) -> list[dict]:
+    """Count ``cells`` on ``mesh`` (:func:`count_workers` spawned processes
+    at once, or here where one is enough: a spawned process first spends
+    seconds on its imports), finish each record in this process (the
+    card's peak runs one at a time) and write it."""
+    check_variant(variant, mesh)
     dev = resolve(device)
     set_float32_precision()
     recs, fresh, todo = {}, [], []
     for arch, sname in cells:
-        path = out_path(arch, sname, variant, quick)
+        path = out_path(arch, sname, variant, quick, mesh)
         if path.exists() and not force:
             recs[(arch, sname)] = json.loads(path.read_text())
             continue
-        rec = base_record(arch, sname, variant, quick)
+        rec = base_record(arch, sname, variant, quick, mesh)
         recs[(arch, sname)] = rec
         fresh.append((arch, sname))
         if rec.get("status") != "skipped":
@@ -373,21 +488,24 @@ def run_cells(cells: list[tuple[str, str]], variant: str = "baseline", quick: bo
         ctx = multiprocessing.get_context("spawn")
         with cf.ProcessPoolExecutor(max_workers=workers, mp_context=ctx,
                                     initializer=_worker_init) as pool:
-            futs = {cell: pool.submit(_count_or_error, *cell, variant, quick) for cell in todo}
+            futs = {cell: pool.submit(_count_or_error, *cell, variant, quick, mesh)
+                    for cell in todo}
             counted = {cell: f.result() for cell, f in futs.items()}
     else:
-        counted = {cell: _count_or_error(*cell, variant, quick) for cell in todo}
+        counted = {cell: _count_or_error(*cell, variant, quick, mesh) for cell in todo}
     for arch, sname in fresh:
         t0 = time.perf_counter()
         rec = recs[(arch, sname)]
         if (arch, sname) in counted:
             rec = recs[(arch, sname)] = finish(rec, counted[(arch, sname)], dev, quick)
-        save(out_path(arch, sname, variant, quick), rec)
-        extra = (f"flops={rec['cost']['flops']:.4g} peak={rec['memory'].get('peak_bytes')} "
+        save(out_path(arch, sname, variant, quick, mesh), rec)
+        coll = (f" collectives={rec['collectives']['total']:.4g}B"
+                if rec["status"] == "ok" and "collectives" in rec else "")
+        extra = (f"flops={rec['cost']['flops']:.4g}{coll} peak={rec['memory'].get('peak_bytes')} "
                  f"count={rec['count_s']:.1f}s finish={time.perf_counter() - t0:.1f}s"
                  if rec["status"] == "ok" else rec["reason"][:120])
-        print(f"[{time.strftime('%H:%M:%S')}] {arch} x {sname} x {MESH}: {rec['status']} "
-              f"({extra})", flush=True)
+        print(f"[{time.strftime('%H:%M:%S')}] {arch} x {sname} x {mesh} x {variant}: "
+              f"{rec['status']} ({extra})", flush=True)
     return [recs[cell] for cell in cells]
 
 
@@ -406,14 +524,15 @@ def save(path: Path, rec: dict) -> None:
 
 
 def run_quick(force: bool = False, device: str | torch.device = "cuda",
-              variant: str = "baseline") -> list[dict]:
+              variant: str = "baseline", mesh: str = MESH) -> list[dict]:
     """The reference's quick sweep (reduced configs x ``QUICK_SHAPES``),
-    uncut on one device, and the manifest."""
+    uncut on one device (or on ``mesh``, the reference's ``quick2x4``),
+    and the manifest."""
     cells = [(a, s) for a in QUICK_ARCHS for s in QUICK_SHAPES]
-    recs = run_cells(cells, variant, quick=True, force=force, device=device)
+    recs = run_cells(cells, variant, quick=True, force=force, device=device, mesh=mesh)
     save(ART / "quick_manifest.json",
-         {"mesh": MESH, "artifacts": [out_path(a, s, variant, True).name
-                                         for a, s in cells]})
+         {"mesh": mesh, "artifacts": [out_path(a, s, variant, True, mesh).name
+                                      for a, s in cells]})
     return recs
 
 
@@ -429,24 +548,34 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="the reference's reduced quick cells, uncut")
     ap.add_argument("--force", action="store_true", help="count again over saved records")
-    ap.add_argument("--variant", default="baseline",
-                    choices=sorted(VARIANTS) + list(MESH_VARIANTS))
+    ap.add_argument("--variant", default="baseline", choices=sorted(ALL_VARIANTS))
+    ap.add_argument("--mesh", default=MESH, choices=[MESH, *MESHES],
+                    help="one card, or a mesh counted for one rank")
+    ap.add_argument("--multi-pod", action="store_true", help="--mesh pod2x16x16")
+    ap.add_argument("--both-meshes", action="store_true", help="pod16x16 and pod2x16x16")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    check_variant(args.variant)
-    if args.quick:
-        recs = run_quick(args.force, args.device, args.variant)
-    elif args.all:
-        recs = run_cells(all_cells(), args.variant, force=args.force, device=args.device)
-    elif args.arch:
-        shapes = [args.shape] if args.shape else list(SHAPES)
-        recs = run_cells([(args.arch, s) for s in shapes], args.variant, force=args.force,
-                         device=args.device)
-    else:
-        ap.error("give --arch (and --shape), --all or --quick")
-    bad = unexplained(recs, args.quick)
+    meshes = (["pod16x16", "pod2x16x16"] if args.both_meshes
+              else ["pod2x16x16"] if args.multi_pod else [args.mesh])
+    for mesh in meshes:
+        check_variant(args.variant, mesh)
+    bad = []
+    for mesh in meshes:
+        if args.quick:
+            recs = run_quick(args.force, args.device, args.variant, mesh)
+        elif args.all:
+            recs = run_cells(all_cells(), args.variant, force=args.force, device=args.device,
+                             mesh=mesh)
+        elif args.arch:
+            shapes = [args.shape] if args.shape else list(SHAPES)
+            recs = run_cells([(args.arch, s) for s in shapes], args.variant, force=args.force,
+                             device=args.device, mesh=mesh)
+        else:
+            ap.error("give --arch (and --shape), --all or --quick")
+        bad += unexplained(recs, args.quick)
     for r in bad:
-        print(f"{r['arch']} x {r['shape']}: {r.get('status')}: {r.get('reason')}", file=sys.stderr)
+        print(f"{r['arch']} x {r['shape']} x {r['mesh']}: {r.get('status')}: "
+              f"{r.get('reason')}", file=sys.stderr)
     return 1 if bad else 0
 
 

@@ -9,6 +9,12 @@ groups with gloo, through host memory, so ranks may share one card: NCCL
 refuses two ranks on one GPU.  The process group must be initialized
 before a mesh is made (:func:`spawn` does it); every rank makes the same
 groups in the same order, as ``torch.distributed.new_group`` requires.
+
+A :class:`CountingMesh` is a mesh of any shape seen from one chosen rank
+in one process, with no process group: its collectives take ``meta``
+tensors, return the shapes the real calls would and count their bytes
+(``dist/collectives.py``).  The dry run counts the production meshes
+(:func:`make_production_mesh`) and the quick 2x4 mesh so.
 """
 from __future__ import annotations
 
@@ -31,10 +37,14 @@ PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
 class AxisGroup:
     """The ranks of one process group of a mesh: ``ranks`` (global, in
     row-major order over the group's axes), this rank's place ``index`` in
-    them, and the gloo group (``None`` for a group of one rank)."""
+    them, and the gloo group (``None`` for a group of one rank, and for
+    every group of a :class:`CountingMesh`, whose groups are
+    ``counting``)."""
 
-    def __init__(self, axes: tuple[str, ...], ranks: list[int], index: int, pg):
+    def __init__(self, axes: tuple[str, ...], ranks: list[int], index: int, pg,
+                 counting: bool = False):
         self.axes, self.ranks, self.index, self.pg = axes, ranks, index, pg
+        self.counting = counting
 
     @property
     def size(self) -> int:
@@ -125,6 +135,50 @@ def _ravel(coords, dims) -> int:
     return r
 
 
+class CountingMesh:
+    """A ``shape`` grid of ranks named ``axis_names`` seen from rank
+    ``rank`` in one process, with no process group: :meth:`group` and
+    :meth:`index` as :class:`Mesh` gives them to that rank, every group
+    ``counting`` (its collectives take ``meta`` tensors and count the real
+    calls' bytes, ``dist/collectives.py``).  It needs no world and runs
+    nothing across processes."""
+
+    def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...], rank: int = 0):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {shape} and axes {axis_names} differ in rank")
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(axis_names, shape))
+        self.world = 1
+        for s in shape:
+            self.world *= s
+        if not 0 <= rank < self.world:
+            raise ValueError(f"rank {rank} outside a mesh of {self.world}")
+        self.rank = rank
+        coords, r = [], rank
+        for s in reversed(shape):
+            coords.append(r % s)
+            r //= s
+        self.coords = dict(zip(axis_names, reversed(coords)))
+
+    _axes = Mesh._axes
+
+    def group(self, axes) -> AxisGroup:
+        axes = self._axes(axes)
+        dims = [self.shape[a] for a in self.axis_names]
+        ranks = []
+        for inner in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c = dict(self.coords, **dict(zip(axes, inner)))
+            ranks.append(_ravel([c[a] for a in self.axis_names], dims))
+        return AxisGroup(axes, ranks, ranks.index(self.rank), None, counting=True)
+
+    def index(self, axes) -> int:
+        return self.group(axes).index
+
+    def __repr__(self) -> str:
+        dims = ", ".join(f"{a}={self.shape[a]}" for a in self.axis_names)
+        return f"CountingMesh({dims}; rank {self.rank})"
+
+
 def make_local_mesh(d: int, m: int) -> Mesh:
     """A (data, model) mesh over a world of ``d * m`` processes (serve
     ``--mesh DxM``); raises ``ValueError`` naming the count if the world
@@ -137,13 +191,19 @@ def make_host_mesh() -> Mesh:
     return Mesh((1, dist.get_world_size()), ("data", "model"))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> CountingMesh:
     """The production mesh, (16, 16) (data, model) or (2, 16, 16) (pod,
-    data, model): it needs a world of 256 or 512 processes, so it cannot be
-    made on one card (the dry run's mesh variants count it, ROADMAP
-    A.14b)."""
+    data, model), as a :class:`CountingMesh` seen from ``rank``: a world
+    of 256 or 512 processes does not run on one card, so the dry run counts
+    one rank's collectives on ``meta``."""
     shape, axes = PRODUCTION_SHAPES[multi_pod]
-    return Mesh(shape, axes)
+    return CountingMesh(shape, axes, rank)
+
+
+def make_quick_mesh(rank: int = 0) -> CountingMesh:
+    """The reference dry run's ``--quick`` 2x4 (data, model) mesh, counted
+    from ``rank``."""
+    return CountingMesh((2, 4), ("data", "model"), rank)
 
 
 def parse_mesh(spec: str) -> tuple[int, int]:

@@ -144,12 +144,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                backend: str = "dense"
+                backend: str = "dense", reduce: L.RowReduce | None = None
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Training GQA over ``x`` [B, T, d] at ``positions`` [B, T]: causal
     :func:`flash_attention` over the call's own K/V, no buffer written (the
     training forward runs under autograd; :func:`gqa_chunk` writes a carry
-    in place).  Returns (out, (k, v))."""
+    in place).  On a mesh ``cfg`` holds the rank's heads and ``reduce`` is
+    ``wo``'s reduction.  Returns (out, (k, v))."""
     B, T, _ = x.shape
     hd = cfg.head_dim
     q = L.apply_linear(L._lin(p, "wq"), x, backend).reshape(B, T, cfg.n_heads, hd)
@@ -162,7 +163,8 @@ def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v)
-    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend), (k, v)
+    return L.apply_linear(L._lin(p, "wo"), o.reshape(B, T, -1), backend,
+                          reduce=reduce), (k, v)
 
 
 def gqa_chunk(p: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -19,7 +19,7 @@ cross-attention runs the plain int8 attention under every backend, as the
 reference calls it without the backend.  :func:`forward_train` and
 :func:`lm_loss` are the teacher-forced training path.
 
-On a mesh (``Runtime.mesh``; ``Engine`` only, as in the reference) the
+On a mesh (``Runtime.mesh``: ``Engine`` and training) the
 encoder's and the decoder's attention heads go over the model axis: the
 rank's column blocks of ``wq`` / ``wk`` / ``wv`` (self and cross), its row
 block of ``wo`` (row-parallel), the FFN dim split as a decoder's is, the
@@ -151,40 +151,53 @@ def _cross_attn(pl: Params, cfg: ModelConfig, h: torch.Tensor, enc_kv: tuple,
 
 
 def forward_train(p: Params, cfg: ModelConfig, frames: torch.Tensor, tokens: torch.Tensor,
-                  rt: Runtime) -> torch.Tensor:
+                  rt: Runtime, mc=None) -> torch.Tensor:
     """Teacher-forced decoder over ``tokens`` [B, T] attending to the encoded
-    ``frames`` -> logits [B, T, V] (the tied head): each decoder layer's
+    ``frames`` -> hidden after ``ln_f`` [B, T, d]: each decoder layer's
     causal self-attention through :func:`attention.gqa_forward` (no
     buffer), its cross-attention over float K/V of the encoder output,
-    under ``rt.remat`` each layer recomputed in the backward."""
-    enc = encode(p, cfg, frames, rt)
+    under ``rt.remat`` each layer recomputed in the backward.  ``mc``: the
+    call's place on a mesh (the rank's heads and rows, each layer's FSDP
+    gathers inside its body)."""
+    enc = encode(p, cfg, frames, rt, mc)
     B, T = tokens.shape
     dev = tokens.device
-    x = p["embed"]["w"][tokens]
+    x = p["embed"]["w"][tokens] if mc is None else TR._embed_ids(p, tokens, mc)
     x = x + L.sinusoidal_positions(T, cfg.d_model, device=dev).to(x.dtype)
     positions = torch.arange(T, device=dev).expand(B, T)
-    G, hd = cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
 
-    def body(pl: Params, xx: torch.Tensor) -> torch.Tensor:
-        mix, _ = A.gqa_forward(pl["attn"], cfg, L.apply_norm(pl["ln1"], xx), positions,
-                               rt.backend)
+    def body(pl: Params, xx: torch.Tensor, i: int) -> torch.Tensor:
+        pl, lm, xred = _layer(p, "dec", i, mc)
+        acfg = lm.attn_cfg if lm else cfg
+        mix, _ = A.gqa_forward(pl["attn"], acfg, L.apply_norm(pl["ln1"], xx), positions,
+                               rt.backend, reduce=lm.attn_reduce if lm else None)
         xx = xx + mix
-        k = _heads(pl["xattn"], "wk", enc, G, hd, rt.backend)
-        v = _heads(pl["xattn"], "wv", enc, G, hd, rt.backend)
-        xx = xx + _cross_attn(pl["xattn"], cfg, L.apply_norm(pl["ln_x"], xx), (k, v), rt)
+        k = _heads(pl["xattn"], "wk", enc, acfg.n_kv_heads, hd, rt.backend)
+        v = _heads(pl["xattn"], "wv", enc, acfg.n_kv_heads, hd, rt.backend)
+        xx = xx + _cross_attn(pl["xattn"], acfg, L.apply_norm(pl["ln_x"], xx), (k, v), rt,
+                              reduce=xred)
         return xx + L.apply_mlp(pl["mlp"], L.apply_norm(pl["ln2"], xx), cfg.mlp_type,
-                                rt.backend)
+                                rt.backend, reduce=lm.mlp_reduce if lm else None)
 
-    for pl in p["dec"]:
-        x = remat_call(rt, body, pl, x)
-    x = L.apply_norm(p["ln_f"], x)
-    return torch.matmul(x, p["embed"]["w"].to(x.dtype).T)
+    for i, pl in enumerate(p["dec"]):
+        x = remat_call(rt, body, pl, x, i)
+    return L.apply_norm(p["ln_f"], x)
 
 
 def lm_loss(p: Params, cfg: ModelConfig, frames: torch.Tensor, tokens: torch.Tensor,
-            labels: torch.Tensor, rt: Runtime) -> torch.Tensor:
-    """Mean next-token cross-entropy of :func:`forward_train`'s logits."""
-    return torch.mean(token_nll(forward_train(p, cfg, frames, tokens, rt), labels))
+            labels: torch.Tensor, rt: Runtime, split: bool = False) -> torch.Tensor:
+    """Mean next-token cross-entropy of the tied head's logits over
+    :func:`forward_train`'s hidden rows.  On a mesh (``split``: the rows
+    are the rank's block of a batch split over the data axes) the head is
+    vocabulary-parallel and the value is the whole loss with the rank's
+    share as its gradient, as ``transformer.lm_loss`` has it."""
+    mc = TR._mesh_call(p, cfg, rt, split=split)
+    h = forward_train(p, cfg, frames, tokens, rt, mc)
+    if mc is None:
+        return torch.mean(token_nll(torch.matmul(h, p["embed"]["w"].to(h.dtype).T), labels))
+    return TR.mesh_loss(TR._nll_mesh(p, cfg, h, labels, rt, mc).sum(), h.shape[0] * h.shape[1],
+                        rt, mc)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,

@@ -67,9 +67,13 @@ MLP_INPUTS = ("w_up", "w_gate")      # an MLP's linears that read its input
 
 class RowReduce(NamedTuple):
     """A row-parallel linear's reduction: the model axis' process group
-    (``launch.mesh.AxisGroup``) and the collective (``psum`` | ``htree``)."""
+    (``launch.mesh.AxisGroup``) and the collective (``psum`` | ``htree``);
+    under sequence parallelism (``Runtime.seq_shard``, training) ``scatter``
+    is the sequence dim, along which the float partials are
+    reduce-scattered instead (each rank keeps its block of the rows)."""
     group: Any
     collective: str = "psum"
+    scatter: int | None = None
 
 
 def _row_parallel(p: Params, x: torch.Tensor, backend: str, red: RowReduce,
@@ -81,7 +85,12 @@ def _row_parallel(p: Params, x: torch.Tensor, backend: str, red: RowReduce,
     ``amax`` all-reduce is skipped)."""
     if "w_q" not in p:
         part = torch.matmul(x, p["w"].to(x.dtype))
+        if red.scatter is not None:
+            return C.reduce_scatter(part, red.group, red.scatter)
         return C.allreduce(part, red.group, red.collective)
+    if red.scatter is not None:
+        raise NotImplementedError("sequence-parallel row-parallel linears are float "
+                                  "(training)")
     if p.get("smooth") is not None:
         raise NotImplementedError("a smoothed row-parallel linear on a mesh")
     if x_q is not None:

@@ -103,14 +103,20 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     return 2.0 * n_active * shape.global_batch
 
 
-def train_loss(params: Params, cfg: ModelConfig, batch: dict, rt: Runtime) -> torch.Tensor:
+def train_loss(params: Params, cfg: ModelConfig, batch: dict, rt: Runtime,
+               split: bool = False) -> torch.Tensor:
     """The training loss of one batch of tensors: ``inputs`` and ``labels``
     ([B, T]; ``inputs`` [B, T, d] embeddings where the configuration takes
-    them), an encoder-decoder's ``frames``, ``tokens`` and ``labels``."""
+    them), an encoder-decoder's ``frames``, ``tokens`` and ``labels``.  On
+    ``rt.mesh`` the params are a rank's blocks with their ``specs`` and the
+    batch is the rank's rows: its block over the data axes (``split``, as
+    ``data/pipeline.py`` ``put_batch`` cuts it by ``input_shardings``) or
+    the whole batch; the value is the whole loss on every rank and the
+    gradient the rank's share (``transformer.mesh_loss``)."""
     if cfg.family == "encdec":
         return encdec.lm_loss(params, cfg, batch["frames"], batch["tokens"],
-                              batch["labels"], rt)
-    return T.lm_loss(params, cfg, batch["inputs"], batch["labels"], rt)
+                              batch["labels"], rt, split)
+    return T.lm_loss(params, cfg, batch["inputs"], batch["labels"], rt, split=split)
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int,

@@ -30,12 +30,13 @@ whatever its k (top-8 as top-2).
 Expert parallelism (a mesh, ``launch/mesh.py``): a rank holds a window of
 the experts (``e_first``, ``n_local``: ``ep``) or every expert's block of
 the FFN dim (``etp``), routes every row of the call with the replicated
-router (so every rank keeps the same set, under the global capacity), runs
+router (so every rank keeps the same set, under the call's capacity), runs
 its window and adds its rows in the same ascending order; the ranks'
 partial outputs are then summed by the combine collective, whose float
 order differs from one device's (within the reference's rtol 2e-3 / atol
 2e-4).  ``transformer._moe_block`` picks the layout (``dist/sharding.py``
-``moe_param_specs``).
+``moe_param_specs``); in training a call's rows are a data shard's, and
+its load-balance loss is theirs.
 """
 from __future__ import annotations
 
@@ -222,14 +223,14 @@ def moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if _counter is not None and _counter.device == x.device:
         _counter.add_(torch.stack([torch.ones_like(r.dropped), r.dropped,
                                    (r.counts > 0).sum()]))
-    if n_local != E:
-        return _moe_window(p, x, cfg, r, int(e_first), n_local), None
     aux = None
     if with_aux:
         ce = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
             0, r.topi.reshape(-1), torch.ones((N * k,), dtype=torch.float32,
                                               device=x.device))
         aux = E * torch.sum(r.probs.mean(dim=0) * (ce / (N * k)))
+    if n_local != E:
+        return _moe_window(p, x, cfg, r, int(e_first), n_local), aux
     valid = torch.arange(r.toks.shape[1], device=x.device)[None, :] < r.counts[:, None]
     xe = x[r.toks] * valid[..., None].to(x.dtype)                    # gather
     ye = _expert_ffn(xe, p, cfg, r.counts)
@@ -277,24 +278,26 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, axis_name: str | Non
     ``launch.mesh.Mesh``) ``p`` holds the rank's experts: a window of
     ``E / size`` where the axis tiles the experts (``ep``), else every
     expert's block of the FFN dim (``etp``), and the partial outputs are
-    summed over the axis by ``reduce_fn`` (default: the gloo all-reduce).
-    The load-balance loss is not computed on a mesh (training on a mesh is
-    ROADMAP A.14b)."""
+    summed over the axis by ``reduce_fn`` (default: the gloo all-reduce;
+    it takes the partial output as [B, T, d]).  ``with_aux`` on a mesh
+    gives the load-balance loss of the call's rows, the same on every rank
+    of the axis (the router is replicated; the reference's ``pmean`` over
+    the axis leaves it as it is)."""
     B, T, d = x.shape
     xf = x.reshape(B * T, d)
     if axis_name is None:
         out, aux = moe_local(p, xf, cfg, with_aux=with_aux)
         return out.reshape(B, T, d).to(x.dtype), aux
-    if with_aux:
-        raise NotImplementedError("the MoE aux loss on a mesh is training (ROADMAP A.14b)")
     if mesh is None:
         raise ValueError(f"moe_apply over axis {axis_name!r} needs the mesh it names")
     from repro_torch.dist import collectives as C
     group = mesh.group(axis_name)
     if ep_capable(cfg, group.size):
         n_local = cfg.n_experts // group.size
-        out, _ = moe_local(p, xf, cfg, e_first=group.index * n_local, n_local=n_local)
+        out, aux = moe_local(p, xf, cfg, with_aux=with_aux, e_first=group.index * n_local,
+                             n_local=n_local)
     else:   # etp: all experts local, FFN dim sliced
-        out, _ = moe_local(p, xf, cfg)
+        out, aux = moe_local(p, xf, cfg, with_aux=with_aux)
+    out = out.reshape(B, T, d)
     out = reduce_fn(out) if reduce_fn is not None else C.all_reduce(out, group)
-    return out.reshape(B, T, d).to(x.dtype), None
+    return out.to(x.dtype), aux

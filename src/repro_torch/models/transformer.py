@@ -45,8 +45,16 @@ and the MoE block (:func:`_moe_block`) runs the reference's layouts.  A
 step's rows are the rank's slots (decode, verify) or the whole call,
 replicated over the data axes (prefill, the MTP drafts).  The serving
 lanes move a slot's rows between ranks (:func:`gather_slot_row`,
-:func:`copy_slot_prefix`, :func:`warm_prefill_carry`).  Training on a
-mesh raises (ROADMAP A.14b).
+:func:`copy_slot_prefix`, :func:`warm_prefill_carry`).
+
+Every family trains on a mesh too (:func:`lm_loss` with ``rt.mesh``;
+``train/train_step.py`` ``jit_train_step``): the rank's rows are its block
+of the batch over the data axes, the layers are placed as in serving
+(their FSDP gathers inside the rematerialized body), the collectives are
+differentiable (``dist/collectives.py``), the head is
+vocabulary-parallel, the MoE block routes and balances each data shard's
+rows, as the reference's ``shard_map`` does, and ``Runtime.seq_shard``
+keeps the residual sequence-parallel between layers.
 """
 from __future__ import annotations
 
@@ -74,11 +82,13 @@ BACKENDS = ("dense", "ref_int8", "fused_int8", "pim_bitserial")
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     """Execution context threaded through model apply functions.  ``mesh``
-    (a ``launch.mesh.Mesh``) serves over a (data, model) mesh of processes
-    (see the module's docstring); ``collective`` sums the model axis'
-    partials (``psum`` or the H-tree); ``serve_resident_moe`` keeps decode
-    experts resident.  ``seq_shard`` (sequence-parallel activations) is
-    training on a mesh, ROADMAP A.14b: setting it raises."""
+    (a ``launch.mesh.Mesh``, or a ``CountingMesh`` for the dry run) serves
+    and trains over a (data, model) mesh of processes (see the module's
+    docstring); ``collective`` sums the model axis' partials (``psum`` or
+    the H-tree); ``serve_resident_moe`` keeps decode experts resident;
+    ``seq_shard`` makes training's activations sequence-parallel between
+    layers (the residual is the rank's block of the rows over the model
+    axis); off a mesh it changes nothing, as in the reference."""
     backend: str = "dense"               # dense | ref_int8 | fused_int8 | pim_bitserial
     mesh: Any = None                     # launch.mesh.Mesh | None
     data_axes: tuple = ("data",)
@@ -96,10 +106,6 @@ class Runtime:
             raise ValueError(f"unknown backend {self.backend!r}; one of {BACKENDS}")
         if self.collective not in C.COLLECTIVES:
             raise ValueError(f"unknown collective {self.collective!r}; want psum|htree")
-        if self.seq_shard:
-            raise NotImplementedError(
-                "Runtime(seq_shard=True): sequence-parallel activations are training "
-                "on a mesh, not ported yet (ROADMAP A.14b)")
         if self.dmvm_dtype is not None and not (isinstance(self.dmvm_dtype, torch.dtype)
                                                 and self.dmvm_dtype.is_floating_point):
             raise TypeError(f"dmvm_dtype must be a float torch.dtype or None, got "
@@ -254,54 +260,102 @@ def _lm_head(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime,
 # training forward and loss
 # ---------------------------------------------------------------------------
 def apply_layer_train(p: Params, cfg: ModelConfig, i: int, x: torch.Tensor,
-                      positions: torch.Tensor, rt: Runtime
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
+                      positions: torch.Tensor, rt: Runtime, lm: "_LayerMesh | None" = None,
+                      seq=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Layer ``i`` of the training forward over ``x`` [B, T, d] -> (x, the
     MoE block's load-balance loss, 0 for other layers).  An SSM layer takes
     :func:`ssm.ssm_forward`'s tensor path (``use_kernel`` left False, as the
     reference leaves it in training), attention the causal full-sequence
-    form with no K/V buffer."""
-    h = L.apply_norm(p["ln1"], x)
+    form with no K/V buffer.  ``lm``: the layer's place on a mesh (its
+    heads, its reductions; :func:`_place_layer`); ``seq``: under
+    ``Runtime.seq_shard`` the model axis' group, ``x`` then the rank's
+    block of the T rows: each norm runs on the block, its output is
+    gathered over the rows before the block that reads it, and the
+    row-parallel output is reduce-scattered back to the rank's rows."""
+    h = _seq_whole(L.apply_norm(p["ln1"], x), seq)
+    acfg = lm.attn_cfg if lm else cfg
     if cfg.layer_kind(i) == "ssm":
-        mix = SSM.ssm_forward(p["ssm"], cfg, h, backend=rt.backend)
+        blk = lm.ssm if lm else None
+        mix, cut = SSM.ssm_forward(p["ssm"], cfg, h, backend=rt.backend, blk=blk), blk
     elif cfg.attn_type == "mla":
-        mix, _ = A.mla_forward(p["attn"], cfg, h, positions, rt.backend)
+        cut = lm.attn_reduce if lm else None
+        mix, _ = A.mla_forward(p["attn"], acfg, h, positions, rt.backend, reduce=cut,
+                               cols=lm.cols if lm else None)
     else:
-        mix, _ = A.gqa_forward(p["attn"], cfg, h, positions, rt.backend)
-    x = x + mix
+        cut = lm.attn_reduce if lm else None
+        mix, _ = A.gqa_forward(p["attn"], acfg, h, positions, rt.backend, reduce=cut)
+    x = x + _seq_part(mix, seq, cut is not None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "moe" in p:
-        mo, aux = MOE.moe_apply(p["moe"], L.apply_norm(p["ln2"], x), cfg, with_aux=True)
+        h = _seq_whole(L.apply_norm(p["ln2"], x), seq)
+        if lm is None:
+            mo, aux = MOE.moe_apply(p["moe"], h, cfg, with_aux=True)
+        else:
+            mo, aux = _moe_block(p["moe"], h, cfg, rt, lm.specs["moe"], train=True, seq=seq)
         x = x + mo
     elif "mlp" in p:
-        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x), cfg.mlp_type, rt.backend)
+        h = _seq_whole(L.apply_norm(p["ln2"], x), seq)
+        red = lm.mlp_reduce if lm else None
+        x = x + _seq_part(L.apply_mlp(p["mlp"], h, cfg.mlp_type, rt.backend, reduce=red),
+                          seq, red is not None)
     return x, aux
+
+
+def _seq_whole(t: torch.Tensor, seq) -> torch.Tensor:
+    """A rank's block of the rows (dim 1) gathered over ``seq`` (the model
+    axis' group under sequence parallelism), or ``t`` (None)."""
+    return t if seq is None else C.all_gather(t, seq, dim=1)
+
+
+def _seq_part(t: torch.Tensor, seq, scattered: bool) -> torch.Tensor:
+    """A block's output as the residual holds it: ``t`` itself off
+    sequence parallelism or where its reduction reduce-scattered it
+    (``scattered``), else (every rank computed the whole rows) the rank's
+    block of the rows."""
+    if seq is None or scattered:
+        return t
+    w = t.shape[1] // seq.size
+    return t.narrow(1, seq.index * w, w)
 
 
 def remat_call(rt: Runtime, fn, *args):
     """``fn(*args)``; under ``rt.remat`` through ``torch.utils.checkpoint``
     (non-reentrant), which keeps only the inputs and recomputes the body in
-    the backward, as the reference's ``jax.checkpoint`` does."""
+    the backward, as the reference's ``jax.checkpoint`` does.  On a mesh
+    the recompute runs the body's collectives again, in the same order on
+    every rank (the graph is the same on every rank)."""
     if rt.remat:
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
 
 
 def forward_train(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
-                  rt: Runtime) -> tuple[torch.Tensor, torch.Tensor]:
+                  rt: Runtime, mc: "_MeshCall | None" = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """inputs: [B, T] int tokens (or [B, T, d] embeddings, see
     :func:`embedded`) -> (hidden after ``ln_f`` [B, T, d], the layers'
     summed MoE aux loss), over the per-layer list in order (the order in
-    which the reference's scans over its groups add the aux)."""
+    which the reference's scans over its groups add the aux).  ``mc``: the
+    call's place on a mesh (:func:`lm_loss`): each layer's FSDP-stored dims
+    are gathered inside its (rematerialized) body, and under
+    ``Runtime.seq_shard`` the residual between layers is the rank's block
+    of the T rows over the model axis (where the axis tiles T), gathered
+    after ``ln_f``."""
     B, T = inputs.shape[:2]
     positions = torch.arange(T, device=inputs.device).expand(B, T)
-    x = _embed(p, cfg, inputs, positions)
+    x = _embed(p, cfg, inputs, positions, mc)
+    seq = mc.seq if mc is not None else None
+    x = _seq_part(x, seq, False)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(p["layers"]):
-        x, aux = remat_call(rt, lambda lp_, x_, i=i: apply_layer_train(
-            lp_, cfg, i, x_, positions, rt), lp, x)
+        def body(lp_, x_, i=i):
+            if mc is None:
+                return apply_layer_train(lp_, cfg, i, x_, positions, rt)
+            lp_, lm = _place_layer(lp_, mc.specs["layers"][i], mc)
+            return apply_layer_train(lp_, cfg, i, x_, positions, rt, lm, seq)
+        x, aux = remat_call(rt, body, lp, x)
         aux_total = aux_total + aux
-    return L.apply_norm(p["ln_f"], x), aux_total
+    return _seq_whole(L.apply_norm(p["ln_f"], x), seq), aux_total
 
 
 def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -312,25 +366,56 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss(p: Params, cfg: ModelConfig, inputs: torch.Tensor, labels: torch.Tensor,
-            rt: Runtime, chunk: int = 512) -> torch.Tensor:
+            rt: Runtime, chunk: int = 512, split: bool = False) -> torch.Tensor:
     """Mean next-token cross-entropy over [B, T], the head applied to
     ``chunk``-token pieces of the sequence (to bound the logits' memory, as
     the reference's scan does), plus DeepSeek-V3's ``0.3 *`` MTP term where
-    the configuration has the head and ``0.01 *`` the MoE aux loss."""
+    the configuration has the head and ``0.01 *`` the MoE aux loss.  On a
+    mesh see :func:`_lm_loss_mesh` (``split``: the rows are the rank's
+    block of a batch split over the data axes)."""
+    if rt.mesh is not None:
+        return _lm_loss_mesh(p, cfg, inputs, labels, rt, chunk, split)
     h, aux = forward_train(p, cfg, inputs, rt)
     B, T = h.shape[:2]
-    n_chunks = max(1, T // chunk)
-    if T % n_chunks:
-        n_chunks = 1
-    tc = T // n_chunks
     total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c in range(n_chunks):
-        logits = _lm_head(p, cfg, h[:, c * tc:(c + 1) * tc], rt)
-        total = total + torch.sum(token_nll(logits, labels[:, c * tc:(c + 1) * tc]))
+    for lo, hi in _chunks(T, chunk):
+        logits = _lm_head(p, cfg, h[:, lo:hi], rt)
+        total = total + torch.sum(token_nll(logits, labels[:, lo:hi]))
     loss = total / torch.full((), float(B * T), device=h.device)
     if cfg.mtp:
         loss = loss + 0.3 * _mtp_loss(p, cfg, h, inputs, labels, rt)
     return loss + 0.01 * aux
+
+
+def _chunks(T: int, chunk: int) -> list[tuple[int, int]]:
+    n_chunks = max(1, T // chunk)
+    if T % n_chunks:
+        n_chunks = 1
+    tc = T // n_chunks
+    return [(c * tc, (c + 1) * tc) for c in range(n_chunks)]
+
+
+def _mtp_hidden(p: Params, cfg: ModelConfig, h: torch.Tensor, inputs: torch.Tensor,
+                rt: Runtime, mc: "_MeshCall | None" = None) -> torch.Tensor:
+    """The MTP head's hidden rows: ``hm[:, t]``, from ``h[:, t]`` and the
+    embedding of token t+1, through ``mtp_proj`` and ``mtp_layer`` (on a
+    mesh ``mtp_proj``'s columns gathered over the model axis, the layer
+    placed as a decoder layer is, its rows whole)."""
+    B, T = inputs.shape[:2]
+    emb_next = _embed(p, cfg, inputs, torch.arange(T, device=h.device).expand(B, T),
+                      mc)[:, 1:]
+    cat = torch.cat([h[:, :-1], emb_next], dim=-1)
+    positions = torch.arange(T - 1, device=h.device).expand(B, T - 1)
+    if mc is None:
+        hm = L.apply_linear(L._lin(p["mtp_proj"], "w"), cat, rt.backend)
+        return apply_layer_train(p["mtp_layer"], cfg, cfg.n_layers - 1, hm, positions, rt)[0]
+    proj = _gather_data(p["mtp_proj"], mc.specs["mtp_proj"], mc)
+    hm = L.apply_linear(L._lin(proj, "w"), cat, rt.backend)
+    if _split_over(mc.specs["mtp_proj"]["w"], mc.mesh, 1, rt.model_axis):
+        hm = C.all_gather(hm, mc.model, dim=-1)
+    plain = _MeshCall(cfg, rt, mc.specs, mc.split)          # whole rows: no seq split
+    lp, lm = _place_layer(p["mtp_layer"], mc.specs["mtp_layer"], plain)
+    return apply_layer_train(lp, cfg, cfg.n_layers - 1, hm, positions, rt, lm)[0]
 
 
 def _mtp_loss(p: Params, cfg: ModelConfig, h: torch.Tensor, inputs: torch.Tensor,
@@ -338,13 +423,100 @@ def _mtp_loss(p: Params, cfg: ModelConfig, h: torch.Tensor, inputs: torch.Tensor
     """DeepSeek-V3's multi-token prediction (depth 1): ``hm[:, t]``, from
     ``h[:, t]`` and the embedding of token t+1, predicts ``labels[:, t+1]``
     (token t+2)."""
-    B, T = inputs.shape[:2]
-    emb_next = _embed(p, cfg, inputs, torch.arange(T, device=h.device).expand(B, T))[:, 1:]
-    hm = L.apply_linear(L._lin(p["mtp_proj"], "w"), torch.cat([h[:, :-1], emb_next], dim=-1),
-                        rt.backend)
-    positions = torch.arange(T - 1, device=h.device).expand(B, T - 1)
-    hm, _ = apply_layer_train(p["mtp_layer"], cfg, cfg.n_layers - 1, hm, positions, rt)
+    hm = _mtp_hidden(p, cfg, h, inputs, rt)
     return torch.mean(token_nll(_lm_head(p, cfg, hm, rt), labels[:, 1:]))
+
+
+class _Shared(torch.autograd.Function):
+    """A loss whose value is ``total`` (the same tensor on every rank) and
+    whose gradient flows to the rank's ``part`` of it."""
+
+    @staticmethod
+    def forward(ctx, part, total):
+        return total.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _lm_loss_mesh(p: Params, cfg: ModelConfig, inputs: torch.Tensor, labels: torch.Tensor,
+                  rt: Runtime, chunk: int, split: bool) -> torch.Tensor:
+    """:func:`lm_loss` on ``rt.mesh`` over a rank's blocks of the params
+    (with their ``specs``).  ``inputs`` and ``labels`` are the rank's rows:
+    its block of the batch over the data axes (``split``) or the whole
+    batch.  The cross-entropy is each rank's token sum over the global
+    ``B * T``, the MTP term likewise, the head vocabulary-parallel
+    (:func:`_nll_mesh`: a rank's vocabulary columns, the max, the sum of
+    exponentials and the gold logit all-reduced over the model axis, [B, T]
+    f32 each); each MoE block's aux is its data shard's rows', averaged
+    over every rank (the reference's ``pmean``).  The value returned is the
+    whole loss, the same bits on every rank; its gradient is the rank's
+    share: the collectives' adjoints (``dist/collectives.py``) then give
+    each rank the gradient of the whole loss by its blocks, partial for a
+    leaf other ranks hold too (``train_step.reduce_grads`` sums those)."""
+    mc = _mesh_call(p, cfg, rt, split=split, seq_len=inputs.shape[1])
+    h, aux = forward_train(p, cfg, inputs, rt, mc)
+    B, T = h.shape[:2]
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo, hi in _chunks(T, chunk):
+        total = total + torch.sum(_nll_mesh(p, cfg, h[:, lo:hi], labels[:, lo:hi], rt, mc))
+    mtp = None
+    if cfg.mtp:
+        hm = _mtp_hidden(p, cfg, h, inputs, rt, mc)
+        mtp = (torch.sum(_nll_mesh(p, cfg, hm, labels[:, 1:], rt, mc)), B * (T - 1))
+    return mesh_loss(total, B * T, rt, mc, aux, mtp)
+
+
+def mesh_loss(nll_sum: torch.Tensor, tokens: int, rt: Runtime, mc: "_MeshCall",
+              aux: torch.Tensor | None = None, mtp: tuple | None = None) -> torch.Tensor:
+    """A training loss on a mesh from the rank's token sum ``nll_sum`` over
+    its ``tokens`` rows: over the global token count (the rank's times the
+    data axes' size where the rows are split), plus ``0.3 *`` the MTP term
+    (``mtp``: its sum and row count, alike) and ``0.01 *`` the mean of the
+    ranks' ``aux``.  Its value is the whole loss, the same bits on every
+    rank (an all-reduce of the ranks' shares); its gradient is the rank's
+    share: the cross-entropy divided by the ranks that hold the same rows,
+    the aux by every rank."""
+    mesh = rt.mesh
+    rows = SH.axes_size(mesh, mc.dp) if mc.split else 1      # distinct row blocks
+    world = SH.axes_size(mesh, mesh.axis_names)
+    dev = nll_sum.device
+
+    def n(v):
+        return torch.full((), float(v), device=dev)
+    part = nll_sum / n(tokens * rows)
+    if mtp is not None:
+        part = part + 0.3 * (mtp[0] / n(mtp[1] * rows))
+    part = part / n(world // rows)
+    if aux is not None:
+        part = part + 0.01 * (aux / n(world))
+    total = C.all_reduce(part.detach(), mesh.group(mesh.axis_names))
+    return _Shared.apply(part, total)
+
+
+def _nll_mesh(p: Params, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor,
+              rt: Runtime, mc: "_MeshCall") -> torch.Tensor:
+    """:func:`token_nll` of the head's logits over ``h`` [B, T, d] on a
+    mesh, vocabulary-parallel: each rank's logits over its vocabulary
+    columns, their max (no gradient, as ``logsumexp`` has none through it),
+    sum of exponentials and gold logit (one rank holds it, the others add
+    zeros) all-reduced over the axes that split the vocabulary.  It moves
+    three [B, T] f32 tensors, not the [B, T, V] logits; its float order
+    differs from one device's ``logsumexp``."""
+    logits, vocab, v0 = _head_block(p, cfg, h, rt, mc)
+    if not vocab:
+        return token_nll(logits, labels)
+    g = mc.mesh.group(vocab)
+    logits = logits.to(torch.float32)
+    m = C.all_reduce(torch.amax(logits.detach(), dim=-1, keepdim=True), g, "max")
+    se = C.all_reduce(torch.sum(torch.exp(logits - m), dim=-1), g)
+    n = logits.shape[-1]
+    idx = labels.long() - v0
+    hit = (idx >= 0) & (idx < n)
+    gold = torch.gather(logits, -1, torch.clamp(idx, 0, n - 1)[..., None])[..., 0]
+    gold = C.all_reduce(torch.where(hit, gold, torch.zeros((), device=gold.device)), g)
+    return torch.log(se) + m[..., 0] - gold
 
 
 # ---------------------------------------------------------------------------
@@ -1089,8 +1261,8 @@ def check_mesh(cfg: ModelConfig, rt: Runtime) -> None:
 def check_mesh_family(cfg: ModelConfig) -> None:
     """:func:`check_mesh`'s test of the family, with no mesh at hand: every
     decoder the stack serves (:func:`check_supported`) and the
-    encoder-decoders of ``models/encdec.py`` (``Engine`` only) serve on a
-    mesh; training on a mesh is ROADMAP A.14b."""
+    encoder-decoders of ``models/encdec.py`` (``Engine`` only) serve and
+    train on a mesh."""
     if cfg.family != "encdec":
         check_supported(cfg)
 
@@ -1425,25 +1597,37 @@ class _LayerMesh:
 
 class _MeshCall:
     """What one step on a mesh reads: the runtime, the tree's specs and
-    whether its rows are the rank's slots (split over the data axes)."""
+    whether its rows are the rank's slots or the rank's block of a training
+    batch (split over the data axes); ``seq``: under sequence parallelism
+    (training) the model axis' group, whose row-parallel reductions then
+    reduce-scatter the rows (dim 1)."""
 
-    def __init__(self, cfg: ModelConfig, rt: Runtime, specs: Params, split: bool):
+    def __init__(self, cfg: ModelConfig, rt: Runtime, specs: Params, split: bool,
+                 seq: bool = False):
         self.cfg, self.rt, self.mesh, self.specs, self.split = cfg, rt, rt.mesh, specs, split
         self.dp = SH.data_axes(rt.mesh)
         self.model = rt.mesh.group(rt.model_axis)
-        self.red = L.RowReduce(self.model, rt.collective)
+        self.seq = self.model if seq and self.model.size > 1 else None
+        self.red = L.RowReduce(self.model, rt.collective, 1 if self.seq else None)
         self.attn_cfg = local_cfg(cfg, rt)
 
 
-def _mesh_call(p: Params, cfg: ModelConfig, rt: Runtime, state: dict | None = None
-               ) -> _MeshCall | None:
+def _mesh_call(p: Params, cfg: ModelConfig, rt: Runtime, state: dict | None = None,
+               split: bool = False, seq_len: int | None = None) -> _MeshCall | None:
+    """The call's place on ``rt.mesh`` (None off one): a step's rows are
+    split where ``state`` is a rank's block of a split pool, a training
+    batch's where ``split``; ``seq_len``: a training call's T, sequence
+    parallel under ``rt.seq_shard`` where the model axis tiles it."""
     if rt.mesh is None:
         return None
     check_mesh(cfg, rt)
     if "specs" not in p:
         raise ValueError("params on a mesh are a rank's blocks with their specs "
                          "(transformer.place_params / init_params_sharded)")
-    return _MeshCall(cfg, rt, p["specs"], state is not None and pool_split(state))
+    seq = (seq_len is not None and rt.seq_shard
+           and SH._fit(rt.mesh, seq_len, rt.model_axis) is not None)
+    return _MeshCall(cfg, rt, p["specs"], split or (state is not None and pool_split(state)),
+                     seq)
 
 
 def _split_over(spec: tuple, mesh, dim: int, axis: str) -> bool:
@@ -1527,20 +1711,11 @@ def _embed_ids(p: Params, ids: torch.Tensor, mc: _MeshCall) -> torch.Tensor:
     return C.allreduce(x, mc.mesh.group(vocab), mc.rt.collective) if vocab else x
 
 
-def _lm_head_mesh(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime,
-                  mc: _MeshCall) -> torch.Tensor:
-    """``lm_head`` on a mesh: the rank's vocabulary columns (the tied
-    embedding's rows), gathered over the axes that split them.  Where the
-    call's rows are the rank's slots, the head runs over every slot's row
-    (gathered over the data axes) and the rank keeps its own: a float
-    product of another row count may sum in another order, so the rank's
-    logits are one device's bits."""
-    if mc.split:
-        data = mc.mesh.group(mc.dp)
-        n = h.shape[0]
-        whole = _lm_head_mesh(p, cfg, C.all_gather(h, data, dim=0), rt,
-                              _MeshCall(mc.cfg, mc.rt, mc.specs, False))
-        return whole[data.index * n:(data.index + 1) * n]
+def _head_block(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime,
+                mc: _MeshCall) -> tuple[torch.Tensor, tuple, int]:
+    """The head on a mesh over the rank's vocabulary columns (the tied
+    embedding's rows), its FSDP-stored dim gathered: (logits of those
+    columns, the axes that split the vocabulary, its first column)."""
     if cfg.tie_embeddings:
         spec = mc.specs["embed"]["w"]
         w = SH.reshard(p["embed"]["w"], spec, _strip(spec, mc.dp), mc.mesh)
@@ -1555,13 +1730,32 @@ def _lm_head_mesh(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime,
         if "w_s" in p["lm_head"]:      # the scale is whole: the rank's columns of it
             lin["w_s"] = SH.reshard(p["lm_head"]["w_s"], specs["w_s"], (vocab,), mc.mesh)
         logits = L.apply_linear(L._lin(lin, "w"), h, rt.backend)
+    v0 = mc.mesh.index(vocab) * logits.shape[-1] if vocab else 0
+    return logits, vocab, v0
+
+
+def _lm_head_mesh(p: Params, cfg: ModelConfig, h: torch.Tensor, rt: Runtime,
+                  mc: _MeshCall) -> torch.Tensor:
+    """``lm_head`` on a mesh: the rank's vocabulary columns (the tied
+    embedding's rows), gathered over the axes that split them.  Where the
+    call's rows are the rank's slots, the head runs over every slot's row
+    (gathered over the data axes) and the rank keeps its own: a float
+    product of another row count may sum in another order, so the rank's
+    logits are one device's bits."""
+    if mc.split:
+        data = mc.mesh.group(mc.dp)
+        n = h.shape[0]
+        whole = _lm_head_mesh(p, cfg, C.all_gather(h, data, dim=0), rt,
+                              _MeshCall(mc.cfg, mc.rt, mc.specs, False))
+        return whole[data.index * n:(data.index + 1) * n]
+    logits, vocab, _ = _head_block(p, cfg, h, rt, mc)
     if not vocab:
         return logits
     return C.all_gather(logits, mc.mesh.group(vocab), dim=-1)
 
 
 def _moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
-               stored: Params, split: bool = False) -> torch.Tensor:
+               stored: Params, split: bool = False, train: bool = False, seq=None):
     """The MoE over ``x`` [B, T, d] on ``rt.mesh``, in the reference's
     layouts (``dist/sharding.py`` ``moe_param_specs``): a decode call (T
     1) with a resident layout (``ep2``, ``ep_data``, ``etp2``) runs the
@@ -1575,13 +1769,24 @@ def _moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     capacity.  Partial sums combine by ``rt.collective``.  The shared
     expert (FFN-sliced over ``model``) runs row-parallel after the combine
     (``w_down``'s input quantized over the whole FFN row, as one device
-    quantizes it) and is added last, as one device adds it."""
+    quantizes it) and is added last, as one device adds it.
+
+    ``train``: the reference's training block, which returns ``(out,
+    aux)``: ``x`` is the rank's rows (its data shard's, or the whole batch
+    where the data axes do not split it), routed, capped and balanced on
+    their own (``moe_apply(..., with_aux=True)`` over the model axis, the
+    capacity that of the shard's rows), the FSDP gathers differentiable,
+    and ``aux`` the shard's load-balance loss (the caller averages it over
+    every rank, ``_lm_loss_mesh``); ``seq`` (sequence parallelism) the
+    model axis' group over which the combine and the shared expert's
+    ``w_down`` reduce-scatter the rows."""
     if rt.mesh is None:
-        return MOE.moe_apply(p, x, cfg)[0]
+        out, aux = MOE.moe_apply(p, x, cfg, with_aux=train)
+        return (out, aux) if train else out
     mesh = rt.mesh
     ms = SH.moe_param_specs(cfg, mesh, serve=rt.serve_resident_moe)
     dp = SH.data_axes(mesh)
-    resident = ms["strategy"] in RESIDENT and x.shape[1] == 1
+    resident = ms["strategy"] in RESIDENT and x.shape[1] == 1 and not train
     if not resident and rt.serve_resident_moe:
         ms = SH.moe_param_specs(cfg, mesh, serve=False)
 
@@ -1604,7 +1809,17 @@ def _moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     rows = C.all_gather(x, data, dim=0) if split else x
     B, T, d = rows.shape
     shared = pp.pop("shared", None)
-    if resident:
+    aux = None
+    if train:
+        model = mesh.group(rt.model_axis)
+
+        def combine(o):
+            if seq is not None:
+                return C.reduce_scatter(o, model, 1)
+            return C.allreduce(o, model, rt.collective)
+        out, aux = MOE.moe_apply(pp, rows, cfg, axis_name=rt.model_axis, mesh=mesh,
+                                 reduce_fn=combine, with_aux=True)
+    elif resident:
         ep_axes = ms["ep_axes"]
         if ms["strategy"] == "etp2":
             e_first, n_local = 0, None
@@ -1628,10 +1843,11 @@ def _moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     if shared is not None and cfg.n_shared_experts:
         model = mesh.group(rt.model_axis)
         wd = stored["shared"].get("w_down", stored["shared"].get("w_down_q"))
-        red = L.RowReduce(model, rt.collective) if _split_over(wd, mesh, 0, rt.model_axis) \
-            else None
-        out = out + L.apply_mlp(shared, rows, cfg.mlp_type, reduce=red).to(out.dtype)
+        red = (L.RowReduce(model, rt.collective, 1 if seq is not None else None)
+               if _split_over(wd, mesh, 0, rt.model_axis) else None)
+        out = out + _seq_part(L.apply_mlp(shared, rows, cfg.mlp_type, reduce=red),
+                              seq, red is not None).to(out.dtype)
     if split:
         n = x.shape[0]
         out = out[data.index * n:(data.index + 1) * n]
-    return out
+    return (out, aux) if train else out

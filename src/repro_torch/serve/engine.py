@@ -94,8 +94,10 @@ slot's owner lands its row; the decode lanes' per-slot outputs (tokens,
 the host sampler's logits or its top-k) are gathered over the data axes,
 so every rank emits the same streams.  A mesh engine runs its steps
 eagerly (its gloo collectives copy through host memory, which a CUDA
-graph cannot hold).  Every lane serves on a mesh, for every family the
-port serves (``Engine`` for an encoder-decoder):
+graph cannot hold); training on a mesh is ``train/train_step.py``
+``jit_train_step``'s, over the same placements.  Every lane serves on a
+mesh, for every family the port serves (``Engine`` for an
+encoder-decoder):
 
 * the tiered pool: a swapped-out row is whole and replicated on the host
   of every rank (``transformer.gather_slot_row``: the owners all-gather

@@ -2014,3 +2014,28 @@ def test_mesh_families_on_the_card(cuda, tmp_path):
         torch.cuda.empty_cache()
     out = R.mesh_families(str(tmp_path), base)
     assert set(out) >= set(R.mesh_family_cfgs()) and "failures" not in out
+
+
+def test_mesh_training_seq_shard_on_the_card(cuda):
+    """llama3-8b at full width with 2 of 32 layers on a 1x2 world on the
+    card (every rank on ``cuda:0``), one step at phase ``train``'s batch with
+    f32 moments, with and without ``seq_shard``, against one process's
+    (``chip_smoke.mesh_train_pair`` and ``mesh_train_gates``: the loss
+    within 1e-5, every leaf's gathered gradient within 1e-4 of its scale,
+    the params after the step within 5e-3, the residual T/2 rows between
+    layers under ``seq_shard``, the RMSNorm backward launches a rank as
+    predicted)."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.launch import mesh as MS
+    import torch_mesh_train_ranks as R
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke as CS
+    ranks = MS.spawn(R.card_train_pair, 2, timeout_s=900)
+    failures: list = []
+    gates = CS.mesh_train_gates(ranks, failures)
+    assert not failures, failures
+    assert gates["worst_grad_vs_one"] <= CS.MESH_TRAIN_GRAD_TOL

@@ -182,13 +182,33 @@ def test_depth_scaling_is_exact(arch, kind):
     assert scaled["reduced"] and not whole["reduced"]
 
 
+# the quick cell each mesh variant is counted on (MoE decode for the
+# resident experts, training for the sequence-parallel activations)
+MESH_VARIANT_CELLS = {"resident": ("grok-1-314b", "decode_32k"),
+                      "seqshard": ("llama3-8b", "train_4k"),
+                      "htree": ("llama3-8b", "decode_32k"),
+                      "opt": ("grok-1-314b", "train_4k"),
+                      "opt_htree": ("grok-1-314b", "decode_32k")}
+
+
 @pytest.mark.parametrize("variant", D.MESH_VARIANTS)
 def test_mesh_variants_raise(variant):
-    with pytest.raises(NotImplementedError, match="A.14"):
+    """A mesh variant needs a mesh: on one card (``h100x1``) it raises a
+    ``ValueError`` saying so (it raised ``NotImplementedError`` until the
+    training mesh); on the reference's quick 2x4 mesh it counts, rank 0's
+    flops and collectives."""
+    with pytest.raises(ValueError, match="needs a mesh"):
         D.base_record("llama3-8b", "decode_32k", variant)
-    with pytest.raises(NotImplementedError, match="A.14"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         D.main(["--arch", "llama3-8b", "--shape", "decode_32k", "--variant", variant,
                 "--device", "cpu"])
+    arch, shape = MESH_VARIANT_CELLS[variant]
+    rec = D.count_cell(arch, shape, variant, quick=True, mesh="quick2x4")
+    assert rec["cost"]["flops"] > 0 and rec["collectives"]["total"] > 0
+    if variant in ("htree", "opt_htree"):
+        assert rec["collectives"]["collective-permute"] > 0
+    if shape == "train_4k":                # seq_shard: the rows reduce-scattered
+        assert rec["collectives"]["reduce-scatter"] > 0
 
 
 def test_quick_run_writes_records_and_manifest(tmp_path, monkeypatch):

@@ -24,7 +24,8 @@ torch thread a rank, each world started once for the module.
   layer on 2x2 serves the trace as one device does (their parity with the
   reference: ``tests/test_torch_mesh_lanes.py`` and
   ``tests/test_torch_mesh_families.py``);
-* the refusals that still cite A.14b (training on a mesh).
+* the refusals left (an unknown collective, a mesh with no process
+  group); training on a mesh is ``tests/test_torch_mesh_train*.py``.
 """
 import dataclasses
 import os
@@ -436,8 +437,17 @@ def test_lanes_waiting_for_a14b_raise_on_a_mesh(worlds, kwargs):
 
 
 def test_seq_shard_and_unknown_collectives_raise():
-    with pytest.raises(NotImplementedError, match="A.14b"):
-        T.Runtime(seq_shard=True)
+    """``Runtime(seq_shard=True)`` builds since the training mesh (it
+    raised until then) and means nothing off a mesh, as in the reference:
+    the same loss, bit for bit; an unknown collective and a mesh with no
+    process group still raise."""
+    rt = T.Runtime(seq_shard=True)
+    assert rt.seq_shard and rt.mesh is None
+    cfg = ARCHS["llama3-8b"].reduced()
+    p = T.init_params(cfg, 0, "cpu")
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 9)))
+    assert torch.equal(T.lm_loss(p, cfg, ids[:, :-1], ids[:, 1:], rt),
+                       T.lm_loss(p, cfg, ids[:, :-1], ids[:, 1:], T.Runtime()))
     with pytest.raises(ValueError, match="psum|htree"):
         T.Runtime(collective="ring")
     with pytest.raises(RuntimeError, match="process group"):

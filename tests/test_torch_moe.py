@@ -208,16 +208,26 @@ def test_grouped_plain_matches_per_expert_b1(C, counts):
 
 
 def test_moe_apply_over_a_mesh_axis_raises():
-    """Over a mesh axis ``moe_apply`` needs the mesh the axis belongs to,
-    and the load-balance loss there is training on a mesh (A.14b); expert
-    parallelism itself is held in ``tests/test_torch_mesh.py``."""
-    _, tcfg = _configs(8)
-    _, tp = _layer_moe(_weights(8), "t")
+    """Over a mesh axis ``moe_apply`` needs the mesh the axis belongs to.
+    The load-balance loss over a mesh axis (training on a mesh, which
+    raised here until the training mesh) is the reference's: held on an
+    axis of one rank (a 1x1 ``CountingMesh`` runs real tensors, a group of
+    one moving nothing) against JAX's ``moe_apply``, output and aux; on
+    1x2 and 2x2 ranks in ``tests/test_torch_mesh_train_families.py``, and
+    expert parallelism in ``tests/test_torch_mesh.py``."""
+    from repro_torch.launch.mesh import CountingMesh
+    jcfg, tcfg = _configs(8)
+    jp, tp = _layer_moe(_weights(8), "t")
     x = torch.zeros((1, 2, tcfg.d_model))
     with pytest.raises(ValueError, match="needs the mesh"):
         TMOE.moe_apply(tp, x, tcfg, axis_name="model")
-    with pytest.raises(NotImplementedError, match="A.14"):
-        TMOE.moe_apply(tp, x, tcfg, axis_name="model", with_aux=True)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 3, tcfg.d_model)).astype(np.float32))
+    out, aux = TMOE.moe_apply(tp, x, tcfg, axis_name="model", with_aux=True,
+                              mesh=CountingMesh((1, 1), ("data", "model")))
+    jout, jaux = JMOE.moe_apply(jp, jnp.asarray(x.numpy()), jcfg)
+    _close(jout, out)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
